@@ -1,0 +1,306 @@
+"""Host-side batch assembly and kernel dispatch, on torch tensors.
+
+The port of ``parasail_rs_tpu.engine.dispatch`` for the score class:
+pack a batch of byte sequences into padded uint8 planes (the reference's
+native packer), upload them once to the aligner's device, map bytes to
+letter indices there, run :func:`~parasail_rs_tpu_torch.ops.scan_kernel.score_align`
+over the whole batch, and fetch the per-pair scalars in one transfer.
+
+Routes: ``"cuda_kernel"`` for a batch on a CUDA device (the hand-written
+kernel), ``"torch_plain"`` for a batch on the CPU (the plain PyTorch
+version).  There is no fallback between them and no CPU route for a
+batch that was asked to run on a card: a failure raises.  Every decision
+is tallied in :data:`ROUTE_COUNTS` and reported to the caller.
+"""
+
+from __future__ import annotations
+
+import logging
+from collections import Counter
+
+import numpy as np
+import torch
+
+from parasail_rs_tpu.utils import stages
+from parasail_rs_tpu.utils.gcpause import gc_pause
+from parasail_rs_tpu.utils.shapes import length_bucket
+
+from ..ops.scan_kernel import score_align
+
+log = logging.getLogger("parasail_rs_tpu_torch")
+
+# Tally of routing decisions in this process, keyed (route, reason).
+# Per-aligner tallies live on Aligner.route_counter.
+ROUTE_COUNTS: Counter = Counter()
+
+
+def _np(t) -> np.ndarray:
+    return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def encode(mapper: torch.Tensor, bytes2d: torch.Tensor, lens: torch.Tensor,
+           fill: int) -> torch.Tensor:
+    """uint8 sequence bytes -> int32 letter indices, ``fill`` beyond each
+    row's length (the reference's ``_device_encode``)."""
+    mask = (torch.arange(bytes2d.shape[1], device=bytes2d.device)[None, :]
+            < lens[:, None])
+    idx = mapper[bytes2d.long()]
+    return torch.where(mask, idx, torch.full_like(idx, fill))
+
+
+class PairBatch:
+    """Padded tensors for a batch of pairs, on one device.
+
+    ``table`` (A, A) is set for square matrices and ``profile``
+    (1 or B, Qp, A) otherwise.  Batches from :func:`pack_pairs` carry the
+    uint8 ``qbytes`` / ``rbytes`` planes and the byte ``mapper``; ``qidx``
+    (fill -1) and ``ridx`` (fill 0) encode from them on first use, on the
+    device.  ``qlen`` / ``rlen`` are host int32 arrays; ``qlen_t`` /
+    ``rlen_t`` their device copies.
+    """
+
+    def __init__(self, profile, qidx, ridx, qlen, rlen, table=None,
+                 qbytes=None, rbytes=None, mapper=None, *, device):
+        self.device = torch.device(device)
+        self.profile = profile
+        self._qidx = qidx
+        self._ridx = ridx
+        self.qlen = np.asarray(qlen, np.int32)
+        self.rlen = np.asarray(rlen, np.int32)
+        self.qlen_t = torch.as_tensor(self.qlen).to(self.device)
+        self.rlen_t = torch.as_tensor(self.rlen).to(self.device)
+        self.table = table
+        self.qbytes = qbytes
+        self.rbytes = rbytes
+        self.mapper = mapper
+
+    @property
+    def qidx(self) -> torch.Tensor:
+        if self._qidx is None:
+            self._qidx = encode(self.mapper, self.qbytes, self.qlen_t, -1)
+        return self._qidx
+
+    @property
+    def ridx(self) -> torch.Tensor:
+        if self._ridx is None:
+            self._ridx = encode(self.mapper, self.rbytes, self.rlen_t, 0)
+        return self._ridx
+
+    @property
+    def score_values(self) -> torch.Tensor:
+        return self.table if self.table is not None else self.profile
+
+
+def _pack_side(seqs, P):
+    """Sequences -> (padded (B, P') uint8, (B,) int32 lens, P'), through
+    the reference's native packer, with its numpy formulation where the
+    packer cannot serve (no compiler, non-bytes items)."""
+    from parasail_rs_tpu.errors import InteriorNulByte
+    from parasail_rs_tpu.native import packer
+
+    packed = packer.pack_side(seqs, P, length_bucket)
+    if packed is None:
+        seqs = [s.encode() if isinstance(s, str)
+                else (s if type(s) is bytes else bytes(s)) for s in seqs]
+        packed = packer.pack_side(seqs, P, length_bucket)
+    if packed is not None:
+        return packed
+    B = len(seqs)
+    joined = b"".join(seqs)
+    if 0 in joined:
+        raise InteriorNulByte("sequence contains an interior NUL byte")
+    lens = np.fromiter((len(s) for s in seqs), np.int32, B)
+    P = P or length_bucket(int(lens.max()) if B else 1)
+    mask = np.arange(P)[None, :] < lens[:, None]
+    padded = np.zeros((B, P), np.uint8)
+    padded[mask] = np.frombuffer(joined, np.uint8)
+    return padded, lens, P
+
+
+def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def pack_pairs(matrix, queries, references, profile=None, Qp=None, Rp=None,
+               *, device):
+    """Byte sequences -> :class:`PairBatch` on ``device``.
+
+    ``profile`` set means profile reuse: the query tensors are stored
+    once, (1, Qp).  Returns (batch, qlens list, rlens list).
+    """
+    B = len(references)
+    with stages.stage("pack"), gc_pause(B):
+        return _pack_pairs_inner(matrix, queries, references, profile,
+                                 Qp, Rp, B, torch.device(device))
+
+
+def _pack_pairs_inner(matrix, queries, references, profile, Qp, Rp, B,
+                      device):
+    rbytes, rlens, Rp = _pack_side(references, Rp)
+    qbytes = None
+    if profile is not None:
+        ql = profile.query_len
+        Qp = Qp or length_bucket(ql)
+        A = profile.rows.shape[1]
+        prof = np.zeros((1, Qp, A), np.int32)
+        prof[0, :ql] = profile.rows
+        qidx = np.full((1, Qp), -1, np.int32)
+        qidx[0, :ql] = profile.qidx
+        qlens = np.full(B, ql, np.int32)
+    else:
+        if len(queries) != B:
+            raise ValueError("queries and references must have equal length")
+        qbytes, qlens, Qp = _pack_side(queries, Qp)
+        qidx = None
+        if matrix.is_square:
+            prof = None
+        else:
+            # PSSM rows are position-indexed: the same for every pair
+            rows = np.take(matrix.data, np.arange(Qp) % matrix.length,
+                           axis=0).astype(np.int32, copy=False)
+            prof = np.ascontiguousarray(rows)[None]
+    table = (np.ascontiguousarray(matrix.data, dtype=np.int32)
+             if prof is None else None)
+    if qbytes is not None:
+        # one upload for both planes, sliced on the device
+        both = _upload(np.concatenate([qbytes, rbytes], axis=1), device)
+        qb_t, rb_t = both[:, :qbytes.shape[1]], both[:, qbytes.shape[1]:]
+    else:
+        qb_t, rb_t = None, _upload(rbytes, device)
+    batch = PairBatch(
+        profile=None if prof is None else _upload(prof, device),
+        qidx=None if qidx is None else _upload(qidx, device),
+        ridx=None, qlen=qlens, rlen=rlens,
+        table=None if table is None else _upload(table, device),
+        qbytes=qb_t, rbytes=rb_t,
+        mapper=_upload(np.asarray(matrix.mapper, np.int32), device),
+        device=device)
+    return batch, np.asarray(qlens).tolist(), np.asarray(rlens).tolist()
+
+
+INT32_SAFE = (1 << 31) - 1
+
+
+def width64_risk(batch: PairBatch, gap_open: int,
+                 gap_extend: int) -> np.ndarray:
+    """Indices of pairs whose worst-case |H| could exceed int32.
+
+    Per-pair bound: |H| <= (max|s| + open + ext) * (qlen + rlen).  A pair
+    under the bound can never overflow int32, so only flagged pairs pay
+    the exact int64 host fill (the reference's ``width64_risk``).
+    """
+    smax = int(batch.score_values.abs().max().item())
+    per = smax + abs(int(gap_open)) + abs(int(gap_extend))
+    bound = per * (batch.qlen.astype(np.int64) +
+                   batch.rlen.astype(np.int64))
+    return np.nonzero(bound > INT32_SAFE)[0]
+
+
+def _golden64_merge(out: dict, batch: PairBatch, idx: np.ndarray, *,
+                    gap_open, gap_extend, mode, free) -> dict:
+    """Overwrite the int32 results of ``idx`` pairs with an exact int64
+    scalar golden fill (the reference's ``_golden64_merge``, score
+    class)."""
+    from parasail_rs_tpu.golden import model as golden
+
+    qidx_all = _np(batch.qidx)
+    ridx_all = _np(batch.ridx)
+    prof = None if batch.profile is None else _np(batch.profile)
+    table = None if batch.table is None else _np(batch.table)
+    out = {k: (np.array(v) if k in ("saturated", "promoted")
+               else v.astype(np.int64)) for k, v in out.items()}
+    for b in idx.tolist():
+        ql, rl = int(batch.qlen[b]), int(batch.rlen[b])
+        qi = qidx_all[0 if qidx_all.shape[0] == 1 else b, :ql]
+        ri = ridx_all[b, :rl]
+        if table is not None:
+            sub = table[qi[:, None], ri[None, :]].astype(np.int64)
+        else:
+            p = prof[0 if prof.shape[0] == 1 else b, :ql]
+            sub = p[np.arange(ql)[:, None], ri[None, :]].astype(np.int64)
+        g = golden.align(sub, qi[:, None] == ri[None, :],
+                         int(gap_open), int(gap_extend), mode, free)
+        out["score"][b] = g.score
+        out["end_query"][b] = g.end_query
+        out["end_ref"][b] = g.end_ref
+        out["saturated"][b] = False     # an int64 fill cannot saturate
+    return out
+
+
+def plan_route(batch: PairBatch, outputs: str, gap_open: int,
+               gap_extend: int) -> tuple[str, str]:
+    """("cuda_kernel" | "torch_plain", reason) for a batch.
+
+    The route follows the batch's device; only the score class is
+    ported.  ``gap_open`` / ``gap_extend`` are accepted for the
+    reference's signature: every penalty pair is exact on both routes.
+    """
+    if outputs != "score":
+        raise NotImplementedError(
+            f"outputs={outputs!r} is not ported yet (ROADMAP Queue 2, "
+            "kernels K1b-K1d)")
+    if batch.device.type == "cuda":
+        return "cuda_kernel", ""
+    if batch.device.type == "cpu":
+        return "torch_plain", "batch on the cpu"
+    raise ValueError(f"no route for device {batch.device}")
+
+
+def execute(batch: PairBatch, *, gap_open: int, gap_extend: int, mode: str,
+            free: tuple[bool, bool, bool, bool], outputs: str, width: str,
+            on_route=None) -> dict[str, np.ndarray]:
+    """Run the score kernel over a batch; return host numpy results.
+
+    ``width="64"`` runs the int32 kernel, then re-fills exactly in int64
+    (golden) every pair whose worst-case |H| bound does not fit int32.
+    ``on_route(route, reason)`` is called with every routing decision.
+    """
+    if width == "64":
+        wide = width64_risk(batch, gap_open, gap_extend)
+        if wide.size:
+            log.warning(
+                "width='64': %d pair(s) exceed the int32 score bound; "
+                "re-filling them exactly in int64 on the host (scalar "
+                "golden model)", wide.size)
+            out = execute(batch, gap_open=gap_open, gap_extend=gap_extend,
+                          mode=mode, free=free, outputs=outputs, width="32",
+                          on_route=on_route)
+            return _golden64_merge(out, batch, wide, gap_open=gap_open,
+                                   gap_extend=gap_extend, mode=mode,
+                                   free=free)
+    route, reason = plan_route(batch, outputs, gap_open, gap_extend)
+    ROUTE_COUNTS[(route, reason)] += 1
+    if on_route is not None:
+        on_route(route, reason)
+    if batch.table is not None:
+        subs = {"table": batch.table, "qidx": batch.qidx}
+    else:
+        subs = {"profile": batch.profile}
+    with stages.stage("dispatch"):
+        res = score_align(batch.ridx, batch.qlen_t, batch.rlen_t,
+                          open_=gap_open, ext=gap_extend, mode=mode,
+                          free=free, width=width, **subs)
+    names = sorted(res)
+    with stages.stage("fetch"):
+        packed = torch.stack([res[k].to(torch.int32) for k in names]).cpu()
+    packed = packed.numpy()
+    return {k: (packed[n] != 0 if k in ("saturated", "promoted")
+                else packed[n]) for n, k in enumerate(names)}
+
+
+def slice_pair(out: dict, b: int, qlen: int, rlen: int) -> dict:
+    """Extract pair ``b``'s results, cropped from padded to true lengths."""
+    fields = {}
+    for k, v in out.items():
+        if k.endswith("_table"):
+            fields[k] = v[b, :qlen, :rlen]
+        elif k.endswith("_row"):
+            fields[k] = v[b, :rlen]
+        elif k.endswith("_col"):
+            fields[k] = v[b, :qlen]
+        else:
+            fields[k] = v[b]
+    return fields

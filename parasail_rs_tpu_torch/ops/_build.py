@@ -1,0 +1,121 @@
+"""Build the CUDA kernels with ``nvcc`` on first use and load them with ctypes.
+
+The sources are ``csrc/*.cu`` and ``csrc/*.cuh`` of this package; the
+shared library goes to ``parasail_rs_tpu_torch/_build/``, named by a hash
+of the sources and the flags, so a stale library is never loaded after
+an edit.  The compiler writes a temporary file that ``os.replace`` moves
+into place, so a concurrent process never loads a partial library.
+
+No lock is held while ``nvcc`` runs, and no background thread builds
+ahead: the first caller pays the build (seconds; the sources include no
+PyTorch header), and two processes racing on a cold cache both compile
+and the second rename wins harmlessly.  A failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_lib = None
+_load_lock = threading.Lock()     # guards _lib only, never the compiler
+BUILD_SECONDS: float | None = None
+
+
+def _reset_lock_after_fork() -> None:
+    # a child forked while another thread held the lock must not inherit
+    # it held
+    global _load_lock
+    _load_lock = threading.Lock()
+
+
+os.register_at_fork(after_in_child=_reset_lock_after_fork)
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")) +
+                  glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def _tag() -> str:
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:12]
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, ``nvcc`` on PATH, or
+    ``/usr/local/cuda/bin/nvcc``; raises if none exists."""
+    candidates = []
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home:
+        candidates.append(os.path.join(home, "bin", "nvcc"))
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(on_path)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels cannot be built")
+
+
+def library_path() -> str:
+    return os.path.join(BUILD_DIR, f"libptscore-{_tag()}.so")
+
+
+def build() -> str:
+    """Compile the kernels unless the library for these sources exists;
+    return its path."""
+    global BUILD_SECONDS
+    final = library_path()
+    if os.path.exists(final):
+        return final
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{final}.tmp{os.getpid()}"
+    cus = [s for s in _sources() if s.endswith(".cu")]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *cus]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, final)
+    BUILD_SECONDS = time.perf_counter() - t0
+    return final
+
+
+def load() -> ctypes.CDLL:
+    """Build if needed, then load the library once per process and
+    declare the C signatures."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    path = build()
+    with _load_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(path)
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.pt_scan_score.restype = i
+            lib.pt_scan_score.argtypes = [p] * 8 + [i] * 9 + [p]
+            _lib = lib
+    return _lib

@@ -1,0 +1,268 @@
+"""Score-only batched alignment: the CUDA kernel's wrapper and its plain
+PyTorch version.
+
+:func:`score_align` is the port of
+``parasail_rs_tpu.ops.scan_kernel.scan_score_align`` in its score
+configuration (``outputs="score"``): one call aligns a padded batch and
+returns per-pair ``score``, ``end_query``, ``end_ref``, ``saturated``
+and, at width ``sat``, ``promoted``.  On CUDA tensors it launches the
+hand-written kernel in ``csrc/scan_score.cu`` (one thread per pair) and
+counts the launch in :data:`LAUNCHES`; on CPU tensors it runs
+:func:`score_align_plain`.  There is no fallback between the two: a
+build, launch or shape failure raises.
+
+The substitution scores come in one of two forms, as on the reference's
+two packers:
+
+- ``table`` (A, A) with ``qidx`` (1 or B, Qp) query letters
+  (``build_gpack_from_table``: square matrices);
+- ``profile`` (1 or B, Qp, A) rows (``build_gpack``: ``Profile`` reuse and
+  PSSMs).
+
+A letter outside [0, A) scores 0.  Scores are exact int32 at every
+width; the width only selects the saturation flags.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from parasail_rs_tpu.constants import NEG_INF32, WIDTH_MAX, WIDTH_MIN
+
+MODES = {"nw": 0, "sg": 1, "sw": 2}
+WIDTHS = ("sat", "8", "16", "32", "64")
+BIG = 2 ** 30
+
+# Launches of the CUDA kernel in this process.  Only score_align's CUDA
+# branch adds to it; set it to 0 to count one phase of work.
+LAUNCHES = 0
+
+
+def _free_bits(free) -> int:
+    qb, qe, db, de = (bool(x) for x in free)
+    return qb | (qe << 1) | (db << 2) | (de << 3)
+
+
+def _check(ridx, qlen, rlen, table, qidx, profile, mode, width):
+    """Validate the inputs; return (B, Bq, Qp, Rp, A)."""
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r}")
+    if width not in WIDTHS:
+        raise ValueError(f"width {width!r}")
+    if (table is None) == (profile is None):
+        raise ValueError("give exactly one of table (with qidx) or profile")
+    if table is not None and qidx is None:
+        raise ValueError("the table form needs qidx")
+    dev = ridx.device
+    named = {"ridx": ridx, "qlen": qlen, "rlen": rlen, "table": table,
+             "qidx": qidx if table is not None else None, "profile": profile}
+    for name, t in named.items():
+        if t is None:
+            continue
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, ridx on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if ridx.dim() != 2:
+        raise ValueError(f"ridx must be (B, Rp), got {tuple(ridx.shape)}")
+    B, Rp = ridx.shape
+    if qlen.shape != (B,) or rlen.shape != (B,):
+        raise ValueError("qlen and rlen must be (B,)")
+    if table is not None:
+        if table.dim() != 2 or table.shape[0] != table.shape[1]:
+            raise ValueError(
+                f"table must be (A, A), got {tuple(table.shape)}")
+        if qidx.dim() != 2 or qidx.shape[0] not in (1, B):
+            raise ValueError(
+                f"qidx must be (1 or B, Qp), got {tuple(qidx.shape)}")
+        Bq, Qp = qidx.shape
+        A = table.shape[0]
+    else:
+        if profile.dim() != 3 or profile.shape[0] not in (1, B):
+            raise ValueError(
+                f"profile must be (1 or B, Qp, A), got {tuple(profile.shape)}")
+        Bq, Qp, A = profile.shape
+    return B, Bq, Qp, Rp, A
+
+
+def _outputs(score, eq, er, sat8, sat16, width) -> dict:
+    """The reference's output dict (scan_kernel.py:1466-1488)."""
+    out = {"score": score, "end_query": eq, "end_ref": er}
+    if width == "8":
+        out["saturated"] = sat8
+    elif width in ("16", "sat"):
+        out["saturated"] = sat16
+        if width == "sat":
+            out["promoted"] = sat8
+    else:
+        out["saturated"] = torch.zeros_like(sat8)
+    return out
+
+
+def score_align(ridx, qlen, rlen, *, open_, ext, mode, free, width="32",
+                table=None, qidx=None, profile=None) -> dict:
+    """Align a padded batch, score class.
+
+    ``ridx`` (B, Rp), ``qlen`` / ``rlen`` (B,), ``table`` (A, A) +
+    ``qidx`` (1 or B, Qp), or ``profile`` (1 or B, Qp, A): all int32 on
+    one device.  Returns int32 ``score`` / ``end_query`` / ``end_ref`` and
+    bool ``saturated`` (+ ``promoted`` at width ``sat``), on that device.
+    Lengths must not exceed the padded sizes.
+    """
+    B, Bq, Qp, Rp, A = _check(ridx, qlen, rlen, table, qidx, profile, mode,
+                              width)
+    if ridx.device.type == "cpu":
+        return score_align_plain(ridx, qlen, rlen, open_=open_, ext=ext,
+                                 mode=mode, free=free, width=width,
+                                 table=table, qidx=qidx, profile=profile)
+    if ridx.device.type != "cuda":
+        raise ValueError(f"no kernel for device {ridx.device}")
+    global LAUNCHES
+    from . import _build
+
+    lib = _build.load()
+    dev = ridx.device
+    scratch = torch.empty((2, max(Rp, 1), B), dtype=torch.int32, device=dev)
+    out = torch.empty((5, B), dtype=torch.int32, device=dev)
+    subs = table if table is not None else profile
+    qptr = qidx.data_ptr() if table is not None else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.pt_scan_score(
+            subs.data_ptr(), qptr, ridx.data_ptr(), qlen.data_ptr(),
+            rlen.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(),
+            out.data_ptr(), B, Bq, Qp, Rp, A, int(open_), int(ext),
+            MODES[mode], _free_bits(free), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"scan_score kernel launch failed: CUDA error {rc}")
+    LAUNCHES += 1
+    return _outputs(out[0], out[1], out[2], out[3] != 0, out[4] != 0, width)
+
+
+def _substitution_rows(table, qidx, profile):
+    """(1 or B, Qp, A) substitution rows, with invalid query letters
+    scoring 0 (the table form gathers them from the table)."""
+    if profile is not None:
+        return profile
+    A = table.shape[0]
+    ok = (qidx >= 0) & (qidx < A)
+    rows = table[qidx.clamp(0, A - 1).long()]
+    return torch.where(ok[..., None], rows, torch.zeros_like(rows))
+
+
+def score_align_plain(ridx, qlen, rlen, *, open_, ext, mode, free,
+                      width="32", table=None, qidx=None,
+                      profile=None) -> dict:
+    """Plain PyTorch version of :func:`score_align`, same signature and
+    outputs: a sweep over reference columns vectorised over (B, Qp), as
+    the TPU kernel sweeps (scan_kernel.py:700-842, 1000-1101), in int32.
+
+    Per column j: F from the previous column; Htemp = max(Hdiag + S, F)
+    (clamped at 0 in SW); E by an exclusive cummax over the query axis of
+    Htemp - open + e_ext*i, the closed form of the vertical recurrence
+    with slope e_ext = min(open, ext); H = max(Htemp, E).
+    """
+    B, Bq, Qp, Rp, A = _check(ridx, qlen, rlen, table, qidx, profile, mode,
+                              width)
+    dev = ridx.device
+    i32 = torch.int32
+    open_, ext = int(open_), int(ext)
+    e_ext = min(open_, ext)
+    local = mode == "sw"
+    qb, qe, db, de = (True,) * 4 if local else tuple(bool(x) for x in free)
+    neg = NEG_INF32
+
+    def border(c, is_free):
+        if is_free:
+            return torch.zeros_like(c)
+        return torch.where(c > 0, -(open_ + (c - 1) * ext),
+                           torch.zeros_like(c))
+
+    def top(c: int) -> int:
+        return 0 if (qb or c <= 0) else -(open_ + (c - 1) * ext)
+
+    rows = _substitution_rows(table, qidx, profile)          # (Bq, Qp, A)
+    rows_t = rows.transpose(1, 2).contiguous()               # (Bq, A, Qp)
+    ii = torch.arange(Qp, dtype=i32, device=dev)
+    a_base = e_ext * ii - open_
+    e_base = e_ext * (ii - 1)
+    qlen_c, rlen_c = qlen[:, None], rlen[:, None]
+    imask = ii[None, :] < qlen_c                             # (B, Qp)
+    last_row = ii[None, :] == qlen_c - 1
+    hprev = border(ii + 1, db)[None, :].expand(B, Qp).contiguous()
+    fprev = torch.full((B, Qp), neg, dtype=i32, device=dev)
+    zero = torch.zeros((B, Qp), dtype=i32, device=dev)
+    negs = torch.full((B, Qp), neg, dtype=i32, device=dev)
+    best = torch.full((B,), 0 if local else neg, dtype=i32, device=dev)
+    bi = torch.full((B,), 0 if local else Qp, dtype=i32, device=dev)
+    bj = torch.full((B,), 0 if local else BIG, dtype=i32, device=dev)
+    hmax = torch.zeros((B,), dtype=i32, device=dev)
+    hmin = torch.zeros((B,), dtype=i32, device=dev)
+    bidx = torch.arange(B, device=dev)
+
+    for j in range(Rp):
+        r = ridx[:, j]
+        rok = (r >= 0) & (r < A)
+        rc = r.clamp(0, A - 1).long()
+        if Bq == 1:
+            s = rows_t[0, rc]                                # (B, Qp)
+        else:
+            s = rows_t[bidx, rc]
+        s = torch.where(rok[:, None], s, zero)
+        F = torch.maximum(hprev - open_, fprev - ext)
+        hdiag = torch.cat(
+            [torch.full((B, 1), top(j), dtype=i32, device=dev),
+             hprev[:, :-1]], dim=1)
+        htemp = torch.maximum(hdiag + s, F)
+        if local:
+            htemp = htemp.clamp_min(0)
+        a = htemp + a_base
+        seed = top(j + 1) - open_ - e_ext
+        incl = torch.cummax(a, dim=1).values
+        pm = torch.cat(
+            [torch.full((B, 1), seed, dtype=i32, device=dev),
+             incl[:, :-1].clamp_min(seed)], dim=1)
+        E = pm - e_base
+        H = torch.maximum(htemp, E)
+
+        inseq = imask & (j < rlen_c)
+        hm = torch.where(inseq, H, zero)
+        hmax = torch.maximum(hmax, hm.amax(dim=1))
+        hmin = torch.minimum(hmin, hm.amin(dim=1))
+        last_col = (rlen_c - 1) == j
+        if local:
+            cand = inseq & (H > 0)
+        elif mode == "sg":
+            sel = last_row & last_col
+            if qe:
+                sel = sel | last_row
+            if de:
+                sel = sel | last_col
+            cand = inseq & sel
+        else:
+            cand = inseq & last_row & last_col
+        hc = torch.where(cand, H, negs)
+        col_best = hc.amax(dim=1)
+        at_best = cand & (hc == col_best[:, None])
+        col_i = torch.where(at_best, ii[None, :],
+                            torch.full_like(hc, Qp)).amin(dim=1)
+        upd = cand.any(dim=1) & ((col_best > best) |
+                                 ((col_best == best) & (col_i < bi)))
+        best = torch.where(upd, col_best, best)
+        bi = torch.where(upd, col_i, bi)
+        bj = torch.where(upd, torch.full_like(bj, j), bj)
+        hprev, fprev = H, F
+
+    if mode == "nw":
+        eq, er = qlen - 1, rlen - 1
+    else:
+        eq, er = bi, bj
+    sat8 = (hmax >= WIDTH_MAX["8"]) | (hmin <= WIDTH_MIN["8"])
+    sat16 = (hmax >= WIDTH_MAX["16"]) | (hmin <= WIDTH_MIN["16"])
+    return _outputs(best, eq, er, sat8, sat16, width)
