@@ -3,31 +3,51 @@
 
     python3 chip_smoke.py
 
-Builds the score kernel from ``parasail_rs_tpu_torch/csrc`` with nvcc and
-runs five phases on ``cuda``; any failure raises and the script exits
+Builds the kernels from ``parasail_rs_tpu_torch/csrc`` with nvcc and
+runs nine phases on ``cuda``; any failure raises and the script exits
 non-zero without printing a result:
 
-1. build: the library's path and build time;
-2. kernel vs plain: the CUDA kernel against its plain PyTorch version on
-   the same device tensors, at the headline shape (8,192 pairs of 150
+1. build: the library's path, build time and each kernel's registers;
+2. kernel vs plain: the score kernel against its plain PyTorch version
+   on the same device tensors, at the headline shape (8,192 pairs of 150
    residues padded to 160, a seeded (B, 160, 25) profile, SW 11/1, width
-   sat) and on small seeded ragged batches covering NW, the nine SG
+   sat), on small seeded ragged batches covering NW, the nine SG
    free-end sets, SW, every width, both substitution forms, open < ext,
-   open == ext, BLOSUM62, a PSSM and scores beyond int8: exact equality;
+   open == ext, BLOSUM62, a PSSM and scores beyond int8, and on pairs
+   with an empty side (which must also equal golden): exact equality;
 3. golden: 16 sampled pairs of the 8,192-pair BLOSUM62 batch against the
    scalar golden oracle;
-4. the main path through the public API on the default device: SW
+4. the score path through the public API on the default device: SW
    BLOSUM62 on 8,192 protein pairs of 140-160 residues, one profile
    against 16,384 references, one 150 bp NW DNA pair, and 128 DNA pairs
-   of 2,000 bp.  Kernel launches are counted from zero over this phase
-   only; every launch must route to "cuda_kernel", and the scores must
-   equal the plain version's on the same batches;
-5. timings: kernel and plain medians at the headline shape (CUDA events,
-   after warm-up) and the end-to-end ``align_batch`` time of the 8,192
-   pairs, beside the card's name and power limit.
+   of 2,000 bp.  Every kernel's launches are counted from zero over this
+   phase only; the score kernel must launch, every route must be
+   "cuda_kernel", and the scores must equal the plain version's;
+5. timings of the score path: kernel and plain medians at the headline
+   shape (CUDA events, after warm-up) and the end-to-end ``align_batch``
+   time of the 8,192 pairs, beside the card's name and power limit;
+6. trace kernel and walk kernel vs plain: the trace class of the kernel
+   against its plain version on batches drawn like phase 2's, the
+   empty-side pairs
+   and cfg4b's 4,096-pair shape (scalars and every flag cell), and the
+   walk kernel against its plain version on those planes (opcode rows
+   and begin cells): exact equality;
+7. the trace + CIGAR path through the public API: ``align_cigars`` of
+   cfg4b (4,096 SG BLOSUM62 11/1 protein pairs of 140-160 residues), and
+   ``use_trace()`` + ``align_batch`` + ``Aligner.cigars`` on the same
+   pairs.  Launches are counted from zero over this phase only; the
+   trace and walk kernels must launch, every route must be
+   "cuda_kernel", and the two paths' CIGARs and scalars must be equal;
+8. golden: 16 sampled pairs of phase 7 against golden's alignment and
+   walk (score, end cell, CIGAR);
+9. timings of the trace path: trace kernel, walk kernel and their plain
+   versions at cfg4b's shape, ``align_cigars`` end to end with its stage
+   clocks and at one chunk of 4,096 pairs, ``use_trace()`` +
+   ``cigars()`` end to end, and the peak device memory.
 
-The line before the last is a JSON summary of every kernel; the last line
-is ``{"ok": true, "device": {...}}``.  Imports no JAX.
+The line before the last is the card's name and power limit, the one
+before it a JSON summary of every kernel; the last line is
+``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -87,6 +107,65 @@ def compare(torch, tk, name, args, kw) -> int:
     if err != 0:
         raise AssertionError(f"kernel != plain on {name}: max |diff| {err}")
     return err
+
+
+def compare_trace(torch, tk, tw, name, args, kw, qsym, rsym):
+    """Trace kernel vs plain, then walk kernel vs plain on the kernel's
+    plane; raises unless equal.  Returns (trace error, walk error)."""
+    kw = {**kw, "outputs": "trace"}
+    got = tk.score_align(*args, **kw)
+    want = tk.score_align_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = max_abs_diff(got, want)
+    if err != 0:
+        raise AssertionError(f"trace kernel != plain on {name}: max |diff| "
+                             f"{err}")
+    walk = (got["trace_table"], qsym, rsym, got["end_query"],
+            got["end_ref"], kw["mode"], kw["free"])
+    w_got = tw.device_walk(*walk)
+    w_want = tw.device_walk_plain(*walk)
+    torch.cuda.synchronize()
+    werr = max_abs_diff(dict(zip("obr", w_got)), dict(zip("obr", w_want)))
+    if werr != 0:
+        raise AssertionError(f"walk kernel != plain on {name}: max |diff| "
+                             f"{werr}")
+    return err, werr
+
+
+# qlen == 0 or rlen == 0 (default DNA matrix, open 5, ext 2), and golden's
+# (score, end_query, end_ref) for them; golden's SW cannot index an empty
+# grid, and its empty local alignment is 0 at (0, 0)
+EMPTY_QS = [b"", b"ACGT", b"ACGTACGTACGTACGTACGTACGTACGTAC", b""]
+EMPTY_RS = [b"ACGT", b"", b"ACGTAC", b""]
+EMPTY_WANT = {
+    "nw": [(-11, -1, 3), (-11, 3, -1), (-45, 29, 5), (0, -1, -1)],
+    "sg": [(0, -1, 0), (0, 0, -1), (6, 5, 5), (0, -1, -1)],
+    "sw": [(0, 0, 0), (0, 0, 0), (6, 5, 5), (0, 0, 0)],
+}
+
+
+def empty_side_cases(torch, dev):
+    """The empty-side pairs as (name, (args, subs), kwargs, want)."""
+    from parasail_rs_tpu.matrices import Matrix
+
+    m = Matrix.default()
+    P = 32
+    qidx = np.full((len(EMPTY_QS), P), -1, np.int32)
+    ridx = np.zeros((len(EMPTY_RS), P), np.int32)
+    for b, (q, r) in enumerate(zip(EMPTY_QS, EMPTY_RS)):
+        qidx[b, :len(q)] = m.encode(q)
+        ridx[b, :len(r)] = m.encode(r)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    args = (t(ridx), t([len(q) for q in EMPTY_QS]),
+            t([len(r) for r in EMPTY_RS]))
+    subs = {"table": t(m.data), "qidx": t(qidx)}
+    return [(f"empty side {mode}", (args, subs),
+             dict(mode=mode, free=(mode != "nw",) * 4, open_=5, ext=2,
+                  width="sat"), EMPTY_WANT[mode])
+            for mode in ("nw", "sg", "sw")]
 
 
 def small_cases(rng, torch, dev):
@@ -264,6 +343,7 @@ def main() -> int:
     from parasail_rs_tpu_torch.engine import dispatch
     from parasail_rs_tpu_torch.ops import _build
     from parasail_rs_tpu_torch.ops import scan_kernel as tk
+    from parasail_rs_tpu_torch.ops import trace_walk as tw
 
     dev = torch.device("cuda")
     card = card_info()
@@ -277,6 +357,10 @@ def main() -> int:
     log(f"[1 build] ok: {os.path.relpath(path, HERE)} in "
         f"{time.perf_counter() - t0:.2f} s (nvcc "
         f"{'ran' if _build.BUILD_SECONDS is not None else 'cached'})")
+    for line in _build.BUILD_LOG.splitlines():
+        if "entry function" in line or "registers" in line or \
+                "spill" in line:
+            log(f"[1 build] {line.strip()}")
 
     # -- 2. kernel vs plain --------------------------------------------------
     rng = np.random.default_rng(1)
@@ -287,6 +371,15 @@ def main() -> int:
     for name, (args, subs), kw in small_cases(rng, torch, dev):
         max_err = max(max_err, compare(torch, tk, name, args, {**kw, **subs}))
         log(f"[2 kernel vs plain] {name}: equal")
+    for name, (args, subs), kw, want in empty_side_cases(torch, dev):
+        max_err = max(max_err, compare(torch, tk, name, args, {**kw, **subs}))
+        out = tk.score_align(*args, **kw, **subs)
+        got = [tuple(int(out[k][b]) for k in ("score", "end_query",
+                                              "end_ref"))
+               for b in range(len(want))]
+        if got != want:
+            raise AssertionError(f"{name}: kernel {got} != golden {want}")
+        log(f"[2 kernel vs plain] {name}: equal, and equal to golden")
 
     # -- 3. golden spot check ------------------------------------------------
     blosum = pt.Matrix.from_name("blosum62")
@@ -322,14 +415,15 @@ def main() -> int:
     lq = random_seqs(rng, DNA, 128, 2000, 2000)
     lr = random_seqs(rng, DNA, 128, 2000, 2000)
     dispatch.ROUTE_COUNTS.clear()
-    tk.LAUNCHES = 0
+    tk.LAUNCHES = tk.TRACE_LAUNCHES = tw.LAUNCHES = 0
     res_sw = sw.align_batch(qs, rs)
     res_prof = pa.align_batch(None, refs)
     res_nw = nw.align(q150, r150)
     res_long = lng.align_batch(lq, lr)
     launches = tk.LAUNCHES
     routes = dict(dispatch.ROUTE_COUNTS)
-    log(f"[4 main path] launches={launches} routes={routes}")
+    log(f"[4 main path] launches={launches} (trace "
+        f"{tk.TRACE_LAUNCHES}, walk {tw.LAUNCHES}) routes={routes}")
     if launches < 4:
         raise AssertionError(f"main path launched the kernel {launches} "
                              "times, expected 4")
@@ -383,6 +477,9 @@ def main() -> int:
     log(f"[5 timing] profile vs 16384 refs e2e median {prof_ms} ms; "
         f"NW 150 bp single pair median {nw_ms} ms [{card}]")
 
+    trace = trace_path(torch, pt, tk, tw, dispatch, golden, stages, rng,
+                       blosum, card)
+
     print(json.dumps({"kernels": [{
         "name": "scan_score_align",
         "route": "cuda",
@@ -392,12 +489,160 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "scan_score_align (trace)",
+        "route": "cuda",
+        "source": "parasail_rs_tpu_torch/csrc/scan_score.cu",
+        "replaces": "parasail_rs_tpu/ops/scan_kernel.py:1453",
+        **trace["trace"],
+    }, {
+        "name": "trace_walk._walk_impl",
+        "route": "cuda",
+        "source": "parasail_rs_tpu_torch/csrc/trace_walk.cu",
+        "replaces": "parasail_rs_tpu/ops/trace_walk.py:122",
+        **trace["walk"],
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def trace_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum,
+               card) -> dict:
+    """Phases 6-9, the trace + CIGAR path; returns the trace and walk
+    kernels' launches, errors and times."""
+    dev = torch.device("cuda")
+
+    # -- 6. trace kernel and walk kernel vs plain -----------------------------
+    errs = [0, 0]
+
+    def check(name, args, kw, qsym, rsym):
+        e = compare_trace(torch, tk, tw, name, args, kw, qsym, rsym)
+        errs[0], errs[1] = max(errs[0], e[0]), max(errs[1], e[1])
+        log(f"[6 trace vs plain] {name}: trace and walk equal")
+
+    for name, (args, subs), kw in small_cases(rng, torch, dev):
+        # the profile form has no letters: any symbols do for the walk
+        qsym = subs["qidx"] if "qidx" in subs else torch.zeros(
+            (1, subs["profile"].shape[1]), dtype=torch.int32, device=dev)
+        check(name, args, {**kw, **subs}, qsym, args[0])
+    for name, (args, subs), kw, _want in empty_side_cases(torch, dev):
+        check(name, args, {**kw, **subs}, subs["qidx"], args[0])
+    cig_al = (pt.Aligner.new().matrix(blosum).gap_open(11).gap_extend(1)
+              .semi_global().build())
+    q4b = random_seqs(rng, PROTEIN, 4096, 140, 160)
+    r4b = random_seqs(rng, PROTEIN, 4096, 140, 160)
+    b4b, _, _ = cig_al._pack(q4b, r4b)
+    args4b = (b4b.ridx, b4b.qlen_t, b4b.rlen_t)
+    kw4b = dict(open_=11, ext=1, mode="sg", free=(True,) * 4, width="sat",
+                table=b4b.table, qidx=b4b.qidx)
+    check("cfg4b B=4096 Qp=Rp=192 SG BLOSUM62 11/1", args4b, kw4b,
+          b4b.qbytes, b4b.rbytes)
+
+    # -- 7. the trace + CIGAR path through the public API ----------------------
+    tr_al = (pt.Aligner.new().matrix(blosum).gap_open(11).gap_extend(1)
+             .semi_global().use_trace().build())
+    dispatch.ROUTE_COUNTS.clear()
+    tk.LAUNCHES = tk.TRACE_LAUNCHES = tw.LAUNCHES = 0
+    alns_c, cigs = cig_al.align_cigars(q4b, r4b)
+    alns_t = tr_al.align_batch(q4b, r4b)
+    cigs_t = tr_al.cigars(alns_t, q4b, r4b)
+    trace_launches, walk_launches = tk.TRACE_LAUNCHES, tw.LAUNCHES
+    routes = dict(dispatch.ROUTE_COUNTS)
+    log(f"[7 trace path] trace launches={trace_launches} walk "
+        f"launches={walk_launches} (score {tk.LAUNCHES}) routes={routes}")
+    if trace_launches < 1 or walk_launches < 1:
+        raise AssertionError("the trace path did not launch the trace and "
+                             "walk kernels")
+    if set(routes) != {("cuda_kernel", "")} or \
+            set(cig_al.route_counter) | set(tr_al.route_counter) != \
+            {("cuda_kernel", "")}:
+        raise AssertionError(f"the trace path left the kernel route: "
+                             f"{routes}")
+    if cigs != cigs_t:
+        bad = next(b for b in range(len(cigs)) if cigs[b] != cigs_t[b])
+        raise AssertionError(f"pair {bad}: device walk {cigs[bad]!r} != "
+                             f"host walk {cigs_t[bad]!r}")
+    scal = [(a.get_score(), a.get_end_query(), a.get_end_ref())
+            for a in alns_c]
+    if scal != [(a.get_score(), a.get_end_query(), a.get_end_ref())
+                for a in alns_t]:
+        raise AssertionError("align_cigars and use_trace scalars differ")
+    if any(a.is_trace() for a in alns_c) or not all(
+            a.is_trace() for a in alns_t):
+        raise AssertionError("result classes are wrong")
+    log("[7 trace path] align_cigars and use_trace + cigars on 4,096 SG "
+        "BLOSUM62 pairs: all on cuda_kernel, CIGARs and scalars equal")
+
+    # -- 8. golden ---------------------------------------------------------------
+    for b in rng.choice(len(q4b), size=16, replace=False).tolist():
+        g = golden.align_seqs(q4b[b], r4b[b], blosum, 11, 1, "sg")
+        w = golden.walk_trace(g.trace_table, q4b[b], r4b[b], g.end_query,
+                              g.end_ref, "sg")
+        want = (g.score, g.end_query, g.end_ref, w.cigar_string())
+        got = (*scal[b], cigs[b])
+        if got != want or alns_t[b].get_cigar(q4b[b], r4b[b]) != want[3]:
+            raise AssertionError(f"pair {b}: {got} != golden {want}")
+    log("[8 golden] 16 sampled pairs of the cfg4b batch: score, end cell "
+        "and CIGAR equal to golden")
+
+    # -- 9. timings ----------------------------------------------------------------
+    trace_kw = {**kw4b, "outputs": "trace"}
+    plane = tk.score_align(*args4b, **trace_kw)
+    walk_args = (plane["trace_table"], b4b.qbytes, b4b.rbytes,
+                 plane["end_query"], plane["end_ref"], "sg", (True,) * 4)
+    t_ms = time_cuda(torch, lambda: tk.score_align(*args4b, **trace_kw))
+    t_plain = time_cuda(torch, lambda: tk.score_align_plain(
+        *args4b, **trace_kw), reps=3, warmup=1)
+    s_ms = time_cuda(torch, lambda: tk.score_align(*args4b, **kw4b))
+    sub = (b4b.ridx[:512], b4b.qlen_t[:512], b4b.rlen_t[:512])
+    chunk_ms = time_cuda(torch, lambda: tk.score_align(
+        *sub, **{**trace_kw, "qidx": b4b.qidx[:512]}))
+    w_ms = time_cuda(torch, lambda: tw.device_walk(*walk_args))
+    w_plain = time_cuda(torch, lambda: tw.device_walk_plain(*walk_args),
+                        reps=3, warmup=1)
+    torch.cuda.reset_peak_memory_stats()
+    cig_ms = time_host(lambda: cig_al.align_cigars(q4b, r4b))
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    with stages.measuring():
+        for _ in range(5):
+            cig_al.align_cigars(q4b, r4b)
+        snap = stages.snapshot()
+    per_call = {k: v["ms"] / 5 for k, v in snap.items()}
+    cig_al._CIGAR_CHUNK = 4096
+    one_ms = time_host(lambda: cig_al.align_cigars(q4b, r4b))
+    with stages.measuring():
+        for _ in range(5):
+            cig_al.align_cigars(q4b, r4b)
+        one_snap = stages.snapshot()
+    one_call = {k: v["ms"] / 5 for k, v in one_snap.items()}
+    del cig_al._CIGAR_CHUNK
+    torch.cuda.reset_peak_memory_stats()
+    tr_ms = time_host(lambda: tr_al.cigars(tr_al.align_batch(q4b, r4b),
+                                           q4b, r4b), reps=3)
+    tr_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    log(f"[9 timing] card: {card}")
+    log(f"[9 timing] cfg4b shape B=4096 Qp=Rp=192: trace kernel median "
+        f"{t_ms} ms, plain {t_plain} ms; score kernel on the same batch "
+        f"{s_ms} ms; trace kernel on a 512-pair chunk {chunk_ms} ms; walk "
+        f"kernel {w_ms} ms, plain {w_plain} ms [{card}]")
+    log(f"[9 timing] align_cigars 4096 pairs e2e median {cig_ms} ms "
+        f"({4096 / cig_ms * 1e3} CIGARs/s), chunks of 512; peak device "
+        f"memory {peak_mib} MiB [{card}]")
+    log(f"[9 timing] align_cigars stages, ms per call summed over its 8 "
+        f"chunks (stage clocks on): {json.dumps(per_call)} [{card}]")
+    log(f"[9 timing] align_cigars 4096 pairs in one chunk of 4096 e2e "
+        f"median {one_ms} ms ({4096 / one_ms * 1e3} CIGARs/s); stages, ms "
+        f"per call: {json.dumps(one_call)} [{card}]")
+    log(f"[9 timing] use_trace align_batch + cigars 4096 pairs e2e median "
+        f"{tr_ms} ms ({4096 / tr_ms * 1e3} CIGARs/s), peak device memory "
+        f"{tr_peak} MiB [{card}]")
+    return {"trace": {"launches": trace_launches, "max_abs_err": errs[0],
+                      "ms": t_ms, "plain_ms": t_plain},
+            "walk": {"launches": walk_launches, "max_abs_err": errs[1],
+                     "ms": w_ms, "plain_ms": w_plain}}
 
 
 if __name__ == "__main__":

@@ -19,6 +19,18 @@
 // if qe and the last column if de; NW the corner.  The width-8/16
 // saturation flags are taken over in-sequence H only.
 //
+// A pair with an empty side has no in-sequence cell; its end cell is
+// golden's candidate on the bordered grid's one line (the top row when
+// qlen == 0, the left column when rlen == 0), see empty_side().
+//
+// The trace form (kTrace) also writes each cell's flags hflag | eflag |
+// fflag, bit for bit with golden/model.py:166-211: eflag DIAG_E when
+// H[i-1][j] - open >= E[i-1][j] - ext (else INS_E), fflag DIAG_F when
+// H[i][j-1] - open >= F[i][j-1] - ext (else DEL_F), hflag DIAG when the
+// unclamped diagonal is >= E and >= F, else INS when E >= F, else DEL;
+// in SW a cell with max(diag, E, F) <= 0 gets hflag 0 and keeps its E
+// and F bits.  The score form compiles without any of it.
+//
 // All arithmetic is exact int32 with NEG_INF32 = -2^30 as minus infinity,
 // so NEG_INF32 - open - ext cannot wrap.
 #pragma once
@@ -48,6 +60,11 @@ constexpr int32_t FREE_DE = 8;
 constexpr int32_t W8_MAX = 127, W8_MIN = -128;
 constexpr int32_t W16_MAX = 32767, W16_MIN = -32768;
 
+// Trace flags (constants.TRACE_*).
+constexpr int32_t TRACE_INS = 1, TRACE_DEL = 2, TRACE_DIAG = 4;
+constexpr int32_t TRACE_DIAG_E = 8, TRACE_INS_E = 16;
+constexpr int32_t TRACE_DIAG_F = 32, TRACE_DEL_F = 64;
+
 struct PairResult {
   int32_t score;
   int32_t end_query;
@@ -75,6 +92,50 @@ PT_HD void cell(int32_t h_diag, int32_t h_up, int32_t e_up, int32_t h_left,
   h = local ? imax(v, 0) : v;
 }
 
+// cell() plus the cell's trace flags.
+PT_HD int32_t cell_trace(int32_t h_diag, int32_t h_up, int32_t e_up,
+                         int32_t h_left, int32_t s, int32_t open,
+                         int32_t ext, bool local, int32_t& f, int32_t& h,
+                         int32_t& e) {
+  const int32_t e_open = h_up - open, e_ext = e_up - ext;
+  const int32_t f_open = h_left - open, f_ext = f - ext;
+  e = imax(e_open, e_ext);
+  f = imax(f_open, f_ext);
+  const int32_t diag = h_diag + s;
+  const int32_t v = imax(imax(diag, e), f);
+  h = local ? imax(v, 0) : v;
+  int32_t hflag = (diag >= e && diag >= f) ? TRACE_DIAG
+                  : (e >= f ? TRACE_INS : TRACE_DEL);
+  if (local && v <= 0) hflag = 0;
+  return hflag | (e_open >= e_ext ? TRACE_DIAG_E : TRACE_INS_E) |
+         (f_open >= f_ext ? TRACE_DIAG_F : TRACE_DEL_F);
+}
+
+// End cell of a non-local pair with qlen == 0 or rlen == 0 (golden's
+// candidates, value desc then (i, j) asc): the corner, plus the top row's
+// cells if qe (qlen == 0) or the left column's if de (rlen == 0).
+PT_HD PairResult empty_side(int32_t qlen, int32_t rlen, int32_t open,
+                            int32_t ext, bool qb, bool qe, bool db,
+                            bool de) {
+  PairResult out{0, qlen - 1, rlen - 1, 0, 0};
+  const int32_t n = qlen == 0 ? rlen : qlen;
+  const bool is_free = qlen == 0 ? qb : db;
+  const bool end_free = qlen == 0 ? qe : de;
+  int32_t best = NEG_INF32, at = n;
+  for (int32_t c = 1; c <= n; ++c) {
+    const int32_t v = border(c, is_free, open, ext);
+    if ((end_free || c == n) && v > best) {
+      best = v;
+      at = c;
+    }
+  }
+  if (n > 0) {
+    out.score = best;
+    if (qlen == 0) out.end_ref = at - 1; else out.end_query = at - 1;
+  }
+  return out;
+}
+
 // Sweep one pair's qlen x rlen cells, i outer and j inner.
 //
 //   rows:   substitution rows; row i is rows + (qidx ? qidx[i] : i) * A
@@ -84,16 +145,21 @@ PT_HD void cell(int32_t h_diag, int32_t h_up, int32_t e_up, int32_t h_left,
 //   ridx:   the pair's reference letters.
 //   hrow, erow: H and E of the previous row, element j at [j * stride].
 //   qp:     padded query length (the SG end row before any candidate).
+//   trace:  kTrace only: cell (i, j)'s flags go to trace[i * tsi + j * tsj].
+template <bool kTrace>
 PT_HD PairResult score_pair(const int32_t* rows, const int32_t* qidx,
                             int32_t A, const int32_t* ridx, int32_t qlen,
                             int32_t rlen, int32_t qp, int32_t* hrow,
                             int32_t* erow, int64_t stride, int32_t open,
-                            int32_t ext, int32_t mode, int32_t free_bits) {
+                            int32_t ext, int32_t mode, int32_t free_bits,
+                            int8_t* trace, int64_t tsi, int64_t tsj) {
   const bool local = mode == MODE_SW;
   const bool qb = local || (free_bits & FREE_QB);
   const bool db = local || (free_bits & FREE_DB);
   const bool qe = mode == MODE_SG && (free_bits & FREE_QE);
   const bool de = mode == MODE_SG && (free_bits & FREE_DE);
+  if (!local && (qlen == 0 || rlen == 0))
+    return empty_side(qlen, rlen, open, ext, qb, qe, db, de);
 
   // row "-1": the bordered top row H[0][j+1], E = -inf
   for (int32_t j = 0; j < rlen; ++j) {
@@ -124,7 +190,12 @@ PT_HD PairResult score_pair(const int32_t* rows, const int32_t* qidx,
       const int32_t h_up = hrow[j * stride];
       const int32_t e_up = erow[j * stride];
       int32_t h, e;
-      cell(h_diag, h_up, e_up, h_left, s, open, ext, local, f, h, e);
+      if constexpr (kTrace) {
+        trace[i * tsi + j * tsj] = (int8_t)cell_trace(
+            h_diag, h_up, e_up, h_left, s, open, ext, local, f, h, e);
+      } else {
+        cell(h_diag, h_up, e_up, h_left, s, open, ext, local, f, h, e);
+      }
       hrow[j * stride] = h;
       erow[j * stride] = e;
       h_diag = h_up;
@@ -155,6 +226,8 @@ PT_HD PairResult score_pair(const int32_t* rows, const int32_t* qidx,
 //   subs:  the (A, A) table (table form) or (Bq, Qp, A) profile rows
 //   table: where to read the table from (subs, or a shared-memory copy)
 //   qidx:  (Bq, Qp) query letters; null selects the profile form
+//   trace: kTrace only: pair b's cell (0, 0), strides tsi and tsj
+template <bool kTrace>
 PT_HD PairResult score_batch_pair(int32_t b, const int32_t* subs,
                                   const int32_t* table, const int32_t* qidx,
                                   const int32_t* ridx, const int32_t* qlen,
@@ -162,13 +235,15 @@ PT_HD PairResult score_batch_pair(int32_t b, const int32_t* subs,
                                   int32_t* erow, int64_t stride, int32_t Bq,
                                   int32_t Qp, int32_t Rp, int32_t A,
                                   int32_t open, int32_t ext, int32_t mode,
-                                  int32_t free_bits) {
+                                  int32_t free_bits, int8_t* trace,
+                                  int64_t tsi, int64_t tsj) {
   const int64_t bq = Bq == 1 ? 0 : b;
   const int32_t* rows = qidx ? table : subs + bq * Qp * A;
   const int32_t* q = qidx ? qidx + bq * Qp : nullptr;
-  return score_pair(rows, q, A, ridx + (int64_t)b * Rp, imin(qlen[b], Qp),
-                    imin(rlen[b], Rp), Qp, hrow, erow, stride, open, ext,
-                    mode, free_bits);
+  return score_pair<kTrace>(rows, q, A, ridx + (int64_t)b * Rp,
+                            imin(qlen[b], Qp), imin(rlen[b], Rp), Qp, hrow,
+                            erow, stride, open, ext, mode, free_bits, trace,
+                            tsi, tsj);
 }
 
 }  // namespace ptscore

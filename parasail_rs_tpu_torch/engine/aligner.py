@@ -1,15 +1,17 @@
 """Aligner and AlignerBuilder on PyTorch.
 
-The port of ``parasail_rs_tpu.engine.aligner`` for the score class: the
-builder keeps every configuration method and its mutual-exclusion rules
-(reference src/aligner/mod.rs:213-267), and ``align`` / ``align_batch``
-run one kernel launch per batch on the aligner's device.
+The port of ``parasail_rs_tpu.engine.aligner`` for the score and trace
+classes: the builder keeps every configuration method and its
+mutual-exclusion rules (reference src/aligner/mod.rs:213-267);
+``align`` / ``align_batch`` run one kernel launch per batch on the
+aligner's device; ``cigars`` walks fetched trace planes on the host and
+``align_cigars`` walks them on the device, fetching only opcodes.
 
 Out of this port so far, and raising ``NotImplementedError`` rather than
-computing anything else: builds whose outputs are not score-only (stats,
-table, rowcol, trace), and ``align_many``, ``align_cigars``, ``cigars``,
-``banded_nw``, ``banded_nw_batch``, ``ssw`` and ``ssw_batch``.  The
-ROADMAP item that ports each is named in its message.
+computing anything else: builds whose outputs are stats, table or
+rowcol, and ``align_many``, ``banded_nw``, ``banded_nw_batch``, ``ssw``
+and ``ssw_batch``.  The ROADMAP item that ports each is named in its
+message.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from collections import Counter
 import numpy as np
 import torch
 
-from parasail_rs_tpu.errors import QueryRequired
+from parasail_rs_tpu.errors import InteriorNulByte, NoTrace, QueryRequired
 from parasail_rs_tpu.golden.model import free_flags
 from parasail_rs_tpu.matrices import Matrix
 from parasail_rs_tpu.utils import stages
@@ -32,6 +34,13 @@ from .profile import Profile
 from .result import Alignment, PairFields
 
 log = logging.getLogger("parasail_rs_tpu_torch")
+
+
+def _as_bytes(x) -> bytes:
+    b = x.encode() if isinstance(x, str) else bytes(x)
+    if 0 in b:
+        raise InteriorNulByte("sequence contains an interior NUL byte")
+    return b
 
 
 def _not_ported(what: str, item: str):
@@ -205,12 +214,11 @@ class AlignerBuilder:
             profile=has_profile,
             width=self._solution_width,
         )
-        if outputs != "score":
+        if outputs not in ("score", "trace"):
             raise _not_ported(
                 f"outputs={outputs!r}",
-                {"trace": "Queue 1 item 5 (trace + CIGAR), kernel K1b",
-                 "stats": "Queue 1 item 6 (stats), kernel K1c"}.get(
-                    outputs, "Queue 1 item 8 (tables, rowcol), kernel K1d"))
+                "Queue 1 item 6 (stats), kernel K1c" if outputs == "stats"
+                else "Queue 1 item 8 (tables, rowcol), kernel K1d")
         matrix = profile.matrix if has_profile else self._matrix
         return Aligner(
             key=key,
@@ -362,15 +370,182 @@ class Aligner:
             queries = None
         return self._run_packed(*self._pack(queries, references))
 
+    def cigars(self, alignments, queries, references) -> list[str]:
+        """Batched CIGAR extraction over trace results.
+
+        The same strings as ``a.get_cigar(q, r)`` per pair, but ONE
+        native batch walk (OpenMP over pairs, the reference's
+        native/ptwalk.cc) instead of a per-pair round-trip.  Falls back
+        to the per-pair path when the native walker is unavailable.
+        """
+        from parasail_rs_tpu.constants import cigar_runs_string
+        from parasail_rs_tpu.native import walker
+
+        alignments = list(alignments)
+        if not alignments:
+            return []
+        if not alignments[0].is_trace():
+            raise NoTrace("cigars()")
+        mode = self.key.mode
+        free = self.key.free if mode == "sg" else free_flags(mode)
+        qb, _, db, _ = free
+        walked = walker.walk_batch(
+            [a.fields["trace_table"] for a in alignments],
+            queries, references,
+            [a.get_end_query() for a in alignments],
+            [a.get_end_ref() for a in alignments],
+            local=mode == "sw", qb=qb, db=db)
+        if walked is None:
+            return [a.get_cigar(q, r)
+                    for a, q, r in zip(alignments, queries, references)]
+        return [cigar_runs_string(packed) for packed, _bq, _br in walked]
+
+    def align_cigars(self, queries, references):
+        """Batched alignment + CIGAR extraction with the DEVICE walk.
+
+        Covers the same user intent as ``align`` + ``get_cigar`` per pair
+        but never ships the (B, Qp, Rp) trace plane to the host: the
+        trace kernel's plane stays on the device, the walk kernel
+        (ops/trace_walk.py) walks every pair back from its end cell, and
+        the host fetches only B * (Qp + Rp) opcode bytes plus the
+        per-pair scalars, in one transfer per chunk.
+
+        Returns ``(alignments, cigars)``: score-class ``Alignment``
+        objects (``is_trace()`` is False) and the CIGAR string per pair,
+        identical to ``cigars()`` on a trace-enabled aligner.  With a
+        profile set, ``queries`` is ignored.  Mixed-length inputs are
+        length-binned (trace planes are cell-sized); results return in
+        input order.
+        """
+        from parasail_rs_tpu.batch import merge_bins, plan_bins
+
+        refs = [_as_bytes(r) for r in references]
+        if not refs:
+            return [], []
+        queries = (None if not self.profile.is_null
+                   else [_as_bytes(q) for q in queries])
+        # result objects are score-class (no trace plane materialises)
+        res_key = KernelKey(mode=self.key.mode, free=self.key.free,
+                            outputs="score", strategy=self.key.strategy,
+                            profile=not self.profile.is_null,
+                            width=self.key.width)
+        res_al = self if self.key == res_key else Aligner(
+            key=res_key, matrix=self.matrix, gap_open=self.gap_open,
+            gap_extend=self.gap_extend, profile=self.profile,
+            bandwidth=None, device=self.device)
+        n = len(refs)
+        qlens_all = ([self.profile.query_len] * n if queries is None
+                     else [len(q) for q in queries])
+        bins = merge_bins(
+            plan_bins(qlens_all, [len(r) for r in refs],
+                      max_cells=1 << 28, lane_quantum=1),
+            max_launches=16, max_cells=1 << 28)
+        alns: list = [None] * n
+        cigs: list = [None] * n
+        for bin_ in bins:
+            idx = bin_.indices
+            a, c = self._align_cigars_shape(
+                None if queries is None else [queries[i] for i in idx],
+                [refs[i] for i in idx], res_al, bin_.qp, bin_.rp)
+            for k, i in enumerate(idx):
+                alns[i] = a[k]
+                cigs[i] = c[k]
+        return alns, cigs
+
+    # pairs per device-walk launch: a bin splits into chunks whose pack,
+    # kernels and copy are all enqueued before the first fetch blocks, so
+    # chunk k's transfer overlaps chunk k+1's work (the reference's value,
+    # chosen on its own device; not yet measured on the card)
+    _CIGAR_CHUNK = 512
+
+    def _align_cigars_shape(self, queries, refs, res_al, Qp, Rp):
+        """One shape bin of :meth:`align_cigars`."""
+        from parasail_rs_tpu.constants import cigar_strings_batch
+
+        from ..ops.trace_walk import ops_to_runs_flat
+
+        n = len(refs)
+        CH = self._CIGAR_CHUNK
+        qseq = None if self.profile.is_null else self.profile.query
+        states = []
+        for i in range(0, n, CH):
+            sl = slice(i, min(i + CH, n))
+            batch, qlens, rlens = self._pack(
+                None if queries is None else queries[sl], refs[sl],
+                Qp=Qp, Rp=Rp)
+            states.append((qlens, rlens,
+                           self._device_trace_walk_enqueue(batch, qseq)))
+        alns_all, cigs_all = [], []
+        for qlens, rlens, st in states:
+            out, ops_host = self._device_trace_walk_fetch(st)
+            alns_all.extend(res_al._alignments_from(out, qlens, rlens))
+            # gc_pause: the string build allocates ~30 gc-tracked objects
+            # per pair
+            with stages.stage("encode"), gc_pause(len(rlens) * 8):
+                cigs_all.extend(cigar_strings_batch(
+                    *ops_to_runs_flat(ops_host)))
+        return alns_all, cigs_all
+
+    def _walk_symbols(self, batch, qseq: bytes | None, Qp: int):
+        """Symbol planes for the walk's '=' against 'X' decision: the raw
+        bytes where the batch carries them (golden compares raw bytes;
+        mapped letters fold case and wildcards), the profile query's
+        bytes for a shared-profile batch, else the letter indices."""
+        if batch.rbytes is not None and batch.qbytes is not None:
+            return batch.qbytes, batch.rbytes
+        if batch.rbytes is not None and qseq is not None:
+            qarr = np.zeros((1, Qp), np.uint8)
+            qarr[0, :len(qseq)] = np.frombuffer(qseq, np.uint8)
+            return dispatch.upload(qarr, batch.device), batch.rbytes
+        return batch.qidx, batch.ridx
+
+    def _device_trace_walk_enqueue(self, batch, qseq: bytes | None = None):
+        """Trace kernel, walk kernel and one pinned non-blocking copy of
+        (scalars, opcode rows), all enqueued without
+        blocking; returns the state :meth:`_device_trace_walk_fetch`
+        takes.  The trace plane never leaves the device.
+
+        Width 64 with pairs over the int32 bound takes the exact host
+        merge first (:func:`dispatch.execute`); its merged plane goes
+        back to the device for the walk, and its int64 scalars stay on
+        the host."""
+        from ..ops.trace_walk import device_walk
+
+        kw = dict(gap_open=self.gap_open, gap_extend=self.gap_extend,
+                  mode=self.key.mode, free=self.key.free, outputs="trace",
+                  on_route=lambda route, reason:
+                      self.route_counter.update([(route, reason)]))
+        host = None
+        if self.key.width == "64" and dispatch.width64_risk(
+                batch, self.gap_open, self.gap_extend).size:
+            host = dispatch.execute(batch, width="64", **kw)
+            trace = dispatch.upload(host.pop("trace_table"), batch.device)
+            eq = dispatch.upload(host["end_query"].astype(np.int32),
+                                 batch.device)
+            er = dispatch.upload(host["end_ref"].astype(np.int32),
+                                 batch.device)
+            cols = {}
+        else:
+            cols = dispatch.launch(batch, width=self.key.width, **kw)
+            trace = cols.pop("trace_table")
+            eq, er = cols["end_query"], cols["end_ref"]
+        qsym, rsym = self._walk_symbols(batch, qseq, trace.shape[1])
+        with stages.stage("walk"):
+            ops, _bq, _br = device_walk(trace, qsym, rsym, eq, er,
+                                        self.key.mode, self.key.free)
+            pend = dispatch.PendingResult(cols, ops)
+        return host, pend
+
+    def _device_trace_walk_fetch(self, st):
+        """Blocking phase: wait for the copy and unpack (scalars dict,
+        ops rows (B, Qp + Rp) uint8 backward)."""
+        host, pend = st
+        out, ops = pend.fetch()
+        return (host if host is not None else out), ops
+
     # -- not ported yet ----------------------------------------------------------
     def align_many(self, queries, references, max_cells=None):
         raise _not_ported("align_many", "Queue 1 item 7 (align_many)")
-
-    def cigars(self, alignments, queries, references):
-        raise _not_ported("cigars", "Queue 1 item 5 (trace + CIGAR)")
-
-    def align_cigars(self, queries, references):
-        raise _not_ported("align_cigars", "Queue 1 item 5 (trace + CIGAR)")
 
     def banded_nw(self, query, reference):
         raise _not_ported("banded_nw", "Queue 1 item 8 (banded), kernel K1e")

@@ -1,10 +1,12 @@
 """Host-side batch assembly and kernel dispatch, on torch tensors.
 
-The port of ``parasail_rs_tpu.engine.dispatch`` for the score class:
-pack a batch of byte sequences into padded uint8 planes (the reference's
-native packer), upload them once to the aligner's device, map bytes to
-letter indices there, run :func:`~parasail_rs_tpu_torch.ops.scan_kernel.score_align`
-over the whole batch, and fetch the per-pair scalars in one transfer.
+The port of ``parasail_rs_tpu.engine.dispatch`` for the score and trace
+classes: pack a batch of byte sequences into padded uint8 planes (the
+reference's native packer), upload them once to the aligner's device, map
+bytes to letter indices there, run
+:func:`~parasail_rs_tpu_torch.ops.scan_kernel.score_align` over the whole
+batch, and fetch the per-pair scalars in one pinned, non-blocking
+transfer (:class:`PendingResult`).
 
 Routes: ``"cuda_kernel"`` for a batch on a CUDA device (the hand-written
 kernel), ``"torch_plain"`` for a batch on the CPU (the plain PyTorch
@@ -67,8 +69,10 @@ class PairBatch:
         self._ridx = ridx
         self.qlen = np.asarray(qlen, np.int32)
         self.rlen = np.asarray(rlen, np.int32)
-        self.qlen_t = torch.as_tensor(self.qlen).to(self.device)
-        self.rlen_t = torch.as_tensor(self.rlen).to(self.device)
+        # pinned and non-blocking: a pageable copy would wait for the
+        # work already queued, and chunks of one call could not overlap
+        self.qlen_t = upload(self.qlen, self.device)
+        self.rlen_t = upload(self.rlen, self.device)
         self.table = table
         self.qbytes = qbytes
         self.rbytes = rbytes
@@ -117,7 +121,7 @@ def _pack_side(seqs, P):
     return padded, lens, P
 
 
-def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     t = torch.from_numpy(np.ascontiguousarray(arr))
     if device.type == "cuda":
         t = t.pin_memory().to(device, non_blocking=True)
@@ -166,17 +170,17 @@ def _pack_pairs_inner(matrix, queries, references, profile, Qp, Rp, B,
              if prof is None else None)
     if qbytes is not None:
         # one upload for both planes, sliced on the device
-        both = _upload(np.concatenate([qbytes, rbytes], axis=1), device)
+        both = upload(np.concatenate([qbytes, rbytes], axis=1), device)
         qb_t, rb_t = both[:, :qbytes.shape[1]], both[:, qbytes.shape[1]:]
     else:
-        qb_t, rb_t = None, _upload(rbytes, device)
+        qb_t, rb_t = None, upload(rbytes, device)
     batch = PairBatch(
-        profile=None if prof is None else _upload(prof, device),
-        qidx=None if qidx is None else _upload(qidx, device),
+        profile=None if prof is None else upload(prof, device),
+        qidx=None if qidx is None else upload(qidx, device),
         ridx=None, qlen=qlens, rlen=rlens,
-        table=None if table is None else _upload(table, device),
+        table=None if table is None else upload(table, device),
         qbytes=qb_t, rbytes=rb_t,
-        mapper=_upload(np.asarray(matrix.mapper, np.int32), device),
+        mapper=upload(np.asarray(matrix.mapper, np.int32), device),
         device=device)
     return batch, np.asarray(qlens).tolist(), np.asarray(rlens).tolist()
 
@@ -202,15 +206,17 @@ def width64_risk(batch: PairBatch, gap_open: int,
 def _golden64_merge(out: dict, batch: PairBatch, idx: np.ndarray, *,
                     gap_open, gap_extend, mode, free) -> dict:
     """Overwrite the int32 results of ``idx`` pairs with an exact int64
-    scalar golden fill (the reference's ``_golden64_merge``, score
-    class)."""
+    scalar golden fill (the reference's ``_golden64_merge``, score and
+    trace classes: trace flags stay int8, their encoding is
+    width-free)."""
     from parasail_rs_tpu.golden import model as golden
 
     qidx_all = _np(batch.qidx)
     ridx_all = _np(batch.ridx)
     prof = None if batch.profile is None else _np(batch.profile)
     table = None if batch.table is None else _np(batch.table)
-    out = {k: (np.array(v) if k in ("saturated", "promoted")
+    out = {k: (np.array(v) if v.dtype == np.int8
+               or k in ("saturated", "promoted")
                else v.astype(np.int64)) for k, v in out.items()}
     for b in idx.tolist():
         ql, rl = int(batch.qlen[b]), int(batch.rlen[b])
@@ -227,6 +233,9 @@ def _golden64_merge(out: dict, batch: PairBatch, idx: np.ndarray, *,
         out["end_query"][b] = g.end_query
         out["end_ref"][b] = g.end_ref
         out["saturated"][b] = False     # an int64 fill cannot saturate
+        if "trace_table" in out:
+            out["trace_table"][b] = 0
+            out["trace_table"][b, :ql, :rl] = g.trace_table
     return out
 
 
@@ -234,14 +243,14 @@ def plan_route(batch: PairBatch, outputs: str, gap_open: int,
                gap_extend: int) -> tuple[str, str]:
     """("cuda_kernel" | "torch_plain", reason) for a batch.
 
-    The route follows the batch's device; only the score class is
-    ported.  ``gap_open`` / ``gap_extend`` are accepted for the
+    The route follows the batch's device; the score and trace classes
+    are ported.  ``gap_open`` / ``gap_extend`` are accepted for the
     reference's signature: every penalty pair is exact on both routes.
     """
-    if outputs != "score":
+    if outputs not in ("score", "trace"):
         raise NotImplementedError(
             f"outputs={outputs!r} is not ported yet (ROADMAP Queue 2, "
-            "kernels K1b-K1d)")
+            "kernels K1c-K1d)")
     if batch.device.type == "cuda":
         return "cuda_kernel", ""
     if batch.device.type == "cpu":
@@ -249,14 +258,85 @@ def plan_route(batch: PairBatch, outputs: str, gap_open: int,
     raise ValueError(f"no route for device {batch.device}")
 
 
+def launch(batch: PairBatch, *, gap_open: int, gap_extend: int, mode: str,
+           free: tuple[bool, bool, bool, bool], outputs: str, width: str,
+           on_route=None) -> dict[str, torch.Tensor]:
+    """Route the batch and run the kernel over it; return its outputs as
+    tensors on the batch's device (``score_align``'s dict).
+    ``on_route(route, reason)`` is called with the routing decision."""
+    route, reason = plan_route(batch, outputs, gap_open, gap_extend)
+    ROUTE_COUNTS[(route, reason)] += 1
+    if on_route is not None:
+        on_route(route, reason)
+    if batch.table is not None:
+        subs = {"table": batch.table, "qidx": batch.qidx}
+    else:
+        subs = {"profile": batch.profile}
+    with stages.stage("dispatch"):
+        return score_align(batch.ridx, batch.qlen_t, batch.rlen_t,
+                           open_=gap_open, ext=gap_extend, mode=mode,
+                           free=free, width=width, outputs=outputs, **subs)
+
+
+_BOOLS = ("saturated", "promoted")
+
+
+class PendingResult:
+    """Per-pair results on their way to the host: one int32 (B, K) block
+    holding (B,) columns and, optionally, (B, L) uint8 rows packed four
+    to a word.  On a card the block is copied into pinned host memory
+    with ``non_blocking=True`` and a CUDA event marks the copy's end, so
+    several can be in flight while the host works; :meth:`fetch` waits
+    for the event and unpacks."""
+
+    def __init__(self, cols: dict[str, torch.Tensor],
+                 rows: torch.Tensor | None = None):
+        self.names = sorted(cols)
+        self.L = 0 if rows is None else int(rows.shape[1])
+        parts = [torch.stack([cols[k].to(torch.int32) for k in self.names],
+                             dim=1)] if self.names else []
+        if rows is not None:
+            B, L = rows.shape
+            words = torch.zeros((B, (L + 3) // 4 * 4), dtype=torch.uint8,
+                                device=rows.device)
+            words[:, :L] = rows
+            parts.append(words.view(torch.int32))
+        block = torch.cat(parts, dim=1)
+        self._event = None
+        if block.device.type == "cuda":
+            self._host = torch.empty(block.shape, dtype=torch.int32,
+                                     pin_memory=True)
+            self._host.copy_(block, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(block.device))
+        else:
+            self._host = block
+
+    def fetch(self) -> tuple[dict[str, np.ndarray], np.ndarray | None]:
+        """(host columns by name, host (B, L) uint8 rows or None)."""
+        with stages.stage("fetch"):
+            if self._event is not None:
+                self._event.synchronize()
+            host = self._host.numpy()
+        nn = len(self.names)
+        scal = np.ascontiguousarray(host[:, :nn].T)
+        out = {k: (scal[n] != 0 if k in _BOOLS else scal[n])
+               for n, k in enumerate(self.names)}
+        rows = (np.ascontiguousarray(host[:, nn:]).view(np.uint8)[:, :self.L]
+                if self.L else None)
+        return out, rows
+
+
 def execute(batch: PairBatch, *, gap_open: int, gap_extend: int, mode: str,
             free: tuple[bool, bool, bool, bool], outputs: str, width: str,
             on_route=None) -> dict[str, np.ndarray]:
-    """Run the score kernel over a batch; return host numpy results.
+    """Run the kernel over a batch; return host numpy results (the trace
+    class adds the (B, Qp, Rp) int8 ``trace_table``).
 
     ``width="64"`` runs the int32 kernel, then re-fills exactly in int64
-    (golden) every pair whose worst-case |H| bound does not fit int32.
-    ``on_route(route, reason)`` is called with every routing decision.
+    (golden) every pair whose worst-case |H| bound does not fit int32,
+    trace rows included.  ``on_route(route, reason)`` is called with
+    every routing decision.
     """
     if width == "64":
         wide = width64_risk(batch, gap_open, gap_extend)
@@ -271,24 +351,14 @@ def execute(batch: PairBatch, *, gap_open: int, gap_extend: int, mode: str,
             return _golden64_merge(out, batch, wide, gap_open=gap_open,
                                    gap_extend=gap_extend, mode=mode,
                                    free=free)
-    route, reason = plan_route(batch, outputs, gap_open, gap_extend)
-    ROUTE_COUNTS[(route, reason)] += 1
-    if on_route is not None:
-        on_route(route, reason)
-    if batch.table is not None:
-        subs = {"table": batch.table, "qidx": batch.qidx}
-    else:
-        subs = {"profile": batch.profile}
-    with stages.stage("dispatch"):
-        res = score_align(batch.ridx, batch.qlen_t, batch.rlen_t,
-                          open_=gap_open, ext=gap_extend, mode=mode,
-                          free=free, width=width, **subs)
-    names = sorted(res)
-    with stages.stage("fetch"):
-        packed = torch.stack([res[k].to(torch.int32) for k in names]).cpu()
-    packed = packed.numpy()
-    return {k: (packed[n] != 0 if k in ("saturated", "promoted")
-                else packed[n]) for n, k in enumerate(names)}
+    res = launch(batch, gap_open=gap_open, gap_extend=gap_extend, mode=mode,
+                 free=free, outputs=outputs, width=width, on_route=on_route)
+    trace = res.pop("trace_table", None)
+    out, _ = PendingResult(res).fetch()
+    if trace is not None:
+        with stages.stage("fetch"):
+            out["trace_table"] = trace.contiguous().cpu().numpy()
+    return out
 
 
 def slice_pair(out: dict, b: int, qlen: int, rlen: int) -> dict:

@@ -6,10 +6,13 @@ of the sources and the flags, so a stale library is never loaded after
 an edit.  The compiler writes a temporary file that ``os.replace`` moves
 into place, so a concurrent process never loads a partial library.
 
-No lock is held while ``nvcc`` runs, and no background thread builds
-ahead: the first caller pays the build (seconds; the sources include no
-PyTorch header), and two processes racing on a cold cache both compile
-and the second rename wins harmlessly.  A failed build raises.
+Each ``.cu`` compiles to an object in its own ``nvcc`` process, all
+started together, and one more ``nvcc`` links the objects.  No lock is
+held while ``nvcc`` runs, and no background thread builds ahead: the
+first caller pays the build (seconds; the sources include no PyTorch
+header), and two processes racing on a cold cache both compile and the
+second rename wins harmlessly.  A failed build raises.  ``BUILD_LOG``
+keeps what ``-Xptxas -v`` said of each kernel (registers, spills).
 """
 
 from __future__ import annotations
@@ -26,12 +29,14 @@ import time
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v")
 
 _lib = None
 _load_lock = threading.Lock()     # guards _lib only, never the compiler
 BUILD_SECONDS: float | None = None
+BUILD_LOG = ""
 
 
 def _reset_lock_after_fork() -> None:
@@ -80,27 +85,56 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libptscore-{_tag()}.so")
 
 
+def _run(procs) -> str:
+    """Wait for (cmd, Popen) pairs and return their joined output; raise
+    on a failure, and leave no compiler running."""
+    try:
+        outs = [(cmd, proc, proc.communicate(timeout=600)[0])
+                for cmd, proc in procs]
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for cmd, proc, out in outs:
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    return "".join(out for _, _, out in outs)
+
+
+def _start(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+
+
 def build() -> str:
     """Compile the kernels unless the library for these sources exists;
     return its path."""
-    global BUILD_SECONDS
+    global BUILD_SECONDS, BUILD_LOG
     final = library_path()
     if os.path.exists(final):
         return final
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{final}.tmp{os.getpid()}"
-    cus = [s for s in _sources() if s.endswith(".cu")]
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *cus]
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, final)
+    objs, compiles = [], []
+    for cu in (s for s in _sources() if s.endswith(".cu")):
+        obj = f"{tmp}.{os.path.basename(cu)}.o"
+        objs.append(obj)
+        compiles.append(_start([nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o",
+                                obj, cu]))
+    try:
+        log = _run(compiles)
+        log += _run([_start([nvcc, *ARCH, "-shared", "-o", tmp, *objs])])
+        os.replace(tmp, final)
+    finally:
+        for path in (*objs, tmp):
+            if os.path.exists(path):
+                os.unlink(path)
     BUILD_SECONDS = time.perf_counter() - t0
+    BUILD_LOG = log
     return final
 
 
@@ -115,7 +149,13 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(path)
             p, i = ctypes.c_void_p, ctypes.c_int
+            ll = ctypes.c_longlong
             lib.pt_scan_score.restype = i
             lib.pt_scan_score.argtypes = [p] * 8 + [i] * 9 + [p]
+            lib.pt_scan_trace.restype = i
+            lib.pt_scan_trace.argtypes = [p] * 9 + [i] * 9 + [p]
+            lib.pt_trace_walk.restype = i
+            lib.pt_trace_walk.argtypes = ([p] + [ll] * 3 + [p] * 6 +
+                                          [i] * 7 + [p])
             _lib = lib
     return _lib

@@ -1,15 +1,18 @@
-"""Score-only batched alignment: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""Batched alignment, score and trace classes: the CUDA kernel's wrapper
+and its plain PyTorch version.
 
 :func:`score_align` is the port of
 ``parasail_rs_tpu.ops.scan_kernel.scan_score_align`` in its score
-configuration (``outputs="score"``): one call aligns a padded batch and
-returns per-pair ``score``, ``end_query``, ``end_ref``, ``saturated``
-and, at width ``sat``, ``promoted``.  On CUDA tensors it launches the
-hand-written kernel in ``csrc/scan_score.cu`` (one thread per pair) and
-counts the launch in :data:`LAUNCHES`; on CPU tensors it runs
-:func:`score_align_plain`.  There is no fallback between the two: a
-build, launch or shape failure raises.
+configuration (``outputs="score"``) and its trace configuration
+(``outputs="trace"``): one call aligns a padded batch and returns
+per-pair ``score``, ``end_query``, ``end_ref``, ``saturated`` and, at
+width ``sat``, ``promoted``; the trace class adds ``trace_table``, the
+(B, Qp, Rp) int8 flags of every cell (zero outside each pair's
+qlen x rlen cells).  On CUDA tensors it launches the hand-written kernel
+in ``csrc/scan_score.cu`` (one thread per pair) and counts the launch in
+:data:`LAUNCHES` (score) or :data:`TRACE_LAUNCHES` (trace); on CPU
+tensors it runs :func:`score_align_plain`.  There is no fallback between
+the two: a build, launch or shape failure raises.
 
 The substitution scores come in one of two forms, as on the reference's
 two packers:
@@ -20,7 +23,9 @@ two packers:
   PSSMs).
 
 A letter outside [0, A) scores 0.  Scores are exact int32 at every
-width; the width only selects the saturation flags.
+width; the width only selects the saturation flags.  A pair with an
+empty side gets golden's end cell on the bordered grid (the reference's
+kernels disagree there; ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -29,15 +34,29 @@ import ctypes
 
 import torch
 
-from parasail_rs_tpu.constants import NEG_INF32, WIDTH_MAX, WIDTH_MIN
+from parasail_rs_tpu.constants import (
+    NEG_INF32,
+    TRACE_DEL,
+    TRACE_DEL_F,
+    TRACE_DIAG,
+    TRACE_DIAG_E,
+    TRACE_DIAG_F,
+    TRACE_INS,
+    TRACE_INS_E,
+    WIDTH_MAX,
+    WIDTH_MIN,
+)
 
 MODES = {"nw": 0, "sg": 1, "sw": 2}
 WIDTHS = ("sat", "8", "16", "32", "64")
+OUTPUTS = ("score", "trace")
 BIG = 2 ** 30
 
-# Launches of the CUDA kernel in this process.  Only score_align's CUDA
-# branch adds to it; set it to 0 to count one phase of work.
+# Launches of the CUDA kernel in this process, score and trace forms.
+# Only score_align's CUDA branch adds to them; set them to 0 to count one
+# phase of work.
 LAUNCHES = 0
+TRACE_LAUNCHES = 0
 
 
 def _free_bits(free) -> int:
@@ -45,12 +64,14 @@ def _free_bits(free) -> int:
     return qb | (qe << 1) | (db << 2) | (de << 3)
 
 
-def _check(ridx, qlen, rlen, table, qidx, profile, mode, width):
+def _check(ridx, qlen, rlen, table, qidx, profile, mode, width, outputs):
     """Validate the inputs; return (B, Bq, Qp, Rp, A)."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}")
     if width not in WIDTHS:
         raise ValueError(f"width {width!r}")
+    if outputs not in OUTPUTS:
+        raise ValueError(f"outputs {outputs!r}")
     if (table is None) == (profile is None):
         raise ValueError("give exactly one of table (with qidx) or profile")
     if table is not None and qidx is None:
@@ -106,43 +127,60 @@ def _outputs(score, eq, er, sat8, sat16, width) -> dict:
 
 
 def score_align(ridx, qlen, rlen, *, open_, ext, mode, free, width="32",
-                table=None, qidx=None, profile=None) -> dict:
-    """Align a padded batch, score class.
+                table=None, qidx=None, profile=None,
+                outputs="score") -> dict:
+    """Align a padded batch, score or trace class.
 
     ``ridx`` (B, Rp), ``qlen`` / ``rlen`` (B,), ``table`` (A, A) +
     ``qidx`` (1 or B, Qp), or ``profile`` (1 or B, Qp, A): all int32 on
     one device.  Returns int32 ``score`` / ``end_query`` / ``end_ref`` and
-    bool ``saturated`` (+ ``promoted`` at width ``sat``), on that device.
-    Lengths must not exceed the padded sizes.
+    bool ``saturated`` (+ ``promoted`` at width ``sat``), on that device;
+    ``outputs="trace"`` adds the int8 ``trace_table`` (B, Qp, Rp), on the
+    card a strided view of the kernel's (Qp, Rp, B) plane.  Lengths must
+    not exceed the padded sizes.
     """
     B, Bq, Qp, Rp, A = _check(ridx, qlen, rlen, table, qidx, profile, mode,
-                              width)
+                              width, outputs)
     if ridx.device.type == "cpu":
         return score_align_plain(ridx, qlen, rlen, open_=open_, ext=ext,
                                  mode=mode, free=free, width=width,
-                                 table=table, qidx=qidx, profile=profile)
+                                 table=table, qidx=qidx, profile=profile,
+                                 outputs=outputs)
     if ridx.device.type != "cuda":
         raise ValueError(f"no kernel for device {ridx.device}")
-    global LAUNCHES
+    global LAUNCHES, TRACE_LAUNCHES
     from . import _build
 
     lib = _build.load()
     dev = ridx.device
+    trace = outputs == "trace"
     scratch = torch.empty((2, max(Rp, 1), B), dtype=torch.int32, device=dev)
     out = torch.empty((5, B), dtype=torch.int32, device=dev)
+    plane = (torch.zeros((Qp, Rp, B), dtype=torch.int8, device=dev)
+             if trace else None)
     subs = table if table is not None else profile
     qptr = qidx.data_ptr() if table is not None else None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.pt_scan_score(
-            subs.data_ptr(), qptr, ridx.data_ptr(), qlen.data_ptr(),
+    args = (subs.data_ptr(), qptr, ridx.data_ptr(), qlen.data_ptr(),
             rlen.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(),
-            out.data_ptr(), B, Bq, Qp, Rp, A, int(open_), int(ext),
-            MODES[mode], _free_bits(free), ctypes.c_void_p(stream))
+            out.data_ptr())
+    dims = (B, Bq, Qp, Rp, A, int(open_), int(ext), MODES[mode],
+            _free_bits(free))
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        if trace:
+            rc = lib.pt_scan_trace(*args, plane.data_ptr(), *dims, stream)
+        else:
+            rc = lib.pt_scan_score(*args, *dims, stream)
     if rc != 0:
-        raise RuntimeError(f"scan_score kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
-    return _outputs(out[0], out[1], out[2], out[3] != 0, out[4] != 0, width)
+        raise RuntimeError(
+            f"scan_{outputs} kernel launch failed: CUDA error {rc}")
+    res = _outputs(out[0], out[1], out[2], out[3] != 0, out[4] != 0, width)
+    if trace:
+        TRACE_LAUNCHES += 1
+        res["trace_table"] = plane.permute(2, 0, 1)
+    else:
+        LAUNCHES += 1
+    return res
 
 
 def _substitution_rows(table, qidx, profile):
@@ -157,8 +195,8 @@ def _substitution_rows(table, qidx, profile):
 
 
 def score_align_plain(ridx, qlen, rlen, *, open_, ext, mode, free,
-                      width="32", table=None, qidx=None,
-                      profile=None) -> dict:
+                      width="32", table=None, qidx=None, profile=None,
+                      outputs="score") -> dict:
     """Plain PyTorch version of :func:`score_align`, same signature and
     outputs: a sweep over reference columns vectorised over (B, Qp), as
     the TPU kernel sweeps (scan_kernel.py:700-842, 1000-1101), in int32.
@@ -166,10 +204,11 @@ def score_align_plain(ridx, qlen, rlen, *, open_, ext, mode, free,
     Per column j: F from the previous column; Htemp = max(Hdiag + S, F)
     (clamped at 0 in SW); E by an exclusive cummax over the query axis of
     Htemp - open + e_ext*i, the closed form of the vertical recurrence
-    with slope e_ext = min(open, ext); H = max(Htemp, E).
+    with slope e_ext = min(open, ext); H = max(Htemp, E).  The trace
+    flags compare the same values as golden (scan_kernel.py:865-888).
     """
     B, Bq, Qp, Rp, A = _check(ridx, qlen, rlen, table, qidx, profile, mode,
-                              width)
+                              width, outputs)
     dev = ridx.device
     i32 = torch.int32
     open_, ext = int(open_), int(ext)
@@ -205,6 +244,7 @@ def score_align_plain(ridx, qlen, rlen, *, open_, ext, mode, free,
     hmax = torch.zeros((B,), dtype=i32, device=dev)
     hmin = torch.zeros((B,), dtype=i32, device=dev)
     bidx = torch.arange(B, device=dev)
+    flag_cols = []
 
     for j in range(Rp):
         r = ridx[:, j]
@@ -232,6 +272,10 @@ def score_align_plain(ridx, qlen, rlen, *, open_, ext, mode, free,
         H = torch.maximum(htemp, E)
 
         inseq = imask & (j < rlen_c)
+        if outputs == "trace":
+            flag_cols.append(torch.where(
+                inseq, _flags(hdiag + s, E, F, H, hprev, fprev, top(j + 1),
+                              open_, ext, local), zero).to(torch.int8))
         hm = torch.where(inseq, H, zero)
         hmax = torch.maximum(hmax, hm.amax(dim=1))
         hmin = torch.minimum(hmin, hm.amin(dim=1))
@@ -263,6 +307,61 @@ def score_align_plain(ridx, qlen, rlen, *, open_, ext, mode, free,
         eq, er = qlen - 1, rlen - 1
     else:
         eq, er = bi, bj
+    if not local:
+        best, eq, er = _empty_side(best, eq, er, qlen, rlen, Qp, Rp, border,
+                                   qb, qe and mode == "sg", db,
+                                   de and mode == "sg")
     sat8 = (hmax >= WIDTH_MAX["8"]) | (hmin <= WIDTH_MIN["8"])
     sat16 = (hmax >= WIDTH_MAX["16"]) | (hmin <= WIDTH_MIN["16"])
-    return _outputs(best, eq, er, sat8, sat16, width)
+    res = _outputs(best, eq, er, sat8, sat16, width)
+    if outputs == "trace":
+        res["trace_table"] = (torch.stack(flag_cols, dim=2) if Rp else
+                              torch.zeros((B, Qp, 0), dtype=torch.int8,
+                                          device=dev))
+    return res
+
+
+def _flags(diag, E, F, H, hprev, fprev, top_next, open_, ext, local):
+    """One column's trace flags (golden/model.py:166-211) from its
+    values: the cell above (H and E of row i - 1; the top border and -inf
+    on row 0) and the column to the left (``hprev`` / ``fprev``)."""
+    B = H.shape[0]
+    h_up = torch.cat([torch.full((B, 1), top_next, dtype=H.dtype,
+                                 device=H.device), H[:, :-1]], dim=1)
+    e_up = torch.cat([torch.full((B, 1), NEG_INF32, dtype=E.dtype,
+                                 device=E.device), E[:, :-1]], dim=1)
+    eflag = torch.where(h_up - open_ >= e_up - ext, TRACE_DIAG_E,
+                        TRACE_INS_E)
+    fflag = torch.where(hprev - open_ >= fprev - ext, TRACE_DIAG_F,
+                        TRACE_DEL_F)
+    hflag = torch.where((diag >= E) & (diag >= F), TRACE_DIAG,
+                        torch.where(E >= F, TRACE_INS, TRACE_DEL))
+    if local:
+        pre = torch.maximum(torch.maximum(diag, E), F)
+        hflag = torch.where(pre <= 0, 0, hflag)
+    return hflag | eflag | fflag
+
+
+def _empty_side(best, eq, er, qlen, rlen, Qp, Rp, border, qb, qe, db, de):
+    """Golden's end cell for the pairs with qlen == 0 or rlen == 0 (no
+    in-sequence cell): the best of the corner and, if qe (qlen == 0) or
+    de (rlen == 0), the other cells of the bordered grid's one line;
+    value desc, then position asc.  Both empty: 0 at (-1, -1)."""
+    def pick(n, P, is_free, end_free):
+        c = torch.arange(1, P + 1, dtype=torch.int32, device=n.device)
+        cand = (c[None] <= n[:, None]) & (end_free | (c[None] == n[:, None]))
+        v = torch.where(cand, border(c, is_free)[None], NEG_INF32)
+        top = v.amax(dim=1) if P else torch.full_like(n, NEG_INF32)
+        at = (torch.where(cand & (v == top[:, None]), c[None], P + 1)
+              .amin(dim=1) if P else torch.zeros_like(n))
+        return top, at - 1
+
+    q0, r0 = qlen == 0, rlen == 0
+    s_r, at_r = pick(rlen, Rp, qb, qe)      # qlen == 0: along the top row
+    s_q, at_q = pick(qlen, Qp, db, de)      # rlen == 0: along the left column
+    both = q0 & r0
+    best = torch.where(both, 0, torch.where(q0, s_r,
+                                            torch.where(r0, s_q, best)))
+    eq = torch.where(q0, -1, torch.where(r0, at_q, eq))
+    er = torch.where(r0, -1, torch.where(q0, at_r, er))
+    return best.to(torch.int32), eq.to(torch.int32), er.to(torch.int32)

@@ -1,0 +1,269 @@
+"""Batched traceback walk over trace-flag planes: the CUDA kernel's
+wrapper, its plain PyTorch version, and the opcode run-length encoders.
+
+:func:`device_walk` is the port of
+``parasail_rs_tpu.ops.trace_walk.device_walk`` (``_walk_impl``): every
+pair of a batch is walked back from its end cell through its (Qp, Rp)
+flag plane, and the walk's backward opcodes (``OP_*``) and begin cells
+come back, so the host fetches B * (Qp + Rp) opcode bytes instead of the
+B * Qp * Rp plane.  On CUDA tensors it launches the hand-written kernel
+in ``csrc/trace_walk.cu`` (one thread per pair, the state machine of
+``csrc/walk_step.cuh``) and counts the launch in :data:`LAUNCHES`; on
+CPU tensors it runs :func:`device_walk_plain`.  There is no fallback
+between the two: a build, launch or shape failure raises.
+
+``OP_*``, ``_OP_TO_CIGAR`` and the ``ops_to_runs*`` encoders are numpy
+only and copied from the reference module (which cannot be imported
+without jax); ``tests/test_torch_trace_walk.py`` holds them equal.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from parasail_rs_tpu.constants import (
+    TRACE_DEL,
+    TRACE_DIAG,
+    TRACE_DIAG_E,
+    TRACE_DIAG_F,
+    TRACE_H_BITS,
+    TRACE_INS,
+)
+
+# step opcodes emitted by the device walk (backward order)
+OP_NONE, OP_EQ, OP_X, OP_I, OP_D = 0, 1, 2, 3, 4
+# opcode -> parasail CIGAR op index in "MIDNSHP=XB" ('='=7, 'X'=8,
+# 'I'=1, 'D'=2); OP_NONE maps to 0 but is never encoded (stripped)
+_OP_TO_CIGAR = np.array([0, 7, 8, 1, 2], dtype=np.uint32)
+_ST_H, _ST_E, _ST_F, _ST_DONE = 0, 1, 2, 3
+
+# Launches of the CUDA walk in this process.  Only device_walk's CUDA
+# branch adds to it; set it to 0 to count one phase of work.
+LAUNCHES = 0
+
+
+def _walk_flags(mode: str, free) -> tuple[bool, bool, bool]:
+    """(local, qb, db): local mode walks with both begins free."""
+    local = mode == "sw"
+    qb, _qe, db, _de = (True,) * 4 if local else (bool(x) for x in free)
+    return local, qb, db
+
+
+def _check(trace, qsym, rsym, end_q, end_r):
+    """Validate the inputs; return (B, Bq, Qp, Rp)."""
+    dev = trace.device
+    for name, t, dtypes in (("trace", trace, (torch.int8,)),
+                            ("qsym", qsym, (torch.int32, torch.uint8)),
+                            ("rsym", rsym, (torch.int32, torch.uint8)),
+                            ("end_q", end_q, (torch.int32,)),
+                            ("end_r", end_r, (torch.int32,))):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name} must be {' or '.join(map(str, dtypes))}"
+                            f", got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, trace on {dev}")
+    if trace.dim() != 3:
+        raise ValueError(f"trace must be (B, Qp, Rp), got {tuple(trace.shape)}")
+    B, Qp, Rp = trace.shape
+    if qsym.dim() != 2 or qsym.shape[0] not in (1, B) or qsym.shape[1] != Qp:
+        raise ValueError(f"qsym must be (1 or B, {Qp}), got "
+                         f"{tuple(qsym.shape)}")
+    if rsym.shape != (B, Rp):
+        raise ValueError(f"rsym must be ({B}, {Rp}), got {tuple(rsym.shape)}")
+    if end_q.shape != (B,) or end_r.shape != (B,):
+        raise ValueError("end_q and end_r must be (B,)")
+    return B, qsym.shape[0], Qp, Rp
+
+
+def device_walk(trace, qsym, rsym, end_q, end_r, mode: str,
+                free: tuple[bool, bool, bool, bool]):
+    """Walk every pair's trace back from its end cell.
+
+    trace: (B, Qp, Rp) int8 flag plane, any strides (the trace kernel's
+           plane is a permuted view)
+    qsym:  (B or 1, Qp) query symbols, int32 or uint8 (raw bytes where
+           the batch has them: '=' against 'X' compares these)
+    rsym:  (B, Rp) reference symbols, of the same kind
+    end_q / end_r: (B,) int32 end cells (the kernel's scalars)
+
+    Returns (ops, beg_q, beg_r): ops is (B, Qp + Rp) uint8 opcodes in
+    BACKWARD order (step 0 = last alignment column), zero-padded after
+    the walk ends; beg_* are the (B,) int32 begin coordinates.
+    """
+    B, Bq, Qp, Rp = _check(trace, qsym, rsym, end_q, end_r)
+    if trace.device.type == "cpu":
+        return device_walk_plain(trace, qsym, rsym, end_q, end_r, mode, free)
+    if trace.device.type != "cuda":
+        raise ValueError(f"no kernel for device {trace.device}")
+    global LAUNCHES
+    from . import _build
+
+    lib = _build.load()
+    dev = trace.device
+    local, qb, db = _walk_flags(mode, free)
+    qsym = qsym.to(torch.int32).contiguous()
+    rsym = rsym.to(torch.int32).contiguous()
+    end_q, end_r = end_q.contiguous(), end_r.contiguous()
+    ops = torch.zeros((B, Qp + Rp), dtype=torch.uint8, device=dev)
+    beg = torch.empty((2, B), dtype=torch.int32, device=dev)
+    sb, si, sj = trace.stride()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.pt_trace_walk(
+            trace.data_ptr(), sb, si, sj, qsym.data_ptr(), rsym.data_ptr(),
+            end_q.data_ptr(), end_r.data_ptr(), ops.data_ptr(),
+            beg.data_ptr(), B, Bq, Qp, Rp, int(local), int(qb), int(db),
+            ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"trace_walk kernel launch failed: CUDA error {rc}")
+    LAUNCHES += 1
+    return ops, beg[0], beg[1]
+
+
+def device_walk_plain(trace, qsym, rsym, end_q, end_r, mode: str,
+                      free: tuple[bool, bool, bool, bool]):
+    """Plain PyTorch version of :func:`device_walk`, same signature and
+    outputs: ``_walk_impl``'s ``step`` (trace_walk.py:137-219) as torch
+    ops vectorised over the batch, run for Qp + Rp steps."""
+    B, _Bq, Qp, Rp = _check(trace, qsym, rsym, end_q, end_r)
+    dev = trace.device
+    i32 = torch.int32
+    local, qb, db = _walk_flags(mode, free)
+    qsym = qsym.to(i32).expand(B, Qp)
+    rsym = rsym.to(i32)
+    barange = torch.arange(B, device=dev)
+    i, j = end_q.to(i32), end_r.to(i32)
+    state = torch.zeros(B, dtype=i32, device=dev)
+    one, nil = torch.ones(B, dtype=i32, device=dev), torch.zeros(
+        B, dtype=i32, device=dev)
+
+    def pick(a, b, c):
+        return torch.where(state == _ST_H, a,
+                           torch.where(state == _ST_E, b, c))
+
+    steps = []
+    for _ in range(Qp + Rp):
+        ii, jj = i.clamp(0, Qp - 1).long(), j.clamp(0, Rp - 1).long()
+        t = trace[barange, ii, jj].to(i32)
+        qc, rc = qsym[barange, ii], rsym[barange, jj]
+        h = t & TRACE_H_BITS
+        diag, ins = (h & TRACE_DIAG) != 0, (h & TRACE_INS) != 0
+        del_ = (h & TRACE_DEL) != 0
+        e_open, f_open = (t & TRACE_DIAG_E) != 0, (t & TRACE_DIAG_F) != 0
+
+        # H state: diag, elif ins, elif del, else stop
+        h_stop = h == 0
+        op_h = torch.where(
+            h_stop, OP_NONE,
+            torch.where(diag, torch.where(qc == rc, OP_EQ, OP_X),
+                        torch.where(ins, OP_I, OP_D)))
+        ns_h = torch.where(
+            h_stop, _ST_DONE,
+            torch.where(diag, _ST_H,
+                        torch.where(ins, torch.where(e_open, _ST_H, _ST_E),
+                                    torch.where(f_open, _ST_H, _ST_F))))
+        di_h = torch.where(~h_stop & (diag | ins), one, nil)
+        dj_h = torch.where(~h_stop & (diag | del_), one, nil)
+        # E state: emit I, continue unless DIAG_E; F state: emit D
+        op = pick(op_h, torch.full_like(i, OP_I), torch.full_like(i, OP_D))
+        ns = pick(ns_h, torch.where(e_open, _ST_H, _ST_E),
+                  torch.where(f_open, _ST_H, _ST_F))
+        di = pick(di_h, one, nil)
+        dj = pick(dj_h, nil, one)
+
+        # boundary runs of penalised leading gaps once one index is out
+        going = state != _ST_DONE
+        live = going & (i >= 0) & (j >= 0)
+        ins_tail = going & (i >= 0) & (j < 0) & (not db and not local)
+        del_tail = going & (j >= 0) & (i < 0) & (not qb and not local)
+        op = torch.where(live, op, torch.where(
+            ins_tail, OP_I, torch.where(del_tail, OP_D, OP_NONE)))
+        ns = torch.where(live, ns, torch.where(ins_tail | del_tail, state,
+                                               _ST_DONE))
+        di = torch.where(live, di, torch.where(ins_tail, one, nil))
+        dj = torch.where(live, dj, torch.where(del_tail, one, nil))
+        i, j, state = i - di, j - dj, ns.to(i32)
+        steps.append(op.to(torch.uint8))
+    return torch.stack(steps, dim=1), i + 1, j + 1
+
+
+def ops_to_runs(ops_row: np.ndarray, merge_m: bool = False) -> np.ndarray:
+    """One pair's backward opcode row -> packed uint32 CIGAR runs
+    ((len << 4) | op, parasail codec constants.py)."""
+    n = int(np.count_nonzero(ops_row))
+    if n == 0:
+        return np.empty(0, np.uint32)
+    fwd = ops_row[:n][::-1].astype(np.uint32)
+    ops = _OP_TO_CIGAR[fwd]
+    if merge_m:
+        ops = np.where((ops == 7) | (ops == 8), np.uint32(0), ops)
+    bounds = np.flatnonzero(np.diff(ops)) + 1
+    starts = np.concatenate(([0], bounds))
+    ends = np.concatenate((bounds, [n]))
+    return ((ends - starts).astype(np.uint32) << 4) | ops[starts]
+
+
+def ops_to_runs_flat(ops: np.ndarray, merge_m: bool = False
+                     ) -> tuple[np.ndarray, np.ndarray]:
+    """Whole-batch run-length encode: (B, L) backward opcode rows ->
+    (flat packed uint32 CIGAR runs, per-pair run counts), in ONE
+    vectorized numpy pass.
+
+    Pair b's runs are the ``counts[:b].sum() : counts[:b+1].sum()``
+    slice of the flat array — identical values to per-pair
+    ops_to_runs(row, merge_m).  The per-pair loop costs ~16 us/pair of
+    numpy call overhead (8+ ms for a 512-pair batch, dwarfing the
+    <1 ms of actual work), which matters on the align_cigars serving
+    path (VERDICT r3 item 4).
+
+    The native single-pass encoder (native/ptwalk.cc::pt_rle_ops,
+    OpenMP) serves this when built — the numpy formulation below costs
+    ~38 ms on a (4096, 320) batch (five full-array passes), the single
+    C pass ~1-2 ms; the numpy path remains as the no-compiler fallback.
+    """
+    B, L = ops.shape
+    if B == 0:
+        return np.empty(0, np.uint32), np.empty(0, np.int64)
+    from parasail_rs_tpu.native import walker
+
+    native = walker.rle_ops(ops, merge_m)
+    if native is not None:
+        return native
+    ns = np.count_nonzero(ops, axis=1)          # walk emits a nonzero prefix
+    k = np.arange(L)
+    idx = ns[:, None] - 1 - k[None, :]          # reverse each prefix
+    fwd = ops[np.arange(B)[:, None], np.clip(idx, 0, L - 1)]
+    cig = _OP_TO_CIGAR[fwd.astype(np.uint32)]
+    if merge_m:
+        cig = np.where((cig == 7) | (cig == 8), np.uint32(0), cig)
+    live = idx >= 0
+    # run starts: first live column, plus every live op change
+    change = np.empty((B, L), bool)
+    change[:, 0] = live[:, 0]
+    change[:, 1:] = (cig[:, 1:] != cig[:, :-1]) & live[:, 1:]
+    sb, sk = np.nonzero(change)                 # sorted by (b, k)
+    if len(sb) == 0:
+        return np.empty(0, np.uint32), np.zeros(B, np.int64)
+    nxt = np.empty(len(sk), sk.dtype)
+    nxt[:-1] = sk[1:]
+    nxt[-1] = 0
+    same = np.empty(len(sb), bool)
+    same[:-1] = sb[1:] == sb[:-1]
+    same[-1] = False
+    ends = np.where(same, nxt, ns[sb])
+    packed = ((ends - sk).astype(np.uint32) << 4) | cig[sb, sk]
+    return packed, np.bincount(sb, minlength=B)
+
+
+def ops_to_runs_batch(ops: np.ndarray,
+                      merge_m: bool = False) -> list[np.ndarray]:
+    """Per-pair view of :func:`ops_to_runs_flat` (list of run arrays)."""
+    packed, counts = ops_to_runs_flat(ops, merge_m)
+    if len(counts) == 0:
+        return []
+    return np.split(packed, np.cumsum(counts)[:-1])

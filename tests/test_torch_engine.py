@@ -1,11 +1,13 @@
 """The port's public API on the CPU against the reference ``Aligner``.
 
 The same builder calls and byte sequences go through
-``parasail_rs_tpu_torch`` (``device="cpu"``: the plain PyTorch version of
-the score kernel) and through ``parasail_rs_tpu`` on its default route
+``parasail_rs_tpu_torch`` (``device="cpu"``: the plain PyTorch versions
+of the kernels) and through ``parasail_rs_tpu`` on its default route
 (the XLA wavefront here) and with ``PT_FORCE_PALLAS=1`` (the Pallas scan
 kernel in interpret mode).  Every accessor of the score class must agree
-exactly, and the port must report the route it took.
+exactly, and the port must report the route it took.  The trace class,
+``cigars`` and ``align_cigars`` are held to the reference the same way
+in ``test_torch_engine_trace.py``.
 """
 
 import numpy as np
@@ -216,7 +218,7 @@ def test_width64_refills_pairs_beyond_int32(monkeypatch):
 
 
 @pytest.mark.parametrize("setter", ["use_stats", "use_table",
-                                    "use_last_rowcol", "use_trace"])
+                                    "use_last_rowcol"])
 def test_non_score_builds_raise(setter):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         getattr(port.Aligner.new().device("cpu"), setter)().build()
@@ -224,8 +226,6 @@ def test_non_score_builds_raise(setter):
 
 @pytest.mark.parametrize("method,args", [
     ("align_many", ([b"AC"], [b"AC"])),
-    ("align_cigars", ([b"AC"], [b"AC"])),
-    ("cigars", ([], [b"AC"], [b"AC"])),
     ("banded_nw", (b"AC", b"AC")),
     ("banded_nw_batch", ([b"AC"], [b"AC"])),
     ("ssw", (b"AC", b"AC")),

@@ -1,10 +1,12 @@
-"""The CUDA kernel's own per-pair code, built for the host, against golden.
+"""The CUDA kernels' own per-pair code, built for the host, against golden.
 
-``csrc/score_cell.cuh`` holds the recurrence, end-cell tracker and
-saturation flags that ``csrc/scan_score.cu`` runs on the card.  Built
-with g++ through the small harness ``csrc/score_host.cc``, the same code
-runs here on numpy-seeded batches and must equal the golden oracle and
-the port's plain PyTorch version exactly.  Skips where g++ is missing.
+``csrc/score_cell.cuh`` holds the recurrence, end-cell tracker,
+saturation flags and trace flags that ``csrc/scan_score.cu`` runs on the
+card; ``csrc/walk_step.cuh`` the traceback state machine of
+``csrc/trace_walk.cu``.  Built with g++ through the small harness
+``csrc/score_host.cc``, the same code runs here on numpy-seeded batches
+and must equal the golden oracle, the JAX walk and the port's plain
+PyTorch versions exactly.  Skips where g++ is missing.
 """
 
 import ctypes
@@ -17,9 +19,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from parasail_rs_tpu.constants import cigar_runs_string  # noqa: E402
 from parasail_rs_tpu.golden import model as golden  # noqa: E402
+from parasail_rs_tpu.matrices import Matrix  # noqa: E402
 
 from parasail_rs_tpu_torch.ops import scan_kernel as tk  # noqa: E402
+from parasail_rs_tpu_torch.ops import trace_walk as tw  # noqa: E402
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "parasail_rs_tpu_torch", "csrc")
@@ -39,6 +44,10 @@ def host_lib(tmp_path_factory):
     lib = ctypes.CDLL(str(out))
     lib.pt_score_host.restype = ctypes.c_int
     lib.pt_score_host.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+    lib.pt_trace_host.restype = ctypes.c_int
+    lib.pt_trace_host.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+    lib.pt_walk_host.restype = ctypes.c_int
+    lib.pt_walk_host.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
     return lib
 
 
@@ -120,3 +129,113 @@ def test_host_kernel_profile_form_and_saturation(host_lib):
     np.testing.assert_array_equal(out[3] != 0, plain["promoted"].numpy())
     np.testing.assert_array_equal(out[4] != 0, plain["saturated"].numpy())
     assert (out[4] != 0).any() and not (out[4] != 0).all()
+
+
+def run_host_trace(lib, *, ridx, qlen, rlen, open_, ext, mode, free, table,
+                   qidx):
+    """The trace form: ((5, B) scalars, (B, Qp, Rp) flags)."""
+    B, Rp = ridx.shape
+    Bq, Qp = qidx.shape
+    out = np.zeros((5, B), np.int32)
+    plane = np.zeros((B, Qp, Rp), np.int8)
+    arrs = [np.ascontiguousarray(a, np.int32)
+            for a in (table, qidx, ridx, qlen, rlen)]
+    lib.pt_trace_host(*(a.ctypes.data for a in arrs), out.ctypes.data,
+                      plane.ctypes.data, B, Bq, Qp, Rp, table.shape[0], open_,
+                      ext, MODES[mode], tk._free_bits(free))
+    return out, plane
+
+
+def run_host_walk(lib, plane, qsym, rsym, end_q, end_r, mode, free):
+    B, Qp, Rp = plane.shape
+    local, qb, db = tw._walk_flags(mode, free)
+    ops = np.zeros((B, Qp + Rp), np.uint8)
+    beg = np.zeros((2, B), np.int32)
+    arrs = [np.ascontiguousarray(plane, np.int8)] + [
+        np.ascontiguousarray(a, np.int32) for a in (qsym, rsym, end_q, end_r)]
+    lib.pt_walk_host(*(a.ctypes.data for a in arrs), ops.ctypes.data,
+                     beg.ctypes.data, B, qsym.shape[0], Qp, Rp, int(local),
+                     int(qb), int(db))
+    return ops, beg
+
+
+def ragged(rng, B, Qp, Rp, A, minlen):
+    table = rng.integers(-5, 7, size=(A, A)).astype(np.int32)
+    qlen = rng.integers(minlen, Qp + 1, size=B).astype(np.int32)
+    rlen = rng.integers(minlen, Rp + 1, size=B).astype(np.int32)
+    qidx = np.full((B, Qp), -1, np.int32)
+    ridx = np.zeros((B, Rp), np.int32)
+    for b in range(B):
+        qidx[b, :qlen[b]] = rng.integers(0, A, size=qlen[b])
+        ridx[b, :rlen[b]] = rng.integers(0, A, size=rlen[b])
+    return dict(table=table, qidx=qidx, ridx=ridx, qlen=qlen, rlen=rlen)
+
+
+@pytest.mark.parametrize("open_,ext", [(11, 1), (5, 2), (1, 3), (0, 0),
+                                       (2, 2)])
+@pytest.mark.parametrize("mode", ["nw", "sg", "sw"])
+def test_host_trace_and_walk_match_golden_and_plain(host_lib, mode, open_,
+                                                    ext):
+    rng = np.random.default_rng(hash(("trace", mode, open_, ext)) % 2 ** 32)
+    case = ragged(rng, 20, 24, 25, 5, 0 if mode != "sw" else 1)
+    t = {k: torch.from_numpy(v) for k, v in case.items()}
+    for free in (FREES if mode == "sg" else [FREES[mode == "sw"]]):
+        out, plane = run_host_trace(host_lib, open_=open_, ext=ext,
+                                    mode=mode, free=free, **case)
+        plain = tk.score_align_plain(
+            t["ridx"], t["qlen"], t["rlen"], open_=open_, ext=ext,
+            mode=mode, free=free, table=t["table"], qidx=t["qidx"],
+            outputs="trace")
+        np.testing.assert_array_equal(plane, plain["trace_table"].numpy())
+        for k, row in (("score", 0), ("end_query", 1), ("end_ref", 2)):
+            np.testing.assert_array_equal(out[row], plain[k].numpy())
+        ops, beg = run_host_walk(host_lib, plane, case["qidx"],
+                                 case["ridx"], out[1], out[2], mode, free)
+        p_ops, p_bq, p_br = tw.device_walk_plain(
+            plain["trace_table"], t["qidx"], t["ridx"], plain["end_query"],
+            plain["end_ref"], mode, free)
+        np.testing.assert_array_equal(ops, p_ops.numpy())
+        np.testing.assert_array_equal(beg, np.stack([p_bq, p_br]))
+        for b in range(len(case["qlen"])):
+            ql, rl = case["qlen"][b], case["rlen"][b]
+            sub = case["table"][case["qidx"][b, :ql][:, None],
+                                case["ridx"][b, :rl][None, :]]
+            g = golden.align(sub.astype(np.int64), np.zeros_like(sub, bool),
+                             open_, ext, mode, free)
+            np.testing.assert_array_equal(plane[b, :ql, :rl], g.trace_table)
+            assert tuple(out[:3, b]) == (g.score, g.end_query, g.end_ref)
+            w = golden.walk_trace(
+                g.trace_table, bytes(case["qidx"][b, :ql].astype(np.uint8)),
+                bytes(case["ridx"][b, :rl].astype(np.uint8)), g.end_query,
+                g.end_ref, mode, free)
+            assert cigar_runs_string(tw.ops_to_runs(ops[b])) == \
+                w.cigar_string(), (free, b)
+            assert tuple(beg[:, b]) == (w.beg_query, w.beg_ref)
+
+
+@pytest.mark.parametrize("mode", ["nw", "sg", "sw"])
+def test_host_kernel_empty_side_pairs_follow_golden(host_lib, mode):
+    # qlen == 0 or rlen == 0: golden's end cell on the bordered grid
+    m = Matrix.default()
+    qs = [b"", b"ACGT", b"ACGTACGTACGTACGTACGTACGTACGTAC", b""]
+    rs = [b"ACGT", b"", b"ACGTAC", b""]
+    Qp = Rp = 32
+    qidx = np.full((4, Qp), -1, np.int32)
+    ridx = np.zeros((4, Rp), np.int32)
+    for b, (q, r) in enumerate(zip(qs, rs)):
+        qidx[b, :len(q)] = m.encode(q)
+        ridx[b, :len(r)] = m.encode(r)
+    kw = dict(ridx=ridx, qlen=np.array([len(q) for q in qs], np.int32),
+              rlen=np.array([len(r) for r in rs], np.int32), open_=5, ext=2,
+              mode=mode, table=m.data.astype(np.int32), qidx=qidx)
+    for free in (FREES if mode == "sg" else [FREES[mode == "sw"]]):
+        score = run_host(host_lib, free=free, **kw)
+        trace, _plane = run_host_trace(host_lib, free=free, **kw)
+        for b, (q, r) in enumerate(zip(qs, rs)):
+            if mode == "sw" and not (q and r):
+                want = (0, 0, 0)    # golden's empty local alignment
+            else:
+                g = golden.align_seqs(q, r, m, 5, 2, mode, free)
+                want = (g.score, g.end_query, g.end_ref)
+            assert tuple(score[:3, b]) == want, (free, b)
+            assert tuple(trace[:3, b]) == want, (free, b)
