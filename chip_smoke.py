@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the kernels from ``parasail_rs_tpu_torch/csrc`` with nvcc and
-runs nine phases on ``cuda``; any failure raises and the script exits
+runs thirteen phases on ``cuda``; any failure raises and the script exits
 non-zero without printing a result:
 
 1. build: the library's path, build time and each kernel's registers;
@@ -43,7 +43,31 @@ non-zero without printing a result:
 9. timings of the trace path: trace kernel, walk kernel and their plain
    versions at cfg4b's shape, ``align_cigars`` end to end with its stage
    clocks and at one chunk of 4,096 pairs, ``use_trace()`` +
-   ``cigars()`` end to end, and the peak device memory.
+   ``cigars()`` end to end, and the peak device memory;
+10. stats and plane forms vs plain: the kernel's stats, table,
+   stats_table, rowcol and stats_rowcol classes against their plain
+   version (the wavefront) on phase 2's small batches (with query letters
+   beside the profile forms), on the empty-side pairs (which must also
+   equal golden's payloads), on bench.py's stats headline (the headline
+   profile with letters from numpy seed 3, SW 11/1, width sat) and on 512
+   BLOSUM62 pairs of 1-192 residues: exact equality of the scalars and of
+   every plane cell;
+11. the stats, table and rowcol path through the public API:
+   ``use_stats()`` + ``align_batch`` of phase 3's 8,192 SW pairs,
+   ``semi_global().use_stats()`` on cfg4b's 4,096 pairs at 11/1 and at
+   2/2, ``use_last_rowcol()`` with and without stats on the 8,192 pairs
+   and ``use_table()`` with and without stats on 512 of them.  Launches
+   are counted from zero over this phase only; every new form must
+   launch, every route must be "cuda_kernel", and every result must equal
+   the plain version's;
+12. golden: 16 sampled pairs of each phase-11 case against golden's
+   stats, tables, rows and columns;
+13. timings: the stats kernel and its plain version at the headline (and
+   the score kernel beside it, and the stats kernel on 2,048 of its
+   pairs), each plane form and its plain version at the 512-pair batch,
+   ``use_stats()`` ``align_batch`` of the 8,192 pairs with its stage
+   clocks, SG stats on cfg4b's pairs, and the peak device memory of the
+   table phase.
 
 The line before the last is the card's name and power limit, the one
 before it a JSON summary of every kernel; the last line is
@@ -89,6 +113,10 @@ def random_seqs(rng, alphabet: bytes, n: int, lo: int, hi: int) -> list:
     lens = rng.integers(lo, hi + 1, size=n)
     body = alpha[rng.integers(0, len(alpha), size=(n, hi))]
     return [body[k, :lens[k]].tobytes() for k in range(n)]
+
+
+PLANE_CLASSES = ("stats", "table", "stats_table", "rowcol", "stats_rowcol")
+STATS_CLASSES = ("stats", "stats_table", "stats_rowcol")
 
 
 def max_abs_diff(a: dict, b: dict) -> int:
@@ -479,6 +507,8 @@ def main() -> int:
 
     trace = trace_path(torch, pt, tk, tw, dispatch, golden, stages, rng,
                        blosum, card)
+    planes = stats_path(torch, pt, tk, tw, dispatch, golden, stages, rng,
+                        blosum, card, (qs, rs), trace["cfg4b"])
 
     print(json.dumps({"kernels": [{
         "name": "scan_score_align",
@@ -501,7 +531,13 @@ def main() -> int:
         "source": "parasail_rs_tpu_torch/csrc/trace_walk.cu",
         "replaces": "parasail_rs_tpu/ops/trace_walk.py:122",
         **trace["walk"],
-    }]}), flush=True)
+    }] + [{
+        "name": f"scan_score_align ({cls})",
+        "route": "cuda",
+        "source": "parasail_rs_tpu_torch/csrc/scan_score.cu",
+        "replaces": "parasail_rs_tpu/ops/scan_kernel.py:1453",
+        **planes[cls],
+    } for cls in PLANE_CLASSES]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -642,7 +678,236 @@ def trace_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum,
     return {"trace": {"launches": trace_launches, "max_abs_err": errs[0],
                       "ms": t_ms, "plain_ms": t_plain},
             "walk": {"launches": walk_launches, "max_abs_err": errs[1],
-                     "ms": w_ms, "plain_ms": w_plain}}
+                     "ms": w_ms, "plain_ms": w_plain},
+            "cfg4b": (q4b, r4b)}
+
+
+def with_letters(torch, rng, subs, outputs):
+    """The stats classes compare query letters: give a profile form
+    seeded letters beside its rows (the table form has them)."""
+    if outputs not in STATS_CLASSES or "qidx" in subs:
+        return subs
+    prof = subs["profile"]
+    q = rng.integers(0, prof.shape[2], size=prof.shape[:2]).astype(np.int32)
+    return {**subs, "qidx": torch.from_numpy(q).to(prof.device)}
+
+
+def check_api_against_plain(tk, dispatch, name, aligner, alignments, qs,
+                            rs) -> None:
+    """Every output of every alignment equals the plain version's on the
+    batch the aligner packs; raises on the first difference."""
+    batch, qlens, rlens = aligner._pack(qs, rs)
+    subs = ({"table": batch.table, "qidx": batch.qidx}
+            if batch.table is not None else {"profile": batch.profile})
+    if aligner.key.outputs in STATS_CLASSES:
+        subs["qidx"] = batch.qidx
+    plain = tk.score_align_plain(
+        batch.ridx, batch.qlen_t, batch.rlen_t, open_=aligner.gap_open,
+        ext=aligner.gap_extend, mode=aligner.key.mode, free=aligner.key.free,
+        width={"64": "32"}.get(aligner.key.width, aligner.key.width),
+        outputs=aligner.key.outputs, **subs)
+    plain = {k: v.cpu().numpy() for k, v in plain.items()}
+    for b, a in enumerate(alignments):
+        want = dispatch.slice_pair(plain, b, qlens[b], rlens[b])
+        for k, v in want.items():
+            if not np.array_equal(np.asarray(a.fields[k]), v):
+                raise AssertionError(f"{name}: pair {b} {k} differs from "
+                                     f"the plain version")
+
+
+def golden_views(a, g) -> list:
+    """(API result, golden) pairs of every output the result's class has."""
+    views = [((a.get_score(), a.get_end_query(), a.get_end_ref()),
+              (g.score, g.end_query, g.end_ref))]
+    if a.is_stats():
+        views.append(((a.get_matches(), a.get_similar(), a.get_length()),
+                      (g.matches, g.similar, g.length)))
+    names = ("score", "matches", "similar", "length")[
+        :4 if a.is_stats() else 1]
+    for n in names:
+        if a.is_table() or a.is_stats_table():
+            views.append((a.fields[f"{n}_table"].tolist(),
+                          getattr(g, f"{n}_table").tolist()))
+        if a.is_rowcol() or a.is_stats_rowcol():
+            views.append((a.fields[f"{n}_row"].tolist(),
+                          getattr(g, f"{n}_row").tolist()))
+            views.append((a.fields[f"{n}_col"].tolist(),
+                          getattr(g, f"{n}_col").tolist()))
+    return views
+
+
+def stats_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum,
+               card, sw_pairs, cfg4b) -> dict:
+    """Phases 10-13, the stats, table and rowcol classes; returns each
+    new form's launches, error and times."""
+    dev = torch.device("cuda")
+    errs = dict.fromkeys(PLANE_CLASSES, 0)
+
+    def check(cls, name, args, kw):
+        errs[cls] = max(errs[cls], compare(torch, tk, f"{cls} {name}", args,
+                                           {**kw, "outputs": cls}))
+
+    # -- 10. stats and plane forms vs plain --------------------------------------
+    for cls in PLANE_CLASSES:
+        small = small_cases(rng, torch, dev)
+        for name, (args, subs), kw in small:
+            check(cls, name, args, {**kw, **with_letters(torch, rng, subs,
+                                                         cls)})
+        log(f"[10 stats/planes vs plain] {cls}: {len(small)} small batches "
+            "equal")
+    m = pt.Matrix.default()
+    for name, (args, subs), kw, _want in empty_side_cases(torch, dev):
+        for cls in PLANE_CLASSES:
+            check(cls, name, args, {**kw, **subs})
+        out = tk.score_align(*args, **kw, **subs, outputs="stats")
+        keys = ("score", "end_query", "end_ref", "matches", "similar",
+                "length")
+        for b, (q, r) in enumerate(zip(EMPTY_QS, EMPTY_RS)):
+            got = tuple(int(out[k][b]) for k in keys)
+            if kw["mode"] == "sw" and not (q and r):
+                want = (0,) * 6
+            else:
+                g = golden.align_seqs(q, r, m, 5, 2, kw["mode"], kw["free"])
+                want = tuple(getattr(g, k) for k in keys)
+            if got != want:
+                raise AssertionError(f"{name} pair {b}: kernel stats {got} "
+                                     f"!= golden {want}")
+        log(f"[10 stats/planes vs plain] {name}: every class equal, stats "
+            "equal to golden")
+    head_args, head_kw = headline_inputs(torch, dev)
+    hb, hq, ha = head_kw["profile"].shape
+    head_q = np.random.default_rng(3).integers(
+        0, ha, size=(hb, hq)).astype(np.int32)       # bench.py:621-624
+    head_kw = {**head_kw, "qidx": torch.from_numpy(head_q).to(dev),
+               "outputs": "stats"}
+    errs["stats"] = max(errs["stats"], compare(torch, tk, "stats headline",
+                                               head_args, head_kw))
+    log("[10 stats/planes vs plain] bench.py stats headline B=8192 "
+        "Qp=Rp=160 A=25 SW 11/1 sat: equal")
+    tq = random_seqs(rng, PROTEIN, 512, 1, 192)
+    tr = random_seqs(rng, PROTEIN, 512, 1, 192)
+    tab_al = pt.Aligner.new().matrix(blosum).gap_open(11).gap_extend(1) \
+        .local().build()
+    tb, _, _ = tab_al._pack(tq, tr)
+    tab_args = (tb.ridx, tb.qlen_t, tb.rlen_t)
+    tab_kw = dict(open_=11, ext=1, mode="sw", free=(True,) * 4, width="sat",
+                  table=tb.table, qidx=tb.qidx)
+    for cls in PLANE_CLASSES[1:]:
+        check(cls, "512 BLOSUM62 pairs of 1-192", tab_args, tab_kw)
+    log(f"[10 stats/planes vs plain] 512 BLOSUM62 pairs of 1-192 residues "
+        f"(Qp={tb.qidx.shape[1]}, Rp={tb.ridx.shape[1]}): every plane class "
+        f"equal")
+
+    # -- 11. the main path through the public API --------------------------------
+    qs, rs = sw_pairs
+    q4b, r4b = cfg4b
+
+    def sw():
+        return pt.Aligner.new().matrix(blosum).gap_open(11).gap_extend(1) \
+            .local()
+
+    def sg(gap_open, gap_extend):
+        return pt.Aligner.new().matrix(blosum).semi_global() \
+            .gap_open(gap_open).gap_extend(gap_extend).use_stats().build()
+
+    n = len(qs)
+    cases = [
+        (f"use_stats SW {n}", sw().use_stats().build(), qs, rs),
+        (f"SG use_stats cfg4b {len(q4b)} 11/1", sg(11, 1), q4b, r4b),
+        (f"SG use_stats cfg4b {len(q4b)} 2/2", sg(2, 2), q4b, r4b),
+        (f"use_last_rowcol SW {n}", sw().use_last_rowcol().build(), qs, rs),
+        (f"use_last_rowcol + stats SW {n}",
+         sw().use_last_rowcol().use_stats().build(), qs, rs),
+        ("use_table SW 512", sw().use_table().build(), qs[:512], rs[:512]),
+        ("use_table + stats SW 512", sw().use_table().use_stats().build(),
+         qs[:512], rs[:512]),
+    ]
+    dispatch.ROUTE_COUNTS.clear()
+    tk.LAUNCHES = tk.TRACE_LAUNCHES = tw.LAUNCHES = 0
+    tk.CLASS_LAUNCHES = dict.fromkeys(PLANE_CLASSES, 0)
+    results = [al.align_batch(q, r) for _, al, q, r in cases]
+    launches = dict(tk.CLASS_LAUNCHES)
+    routes = dict(dispatch.ROUTE_COUNTS)
+    log(f"[11 stats/planes path] launches={launches} (score {tk.LAUNCHES}, "
+        f"trace {tk.TRACE_LAUNCHES}, walk {tw.LAUNCHES}) routes={routes}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a new form did not launch: {launches}")
+    bad = [n for n, al, _, _ in cases
+           if set(al.route_counter) != {("cuda_kernel", "")}]
+    if set(routes) != {("cuda_kernel", "")} or bad:
+        raise AssertionError(f"left the kernel route: {routes} {bad}")
+    for (name, al, q, r), res in zip(cases, results):
+        check_api_against_plain(tk, dispatch, name, al, res, q, r)
+    log("[11 stats/planes path] " + ", ".join(n for n, *_ in cases) +
+        ": all on cuda_kernel, equal to plain")
+
+    # -- 12. golden -------------------------------------------------------------------
+    for (name, al, q, r), res in zip(cases, results):
+        for b in rng.choice(len(q), size=16, replace=False).tolist():
+            g = golden.align_seqs(q[b], r[b], blosum, al.gap_open,
+                                  al.gap_extend, al.key.mode, al.key.free)
+            for got, want in golden_views(res[b], g):
+                if got != want:
+                    raise AssertionError(f"{name} pair {b}: {got} != golden "
+                                         f"{want}")
+        log(f"[12 golden] {name}: 16 sampled pairs equal to golden")
+
+    # -- 13. timings -----------------------------------------------------------------
+    score_kw = {k: v for k, v in head_kw.items() if k not in ("qidx",
+                                                              "outputs")}
+    st_ms = time_cuda(torch, lambda: tk.score_align(*head_args, **head_kw))
+    sc_ms = time_cuda(torch, lambda: tk.score_align(*head_args, **score_kw))
+    st_plain = time_cuda(torch, lambda: tk.score_align_plain(
+        *head_args, **head_kw), reps=3, warmup=1)
+    sub = tuple(a[:2048] for a in head_args)
+    sub_kw = {**head_kw, "profile": head_kw["profile"][:2048],
+              "qidx": head_kw["qidx"][:2048]}
+    st_2048 = time_cuda(torch, lambda: tk.score_align(*sub, **sub_kw))
+    sc_2048 = time_cuda(torch, lambda: tk.score_align(
+        *sub, **{k: v for k, v in sub_kw.items()
+                 if k not in ("qidx", "outputs")}))
+    times = {"stats": (st_ms, st_plain)}
+    torch.cuda.reset_peak_memory_stats()
+    for cls in PLANE_CLASSES[1:]:
+        kw = {**tab_kw, "outputs": cls}
+        times[cls] = (
+            time_cuda(torch, lambda: tk.score_align(*tab_args, **kw)),
+            time_cuda(torch, lambda: tk.score_align_plain(*tab_args, **kw),
+                      reps=3, warmup=1))
+    tab_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    stats_al = cases[0][1]
+    e2e_ms = time_host(lambda: stats_al.align_batch(qs, rs))
+    with stages.measuring():
+        for _ in range(5):
+            stats_al.align_batch(qs, rs)
+        snap = stages.snapshot()
+    per_call = {k: v["ms"] / v["calls"] for k, v in snap.items()}
+    sg_ms = time_host(lambda: cases[1][1].align_batch(q4b, r4b))
+    sg22_ms = time_host(lambda: cases[2][1].align_batch(q4b, r4b))
+    torch.cuda.reset_peak_memory_stats()
+    tab_e2e = time_host(lambda: cases[6][1].align_batch(qs[:512], rs[:512]),
+                        reps=3)
+    api_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    log(f"[13 timing] card: {card}")
+    log(f"[13 timing] headline B=8192 Qp=Rp=160 SW 11/1 sat: stats kernel "
+        f"median {st_ms} ms ({8192 / st_ms * 1e3} aln/s), plain {st_plain} "
+        f"ms; score kernel on the same inputs {sc_ms} ms; on 2,048 of the "
+        f"pairs stats {st_2048} ms, score {sc_2048} ms [{card}]")
+    for cls in PLANE_CLASSES[1:]:
+        log(f"[13 timing] {cls} kernel on the 512-pair batch median "
+            f"{times[cls][0]} ms, plain {times[cls][1]} ms [{card}]")
+    log(f"[13 timing] peak device memory of the plane timings {tab_peak} "
+        f"MiB; use_table + stats align_batch of 512 pairs e2e median "
+        f"{tab_e2e} ms, peak {api_peak} MiB [{card}]")
+    log(f"[13 timing] use_stats align_batch SW BLOSUM62 {n} pairs e2e "
+        f"median {e2e_ms} ms ({n / e2e_ms * 1e3} aln/s); stages, ms per "
+        f"call: {json.dumps(per_call)} [{card}]")
+    log(f"[13 timing] SG use_stats cfg4b {len(q4b)} pairs e2e median {sg_ms} "
+        f"ms ({len(q4b) / sg_ms * 1e3} aln/s) at 11/1, {sg22_ms} ms at 2/2 "
+        f"[{card}]")
+    return {cls: {"launches": launches[cls], "max_abs_err": errs[cls],
+                  "ms": times[cls][0], "plain_ms": times[cls][1]}
+            for cls in PLANE_CLASSES}
 
 
 if __name__ == "__main__":

@@ -1,11 +1,12 @@
 """parasail_rs_tpu_torch: the PyTorch + CUDA port of ``parasail_rs_tpu``.
 
 Same public surface and the same outputs, bit for bit, as the JAX
-package, which stays beside it as the reference.  On a CUDA device the
-score-only path runs a hand-written kernel (``csrc/scan_score.cu``, built
-with ``nvcc`` on first use); on the CPU it runs the kernel's plain
-PyTorch version.  Only the score-only output class is ported so far
-(see ROADMAP.md).
+package, which stays beside it as the reference.  On a CUDA device ``align`` /
+``align_batch`` and ``align_cigars`` run hand-written kernels
+(``csrc/*.cu``, built with ``nvcc`` on first use); on the CPU they run
+the kernels' plain PyTorch versions.  Every output class (score, stats,
+table, rowcol, trace) is ported; ``align_many``, ``banded_nw*`` and
+``ssw*`` are not yet (see ROADMAP.md).
 
 The package imports ``torch`` and never ``jax``.
 """

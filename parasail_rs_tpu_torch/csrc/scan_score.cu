@@ -1,36 +1,47 @@
-// Batched alignment kernel for Hopper (sm_90a), score and trace classes.
+// Batched alignment kernel for Hopper (sm_90a), every output class.
 //
-// Replaces: parasail_rs_tpu/ops/scan_kernel.py::scan_score_align in its
-// score class (outputs="score") and its trace class (outputs="trace"; the
-// pallas_call at scan_kernel.py:1453 over the body _make_kernel, flags at
-// :865-888).  Same outputs: score, end_query, end_ref and the width-8/16
-// saturation flags, bit for bit, for NW, the nine SG free-end sets and
-// SW, with the substitution given as an (A, A) table plus query letters
-// or as (1 or B, Qp, A) profile rows; the trace class adds each cell's
-// int8 flags.
+// Replaces: parasail_rs_tpu/ops/scan_kernel.py::scan_score_align (the
+// pallas_call at scan_kernel.py:1453 over the body _make_kernel) in its
+// score class (outputs="score"), its trace class (outputs="trace"; flags
+// at :865-888), its stats class (outputs="stats"; payloads at :844-863,
+// outputs at :1489-1496) and its plane classes (outputs="table",
+// "stats_table", "rowcol", "stats_rowcol"; :979-999, :1498-1519).  Same
+// outputs: score, end_query, end_ref and the width-8/16 saturation
+// flags, bit for bit, for NW, the nine SG free-end sets and SW, with the
+// substitution given as an (A, A) table plus query letters or as (1 or
+// B, Qp, A) profile rows; the trace class adds each cell's int8 flags,
+// the stats classes matches / similar / length along the winning path,
+// the table classes every cell's H (and payload), the rowcol classes the
+// last row's and the last column's.
 //
 // Design: one thread per pair (inter-task).  Each thread sweeps its own
 // qlen x rlen cells row by row with the literal Gotoh recurrence of
 // score_cell.cuh, so per-pair loop bounds and the integer tie rules need
 // no masking and no cross-thread communication.  One row of H and E per
 // pair lives in global scratch laid out [Rp][B], so the 32 threads of a
-// warp, which sweep in step, touch 32 neighbouring words.  The (A, A)
+// warp, which sweep in step, touch 32 neighbouring words; the stats forms
+// add six such rows (H's and E's matches / similar / length) and keep the
+// diagonal's, the left cell's and F's payloads in registers.  The (A, A)
 // table sits in shared memory; profile rows and reference letters are
 // read from global memory and stay in L1 across a row.  The trace plane
-// is laid out [Qp][Rp][B] for the same reason: a warp's 32 flag bytes of
-// one cell land in one 32-byte sector.  The wrapper hands it on as a
-// (B, Qp, Rp) strided view, which the traceback walk reads in place.
+// and the table planes are laid out [Qp][Rp][B], the last row [Rp][B]
+// and the last column [Qp][B], for the same reason: a warp's 32 values of
+// one cell are neighbours.  The wrapper hands them on as strided (B, Qp,
+// Rp), (B, Rp) and (B, Qp) views, which the traceback walk reads in
+// place.
 //
 // What bounds it on this card: with one thread per pair an 8,192-pair
 // batch fills only about two warps per SM, so the sweep is bound by the
 // latency of the dependent cell chain and of the scratch loads, not by
 // bandwidth or by integer throughput (the 2 x 4 bytes of scratch traffic
 // per cell stay in the 50 MB L2 at that size; the trace class adds one
-// byte per cell, written and never read back by the sweep).  The design's
-// answer is to keep the chain short (one max-plus cell per step, the
-// loads of the next cell independent of the current one) and to leave
-// intra-pair parallelism, DPX max-plus instructions and a fused
-// byte-to-letter map to later versions.
+// byte per cell, written and never read back by the sweep; the stats
+// classes 6 x 4 bytes more, read and written, which at 8,192 x 192 fill
+// about the whole L2; a table class writes 4 or 16 bytes per cell).  The
+// design's answer is to keep the chain short (one max-plus cell per step,
+// the loads of the next cell independent of the current one) and to leave
+// intra-pair parallelism, DPX max-plus instructions, packed payloads and a
+// fused byte-to-letter map to later versions.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -38,7 +49,7 @@
 
 namespace {
 
-template <bool kTrace>
+template <int32_t kOut>
 __global__ void scan_kernel(
     const int32_t* __restrict__ subs,  // (A, A) table or (Bq, Qp, A) rows
     const int32_t* __restrict__ qidx,  // (Bq, Qp) letters; null: profile form
@@ -47,10 +58,14 @@ __global__ void scan_kernel(
     const int32_t* __restrict__ rlen,  // (B,)
     int32_t* __restrict__ hrow,        // (Rp, B) scratch
     int32_t* __restrict__ erow,        // (Rp, B) scratch
-    int32_t* __restrict__ out,         // (5, B): score, eq, er, sat8, sat16
-    int8_t* __restrict__ trace,        // kTrace: (Qp, Rp, B) flags
+    int32_t* __restrict__ out,         // (5 or 8, B): score, eq, er, sat8,
+                                       // sat16 (, matches, similar, length)
+    int8_t* __restrict__ trace,        // OUT_TRACE: (Qp, Rp, B) flags
     int32_t B, int32_t Bq, int32_t Qp, int32_t Rp, int32_t A, int32_t open,
-    int32_t ext, int32_t mode, int32_t free_bits, int32_t table_in_smem) {
+    int32_t ext, int32_t mode, int32_t free_bits, int32_t table_in_smem,
+    ptscore::PlaneIO io,               // the batch's rows and planes
+    int32_t Bm) {                      // stats: io.mq is (Bm, Qp)
+  using O = ptscore::Out<kOut>;
   extern __shared__ int32_t smem[];
   const int32_t* table = subs;
   if (table_in_smem) {
@@ -60,25 +75,47 @@ __global__ void scan_kernel(
   }
   const int32_t b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const ptscore::PairResult r = ptscore::score_batch_pair<kTrace>(
+  ptscore::PlaneIO p;                  // pair b's view of io
+  if constexpr (O::stats) {
+    p.mq = io.mq + (Bm == 1 ? 0 : (int64_t)b * Qp);
+    p.pay = io.pay + b;
+    p.pay_plane = io.pay_plane;
+  }
+  if constexpr (O::table) {
+    p.table = io.table + b;
+    p.tab_plane = io.tab_plane;
+  }
+  if constexpr (O::rowcol) {
+    p.row = io.row + b;
+    p.row_plane = io.row_plane;
+    p.col = io.col + b;
+    p.col_plane = io.col_plane;
+  }
+  const ptscore::PairResult r = ptscore::score_batch_pair<kOut>(
       b, subs, table, qidx, ridx, qlen, rlen, hrow + b, erow + b,
       (int64_t)B, Bq, Qp, Rp, A, open, ext, mode, free_bits,
-      kTrace ? trace + b : nullptr, (int64_t)Rp * B, (int64_t)B);
+      O::trace ? trace + b : nullptr, (int64_t)Rp * B, (int64_t)B, p);
   out[b] = r.score;
   out[B + b] = r.end_query;
   out[2 * B + b] = r.end_ref;
   out[3 * B + b] = r.sat8;
   out[4 * B + b] = r.sat16;
+  if constexpr (O::stats) {
+    out[5 * B + b] = r.matches;
+    out[6 * B + b] = r.similar;
+    out[7 * B + b] = r.length;
+  }
 }
 
 constexpr int kThreads = 64;
 constexpr size_t kStaticSmemLimit = 48 * 1024;
 
-template <bool kTrace>
+template <int32_t kOut>
 int launch(const void* subs, const void* qidx, const void* ridx,
            const void* qlen, const void* rlen, void* hrow, void* erow,
            void* out, void* trace, int B, int Bq, int Qp, int Rp, int A,
-           int open, int ext, int mode, int free_bits, void* stream) {
+           int open, int ext, int mode, int free_bits, void* stream,
+           const ptscore::PlaneIO& io = ptscore::PlaneIO(), int Bm = 0) {
   if (B <= 0) return 0;
   size_t smem = 0;
   int in_smem = 0;
@@ -87,11 +124,11 @@ int launch(const void* subs, const void* qidx, const void* ridx,
     in_smem = 1;
   }
   const int blocks = (B + kThreads - 1) / kThreads;
-  scan_kernel<kTrace><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+  scan_kernel<kOut><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
       (const int32_t*)subs, (const int32_t*)qidx, (const int32_t*)ridx,
       (const int32_t*)qlen, (const int32_t*)rlen, (int32_t*)hrow,
       (int32_t*)erow, (int32_t*)out, (int8_t*)trace, B, Bq, Qp, Rp, A, open,
-      ext, mode, free_bits, in_smem);
+      ext, mode, free_bits, in_smem, io, Bm);
   return (int)cudaGetLastError();
 }
 
@@ -106,9 +143,9 @@ extern "C" int pt_scan_score(const void* subs, const void* qidx,
                              void* out, int B, int Bq, int Qp, int Rp, int A,
                              int open, int ext, int mode, int free_bits,
                              void* stream) {
-  return launch<false>(subs, qidx, ridx, qlen, rlen, hrow, erow, out,
-                       nullptr, B, Bq, Qp, Rp, A, open, ext, mode, free_bits,
-                       stream);
+  return launch<ptscore::OUT_SCORE>(subs, qidx, ridx, qlen, rlen, hrow, erow,
+                                    out, nullptr, B, Bq, Qp, Rp, A, open, ext,
+                                    mode, free_bits, stream);
 }
 
 // pt_scan_score plus the (Qp, Rp, B) int8 flag plane `trace`, of which
@@ -119,6 +156,60 @@ extern "C" int pt_scan_trace(const void* subs, const void* qidx,
                              void* out, void* trace, int B, int Bq, int Qp,
                              int Rp, int A, int open, int ext, int mode,
                              int free_bits, void* stream) {
-  return launch<true>(subs, qidx, ridx, qlen, rlen, hrow, erow, out, trace,
-                      B, Bq, Qp, Rp, A, open, ext, mode, free_bits, stream);
+  return launch<ptscore::OUT_TRACE>(subs, qidx, ridx, qlen, rlen, hrow, erow,
+                                    out, trace, B, Bq, Qp, Rp, A, open, ext,
+                                    mode, free_bits, stream);
+}
+
+// The stats, table and rowcol classes (out_class 2-6, ptscore::OutClass).
+// Beyond pt_scan_score's arguments:
+//   mq:      stats classes: (Bm, Qp) query letters for `matches` (the
+//            profile form has no other letters)
+//   scratch: (2, Rp, B) rows H and E, or (8, Rp, B) with the payload rows
+//   out:     (5, B), or (8, B) with matches, similar, length
+//   planes:  table classes: (1 or 4, Qp, Rp, B) score (, matches, similar,
+//            length) of every in-sequence cell
+//   row/col: rowcol classes: (1 or 4, Rp, B) last row, (1 or 4, Qp, B)
+//            last column
+// The caller zero-fills the planes, rows and columns; cells outside a
+// pair's qlen x rlen are never written.  An unknown class returns
+// cudaErrorInvalidValue.
+extern "C" int pt_scan_outputs(int out_class, const void* subs,
+                               const void* qidx, const void* mq,
+                               const void* ridx, const void* qlen,
+                               const void* rlen, void* scratch, void* out,
+                               void* planes, void* row, void* col, int B,
+                               int Bq, int Bm, int Qp, int Rp, int A,
+                               int open, int ext, int mode, int free_bits,
+                               void* stream) {
+  const int64_t rows = (int64_t)Rp * B;
+  int32_t* sc = (int32_t*)scratch;
+  ptscore::PlaneIO io;
+  io.mq = (const int32_t*)mq;
+  io.pay = sc + 2 * rows;
+  io.pay_plane = rows;
+  io.table = (int32_t*)planes;
+  io.tab_plane = (int64_t)Qp * rows;
+  io.row = (int32_t*)row;
+  io.row_plane = rows;
+  io.col = (int32_t*)col;
+  io.col_plane = (int64_t)Qp * B;
+#define PT_LAUNCH(k)                                                       \
+  launch<k>(subs, qidx, ridx, qlen, rlen, sc, sc + rows, out, nullptr, B,  \
+            Bq, Qp, Rp, A, open, ext, mode, free_bits, stream, io, Bm)
+  switch (out_class) {
+    case ptscore::OUT_STATS:
+      return PT_LAUNCH(ptscore::OUT_STATS);
+    case ptscore::OUT_TABLE:
+      return PT_LAUNCH(ptscore::OUT_TABLE);
+    case ptscore::OUT_STATS_TABLE:
+      return PT_LAUNCH(ptscore::OUT_STATS_TABLE);
+    case ptscore::OUT_ROWCOL:
+      return PT_LAUNCH(ptscore::OUT_ROWCOL);
+    case ptscore::OUT_STATS_ROWCOL:
+      return PT_LAUNCH(ptscore::OUT_STATS_ROWCOL);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef PT_LAUNCH
 }

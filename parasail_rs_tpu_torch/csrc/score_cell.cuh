@@ -23,13 +23,29 @@
 // golden's candidate on the bordered grid's one line (the top row when
 // qlen == 0, the left column when rlen == 0), see empty_side().
 //
-// The trace form (kTrace) also writes each cell's flags hflag | eflag |
+// The trace form (OUT_TRACE) also writes each cell's flags hflag | eflag |
 // fflag, bit for bit with golden/model.py:166-211: eflag DIAG_E when
 // H[i-1][j] - open >= E[i-1][j] - ext (else INS_E), fflag DIAG_F when
 // H[i][j-1] - open >= F[i][j-1] - ext (else DEL_F), hflag DIAG when the
 // unclamped diagonal is >= E and >= F, else INS when E >= F, else DEL;
 // in SW a cell with max(diag, E, F) <= 0 gets hflag 0 and keeps its E
 // and F bits.  The score form compiles without any of it.
+//
+// The stats forms (OUT_STATS, OUT_STATS_TABLE, OUT_STATS_ROWCOL) carry
+// golden's payloads (matches, similar, length; golden/model.py:152-209)
+// beside H, E and F: E's from the cell above and F's from the cell to
+// the left, each by the same >= open-against-extend comparison that picks
+// the value (length + 1); H takes the diagonal's (m + (q == r), s +
+// (S > 0), l + 1) when diag >= E and diag >= F, else E's when E >= F,
+// else F's; in SW a cell with max(diag, E, F) <= 0 zeroes its payload.
+// The top border row carries (0, 0, qb ? 0 : j), the left column (0, 0,
+// db ? 0 : i), E above row 0 and F left of column 0 carry 0.  The end
+// cell's payload is the output.  `matches` compares mapped letters, not
+// bytes.  The table forms write every in-sequence cell's H (after the SW
+// clamp) and, with stats, its payload; the rowcol forms write the cells
+// of the last row and the last column.  No form writes outside a pair's
+// qlen x rlen cells.  Because every value and payload follows golden's
+// literal comparisons, open < ext and open == ext need nothing special.
 //
 // All arithmetic is exact int32 with NEG_INF32 = -2^30 as minus infinity,
 // so NEG_INF32 - open - ext cannot wrap.
@@ -65,12 +81,56 @@ constexpr int32_t TRACE_INS = 1, TRACE_DEL = 2, TRACE_DIAG = 4;
 constexpr int32_t TRACE_DIAG_E = 8, TRACE_INS_E = 16;
 constexpr int32_t TRACE_DIAG_F = 32, TRACE_DEL_F = 64;
 
+// Output classes, in the order of ops/scan_kernel.py's OUTPUTS.
+enum OutClass : int32_t {
+  OUT_SCORE = 0,
+  OUT_TRACE = 1,
+  OUT_STATS = 2,
+  OUT_TABLE = 3,
+  OUT_STATS_TABLE = 4,
+  OUT_ROWCOL = 5,
+  OUT_STATS_ROWCOL = 6,
+};
+
+// What a form computes beyond the score.
+template <int32_t kOut>
+struct Out {
+  static constexpr bool trace = kOut == OUT_TRACE;
+  static constexpr bool stats = kOut == OUT_STATS ||
+                                kOut == OUT_STATS_TABLE ||
+                                kOut == OUT_STATS_ROWCOL;
+  static constexpr bool table = kOut == OUT_TABLE || kOut == OUT_STATS_TABLE;
+  static constexpr bool rowcol = kOut == OUT_ROWCOL ||
+                                 kOut == OUT_STATS_ROWCOL;
+};
+
+// One pair's state and outputs beyond the H and E rows and the trace
+// plane.  Plane k of a table, row or column is 0 score, 1 matches,
+// 2 similar, 3 length.  Element j of a payload row or of the last row,
+// and element i of the last column, sits at [j * stride] / [i * stride],
+// as in the H and E rows; a table cell (i, j) at [i * tsi + j * tsj], as
+// in the trace plane.
+struct PlaneIO {
+  const int32_t* mq = nullptr;   // stats: the query letters of `matches`
+  int32_t* pay = nullptr;        // stats: rows H m/s/l, E m/s/l
+  int64_t pay_plane = 0;
+  int32_t* table = nullptr;      // table forms
+  int64_t tab_plane = 0;
+  int32_t* row = nullptr;        // rowcol forms: the last row
+  int64_t row_plane = 0;
+  int32_t* col = nullptr;        // rowcol forms: the last column
+  int64_t col_plane = 0;
+};
+
 struct PairResult {
   int32_t score;
   int32_t end_query;
   int32_t end_ref;
   int32_t sat8;
   int32_t sat16;
+  int32_t matches;
+  int32_t similar;
+  int32_t length;
 };
 
 PT_HD int32_t imax(int32_t a, int32_t b) { return a > b ? a : b; }
@@ -113,11 +173,12 @@ PT_HD int32_t cell_trace(int32_t h_diag, int32_t h_up, int32_t e_up,
 
 // End cell of a non-local pair with qlen == 0 or rlen == 0 (golden's
 // candidates, value desc then (i, j) asc): the corner, plus the top row's
-// cells if qe (qlen == 0) or the left column's if de (rlen == 0).
+// cells if qe (qlen == 0) or the left column's if de (rlen == 0).  Its
+// payload is (0, 0, the characters consumed, or 0 on a free border).
 PT_HD PairResult empty_side(int32_t qlen, int32_t rlen, int32_t open,
                             int32_t ext, bool qb, bool qe, bool db,
                             bool de) {
-  PairResult out{0, qlen - 1, rlen - 1, 0, 0};
+  PairResult out{0, qlen - 1, rlen - 1, 0, 0, 0, 0, 0};
   const int32_t n = qlen == 0 ? rlen : qlen;
   const bool is_free = qlen == 0 ? qb : db;
   const bool end_free = qlen == 0 ? qe : de;
@@ -132,6 +193,7 @@ PT_HD PairResult empty_side(int32_t qlen, int32_t rlen, int32_t open,
   if (n > 0) {
     out.score = best;
     if (qlen == 0) out.end_ref = at - 1; else out.end_query = at - 1;
+    out.length = is_free ? 0 : at;
   }
   return out;
 }
@@ -145,14 +207,19 @@ PT_HD PairResult empty_side(int32_t qlen, int32_t rlen, int32_t open,
 //   ridx:   the pair's reference letters.
 //   hrow, erow: H and E of the previous row, element j at [j * stride].
 //   qp:     padded query length (the SG end row before any candidate).
-//   trace:  kTrace only: cell (i, j)'s flags go to trace[i * tsi + j * tsj].
-template <bool kTrace>
+//   trace:  OUT_TRACE only: cell (i, j)'s flags go to trace[i * tsi +
+//           j * tsj]; the table forms write their planes at the same
+//           strides.
+//   io:     the stats, table and rowcol forms' rows and planes.
+template <int32_t kOut>
 PT_HD PairResult score_pair(const int32_t* rows, const int32_t* qidx,
                             int32_t A, const int32_t* ridx, int32_t qlen,
                             int32_t rlen, int32_t qp, int32_t* hrow,
                             int32_t* erow, int64_t stride, int32_t open,
                             int32_t ext, int32_t mode, int32_t free_bits,
-                            int8_t* trace, int64_t tsi, int64_t tsj) {
+                            int8_t* trace, int64_t tsi, int64_t tsj,
+                            const PlaneIO& io) {
+  using O = Out<kOut>;
   const bool local = mode == MODE_SW;
   const bool qb = local || (free_bits & FREE_QB);
   const bool db = local || (free_bits & FREE_DB);
@@ -161,15 +228,29 @@ PT_HD PairResult score_pair(const int32_t* rows, const int32_t* qidx,
   if (!local && (qlen == 0 || rlen == 0))
     return empty_side(qlen, rlen, open, ext, qb, qe, db, de);
 
+  // payload rows: H's (m, s, l) and E's (m, s, l) of the previous row
+  int32_t* const HM = io.pay;
+  int32_t* const HS = io.pay + io.pay_plane;
+  int32_t* const HL = io.pay + 2 * io.pay_plane;
+  int32_t* const EM = io.pay + 3 * io.pay_plane;
+  int32_t* const ES = io.pay + 4 * io.pay_plane;
+  int32_t* const EL = io.pay + 5 * io.pay_plane;
+
   // row "-1": the bordered top row H[0][j+1], E = -inf
   for (int32_t j = 0; j < rlen; ++j) {
     hrow[j * stride] = border(j + 1, qb, open, ext);
     erow[j * stride] = NEG_INF32;
+    if constexpr (O::stats) {
+      const int64_t o = j * stride;
+      HM[o] = HS[o] = EM[o] = ES[o] = EL[o] = 0;
+      HL[o] = qb ? 0 : j + 1;
+    }
   }
 
   int32_t best = local ? 0 : NEG_INF32;
   int32_t bi = local ? 0 : qp;
   int32_t bj = local ? 0 : BIG;
+  int32_t bm = 0, bs = 0, bl = 0;
   int32_t hmax = 0, hmin = 0;
 
   for (int32_t i = 0; i < qlen; ++i) {
@@ -184,17 +265,102 @@ PT_HD PairResult score_pair(const int32_t* rows, const int32_t* qidx,
     int32_t h_diag = border(i, db, open, ext);      // H[i][0] (bordered)
     int32_t h_left = border(i + 1, db, open, ext);  // H[i+1][0]
     int32_t f = NEG_INF32;
+    // stats: payloads of the diagonal, the cell to the left and F
+    int32_t dm = 0, ds = 0, dl = db ? 0 : i;
+    int32_t lm = 0, ls = 0, ll = db ? 0 : i + 1;
+    int32_t fm = 0, fs = 0, fl = 0;
+    int32_t mqi = 0;
+    if constexpr (O::stats) mqi = io.mq[i];
     for (int32_t j = 0; j < rlen; ++j) {
       const int32_t r = ridx[j];
       const int32_t s = (qok && r >= 0 && r < A) ? srow[r] : 0;
       const int32_t h_up = hrow[j * stride];
       const int32_t e_up = erow[j * stride];
       int32_t h, e;
-      if constexpr (kTrace) {
+      int32_t hm = 0, hs = 0, hl = 0;
+      if constexpr (O::trace) {
         trace[i * tsi + j * tsj] = (int8_t)cell_trace(
             h_diag, h_up, e_up, h_left, s, open, ext, local, f, h, e);
+      } else if constexpr (O::stats) {
+        // all six payload loads issue together, beside H's and E's, so
+        // a cell waits for one round trip to the rows, not two
+        const int64_t o = j * stride;
+        const int32_t um = HM[o], us = HS[o], ul = HL[o];
+        const int32_t pm = EM[o], ps = ES[o], pl = EL[o];
+        const int32_t e_open = h_up - open, e_ext = e_up - ext;
+        const int32_t f_open = h_left - open, f_ext = f - ext;
+        e = imax(e_open, e_ext);
+        f = imax(f_open, f_ext);
+        const int32_t diag = h_diag + s;
+        const int32_t v = imax(imax(diag, e), f);
+        h = local ? imax(v, 0) : v;
+        const bool e_opens = e_open >= e_ext;
+        const int32_t em = e_opens ? um : pm;
+        const int32_t es = e_opens ? us : ps;
+        const int32_t el = (e_opens ? ul : pl) + 1;
+        if (f_open >= f_ext) {
+          fm = lm;
+          fs = ls;
+          fl = ll;
+        }
+        fl += 1;
+        if (diag >= e && diag >= f) {
+          hm = dm + (mqi == r ? 1 : 0);
+          hs = ds + (s > 0 ? 1 : 0);
+          hl = dl + 1;
+        } else if (e >= f) {
+          hm = em;
+          hs = es;
+          hl = el;
+        } else {
+          hm = fm;
+          hs = fs;
+          hl = fl;
+        }
+        if (local && v <= 0) hm = hs = hl = 0;
+        HM[o] = hm;
+        HS[o] = hs;
+        HL[o] = hl;
+        EM[o] = em;
+        ES[o] = es;
+        EL[o] = el;
+        dm = um;
+        ds = us;
+        dl = ul;
+        lm = hm;
+        ls = hs;
+        ll = hl;
       } else {
         cell(h_diag, h_up, e_up, h_left, s, open, ext, local, f, h, e);
+      }
+      if constexpr (O::table) {
+        const int64_t t = i * tsi + j * tsj;
+        io.table[t] = h;
+        if constexpr (O::stats) {
+          io.table[io.tab_plane + t] = hm;
+          io.table[2 * io.tab_plane + t] = hs;
+          io.table[3 * io.tab_plane + t] = hl;
+        }
+      }
+      if constexpr (O::rowcol) {
+        if (last_row) {
+          const int64_t t = j * stride;
+          io.row[t] = h;
+          if constexpr (O::stats) {
+            io.row[io.row_plane + t] = hm;
+            io.row[2 * io.row_plane + t] = hs;
+            io.row[3 * io.row_plane + t] = hl;
+          }
+        }
+        if (j == rlen - 1) {
+          const int64_t t = i * stride;
+          io.col[t] = h;
+          if constexpr (O::stats) {
+            io.col[io.col_plane + t] = hm;
+            io.col[2 * io.col_plane + t] = hs;
+            io.col[3 * io.col_plane + t] = hl;
+          }
+        }
       }
       hrow[j * stride] = h;
       erow[j * stride] = e;
@@ -207,6 +373,11 @@ PT_HD PairResult score_pair(const int32_t* rows, const int32_t* qidx,
         best = h;
         bi = i;
         bj = j;
+        if constexpr (O::stats) {
+          bm = hm;
+          bs = hs;
+          bl = hl;
+        }
       }
     }
   }
@@ -217,6 +388,9 @@ PT_HD PairResult score_pair(const int32_t* rows, const int32_t* qidx,
   out.end_ref = mode == MODE_NW ? rlen - 1 : bj;
   out.sat8 = (hmax >= W8_MAX || hmin <= W8_MIN) ? 1 : 0;
   out.sat16 = (hmax >= W16_MAX || hmin <= W16_MIN) ? 1 : 0;
+  out.matches = bm;
+  out.similar = bs;
+  out.length = bl;
   return out;
 }
 
@@ -226,8 +400,9 @@ PT_HD PairResult score_pair(const int32_t* rows, const int32_t* qidx,
 //   subs:  the (A, A) table (table form) or (Bq, Qp, A) profile rows
 //   table: where to read the table from (subs, or a shared-memory copy)
 //   qidx:  (Bq, Qp) query letters; null selects the profile form
-//   trace: kTrace only: pair b's cell (0, 0), strides tsi and tsj
-template <bool kTrace>
+//   trace: OUT_TRACE only: pair b's cell (0, 0), strides tsi and tsj
+//   io:    pair b's rows and planes (its `mq` the pair's letters)
+template <int32_t kOut>
 PT_HD PairResult score_batch_pair(int32_t b, const int32_t* subs,
                                   const int32_t* table, const int32_t* qidx,
                                   const int32_t* ridx, const int32_t* qlen,
@@ -236,14 +411,15 @@ PT_HD PairResult score_batch_pair(int32_t b, const int32_t* subs,
                                   int32_t Qp, int32_t Rp, int32_t A,
                                   int32_t open, int32_t ext, int32_t mode,
                                   int32_t free_bits, int8_t* trace,
-                                  int64_t tsi, int64_t tsj) {
+                                  int64_t tsi, int64_t tsj,
+                                  const PlaneIO& io) {
   const int64_t bq = Bq == 1 ? 0 : b;
   const int32_t* rows = qidx ? table : subs + bq * Qp * A;
   const int32_t* q = qidx ? qidx + bq * Qp : nullptr;
-  return score_pair<kTrace>(rows, q, A, ridx + (int64_t)b * Rp,
-                            imin(qlen[b], Qp), imin(rlen[b], Rp), Qp, hrow,
-                            erow, stride, open, ext, mode, free_bits, trace,
-                            tsi, tsj);
+  return score_pair<kOut>(rows, q, A, ridx + (int64_t)b * Rp,
+                          imin(qlen[b], Qp), imin(rlen[b], Rp), Qp, hrow,
+                          erow, stride, open, ext, mode, free_bits, trace,
+                          tsi, tsj, io);
 }
 
 }  // namespace ptscore

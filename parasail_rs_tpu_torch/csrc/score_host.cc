@@ -12,22 +12,46 @@
 
 namespace {
 
-template <bool kTrace>
+template <int32_t kOut>
 void sweep(const int32_t* subs, const int32_t* qidx, const int32_t* ridx,
            const int32_t* qlen, const int32_t* rlen, int32_t* out,
            int8_t* trace, int B, int Bq, int Qp, int Rp, int A, int open,
-           int ext, int mode, int free_bits) {
-  std::vector<int32_t> hrow(Rp > 0 ? Rp : 1), erow(Rp > 0 ? Rp : 1);
+           int ext, int mode, int free_bits, const ptscore::PlaneIO& io,
+           int Bm) {
+  using O = ptscore::Out<kOut>;
+  const int n = Rp > 0 ? Rp : 1;
+  std::vector<int32_t> hrow(n), erow(n), pay(6 * n);
   for (int b = 0; b < B; ++b) {
-    const ptscore::PairResult r = ptscore::score_batch_pair<kTrace>(
+    ptscore::PlaneIO p;               // pair b's view of io, stride 1
+    if constexpr (O::stats) {
+      p.mq = io.mq + (Bm == 1 ? 0 : (int64_t)b * Qp);
+      p.pay = pay.data();
+      p.pay_plane = n;
+    }
+    if constexpr (O::table) {
+      p.table = io.table + (int64_t)b * Qp * Rp;
+      p.tab_plane = io.tab_plane;
+    }
+    if constexpr (O::rowcol) {
+      p.row = io.row + (int64_t)b * Rp;
+      p.row_plane = io.row_plane;
+      p.col = io.col + (int64_t)b * Qp;
+      p.col_plane = io.col_plane;
+    }
+    const ptscore::PairResult r = ptscore::score_batch_pair<kOut>(
         b, subs, subs, qidx, ridx, qlen, rlen, hrow.data(), erow.data(), 1,
         Bq, Qp, Rp, A, open, ext, mode, free_bits,
-        kTrace ? trace + (int64_t)b * Qp * Rp : nullptr, Rp, 1);
+        O::trace ? trace + (int64_t)b * Qp * Rp : nullptr, Rp, 1, p);
     out[b] = r.score;
     out[B + b] = r.end_query;
     out[2 * B + b] = r.end_ref;
     out[3 * B + b] = r.sat8;
     out[4 * B + b] = r.sat16;
+    if constexpr (O::stats) {
+      out[5 * B + b] = r.matches;
+      out[6 * B + b] = r.similar;
+      out[7 * B + b] = r.length;
+    }
   }
 }
 
@@ -40,8 +64,9 @@ extern "C" int pt_score_host(const int32_t* subs, const int32_t* qidx,
                              const int32_t* rlen, int32_t* out, int B, int Bq,
                              int Qp, int Rp, int A, int open, int ext,
                              int mode, int free_bits) {
-  sweep<false>(subs, qidx, ridx, qlen, rlen, out, nullptr, B, Bq, Qp, Rp, A,
-               open, ext, mode, free_bits);
+  sweep<ptscore::OUT_SCORE>(subs, qidx, ridx, qlen, rlen, out, nullptr, B,
+                            Bq, Qp, Rp, A, open, ext, mode, free_bits,
+                            ptscore::PlaneIO(), 0);
   return 0;
 }
 
@@ -52,9 +77,54 @@ extern "C" int pt_trace_host(const int32_t* subs, const int32_t* qidx,
                              const int32_t* rlen, int32_t* out, int8_t* trace,
                              int B, int Bq, int Qp, int Rp, int A, int open,
                              int ext, int mode, int free_bits) {
-  sweep<true>(subs, qidx, ridx, qlen, rlen, out, trace, B, Bq, Qp, Rp, A,
-              open, ext, mode, free_bits);
+  sweep<ptscore::OUT_TRACE>(subs, qidx, ridx, qlen, rlen, out, trace, B, Bq,
+                            Qp, Rp, A, open, ext, mode, free_bits,
+                            ptscore::PlaneIO(), 0);
   return 0;
+}
+
+// The stats, table and rowcol classes (out_class 2-6): pt_scan_outputs's
+// arguments minus the scratch and the stream, with batch-major planes the
+// caller zero-fills: `out` (8, B), `planes` (4, B, Qp, Rp), `row`
+// (4, B, Rp), `col` (4, B, Qp).  Returns -1 for an unknown class.
+extern "C" int pt_outputs_host(int out_class, const int32_t* subs,
+                               const int32_t* qidx, const int32_t* mq,
+                               const int32_t* ridx, const int32_t* qlen,
+                               const int32_t* rlen, int32_t* out,
+                               int32_t* planes, int32_t* row, int32_t* col,
+                               int B, int Bq, int Bm, int Qp, int Rp, int A,
+                               int open, int ext, int mode, int free_bits) {
+  ptscore::PlaneIO io;
+  io.mq = mq;
+  io.table = planes;
+  io.tab_plane = (int64_t)B * Qp * Rp;
+  io.row = row;
+  io.row_plane = (int64_t)B * Rp;
+  io.col = col;
+  io.col_plane = (int64_t)B * Qp;
+#define PT_SWEEP(k)                                                        \
+  sweep<k>(subs, qidx, ridx, qlen, rlen, out, nullptr, B, Bq, Qp, Rp, A,   \
+           open, ext, mode, free_bits, io, Bm)
+  switch (out_class) {
+    case ptscore::OUT_STATS:
+      PT_SWEEP(ptscore::OUT_STATS);
+      return 0;
+    case ptscore::OUT_TABLE:
+      PT_SWEEP(ptscore::OUT_TABLE);
+      return 0;
+    case ptscore::OUT_STATS_TABLE:
+      PT_SWEEP(ptscore::OUT_STATS_TABLE);
+      return 0;
+    case ptscore::OUT_ROWCOL:
+      PT_SWEEP(ptscore::OUT_ROWCOL);
+      return 0;
+    case ptscore::OUT_STATS_ROWCOL:
+      PT_SWEEP(ptscore::OUT_STATS_ROWCOL);
+      return 0;
+    default:
+      return -1;
+  }
+#undef PT_SWEEP
 }
 
 // Same arguments as pt_trace_walk minus the stream, over a contiguous

@@ -1,17 +1,17 @@
 """Aligner and AlignerBuilder on PyTorch.
 
-The port of ``parasail_rs_tpu.engine.aligner`` for the score and trace
-classes: the builder keeps every configuration method and its
-mutual-exclusion rules (reference src/aligner/mod.rs:213-267);
-``align`` / ``align_batch`` run one kernel launch per batch on the
-aligner's device; ``cigars`` walks fetched trace planes on the host and
-``align_cigars`` walks them on the device, fetching only opcodes.
+The port of ``parasail_rs_tpu.engine.aligner``: the builder keeps every
+configuration method and its mutual-exclusion rules (reference
+src/aligner/mod.rs:213-267); ``align`` / ``align_batch`` run one kernel
+launch per batch on the aligner's device, for every output class (score,
+stats, table, stats_table, rowcol, stats_rowcol, trace); ``cigars`` walks
+fetched trace planes on the host and ``align_cigars`` walks them on the
+device, fetching only opcodes.
 
 Out of this port so far, and raising ``NotImplementedError`` rather than
-computing anything else: builds whose outputs are stats, table or
-rowcol, and ``align_many``, ``banded_nw``, ``banded_nw_batch``, ``ssw``
-and ``ssw_batch``.  The ROADMAP item that ports each is named in its
-message.
+computing anything else: ``align_many``, ``banded_nw``,
+``banded_nw_batch``, ``ssw`` and ``ssw_batch``.  The ROADMAP item that
+ports each is named in its message.
 """
 
 from __future__ import annotations
@@ -214,11 +214,6 @@ class AlignerBuilder:
             profile=has_profile,
             width=self._solution_width,
         )
-        if outputs not in ("score", "trace"):
-            raise _not_ported(
-                f"outputs={outputs!r}",
-                "Queue 1 item 6 (stats), kernel K1c" if outputs == "stats"
-                else "Queue 1 item 8 (tables, rowcol), kernel K1d")
         matrix = profile.matrix if has_profile else self._matrix
         return Aligner(
             key=key,

@@ -1,12 +1,13 @@
 """Host-side batch assembly and kernel dispatch, on torch tensors.
 
-The port of ``parasail_rs_tpu.engine.dispatch`` for the score and trace
-classes: pack a batch of byte sequences into padded uint8 planes (the
-reference's native packer), upload them once to the aligner's device, map
-bytes to letter indices there, run
+The port of ``parasail_rs_tpu.engine.dispatch`` for every output class of
+``align`` / ``align_batch``: pack a batch of byte sequences into padded
+uint8 planes (the reference's native packer), upload them once to the
+aligner's device, map bytes to letter indices there, run
 :func:`~parasail_rs_tpu_torch.ops.scan_kernel.score_align` over the whole
 batch, and fetch the per-pair scalars in one pinned, non-blocking
-transfer (:class:`PendingResult`).
+transfer (:class:`PendingResult`) and each plane (trace, table, row,
+column) in one copy of its own.
 
 Routes: ``"cuda_kernel"`` for a batch on a CUDA device (the hand-written
 kernel), ``"torch_plain"`` for a batch on the CPU (the plain PyTorch
@@ -27,7 +28,8 @@ from parasail_rs_tpu.utils import stages
 from parasail_rs_tpu.utils.gcpause import gc_pause
 from parasail_rs_tpu.utils.shapes import length_bucket
 
-from ..ops.scan_kernel import score_align
+from ..ops.scan_kernel import OUTPUTS, score_align
+from ..ops.wavefront import STATS_CLASSES, STATS_KEYS
 
 log = logging.getLogger("parasail_rs_tpu_torch")
 
@@ -206,9 +208,11 @@ def width64_risk(batch: PairBatch, gap_open: int,
 def _golden64_merge(out: dict, batch: PairBatch, idx: np.ndarray, *,
                     gap_open, gap_extend, mode, free) -> dict:
     """Overwrite the int32 results of ``idx`` pairs with an exact int64
-    scalar golden fill (the reference's ``_golden64_merge``, score and
-    trace classes: trace flags stay int8, their encoding is
-    width-free)."""
+    scalar golden fill (the reference's ``_golden64_merge``, every class:
+    scalar, stats, table, row and column outputs upcast to int64; trace
+    flags stay int8, their encoding is width-free).  A pair with an empty
+    side keeps zeros in its row and column, as the kernel leaves them
+    (golden's own rows of an empty table raise)."""
     from parasail_rs_tpu.golden import model as golden
 
     qidx_all = _np(batch.qidx)
@@ -233,9 +237,18 @@ def _golden64_merge(out: dict, batch: PairBatch, idx: np.ndarray, *,
         out["end_query"][b] = g.end_query
         out["end_ref"][b] = g.end_ref
         out["saturated"][b] = False     # an int64 fill cannot saturate
-        if "trace_table" in out:
-            out["trace_table"][b] = 0
-            out["trace_table"][b, :ql, :rl] = g.trace_table
+        for k in STATS_KEYS:
+            if k in out:
+                out[k][b] = getattr(g, k)
+        for k in out:
+            if k.endswith(("_table", "_row", "_col")):
+                out[k][b] = 0
+            if k.endswith("_table"):
+                out[k][b, :ql, :rl] = getattr(g, k)
+            elif ql and rl and k.endswith("_row"):
+                out[k][b, :rl] = getattr(g, k)
+            elif ql and rl and k.endswith("_col"):
+                out[k][b, :ql] = getattr(g, k)
     return out
 
 
@@ -243,14 +256,16 @@ def plan_route(batch: PairBatch, outputs: str, gap_open: int,
                gap_extend: int) -> tuple[str, str]:
     """("cuda_kernel" | "torch_plain", reason) for a batch.
 
-    The route follows the batch's device; the score and trace classes
-    are ported.  ``gap_open`` / ``gap_extend`` are accepted for the
-    reference's signature: every penalty pair is exact on both routes.
+    The route follows the batch's device, for every output class of
+    ``scan_score_align``.  ``gap_open`` / ``gap_extend`` are accepted for
+    the reference's signature: every penalty pair is exact on both
+    routes.  The kernel's stats forms and the wavefront carry golden's
+    payloads literally, so the stats classes need no counterpart of the
+    reference's ``trace_walk`` / ``stream_walk`` routes, which it takes
+    at gap_open <= gap_extend because its one-pass kernel cannot.
     """
-    if outputs not in ("score", "trace"):
-        raise NotImplementedError(
-            f"outputs={outputs!r} is not ported yet (ROADMAP Queue 2, "
-            "kernels K1c-K1d)")
+    if outputs not in OUTPUTS:
+        raise ValueError(f"outputs {outputs!r}")
     if batch.device.type == "cuda":
         return "cuda_kernel", ""
     if batch.device.type == "cpu":
@@ -272,6 +287,8 @@ def launch(batch: PairBatch, *, gap_open: int, gap_extend: int, mode: str,
         subs = {"table": batch.table, "qidx": batch.qidx}
     else:
         subs = {"profile": batch.profile}
+        if outputs in STATS_CLASSES:
+            subs["qidx"] = batch.qidx       # matches compares letters
     with stages.stage("dispatch"):
         return score_align(batch.ridx, batch.qlen_t, batch.rlen_t,
                            open_=gap_open, ext=gap_extend, mode=mode,
@@ -327,16 +344,22 @@ class PendingResult:
         return out, rows
 
 
+def _is_plane(key: str) -> bool:
+    return key.endswith(("_table", "_row", "_col"))
+
+
 def execute(batch: PairBatch, *, gap_open: int, gap_extend: int, mode: str,
             free: tuple[bool, bool, bool, bool], outputs: str, width: str,
             on_route=None) -> dict[str, np.ndarray]:
-    """Run the kernel over a batch; return host numpy results (the trace
-    class adds the (B, Qp, Rp) int8 ``trace_table``).
+    """Run the kernel over a batch; return host numpy results: the
+    per-pair scalars and the class's planes (``trace_table`` int8,
+    ``*_table`` (B, Qp, Rp), ``*_row`` (B, Rp) and ``*_col`` (B, Qp)
+    int32).
 
     ``width="64"`` runs the int32 kernel, then re-fills exactly in int64
     (golden) every pair whose worst-case |H| bound does not fit int32,
-    trace rows included.  ``on_route(route, reason)`` is called with
-    every routing decision.
+    planes included.  ``on_route(route, reason)`` is called with every
+    routing decision.
     """
     if width == "64":
         wide = width64_risk(batch, gap_open, gap_extend)
@@ -353,11 +376,12 @@ def execute(batch: PairBatch, *, gap_open: int, gap_extend: int, mode: str,
                                    free=free)
     res = launch(batch, gap_open=gap_open, gap_extend=gap_extend, mode=mode,
                  free=free, outputs=outputs, width=width, on_route=on_route)
-    trace = res.pop("trace_table", None)
+    planes = {k: res.pop(k) for k in [k for k in res if _is_plane(k)]}
     out, _ = PendingResult(res).fetch()
-    if trace is not None:
-        with stages.stage("fetch"):
-            out["trace_table"] = trace.contiguous().cpu().numpy()
+    with stages.stage("fetch"):
+        # one device-side transpose to batch-major and one copy each
+        out.update((k, v.contiguous().cpu().numpy())
+                   for k, v in planes.items())
     return out
 
 

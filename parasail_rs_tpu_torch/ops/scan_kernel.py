@@ -1,18 +1,29 @@
-"""Batched alignment, score and trace classes: the CUDA kernel's wrapper
-and its plain PyTorch version.
+"""Batched alignment, every output class: the CUDA kernel's wrapper and
+its plain PyTorch versions.
 
 :func:`score_align` is the port of
-``parasail_rs_tpu.ops.scan_kernel.scan_score_align`` in its score
-configuration (``outputs="score"``) and its trace configuration
-(``outputs="trace"``): one call aligns a padded batch and returns
-per-pair ``score``, ``end_query``, ``end_ref``, ``saturated`` and, at
-width ``sat``, ``promoted``; the trace class adds ``trace_table``, the
-(B, Qp, Rp) int8 flags of every cell (zero outside each pair's
-qlen x rlen cells).  On CUDA tensors it launches the hand-written kernel
-in ``csrc/scan_score.cu`` (one thread per pair) and counts the launch in
-:data:`LAUNCHES` (score) or :data:`TRACE_LAUNCHES` (trace); on CPU
-tensors it runs :func:`score_align_plain`.  There is no fallback between
-the two: a build, launch or shape failure raises.
+``parasail_rs_tpu.ops.scan_kernel.scan_score_align`` in all seven of its
+output classes: one call aligns a padded batch and returns per-pair
+``score``, ``end_query``, ``end_ref``, ``saturated`` and, at width
+``sat``, ``promoted``.  The trace class adds ``trace_table``, the
+(B, Qp, Rp) int8 flags of every cell; the stats classes ``matches``,
+``similar`` and ``length`` along the winning path; the table classes
+``score_table`` (and ``matches_table`` / ``similar_table`` /
+``length_table``), the (B, Qp, Rp) int32 H (and payloads) of every cell;
+the rowcol classes ``score_row`` (B, Rp) and ``score_col`` (B, Qp) (and
+the stats rows and columns), the last row and column.  Planes are zero
+outside each pair's qlen x rlen cells, rows and columns beyond its
+lengths.
+
+On CUDA tensors it launches the hand-written kernel in
+``csrc/scan_score.cu`` (one thread per pair) and counts the launch in
+:data:`LAUNCHES` (score), :data:`TRACE_LAUNCHES` (trace) or
+:data:`CLASS_LAUNCHES` (the other five classes).  On CPU tensors it runs
+the plain version, :func:`score_align_plain`: its own column sweep for
+the score and trace classes, the wavefront
+(:func:`~.wavefront.wavefront_align`) for the others.  There is no
+fallback between the two: a build, launch or shape failure raises, and a
+batch whose planes do not fit the card raises too.
 
 The substitution scores come in one of two forms, as on the reference's
 two packers:
@@ -20,12 +31,13 @@ two packers:
 - ``table`` (A, A) with ``qidx`` (1 or B, Qp) query letters
   (``build_gpack_from_table``: square matrices);
 - ``profile`` (1 or B, Qp, A) rows (``build_gpack``: ``Profile`` reuse and
-  PSSMs).
+  PSSMs), with ``qidx`` beside them for the stats classes, where
+  ``matches`` compares letters.
 
 A letter outside [0, A) scores 0.  Scores are exact int32 at every
 width; the width only selects the saturation flags.  A pair with an
-empty side gets golden's end cell on the bordered grid (the reference's
-kernels disagree there; ROADMAP Queue 3).
+empty side gets golden's end cell and payload on the bordered grid (the
+reference's kernels disagree there; ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -47,16 +59,22 @@ from parasail_rs_tpu.constants import (
     WIDTH_MIN,
 )
 
+from .wavefront import (PLANES, STATS_CLASSES, STATS_KEYS, empty_side,
+                        flag_outputs, wavefront_align)
+
 MODES = {"nw": 0, "sg": 1, "sw": 2}
 WIDTHS = ("sat", "8", "16", "32", "64")
-OUTPUTS = ("score", "trace")
+# the output classes, in the order of csrc/score_cell.cuh's OutClass
+OUTPUTS = ("score", "trace", "stats", "table", "stats_table", "rowcol",
+           "stats_rowcol")
 BIG = 2 ** 30
 
-# Launches of the CUDA kernel in this process, score and trace forms.
-# Only score_align's CUDA branch adds to them; set them to 0 to count one
-# phase of work.
+# Launches of the CUDA kernel in this process: score form, trace form,
+# and the other five forms by class.  Only score_align's CUDA branch adds
+# to them; set them to 0 to count one phase of work.
 LAUNCHES = 0
 TRACE_LAUNCHES = 0
+CLASS_LAUNCHES = dict.fromkeys(OUTPUTS[2:], 0)
 
 
 def _free_bits(free) -> int:
@@ -76,9 +94,12 @@ def _check(ridx, qlen, rlen, table, qidx, profile, mode, width, outputs):
         raise ValueError("give exactly one of table (with qidx) or profile")
     if table is not None and qidx is None:
         raise ValueError("the table form needs qidx")
+    if outputs in STATS_CLASSES and qidx is None:
+        raise ValueError(f"outputs={outputs!r} needs qidx (matches compares "
+                         "letters)")
     dev = ridx.device
     named = {"ridx": ridx, "qlen": qlen, "rlen": rlen, "table": table,
-             "qidx": qidx if table is not None else None, "profile": profile}
+             "qidx": qidx, "profile": profile}
     for name, t in named.items():
         if t is None:
             continue
@@ -99,45 +120,38 @@ def _check(ridx, qlen, rlen, table, qidx, profile, mode, width, outputs):
         if table.dim() != 2 or table.shape[0] != table.shape[1]:
             raise ValueError(
                 f"table must be (A, A), got {tuple(table.shape)}")
-        if qidx.dim() != 2 or qidx.shape[0] not in (1, B):
-            raise ValueError(
-                f"qidx must be (1 or B, Qp), got {tuple(qidx.shape)}")
-        Bq, Qp = qidx.shape
+        # the letters set the query side; their shape is checked below
+        Bq, Qp = qidx.shape if qidx.dim() == 2 else (None, None)
         A = table.shape[0]
     else:
         if profile.dim() != 3 or profile.shape[0] not in (1, B):
             raise ValueError(
                 f"profile must be (1 or B, Qp, A), got {tuple(profile.shape)}")
         Bq, Qp, A = profile.shape
+    if qidx is not None and (qidx.dim() != 2 or qidx.shape[0] not in (1, B)
+                             or qidx.shape[1] != Qp):
+        raise ValueError(
+            f"qidx must be (1 or B, Qp), got {tuple(qidx.shape)}")
     return B, Bq, Qp, Rp, A
 
 
-def _outputs(score, eq, er, sat8, sat16, width) -> dict:
-    """The reference's output dict (scan_kernel.py:1466-1488)."""
-    out = {"score": score, "end_query": eq, "end_ref": er}
-    if width == "8":
-        out["saturated"] = sat8
-    elif width in ("16", "sat"):
-        out["saturated"] = sat16
-        if width == "sat":
-            out["promoted"] = sat8
-    else:
-        out["saturated"] = torch.zeros_like(sat8)
-    return out
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def score_align(ridx, qlen, rlen, *, open_, ext, mode, free, width="32",
                 table=None, qidx=None, profile=None,
                 outputs="score") -> dict:
-    """Align a padded batch, score or trace class.
+    """Align a padded batch, any output class.
 
     ``ridx`` (B, Rp), ``qlen`` / ``rlen`` (B,), ``table`` (A, A) +
-    ``qidx`` (1 or B, Qp), or ``profile`` (1 or B, Qp, A): all int32 on
-    one device.  Returns int32 ``score`` / ``end_query`` / ``end_ref`` and
-    bool ``saturated`` (+ ``promoted`` at width ``sat``), on that device;
-    ``outputs="trace"`` adds the int8 ``trace_table`` (B, Qp, Rp), on the
-    card a strided view of the kernel's (Qp, Rp, B) plane.  Lengths must
-    not exceed the padded sizes.
+    ``qidx`` (1 or B, Qp), or ``profile`` (1 or B, Qp, A) (+ ``qidx`` for
+    the stats classes): all int32 on one device.  Returns int32
+    ``score`` / ``end_query`` / ``end_ref`` and bool ``saturated`` (+
+    ``promoted`` at width ``sat``), on that device, plus the class's
+    outputs (see the module docstring).  On the card the planes, rows and
+    columns are strided views of the kernel's batch-last buffers.
+    Lengths must not exceed the padded sizes.
     """
     B, Bq, Qp, Rp, A = _check(ridx, qlen, rlen, table, qidx, profile, mode,
                               width, outputs)
@@ -153,33 +167,62 @@ def score_align(ridx, qlen, rlen, *, open_, ext, mode, free, width="32",
 
     lib = _build.load()
     dev = ridx.device
-    trace = outputs == "trace"
-    scratch = torch.empty((2, max(Rp, 1), B), dtype=torch.int32, device=dev)
-    out = torch.empty((5, B), dtype=torch.int32, device=dev)
-    plane = (torch.zeros((Qp, Rp, B), dtype=torch.int8, device=dev)
-             if trace else None)
+    stats = outputs in STATS_CLASSES
+    i32 = torch.int32
+    scratch = torch.empty((8 if stats else 2, max(Rp, 1), B), dtype=i32,
+                          device=dev)
+    out = torch.empty((8 if stats else 5, B), dtype=i32, device=dev)
     subs = table if table is not None else profile
     qptr = qidx.data_ptr() if table is not None else None
-    args = (subs.data_ptr(), qptr, ridx.data_ptr(), qlen.data_ptr(),
-            rlen.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(),
-            out.data_ptr())
     dims = (B, Bq, Qp, Rp, A, int(open_), int(ext), MODES[mode],
             _free_bits(free))
+    nplanes = 4 if stats else 1
+    plane = rows = cols = None
+    if outputs == "trace":
+        plane = torch.zeros((Qp, Rp, B), dtype=torch.int8, device=dev)
+    elif outputs in ("table", "stats_table"):
+        plane = torch.zeros((nplanes, Qp, Rp, B), dtype=i32, device=dev)
+    elif outputs in ("rowcol", "stats_rowcol"):
+        rows = torch.zeros((nplanes, Rp, B), dtype=i32, device=dev)
+        cols = torch.zeros((nplanes, Qp, B), dtype=i32, device=dev)
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        if trace:
-            rc = lib.pt_scan_trace(*args, plane.data_ptr(), *dims, stream)
+        args = (subs.data_ptr(), qptr)
+        lens = (ridx.data_ptr(), qlen.data_ptr(), rlen.data_ptr())
+        if outputs == "score":
+            rc = lib.pt_scan_score(*args, *lens, scratch[0].data_ptr(),
+                                   scratch[1].data_ptr(), out.data_ptr(),
+                                   *dims, stream)
+        elif outputs == "trace":
+            rc = lib.pt_scan_trace(*args, *lens, scratch[0].data_ptr(),
+                                   scratch[1].data_ptr(), out.data_ptr(),
+                                   plane.data_ptr(), *dims, stream)
         else:
-            rc = lib.pt_scan_score(*args, *dims, stream)
+            rc = lib.pt_scan_outputs(
+                OUTPUTS.index(outputs), *args, _ptr(qidx if stats else None),
+                *lens, scratch.data_ptr(), out.data_ptr(), _ptr(plane),
+                _ptr(rows), _ptr(cols), B, Bq,
+                qidx.shape[0] if stats else 0, *dims[2:], stream)
     if rc != 0:
         raise RuntimeError(
             f"scan_{outputs} kernel launch failed: CUDA error {rc}")
-    res = _outputs(out[0], out[1], out[2], out[3] != 0, out[4] != 0, width)
-    if trace:
+    res = flag_outputs(out[0], out[1], out[2], out[3] != 0, out[4] != 0,
+                       width)
+    if stats:
+        res.update(zip(STATS_KEYS, out[5:8]))
+    if outputs == "score":
+        LAUNCHES += 1
+    elif outputs == "trace":
         TRACE_LAUNCHES += 1
         res["trace_table"] = plane.permute(2, 0, 1)
     else:
-        LAUNCHES += 1
+        CLASS_LAUNCHES[outputs] += 1
+        for k, name in enumerate(PLANES[:nplanes]):
+            if plane is not None:
+                res[f"{name}_table"] = plane[k].permute(2, 0, 1)
+            if rows is not None:
+                res[f"{name}_row"] = rows[k].t()
+                res[f"{name}_col"] = cols[k].t()
     return res
 
 
@@ -198,8 +241,13 @@ def score_align_plain(ridx, qlen, rlen, *, open_, ext, mode, free,
                       width="32", table=None, qidx=None, profile=None,
                       outputs="score") -> dict:
     """Plain PyTorch version of :func:`score_align`, same signature and
-    outputs: a sweep over reference columns vectorised over (B, Qp), as
-    the TPU kernel sweeps (scan_kernel.py:700-842, 1000-1101), in int32.
+    outputs.  The stats, table and rowcol classes run the wavefront
+    (:func:`~.wavefront.wavefront_align`), whose literal payload ties
+    hold at every penalty pair.
+
+    The score and trace classes run a sweep over reference columns
+    vectorised over (B, Qp), as the TPU kernel sweeps
+    (scan_kernel.py:700-842, 1000-1101), in int32.
 
     Per column j: F from the previous column; Htemp = max(Hdiag + S, F)
     (clamped at 0 in SW); E by an exclusive cummax over the query axis of
@@ -209,6 +257,11 @@ def score_align_plain(ridx, qlen, rlen, *, open_, ext, mode, free,
     """
     B, Bq, Qp, Rp, A = _check(ridx, qlen, rlen, table, qidx, profile, mode,
                               width, outputs)
+    if outputs not in ("score", "trace"):
+        return wavefront_align(
+            _substitution_rows(table, qidx, profile), qidx, ridx, qlen, rlen,
+            open_=open_, ext=ext, mode=mode, free=free, outputs=outputs,
+            width=width)
     dev = ridx.device
     i32 = torch.int32
     open_, ext = int(open_), int(ext)
@@ -308,12 +361,12 @@ def score_align_plain(ridx, qlen, rlen, *, open_, ext, mode, free,
     else:
         eq, er = bi, bj
     if not local:
-        best, eq, er = _empty_side(best, eq, er, qlen, rlen, Qp, Rp, border,
-                                   qb, qe and mode == "sg", db,
-                                   de and mode == "sg")
+        best, eq, er, _, _ = empty_side(best, eq, er, qlen, rlen, Qp, Rp,
+                                        border, qb, qe and mode == "sg", db,
+                                        de and mode == "sg")
     sat8 = (hmax >= WIDTH_MAX["8"]) | (hmin <= WIDTH_MIN["8"])
     sat16 = (hmax >= WIDTH_MAX["16"]) | (hmin <= WIDTH_MIN["16"])
-    res = _outputs(best, eq, er, sat8, sat16, width)
+    res = flag_outputs(best, eq, er, sat8, sat16, width)
     if outputs == "trace":
         res["trace_table"] = (torch.stack(flag_cols, dim=2) if Rp else
                               torch.zeros((B, Qp, 0), dtype=torch.int8,
@@ -340,28 +393,3 @@ def _flags(diag, E, F, H, hprev, fprev, top_next, open_, ext, local):
         pre = torch.maximum(torch.maximum(diag, E), F)
         hflag = torch.where(pre <= 0, 0, hflag)
     return hflag | eflag | fflag
-
-
-def _empty_side(best, eq, er, qlen, rlen, Qp, Rp, border, qb, qe, db, de):
-    """Golden's end cell for the pairs with qlen == 0 or rlen == 0 (no
-    in-sequence cell): the best of the corner and, if qe (qlen == 0) or
-    de (rlen == 0), the other cells of the bordered grid's one line;
-    value desc, then position asc.  Both empty: 0 at (-1, -1)."""
-    def pick(n, P, is_free, end_free):
-        c = torch.arange(1, P + 1, dtype=torch.int32, device=n.device)
-        cand = (c[None] <= n[:, None]) & (end_free | (c[None] == n[:, None]))
-        v = torch.where(cand, border(c, is_free)[None], NEG_INF32)
-        top = v.amax(dim=1) if P else torch.full_like(n, NEG_INF32)
-        at = (torch.where(cand & (v == top[:, None]), c[None], P + 1)
-              .amin(dim=1) if P else torch.zeros_like(n))
-        return top, at - 1
-
-    q0, r0 = qlen == 0, rlen == 0
-    s_r, at_r = pick(rlen, Rp, qb, qe)      # qlen == 0: along the top row
-    s_q, at_q = pick(qlen, Qp, db, de)      # rlen == 0: along the left column
-    both = q0 & r0
-    best = torch.where(both, 0, torch.where(q0, s_r,
-                                            torch.where(r0, s_q, best)))
-    eq = torch.where(q0, -1, torch.where(r0, at_q, eq))
-    er = torch.where(r0, -1, torch.where(q0, at_r, er))
-    return best.to(torch.int32), eq.to(torch.int32), er.to(torch.int32)

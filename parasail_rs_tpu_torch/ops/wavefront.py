@@ -1,0 +1,353 @@
+"""Batched anti-diagonal wavefront DP fill, every output class, in torch ops.
+
+The port of ``parasail_rs_tpu.ops.wavefront.wavefront_align`` (XLA in
+the reference, so plain PyTorch here, not a hand kernel).  It is the
+plain version of the CUDA kernel's stats, table and rowcol forms
+(``csrc/scan_score.cu``): :func:`~.scan_kernel.score_align` runs it on
+CPU tensors for those classes, and ``chip_smoke.py`` holds the kernel to
+it on the card.
+
+Cells on one anti-diagonal of the affine-gap recurrence do not depend on
+each other, so the reference's ``lax.scan`` over the D = Qp + Rp - 1
+anti-diagonals becomes a Python loop of torch ops vectorised over
+(B, Qp): lane i of step d is cell (i, d - i).  Every value, flag and
+payload follows golden's literal ``>=`` comparisons, so every penalty pair
+is exact, open <= ext included.  All arithmetic is int32 with
+``NEG_INF32`` as minus infinity, as in the reference.
+
+Where it differs from the reference, on purpose:
+
+- a pair with an empty side (qlen == 0 or rlen == 0) gets golden's end
+  cell and payload on the bordered grid (:func:`empty_side`); the
+  reference's wavefront gives -2^30 and padded coordinates there
+  (ROADMAP Queue 3);
+- planes (trace and tables) are 0 outside each pair's qlen x rlen cells,
+  as the kernel writes them; the reference leaves the padded cells'
+  values there;
+- a reference letter outside [0, A) scores 0, as in the kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from parasail_rs_tpu.constants import (
+    NEG_INF32,
+    TRACE_DEL,
+    TRACE_DEL_F,
+    TRACE_DIAG,
+    TRACE_DIAG_E,
+    TRACE_DIAG_F,
+    TRACE_INS,
+    TRACE_INS_E,
+    WIDTH_MAX,
+    WIDTH_MIN,
+)
+
+STATS_CLASSES = ("stats", "stats_table", "stats_rowcol")
+STATS_KEYS = ("matches", "similar", "length")
+PLANES = ("score", "matches", "similar", "length")
+
+
+def flag_outputs(score, eq, er, sat8, sat16, width) -> dict:
+    """The reference's scalar output dict (scan_kernel.py:1466-1488):
+    ``saturated`` is the flag of the width (16-bit at ``sat``, where
+    ``promoted`` is the 8-bit one; never at 32 and 64)."""
+    out = {"score": score, "end_query": eq, "end_ref": er}
+    if width == "8":
+        out["saturated"] = sat8
+    elif width in ("16", "sat"):
+        out["saturated"] = sat16
+        if width == "sat":
+            out["promoted"] = sat8
+    else:
+        out["saturated"] = torch.zeros_like(sat8)
+    return out
+
+
+def empty_side(best, eq, er, qlen, rlen, Qp, Rp, border, qb, qe, db, de):
+    """Golden's end cell for the pairs with qlen == 0 or rlen == 0 (no
+    in-sequence cell): the best of the corner and, if qe (qlen == 0) or
+    de (rlen == 0), the other cells of the bordered grid's one line;
+    value desc, then position asc.  Both empty: 0 at (-1, -1).
+
+    Returns (score, end_query, end_ref, length, empty): the length
+    payload of that cell is the characters it consumes, or 0 on a free
+    border (matches and similar are 0); ``empty`` marks the pairs."""
+    def pick(n, P, is_free, end_free):
+        c = torch.arange(1, P + 1, dtype=torch.int32, device=n.device)
+        cand = (c[None] <= n[:, None]) & (end_free | (c[None] == n[:, None]))
+        v = torch.where(cand, border(c, is_free)[None], NEG_INF32)
+        top = v.amax(dim=1) if P else torch.full_like(n, NEG_INF32)
+        at = (torch.where(cand & (v == top[:, None]), c[None], P + 1)
+              .amin(dim=1) if P else torch.zeros_like(n))
+        length = torch.where(n > 0, 0 if is_free else at, 0)
+        return top, at - 1, length
+
+    q0, r0 = qlen == 0, rlen == 0
+    s_r, at_r, l_r = pick(rlen, Rp, qb, qe)   # qlen == 0: along the top row
+    s_q, at_q, l_q = pick(qlen, Qp, db, de)   # rlen == 0: the left column
+    both = q0 & r0
+    best = torch.where(both, 0, torch.where(q0, s_r,
+                                            torch.where(r0, s_q, best)))
+    eq = torch.where(q0, -1, torch.where(r0, at_q, eq))
+    er = torch.where(r0, -1, torch.where(q0, at_r, er))
+    length = torch.where(q0, l_r, l_q)
+    i32 = torch.int32
+    return (best.to(i32), eq.to(i32), er.to(i32), length.to(i32), q0 | r0)
+
+
+def _shift1(x, fill):
+    """y[:, i] = x[:, i - 1]; y[:, 0] = fill."""
+    return torch.cat([torch.full_like(x[:, :1], fill), x[:, :-1]], dim=1)
+
+
+def wavefront_align(profile, qidx, ridx, qlen, rlen, *, open_, ext, mode,
+                    free, outputs, width="32", banded=False,
+                    bandwidth=0) -> dict:
+    """Run the batched wavefront fill; return a dict of tensors on the
+    inputs' device.
+
+    ``profile`` (1 or B, Qp, A) substitution rows, ``qidx`` (1 or B, Qp)
+    query letters (compared for ``matches``; may be None outside the
+    stats classes), ``ridx`` (B, Rp), ``qlen`` / ``rlen`` (B,): int32.
+    Returns ``score``, ``end_query``, ``end_ref`` (B,) int32 and
+    ``saturated`` (+ ``promoted`` at width ``sat``) bool, and per class:
+
+    - stats*:   ``matches``, ``similar``, ``length`` (B,)
+    - table(s): ``score_table`` (+ ``matches/similar/length_table``)
+      (B, Qp, Rp)
+    - rowcol:   ``score_row`` (B, Rp) / ``score_col`` (B, Qp) (+ stats
+      rows and columns), 0 beyond each pair's lengths
+    - trace:    ``trace_table`` (B, Qp, Rp) int8 flags
+
+    ``banded`` excludes cells with |i - j| > ``bandwidth`` (border cells
+    beyond the band included), as the reference does.
+    """
+    dev = ridx.device
+    i32 = torch.int32
+    _, Qp, A = profile.shape
+    B, Rp = ridx.shape
+    D = Qp + Rp - 1
+    local = mode == "sw"
+    qb, qe, db, de = (True,) * 4 if local else tuple(bool(x) for x in free)
+    want_stats = outputs in STATS_CLASSES
+    want_tables = outputs in ("table", "stats_table")
+    want_rowcol = outputs in ("rowcol", "stats_rowcol")
+    want_trace = outputs == "trace"
+    nplanes = 4 if want_stats else 1
+    neg = NEG_INF32
+    open_, ext, bw = int(open_), int(ext), int(bandwidth)
+    ivec = torch.arange(Qp, dtype=i32, device=dev)
+
+    def border(c, is_free):             # H[0][c] / H[c][0], golden's
+        base = torch.where(c > 0, -(open_ + (c - 1) * ext), 0).to(i32)
+        return torch.zeros_like(base) if is_free else base
+
+    def boundary(c, is_free):           # the same, out of the band -inf
+        base = border(c, is_free)
+        return torch.where(c <= bw, base, neg) if banded else base
+
+    def blen(c, is_free):               # the border's length payload
+        return torch.zeros_like(c) if is_free else c
+
+    prof = profile.expand(B, Qp, A)
+    if qidx is None:
+        qidx = torch.zeros((1, Qp), dtype=i32, device=dev)
+    qid = qidx.expand(B, Qp)
+    qlen_c, rlen_c = qlen[:, None], rlen[:, None]
+    brange = torch.arange(B, device=dev)
+
+    def full(v, shape=(B, Qp)):
+        return torch.full(shape, v, dtype=i32, device=dev)
+
+    H1, H2, E1, F1 = full(neg), full(neg), full(neg), full(neg)
+    best, best_i, best_j = full(neg, (B,)), full(Qp, (B,)), full(Rp, (B,))
+    sat8 = torch.zeros(B, dtype=torch.bool, device=dev)
+    sat16 = torch.zeros(B, dtype=torch.bool, device=dev)
+    if want_stats:
+        Hp1 = [full(0) for _ in range(3)]     # H payloads (m, s, l), d - 1
+        Hp2 = [full(0) for _ in range(3)]     # d - 2
+        Ep1 = [full(0) for _ in range(3)]
+        Fp1 = [full(0) for _ in range(3)]
+        best_p = [full(0, (B,)) for _ in range(3)]
+    if want_rowcol:
+        rows = [full(0, (B, Rp)) for _ in range(nplanes)]
+        cols = [full(0, (B, Qp)) for _ in range(nplanes)]
+    slabs = []
+
+    for d in range(D):
+        jvec = d - ivec                                   # (Qp,)
+        on_diag = ((jvec >= 0) & (jvec < Rp))[None, :]
+        in_seq = on_diag & (ivec[None, :] < qlen_c) & (jvec[None, :] < rlen_c)
+        rd = ridx[:, jvec.clamp(0, Rp - 1)]
+        rd = torch.where(on_diag, rd, 0)
+        rok = (rd >= 0) & (rd < A)
+        s = torch.gather(prof, 2, rd.clamp(0, A - 1).long()[:, :, None])[..., 0]
+        s = torch.where(rok, s, 0)
+        i0 = (ivec == 0)[None, :]
+        j0 = (jvec == 0)[None, :]
+
+        h_up = torch.where(i0, boundary(jvec + 1, qb)[None], _shift1(H1, 0))
+        e_up = torch.where(i0, neg, _shift1(E1, 0))
+        h_left = torch.where(j0, boundary(ivec + 1, db)[None], H1)
+        f_left = torch.where(j0, neg, F1)
+        h_diag = torch.where(
+            i0, boundary(jvec, qb)[None],
+            torch.where(j0, boundary(ivec, db)[None], _shift1(H2, 0)))
+
+        e_open, e_ext = h_up - open_, e_up - ext
+        E = torch.maximum(e_open, e_ext)
+        from_open_e = e_open >= e_ext
+        f_open, f_ext = h_left - open_, f_left - ext
+        F = torch.maximum(f_open, f_ext)
+        from_open_f = f_open >= f_ext
+        diag = h_diag + s
+        H = torch.maximum(torch.maximum(diag, E), F)
+        take_diag = diag >= torch.maximum(E, F)
+        take_e = ~take_diag & (E >= F)
+        if local:
+            clamp0 = H <= 0
+            H = H.clamp_min(0)
+        if banded:
+            in_band = ((ivec - jvec).abs() <= bw)[None, :]
+            H = torch.where(in_band, H, neg)
+            E = torch.where(in_band, E, neg)
+            F = torch.where(in_band, F, neg)
+
+        H2 = H1
+        H1 = torch.where(on_diag, H, H1)
+        E1 = torch.where(on_diag, E, E1)
+        F1 = torch.where(on_diag, F, F1)
+
+        if want_stats:
+            top_l = blen(jvec + 1, qb)[None]
+            left_l = blen(ivec + 1, db)[None]
+            diag_l = torch.where(i0, blen(jvec, qb)[None],
+                                 torch.where(j0, blen(ivec, db)[None],
+                                             _shift1(Hp2[2], 0)))
+            up = [torch.where(i0, 0, _shift1(Hp1[0], 0)),
+                  torch.where(i0, 0, _shift1(Hp1[1], 0)),
+                  torch.where(i0, top_l, _shift1(Hp1[2], 0))]
+            eup = [torch.where(i0, 0, _shift1(x, 0)) for x in Ep1]
+            left = [torch.where(j0, 0, Hp1[0]), torch.where(j0, 0, Hp1[1]),
+                    torch.where(j0, left_l, Hp1[2])]
+            fleft = [torch.where(j0, 0, x) for x in Fp1]
+            dg = [torch.where(i0 | j0, 0, _shift1(Hp2[0], 0)),
+                  torch.where(i0 | j0, 0, _shift1(Hp2[1], 0)), diag_l]
+            Ep = [torch.where(from_open_e, u, e) for u, e in zip(up, eup)]
+            Ep[2] = Ep[2] + 1
+            Fp = [torch.where(from_open_f, u, f) for u, f in zip(left, fleft)]
+            Fp[2] = Fp[2] + 1
+            Dp = [dg[0] + (qid == rd).to(i32), dg[1] + (s > 0).to(i32),
+                  dg[2] + 1]
+            Hp = [torch.where(take_diag, x, torch.where(take_e, y, z))
+                  for x, y, z in zip(Dp, Ep, Fp)]
+            if local:
+                Hp = [torch.where(clamp0, 0, x) for x in Hp]
+            Hp2 = Hp1
+            Hp1 = [torch.where(on_diag, n, o) for n, o in zip(Hp, Hp1)]
+            Ep1 = [torch.where(on_diag, n, o) for n, o in zip(Ep, Ep1)]
+            Fp1 = [torch.where(on_diag, n, o) for n, o in zip(Fp, Fp1)]
+
+        hs = torch.where(in_seq, H, 0)
+        hmax, hmin = hs.amax(dim=1), hs.amin(dim=1)
+        sat8 |= (hmax >= WIDTH_MAX["8"]) | (hmin <= WIDTH_MIN["8"])
+        sat16 |= (hmax >= WIDTH_MAX["16"]) | (hmin <= WIDTH_MIN["16"])
+
+        last_row = ivec[None, :] == qlen_c - 1
+        last_col = jvec[None, :] == rlen_c - 1
+        if local:
+            cand = in_seq & (H > 0)
+        elif mode == "sg":
+            sel = last_row & last_col           # the corner, always
+            if qe:
+                sel = sel | last_row
+            if de:
+                sel = sel | last_col
+            cand = in_seq & sel
+        else:
+            cand = last_row & last_col
+        hc = torch.where(cand, H, neg)
+        step_best = hc.amax(dim=1)
+        step_i = torch.where(hc == step_best[:, None], ivec[None, :],
+                             Qp).amin(dim=1)
+        better = (step_best > best) | ((step_best == best) &
+                                       (step_best > neg) & (step_i < best_i))
+        best = torch.where(better, step_best, best)
+        best_i = torch.where(better, step_i, best_i)
+        best_j = torch.where(better, d - step_i, best_j)
+        if want_stats:
+            at = step_i.clamp(0, Qp - 1)[:, None]
+            best_p = [torch.where(better, p.gather(1, at)[:, 0], b)
+                      for p, b in zip(Hp1, best_p)]
+
+        if want_rowcol:
+            vals = [H] + (Hp if want_stats else [])
+            jcol = (d - (qlen - 1)).clamp(0, Rp - 1).long()
+            icol = (d - (rlen - 1)).clamp(0, Qp - 1).long()
+            at_row = (qlen - 1).clamp(0, Qp - 1).long()[:, None]
+            rok_b = (in_seq & last_row).any(dim=1)
+            cok_b = (in_seq & last_col).any(dim=1)
+            for k, M in enumerate(vals):
+                rv = M.gather(1, at_row)[:, 0]
+                rows[k][brange, jcol] = torch.where(
+                    rok_b, rv, rows[k][brange, jcol])
+                cv = M.gather(1, icol[:, None])[:, 0]
+                cols[k][brange, icol] = torch.where(
+                    cok_b, cv, cols[k][brange, icol])
+
+        if want_trace:
+            eflag = torch.where(from_open_e, TRACE_DIAG_E, TRACE_INS_E)
+            fflag = torch.where(from_open_f, TRACE_DIAG_F, TRACE_DEL_F)
+            hflag = torch.where(take_diag, TRACE_DIAG,
+                                torch.where(take_e, TRACE_INS, TRACE_DEL))
+            if local:
+                hflag = torch.where(clamp0, 0, hflag)
+            slabs.append([torch.where(in_seq, hflag | eflag | fflag, 0)
+                          .to(torch.int8)])
+        elif want_tables:
+            vals = [H] + (Hp if want_stats else [])
+            slabs.append([torch.where(in_seq, v, 0) for v in vals])
+
+    stats = best_p if want_stats else None
+    if mode == "nw":
+        score, eq, er = best, qlen - 1, rlen - 1
+    elif local:
+        # no cell above 0: golden's empty local alignment, 0 at (0, 0)
+        none = best <= 0
+        score, eq, er = (torch.where(none, 0, x)
+                         for x in (best, best_i, best_j))
+        if want_stats:
+            stats = [torch.where(none, 0, p) for p in stats]
+    else:
+        score, eq, er = best, best_i, best_j
+    if not local:
+        score, eq, er, elen, empty = empty_side(
+            score, eq, er, qlen, rlen, Qp, Rp, border, qb,
+            qe and mode == "sg", db, de and mode == "sg")
+        if want_stats:
+            stats = [torch.where(empty, 0, stats[0]),
+                     torch.where(empty, 0, stats[1]),
+                     torch.where(empty, elen, stats[2])]
+    out = flag_outputs(score.to(i32), eq.to(i32), er.to(i32), sat8, sat16,
+                       width)
+    if want_stats:
+        out.update(zip(STATS_KEYS, stats))
+
+    names = PLANES[:nplanes]
+    if want_tables or want_trace:
+        ii = torch.arange(Qp, device=dev)[:, None]
+        dd = ii + torch.arange(Rp, device=dev)[None, :]      # (Qp, Rp)
+        for k, name in enumerate(("trace",) if want_trace else names):
+            if D > 0:
+                slab = torch.stack([st[k] for st in slabs])  # (D, B, Qp)
+                plane = slab[dd, :, ii].permute(2, 0, 1)     # undiag
+            else:
+                plane = torch.zeros((B, Qp, Rp), dtype=torch.int8
+                                    if want_trace else i32, device=dev)
+            out[f"{name}_table"] = plane.contiguous()
+    if want_rowcol:
+        for k, name in enumerate(names):
+            out[f"{name}_row"], out[f"{name}_col"] = rows[k], cols[k]
+    return out

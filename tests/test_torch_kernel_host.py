@@ -1,9 +1,9 @@
 """The CUDA kernels' own per-pair code, built for the host, against golden.
 
 ``csrc/score_cell.cuh`` holds the recurrence, end-cell tracker,
-saturation flags and trace flags that ``csrc/scan_score.cu`` runs on the
-card; ``csrc/walk_step.cuh`` the traceback state machine of
-``csrc/trace_walk.cu``.  Built with g++ through the small harness
+saturation flags, trace flags, stats payloads and plane writes that
+``csrc/scan_score.cu`` runs on the card; ``csrc/walk_step.cuh`` the
+traceback state machine of ``csrc/trace_walk.cu``.  Built with g++ through the small harness
 ``csrc/score_host.cc``, the same code runs here on numpy-seeded batches
 and must equal the golden oracle, the JAX walk and the port's plain
 PyTorch versions exactly.  Skips where g++ is missing.
@@ -48,6 +48,9 @@ def host_lib(tmp_path_factory):
     lib.pt_trace_host.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
     lib.pt_walk_host.restype = ctypes.c_int
     lib.pt_walk_host.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+    lib.pt_outputs_host.restype = ctypes.c_int
+    lib.pt_outputs_host.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10 +
+                                    [ctypes.c_int] * 10)
     return lib
 
 
@@ -239,3 +242,126 @@ def test_host_kernel_empty_side_pairs_follow_golden(host_lib, mode):
                 want = (g.score, g.end_query, g.end_ref)
             assert tuple(score[:3, b]) == want, (free, b)
             assert tuple(trace[:3, b]) == want, (free, b)
+
+
+def run_outputs_host(lib, outputs, *, ridx, qlen, rlen, open_, ext, mode,
+                     free, qidx, table=None, profile=None, width="sat"):
+    """The stats, table and rowcol forms: ``score_align``'s dict, numpy."""
+    B, Rp = ridx.shape
+    Bm, Qp = qidx.shape
+    subs = np.ascontiguousarray(table if table is not None else profile,
+                                np.int32)
+    Bq = Bm if table is not None else subs.shape[0]
+    out = np.zeros((8, B), np.int32)
+    planes = np.zeros((4, B, Qp, Rp), np.int32)
+    row = np.zeros((4, B, Rp), np.int32)
+    col = np.zeros((4, B, Qp), np.int32)
+    q, r, ql, rl = (np.ascontiguousarray(a, np.int32)
+                    for a in (qidx, ridx, qlen, rlen))
+    rc = lib.pt_outputs_host(
+        tk.OUTPUTS.index(outputs), subs.ctypes.data,
+        q.ctypes.data if table is not None else None, q.ctypes.data,
+        r.ctypes.data, ql.ctypes.data, rl.ctypes.data, out.ctypes.data,
+        planes.ctypes.data, row.ctypes.data, col.ctypes.data, B, Bq, Bm, Qp,
+        Rp, subs.shape[-1], open_, ext, MODES[mode], tk._free_bits(free))
+    assert rc == 0
+    res = {k: v.numpy() for k, v in tk.flag_outputs(*map(torch.from_numpy, (
+        out[0], out[1], out[2], out[3] != 0, out[4] != 0)), width).items()}
+    stats = outputs in ("stats", "stats_table", "stats_rowcol")
+    if stats:
+        res.update(matches=out[5], similar=out[6], length=out[7])
+    for k, name in enumerate(("score", "matches", "similar",
+                              "length")[:4 if stats else 1]):
+        if outputs.endswith("table"):
+            res[f"{name}_table"] = planes[k]
+        elif outputs.endswith("rowcol"):
+            res[f"{name}_row"], res[f"{name}_col"] = row[k], col[k]
+    return res
+
+
+PLANE_CLASSES = ("stats", "table", "stats_table", "rowcol", "stats_rowcol")
+
+
+def golden_outputs(case, b, open_, ext, mode, free):
+    """golden.align of pair b, letters compared for `matches`."""
+    ql, rl = case["qlen"][b], case["rlen"][b]
+    qi, ri = case["qidx"][b, :ql], case["ridx"][b, :rl]
+    sub = case["table"][qi[:, None], ri[None, :]]
+    return golden.align(sub.astype(np.int64), qi[:, None] == ri[None, :],
+                        open_, ext, mode, free)
+
+
+@pytest.mark.parametrize("open_,ext", [(11, 1), (5, 2), (1, 3), (0, 0),
+                                       (2, 2)])
+@pytest.mark.parametrize("mode", ["nw", "sg", "sw"])
+def test_host_stats_and_planes_match_golden_and_plain(host_lib, mode, open_,
+                                                      ext):
+    """Every stats / table / rowcol form of the header, built with g++,
+    equals the plain version (the wavefront) exactly, planes included,
+    and golden on every in-sequence value, at every penalty pair."""
+    rng = np.random.default_rng(
+        [ord(c) for c in mode] + [open_, ext, 3])
+    case = ragged(rng, 16, 20, 21, 5, 0 if mode != "sw" else 1)
+    t = {k: torch.from_numpy(v) for k, v in case.items()}
+    for free in (FREES if mode == "sg" else [FREES[mode == "sw"]]):
+        golds = [None if not (case["qlen"][b] and case["rlen"][b]) else
+                 golden_outputs(case, b, open_, ext, mode, free)
+                 for b in range(len(case["qlen"]))]
+        for outputs in PLANE_CLASSES:
+            got = run_outputs_host(host_lib, outputs, open_=open_, ext=ext,
+                                   mode=mode, free=free, **case)
+            plain = tk.score_align(
+                t["ridx"], t["qlen"], t["rlen"], open_=open_, ext=ext,
+                mode=mode, free=free, width="sat", table=t["table"],
+                qidx=t["qidx"], outputs=outputs)
+            assert set(got) == set(plain), outputs
+            for k, v in plain.items():
+                np.testing.assert_array_equal(
+                    got[k], v.numpy(), err_msg=f"{outputs}/{free}/{k}")
+            for b, g in enumerate(golds):
+                if g is None:
+                    continue
+                ql, rl = case["qlen"][b], case["rlen"][b]
+                for k, v in got.items():
+                    if k.endswith("_table"):
+                        want, have = getattr(g, k), v[b, :ql, :rl]
+                    elif k.endswith(("_row", "_col")):
+                        want = getattr(g, k)
+                        have = v[b, :rl] if k.endswith("_row") else v[b, :ql]
+                    elif k in ("saturated", "promoted"):
+                        continue
+                    else:
+                        want, have = getattr(g, k), v[b]
+                    np.testing.assert_array_equal(
+                        have, want, err_msg=f"{outputs}/{free}/{k}/{b}")
+
+
+def test_host_stats_empty_side_pairs_follow_golden(host_lib):
+    m = Matrix.default()
+    qs = [b"", b"ACGT", b"ACGTACGTACGTACGTACGTACGTACGTAC", b""]
+    rs = [b"ACGT", b"", b"ACGTAC", b""]
+    P = 32
+    qidx = np.full((4, P), -1, np.int32)
+    ridx = np.zeros((4, P), np.int32)
+    for b, (q, r) in enumerate(zip(qs, rs)):
+        qidx[b, :len(q)] = m.encode(q)
+        ridx[b, :len(r)] = m.encode(r)
+    kw = dict(ridx=ridx, qlen=np.array([len(q) for q in qs], np.int32),
+              rlen=np.array([len(r) for r in rs], np.int32), open_=5, ext=2,
+              table=m.data.astype(np.int32), qidx=qidx)
+    keys = ("score", "end_query", "end_ref", "matches", "similar", "length")
+    for mode in ("nw", "sg", "sw"):
+        for free in (FREES if mode == "sg" else [FREES[mode == "sw"]]):
+            got = run_outputs_host(host_lib, "stats_rowcol", mode=mode,
+                                   free=free, **kw)
+            for b, (q, r) in enumerate(zip(qs, rs)):
+                if mode == "sw" and not (q and r):
+                    want = (0,) * 6         # golden's empty local alignment
+                else:
+                    g = golden.align_seqs(q, r, m, 5, 2, mode, free)
+                    want = tuple(getattr(g, k) for k in keys)
+                assert tuple(int(got[k][b]) for k in keys) == want, \
+                    (mode, free, b)
+                if not (q and r):
+                    assert not got["score_row"][b].any()
+                    assert not got["length_col"][b].any()

@@ -246,12 +246,13 @@ def test_wrapper_runs_plain_trace_on_cpu(monkeypatch):
 
 
 def test_wrapper_rejects_unknown_outputs():
+    # every class of the reference is ported; any other name raises
     case = make_case(10, n=4)
     t = {k: torch.from_numpy(v) for k, v in case.items()}
     with pytest.raises(ValueError, match="outputs"):
         tk.score_align(t.pop("ridx"), t.pop("qlen"), t.pop("rlen"),
                        open_=5, ext=2, mode="sw", free=SW, width="sat",
-                       outputs="stats", **t)
+                       outputs="trace_stats", **t)
 
 
 # -- on the card ----------------------------------------------------------
