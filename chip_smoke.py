@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the kernels from ``parasail_rs_tpu_torch/csrc`` with nvcc and
-runs thirteen phases on ``cuda``; any failure raises and the script exits
+runs seventeen phases on ``cuda``; any failure raises and the script exits
 non-zero without printing a result:
 
 1. build: the library's path, build time and each kernel's registers;
@@ -67,7 +67,31 @@ non-zero without printing a result:
    pairs), each plane form and its plain version at the 512-pair batch,
    ``use_stats()`` ``align_batch`` of the 8,192 pairs with its stage
    clocks, SG stats on cfg4b's pairs, and the peak device memory of the
-   table phase.
+   table phase;
+14. banded kernel vs plain: the banded score form (NW) against its plain
+   version (the wavefront with ``banded=True``) on 256-pair DNA batches
+   at 4/1, 2/2 and 1/3 and a BLOSUM62 batch at 11/1, lengths from 0 (so
+   empty sides and corners outside the band occur), at bands 0, 3, 16,
+   64 and 4,096, and on the empty-side and unreachable-corner pairs of
+   the banded repair, which must also equal golden's banded oracle
+   (-2^30 where it has none): exact equality;
+15. the banded path through the public API: ``banded_nw_batch`` of phase
+   3's 8,192 BLOSUM62 pairs, NW 11/1, bandwidth 16, counted from zero:
+   the banded kernel must launch on "cuda_kernel", equal the plain
+   version, and 16 sampled pairs golden's banded oracle; then the banded
+   kernel, its plain version and the unbanded score kernel on that batch,
+   and ``banded_nw_batch`` end to end;
+16. ``align_many``, counted from zero: cfg5 (256 DNA pairs of 100-2,000
+   bp, SW 5/2) equal to ``align_batch`` and to plain, a ``use_stats()``
+   and a ``use_trace()`` batch equal to ``align_batch``, and 128 DNA
+   pairs of 4,096 bp (SW 5/1; cfg6 at a quarter of its length), whose
+   first 16 pairs must equal plain; then cfg5 end to end (binned, with
+   stage clocks and GCUPS; unbinned; with more bins) and the 4,096 bp
+   batch's kernel time;
+17. SSW, counted from zero: ``ssw_batch`` of 1,024 of the BLOSUM62 pairs
+   at 11/1, one pass and ``windowed=True``, and a profile at score_size 0
+   and 2, on "cuda_kernel" and equal to the same calls on the CPU, 16
+   sampled pairs equal to golden's SW and walk; then both passes timed.
 
 The line before the last is the card's name and power limit, the one
 before it a JSON summary of every kernel; the last line is
@@ -509,6 +533,10 @@ def main() -> int:
                        blosum, card)
     planes = stats_path(torch, pt, tk, tw, dispatch, golden, stages, rng,
                         blosum, card, (qs, rs), trace["cfg4b"])
+    banded = banded_path(torch, pt, tk, dispatch, golden, stages, rng, blosum,
+                         card, (qs, rs))
+    many_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum, card,
+              (qs, rs))
 
     print(json.dumps({"kernels": [{
         "name": "scan_score_align",
@@ -537,7 +565,13 @@ def main() -> int:
         "source": "parasail_rs_tpu_torch/csrc/scan_score.cu",
         "replaces": "parasail_rs_tpu/ops/scan_kernel.py:1453",
         **planes[cls],
-    } for cls in PLANE_CLASSES]}), flush=True)
+    } for cls in PLANE_CLASSES] + [{
+        "name": "scan_score_align (banded)",
+        "route": "cuda",
+        "source": "parasail_rs_tpu_torch/csrc/scan_score.cu",
+        "replaces": "parasail_rs_tpu/ops/scan_kernel.py:1453",
+        **banded,
+    }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -908,6 +942,339 @@ def stats_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum,
     return {cls: {"launches": launches[cls], "max_abs_err": errs[cls],
                   "ms": times[cls][0], "plain_ms": times[cls][1]}
             for cls in PLANE_CLASSES}
+
+
+F4 = (False,) * 4
+NEG = -(1 << 30)
+# the empty-side and unreachable-corner pairs of the banded repair (NW,
+# DNA +2/-3, open 4, ext 1, bandwidth 2): (qlen, rlen) and the score, or
+# None for golden's banded oracle on seeded letters
+STEP0 = [((0, 5), NEG), ((5, 0), NEG), ((0, 2), -5), ((3, 9), NEG),
+         ((6, 6), None)]
+
+
+def pack_table(torch, dev, matrix, qs, rs, P):
+    """Pairs (empty sides allowed) -> ((ridx, qlen, rlen), table + qidx)
+    on the card, padded to P."""
+    qidx = np.full((len(qs), P), -1, np.int32)
+    ridx = np.zeros((len(rs), P), np.int32)
+    for b, (q, r) in enumerate(zip(qs, rs)):
+        qidx[b, :len(q)] = matrix.encode(q)
+        ridx[b, :len(r)] = matrix.encode(r)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    return ((t(ridx), t([len(q) for q in qs]), t([len(r) for r in rs])),
+            {"table": t(matrix.data), "qidx": t(qidx)})
+
+
+def banded_oracle(golden, matrix, q, r, open_, ext, bw) -> int:
+    """golden's scalar banded fill, its unreachable sentinel as -2^30."""
+    sub = matrix.scores_for(matrix.encode(q), matrix.encode(r))
+    want = golden.banded_nw_fill(sub.astype(np.int64), open_, ext, bw)
+    return NEG if want < -(10 ** 8) else want
+
+
+def band_cells(qlen: np.ndarray, rlen: np.ndarray, bw: int) -> int:
+    """Cells with |i - j| <= bw inside each pair, summed."""
+    total = 0
+    for ql, rl in zip(qlen.tolist(), rlen.tolist()):
+        i = np.arange(ql)
+        total += int(np.clip(np.minimum(rl - 1, i + bw) -
+                             np.maximum(0, i - bw) + 1, 0, None).sum())
+    return total
+
+
+def banded_path(torch, pt, tk, dispatch, golden, stages, rng, blosum, card,
+                sw_pairs) -> dict:
+    """Phases 14-15 and the banded timings; returns the banded kernel's
+    launches, error and times."""
+    dev = torch.device("cuda")
+    dna = pt.Matrix.create(DNA, 2, -3)
+
+    # -- 14. banded kernel vs plain ------------------------------------------
+    err = 0
+    batches = [("DNA 4/1", dna, DNA, 4, 1, 60), ("DNA 2/2", dna, DNA, 2, 2, 60),
+               ("DNA 1/3", dna, DNA, 1, 3, 60),
+               ("BLOSUM62 11/1", blosum, PROTEIN, 11, 1, 150)]
+    for name, m, alpha, open_, ext, hi in batches:
+        n = 256
+        qs = random_seqs(rng, alpha, n, 0, hi)
+        rs = random_seqs(rng, alpha, n, 0, hi)
+        args, subs = pack_table(torch, dev, m, qs, rs, hi + 4)
+        for bw in (0, 3, 16, 64, 4096):
+            kw = dict(open_=open_, ext=ext, mode="nw", free=F4, width="sat",
+                      banded=True, bandwidth=bw, **subs)
+            err = max(err, compare(torch, tk, f"banded {name} bw={bw}", args,
+                                   kw))
+        log(f"[14 banded vs plain] {name}, {n} pairs of 0-{hi}, bw 0, 3, 16, "
+            f"64, 4096: equal")
+    q9, r9 = random_seqs(rng, DNA, 2, 9, 9)
+    s0q = [q9[:a] for (a, _), _ in STEP0]
+    s0r = [r9[:b] for (_, b), _ in STEP0]
+    args, subs = pack_table(torch, dev, dna, s0q, s0r, 16)
+    kw = dict(open_=4, ext=1, mode="nw", free=F4, width="32", banded=True,
+              bandwidth=2, **subs)
+    err = max(err, compare(torch, tk, "banded step-0 pairs", args, kw))
+    out = tk.score_align(*args, **kw)
+    for k, ((a, b), want) in enumerate(STEP0):
+        oracle = banded_oracle(golden, dna, s0q[k], s0r[k], 4, 1, 2)
+        got = int(out["score"][k])
+        if got != oracle or (want is not None and got != want):
+            raise AssertionError(f"banded ({a}, {b}): kernel {got}, oracle "
+                                 f"{oracle}, expected {want}")
+    log("[14 banded vs plain] empty sides and unreachable corners (0, 5), "
+        "(5, 0), (0, 2), (3, 9), (6, 6): equal to plain and to golden's "
+        f"banded oracle: {out['score'].tolist()}")
+
+    # -- 15. the banded main path through the public API -----------------------
+    qs, rs = sw_pairs
+    bw = 16
+    bal = (pt.Aligner.new().matrix(blosum).gap_open(11).gap_extend(1)
+           .bandwidth(bw).build())
+    dispatch.ROUTE_COUNTS.clear()
+    tk.LAUNCHES = tk.TRACE_LAUNCHES = tk.BANDED_LAUNCHES = 0
+    res = bal.banded_nw_batch(qs, rs)
+    launches = tk.BANDED_LAUNCHES
+    routes = dict(dispatch.ROUTE_COUNTS)
+    log(f"[15 banded path] banded launches={launches} (score {tk.LAUNCHES}) "
+        f"routes={routes}")
+    if launches < 1:
+        raise AssertionError("banded_nw_batch did not launch the banded "
+                             "kernel")
+    if set(routes) != {("cuda_kernel", "")} or \
+            set(bal.route_counter) != {("cuda_kernel", "")}:
+        raise AssertionError(f"the banded path left the kernel route: "
+                             f"{routes}")
+    batch, _, _ = bal._pack(qs, rs)
+    args = (batch.ridx, batch.qlen_t, batch.rlen_t)
+    kw = dict(open_=11, ext=1, mode="nw", free=F4, width="32",
+              table=batch.table, qidx=batch.qidx, banded=True, bandwidth=bw)
+    plain = {k: v.cpu().numpy() for k, v in
+             tk.score_align_plain(*args, **kw).items()}
+    check_against_plain(f"banded_nw_batch {len(qs)} pairs bw {bw}", res,
+                        plain)
+    err = max(err, compare(torch, tk, "phase 15 batch", args, kw))
+    if not all(a.is_banded() and a.is_global() for a in res):
+        raise AssertionError("banded results have the wrong flags")
+    for b in rng.choice(len(qs), size=16, replace=False).tolist():
+        want = banded_oracle(golden, blosum, qs[b], rs[b], 11, 1, bw)
+        if res[b].get_score() != want:
+            raise AssertionError(f"banded pair {b}: {res[b].get_score()} != "
+                                 f"golden's banded oracle {want}")
+    unreachable = sum(a.get_score() == NEG for a in res)
+    log(f"[15 banded path] banded_nw_batch of {len(qs)} BLOSUM62 pairs of "
+        f"140-160, NW 11/1, bw {bw}: on cuda_kernel, equal to plain, 16 "
+        f"sampled pairs equal to golden's banded oracle; {unreachable} "
+        "corners out of the band (-2^30)")
+
+    # -- banded timings ---------------------------------------------------------
+    ms = time_cuda(torch, lambda: tk.score_align(*args, **kw))
+    plain_ms = time_cuda(torch, lambda: tk.score_align_plain(*args, **kw),
+                         reps=3, warmup=1)
+    unb = {k: v for k, v in kw.items() if k not in ("banded", "bandwidth")}
+    unb_ms = time_cuda(torch, lambda: tk.score_align(*args, **unb))
+    e2e_ms = time_host(lambda: bal.banded_nw_batch(qs, rs))
+    with stages.measuring():
+        for _ in range(3):
+            bal.banded_nw_batch(qs, rs)
+        snap = stages.snapshot()
+    per_call = {k: v["ms"] / 3 for k, v in snap.items()}
+    cells = band_cells(batch.qlen, batch.rlen, bw)
+    full = int((batch.qlen.astype(np.int64) * batch.rlen).sum())
+    log(f"[15 timing] card: {card}")
+    log(f"[15 timing] {len(qs)} pairs Qp={batch.qidx.shape[1]} "
+        f"Rp={batch.ridx.shape[1]} NW 11/1: banded kernel (bw {bw}) median "
+        f"{ms} ms ({cells} band cells, {cells / ms / 1e6} GCUPS), plain "
+        f"{plain_ms} ms; unbanded score kernel on the same batch {unb_ms} ms "
+        f"({full} cells, {full / unb_ms / 1e6} GCUPS) [{card}]")
+    log(f"[15 timing] banded_nw_batch {len(qs)} pairs e2e median {e2e_ms} ms "
+        f"({len(qs) / e2e_ms * 1e3} aln/s); stages, ms per call: "
+        f"{json.dumps(per_call)} [{card}]")
+    return {"launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms}
+
+
+def check_fields(name, got, want) -> None:
+    """Every field of every alignment equal; raises on the first
+    difference."""
+    for b, (x, y) in enumerate(zip(got, want)):
+        keys = sorted(y.fields.keys())
+        if sorted(x.fields.keys()) != keys:
+            raise AssertionError(f"{name}: pair {b} fields differ")
+        for k in keys:
+            if not np.array_equal(np.asarray(x.fields[k]),
+                                  np.asarray(y.fields[k])):
+                raise AssertionError(f"{name}: pair {b} {k} differs")
+
+
+def merged_cigar(walk) -> str:
+    """golden's walk as SSW's CIGAR: '=' and 'X' merged into 'M'."""
+    runs: list = []
+    for n, op in walk.ops:
+        op = "M" if op in "=X" else op
+        if runs and runs[-1][1] == op:
+            runs[-1][0] += n
+        else:
+            runs.append([n, op])
+    return "".join(f"{n}{op}" for n, op in runs)
+
+
+def ssw_view(results) -> list:
+    return [(s.score1, s.read_begin1, s.read_end1, s.ref_begin1, s.ref_end1,
+             s.cigar_string()) for s in results]
+
+
+def many_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum, card,
+              sw_pairs) -> None:
+    """Phases 16-17: align_many and SSW, with their timings."""
+    from parasail_rs_tpu.batch import merge_bins, plan_bins
+
+    # -- 16. align_many ---------------------------------------------------------
+    dna = pt.Matrix.create(DNA, 2, -3)
+    mq = random_seqs(rng, DNA, 256, 100, 2000)         # cfg5
+    mr = random_seqs(rng, DNA, 256, 100, 2000)
+    mx = pt.Aligner.new().gap_open(5).gap_extend(2).local().build()
+    sq = random_seqs(rng, PROTEIN, 512, 20, 400)
+    sr = random_seqs(rng, PROTEIN, 512, 20, 400)
+    st_al = (pt.Aligner.new().matrix(blosum).gap_open(11).gap_extend(1)
+             .local().use_stats().build())
+    tq = random_seqs(rng, DNA, 256, 50, 500)
+    tr = random_seqs(rng, DNA, 256, 50, 500)
+    tr_al = (pt.Aligner.new().matrix(dna).gap_open(5).gap_extend(2)
+             .semi_global().use_trace().build())
+    lq = random_seqs(rng, DNA, 128, 4096, 4096)       # cfg6 at a quarter
+    lr = random_seqs(rng, DNA, 128, 4096, 4096)
+    lg = pt.Aligner.new().gap_open(5).gap_extend(1).local().build()
+    dispatch.ROUTE_COUNTS.clear()
+    tk.LAUNCHES = tk.TRACE_LAUNCHES = tk.BANDED_LAUNCHES = tw.LAUNCHES = 0
+    tk.CLASS_LAUNCHES = dict.fromkeys(PLANE_CLASSES, 0)
+    res5 = mx.align_many(mq, mr)
+    res_st = st_al.align_many(sq, sr)
+    res_tr = tr_al.align_many(tq, tr)
+    t0 = time.perf_counter()
+    res_long = lg.align_many(lq, lr)
+    long_s = time.perf_counter() - t0
+    launches = {"score": tk.LAUNCHES, "stats": tk.CLASS_LAUNCHES["stats"],
+                "trace": tk.TRACE_LAUNCHES}
+    routes = dict(dispatch.ROUTE_COUNTS)
+    nbins = len(merge_bins(plan_bins([len(q) for q in mq],
+                                     [len(r) for r in mr], max_cells=1 << 33,
+                                     lane_quantum=128),
+                           max_launches=8, max_cells=1 << 33))
+    log(f"[16 align_many] launches={launches} routes={routes}; cfg5 in "
+        f"{nbins} bins")
+    if min(launches.values()) < 1 or launches["score"] < nbins + 1:
+        raise AssertionError(f"align_many did not launch every kernel: "
+                             f"{launches}")
+    if set(routes) != {("cuda_kernel", "")}:
+        raise AssertionError(f"align_many left the kernel route: {routes}")
+    check_fields("cfg5 align_many against align_batch", res5,
+                 mx.align_batch(mq, mr))
+    check_against_plain("cfg5 align_many", res5, plain_of(tk, mx, mq, mr))
+    check_fields("stats align_many against align_batch", res_st,
+                 st_al.align_batch(sq, sr))
+    check_fields("trace align_many against align_batch", res_tr,
+                 tr_al.align_batch(tq, tr))
+    check_against_plain("128 x 4096 bp, first 16 pairs", res_long[:16],
+                        plain_of(tk, lg, lq[:16], lr[:16]))
+    log(f"[16 align_many] cfg5 (256 DNA pairs of 100-2,000 bp, SW 5/2) equal "
+        f"to align_batch and to plain; use_stats (512 BLOSUM62 pairs of "
+        f"20-400) and use_trace (256 SG DNA pairs of 50-500) equal to "
+        f"align_batch; 128 x 4,096 bp SW 5/1 in {long_s} s, its first 16 "
+        f"pairs equal to plain")
+
+    # -- 17. SSW ----------------------------------------------------------------
+    qs, rs = (x[:1024] for x in sw_pairs)
+
+    def ssw_aligners(device):
+        one = (pt.Aligner.new().matrix(blosum).gap_open(11).gap_extend(1)
+               .device(device).build())
+        profs = [pt.Aligner.new().profile(pt.Profile.new_ssw(qs[0], blosum,
+                                                             size))
+                 .gap_open(11).gap_extend(1).device(device).build()
+                 for size in (0, 2)]
+        return one, profs
+
+    def ssw_runs(one, profs):
+        return [ssw_view(one.ssw_batch(qs, rs)),
+                ssw_view(one.ssw_batch(qs, rs, windowed=True)),
+                *(ssw_view(p.ssw_batch(None, rs)) for p in profs)]
+
+    card_al, card_profs = ssw_aligners("cuda")
+    dispatch.ROUTE_COUNTS.clear()
+    tk.LAUNCHES = tk.TRACE_LAUNCHES = tw.LAUNCHES = 0
+    got = ssw_runs(card_al, card_profs)
+    launches = {"score": tk.LAUNCHES, "trace": tk.TRACE_LAUNCHES,
+                "walk": tw.LAUNCHES}
+    routes = dict(dispatch.ROUTE_COUNTS)
+    log(f"[17 ssw] launches={launches} routes={routes}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"SSW did not launch every kernel: {launches}")
+    if set(routes) != {("cuda_kernel", "")}:
+        raise AssertionError(f"SSW left the kernel route: {routes}")
+    names = ("one pass", "windowed", "profile score_size 0",
+             "profile score_size 2")
+    for name, g, w in zip(names, got, ssw_runs(*ssw_aligners("cpu"))):
+        if g != w:
+            bad = next(b for b in range(len(g)) if g[b] != w[b])
+            raise AssertionError(f"ssw {name} pair {bad}: card {g[bad]} != "
+                                 f"cpu {w[bad]}")
+    for b in rng.choice(len(qs), size=16, replace=False).tolist():
+        g = golden.align_seqs(qs[b], rs[b], blosum, 11, 1, "sw")
+        w = golden.walk_trace(g.trace_table, qs[b], rs[b], g.end_query,
+                              g.end_ref, "sw")
+        want = (g.score, w.beg_query, g.end_query, w.beg_ref, g.end_ref,
+                merged_cigar(w))
+        if got[0][b] != want:
+            raise AssertionError(f"ssw pair {b}: {got[0][b]} != golden "
+                                 f"{want}")
+        win = got[1][b]
+        if (win[0], win[2], win[4]) != (want[0], want[2], want[4]):
+            raise AssertionError(f"windowed ssw pair {b}: {win} != golden "
+                                 f"{want}")
+    capped = sum(s[0] == 255 for s in got[2])
+    log(f"[17 ssw] {len(qs)} BLOSUM62 pairs, 11/1: one pass, windowed, and "
+        f"a profile at score_size 0 ({capped} pairs capped at 255) and 2, "
+        "all on cuda_kernel and equal to the CPU aligner; 16 sampled pairs "
+        "equal to golden (windowed: score and ends)")
+
+    # -- timings ------------------------------------------------------------------
+    cells5 = sum(len(q) * len(r) for q, r in zip(mq, mr))
+    m5_ms = time_host(lambda: mx.align_many(mq, mr), reps=3)
+    with stages.measuring():
+        for _ in range(3):
+            mx.align_many(mq, mr)
+        snap = stages.snapshot()
+    per_call = {k: v["ms"] / 3 for k, v in snap.items()}
+    b5_ms = time_host(lambda: mx.align_batch(mq, mr), reps=3)
+    c27_ms = time_host(lambda: mx.align_many(mq, mr, max_cells=1 << 27),
+                       reps=3)
+    nb27 = len(merge_bins(plan_bins([len(q) for q in mq],
+                                    [len(r) for r in mr], max_cells=1 << 27,
+                                    lane_quantum=128),
+                          max_launches=8, max_cells=1 << 27))
+    lb, _, _ = lg._pack(lq, lr)
+    long_ms = time_cuda(torch, lambda: tk.score_align(
+        lb.ridx, lb.qlen_t, lb.rlen_t, open_=5, ext=1, mode="sw",
+        free=(True,) * 4, width="sat", table=lb.table, qidx=lb.qidx),
+        reps=2, warmup=0)
+    one_ms = time_host(lambda: card_al.ssw_batch(qs, rs), reps=3)
+    win_ms = time_host(lambda: card_al.ssw_batch(qs, rs, windowed=True),
+                       reps=3)
+    log(f"[16 timing] card: {card}")
+    log(f"[16 timing] cfg5 align_many ({nbins} bins) e2e median {m5_ms} ms "
+        f"({cells5 / m5_ms / 1e6} GCUPS over {cells5} cells); stages, ms "
+        f"per call: {json.dumps(per_call)}; align_batch of the same pairs "
+        f"(one launch, Qp=Rp=2048) {b5_ms} ms; align_many max_cells=2^27 "
+        f"({nb27} bins) {c27_ms} ms [{card}]")
+    log(f"[16 timing] 128 x 4,096 bp SW 5/1: score kernel median {long_ms} "
+        f"ms ({128 * 4096 * 4096 / long_ms / 1e6} GCUPS, "
+        f"{long_ms * 1e6 / (4096 * 4096)} ns per cell per thread); "
+        f"align_many once {long_s * 1e3} ms [{card}]")
+    log(f"[17 timing] ssw_batch {len(qs)} BLOSUM62 pairs e2e median: one "
+        f"pass {one_ms} ms, windowed {win_ms} ms [{card}]")
 
 
 if __name__ == "__main__":

@@ -5,7 +5,10 @@
 // score class (outputs="score"), its trace class (outputs="trace"; flags
 // at :865-888), its stats class (outputs="stats"; payloads at :844-863,
 // outputs at :1489-1496) and its plane classes (outputs="table",
-// "stats_table", "rowcol", "stats_rowcol"; :979-999, :1498-1519).  Same
+// "stats_table", "rowcol", "stats_rowcol"; :979-999, :1498-1519), and
+// its banded mode in the score class (banded=True, bandwidth; :1307-1308,
+// masks at :602-617, :722-725, :890-891), which sweeps only the band's
+// cells, O(qlen * (2 bw + 1)) per pair (pt_scan_banded).  Same
 // outputs: score, end_query, end_ref and the width-8/16 saturation
 // flags, bit for bit, for NW, the nine SG free-end sets and SW, with the
 // substitution given as an (A, A) table plus query letters or as (1 or
@@ -49,7 +52,7 @@
 
 namespace {
 
-template <int32_t kOut>
+template <int32_t kOut, bool kBanded = false>
 __global__ void scan_kernel(
     const int32_t* __restrict__ subs,  // (A, A) table or (Bq, Qp, A) rows
     const int32_t* __restrict__ qidx,  // (Bq, Qp) letters; null: profile form
@@ -64,7 +67,8 @@ __global__ void scan_kernel(
     int32_t B, int32_t Bq, int32_t Qp, int32_t Rp, int32_t A, int32_t open,
     int32_t ext, int32_t mode, int32_t free_bits, int32_t table_in_smem,
     ptscore::PlaneIO io,               // the batch's rows and planes
-    int32_t Bm) {                      // stats: io.mq is (Bm, Qp)
+    int32_t Bm,                        // stats: io.mq is (Bm, Qp)
+    int32_t bw) {                      // kBanded: the band's half-width
   using O = ptscore::Out<kOut>;
   extern __shared__ int32_t smem[];
   const int32_t* table = subs;
@@ -91,10 +95,10 @@ __global__ void scan_kernel(
     p.col = io.col + b;
     p.col_plane = io.col_plane;
   }
-  const ptscore::PairResult r = ptscore::score_batch_pair<kOut>(
+  const ptscore::PairResult r = ptscore::score_batch_pair<kOut, kBanded>(
       b, subs, table, qidx, ridx, qlen, rlen, hrow + b, erow + b,
       (int64_t)B, Bq, Qp, Rp, A, open, ext, mode, free_bits,
-      O::trace ? trace + b : nullptr, (int64_t)Rp * B, (int64_t)B, p);
+      O::trace ? trace + b : nullptr, (int64_t)Rp * B, (int64_t)B, p, bw);
   out[b] = r.score;
   out[B + b] = r.end_query;
   out[2 * B + b] = r.end_ref;
@@ -110,12 +114,13 @@ __global__ void scan_kernel(
 constexpr int kThreads = 64;
 constexpr size_t kStaticSmemLimit = 48 * 1024;
 
-template <int32_t kOut>
+template <int32_t kOut, bool kBanded = false>
 int launch(const void* subs, const void* qidx, const void* ridx,
            const void* qlen, const void* rlen, void* hrow, void* erow,
            void* out, void* trace, int B, int Bq, int Qp, int Rp, int A,
            int open, int ext, int mode, int free_bits, void* stream,
-           const ptscore::PlaneIO& io = ptscore::PlaneIO(), int Bm = 0) {
+           const ptscore::PlaneIO& io = ptscore::PlaneIO(), int Bm = 0,
+           int bw = 0) {
   if (B <= 0) return 0;
   size_t smem = 0;
   int in_smem = 0;
@@ -124,11 +129,12 @@ int launch(const void* subs, const void* qidx, const void* ridx,
     in_smem = 1;
   }
   const int blocks = (B + kThreads - 1) / kThreads;
-  scan_kernel<kOut><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)subs, (const int32_t*)qidx, (const int32_t*)ridx,
-      (const int32_t*)qlen, (const int32_t*)rlen, (int32_t*)hrow,
-      (int32_t*)erow, (int32_t*)out, (int8_t*)trace, B, Bq, Qp, Rp, A, open,
-      ext, mode, free_bits, in_smem, io, Bm);
+  scan_kernel<kOut, kBanded>
+      <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+          (const int32_t*)subs, (const int32_t*)qidx, (const int32_t*)ridx,
+          (const int32_t*)qlen, (const int32_t*)rlen, (int32_t*)hrow,
+          (int32_t*)erow, (int32_t*)out, (int8_t*)trace, B, Bq, Qp, Rp, A,
+          open, ext, mode, free_bits, in_smem, io, Bm, bw);
   return (int)cudaGetLastError();
 }
 
@@ -146,6 +152,21 @@ extern "C" int pt_scan_score(const void* subs, const void* qidx,
   return launch<ptscore::OUT_SCORE>(subs, qidx, ridx, qlen, rlen, hrow, erow,
                                     out, nullptr, B, Bq, Qp, Rp, A, open, ext,
                                     mode, free_bits, stream);
+}
+
+// The banded score form (K1e): pt_scan_score's arguments plus the band's
+// half-width `bandwidth`; cells with |i - j| > bandwidth, and border cells
+// beyond it, do not exist.  The wrapper runs it as NW only.
+extern "C" int pt_scan_banded(const void* subs, const void* qidx,
+                              const void* ridx, const void* qlen,
+                              const void* rlen, void* hrow, void* erow,
+                              void* out, int B, int Bq, int Qp, int Rp, int A,
+                              int open, int ext, int mode, int free_bits,
+                              int bandwidth, void* stream) {
+  return launch<ptscore::OUT_SCORE, true>(
+      subs, qidx, ridx, qlen, rlen, hrow, erow, out, nullptr, B, Bq, Qp, Rp,
+      A, open, ext, mode, free_bits, stream, ptscore::PlaneIO(), 0,
+      ptscore::clamp_band(bandwidth, Qp, Rp));
 }
 
 // pt_scan_score plus the (Qp, Rp, B) int8 flag plane `trace`, of which

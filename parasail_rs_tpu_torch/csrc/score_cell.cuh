@@ -47,6 +47,11 @@
 // qlen x rlen cells.  Because every value and payload follows golden's
 // literal comparisons, open < ext and open == ext need nothing special.
 //
+// The banded score form (kBanded, NW) sweeps only the cells with
+// |i - j| <= bw and masks the borders beyond bw, as the TPU kernel's
+// banded mode (scan_kernel.py:602-617, :722-725, :890-891); see
+// score_pair.
+//
 // All arithmetic is exact int32 with NEG_INF32 = -2^30 as minus infinity,
 // so NEG_INF32 - open - ext cannot wrap.
 #pragma once
@@ -141,6 +146,13 @@ PT_HD int32_t border(int32_t c, bool is_free, int32_t open, int32_t ext) {
   return (is_free || c <= 0) ? 0 : -(open + (c - 1) * ext);
 }
 
+// border() of the banded form: -inf beyond the band's half-width bw
+// (the TPU kernel's masked top_b / left_b, scan_kernel.py:607-616).
+PT_HD int32_t band_border(int32_t c, bool is_free, int32_t open, int32_t ext,
+                          int32_t bw) {
+  return c <= bw ? border(c, is_free, open, ext) : NEG_INF32;
+}
+
 // One DP cell.  h_diag = H[i-1][j-1], h_up = H[i-1][j], e_up = E[i-1][j],
 // h_left = H[i][j-1]; f carries F[i][j-1] in and F[i][j] out.
 PT_HD void cell(int32_t h_diag, int32_t h_up, int32_t e_up, int32_t h_left,
@@ -175,16 +187,20 @@ PT_HD int32_t cell_trace(int32_t h_diag, int32_t h_up, int32_t e_up,
 // candidates, value desc then (i, j) asc): the corner, plus the top row's
 // cells if qe (qlen == 0) or the left column's if de (rlen == 0).  Its
 // payload is (0, 0, the characters consumed, or 0 on a free border).
+// Banded (NW only), a border cell beyond bw is -inf, so a side longer
+// than the band scores NEG_INF32, as golden's banded_nw_fill.
+template <bool kBanded = false>
 PT_HD PairResult empty_side(int32_t qlen, int32_t rlen, int32_t open,
                             int32_t ext, bool qb, bool qe, bool db,
-                            bool de) {
+                            bool de, int32_t bw = 0) {
   PairResult out{0, qlen - 1, rlen - 1, 0, 0, 0, 0, 0};
   const int32_t n = qlen == 0 ? rlen : qlen;
   const bool is_free = qlen == 0 ? qb : db;
   const bool end_free = qlen == 0 ? qe : de;
   int32_t best = NEG_INF32, at = n;
   for (int32_t c = 1; c <= n; ++c) {
-    const int32_t v = border(c, is_free, open, ext);
+    const int32_t v = kBanded ? band_border(c, is_free, open, ext, bw)
+                              : border(c, is_free, open, ext);
     if ((end_free || c == n) && v > best) {
       best = v;
       at = c;
@@ -211,14 +227,27 @@ PT_HD PairResult empty_side(int32_t qlen, int32_t rlen, int32_t open,
 //           j * tsj]; the table forms write their planes at the same
 //           strides.
 //   io:     the stats, table and rowcol forms' rows and planes.
-template <int32_t kOut>
+//
+// kBanded (the banded score form, K1e; run as NW): only cells with
+// |i - j| <= bw exist, so row i sweeps j in [max(0, i - bw),
+// min(rlen - 1, i + bw)] and a pair costs O(qlen * (2 bw + 1)) cells.
+// The edges give exactly what the plain version (the wavefront, which
+// masks H, E and F outside the band and the borders beyond bw to
+// NEG_INF32) gives: the top row starts as the masked border, so a cell
+// right of row i - 1's band, never written, reads NEG_INF32; at a left
+// edge lo > 0, H and F to the left are NEG_INF32 and the diagonal is row
+// i - 1's H at lo - 1; column 0 reads the masked border.  In-band E and F
+// keep the same unclamped int32 values (NEG_INF32 - open and so on).
+// bw must lie in [-1, qp + rlen] (the caller clamps it).
+template <int32_t kOut, bool kBanded = false>
 PT_HD PairResult score_pair(const int32_t* rows, const int32_t* qidx,
                             int32_t A, const int32_t* ridx, int32_t qlen,
                             int32_t rlen, int32_t qp, int32_t* hrow,
                             int32_t* erow, int64_t stride, int32_t open,
                             int32_t ext, int32_t mode, int32_t free_bits,
                             int8_t* trace, int64_t tsi, int64_t tsj,
-                            const PlaneIO& io) {
+                            const PlaneIO& io, int32_t bw = 0) {
+  static_assert(!kBanded || kOut == OUT_SCORE, "banded: score form only");
   using O = Out<kOut>;
   const bool local = mode == MODE_SW;
   const bool qb = local || (free_bits & FREE_QB);
@@ -226,7 +255,7 @@ PT_HD PairResult score_pair(const int32_t* rows, const int32_t* qidx,
   const bool qe = mode == MODE_SG && (free_bits & FREE_QE);
   const bool de = mode == MODE_SG && (free_bits & FREE_DE);
   if (!local && (qlen == 0 || rlen == 0))
-    return empty_side(qlen, rlen, open, ext, qb, qe, db, de);
+    return empty_side<kBanded>(qlen, rlen, open, ext, qb, qe, db, de, bw);
 
   // payload rows: H's (m, s, l) and E's (m, s, l) of the previous row
   int32_t* const HM = io.pay;
@@ -238,7 +267,8 @@ PT_HD PairResult score_pair(const int32_t* rows, const int32_t* qidx,
 
   // row "-1": the bordered top row H[0][j+1], E = -inf
   for (int32_t j = 0; j < rlen; ++j) {
-    hrow[j * stride] = border(j + 1, qb, open, ext);
+    hrow[j * stride] = kBanded ? band_border(j + 1, qb, open, ext, bw)
+                               : border(j + 1, qb, open, ext);
     erow[j * stride] = NEG_INF32;
     if constexpr (O::stats) {
       const int64_t o = j * stride;
@@ -264,6 +294,19 @@ PT_HD PairResult score_pair(const int32_t* rows, const int32_t* qidx,
 
     int32_t h_diag = border(i, db, open, ext);      // H[i][0] (bordered)
     int32_t h_left = border(i + 1, db, open, ext);  // H[i+1][0]
+    int32_t lo = 0, hi = rlen;                      // this row's [lo, hi)
+    if constexpr (kBanded) {
+      lo = imax(0, i - bw);
+      hi = imin(rlen, i + bw + 1);
+      if (lo >= hi) continue;
+      if (lo == 0) {
+        h_diag = band_border(i, db, open, ext, bw);
+        h_left = band_border(i + 1, db, open, ext, bw);
+      } else {
+        h_diag = hrow[(lo - 1) * stride];
+        h_left = NEG_INF32;
+      }
+    }
     int32_t f = NEG_INF32;
     // stats: payloads of the diagonal, the cell to the left and F
     int32_t dm = 0, ds = 0, dl = db ? 0 : i;
@@ -271,7 +314,7 @@ PT_HD PairResult score_pair(const int32_t* rows, const int32_t* qidx,
     int32_t fm = 0, fs = 0, fl = 0;
     int32_t mqi = 0;
     if constexpr (O::stats) mqi = io.mq[i];
-    for (int32_t j = 0; j < rlen; ++j) {
+    for (int32_t j = lo; j < hi; ++j) {
       const int32_t r = ridx[j];
       const int32_t s = (qok && r >= 0 && r < A) ? srow[r] : 0;
       const int32_t h_up = hrow[j * stride];
@@ -388,6 +431,13 @@ PT_HD PairResult score_pair(const int32_t* rows, const int32_t* qidx,
   out.end_ref = mode == MODE_NW ? rlen - 1 : bj;
   out.sat8 = (hmax >= W8_MAX || hmin <= W8_MIN) ? 1 : 0;
   out.sat16 = (hmax >= W16_MAX || hmin <= W16_MIN) ? 1 : 0;
+  if constexpr (kBanded) {
+    // the plain version counts every in-sequence cell outside the band as
+    // H = NEG_INF32: there is one when the far corner of the longer side,
+    // (qlen - 1, 0) or (0, rlen - 1), lies outside
+    if (qlen > 0 && rlen > 0 && imax(qlen, rlen) - 1 > bw)
+      out.sat8 = out.sat16 = 1;
+  }
   out.matches = bm;
   out.similar = bs;
   out.length = bl;
@@ -402,7 +452,8 @@ PT_HD PairResult score_pair(const int32_t* rows, const int32_t* qidx,
 //   qidx:  (Bq, Qp) query letters; null selects the profile form
 //   trace: OUT_TRACE only: pair b's cell (0, 0), strides tsi and tsj
 //   io:    pair b's rows and planes (its `mq` the pair's letters)
-template <int32_t kOut>
+//   bw:    kBanded only: the band's half-width, in [-1, Qp + Rp]
+template <int32_t kOut, bool kBanded = false>
 PT_HD PairResult score_batch_pair(int32_t b, const int32_t* subs,
                                   const int32_t* table, const int32_t* qidx,
                                   const int32_t* ridx, const int32_t* qlen,
@@ -412,14 +463,21 @@ PT_HD PairResult score_batch_pair(int32_t b, const int32_t* subs,
                                   int32_t open, int32_t ext, int32_t mode,
                                   int32_t free_bits, int8_t* trace,
                                   int64_t tsi, int64_t tsj,
-                                  const PlaneIO& io) {
+                                  const PlaneIO& io, int32_t bw = 0) {
   const int64_t bq = Bq == 1 ? 0 : b;
   const int32_t* rows = qidx ? table : subs + bq * Qp * A;
   const int32_t* q = qidx ? qidx + bq * Qp : nullptr;
-  return score_pair<kOut>(rows, q, A, ridx + (int64_t)b * Rp,
-                          imin(qlen[b], Qp), imin(rlen[b], Rp), Qp, hrow,
-                          erow, stride, open, ext, mode, free_bits, trace,
-                          tsi, tsj, io);
+  return score_pair<kOut, kBanded>(rows, q, A, ridx + (int64_t)b * Rp,
+                                   imin(qlen[b], Qp), imin(rlen[b], Rp), Qp,
+                                   hrow, erow, stride, open, ext, mode,
+                                   free_bits, trace, tsi, tsj, io, bw);
+}
+
+// A band's half-width clamped to [-1, Qp + Rp]: the same cells and
+// borders as any wider or more negative value, and no int32 overflow in
+// i + bw + 1.
+PT_HD int32_t clamp_band(int32_t bw, int32_t Qp, int32_t Rp) {
+  return imin(imax(bw, -1), Qp + Rp);
 }
 
 }  // namespace ptscore

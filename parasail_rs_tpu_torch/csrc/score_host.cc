@@ -12,12 +12,12 @@
 
 namespace {
 
-template <int32_t kOut>
+template <int32_t kOut, bool kBanded = false>
 void sweep(const int32_t* subs, const int32_t* qidx, const int32_t* ridx,
            const int32_t* qlen, const int32_t* rlen, int32_t* out,
            int8_t* trace, int B, int Bq, int Qp, int Rp, int A, int open,
            int ext, int mode, int free_bits, const ptscore::PlaneIO& io,
-           int Bm) {
+           int Bm, int bw = 0) {
   using O = ptscore::Out<kOut>;
   const int n = Rp > 0 ? Rp : 1;
   std::vector<int32_t> hrow(n), erow(n), pay(6 * n);
@@ -38,10 +38,10 @@ void sweep(const int32_t* subs, const int32_t* qidx, const int32_t* ridx,
       p.col = io.col + (int64_t)b * Qp;
       p.col_plane = io.col_plane;
     }
-    const ptscore::PairResult r = ptscore::score_batch_pair<kOut>(
+    const ptscore::PairResult r = ptscore::score_batch_pair<kOut, kBanded>(
         b, subs, subs, qidx, ridx, qlen, rlen, hrow.data(), erow.data(), 1,
         Bq, Qp, Rp, A, open, ext, mode, free_bits,
-        O::trace ? trace + (int64_t)b * Qp * Rp : nullptr, Rp, 1, p);
+        O::trace ? trace + (int64_t)b * Qp * Rp : nullptr, Rp, 1, p, bw);
     out[b] = r.score;
     out[B + b] = r.end_query;
     out[2 * B + b] = r.end_ref;
@@ -67,6 +67,21 @@ extern "C" int pt_score_host(const int32_t* subs, const int32_t* qidx,
   sweep<ptscore::OUT_SCORE>(subs, qidx, ridx, qlen, rlen, out, nullptr, B,
                             Bq, Qp, Rp, A, open, ext, mode, free_bits,
                             ptscore::PlaneIO(), 0);
+  return 0;
+}
+
+// The banded score form: pt_score_host's arguments plus `bandwidth`, as
+// pt_scan_banded.
+extern "C" int pt_banded_host(const int32_t* subs, const int32_t* qidx,
+                              const int32_t* ridx, const int32_t* qlen,
+                              const int32_t* rlen, int32_t* out, int B,
+                              int Bq, int Qp, int Rp, int A, int open,
+                              int ext, int mode, int free_bits,
+                              int bandwidth) {
+  sweep<ptscore::OUT_SCORE, true>(subs, qidx, ridx, qlen, rlen, out, nullptr,
+                                  B, Bq, Qp, Rp, A, open, ext, mode,
+                                  free_bits, ptscore::PlaneIO(), 0,
+                                  ptscore::clamp_band(bandwidth, Qp, Rp));
   return 0;
 }
 

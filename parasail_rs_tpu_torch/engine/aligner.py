@@ -1,17 +1,16 @@
 """Aligner and AlignerBuilder on PyTorch.
 
-The port of ``parasail_rs_tpu.engine.aligner``: the builder keeps every
-configuration method and its mutual-exclusion rules (reference
-src/aligner/mod.rs:213-267); ``align`` / ``align_batch`` run one kernel
-launch per batch on the aligner's device, for every output class (score,
-stats, table, stats_table, rowcol, stats_rowcol, trace); ``cigars`` walks
-fetched trace planes on the host and ``align_cigars`` walks them on the
-device, fetching only opcodes.
-
-Out of this port so far, and raising ``NotImplementedError`` rather than
-computing anything else: ``align_many``, ``banded_nw``,
-``banded_nw_batch``, ``ssw`` and ``ssw_batch``.  The ROADMAP item that
-ports each is named in its message.
+The port of ``parasail_rs_tpu.engine.aligner``, every public method: the
+builder keeps every configuration method and its mutual-exclusion rules
+(reference src/aligner/mod.rs:213-267); ``align`` / ``align_batch`` run
+one kernel launch per batch on the aligner's device, for every output
+class (score, stats, table, stats_table, rowcol, stats_rowcol, trace);
+``align_many`` length-bins first and launches every bin before the first
+fetch; ``cigars`` walks fetched trace planes on the host and
+``align_cigars`` walks them on the device, fetching only opcodes;
+``banded_nw`` / ``banded_nw_batch`` run the banded score kernel;
+``ssw`` / ``ssw_batch`` run the SW trace kernel and the device walk, or
+for long pairs the three-pass windowed pipeline on ``align_many``.
 """
 
 from __future__ import annotations
@@ -22,7 +21,12 @@ from collections import Counter
 import numpy as np
 import torch
 
-from parasail_rs_tpu.errors import InteriorNulByte, NoTrace, QueryRequired
+from parasail_rs_tpu.errors import (
+    InteriorNulByte,
+    NoBandwidth,
+    NoTrace,
+    QueryRequired,
+)
 from parasail_rs_tpu.golden.model import free_flags
 from parasail_rs_tpu.matrices import Matrix
 from parasail_rs_tpu.utils import stages
@@ -31,7 +35,7 @@ from parasail_rs_tpu.utils.gcpause import gc_pause
 from ..ops.specs import KernelKey
 from . import dispatch
 from .profile import Profile
-from .result import Alignment, PairFields
+from .result import Alignment, PairFields, SSWResult
 
 log = logging.getLogger("parasail_rs_tpu_torch")
 
@@ -41,11 +45,6 @@ def _as_bytes(x) -> bytes:
     if 0 in b:
         raise InteriorNulByte("sequence contains an interior NUL byte")
     return b
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet ({item} in ROADMAP.md)")
 
 
 def resolve_device(device) -> torch.device:
@@ -313,14 +312,16 @@ class Aligner:
         return dispatch.pack_pairs(self.matrix, queries, references,
                                    Qp=Qp, Rp=Rp, device=self.device)
 
+    def _on_route(self, route: str, reason: str) -> None:
+        self.route_counter.update([(route, reason)])
+
     def _execute(self, batch):
         return dispatch.execute(
             batch,
             gap_open=self.gap_open, gap_extend=self.gap_extend,
             mode=self.key.mode, free=self.key.free,
             outputs=self.key.outputs, width=self.key.width,
-            on_route=lambda route, reason:
-                self.route_counter.update([(route, reason)]),
+            on_route=self._on_route,
         )
 
     def _alignments_from(self, out, qlens, rlens):
@@ -364,6 +365,57 @@ class Aligner:
             # profile function and ignores any passed query
             queries = None
         return self._run_packed(*self._pack(queries, references))
+
+    def align_many(self, queries, references,
+                   max_cells: int | None = None) -> list[Alignment]:
+        """Length-binned batched alignment: pairs are grouped by padded
+        shape (``parasail_rs_tpu.batch``) so a 100 bp pair never pays a
+        10 kbp tile; results return in input order.
+
+        ``max_cells`` caps B * Qp * Rp per launch; the defaults, lane
+        quantum and launch caps are the reference's (2^28 cells, 16
+        launches for the trace and table classes, whose planes are
+        cell-sized; 2^33 cells in groups of 128 pairs, 8 launches, for the
+        rest).  Every bin is packed and launched before the first fetch
+        (:func:`dispatch.submit`): the score and stats classes fetch every
+        bin at the end, the classes with planes fetch each bin's planes
+        as it completes.
+        """
+        refs = list(references)
+        if not refs:
+            return []
+        if not self.profile.is_null:
+            queries = None      # parity: the profile takes precedence
+        if queries is None:
+            if self.profile.is_null:
+                raise QueryRequired(
+                    "Query sequence is required for alignment without a "
+                    "profile.")
+            qlens = [self.profile.query_len] * len(refs)
+        else:
+            queries = list(queries)
+            qlens = [len(q) for q in queries]
+        bins = _shape_bins(
+            qlens, [len(r) for r in refs],
+            self.key.outputs in ("trace", "table", "stats_table"), max_cells)
+        pending = []
+        for bin_ in bins:
+            idx = bin_.indices
+            batch, bql, brl = self._pack(
+                None if queries is None else [queries[i] for i in idx],
+                [refs[i] for i in idx], Qp=bin_.qp, Rp=bin_.rp)
+            pending.append((idx, bql, brl, dispatch.submit(
+                batch, gap_open=self.gap_open, gap_extend=self.gap_extend,
+                mode=self.key.mode, free=self.key.free,
+                outputs=self.key.outputs, width=self.key.width,
+                on_route=self._on_route)))
+        results: list[Alignment | None] = [None] * len(refs)
+        for idx, bql, brl, res in pending:
+            out = (res.fetch()[0] if isinstance(res, dispatch.PendingResult)
+                   else res)
+            for i, aln in zip(idx, self._alignments_from(out, bql, brl)):
+                results[i] = aln
+        return results
 
     def cigars(self, alignments, queries, references) -> list[str]:
         """Batched CIGAR extraction over trace results.
@@ -412,8 +464,6 @@ class Aligner:
         length-binned (trace planes are cell-sized); results return in
         input order.
         """
-        from parasail_rs_tpu.batch import merge_bins, plan_bins
-
         refs = [_as_bytes(r) for r in references]
         if not refs:
             return [], []
@@ -431,10 +481,7 @@ class Aligner:
         n = len(refs)
         qlens_all = ([self.profile.query_len] * n if queries is None
                      else [len(q) for q in queries])
-        bins = merge_bins(
-            plan_bins(qlens_all, [len(r) for r in refs],
-                      max_cells=1 << 28, lane_quantum=1),
-            max_launches=16, max_cells=1 << 28)
+        bins = _shape_bins(qlens_all, [len(r) for r in refs], True)
         alns: list = [None] * n
         cigs: list = [None] * n
         for bin_ in bins:
@@ -472,7 +519,7 @@ class Aligner:
                            self._device_trace_walk_enqueue(batch, qseq)))
         alns_all, cigs_all = [], []
         for qlens, rlens, st in states:
-            out, ops_host = self._device_trace_walk_fetch(st)
+            out, ops_host, _, _ = self._device_trace_walk_fetch(st)
             alns_all.extend(res_al._alignments_from(out, qlens, rlens))
             # gc_pause: the string build allocates ~30 gc-tracked objects
             # per pair
@@ -508,8 +555,7 @@ class Aligner:
 
         kw = dict(gap_open=self.gap_open, gap_extend=self.gap_extend,
                   mode=self.key.mode, free=self.key.free, outputs="trace",
-                  on_route=lambda route, reason:
-                      self.route_counter.update([(route, reason)]))
+                  on_route=self._on_route)
         host = None
         if self.key.width == "64" and dispatch.width64_risk(
                 batch, self.gap_open, self.gap_extend).size:
@@ -526,31 +572,197 @@ class Aligner:
             eq, er = cols["end_query"], cols["end_ref"]
         qsym, rsym = self._walk_symbols(batch, qseq, trace.shape[1])
         with stages.stage("walk"):
-            ops, _bq, _br = device_walk(trace, qsym, rsym, eq, er,
-                                        self.key.mode, self.key.free)
-            pend = dispatch.PendingResult(cols, ops)
+            ops, bq, br = device_walk(trace, qsym, rsym, eq, er,
+                                      self.key.mode, self.key.free)
+            pend = dispatch.PendingResult(
+                {**cols, "beg_query": bq, "beg_ref": br}, ops)
         return host, pend
 
     def _device_trace_walk_fetch(self, st):
         """Blocking phase: wait for the copy and unpack (scalars dict,
-        ops rows (B, Qp + Rp) uint8 backward)."""
+        ops rows (B, Qp + Rp) uint8 backward, begin cells (B,) and
+        (B,))."""
         host, pend = st
         out, ops = pend.fetch()
-        return (host if host is not None else out), ops
+        bq, br = out.pop("beg_query"), out.pop("beg_ref")
+        return (host if host is not None else out), ops, bq, br
 
-    # -- not ported yet ----------------------------------------------------------
-    def align_many(self, queries, references, max_cells=None):
-        raise _not_ported("align_many", "Queue 1 item 7 (align_many)")
+    # -- banded global NW (src/aligner/mod.rs:457-489) ---------------------------
+    def banded_nw(self, query, reference) -> Alignment:
+        """Banded global alignment (reference -> parasail_nw_banded).
 
-    def banded_nw(self, query, reference):
-        raise _not_ported("banded_nw", "Queue 1 item 8 (banded), kernel K1e")
+        Score-only, and ``bandwidth`` must have been set at build time.
+        Cells with ``|i - j| > bandwidth`` (border cells included) are
+        excluded; a pair whose corner lies outside the band scores -2^30.
+        """
+        return self.banded_nw_batch([query], [reference])[0]
 
-    def banded_nw_batch(self, queries, references):
-        raise _not_ported("banded_nw_batch",
-                          "Queue 1 item 8 (banded), kernel K1e")
+    def banded_nw_batch(self, queries, references) -> list[Alignment]:
+        """Batched banded global alignment: one launch of the banded score
+        kernel (NW, width 32) over the whole batch."""
+        if self.bandwidth is None:
+            raise NoBandwidth(
+                "banded_nw() requires .bandwidth() on the builder")
+        batch, qlens, rlens = self._pack(queries, references)
+        out = dispatch.execute(
+            batch, gap_open=self.gap_open, gap_extend=self.gap_extend,
+            mode="nw", free=(False,) * 4, outputs="score", width="32",
+            on_route=self._on_route, banded=True, bandwidth=self.bandwidth)
+        flags = self._flags(False, banded=True)
+        flags.update({"nw": True, "sg": False, "sw": False})
+        with stages.stage("build"), gc_pause(len(rlens)):
+            return [Alignment(fields=dispatch.slice_pair(out, b, qlens[b],
+                                                         rlens[b]),
+                              flags=dict(flags), query_len=qlens[b],
+                              ref_len=rlens[b], matrix=self.matrix,
+                              free=(False,) * 4, mode="nw")
+                    for b in range(len(rlens))]
 
-    def ssw(self, query, reference):
-        raise _not_ported("ssw", "Queue 1 item 8 (SSW)")
+    # -- SSW emulation (src/aligner/mod.rs:492-529) ------------------------------
+    def ssw(self, query, reference) -> SSWResult:
+        """Striped Smith-Waterman with begin coordinates and a raw CIGAR.
 
-    def ssw_batch(self, queries, references, windowed=None):
-        raise _not_ported("ssw_batch", "Queue 1 item 8 (SSW)")
+        Always local, with this aligner's matrix and gap penalties; with
+        a profile set, pass ``query=None``.
+        """
+        return self.ssw_batch(
+            None if query is None else [query], [reference])[0]
+
+    def _sub(self, outputs: str, mode: str, profile: bool) -> "Aligner":
+        """A width-sat sub-aligner of SSW, sharing this one's route
+        counter."""
+        sub = Aligner(
+            key=KernelKey(mode=mode, free=(mode == "sw",) * 4,
+                          outputs=outputs, strategy="striped",
+                          profile=profile, width="sat"),
+            matrix=self.matrix, gap_open=self.gap_open,
+            gap_extend=self.gap_extend,
+            profile=self.profile if profile else Profile.default(),
+            bandwidth=None, device=self.device)
+        sub.route_counter = self.route_counter
+        return sub
+
+    def ssw_batch(self, queries, references,
+                  windowed: bool | None = None) -> list[SSWResult]:
+        """Batched SSW: one SW trace-kernel launch and one device walk for
+        the whole set (begins and merged-M CIGAR runs come back; the flag
+        plane never leaves the card).
+
+        With a profile set and ``queries=None`` its ``score_size`` is
+        honoured: 0 = 8-bit, where a pair whose 8-bit lanes saturate
+        reports ``score1 = 255``; 1 and 2 cap at 65535.  ``windowed``
+        selects the three-pass long-pair pipeline (:meth:`_ssw_windowed`);
+        None turns it on, as the reference does, when 128-rounded pairs
+        times the padded lengths exceed 4 << 30 cells.  Its CIGARs may
+        differ from the one-pass walk's in tie-broken op order only.
+        """
+        from parasail_rs_tpu.utils.shapes import length_bucket
+
+        from ..ops.trace_walk import ops_to_runs_batch
+
+        refs = [_as_bytes(r) for r in references]
+        use_profile = queries is None
+        if use_profile:
+            if self.profile.is_null:
+                raise QueryRequired(
+                    "Query sequence is required for SSW alignment for now.")
+            qs = [self.profile.query] * len(refs)
+        else:
+            qs = [_as_bytes(q) for q in queries]
+        if not refs:
+            return []
+        score_size = self.profile.score_size if use_profile else None
+        if windowed is None:
+            Bpad = (len(refs) + 127) // 128 * 128
+            Qp = length_bucket(max(len(q) for q in qs))
+            Rp = length_bucket(max(len(r) for r in refs))
+            windowed = Bpad * Qp * Rp > 4 << 30
+        if windowed:
+            return self._ssw_windowed(qs, refs, use_profile, score_size)
+        sw = self._sub("trace", "sw", use_profile)
+        batch, _, _ = sw._pack(None if use_profile else qs, refs)
+        out, ops, bqs, brs = sw._device_trace_walk_fetch(
+            sw._device_trace_walk_enqueue(
+                batch, self.profile.query if use_profile else None))
+        runs = ops_to_runs_batch(ops, merge_m=True)
+        promoted = out.get("promoted", np.zeros(len(refs), bool))
+        return [SSWResult(
+            score1=_ssw_score(int(out["score"][k]), bool(promoted[k]),
+                              score_size),
+            ref_begin1=int(brs[k]), ref_end1=int(out["end_ref"][k]),
+            read_begin1=int(bqs[k]), read_end1=int(out["end_query"][k]),
+            _cigar=runs[k]) for k in range(len(refs))]
+
+    def _ssw_windowed(self, qs, refs, use_profile, score_size):
+        """Three-pass long-pair SSW.
+
+        1. SW score over the full pairs (``align_many``): score and ends.
+        2. SW score over the reversed prefixes q[:eq+1] / r[:er+1]
+           (``align_many``): their ends are the begins.
+        3. NW trace over the [begin, end] windows, binned by padded shape
+           and walked on the device: a max-score global alignment of the
+           windows, so flag memory is O(window), not O(qlen * rlen).
+        """
+        from ..ops.trace_walk import ops_to_runs_batch
+
+        n = len(refs)
+        a1 = self._sub("score", "sw", use_profile).align_many(
+            None if use_profile else qs, refs)
+        scores = [a.get_score() for a in a1]
+        eqs = [a.get_end_query() for a in a1]
+        ers = [a.get_end_ref() for a in a1]
+        promoted = [bool(a.fields.get("promoted", False)) for a in a1]
+        live = [k for k in range(n) if scores[k] > 0]
+        bqs, brs = [0] * n, [0] * n
+        cigars = [np.empty(0, np.uint32)] * n
+        if live:
+            a2 = self._sub("score", "sw", False).align_many(
+                [qs[k][:eqs[k] + 1][::-1] for k in live],
+                [refs[k][:ers[k] + 1][::-1] for k in live])
+            for k, a in zip(live, a2):
+                bqs[k] = eqs[k] - a.get_end_query()
+                brs[k] = ers[k] - a.get_end_ref()
+            qw = [qs[k][bqs[k]:eqs[k] + 1] for k in live]
+            rw = [refs[k][brs[k]:ers[k] + 1] for k in live]
+            nwal = self._sub("trace", "nw", False)
+            bins = _shape_bins([len(q) for q in qw], [len(r) for r in rw],
+                               True)
+            states = []
+            for bin_ in bins:
+                idx = bin_.indices
+                batch, _, _ = nwal._pack([qw[i] for i in idx],
+                                         [rw[i] for i in idx],
+                                         Qp=bin_.qp, Rp=bin_.rp)
+                states.append((idx, nwal._device_trace_walk_enqueue(batch)))
+            for idx, st in states:
+                _, ops, _, _ = nwal._device_trace_walk_fetch(st)
+                for i, runs in zip(idx, ops_to_runs_batch(ops, merge_m=True)):
+                    cigars[live[i]] = runs
+        return [SSWResult(
+            score1=_ssw_score(scores[k], promoted[k], score_size),
+            ref_begin1=brs[k], ref_end1=ers[k], read_begin1=bqs[k],
+            read_end1=eqs[k], _cigar=cigars[k]) for k in range(n)]
+
+
+def _shape_bins(qlens, rlens, cell_sized: bool, max_cells=None):
+    """The reference's length bins (``parasail_rs_tpu.batch``): for the
+    classes with cell-sized planes (trace, table), at most 2^28 cells a
+    launch in 16 launches; for the rest 2^33 cells in groups of 128
+    pairs, in 8 launches.  ``max_cells`` overrides the cell cap."""
+    from parasail_rs_tpu.batch import merge_bins, plan_bins
+
+    if max_cells is None:
+        max_cells = (1 << 28) if cell_sized else (1 << 33)
+    return merge_bins(
+        plan_bins(qlens, rlens, max_cells=max_cells,
+                  lane_quantum=1 if cell_sized else 128),
+        max_launches=16 if cell_sized else 8, max_cells=max_cells)
+
+
+def _ssw_score(score: int, promoted: bool, score_size: int | None) -> int:
+    """SSW's score1: 8-bit mode (score_size 0) reports the library's cap
+    255 for a pair whose 8-bit lanes saturate; otherwise the score capped
+    at 65535."""
+    if score_size == 0:
+        return 255 if promoted else min(score, 255)
+    return min(score, 0xFFFF)

@@ -7,7 +7,11 @@ aligner's device, map bytes to letter indices there, run
 :func:`~parasail_rs_tpu_torch.ops.scan_kernel.score_align` over the whole
 batch, and fetch the per-pair scalars in one pinned, non-blocking
 transfer (:class:`PendingResult`) and each plane (trace, table, row,
-column) in one copy of its own.
+column) in one copy of its own.  ``banded=True`` with ``bandwidth`` runs
+the banded score form (``Aligner.banded_nw``).  :func:`submit` is
+``align_many``'s launch: it returns without waiting for the card where
+only per-pair scalars come back, so every bin is packed and launched
+before the first fetch.
 
 Routes: ``"cuda_kernel"`` for a batch on a CUDA device (the hand-written
 kernel), ``"torch_plain"`` for a batch on the CPU (the plain PyTorch
@@ -275,10 +279,12 @@ def plan_route(batch: PairBatch, outputs: str, gap_open: int,
 
 def launch(batch: PairBatch, *, gap_open: int, gap_extend: int, mode: str,
            free: tuple[bool, bool, bool, bool], outputs: str, width: str,
-           on_route=None) -> dict[str, torch.Tensor]:
+           on_route=None, banded: bool = False,
+           bandwidth: int = 0) -> dict[str, torch.Tensor]:
     """Route the batch and run the kernel over it; return its outputs as
     tensors on the batch's device (``score_align``'s dict).
-    ``on_route(route, reason)`` is called with the routing decision."""
+    ``on_route(route, reason)`` is called with the routing decision;
+    ``banded`` / ``bandwidth`` select the banded mode."""
     route, reason = plan_route(batch, outputs, gap_open, gap_extend)
     ROUTE_COUNTS[(route, reason)] += 1
     if on_route is not None:
@@ -292,7 +298,8 @@ def launch(batch: PairBatch, *, gap_open: int, gap_extend: int, mode: str,
     with stages.stage("dispatch"):
         return score_align(batch.ridx, batch.qlen_t, batch.rlen_t,
                            open_=gap_open, ext=gap_extend, mode=mode,
-                           free=free, width=width, outputs=outputs, **subs)
+                           free=free, width=width, outputs=outputs,
+                           banded=banded, bandwidth=bandwidth, **subs)
 
 
 _BOOLS = ("saturated", "promoted")
@@ -304,7 +311,7 @@ class PendingResult:
     to a word.  On a card the block is copied into pinned host memory
     with ``non_blocking=True`` and a CUDA event marks the copy's end, so
     several can be in flight while the host works; :meth:`fetch` waits
-    for the event and unpacks."""
+    for the event and unpacks, once: a second fetch raises."""
 
     def __init__(self, cols: dict[str, torch.Tensor],
                  rows: torch.Tensor | None = None):
@@ -331,10 +338,13 @@ class PendingResult:
 
     def fetch(self) -> tuple[dict[str, np.ndarray], np.ndarray | None]:
         """(host columns by name, host (B, L) uint8 rows or None)."""
+        if self._host is None:
+            raise RuntimeError("this PendingResult was fetched already")
         with stages.stage("fetch"):
             if self._event is not None:
                 self._event.synchronize()
             host = self._host.numpy()
+        self._host = None
         nn = len(self.names)
         scal = np.ascontiguousarray(host[:, :nn].T)
         out = {k: (scal[n] != 0 if k in _BOOLS else scal[n])
@@ -350,7 +360,8 @@ def _is_plane(key: str) -> bool:
 
 def execute(batch: PairBatch, *, gap_open: int, gap_extend: int, mode: str,
             free: tuple[bool, bool, bool, bool], outputs: str, width: str,
-            on_route=None) -> dict[str, np.ndarray]:
+            on_route=None, banded: bool = False,
+            bandwidth: int = 0) -> dict[str, np.ndarray]:
     """Run the kernel over a batch; return host numpy results: the
     per-pair scalars and the class's planes (``trace_table`` int8,
     ``*_table`` (B, Qp, Rp), ``*_row`` (B, Rp) and ``*_col`` (B, Qp)
@@ -359,8 +370,11 @@ def execute(batch: PairBatch, *, gap_open: int, gap_extend: int, mode: str,
     ``width="64"`` runs the int32 kernel, then re-fills exactly in int64
     (golden) every pair whose worst-case |H| bound does not fit int32,
     planes included.  ``on_route(route, reason)`` is called with every
-    routing decision.
+    routing decision.  ``banded`` / ``bandwidth``: the banded mode, which
+    has no int64 re-fill (``Aligner.banded_nw`` runs it at width 32).
     """
+    if banded and width == "64":
+        raise ValueError("the banded mode has no width 64")
     if width == "64":
         wide = width64_risk(batch, gap_open, gap_extend)
         if wide.size:
@@ -375,7 +389,8 @@ def execute(batch: PairBatch, *, gap_open: int, gap_extend: int, mode: str,
                                    gap_extend=gap_extend, mode=mode,
                                    free=free)
     res = launch(batch, gap_open=gap_open, gap_extend=gap_extend, mode=mode,
-                 free=free, outputs=outputs, width=width, on_route=on_route)
+                 free=free, outputs=outputs, width=width, on_route=on_route,
+                 banded=banded, bandwidth=bandwidth)
     planes = {k: res.pop(k) for k in [k for k in res if _is_plane(k)]}
     out, _ = PendingResult(res).fetch()
     with stages.stage("fetch"):
@@ -383,6 +398,30 @@ def execute(batch: PairBatch, *, gap_open: int, gap_extend: int, mode: str,
         out.update((k, v.contiguous().cpu().numpy())
                    for k, v in planes.items())
     return out
+
+
+SCALAR_CLASSES = ("score", "stats")
+
+
+def submit(batch: PairBatch, *, gap_open: int, gap_extend: int, mode: str,
+           free: tuple[bool, bool, bool, bool], outputs: str, width: str,
+           on_route=None) -> PendingResult | dict[str, np.ndarray]:
+    """One bin of ``align_many``, without waiting where it can.
+
+    The score and stats classes launch and start their scalars' copy and
+    return the :class:`PendingResult` (the port of the reference's
+    ``execute(fetch=False)`` + ``fetch_all``: the caller fetches every bin
+    at the end).  Classes with planes are fetched here, per bin, as the
+    reference does, so no two bins' planes are on the card at once; width
+    64 with pairs over the int32 bound takes :func:`execute`'s host merge.
+    Those return :func:`execute`'s host dict.
+    """
+    kw = dict(gap_open=gap_open, gap_extend=gap_extend, mode=mode, free=free,
+              outputs=outputs, width=width, on_route=on_route)
+    if outputs not in SCALAR_CLASSES or (
+            width == "64" and width64_risk(batch, gap_open, gap_extend).size):
+        return execute(batch, **kw)
+    return PendingResult(launch(batch, **kw))
 
 
 def slice_pair(out: dict, b: int, qlen: int, rlen: int) -> dict:

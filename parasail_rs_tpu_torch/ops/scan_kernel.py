@@ -38,6 +38,15 @@ A letter outside [0, A) scores 0.  Scores are exact int32 at every
 width; the width only selects the saturation flags.  A pair with an
 empty side gets golden's end cell and payload on the bordered grid (the
 reference's kernels disagree there; ROADMAP Queue 3).
+
+``banded=True`` with ``bandwidth`` bw is the reference's banded mode
+(kernel K1e): cells with |i - j| > bw and border cells beyond bw do not
+exist, and an unreachable NW corner scores -2^30.  On the card it runs
+the banded score form (``pt_scan_banded``, counted in
+:data:`BANDED_LAUNCHES`) in NW only, the configuration of
+``Aligner.banded_nw``; other modes and classes raise
+``NotImplementedError`` there.  Its plain version is the wavefront with
+``banded=True``.
 """
 
 from __future__ import annotations
@@ -70,11 +79,13 @@ OUTPUTS = ("score", "trace", "stats", "table", "stats_table", "rowcol",
 BIG = 2 ** 30
 
 # Launches of the CUDA kernel in this process: score form, trace form,
-# and the other five forms by class.  Only score_align's CUDA branch adds
-# to them; set them to 0 to count one phase of work.
+# the other five forms by class, and the banded score form.  Only
+# score_align's CUDA branch adds to them; set them to 0 to count one phase
+# of work.
 LAUNCHES = 0
 TRACE_LAUNCHES = 0
 CLASS_LAUNCHES = dict.fromkeys(OUTPUTS[2:], 0)
+BANDED_LAUNCHES = 0
 
 
 def _free_bits(free) -> int:
@@ -140,8 +151,8 @@ def _ptr(t):
 
 
 def score_align(ridx, qlen, rlen, *, open_, ext, mode, free, width="32",
-                table=None, qidx=None, profile=None,
-                outputs="score") -> dict:
+                table=None, qidx=None, profile=None, outputs="score",
+                banded=False, bandwidth=0) -> dict:
     """Align a padded batch, any output class.
 
     ``ridx`` (B, Rp), ``qlen`` / ``rlen`` (B,), ``table`` (A, A) +
@@ -151,7 +162,8 @@ def score_align(ridx, qlen, rlen, *, open_, ext, mode, free, width="32",
     ``promoted`` at width ``sat``), on that device, plus the class's
     outputs (see the module docstring).  On the card the planes, rows and
     columns are strided views of the kernel's batch-last buffers.
-    Lengths must not exceed the padded sizes.
+    Lengths must not exceed the padded sizes.  ``banded`` /
+    ``bandwidth``: the banded mode (module docstring).
     """
     B, Bq, Qp, Rp, A = _check(ridx, qlen, rlen, table, qidx, profile, mode,
                               width, outputs)
@@ -159,10 +171,15 @@ def score_align(ridx, qlen, rlen, *, open_, ext, mode, free, width="32",
         return score_align_plain(ridx, qlen, rlen, open_=open_, ext=ext,
                                  mode=mode, free=free, width=width,
                                  table=table, qidx=qidx, profile=profile,
-                                 outputs=outputs)
+                                 outputs=outputs, banded=banded,
+                                 bandwidth=bandwidth)
     if ridx.device.type != "cuda":
         raise ValueError(f"no kernel for device {ridx.device}")
-    global LAUNCHES, TRACE_LAUNCHES
+    if banded and (outputs != "score" or mode != "nw"):
+        raise NotImplementedError(
+            f"banded {mode} outputs={outputs!r} has no kernel on the card: "
+            "only the NW score form of K1e is ported (ROADMAP Queue 2, K1e)")
+    global LAUNCHES, TRACE_LAUNCHES, BANDED_LAUNCHES
     from . import _build
 
     lib = _build.load()
@@ -189,7 +206,13 @@ def score_align(ridx, qlen, rlen, *, open_, ext, mode, free, width="32",
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         args = (subs.data_ptr(), qptr)
         lens = (ridx.data_ptr(), qlen.data_ptr(), rlen.data_ptr())
-        if outputs == "score":
+        if banded:
+            rc = lib.pt_scan_banded(*args, *lens, scratch[0].data_ptr(),
+                                    scratch[1].data_ptr(), out.data_ptr(),
+                                    *dims,
+                                    max(-1, min(int(bandwidth), Qp + Rp)),
+                                    stream)
+        elif outputs == "score":
             rc = lib.pt_scan_score(*args, *lens, scratch[0].data_ptr(),
                                    scratch[1].data_ptr(), out.data_ptr(),
                                    *dims, stream)
@@ -210,7 +233,9 @@ def score_align(ridx, qlen, rlen, *, open_, ext, mode, free, width="32",
                        width)
     if stats:
         res.update(zip(STATS_KEYS, out[5:8]))
-    if outputs == "score":
+    if banded:
+        BANDED_LAUNCHES += 1
+    elif outputs == "score":
         LAUNCHES += 1
     elif outputs == "trace":
         TRACE_LAUNCHES += 1
@@ -239,11 +264,12 @@ def _substitution_rows(table, qidx, profile):
 
 def score_align_plain(ridx, qlen, rlen, *, open_, ext, mode, free,
                       width="32", table=None, qidx=None, profile=None,
-                      outputs="score") -> dict:
+                      outputs="score", banded=False, bandwidth=0) -> dict:
     """Plain PyTorch version of :func:`score_align`, same signature and
-    outputs.  The stats, table and rowcol classes run the wavefront
-    (:func:`~.wavefront.wavefront_align`), whose literal payload ties
-    hold at every penalty pair.
+    outputs.  The stats, table and rowcol classes, and every banded
+    batch, run the wavefront (:func:`~.wavefront.wavefront_align`), whose
+    literal payload ties hold at every penalty pair; the column sweep
+    below has no band.
 
     The score and trace classes run a sweep over reference columns
     vectorised over (B, Qp), as the TPU kernel sweeps
@@ -257,11 +283,11 @@ def score_align_plain(ridx, qlen, rlen, *, open_, ext, mode, free,
     """
     B, Bq, Qp, Rp, A = _check(ridx, qlen, rlen, table, qidx, profile, mode,
                               width, outputs)
-    if outputs not in ("score", "trace"):
+    if banded or outputs not in ("score", "trace"):
         return wavefront_align(
             _substitution_rows(table, qidx, profile), qidx, ridx, qlen, rlen,
             open_=open_, ext=ext, mode=mode, free=free, outputs=outputs,
-            width=width)
+            width=width, banded=banded, bandwidth=bandwidth)
     dev = ridx.device
     i32 = torch.int32
     open_, ext = int(open_), int(ext)

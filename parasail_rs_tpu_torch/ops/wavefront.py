@@ -18,9 +18,10 @@ is exact, open <= ext included.  All arithmetic is int32 with
 Where it differs from the reference, on purpose:
 
 - a pair with an empty side (qlen == 0 or rlen == 0) gets golden's end
-  cell and payload on the bordered grid (:func:`empty_side`); the
-  reference's wavefront gives -2^30 and padded coordinates there
-  (ROADMAP Queue 3);
+  cell and payload on the bordered grid (:func:`empty_side`), banded
+  ones the all-gap border within the band and -2^30 beyond it, as
+  golden's ``banded_nw_fill``; the reference's wavefront gives -2^30 and
+  padded coordinates there (ROADMAP Queue 3);
 - planes (trace and tables) are 0 outside each pair's qlen x rlen cells,
   as the kernel writes them; the reference leaves the padded cells'
   values there;
@@ -70,6 +71,8 @@ def empty_side(best, eq, er, qlen, rlen, Qp, Rp, border, qb, qe, db, de):
     in-sequence cell): the best of the corner and, if qe (qlen == 0) or
     de (rlen == 0), the other cells of the bordered grid's one line;
     value desc, then position asc.  Both empty: 0 at (-1, -1).
+    ``border(c, is_free)`` gives the line's cell at c characters
+    (NEG_INF32 beyond a band).
 
     Returns (score, end_query, end_ref, length, empty): the length
     payload of that cell is the characters it consumes, or 0 on a free
@@ -323,8 +326,9 @@ def wavefront_align(profile, qidx, ridx, qlen, rlen, *, open_, ext, mode,
     else:
         score, eq, er = best, best_i, best_j
     if not local:
+        # banded: the border beyond the band is -inf, as in banded_nw_fill
         score, eq, er, elen, empty = empty_side(
-            score, eq, er, qlen, rlen, Qp, Rp, border, qb,
+            score, eq, er, qlen, rlen, Qp, Rp, boundary, qb,
             qe and mode == "sg", db, de and mode == "sg")
         if want_stats:
             stats = [torch.where(empty, 0, stats[0]),

@@ -220,30 +220,51 @@ def test_width64_refills_pairs_beyond_int32(monkeypatch):
 @pytest.mark.parametrize("setter", ["use_stats", "use_table",
                                     "use_last_rowcol"])
 def test_non_score_builds_raise(setter, monkeypatch):
-    # every output class builds now (test_torch_engine_stats.py holds
-    # them to the reference); what raises is the surface not yet ported,
-    # and a card that is not there
+    # every output class builds and align_many runs it (the name is
+    # older than the port of align_many); what raises is a card that is
+    # not there
     aligner = getattr(port.Aligner.new().device("cpu"), setter)().build()
     assert aligner.key.outputs == {"use_stats": "stats", "use_table": "table",
                                    "use_last_rowcol": "rowcol"}[setter]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        aligner.align_many([b"AC"], [b"AC"])
+    r = getattr(ref.Aligner.new(), setter)().build()
+    got = aligner.align_many([b"AC", b"ACGTT"], [b"AC", b"AGT"])
+    want = r.align_many([b"AC", b"ACGTT"], [b"AC", b"AGT"])
+    assert _outcome(got) == _outcome(want)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         getattr(port.Aligner.new(), setter)().build()
 
 
+def _outcome(results):
+    """What the public methods give, comparable across the packages:
+    every field of each Alignment (planes as lists), or each SSW result's
+    numbers and CIGAR."""
+    if not isinstance(results, list):
+        results = [results]
+    if hasattr(results[0], "score1"):
+        return [(s.score1, s.read_begin1, s.read_end1, s.ref_begin1,
+                 s.ref_end1, s.cigar_string()) for s in results]
+    return [(_summary([a]), {k: np.asarray(a.fields[k]).tolist()
+                             for k in a.fields.keys()})
+            for a in results]
+
+
 @pytest.mark.parametrize("method,args", [
     ("align_many", ([b"AC"], [b"AC"])),
     ("banded_nw", (b"AC", b"AC")),
-    ("banded_nw_batch", ([b"AC"], [b"AC"])),
+    ("banded_nw_batch", ([b"AC", b"ACGTA"], [b"AC", b"ACT"])),
     ("ssw", (b"AC", b"AC")),
-    ("ssw_batch", ([b"AC"], [b"AC"])),
+    ("ssw_batch", ([b"AC", b"ACGTA"], [b"AC", b"CGT"])),
 ])
 def test_unported_methods_raise(method, args):
-    aligner = port.Aligner.new().device("cpu").build()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(aligner, method)(*args)
+    # every public method is ported now (the name is older than that):
+    # none raises, and each equals the reference on the CPU
+    aligner = port.Aligner.new().gap_open(3).gap_extend(1).bandwidth(1) \
+        .device("cpu").build()
+    r = ref.Aligner.new().gap_open(3).gap_extend(1).bandwidth(1).build()
+    got = getattr(aligner, method)(*args)
+    assert _outcome(got) == _outcome(getattr(r, method)(*args))
+    assert set(aligner.route_counter) == {("torch_plain", "batch on the cpu")}
 
 
 def test_cuda_device_without_a_card_raises(monkeypatch):

@@ -31,8 +31,9 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 MODES = {"nw": 0, "sg": 1, "sw": 2}
 
 
-@pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
+def build_host_lib(tmp_path_factory):
+    """g++ build of ``csrc/score_host.cc``, its C signatures declared;
+    skips where g++ is missing."""
     cxx = shutil.which(os.environ.get("CXX", "g++"))
     if cxx is None:
         pytest.skip("needs g++ to build the kernel's host harness")
@@ -42,6 +43,8 @@ def host_lib(tmp_path_factory):
                     "-o", str(out)], check=True, capture_output=True,
                    timeout=300)
     lib = ctypes.CDLL(str(out))
+    lib.pt_banded_host.restype = ctypes.c_int
+    lib.pt_banded_host.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
     lib.pt_score_host.restype = ctypes.c_int
     lib.pt_score_host.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
     lib.pt_trace_host.restype = ctypes.c_int
@@ -52,6 +55,11 @@ def host_lib(tmp_path_factory):
     lib.pt_outputs_host.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10 +
                                     [ctypes.c_int] * 10)
     return lib
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    return build_host_lib(tmp_path_factory)
 
 
 def run_host(lib, *, ridx, qlen, rlen, open_, ext, mode, free, table=None,
