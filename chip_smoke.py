@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the kernels from ``parasail_rs_tpu_torch/csrc`` with nvcc and
-runs seventeen phases on ``cuda``; any failure raises and the script exits
+runs twenty phases on ``cuda``; any failure raises and the script exits
 non-zero without printing a result:
 
 1. build: the library's path, build time and each kernel's registers;
@@ -22,7 +22,8 @@ non-zero without printing a result:
    against 16,384 references, one 150 bp NW DNA pair, and 128 DNA pairs
    of 2,000 bp.  Every kernel's launches are counted from zero over this
    phase only; the score kernel must launch, every route must be
-   "cuda_kernel", and the scores must equal the plain version's;
+   "cuda_kernel" (the 2,000 bp batch: "cuda_segments"), and the scores
+   must equal the plain version's;
 5. timings of the score path: kernel and plain medians at the headline
    shape (CUDA events, after warm-up) and the end-to-end ``align_batch``
    time of the 8,192 pairs, beside the card's name and power limit;
@@ -85,17 +86,44 @@ non-zero without printing a result:
    bp, SW 5/2) equal to ``align_batch`` and to plain, a ``use_stats()``
    and a ``use_trace()`` batch equal to ``align_batch``, and 128 DNA
    pairs of 4,096 bp (SW 5/1; cfg6 at a quarter of its length), whose
-   first 16 pairs must equal plain; then cfg5 end to end (binned, with
-   stage clocks and GCUPS; unbinned; with more bins) and the 4,096 bp
-   batch's kernel time;
+   first 16 pairs must equal plain; the bins of long pairs take the
+   segment kernel; then cfg5 end to end (binned, with stage clocks and
+   GCUPS; unbinned; with more bins) and the 4,096 bp batch's time on the
+   one-shot kernel;
 17. SSW, counted from zero: ``ssw_batch`` of 1,024 of the BLOSUM62 pairs
    at 11/1, one pass and ``windowed=True``, and a profile at score_size 0
    and 2, on "cuda_kernel" and equal to the same calls on the CPU, 16
-   sampled pairs equal to golden's SW and walk; then both passes timed.
+   sampled pairs equal to golden's SW and walk; then both passes timed;
+18. segment kernel vs plain: ``score_segment`` chained over 2-5 segments
+   against ``score_segment_plain`` chained the same way and against the
+   one-shot ``score_align``, for the score, stats and trace classes x NW,
+   the nine SG free-end sets and SW x 11/1, 2/2 and 1/3, on 64 pairs of
+   0-70 by 0-200 letters (so empty sides, ragged stripes and pairs that
+   end in an earlier segment occur): exact equality of every output, flag
+   cell and state row;
+19. the long-pair path through the public API, counted from zero: cfg6 at
+   full width (128 DNA pairs of 16,384 bp, SW 5/1) through
+   ``align_batch``, its first four pairs equal to the plain column
+   sweep; then 128 DNA pairs of 50-4,096 bp (Qp = Rp = 4,096) through
+   ``align_batch`` with the score class, ``use_stats()`` and
+   ``use_trace()`` (a 2 GiB plane, streamed out in segments): every
+   route "cuda_segments", the segment kernel launched, every output
+   equal to the one-shot kernel's on the same pairs, and the short
+   pairs equal to golden (score, end cell, stats, flags, CIGAR);
+20. timings of the segment kernel, beside the card's name and power
+   limit: cfg6 end to end and as a chain of launches, 128 x 1,024 /
+   4,096 bp through the one-shot and the segment kernel, the stats and
+   trace classes on 128 x 4,096 bp with their plain versions (whose
+   outputs the segment kernel's must equal at this shape too), the trace
+   class end to end with its stage clocks against its kernels alone
+   (the copy overlap), each path's peak device memory, and bench.py's
+   headline batch through the segment kernel.
 
 The line before the last is the card's name and power limit, the one
-before it a JSON summary of every kernel; the last line is
-``{"ok": true, "device": {...}}``.  Imports no JAX.
+before it a JSON summary of every kernel (launches on its main path,
+error, times, and the least time the card could take: ``bound``); the
+last line is ``{"ok": true, "device": {...}}``.  Imports no JAX and
+nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -141,6 +169,57 @@ def random_seqs(rng, alphabet: bytes, n: int, lo: int, hi: int) -> list:
 
 PLANE_CLASSES = ("stats", "table", "stats_table", "rowcol", "stats_rowcol")
 STATS_CLASSES = ("stats", "stats_table", "stats_rowcol")
+
+# The card's peaks for the bounds (NVIDIA H100 SXM data sheet): 3.35 TB/s
+# of device memory; 67 TFLOP/s of float32 outside the tensor cores, that
+# is 33.5 T fused multiply-adds a second on 128 float32 lanes an SM, and
+# the SM's 64 int32 lanes issue half as many integer operations.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 16.75e12
+# int32 operations of one cell: E and F two subtractions and a max each,
+# the diagonal's addition, two max for H and SW's clamp; the trace class
+# adds the comparisons and ors of three flags, the stats classes the
+# comparisons and selects of three payloads.
+OPS_PER_CELL = {"score": 10, "trace": 16, "stats": 22, "table": 10,
+                "stats_table": 22, "rowcol": 10, "stats_rowcol": 22}
+# the walk: a flag test, two index updates, an opcode and a store a step
+OPS_PER_WALK_STEP = 8
+
+
+def bound(ops: float, nbytes: float) -> dict:
+    """The least time the card could take for the work: the larger of
+    its int32 operations over the int32 rate and its bytes (each input
+    read once, each output written once) over the memory rate.  No single
+    PyTorch call computes an affine-gap sweep or a traceback, so
+    ``library_ms`` is null."""
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None}
+
+
+def sweep_bound(cls: str, args, kw) -> dict:
+    """bound() of one sweep of class ``cls`` over score_align's inputs:
+    the pairs' real cells, the input tensors, the scalars and the class's
+    planes."""
+    ridx, qlen, rlen = args
+    B, Rp = ridx.shape
+    subs = [kw.get(k) for k in ("table", "qidx", "profile")]
+    Qp = (kw["profile"] if kw.get("profile") is not None
+          else kw["qidx"]).shape[1]
+    cells = int((qlen.long() * rlen.long()).sum().item())
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (ridx, qlen, rlen, *subs) if t is not None)
+    n = 4 if cls in STATS_CLASSES else 1
+    nbytes += (8 if cls in STATS_CLASSES else 5) * B * 4
+    if cls == "trace":
+        nbytes += B * Qp * Rp
+    elif cls in ("table", "stats_table"):
+        nbytes += n * B * Qp * Rp * 4
+    elif cls in ("rowcol", "stats_rowcol"):
+        nbytes += n * B * (Qp + Rp) * 4
+    return bound(cells * OPS_PER_CELL[cls], nbytes)
 
 
 def max_abs_diff(a: dict, b: dict) -> int:
@@ -198,7 +277,7 @@ EMPTY_WANT = {
 
 def empty_side_cases(torch, dev):
     """The empty-side pairs as (name, (args, subs), kwargs, want)."""
-    from parasail_rs_tpu.matrices import Matrix
+    from parasail_rs_tpu_torch.matrices import Matrix
 
     m = Matrix.default()
     P = 32
@@ -223,7 +302,7 @@ def empty_side_cases(torch, dev):
 def small_cases(rng, torch, dev):
     """Seeded ragged batches (128 pairs, lengths < 32), as
     (name, args, kwargs) for score_align."""
-    from parasail_rs_tpu.matrices import Matrix
+    from parasail_rs_tpu_torch.matrices import Matrix
 
     B, Qp, Rp = 128, 32, 32
 
@@ -390,12 +469,12 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     import parasail_rs_tpu_torch as pt
-    from parasail_rs_tpu.golden import model as golden
-    from parasail_rs_tpu.utils import stages
     from parasail_rs_tpu_torch.engine import dispatch
+    from parasail_rs_tpu_torch.golden import model as golden
     from parasail_rs_tpu_torch.ops import _build
     from parasail_rs_tpu_torch.ops import scan_kernel as tk
     from parasail_rs_tpu_torch.ops import trace_walk as tw
+    from parasail_rs_tpu_torch.utils import stages
 
     dev = torch.device("cuda")
     card = card_info()
@@ -467,7 +546,7 @@ def main() -> int:
     lq = random_seqs(rng, DNA, 128, 2000, 2000)
     lr = random_seqs(rng, DNA, 128, 2000, 2000)
     dispatch.ROUTE_COUNTS.clear()
-    tk.LAUNCHES = tk.TRACE_LAUNCHES = tw.LAUNCHES = 0
+    tk.LAUNCHES = tk.TRACE_LAUNCHES = tw.LAUNCHES = tk.SEGMENT_LAUNCHES = 0
     res_sw = sw.align_batch(qs, rs)
     res_prof = pa.align_batch(None, refs)
     res_nw = nw.align(q150, r150)
@@ -475,12 +554,14 @@ def main() -> int:
     launches = tk.LAUNCHES
     routes = dict(dispatch.ROUTE_COUNTS)
     log(f"[4 main path] launches={launches} (trace "
-        f"{tk.TRACE_LAUNCHES}, walk {tw.LAUNCHES}) routes={routes}")
-    if launches < 4:
-        raise AssertionError(f"main path launched the kernel {launches} "
-                             "times, expected 4")
-    if set(routes) != {("cuda_kernel", "")}:
-        raise AssertionError(f"main path left the kernel route: {routes}")
+        f"{tk.TRACE_LAUNCHES}, walk {tw.LAUNCHES}, segment "
+        f"{tk.SEGMENT_LAUNCHES}) routes={routes}")
+    if launches < 3 or tk.SEGMENT_LAUNCHES < 1:
+        raise AssertionError(
+            f"main path launched the score kernel {launches} times and the "
+            f"segment kernel {tk.SEGMENT_LAUNCHES} times, expected 3 and 1")
+    if routes != {("cuda_kernel", ""): 3, ("cuda_segments", "long pairs"): 1}:
+        raise AssertionError(f"main path left the kernel routes: {routes}")
     check_against_plain("SW BLOSUM62 8192 pairs", res_sw,
                         plain_of(tk, sw, qs, rs))
     check_against_plain("profile vs 16384 refs", res_prof,
@@ -494,7 +575,8 @@ def main() -> int:
             != (g.score, g.end_query, g.end_ref):
         raise AssertionError("NW 150 bp pair differs from golden")
     log("[4 main path] SW 8192 pairs, profile vs 16384 refs, NW 150 bp "
-        "pair, 128 x 2000 bp: all on cuda_kernel, equal to plain")
+        "pair: on cuda_kernel; 128 x 2000 bp: on cuda_segments; all equal "
+        "to plain")
 
     # -- 5. timings -----------------------------------------------------------
     ms = time_cuda(torch, lambda: tk.score_align(*head_args, **head_kw))
@@ -535,8 +617,10 @@ def main() -> int:
                         blosum, card, (qs, rs), trace["cfg4b"])
     banded = banded_path(torch, pt, tk, dispatch, golden, stages, rng, blosum,
                          card, (qs, rs))
-    many_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum, card,
-              (qs, rs))
+    long_k1 = many_path(torch, pt, tk, tw, dispatch, golden, stages, rng,
+                        blosum, card, (qs, rs))
+    segments = segment_path(torch, pt, tk, tw, dispatch, golden, stages, rng,
+                            card, (head_args, head_kw), long_k1)
 
     print(json.dumps({"kernels": [{
         "name": "scan_score_align",
@@ -547,6 +631,7 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
+        **sweep_bound("score", head_args, head_kw),
     }, {
         "name": "scan_score_align (trace)",
         "route": "cuda",
@@ -571,7 +656,13 @@ def main() -> int:
         "source": "parasail_rs_tpu_torch/csrc/scan_score.cu",
         "replaces": "parasail_rs_tpu/ops/scan_kernel.py:1453",
         **banded,
-    }]}), flush=True)
+    }] + [{
+        "name": f"scan_score_segment ({cls})",
+        "route": "cuda",
+        "source": "parasail_rs_tpu_torch/csrc/scan_segment.cu",
+        "replaces": "parasail_rs_tpu/ops/scan_kernel.py:1672",
+        **segments[cls],
+    } for cls in ("score", "stats", "trace")]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -709,10 +800,17 @@ def trace_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum,
     log(f"[9 timing] use_trace align_batch + cigars 4096 pairs e2e median "
         f"{tr_ms} ms ({4096 / tr_ms * 1e3} CIGARs/s), peak device memory "
         f"{tr_peak} MiB [{card}]")
+    # the walk reads one flag a step along each pair's path and writes the
+    # opcode rows and begin cells
+    steps = int((tw.device_walk(*walk_args)[0] != 0).sum().item())
+    nb, qp, rp = plane["trace_table"].shape
+    walk_bound = bound(steps * OPS_PER_WALK_STEP,
+                       steps + nb * (qp + rp) + 4 * nb * 4)
     return {"trace": {"launches": trace_launches, "max_abs_err": errs[0],
-                      "ms": t_ms, "plain_ms": t_plain},
+                      "ms": t_ms, "plain_ms": t_plain,
+                      **sweep_bound("trace", args4b, kw4b)},
             "walk": {"launches": walk_launches, "max_abs_err": errs[1],
-                     "ms": w_ms, "plain_ms": w_plain},
+                     "ms": w_ms, "plain_ms": w_plain, **walk_bound},
             "cfg4b": (q4b, r4b)}
 
 
@@ -940,12 +1038,20 @@ def stats_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum,
         f"ms ({len(q4b) / sg_ms * 1e3} aln/s) at 11/1, {sg22_ms} ms at 2/2 "
         f"[{card}]")
     return {cls: {"launches": launches[cls], "max_abs_err": errs[cls],
-                  "ms": times[cls][0], "plain_ms": times[cls][1]}
+                  "ms": times[cls][0], "plain_ms": times[cls][1],
+                  **(sweep_bound(cls, head_args, head_kw) if cls == "stats"
+                     else sweep_bound(cls, tab_args, tab_kw))}
             for cls in PLANE_CLASSES}
 
 
 F4 = (False,) * 4
 NEG = -(1 << 30)
+# the long-pair phases' lengths: cfg6's, the mixed batch's longest pair
+# (and phase 16's long batch), and the shorter batch of the one-shot
+# against segment kernel comparison
+CFG6_LEN = 16384
+LONG_LEN = 4096
+MID_LEN = 1024
 # the empty-side and unreachable-corner pairs of the banded repair (NW,
 # DNA +2/-3, open 4, ext 1, bandwidth 2): (qlen, rlen) and the score, or
 # None for golden's banded oracle on seeded letters
@@ -1092,8 +1198,11 @@ def banded_path(torch, pt, tk, dispatch, golden, stages, rng, blosum, card,
     log(f"[15 timing] banded_nw_batch {len(qs)} pairs e2e median {e2e_ms} ms "
         f"({len(qs) / e2e_ms * 1e3} aln/s); stages, ms per call: "
         f"{json.dumps(per_call)} [{card}]")
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (*args, kw["table"], kw["qidx"])) + 5 * len(qs) * 4
     return {"launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms,
+            **bound(cells * OPS_PER_CELL["score"], nbytes)}
 
 
 def check_fields(name, got, want) -> None:
@@ -1127,9 +1236,10 @@ def ssw_view(results) -> list:
 
 
 def many_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum, card,
-              sw_pairs) -> None:
-    """Phases 16-17: align_many and SSW, with their timings."""
-    from parasail_rs_tpu.batch import merge_bins, plan_bins
+              sw_pairs) -> dict:
+    """Phases 16-17: align_many and SSW, with their timings; returns the
+    128 x 4,096 bp batch and the one-shot kernel's time on it."""
+    from parasail_rs_tpu_torch.batch import merge_bins, plan_bins
 
     # -- 16. align_many ---------------------------------------------------------
     dna = pt.Matrix.create(DNA, 2, -3)
@@ -1144,11 +1254,12 @@ def many_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum, card,
     tr = random_seqs(rng, DNA, 256, 50, 500)
     tr_al = (pt.Aligner.new().matrix(dna).gap_open(5).gap_extend(2)
              .semi_global().use_trace().build())
-    lq = random_seqs(rng, DNA, 128, 4096, 4096)       # cfg6 at a quarter
-    lr = random_seqs(rng, DNA, 128, 4096, 4096)
+    lq = random_seqs(rng, DNA, 128, LONG_LEN, LONG_LEN)   # cfg6 at a quarter
+    lr = random_seqs(rng, DNA, 128, LONG_LEN, LONG_LEN)
     lg = pt.Aligner.new().gap_open(5).gap_extend(1).local().build()
     dispatch.ROUTE_COUNTS.clear()
     tk.LAUNCHES = tk.TRACE_LAUNCHES = tk.BANDED_LAUNCHES = tw.LAUNCHES = 0
+    tk.SEGMENT_LAUNCHES = 0
     tk.CLASS_LAUNCHES = dict.fromkeys(PLANE_CLASSES, 0)
     res5 = mx.align_many(mq, mr)
     res_st = st_al.align_many(sq, sr)
@@ -1157,7 +1268,7 @@ def many_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum, card,
     res_long = lg.align_many(lq, lr)
     long_s = time.perf_counter() - t0
     launches = {"score": tk.LAUNCHES, "stats": tk.CLASS_LAUNCHES["stats"],
-                "trace": tk.TRACE_LAUNCHES}
+                "trace": tk.TRACE_LAUNCHES, "segment": tk.SEGMENT_LAUNCHES}
     routes = dict(dispatch.ROUTE_COUNTS)
     nbins = len(merge_bins(plan_bins([len(q) for q in mq],
                                      [len(r) for r in mr], max_cells=1 << 33,
@@ -1165,11 +1276,14 @@ def many_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum, card,
                            max_launches=8, max_cells=1 << 33))
     log(f"[16 align_many] launches={launches} routes={routes}; cfg5 in "
         f"{nbins} bins")
-    if min(launches.values()) < 1 or launches["score"] < nbins + 1:
+    # every bin is one launch of the one-shot kernel or, for long pairs, a
+    # chain of the segment kernel's
+    if min(launches.values()) < 1 or \
+            launches["score"] + launches["segment"] < nbins + 1:
         raise AssertionError(f"align_many did not launch every kernel: "
                              f"{launches}")
-    if set(routes) != {("cuda_kernel", "")}:
-        raise AssertionError(f"align_many left the kernel route: {routes}")
+    if set(routes) != {("cuda_kernel", ""), ("cuda_segments", "long pairs")}:
+        raise AssertionError(f"align_many left the kernel routes: {routes}")
     check_fields("cfg5 align_many against align_batch", res5,
                  mx.align_batch(mq, mr))
     check_against_plain("cfg5 align_many", res5, plain_of(tk, mx, mq, mr))
@@ -1259,7 +1373,7 @@ def many_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum, card,
     long_ms = time_cuda(torch, lambda: tk.score_align(
         lb.ridx, lb.qlen_t, lb.rlen_t, open_=5, ext=1, mode="sw",
         free=(True,) * 4, width="sat", table=lb.table, qidx=lb.qidx),
-        reps=2, warmup=0)
+        reps=1, warmup=0)
     one_ms = time_host(lambda: card_al.ssw_batch(qs, rs), reps=3)
     win_ms = time_host(lambda: card_al.ssw_batch(qs, rs, windowed=True),
                        reps=3)
@@ -1269,12 +1383,342 @@ def many_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum, card,
         f"per call: {json.dumps(per_call)}; align_batch of the same pairs "
         f"(one launch, Qp=Rp=2048) {b5_ms} ms; align_many max_cells=2^27 "
         f"({nb27} bins) {c27_ms} ms [{card}]")
-    log(f"[16 timing] 128 x 4,096 bp SW 5/1: score kernel median {long_ms} "
-        f"ms ({128 * 4096 * 4096 / long_ms / 1e6} GCUPS, "
+    log(f"[16 timing] 128 x 4,096 bp SW 5/1: one-shot score kernel, one "
+        f"call, {long_ms} ms ({128 * 4096 * 4096 / long_ms / 1e6} GCUPS, "
         f"{long_ms * 1e6 / (4096 * 4096)} ns per cell per thread); "
-        f"align_many once {long_s * 1e3} ms [{card}]")
+        f"align_many (segment route) once {long_s * 1e3} ms [{card}]")
     log(f"[17 timing] ssw_batch {len(qs)} BLOSUM62 pairs e2e median: one "
         f"pass {one_ms} ms, windowed {win_ms} ms [{card}]")
+    return {"batch": lb, "k1_ms": long_ms, "pairs": (lq, lr)}
+
+
+def chain_segments(torch, fn, args, seg, kw, bufs=None):
+    """``fn`` (score_segment or its plain version) chained left to right
+    over ``seg``-column segments of the batch; returns (out, state), the
+    trace class's planes concatenated into ``trace_table`` unless ``bufs``
+    (two reusable segment buffers) are given, which then receive them."""
+    ridx, qlen, rlen = args
+    Rp = ridx.shape[1]
+    seg = min(seg, Rp)
+    nseg = max(1, -(-Rp // seg))
+    if nseg * seg != Rp:
+        ridx = torch.nn.functional.pad(ridx, (0, nseg * seg - Rp))
+    state = out = None
+    planes = []
+    for si in range(nseg):
+        extra = {} if bufs is None else {"trace_out": bufs[si % 2]}
+        out, state = fn(ridx[:, si * seg:(si + 1) * seg].contiguous(), qlen,
+                        rlen, state, col_offset=si * seg, resume=si > 0,
+                        **kw, **extra)
+        if "trace_table_seg" in out:
+            plane = out.pop("trace_table_seg")
+            if bufs is None:
+                planes.append(plane)
+    if planes:
+        out["trace_table"] = torch.cat(planes, dim=2)[:, :, :Rp]
+    return out, state
+
+
+def segment_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
+                 headline, long_k1) -> dict:
+    """Phases 18-20, the segment kernel and the long-pair path; returns
+    each class's launches, error and times."""
+    dev = torch.device("cuda")
+    classes = ("score", "stats", "trace")
+    errs = dict.fromkeys(classes, 0)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    # -- 18. segment kernel vs plain ---------------------------------------------
+    B, Qp, Rp, A = 64, 100, 200, 5
+    modes = ([("nw", F4)] + [("sg", f) for f in SG_FREE] +
+             [("sw", (True,) * 4)])
+    n = 0
+    for mode, free in modes:
+        for open_, ext in ((11, 1), (2, 2), (1, 3)):
+            for cls in classes:
+                seg = (48, 80, 128)[n % 3]          # 5, 3 and 2 segments
+                warps = (0, 1, 2, 8)[n % 4]         # 0: the launcher's pick
+                n += 1
+                ql = rng.integers(0, Qp + 1, size=B)
+                rl = rng.integers(0, Rp + 1, size=B)
+                ql[:7] = (0, 5, Qp, 32, 33, 64, 65)  # empty sides, stripes
+                rl[:7] = (7, 0, Rp, seg, seg + 1, 64, 129)
+                kw = dict(open_=open_, ext=ext, mode=mode, free=free,
+                          outputs=cls, width="sat",
+                          table=t(rng.integers(-4, 6, size=(A, A))),
+                          qidx=t(rng.integers(0, A, size=(B, Qp))))
+                args = (t(rng.integers(0, A, size=(B, Rp))), t(ql), t(rl))
+                tk.SEGMENT_WARPS = warps
+                got, gst = chain_segments(torch, tk.score_segment, args, seg,
+                                          kw)
+                tk.SEGMENT_WARPS = 0
+                want, wst = chain_segments(torch, tk.score_segment_plain,
+                                           args, seg, kw)
+                one = tk.score_align(*args, **kw)
+                torch.cuda.synchronize()
+                name = f"{cls} {mode}{tuple(int(x) for x in free)} " \
+                    f"{open_}/{ext} seg {seg} warps {warps}"
+                err = max(max_abs_diff(got, want), max_abs_diff(got, one))
+                # the state rows of the pairs' own query rows
+                rows = (torch.arange(Qp, device=dev)[None, :] <
+                        args[1][:, None]) & (args[2] > 0)[:, None]
+                for k in ("h", "f"):
+                    err = max(err, int(((gst[k] - wst[k]) * rows).abs().max()))
+                if cls == "stats":
+                    err = max(err, int(((gst["stats"] - wst["stats"]) *
+                                        rows[None]).abs().max()))
+                errs[cls] = max(errs[cls], err)
+                if err != 0:
+                    raise AssertionError(f"segment kernel != plain or "
+                                         f"one-shot on {name}: max |diff| "
+                                         f"{err}")
+        log(f"[18 segment vs plain] {mode}{tuple(int(x) for x in free)}: "
+            f"score, stats and trace at 11/1, 2/2, 1/3 in 2-5 segments, 1-8 "
+            f"warps a pair, equal to plain and to the one-shot kernel")
+
+    # -- 19. the long-pair path through the public API ---------------------------
+    q6 = random_seqs(rng, DNA, 128, CFG6_LEN, CFG6_LEN)  # cfg6, full width
+    r6 = random_seqs(rng, DNA, 128, CFG6_LEN, CFG6_LEN)
+    def mixed():                      # 120 long and 8 short sequences
+        lens = np.concatenate([rng.integers(LONG_LEN // 4, LONG_LEN + 1,
+                                            size=120),
+                               rng.integers(50, 201, size=8)])
+        lens[0] = LONG_LEN            # pair 0 sets the padded shape
+        return [random_seqs(rng, DNA, 1, n, n)[0] for n in lens.tolist()]
+
+    mq, mr = mixed(), mixed()
+    short = list(range(120, 128))
+
+    def sw51():
+        return pt.Aligner.new().gap_open(5).gap_extend(1).local()
+
+    al = {"score": sw51().build(), "stats": sw51().use_stats().build(),
+          "trace": sw51().use_trace().build()}
+    dispatch.ROUTE_COUNTS.clear()
+    tk.LAUNCHES = tk.TRACE_LAUNCHES = tk.SEGMENT_LAUNCHES = 0
+    tk.CLASS_LAUNCHES = dict.fromkeys(PLANE_CLASSES, 0)
+    res6 = al["score"].align_batch(q6, r6)
+    launches = {"score": tk.SEGMENT_LAUNCHES}
+    res = {}
+    for cls in classes:
+        before = tk.SEGMENT_LAUNCHES
+        res[cls] = al[cls].align_batch(mq, mr)
+        launches[cls] = launches.get(cls, 0) + tk.SEGMENT_LAUNCHES - before
+    routes = dict(dispatch.ROUTE_COUNTS)
+    log(f"[19 long pairs] segment launches={launches} (one-shot score "
+        f"{tk.LAUNCHES}, trace {tk.TRACE_LAUNCHES}, stats "
+        f"{tk.CLASS_LAUNCHES['stats']}) routes={routes}")
+    if min(launches.values()) < 1 or tk.LAUNCHES or tk.TRACE_LAUNCHES or \
+            tk.CLASS_LAUNCHES["stats"]:
+        raise AssertionError(f"the long-pair path did not run on the "
+                             f"segment kernel alone: {launches}")
+    if {r for r, _ in routes} != {"cuda_segments"} or any(
+            {r for r, _ in a.route_counter} != {"cuda_segments"}
+            for a in al.values()):
+        raise AssertionError(f"the long-pair path left the segment route: "
+                             f"{routes}")
+    check_against_plain("cfg6, first 4 pairs", res6[:4],
+                        plain_of(tk, al["score"], q6[:4], r6[:4]))
+    if not all(0 < a.get_score() <= CFG6_LEN and
+               0 <= a.get_end_query() < CFG6_LEN and
+               0 <= a.get_end_ref() < CFG6_LEN for a in res6):
+        raise AssertionError("cfg6: a score or end cell is out of range")
+    batch, _, _ = al["score"]._pack(mq, mr)
+    margs = (batch.ridx, batch.qlen_t, batch.rlen_t)
+    mkw = dict(open_=5, ext=1, mode="sw", free=(True,) * 4, width="sat",
+               table=batch.table, qidx=batch.qidx)
+    for cls in classes:
+        one = tk.score_align(*margs, **mkw, outputs=cls)
+        plane = one.pop("trace_table", None)
+        one = {k: v.cpu().numpy() for k, v in one.items()}
+        for b, a in enumerate(res[cls]):
+            for k, v in one.items():
+                if a.fields[k] != v[b]:
+                    raise AssertionError(f"long pairs {cls}: pair {b} {k} "
+                                         f"{a.fields[k]} != one-shot {v[b]}")
+        if plane is not None:
+            # pair 0 fills the padded shape: its view's base is the plane
+            host = res[cls][0].fields["trace_table"].base
+            if host.shape != tuple(plane.shape):
+                raise AssertionError(f"trace plane of shape {host.shape}")
+            for b in range(0, 128, 16):          # 16 pairs at a time
+                if not torch.equal(torch.from_numpy(host[b:b + 16]).to(dev),
+                                   plane[b:b + 16]):
+                    raise AssertionError(f"long pairs trace: planes of "
+                                         f"pairs {b}-{b + 15} differ from "
+                                         f"the one-shot kernel's")
+            del plane, host
+    m = pt.Matrix.default()
+    for b in short:
+        g = golden.align_seqs(mq[b], mr[b], m, 5, 1, "sw")
+        w = golden.walk_trace(g.trace_table, mq[b], mr[b], g.end_query,
+                              g.end_ref, "sw")
+        for cls in classes:
+            a = res[cls][b]
+            if (a.get_score(), a.get_end_query(), a.get_end_ref()) != \
+                    (g.score, g.end_query, g.end_ref):
+                raise AssertionError(f"long pairs {cls}: pair {b} differs "
+                                     f"from golden")
+        a = res["stats"][b]
+        if (a.get_matches(), a.get_similar(), a.get_length()) != \
+                (g.matches, g.similar, g.length):
+            raise AssertionError(f"long pairs stats: pair {b} differs from "
+                                 f"golden")
+        a = res["trace"][b]
+        if not np.array_equal(a.fields["trace_table"], g.trace_table) or \
+                a.get_cigar(mq[b], mr[b]) != w.cigar_string():
+            raise AssertionError(f"long pairs trace: pair {b} differs from "
+                                 f"golden")
+    log(f"[19 long pairs] cfg6 (128 x 16,384 bp SW 5/1) on cuda_segments, "
+        f"its first 4 pairs equal to plain; 128 pairs of 50-4,096 bp "
+        f"(Qp=Rp={batch.qp}) score, use_stats and use_trace on "
+        f"cuda_segments, equal to the one-shot kernel; {len(short)} short "
+        f"pairs equal to golden (score, end cell, stats, flags, CIGAR)")
+    del res
+
+    # -- 20. timings -----------------------------------------------------------------
+    def host_once(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+
+    def peak_of(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = host_once(fn)
+        return ms, torch.cuda.max_memory_allocated() / 2 ** 20
+
+    cells6 = 128 * CFG6_LEN * CFG6_LEN
+    e2e6, peak6 = peak_of(lambda: al["score"].align_batch(q6, r6))
+    b6, _, _ = al["score"]._pack(q6, r6)
+    args6 = (b6.ridx, b6.qlen_t, b6.rlen_t)
+    kw6 = dict(open_=5, ext=1, mode="sw", free=(True,) * 4, width="sat",
+               table=b6.table, qidx=b6.qidx, outputs="score")
+    seg_cols = dispatch.SEGMENT_COLS
+    k6 = time_cuda(torch, lambda: chain_segments(
+        torch, tk.score_segment, args6, seg_cols["score"], kw6), reps=1,
+        warmup=0)
+    tk.SEGMENT_WARPS = 1
+    k6_one = time_cuda(torch, lambda: chain_segments(
+        torch, tk.score_segment, args6, seg_cols["score"], kw6), reps=1,
+        warmup=0)
+    tk.SEGMENT_WARPS = 0
+    log(f"[20 timing] card: {card}")
+    log(f"[20 timing] cfg6 128 x 16,384 bp SW 5/1: align_batch e2e, one "
+        f"call, {e2e6} ms ({cells6 / e2e6 / 1e6} GCUPS), peak device memory "
+        f"{peak6} MiB; its two segment launches alone {k6} ms "
+        f"({cells6 / k6 / 1e6} GCUPS, {k6 * 1e6 / CFG6_LEN ** 2} ns per "
+        f"cell per pair), with one warp a pair {k6_one} ms [{card}]")
+    del b6, args6, kw6
+
+    # one-shot against segment kernel, 128 pairs of 1,024 and 4,096 bp
+    lb = long_k1["batch"]
+    a4 = (lb.ridx, lb.qlen_t, lb.rlen_t)
+    kw4 = dict(open_=5, ext=1, mode="sw", free=(True,) * 4, width="sat",
+               table=lb.table, qidx=lb.qidx)
+    a1 = (lb.ridx[:, :MID_LEN].contiguous(), lb.qlen_t.clamp(max=MID_LEN),
+          lb.rlen_t.clamp(max=MID_LEN))
+    kw1 = {**kw4, "qidx": lb.qidx[:, :MID_LEN].contiguous()}
+    times = {}
+    for cls in ("score", "stats"):
+        k1_1024 = time_cuda(torch, lambda: tk.score_align(
+            *a1, **kw1, outputs=cls), reps=3, warmup=1)
+        k2_1024 = time_cuda(torch, lambda: chain_segments(
+            torch, tk.score_segment, a1, MID_LEN, {**kw1, "outputs": cls}),
+            reps=5)
+        kept = {}
+        k2_4096 = time_cuda(torch, lambda: kept.update(got=chain_segments(
+            torch, tk.score_segment, a4, seg_cols[cls],
+            {**kw4, "outputs": cls})[0]), reps=5)
+        tk.SEGMENT_WARPS = 1
+        k2_one = time_cuda(torch, lambda: chain_segments(
+            torch, tk.score_segment, a4, seg_cols[cls],
+            {**kw4, "outputs": cls}), reps=3)
+        tk.SEGMENT_WARPS = 0
+        plain_4096 = time_cuda(torch, lambda: kept.update(want=chain_segments(
+            torch, tk.score_segment_plain, a4, seg_cols[cls],
+            {**kw4, "outputs": cls})[0]), reps=1, warmup=0)
+        times[cls] = (k2_4096, plain_4096)
+        errs[cls] = max(errs[cls], max_abs_diff(kept["got"], kept["want"]))
+        if errs[cls] != 0:
+            raise AssertionError(f"segment kernel != plain on 128 x 4,096 bp "
+                                 f"({cls}): max |diff| {errs[cls]}")
+        k1_4096 = (f"{long_k1['k1_ms']} ms (one call, phase 16)"
+                   if cls == "score" else "not measured")
+        log(f"[20 timing] {cls} class, 128 pairs SW 5/1: 1,024 bp one-shot "
+            f"kernel {k1_1024} ms, segment kernel {k2_1024} ms; 4,096 bp "
+            f"one-shot kernel {k1_4096}, segment kernel {k2_4096} ms "
+            f"({128 * LONG_LEN ** 2 / k2_4096 / 1e6} GCUPS; with one warp a "
+            f"pair {k2_one} ms), its plain version {plain_4096} ms [{card}]")
+    st_e2e, st_peak = peak_of(lambda: al["stats"].align_batch(mq, mr))
+    log(f"[20 timing] use_stats align_batch of the 128 pairs of 50-4,096 bp "
+        f"e2e, one call, {st_e2e} ms, peak device memory {st_peak} MiB "
+        f"[{card}]")
+
+    # the trace class: kernels alone (two buffers, no copy) and end to end
+    tkw = {**kw4, "outputs": "trace"}
+    bufs = [torch.empty((128, LONG_LEN, min(seg_cols["trace"], LONG_LEN)),
+                        dtype=torch.int8, device=dev) for _ in range(2)]
+    tr_k2 = time_cuda(torch, lambda: chain_segments(
+        torch, tk.score_segment, a4, seg_cols["trace"], tkw, bufs=bufs),
+        reps=3)
+    del bufs
+    kept = {}
+    tr_plain = time_cuda(torch, lambda: kept.update(want=chain_segments(
+        torch, tk.score_segment_plain, a4, seg_cols["trace"], tkw)[0]),
+        reps=1, warmup=0)
+    got = chain_segments(torch, tk.score_segment, a4, seg_cols["trace"],
+                         tkw)[0]
+    if not torch.equal(got.pop("trace_table"),
+                       kept["want"].pop("trace_table")):
+        raise AssertionError("segment kernel != plain on 128 x 4,096 bp: "
+                             "the trace planes differ")
+    errs["trace"] = max(errs["trace"], max_abs_diff(got, kept["want"]))
+    if errs["trace"] != 0:
+        raise AssertionError(f"segment kernel != plain on 128 x 4,096 bp "
+                             f"(trace): max |diff| {errs['trace']}")
+    del got, kept
+    lq4, lr4 = long_k1["pairs"]
+    tr_e2e, tr_peak = peak_of(lambda: al["trace"].align_batch(lq4, lr4))
+    with stages.measuring():
+        al["trace"].align_batch(lq4, lr4)
+        snap = stages.snapshot()
+    per_call = {k: v["ms"] for k, v in snap.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    one_ms = time_cuda(torch, lambda: tk.score_align(*a4, **tkw), reps=1,
+                       warmup=0)
+    one_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    times["trace"] = (tr_k2, tr_plain)
+    log(f"[20 timing] trace class, 128 x 4,096 bp SW 5/1 (a 2 GiB plane): "
+        f"segment kernel, {-(-LONG_LEN // seg_cols['trace'])} launches into "
+        f"two "
+        f"buffers, {tr_k2} ms, its plain version {tr_plain} ms; use_trace "
+        f"align_batch e2e, one call, {tr_e2e} "
+        f"ms, peak device memory {tr_peak} MiB; stages, ms: "
+        f"{json.dumps(per_call)}; the one-shot trace kernel on the same "
+        f"batch, one call, {one_ms} ms with the plane on the card, peak "
+        f"{one_peak} MiB [{card}]")
+
+    # bench.py's headline batch through the segment kernel
+    head_args, head_kw = headline
+    hk = {**head_kw, "outputs": "score"}
+    h_k2 = time_cuda(torch, lambda: chain_segments(
+        torch, tk.score_segment, head_args, 160, hk))
+    h_k1 = time_cuda(torch, lambda: tk.score_align(*head_args, **hk))
+    log(f"[20 timing] headline B=8192 Qp=Rp=160 SW 11/1: segment kernel "
+        f"{h_k2} ms, one-shot kernel {h_k1} ms [{card}]")
+    return {cls: {"launches": launches[cls], "max_abs_err": errs[cls],
+                  "ms": times[cls][0], "plain_ms": times[cls][1],
+                  "shape": "128 pairs, Qp=Rp=4096, SW 5/1",
+                  "form": "a block per pair, 8 warps at this shape",
+                  # the state between segments is neither input nor output:
+                  # a chain's bound is the one-shot sweep's
+                  **sweep_bound(cls, a4, kw4)}
+            for cls in classes}
 
 
 if __name__ == "__main__":

@@ -1,17 +1,22 @@
 """parasail_rs_tpu_torch: the PyTorch + CUDA port of ``parasail_rs_tpu``.
 
 Same public surface and the same outputs, bit for bit, as the JAX
-package, which stays beside it as the reference.  On a CUDA device ``align`` /
-``align_batch`` and ``align_cigars`` run hand-written kernels
-(``csrc/*.cu``, built with ``nvcc`` on first use); on the CPU they run
-the kernels' plain PyTorch versions.  Every output class (score, stats,
-table, rowcol, trace) is ported; ``align_many``, ``banded_nw*`` and
-``ssw*`` are not yet (see ROADMAP.md).
+package, which stays beside it as the reference.  On a CUDA device every
+public ``Aligner`` method (``align`` / ``align_batch`` / ``align_many``,
+``cigars`` / ``align_cigars``, ``banded_nw*``, ``ssw*``; every output
+class: score, stats, table, rowcol, trace) runs hand-written kernels
+(``csrc/*.cu``, built with ``nvcc`` on first use), long pairs through the
+resumable segment kernel; on the CPU they run the kernels' plain PyTorch
+versions.  ``StreamingAligner`` and the ``dist`` layer are not ported yet
+(see ROADMAP.md).
 
-The package imports ``torch`` and never ``jax``.
+The package imports ``torch``, never ``jax``, and nothing of
+``parasail_rs_tpu``: ``constants``, ``errors``, ``matrices``, ``golden``,
+``native``, ``batch`` and ``utils`` here are its own copies of the
+reference's modules.
 """
 
-from parasail_rs_tpu.matrices import Matrix
+from .matrices import Matrix
 
 __all__ = [
     "Aligner",

@@ -1,9 +1,9 @@
 """Carry the reference package's state across to the port.
 
 The system has no weights.  Its state is the substitution table and byte
-mapper of a ``Matrix`` (``Matrix.data``, ``Matrix.mapper``; the class is
-shared, so a matrix passes as it is), the rows and letters of a
-``Profile``, and a packed batch: ``PairBatch.profile``, ``table``,
+mapper of a ``Matrix`` (the port has its own class, so a matrix is
+carried across field by field: :func:`matrix_from_reference`), the rows
+and letters of a ``Profile``, and a packed batch: ``PairBatch.profile``, ``table``,
 ``qbytes``, ``rbytes``, ``qidx``, ``ridx``, ``qlen`` and ``rlen``.  These
 functions take those fields as numpy arrays, so both packages can be fed
 identical inputs.
@@ -16,6 +16,7 @@ import torch
 
 from .engine.dispatch import PairBatch
 from .engine.profile import Profile
+from .matrices import Matrix
 
 
 def _tensor(a, dtype, device):
@@ -49,9 +50,24 @@ def batch_from_reference(*, qlen, rlen, ridx=None, qidx=None, profile=None,
         device=device)
 
 
-def profile_from_reference(*, query: bytes, matrix, rows, qidx,
+def matrix_from_reference(*, data, mapper, alphabet, kind="square",
+                          name=None, builtin=False, approximate=False,
+                          query=None) -> Matrix:
+    """A reference Matrix's fields (its dataclass fields, as numpy arrays
+    and plain values) -> the port's Matrix.  A builtin matrix stays
+    frozen, as ``Matrix.from_name`` builds it."""
+    return Matrix(
+        data=np.array(data, dtype=np.int32), mapper=np.array(mapper, np.int32),
+        alphabet=bytes(alphabet), kind=str(kind), name=name,
+        builtin=bool(builtin), approximate=bool(approximate),
+        query=None if query is None else bytes(query),
+        _frozen=bool(builtin))
+
+
+def profile_from_reference(*, query: bytes, matrix: Matrix, rows, qidx,
                            use_stats: bool = False) -> Profile:
-    """A reference Profile's fields -> the port's Profile.
+    """A reference Profile's fields -> the port's Profile; ``matrix`` is
+    the port's Matrix (:func:`matrix_from_reference`).
 
     A profile is host state in both packages (the dataclass is the same
     code); its rows move to the device with each batch packed against it.

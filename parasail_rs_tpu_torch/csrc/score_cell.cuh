@@ -58,6 +58,10 @@
 
 #include <stdint.h>
 
+#if !defined(__CUDACC__)
+#include <vector>
+#endif
+
 #if defined(__CUDACC__)
 #define PT_HD __host__ __device__ __forceinline__
 #else
@@ -181,6 +185,46 @@ PT_HD int32_t cell_trace(int32_t h_diag, int32_t h_up, int32_t e_up,
   if (local && v <= 0) hflag = 0;
   return hflag | (e_open >= e_ext ? TRACE_DIAG_E : TRACE_INS_E) |
          (f_open >= f_ext ? TRACE_DIAG_F : TRACE_DEL_F);
+}
+
+// A cell's payload (matches, similar, length), golden/model.py:152-209.
+struct Pay {
+  int32_t m, s, l;
+};
+
+// cell() plus golden's payloads.  `up` and `eup` are the payloads of
+// H[i-1][j] and E[i-1][j], `left` of H[i][j-1], `diag` of H[i-1][j-1];
+// `fp` carries F[i][j-1]'s in and F[i][j]'s out; `match` says whether the
+// mapped letters are equal.  `hp` and `ep` receive H[i][j]'s and E[i][j]'s.
+// E and F take the opening cell's payload when open >= extend (golden's
+// `>=`), H the diagonal's when diag >= E and diag >= F, else E's when
+// E >= F, else F's; a local cell with max(diag, E, F) <= 0 zeroes its own.
+PT_HD void cell_stats(int32_t h_diag, int32_t h_up, int32_t e_up,
+                      int32_t h_left, int32_t s, int32_t open, int32_t ext,
+                      bool local, bool match, const Pay& up, const Pay& eup,
+                      const Pay& left, const Pay& diag_p, Pay& fp, int32_t& f,
+                      int32_t& h, int32_t& e, Pay& hp, Pay& ep) {
+  const int32_t e_open = h_up - open, e_ext = e_up - ext;
+  const int32_t f_open = h_left - open, f_ext = f - ext;
+  e = imax(e_open, e_ext);
+  f = imax(f_open, f_ext);
+  const int32_t diag = h_diag + s;
+  const int32_t v = imax(imax(diag, e), f);
+  h = local ? imax(v, 0) : v;
+  ep = e_open >= e_ext ? up : eup;
+  ep.l += 1;
+  if (f_open >= f_ext) fp = left;
+  fp.l += 1;
+  if (diag >= e && diag >= f) {
+    hp.m = diag_p.m + (match ? 1 : 0);
+    hp.s = diag_p.s + (s > 0 ? 1 : 0);
+    hp.l = diag_p.l + 1;
+  } else if (e >= f) {
+    hp = ep;
+  } else {
+    hp = fp;
+  }
+  if (local && v <= 0) hp = Pay{0, 0, 0};
 }
 
 // End cell of a non-local pair with qlen == 0 or rlen == 0 (golden's
@@ -309,9 +353,9 @@ PT_HD PairResult score_pair(const int32_t* rows, const int32_t* qidx,
     }
     int32_t f = NEG_INF32;
     // stats: payloads of the diagonal, the cell to the left and F
-    int32_t dm = 0, ds = 0, dl = db ? 0 : i;
-    int32_t lm = 0, ls = 0, ll = db ? 0 : i + 1;
-    int32_t fm = 0, fs = 0, fl = 0;
+    Pay dp{0, 0, db ? 0 : i};
+    Pay lp{0, 0, db ? 0 : i + 1};
+    Pay fp{0, 0, 0};
     int32_t mqi = 0;
     if constexpr (O::stats) mqi = io.mq[i];
     for (int32_t j = lo; j < hi; ++j) {
@@ -328,51 +372,22 @@ PT_HD PairResult score_pair(const int32_t* rows, const int32_t* qidx,
         // all six payload loads issue together, beside H's and E's, so
         // a cell waits for one round trip to the rows, not two
         const int64_t o = j * stride;
-        const int32_t um = HM[o], us = HS[o], ul = HL[o];
-        const int32_t pm = EM[o], ps = ES[o], pl = EL[o];
-        const int32_t e_open = h_up - open, e_ext = e_up - ext;
-        const int32_t f_open = h_left - open, f_ext = f - ext;
-        e = imax(e_open, e_ext);
-        f = imax(f_open, f_ext);
-        const int32_t diag = h_diag + s;
-        const int32_t v = imax(imax(diag, e), f);
-        h = local ? imax(v, 0) : v;
-        const bool e_opens = e_open >= e_ext;
-        const int32_t em = e_opens ? um : pm;
-        const int32_t es = e_opens ? us : ps;
-        const int32_t el = (e_opens ? ul : pl) + 1;
-        if (f_open >= f_ext) {
-          fm = lm;
-          fs = ls;
-          fl = ll;
-        }
-        fl += 1;
-        if (diag >= e && diag >= f) {
-          hm = dm + (mqi == r ? 1 : 0);
-          hs = ds + (s > 0 ? 1 : 0);
-          hl = dl + 1;
-        } else if (e >= f) {
-          hm = em;
-          hs = es;
-          hl = el;
-        } else {
-          hm = fm;
-          hs = fs;
-          hl = fl;
-        }
-        if (local && v <= 0) hm = hs = hl = 0;
-        HM[o] = hm;
-        HS[o] = hs;
-        HL[o] = hl;
-        EM[o] = em;
-        ES[o] = es;
-        EL[o] = el;
-        dm = um;
-        ds = us;
-        dl = ul;
-        lm = hm;
-        ls = hs;
-        ll = hl;
+        const Pay up{HM[o], HS[o], HL[o]};
+        const Pay eup{EM[o], ES[o], EL[o]};
+        Pay hp, ep;
+        cell_stats(h_diag, h_up, e_up, h_left, s, open, ext, local, mqi == r,
+                   up, eup, lp, dp, fp, f, h, e, hp, ep);
+        hm = hp.m;
+        hs = hp.s;
+        hl = hp.l;
+        HM[o] = hp.m;
+        HS[o] = hp.s;
+        HL[o] = hp.l;
+        EM[o] = ep.m;
+        ES[o] = ep.s;
+        EL[o] = ep.l;
+        dp = up;
+        lp = hp;
       } else {
         cell(h_diag, h_up, e_up, h_left, s, open, ext, local, f, h, e);
       }
@@ -479,5 +494,436 @@ PT_HD PairResult score_batch_pair(int32_t b, const int32_t* subs,
 PT_HD int32_t clamp_band(int32_t bw, int32_t Qp, int32_t Rp) {
   return imin(imax(bw, -1), Qp + Rp);
 }
+
+// ---------------------------------------------------------------------------
+// The segment form (kernel K2): columns [off, off + Rseg) of a pair, with
+// the sweep's state carried in and out, so a pair of any length runs as a
+// chain of calls (the TPU package's scan_score_segment, scan_kernel.py:1528).
+//
+// State of a pair, after the segment that ends at column c_end (the last
+// column the pair has had so far, min(off + Rseg, rlen) - 1):
+//   h[i], f[i]      H[i][c_end] and F[i][c_end] of every query row i < qlen
+//   stats           the payloads of h[i] (m, s, l) and of f[i] (m, s, l)
+//   acc[8]          best, its i and j, max and min of H over the cells so
+//                   far (the extremes behind the width-8/16 flags), and the
+//                   best cell's m, s, l
+// The first segment (resume = false) starts from the bordered left column
+// and F = -inf.  A segment beyond the pair's rlen leaves its state alone.
+//
+// The cells are swept by 32 lanes, one query row each, in stripes of 32
+// rows; lane l runs one column behind lane l - 1, so what a cell needs
+// from the row above (H, E and their payloads) is what that lane computed
+// one step earlier.  SegLane is one lane's registers, seg_cell one cell of
+// it: every value, flag and payload comes from cell / cell_trace /
+// cell_stats above, so the tie rules are the one-shot form's.  The CUDA
+// kernel (scan_segment.cu) moves the values between lanes by warp shuffle;
+// segment_pair_host below steps the same lanes in a loop for the CPU tests.
+//
+// The end cell is the first maximum in row-major order over the WHOLE pair,
+// but cells arrive neither in row-major order (rows run in parallel) nor
+// all in one call.  So a lane keeps the first maximum of its own rows in
+// this segment (rows and then columns ascend there, so a strictly larger H
+// wins), the lanes reduce with seg_better (H descending, i ascending, j
+// ascending), and the segment's best replaces the carried one by the same
+// rule.
+
+constexpr int32_t SEG_LANES = 32;
+
+// Is candidate (h, i, j) ahead of (bh, bi, bj) in the end cell's order?
+PT_HD bool seg_better(int32_t h, int32_t i, int32_t j, int32_t bh, int32_t bi,
+                      int32_t bj) {
+  return h > bh || (h == bh && (i < bi || (i == bi && j < bj)));
+}
+
+// What the row below reads of a cell: H and E, and their payloads.
+struct SegUp {
+  int32_t h = NEG_INF32, e = NEG_INF32;
+  Pay hp{0, 0, 0}, ep{0, 0, 0};
+};
+
+// A SegUp kept as rows `stride` apart, column k: H, E, and for the stats
+// forms their six payloads (the kernel's ring and scratch rows).
+template <int32_t kOut>
+PT_HD SegUp seg_up_load(const int32_t* rows, int32_t stride, int32_t k) {
+  SegUp u;
+  u.h = rows[k];
+  u.e = rows[stride + k];
+  if constexpr (Out<kOut>::stats) {
+    u.hp = Pay{rows[2 * stride + k], rows[3 * stride + k],
+               rows[4 * stride + k]};
+    u.ep = Pay{rows[5 * stride + k], rows[6 * stride + k],
+               rows[7 * stride + k]};
+  }
+  return u;
+}
+
+template <int32_t kOut>
+PT_HD void seg_up_store(int32_t* rows, int32_t stride, int32_t k,
+                        const SegUp& u) {
+  rows[k] = u.h;
+  rows[stride + k] = u.e;
+  if constexpr (Out<kOut>::stats) {
+    rows[2 * stride + k] = u.hp.m;
+    rows[3 * stride + k] = u.hp.s;
+    rows[4 * stride + k] = u.hp.l;
+    rows[5 * stride + k] = u.ep.m;
+    rows[6 * stride + k] = u.ep.s;
+    rows[7 * stride + k] = u.ep.l;
+  }
+}
+
+// A pair's configuration for one segment.
+struct SegPair {
+  int32_t qlen, rlen;      // global lengths (qlen clamped to qp)
+  int32_t qp;              // padded query length
+  int32_t off;             // global column of the segment's first column
+  int32_t ncols;           // this pair's columns in the segment (may be 0)
+  int32_t open, ext;
+  bool local, qb, qe, db, de;
+  bool resume;
+  int32_t A;
+};
+
+PT_HD SegPair seg_pair(int32_t qlen, int32_t rlen, int32_t qp, int32_t off,
+                       int32_t rseg, int32_t open, int32_t ext, int32_t mode,
+                       int32_t free_bits, bool resume, int32_t A) {
+  SegPair p;
+  p.qlen = imin(qlen, qp);
+  p.rlen = rlen;
+  p.qp = qp;
+  p.off = off;
+  p.ncols = imax(0, imin(rseg, rlen - off));
+  p.open = open;
+  p.ext = ext;
+  p.local = mode == MODE_SW;
+  p.qb = p.local || (free_bits & FREE_QB);
+  p.db = p.local || (free_bits & FREE_DB);
+  p.qe = mode == MODE_SG && (free_bits & FREE_QE);
+  p.de = mode == MODE_SG && (free_bits & FREE_DE);
+  p.resume = resume;
+  p.A = A;
+  return p;
+}
+
+// The top border above column jg (global): H[-1][jg], E = -inf, and the
+// border's payload (0, 0, characters consumed unless free).
+PT_HD SegUp seg_top(const SegPair& p, int32_t jg) {
+  SegUp u;
+  u.h = border(jg + 1, p.qb, p.open, p.ext);
+  u.hp.l = p.qb ? 0 : jg + 1;
+  return u;
+}
+
+// A lane's best cell and extremes over its rows in this segment.
+struct SegBest {
+  int32_t h, i, j;
+  Pay p{0, 0, 0};
+  int32_t hmax = 0, hmin = 0;
+};
+
+PT_HD SegBest seg_best_init(const SegPair& p) {
+  SegBest b;
+  b.h = p.local ? 0 : NEG_INF32;
+  b.i = p.local ? BIG : p.qp;
+  b.j = BIG;
+  return b;
+}
+
+// (a, b) -> the one ahead in the end cell's order, extremes merged.
+PT_HD SegBest seg_merge(const SegBest& a, const SegBest& b) {
+  SegBest r = seg_better(b.h, b.i, b.j, a.h, a.i, a.j) ? b : a;
+  r.hmax = imax(a.hmax, b.hmax);
+  r.hmin = imin(a.hmin, b.hmin);
+  return r;
+}
+
+// One lane: query row i of the current stripe.
+template <int32_t kOut>
+struct SegLane {
+  int32_t i = 0;
+  bool on = false;                 // i < qlen
+  const int32_t* srow = nullptr;   // the row's substitution scores
+  bool qok = false;
+  int32_t mqi = 0;                 // stats: the row's letter
+  bool row_all = false, row_last = false;   // the row's candidates
+  int32_t h_left = 0, f = NEG_INF32, h_diag = 0;
+  Pay lp{0, 0, 0}, fp{0, 0, 0}, dp{0, 0, 0};
+  SegUp out;                       // the last cell computed
+  SegBest best;
+};
+
+// Start row i: its substitution row, its candidates, and the boundary
+// column left of the segment (the carried state, or the bordered left
+// column).  `old` receives H[i][off-1] and its payload as they were
+// before this segment: the row below needs them as its first diagonal.
+template <int32_t kOut>
+PT_HD void seg_row_begin(SegLane<kOut>& L, const SegPair& p, int32_t i,
+                         const int32_t* rows, const int32_t* q,
+                         const int32_t* mq, const int32_t* st_h,
+                         const int32_t* st_f, const int32_t* st_pay,
+                         int64_t pay_plane, SegUp& old) {
+  using O = Out<kOut>;
+  L.i = i;
+  L.on = i < p.qlen;
+  old = SegUp();
+  if (!L.on) return;
+  const int32_t qi = q ? q[i] : i;
+  L.qok = !q || (qi >= 0 && qi < p.A);
+  L.srow = rows + (int64_t)(L.qok ? qi : 0) * p.A;
+  if constexpr (O::stats) L.mqi = mq[i];
+  const bool last_row = i == p.qlen - 1;
+  L.row_all = p.local || (last_row && p.qe);
+  L.row_last = last_row || p.de;
+  if (p.resume) {
+    L.h_left = st_h[i];
+    L.f = st_f[i];
+    if constexpr (O::stats) {
+      L.lp = Pay{st_pay[i], st_pay[pay_plane + i], st_pay[2 * pay_plane + i]};
+      L.fp = Pay{st_pay[3 * pay_plane + i], st_pay[4 * pay_plane + i],
+                 st_pay[5 * pay_plane + i]};
+    }
+  } else {
+    L.h_left = border(i + 1, p.db, p.open, p.ext);
+    L.f = NEG_INF32;
+    L.lp = Pay{0, 0, p.db ? 0 : i + 1};
+    L.fp = Pay{0, 0, 0};
+  }
+  old.h = L.h_left;
+  old.hp = L.lp;
+}
+
+// The first diagonal of a row: H[i-1][off-1] and its payload, taken from
+// the row above's `old` (row -1: the top border left of the segment).
+template <int32_t kOut>
+PT_HD void seg_row_diag(SegLane<kOut>& L, const SegUp& above) {
+  L.h_diag = above.h;
+  L.dp = above.hp;
+}
+
+PT_HD SegUp seg_corner(const SegPair& p) {
+  SegUp u;
+  u.h = border(p.off, p.qb, p.open, p.ext);
+  u.hp.l = p.qb ? 0 : p.off;
+  return u;
+}
+
+// The row's substitution score against reference letter r.
+template <int32_t kOut>
+PT_HD int32_t seg_score(const SegLane<kOut>& L, const SegPair& p, int32_t r) {
+  return (L.qok && r >= 0 && r < p.A) ? L.srow[r] : 0;
+}
+
+// One cell: row L.i, local column c (global off + c), reference letter r
+// and its score s = seg_score(L, p, r), `up` from the row above.  Writes the cell's flags (trace form), the
+// row's state at the pair's last column of the segment, and the lane's
+// best; leaves the cell in L.out.
+template <int32_t kOut>
+PT_HD void seg_cell(SegLane<kOut>& L, const SegPair& p, int32_t c, int32_t r,
+                    int32_t s, const SegUp& up, int8_t* trace_row,
+                    int32_t* st_h, int32_t* st_f, int32_t* st_pay,
+                    int64_t pay_plane) {
+  using O = Out<kOut>;
+  int32_t h, e;
+  Pay hp{0, 0, 0}, ep{0, 0, 0};
+  if constexpr (O::trace) {
+    trace_row[c] = (int8_t)cell_trace(L.h_diag, up.h, up.e, L.h_left, s,
+                                      p.open, p.ext, p.local, L.f, h, e);
+  } else if constexpr (O::stats) {
+    cell_stats(L.h_diag, up.h, up.e, L.h_left, s, p.open, p.ext, p.local,
+               L.mqi == r, up.hp, up.ep, L.lp, L.dp, L.fp, L.f, h, e, hp, ep);
+    L.dp = up.hp;
+    L.lp = hp;
+  } else {
+    cell(L.h_diag, up.h, up.e, L.h_left, s, p.open, p.ext, p.local, L.f, h,
+         e);
+  }
+  L.h_diag = up.h;
+  L.h_left = h;
+  L.out.h = h;
+  L.out.e = e;
+  L.out.hp = hp;
+  L.out.ep = ep;
+  L.best.hmax = imax(L.best.hmax, h);
+  L.best.hmin = imin(L.best.hmin, h);
+  const int32_t jg = p.off + c;
+  const bool cand = L.row_all || (L.row_last && jg == p.rlen - 1);
+  if (cand && h > L.best.h) {
+    L.best.h = h;
+    L.best.i = L.i;
+    L.best.j = jg;
+    L.best.p = hp;
+  }
+  if (c == p.ncols - 1) {
+    st_h[L.i] = h;
+    st_f[L.i] = L.f;
+    if constexpr (O::stats) {
+      st_pay[L.i] = hp.m;
+      st_pay[pay_plane + L.i] = hp.s;
+      st_pay[2 * pay_plane + L.i] = hp.l;
+      st_pay[3 * pay_plane + L.i] = L.fp.m;
+      st_pay[4 * pay_plane + L.i] = L.fp.s;
+      st_pay[5 * pay_plane + L.i] = L.fp.l;
+    }
+  }
+}
+
+// Fold the segment's best into the carried accumulator `acc` (8 values;
+// initialised here when !resume) and derive the pair's outputs from it,
+// as score_pair's: the SW clamp is the accumulator's initial (0, 0, 0),
+// NW ends at (qlen - 1, rlen - 1), and a non-local pair with an empty side
+// takes empty_side(), decided from the global lengths.
+template <int32_t kOut>
+PT_HD PairResult seg_finish(const SegPair& p, int32_t mode,
+                            const SegBest& seg, int32_t* acc) {
+  using O = Out<kOut>;
+  if (!p.local && (p.qlen == 0 || p.rlen == 0)) {
+    if (!p.resume)
+      for (int32_t k = 0; k < 8; ++k) acc[k] = 0;
+    return empty_side(p.qlen, p.rlen, p.open, p.ext, p.qb, p.qe, p.db, p.de);
+  }
+  SegBest a;
+  if (p.resume) {
+    a.h = acc[0];
+    a.i = acc[1];
+    a.j = acc[2];
+    a.hmax = acc[3];
+    a.hmin = acc[4];
+    a.p = Pay{acc[5], acc[6], acc[7]};
+  } else {
+    a.h = p.local ? 0 : NEG_INF32;
+    a.i = p.local ? 0 : p.qp;
+    a.j = p.local ? 0 : BIG;
+  }
+  a = seg_merge(a, seg);
+  acc[0] = a.h;
+  acc[1] = a.i;
+  acc[2] = a.j;
+  acc[3] = a.hmax;
+  acc[4] = a.hmin;
+  acc[5] = a.p.m;
+  acc[6] = a.p.s;
+  acc[7] = a.p.l;
+  PairResult out;
+  out.score = a.h;
+  out.end_query = mode == MODE_NW ? p.qlen - 1 : a.i;
+  out.end_ref = mode == MODE_NW ? p.rlen - 1 : a.j;
+  out.sat8 = (a.hmax >= W8_MAX || a.hmin <= W8_MIN) ? 1 : 0;
+  out.sat16 = (a.hmax >= W16_MAX || a.hmin <= W16_MIN) ? 1 : 0;
+  out.matches = O::stats ? a.p.m : 0;
+  out.similar = O::stats ? a.p.s : 0;
+  out.length = O::stats ? a.p.l : 0;
+  return out;
+}
+
+// Several warps on a pair: a block's warps take SEG_LANES rows each, one
+// group of rows after another.  Warp w runs SEG_LAG steps behind warp
+// w - 1, whose last lane's row it reads from a ring of SEG_RING columns:
+// a column is written a whole round of SEG_LANES steps (one block
+// barrier) before it is read, and a slot is reused another round after.
+constexpr int32_t SEG_LAG = 2 * SEG_LANES;
+constexpr int32_t SEG_RING = 4 * SEG_LANES;
+
+// Warp w's own step at the group's step g.  Step -1 only fetches ahead.
+PT_HD int32_t seg_local_step(int32_t g, int32_t w) {
+  return g - SEG_LAG * w - 1;
+}
+
+// Steps a group of rows takes when `nw` of its warps have rows: the last
+// warp starts SEG_LAG * (nw - 1) + 1 steps in and sweeps ncols columns
+// with up to SEG_LANES lanes.
+PT_HD int32_t seg_group_steps(int32_t ncols, int32_t nw) {
+  return SEG_LAG * (nw - 1) + 1 + ncols + SEG_LANES - 1;
+}
+
+// Does the pair sweep any cell in this segment?
+PT_HD bool seg_sweeps(const SegPair& p) {
+  return p.qlen > 0 && p.ncols > 0;
+}
+
+#if !defined(__CUDACC__)
+// One pair's segment on the host: the kernel's lanes stepped in a loop.
+// `warps` warps of SEG_LANES lanes take SEG_LANES * warps rows abreast, as
+// the kernel's block does: warp w runs SEG_LAG steps behind warp w - 1 and
+// reads its last lane's row from a ring of SEG_RING columns (the kernel's
+// shared memory); warps and lanes are stepped last first, so each reads
+// what the one above left earlier.
+//
+//   rows, q, mq: as score_pair's rows and qidx, and PlaneIO::mq
+//   ridx_seg:    the segment's reference letters (Rseg of them)
+//   bottom:      scratch, 8 rows of Rseg: the last row of each group of
+//                SEG_LANES * warps rows (H, E, and their payloads) for
+//                the next group
+//   st_h, st_f:  the pair's state rows (qp each), updated in place
+//   st_pay:      stats: its six payload rows, `pay_plane` apart
+//   acc:         its accumulator (8)
+//   trace:       trace form: the pair's (qp, rseg) flags of this segment
+template <int32_t kOut>
+inline PairResult segment_pair_host(const int32_t* rows, const int32_t* q,
+                                    const int32_t* mq,
+                                    const int32_t* ridx_seg, int32_t rseg,
+                                    const SegPair& p, int32_t mode,
+                                    int32_t* bottom, int32_t* st_h,
+                                    int32_t* st_f, int32_t* st_pay,
+                                    int64_t pay_plane, int32_t* acc,
+                                    int8_t* trace, int32_t warps = 1) {
+  using O = Out<kOut>;
+  constexpr int32_t W = SEG_LANES;
+  SegBest total = seg_best_init(p);
+  if (seg_sweeps(p)) {
+    std::vector<SegLane<kOut>> lanes(warps * W);
+    std::vector<SegUp> old(warps * W);
+    std::vector<SegUp> ring((int64_t)warps * SEG_RING);
+    for (auto& L : lanes) L.best = seg_best_init(p);
+    SegUp carry = seg_corner(p);    // row -1's H left of the segment
+    const int32_t group = warps * W;
+    for (int32_t i0 = 0; i0 < p.qlen; i0 += group) {
+      for (int32_t k = 0; k < group; ++k)
+        seg_row_begin(lanes[k], p, i0 + k, rows, q, mq, st_h, st_f, st_pay,
+                      pay_plane, old[k]);
+      for (int32_t k = 0; k < group; ++k)
+        seg_row_diag(lanes[k], k == 0 ? carry : old[k - 1]);
+      carry = old[group - 1];
+      const int32_t nrows = imin(group, p.qlen - i0);
+      const int32_t nw = (nrows + W - 1) / W;       // warps with rows
+      const bool feeds = i0 + group < p.qlen;       // a group follows
+      const int32_t total_steps = seg_group_steps(p.ncols, nw);
+      for (int32_t g = 0; g < total_steps; ++g) {
+        for (int32_t w = nw - 1; w >= 0; --w) {
+          const int32_t t = seg_local_step(g, w);
+          const int32_t nl = imin(W, nrows - w * W);
+          if (t < 0 || t >= p.ncols + nl - 1) continue;
+          for (int32_t l = nl - 1; l >= 0; --l) {
+            const int32_t c = t - l;
+            if (c < 0 || c >= p.ncols) continue;
+            SegUp up;
+            if (l > 0) {
+              up = lanes[w * W + l - 1].out;
+            } else if (w > 0) {
+              up = ring[(int64_t)(w - 1) * SEG_RING + c % SEG_RING];
+            } else if (i0 == 0) {
+              up = seg_top(p, p.off + c);
+            } else {
+              up = seg_up_load<kOut>(bottom, rseg, c);
+            }
+            SegLane<kOut>& L = lanes[w * W + l];
+            const int32_t r = ridx_seg[c];
+            seg_cell(L, p, c, r, seg_score(L, p, r), up,
+                     O::trace ? trace + (int64_t)L.i * rseg : nullptr, st_h,
+                     st_f, st_pay, pay_plane);
+            if (l != W - 1) continue;
+            if (w < warps - 1) {
+              ring[(int64_t)w * SEG_RING + c % SEG_RING] = L.out;
+            } else if (feeds) {
+              seg_up_store<kOut>(bottom, rseg, c, L.out);
+            }
+          }
+        }
+      }
+    }
+    for (const auto& L : lanes) total = seg_merge(total, L.best);
+  }
+  return seg_finish<kOut>(p, mode, total, acc);
+}
+#endif
 
 }  // namespace ptscore

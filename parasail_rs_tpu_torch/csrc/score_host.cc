@@ -1,6 +1,7 @@
 // Host build of the kernels' per-pair code (score_cell.cuh, walk_step.cuh)
 // for the CPU tests: the same score_batch_pair and walk_pair the CUDA
-// kernels run, one pair at a time, with the row scratch at stride 1.
+// kernels run, one pair at a time, with the row scratch at stride 1, and
+// the segment kernel's lanes stepped in a loop (segment_pair_host).
 // Build with
 //   g++ -O2 -std=c++17 -shared -fPIC -o libptscore_host.so score_host.cc
 #include <stdint.h>
@@ -157,6 +158,66 @@ extern "C" int pt_walk_host(const int8_t* trace, const int32_t* qsym,
                       rsym + (int64_t)b * Rp, end_q[b], end_r[b], L,
                       local != 0, qb != 0, db != 0, ops + (int64_t)b * L,
                       beg[b], beg[B + b]);
+  }
+  return 0;
+}
+
+// One segment of the segment form (pt_scan_segment's arguments minus the
+// scratch and the stream, same layouts): out_class 0 score, 1 trace,
+// 2 stats; `st_h` / `st_f` (B, Qp), `st_pay` (6, B, Qp) and `acc` (B, 8)
+// are read (if resume) and updated in place; `out` is (8, B); `trace`
+// (B, Qp, Rseg) arrives zero-filled; `warps` is the number of warps the
+// kernel's block would put on a pair.  Returns -1 for another class.
+extern "C" int pt_segment_host(int out_class, const int32_t* subs,
+                               const int32_t* qidx, const int32_t* mq,
+                               const int32_t* ridx, const int32_t* qlen,
+                               const int32_t* rlen, int32_t* st_h,
+                               int32_t* st_f, int32_t* st_pay, int32_t* acc,
+                               int32_t* out, int8_t* trace, int B, int Bq,
+                               int Bm, int Qp, int Rseg, int A, int open,
+                               int ext, int mode, int free_bits, int off,
+                               int resume, int warps) {
+  if ((out_class != ptscore::OUT_SCORE && out_class != ptscore::OUT_TRACE &&
+       out_class != ptscore::OUT_STATS) || warps < 1)
+    return -1;
+  std::vector<int32_t> bottom(8 * (Rseg > 0 ? Rseg : 1));
+  const int64_t pay_plane = (int64_t)B * Qp;
+  for (int b = 0; b < B; ++b) {
+    const ptscore::SegPair p = ptscore::seg_pair(
+        qlen[b], rlen[b], Qp, off, Rseg, open, ext, mode, free_bits,
+        resume != 0, A);
+    const int64_t bq = Bq == 1 ? 0 : b;
+    const int32_t* rows = qidx ? subs : subs + bq * Qp * A;
+    const int32_t* q = qidx ? qidx + bq * Qp : nullptr;
+    const int32_t* mqb = mq ? mq + (Bm == 1 ? 0 : (int64_t)b * Qp) : nullptr;
+    const int32_t* rseg = ridx + (int64_t)b * Rseg;
+    int32_t* sh = st_h + (int64_t)b * Qp;
+    int32_t* sf = st_f + (int64_t)b * Qp;
+    int32_t* sp = st_pay ? st_pay + (int64_t)b * Qp : nullptr;
+    int32_t* ac = acc + (int64_t)b * 8;
+    int8_t* tr = trace ? trace + (int64_t)b * Qp * Rseg : nullptr;
+    ptscore::PairResult r;
+    if (out_class == ptscore::OUT_SCORE) {
+      r = ptscore::segment_pair_host<ptscore::OUT_SCORE>(
+          rows, q, mqb, rseg, Rseg, p, mode, bottom.data(), sh, sf, sp,
+          pay_plane, ac, tr, warps);
+    } else if (out_class == ptscore::OUT_TRACE) {
+      r = ptscore::segment_pair_host<ptscore::OUT_TRACE>(
+          rows, q, mqb, rseg, Rseg, p, mode, bottom.data(), sh, sf, sp,
+          pay_plane, ac, tr, warps);
+    } else {
+      r = ptscore::segment_pair_host<ptscore::OUT_STATS>(
+          rows, q, mqb, rseg, Rseg, p, mode, bottom.data(), sh, sf, sp,
+          pay_plane, ac, tr, warps);
+    }
+    out[b] = r.score;
+    out[B + b] = r.end_query;
+    out[2 * B + b] = r.end_ref;
+    out[3 * B + b] = r.sat8;
+    out[4 * B + b] = r.sat16;
+    out[5 * B + b] = r.matches;
+    out[6 * B + b] = r.similar;
+    out[7 * B + b] = r.length;
   }
   return 0;
 }

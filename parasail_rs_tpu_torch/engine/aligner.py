@@ -21,16 +21,16 @@ from collections import Counter
 import numpy as np
 import torch
 
-from parasail_rs_tpu.errors import (
+from ..errors import (
     InteriorNulByte,
     NoBandwidth,
     NoTrace,
     QueryRequired,
 )
-from parasail_rs_tpu.golden.model import free_flags
-from parasail_rs_tpu.matrices import Matrix
-from parasail_rs_tpu.utils import stages
-from parasail_rs_tpu.utils.gcpause import gc_pause
+from ..golden.model import free_flags
+from ..matrices import Matrix
+from ..utils import stages
+from ..utils.gcpause import gc_pause
 
 from ..ops.specs import KernelKey
 from . import dispatch
@@ -425,8 +425,8 @@ class Aligner:
         native/ptwalk.cc) instead of a per-pair round-trip.  Falls back
         to the per-pair path when the native walker is unavailable.
         """
-        from parasail_rs_tpu.constants import cigar_runs_string
-        from parasail_rs_tpu.native import walker
+        from ..constants import cigar_runs_string
+        from ..native import walker
 
         alignments = list(alignments)
         if not alignments:
@@ -502,7 +502,7 @@ class Aligner:
 
     def _align_cigars_shape(self, queries, refs, res_al, Qp, Rp):
         """One shape bin of :meth:`align_cigars`."""
-        from parasail_rs_tpu.constants import cigar_strings_batch
+        from ..constants import cigar_strings_batch
 
         from ..ops.trace_walk import ops_to_runs_flat
 
@@ -656,7 +656,7 @@ class Aligner:
         times the padded lengths exceed 4 << 30 cells.  Its CIGARs may
         differ from the one-pass walk's in tie-broken op order only.
         """
-        from parasail_rs_tpu.utils.shapes import length_bucket
+        from ..utils.shapes import length_bucket
 
         from ..ops.trace_walk import ops_to_runs_batch
 
@@ -749,7 +749,7 @@ def _shape_bins(qlens, rlens, cell_sized: bool, max_cells=None):
     classes with cell-sized planes (trace, table), at most 2^28 cells a
     launch in 16 launches; for the rest 2^33 cells in groups of 128
     pairs, in 8 launches.  ``max_cells`` overrides the cell cap."""
-    from parasail_rs_tpu.batch import merge_bins, plan_bins
+    from ..batch import merge_bins, plan_bins
 
     if max_cells is None:
         max_cells = (1 << 28) if cell_sized else (1 << 33)

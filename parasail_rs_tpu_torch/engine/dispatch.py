@@ -14,10 +14,16 @@ only per-pair scalars come back, so every bin is packed and launched
 before the first fetch.
 
 Routes: ``"cuda_kernel"`` for a batch on a CUDA device (the hand-written
-kernel), ``"torch_plain"`` for a batch on the CPU (the plain PyTorch
-version).  There is no fallback between them and no CPU route for a
-batch that was asked to run on a card: a failure raises.  Every decision
-is tallied in :data:`ROUTE_COUNTS` and reported to the caller.
+one-shot kernel), ``"torch_plain"`` for a batch on the CPU (the plain
+PyTorch version); and for long pairs ``"cuda_segments"`` /
+``"torch_segments"``: :func:`execute_segments` runs the reference left to
+right in segments through
+:func:`~parasail_rs_tpu_torch.ops.scan_kernel.score_segment`, carrying
+the sweep's state from launch to launch (the port of the reference's
+``_execute_pallas_streamed``); :func:`plan_route` says when.  There is no
+fallback between routes and no CPU route for a batch that was asked to
+run on a card: a failure raises.  Every decision is tallied in
+:data:`ROUTE_COUNTS` and reported to the caller.
 """
 
 from __future__ import annotations
@@ -28,11 +34,12 @@ from collections import Counter
 import numpy as np
 import torch
 
-from parasail_rs_tpu.utils import stages
-from parasail_rs_tpu.utils.gcpause import gc_pause
-from parasail_rs_tpu.utils.shapes import length_bucket
+from ..utils import stages
+from ..utils.gcpause import gc_pause
+from ..utils.shapes import length_bucket
 
-from ..ops.scan_kernel import OUTPUTS, score_align
+from ..ops.scan_kernel import (OUTPUTS, SEGMENT_OUTPUTS, score_align,
+                               score_segment)
 from ..ops.wavefront import STATS_CLASSES, STATS_KEYS
 
 log = logging.getLogger("parasail_rs_tpu_torch")
@@ -100,13 +107,31 @@ class PairBatch:
     def score_values(self) -> torch.Tensor:
         return self.table if self.table is not None else self.profile
 
+    @property
+    def size(self) -> int:
+        return len(self.rlen)
+
+    @property
+    def qp(self) -> int:
+        """Padded query length."""
+        if self.profile is not None:
+            return int(self.profile.shape[1])
+        q = self._qidx if self._qidx is not None else self.qbytes
+        return int(q.shape[1])
+
+    @property
+    def rp(self) -> int:
+        """Padded reference length."""
+        r = self._ridx if self._ridx is not None else self.rbytes
+        return int(r.shape[1])
+
 
 def _pack_side(seqs, P):
     """Sequences -> (padded (B, P') uint8, (B,) int32 lens, P'), through
     the reference's native packer, with its numpy formulation where the
     packer cannot serve (no compiler, non-bytes items)."""
-    from parasail_rs_tpu.errors import InteriorNulByte
-    from parasail_rs_tpu.native import packer
+    from ..errors import InteriorNulByte
+    from ..native import packer
 
     packed = packer.pack_side(seqs, P, length_bucket)
     if packed is None:
@@ -217,7 +242,7 @@ def _golden64_merge(out: dict, batch: PairBatch, idx: np.ndarray, *,
     flags stay int8, their encoding is width-free).  A pair with an empty
     side keeps zeros in its row and column, as the kernel leaves them
     (golden's own rows of an empty table raise)."""
-    from parasail_rs_tpu.golden import model as golden
+    from ..golden import model as golden
 
     qidx_all = _np(batch.qidx)
     ridx_all = _np(batch.ridx)
@@ -256,50 +281,217 @@ def _golden64_merge(out: dict, batch: PairBatch, idx: np.ndarray, *,
     return out
 
 
-def plan_route(batch: PairBatch, outputs: str, gap_open: int,
-               gap_extend: int) -> tuple[str, str]:
-    """("cuda_kernel" | "torch_plain", reason) for a batch.
+# Reference columns per launch of the segment kernel, by class.  On this
+# card a segment costs one launch and, per group of up to 256 query rows,
+# a few hundred steps of pipeline fill, so segments are as long as their
+# scratch allows: the kernel keeps one row of H and E (stats: and six
+# payload rows) of Rseg columns per pair, 8 or 32 bytes a column, which at
+# 128 pairs stays inside the 50 MB L2 up to these sizes.  The trace class also
+# holds two (B, Qp, Rseg) flag buffers on the card and two pinned ones on
+# the host, so its segments are shorter.
+SEGMENT_COLS = {"score": 8192, "stats": 4096, "trace": 1024}
 
-    The route follows the batch's device, for every output class of
-    ``scan_score_align``.  ``gap_open`` / ``gap_extend`` are accepted for
-    the reference's signature: every penalty pair is exact on both
-    routes.  The kernel's stats forms and the wavefront carry golden's
-    payloads literally, so the stats classes need no counterpart of the
-    reference's ``trace_walk`` / ``stream_walk`` routes, which it takes
-    at gap_open <= gap_extend because its one-pass kernel cannot.
+# Score and stats batches take the segment route from this many padded
+# cells a pair (Qp * Rp).  The one-shot kernel puts one thread on a pair
+# and the segment kernel up to eight warps; PERF.md has both kernels'
+# times on 128 pairs of 1,024 and 4,096 bp (2.0 against 239 ms, 22.5 ms
+# against 3.8 s) and the segment kernel's at 16,384 bp, on an NVIDIA H100
+# 80GB HBM3, 700 W: the segment kernel was ahead wherever both ran, so
+# the threshold is the smallest size measured.
+SEGMENT_MIN_CELLS = 1 << 20
+
+# A trace batch whose (B, Qp, Rp) int8 plane is larger than this streams
+# in segments: the one-shot route holds the whole plane on the card and
+# fetches it with one blocking copy, the segment route holds two
+# segment-sized buffers and copies one out while the next one runs.
+TRACE_ONE_SHOT_BYTES = 1 << 30
+# ... and beyond this the assembled host plane is out of reason: the
+# batch raises (the reference's bound).
+TRACE_HOST_BYTES = 4 << 30
+
+SEGMENT_ROUTES = ("cuda_segments", "torch_segments")
+
+
+def plan_route(batch: PairBatch, outputs: str, gap_open: int,
+               gap_extend: int, *, one_shot: bool = False) -> tuple[str, str]:
+    """("cuda_kernel" | "cuda_segments" | "torch_plain" |
+    "torch_segments", reason) for a batch.
+
+    The device picks between the card's routes and the CPU's; the batch's
+    padded shape alone picks between one launch and segments
+    (:func:`execute_segments`), for the three classes the segment kernel
+    serves: score and stats from :data:`SEGMENT_MIN_CELLS` padded cells a
+    pair (long pairs, where warps on a pair beat a thread per pair),
+    trace when its flag plane exceeds :data:`TRACE_ONE_SHOT_BYTES`.
+    ``one_shot=True`` is for callers that need one launch: the banded
+    mode, and ``align_cigars`` / ``ssw``, whose walk reads the whole
+    plane on the card.
+
+    ``gap_open`` / ``gap_extend`` are accepted for the reference's
+    signature: every penalty pair is exact on every route.  The kernels'
+    stats forms and the wavefront carry golden's payloads literally, so
+    the stats classes need no counterpart of the reference's
+    ``trace_walk`` / ``stream_walk`` routes, which it takes at gap_open <=
+    gap_extend because its one-pass kernel, streamed or not, cannot: the
+    segment kernel serves stats at every penalty pair.
     """
     if outputs not in OUTPUTS:
         raise ValueError(f"outputs {outputs!r}")
-    if batch.device.type == "cuda":
+    kind = batch.device.type
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(f"no route for device {batch.device}")
+    if not one_shot and outputs in SEGMENT_OUTPUTS:
+        segments = "cuda_segments" if kind == "cuda" else "torch_segments"
+        cells = batch.qp * batch.rp
+        if outputs == "trace":
+            if batch.size * cells > TRACE_ONE_SHOT_BYTES:
+                return segments, "trace plane beyond one launch"
+        elif cells >= SEGMENT_MIN_CELLS:
+            return segments, "long pairs"
+    if kind == "cuda":
         return "cuda_kernel", ""
-    if batch.device.type == "cpu":
-        return "torch_plain", "batch on the cpu"
-    raise ValueError(f"no route for device {batch.device}")
+    return "torch_plain", "batch on the cpu"
+
+
+def _tally(route: str, reason: str, on_route) -> None:
+    ROUTE_COUNTS[(route, reason)] += 1
+    if on_route is not None:
+        on_route(route, reason)
+
+
+def _substitution(batch: PairBatch, outputs: str) -> dict:
+    """The batch's substitution inputs as score_align's keywords."""
+    if batch.table is not None:
+        return {"table": batch.table, "qidx": batch.qidx}
+    subs = {"profile": batch.profile}
+    if outputs in STATS_CLASSES:
+        subs["qidx"] = batch.qidx           # matches compares letters
+    return subs
 
 
 def launch(batch: PairBatch, *, gap_open: int, gap_extend: int, mode: str,
            free: tuple[bool, bool, bool, bool], outputs: str, width: str,
            on_route=None, banded: bool = False,
            bandwidth: int = 0) -> dict[str, torch.Tensor]:
-    """Route the batch and run the kernel over it; return its outputs as
-    tensors on the batch's device (``score_align``'s dict).
+    """Run the one-shot kernel over the batch, in one launch; return its
+    outputs as tensors on the batch's device (``score_align``'s dict).
     ``on_route(route, reason)`` is called with the routing decision;
     ``banded`` / ``bandwidth`` select the banded mode."""
-    route, reason = plan_route(batch, outputs, gap_open, gap_extend)
-    ROUTE_COUNTS[(route, reason)] += 1
-    if on_route is not None:
-        on_route(route, reason)
-    if batch.table is not None:
-        subs = {"table": batch.table, "qidx": batch.qidx}
-    else:
-        subs = {"profile": batch.profile}
-        if outputs in STATS_CLASSES:
-            subs["qidx"] = batch.qidx       # matches compares letters
+    _tally(*plan_route(batch, outputs, gap_open, gap_extend, one_shot=True),
+           on_route)
     with stages.stage("dispatch"):
         return score_align(batch.ridx, batch.qlen_t, batch.rlen_t,
                            open_=gap_open, ext=gap_extend, mode=mode,
                            free=free, width=width, outputs=outputs,
-                           banded=banded, bandwidth=bandwidth, **subs)
+                           banded=banded, bandwidth=bandwidth,
+                           **_substitution(batch, outputs))
+
+
+def execute_segments(batch: PairBatch, *, gap_open: int, gap_extend: int,
+                     mode: str, free: tuple[bool, bool, bool, bool],
+                     outputs: str, width: str) -> dict:
+    """Run the batch left to right in reference segments of
+    :data:`SEGMENT_COLS` columns through the segment kernel (the port of
+    the reference's ``_execute_pallas_streamed``).
+
+    Every segment is enqueued without waiting for the one before: the
+    state (H / F boundary column, stats payloads, accumulator) stays on
+    the batch's device from launch to launch.  Returns the last
+    segment's per-pair scalars as tensors on that device, so a caller
+    can defer the fetch, and for the trace class ``trace_table``, the
+    assembled (B, Qp, Rp) int8 plane as a host numpy array.
+
+    The trace class's flags leave the card a segment at a time: each
+    segment's (B, Qp, Rseg) buffer goes to pinned host memory by a
+    non-blocking copy on a second stream while the next segment's kernel
+    runs into the other buffer (a pageable copy would wait for the
+    stream), and the host assembles the plane meanwhile.  A plane beyond
+    :data:`TRACE_HOST_BYTES` raises.
+    """
+    if outputs not in SEGMENT_OUTPUTS:
+        raise ValueError(f"outputs {outputs!r} has no segment form")
+    B, Qp, Rp = batch.size, batch.qp, batch.rp
+    trace = outputs == "trace"
+    if trace and B * Qp * Rp > TRACE_HOST_BYTES:
+        raise ValueError(
+            f"a trace plane of {B} x {Qp} x {Rp} bytes exceeds the "
+            f"{TRACE_HOST_BYTES} byte bound of the assembled host plane; "
+            "split the batch, or use align_cigars / ssw for the alignment")
+    seg = max(1, min(SEGMENT_COLS[outputs], Rp))
+    nseg = max(1, -(-Rp // seg))
+    ridx = batch.ridx
+    if nseg * seg != Rp:
+        # padded columns lie beyond every rlen
+        ridx = torch.nn.functional.pad(ridx, (0, nseg * seg - Rp))
+    kw = dict(open_=gap_open, ext=gap_extend, mode=mode, free=free,
+              width=width, outputs=outputs, **_substitution(batch, outputs))
+    on_card = batch.device.type == "cuda"
+    plane = np.empty((B, Qp, Rp), np.int8) if trace else None
+    if trace and on_card:
+        main = torch.cuda.current_stream(batch.device)
+        side = torch.cuda.Stream(batch.device)
+        bufs = [torch.empty((B, Qp, seg), dtype=torch.int8,
+                            device=batch.device) for _ in range(min(2, nseg))]
+        pinned = [torch.empty((B, Qp, seg), dtype=torch.int8,
+                              pin_memory=True) for _ in bufs]
+        copied = [None, None]
+
+    def assemble(si, host, copied=None):
+        with stages.stage("fetch"):
+            if copied is not None:
+                copied.synchronize()
+            lo = si * seg
+            hi = min(lo + seg, Rp)
+            plane[:, :, lo:hi] = host[:, :, :hi - lo]
+
+    state = out = None
+    for si in range(nseg):
+        cols = ridx[:, si * seg:(si + 1) * seg]
+        if nseg > 1:
+            cols = cols.contiguous()
+        k = si % 2
+        with stages.stage("dispatch"):
+            out, state = score_segment(
+                cols, batch.qlen_t, batch.rlen_t, state, col_offset=si * seg,
+                resume=si > 0, trace_out=bufs[k] if trace and on_card
+                else None, **kw)
+        if not trace:
+            continue
+        seg_plane = out.pop("trace_table_seg")
+        if not on_card:
+            assemble(si, seg_plane.numpy())
+            continue
+        # buffer k was copied out (segment si - 2) before this launch: the
+        # host waited for that copy when it assembled it
+        done = torch.cuda.Event()
+        done.record(main)
+        side.wait_event(done)
+        with torch.cuda.stream(side):
+            pinned[k].copy_(seg_plane, non_blocking=True)
+            copied[k] = torch.cuda.Event()
+            copied[k].record(side)
+        if si >= 1:
+            assemble(si - 1, pinned[1 - k].numpy(), copied[1 - k])
+    if trace and on_card:
+        k = (nseg - 1) % 2
+        assemble(nseg - 1, pinned[k].numpy(), copied[k])
+    res = dict(out)
+    if trace:
+        res["trace_table"] = plane
+    return res
+
+
+def _run(batch: PairBatch, *, on_route, banded=False, bandwidth=0,
+         **kw) -> dict:
+    """Plan the route and enqueue the batch on it: :func:`launch`'s or
+    :func:`execute_segments`'s dict."""
+    route, reason = plan_route(batch, kw["outputs"], kw["gap_open"],
+                               kw["gap_extend"], one_shot=banded)
+    if route in SEGMENT_ROUTES:
+        _tally(route, reason, on_route)
+        return execute_segments(batch, **kw)
+    return launch(batch, on_route=on_route, banded=banded,
+                  bandwidth=bandwidth, **kw)
 
 
 _BOOLS = ("saturated", "promoted")
@@ -388,14 +580,16 @@ def execute(batch: PairBatch, *, gap_open: int, gap_extend: int, mode: str,
             return _golden64_merge(out, batch, wide, gap_open=gap_open,
                                    gap_extend=gap_extend, mode=mode,
                                    free=free)
-    res = launch(batch, gap_open=gap_open, gap_extend=gap_extend, mode=mode,
-                 free=free, outputs=outputs, width=width, on_route=on_route,
-                 banded=banded, bandwidth=bandwidth)
+    res = _run(batch, gap_open=gap_open, gap_extend=gap_extend, mode=mode,
+               free=free, outputs=outputs, width=width, on_route=on_route,
+               banded=banded, bandwidth=bandwidth)
     planes = {k: res.pop(k) for k in [k for k in res if _is_plane(k)]}
     out, _ = PendingResult(res).fetch()
     with stages.stage("fetch"):
-        # one device-side transpose to batch-major and one copy each
-        out.update((k, v.contiguous().cpu().numpy())
+        # one device-side transpose to batch-major and one copy each (the
+        # segment route's trace plane is on the host already)
+        out.update((k, v if isinstance(v, np.ndarray)
+                    else v.contiguous().cpu().numpy())
                    for k, v in planes.items())
     return out
 
@@ -414,14 +608,17 @@ def submit(batch: PairBatch, *, gap_open: int, gap_extend: int, mode: str,
     at the end).  Classes with planes are fetched here, per bin, as the
     reference does, so no two bins' planes are on the card at once; width
     64 with pairs over the int32 bound takes :func:`execute`'s host merge.
-    Those return :func:`execute`'s host dict.
+    Those return :func:`execute`'s host dict.  A bin of long pairs takes
+    the segment route like any batch (:func:`plan_route`, per bin): all
+    its segments are enqueued here and its scalars stay on the card until
+    the caller's fetch.
     """
     kw = dict(gap_open=gap_open, gap_extend=gap_extend, mode=mode, free=free,
               outputs=outputs, width=width, on_route=on_route)
     if outputs not in SCALAR_CLASSES or (
             width == "64" and width64_risk(batch, gap_open, gap_extend).size):
         return execute(batch, **kw)
-    return PendingResult(launch(batch, **kw))
+    return PendingResult(_run(batch, **kw))
 
 
 def slice_pair(out: dict, b: int, qlen: int, rlen: int) -> dict:

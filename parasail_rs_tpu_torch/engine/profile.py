@@ -16,9 +16,9 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from parasail_rs_tpu.constants import InstructionSet, SolutionWidth
-from parasail_rs_tpu.errors import InteriorNulByte, QueryIsEmpty
-from parasail_rs_tpu.matrices import Matrix
+from ..constants import InstructionSet, SolutionWidth
+from ..errors import InteriorNulByte, QueryIsEmpty
+from ..matrices import Matrix
 
 
 def _as_bytes(x: bytes | str) -> bytes:

@@ -23,15 +23,15 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from parasail_rs_tpu.constants import TRACE_H_BITS, TraceFlags, cigar_decode_one
-from parasail_rs_tpu.errors import (
+from ..constants import TRACE_H_BITS, TraceFlags, cigar_decode_one
+from ..errors import (
     NoRowCol,
     NoStats,
     NoStatsTable,
     NoTable,
     NoTrace,
 )
-from parasail_rs_tpu.golden.model import aligned_strings, walk_trace
+from ..golden.model import aligned_strings, walk_trace
 
 
 class Table:
@@ -307,8 +307,8 @@ class Alignment:
     def _walk(self, query: bytes, reference: bytes):
         # Native C++ walker when built (parasail's host-side traceback is
         # native C too); the Python golden walker is the fallback oracle.
-        from parasail_rs_tpu.golden.model import Walk, free_flags
-        from parasail_rs_tpu.native import walker
+        from ..golden.model import Walk, free_flags
+        from ..native import walker
 
         free = self.free if self.mode != "sw" else free_flags("sw")
         qb, _, db, _ = free

@@ -47,6 +47,19 @@ the banded score form (``pt_scan_banded``, counted in
 ``Aligner.banded_nw``; other modes and classes raise
 ``NotImplementedError`` there.  Its plain version is the wavefront with
 ``banded=True``.
+
+:func:`score_segment` is the port of
+``parasail_rs_tpu.ops.scan_kernel.scan_score_segment`` (kernel K2): one
+reference segment of the same sweep, with the sweep's state carried in
+and out, for the score, stats and trace classes.  Chained left to right
+over a pair's columns it gives :func:`score_align`'s outputs for the same
+class, bit for bit, at any reference length: the whole pair never has to
+fit one launch, and the trace class hands its flags over a segment at a
+time.  On CUDA tensors it launches the kernel in ``csrc/scan_segment.cu``
+(a block per pair, a query row per lane, up to eight warps) and counts
+the launch in :data:`SEGMENT_LAUNCHES`; on CPU tensors it runs
+:func:`score_segment_plain`, the wavefront over the segment with a left
+boundary.  No fallback here either.
 """
 
 from __future__ import annotations
@@ -55,7 +68,7 @@ import ctypes
 
 import torch
 
-from parasail_rs_tpu.constants import (
+from ..constants import (
     NEG_INF32,
     TRACE_DEL,
     TRACE_DEL_F,
@@ -86,6 +99,16 @@ LAUNCHES = 0
 TRACE_LAUNCHES = 0
 CLASS_LAUNCHES = dict.fromkeys(OUTPUTS[2:], 0)
 BANDED_LAUNCHES = 0
+# Launches of the segment kernel (csrc/scan_segment.cu); only
+# score_segment's CUDA branch adds to it.
+SEGMENT_LAUNCHES = 0
+# the classes the segment kernel serves (the reference streams the same)
+SEGMENT_OUTPUTS = ("score", "stats", "trace")
+# Warps the segment kernel puts on a pair, 1 to 8.  0 leaves it to the
+# launcher, which gives a pair as many as fill the card, at most one per
+# 32 query rows; the tests and chip_smoke.py set it to check and to time a
+# given number.
+SEGMENT_WARPS = 0
 
 
 def _free_bits(free) -> int:
@@ -419,3 +442,220 @@ def _flags(diag, E, F, H, hprev, fprev, top_next, open_, ext, local):
         pre = torch.maximum(torch.maximum(diag, E), F)
         hflag = torch.where(pre <= 0, 0, hflag)
     return hflag | eflag | fflag
+
+
+def _check_segment(ridx_seg, qlen, rlen, state, table, qidx, profile, mode,
+                   width, outputs, col_offset, resume):
+    """Validate a segment call; return (B, Bq, Qp, Rseg, A)."""
+    if outputs not in SEGMENT_OUTPUTS:
+        raise ValueError(f"outputs {outputs!r}: the segment form serves "
+                         f"{SEGMENT_OUTPUTS}")
+    dims = _check(ridx_seg, qlen, rlen, table, qidx, profile, mode, width,
+                  outputs)
+    B, _, Qp, _, _ = dims
+    col_offset = int(col_offset)
+    if not 0 <= col_offset < 2 ** 31:
+        raise ValueError(f"col_offset {col_offset}")
+    if not resume:
+        if col_offset != 0:
+            raise ValueError("the first segment (resume=False) starts at "
+                             "column 0")
+        return dims
+    if state is None:
+        raise ValueError("resume=True needs the state of the segment before")
+    want = {"h": (B, Qp), "f": (B, Qp), "acc": (B, 8)}
+    if outputs == "stats":
+        want["stats"] = (6, B, Qp)
+    for name, shape in want.items():
+        t = state.get(name)
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.int32 or \
+                tuple(t.shape) != shape or t.device != ridx_seg.device or \
+                not t.is_contiguous():
+            raise ValueError(f"state[{name!r}] must be a contiguous int32 "
+                             f"{shape} tensor on {ridx_seg.device}")
+    return dims
+
+
+def score_segment(ridx_seg, qlen, rlen, state=None, *, open_, ext, mode,
+                  free, width="32", outputs="score", col_offset=0,
+                  resume=False, table=None, qidx=None, profile=None,
+                  trace_out=None) -> tuple[dict, dict]:
+    """One reference segment of a score, stats or trace sweep.
+
+    ``ridx_seg`` (B, Rseg) holds columns [``col_offset``, ``col_offset``
+    + Rseg) of the pairs' references (any fill beyond a pair's length),
+    ``rlen`` their WHOLE lengths; the substitution inputs are
+    :func:`score_align`'s.  The caller runs segments left to right: the
+    first with ``resume=False`` (and ``col_offset`` 0), each later one
+    with ``resume=True`` and the ``state`` the one before returned.
+    Returns ``(out, state)``.
+
+    ``state``: ``h`` and ``f`` (B, Qp) int32, H and F (the gap that runs
+    along the reference) of every query row below ``qlen`` at the pair's
+    last column so far (rows from ``qlen`` on hold nothing); for the stats
+    class ``stats`` (6, B, Qp), the payloads (matches, similar, length) of
+    ``h`` and of ``f``; ``acc`` (B, 8): the best candidate so far, its i
+    and j, the maximum and minimum of H so far, and the best's payload.
+    A segment beyond a pair's ``rlen`` leaves that pair's state as it
+    was.  The kernel updates the state tensors it is given IN PLACE and
+    returns them; the plain version returns new ones.
+
+    ``out``, after the last segment, is :func:`score_align`'s for the
+    class: ``score``, ``end_query``, ``end_ref``, ``saturated`` (+
+    ``promoted``), the stats class's ``matches`` / ``similar`` /
+    ``length``; before it, the same read off the cells so far.  The trace
+    class adds ``trace_table_seg`` (B, Qp, Rseg) int8, this segment's
+    flags, 0 outside each pair's cells; ``trace_out`` is a buffer of that
+    shape to write them to (it is zero-filled here), for a caller that
+    copies one segment out while the next one runs.
+    """
+    B, Bq, Qp, Rseg, A = _check_segment(
+        ridx_seg, qlen, rlen, state, table, qidx, profile, mode, width,
+        outputs, col_offset, resume)
+    kw = dict(open_=open_, ext=ext, mode=mode, free=free, width=width,
+              outputs=outputs, col_offset=col_offset, resume=resume,
+              table=table, qidx=qidx, profile=profile)
+    dev = ridx_seg.device
+    if dev.type == "cpu":
+        out, state = score_segment_plain(ridx_seg, qlen, rlen, state, **kw)
+        if trace_out is not None:
+            trace_out.copy_(out["trace_table_seg"])
+            out["trace_table_seg"] = trace_out
+        return out, state
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    global SEGMENT_LAUNCHES
+    from . import _build
+
+    lib = _build.load()
+    i32 = torch.int32
+    stats = outputs == "stats"
+    if not resume:
+        state = {"h": torch.empty((B, Qp), dtype=i32, device=dev),
+                 "f": torch.empty((B, Qp), dtype=i32, device=dev),
+                 "acc": torch.empty((B, 8), dtype=i32, device=dev)}
+        if stats:
+            state["stats"] = torch.empty((6, B, Qp), dtype=i32, device=dev)
+    bottom = torch.empty((B, 8 if stats else 2, max(Rseg, 1)), dtype=i32,
+                         device=dev)
+    out = torch.empty((8 if stats else 5, B), dtype=i32, device=dev)
+    plane = None
+    if outputs == "trace":
+        if trace_out is None:
+            plane = torch.zeros((B, Qp, Rseg), dtype=torch.int8, device=dev)
+        else:
+            if trace_out.shape != (B, Qp, Rseg) or trace_out.device != dev \
+                    or trace_out.dtype != torch.int8 or \
+                    not trace_out.is_contiguous():
+                raise ValueError("trace_out must be a contiguous int8 "
+                                 f"{(B, Qp, Rseg)} tensor on {dev}")
+            plane = trace_out.zero_()
+    subs = table if table is not None else profile
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        rc = lib.pt_scan_segment(
+            OUTPUTS.index(outputs), subs.data_ptr(),
+            qidx.data_ptr() if table is not None else None,
+            _ptr(qidx if stats else None), ridx_seg.data_ptr(),
+            qlen.data_ptr(), rlen.data_ptr(), bottom.data_ptr(),
+            state["h"].data_ptr(), state["f"].data_ptr(),
+            _ptr(state.get("stats")), state["acc"].data_ptr(),
+            out.data_ptr(), _ptr(plane), B, Bq,
+            qidx.shape[0] if stats else 0, Qp, Rseg, A, int(open_), int(ext),
+            MODES[mode], _free_bits(free), int(col_offset), int(bool(resume)),
+            int(SEGMENT_WARPS), stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"scan_segment ({outputs}) kernel launch failed: CUDA error {rc}")
+    SEGMENT_LAUNCHES += 1
+    res = flag_outputs(out[0], out[1], out[2], out[3] != 0, out[4] != 0,
+                       width)
+    if stats:
+        res.update(zip(STATS_KEYS, out[5:8]))
+    if plane is not None:
+        res["trace_table_seg"] = plane
+    return res, state
+
+
+def score_segment_plain(ridx_seg, qlen, rlen, state=None, *, open_, ext,
+                        mode, free, width="32", outputs="score",
+                        col_offset=0, resume=False, table=None, qidx=None,
+                        profile=None) -> tuple[dict, dict]:
+    """Plain PyTorch version of :func:`score_segment`, same signature and
+    outputs (it returns a new state and leaves the one it was given).
+
+    The segment's cells are filled by the wavefront
+    (:func:`~.wavefront.wavefront_align` with ``segment=True``), started
+    from the carried boundary column; the segment's first maximum then
+    replaces the carried one if it is ahead in the end cell's order (H
+    descending, i ascending, j ascending: columns arrive in order over
+    the segments, rows do not), and the outputs are read off the
+    accumulator as :func:`score_align_plain` reads them off its sweep.
+    """
+    B, Bq, Qp, Rseg, A = _check_segment(
+        ridx_seg, qlen, rlen, state, table, qidx, profile, mode, width,
+        outputs, col_offset, resume)
+    dev = ridx_seg.device
+    i32 = torch.int32
+    open_, ext = int(open_), int(ext)
+    local = mode == "sw"
+    stats = outputs == "stats"
+    qb, qe, db, de = (True,) * 4 if local else tuple(bool(x) for x in free)
+    left = None
+    if resume:
+        left = {"h": state["h"], "f": state["f"]}
+        if stats:
+            left["pay"] = state["stats"]
+    seg = wavefront_align(
+        _substitution_rows(table, qidx, profile), qidx, ridx_seg, qlen, rlen,
+        open_=open_, ext=ext, mode=mode, free=free, outputs=outputs,
+        col_offset=int(col_offset), left=left, segment=True)
+
+    if resume:
+        acc = state["acc"]
+    else:
+        acc = torch.zeros((B, 8), dtype=i32, device=dev)
+        if not local:
+            acc[:, 0], acc[:, 1], acc[:, 2] = NEG_INF32, Qp, BIG
+    best, bi, bj = acc[:, 0], acc[:, 1], acc[:, 2]
+    sb, si, sj = seg["best"], seg["best_i"], seg["best_j"]
+    ahead = (sb > best) | ((sb == best) & (
+        (si < bi) | ((si == bi) & (sj < bj))))
+    pay = seg["best_pay"] if stats else torch.zeros((3, B), dtype=i32,
+                                                    device=dev)
+    acc = torch.stack([
+        torch.where(ahead, sb, best), torch.where(ahead, si, bi),
+        torch.where(ahead, sj, bj), torch.maximum(acc[:, 3], seg["hmax"]),
+        torch.minimum(acc[:, 4], seg["hmin"]),
+        *(torch.where(ahead, pay[k], acc[:, 5 + k]) for k in range(3)),
+    ], dim=1).to(i32).contiguous()
+    new_state = {"h": seg["h"].contiguous(), "f": seg["f"].contiguous(),
+                 "acc": acc}
+    if stats:
+        new_state["stats"] = seg["pay"].contiguous()
+
+    score = acc[:, 0]
+    eq, er = (qlen - 1, rlen - 1) if mode == "nw" else (acc[:, 1], acc[:, 2])
+    pay = [acc[:, 5], acc[:, 6], acc[:, 7]]
+    if not local:
+        def border(c, is_free):
+            if is_free:
+                return torch.zeros_like(c)
+            return torch.where(c > 0, -(open_ + (c - 1) * ext),
+                               torch.zeros_like(c))
+
+        score, eq, er, elen, empty = empty_side(
+            score, eq, er, qlen, rlen, Qp, int(rlen.max()) if B else 0,
+            border, qb, qe and mode == "sg", db, de and mode == "sg")
+        pay = [torch.where(empty, 0, pay[0]), torch.where(empty, 0, pay[1]),
+               torch.where(empty, elen, pay[2])]
+    hmax, hmin = acc[:, 3], acc[:, 4]
+    out = flag_outputs(
+        score.to(i32), eq.to(i32), er.to(i32),
+        (hmax >= WIDTH_MAX["8"]) | (hmin <= WIDTH_MIN["8"]),
+        (hmax >= WIDTH_MAX["16"]) | (hmin <= WIDTH_MIN["16"]), width)
+    if stats:
+        out.update(zip(STATS_KEYS, (p.to(i32) for p in pay)))
+    if outputs == "trace":
+        out["trace_table_seg"] = seg["trace_table"]
+    return out, new_state

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from parasail_rs_tpu.errors import UnknownKernel
+from ..errors import UnknownKernel
 
 MODES = ("nw", "sg", "sw")
 OUTPUTS = ("score", "stats", "table", "stats_table", "rowcol", "stats_rowcol", "trace")

@@ -24,7 +24,7 @@ import ctypes
 import numpy as np
 import torch
 
-from parasail_rs_tpu.constants import (
+from ..constants import (
     TRACE_DEL,
     TRACE_DIAG,
     TRACE_DIAG_E,
@@ -229,7 +229,7 @@ def ops_to_runs_flat(ops: np.ndarray, merge_m: bool = False
     B, L = ops.shape
     if B == 0:
         return np.empty(0, np.uint32), np.empty(0, np.int64)
-    from parasail_rs_tpu.native import walker
+    from ..native import walker
 
     native = walker.rle_ops(ops, merge_m)
     if native is not None:

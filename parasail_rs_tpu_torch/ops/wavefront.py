@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from parasail_rs_tpu.constants import (
+from ..constants import (
     NEG_INF32,
     TRACE_DEL,
     TRACE_DEL_F,
@@ -100,14 +100,24 @@ def empty_side(best, eq, er, qlen, rlen, Qp, Rp, border, qb, qe, db, de):
     return (best.to(i32), eq.to(i32), er.to(i32), length.to(i32), q0 | r0)
 
 
+def _undiagonalise(slabs, k, B, Qp, Rp, dev, dtype):
+    """Plane k of the per-diagonal slabs, as (B, Qp, Rp)."""
+    if Qp + Rp - 1 <= 0:
+        return torch.zeros((B, Qp, Rp), dtype=dtype, device=dev)
+    ii = torch.arange(Qp, device=dev)[:, None]
+    dd = ii + torch.arange(Rp, device=dev)[None, :]          # (Qp, Rp)
+    slab = torch.stack([st[k] for st in slabs])              # (D, B, Qp)
+    return slab[dd, :, ii].permute(2, 0, 1).contiguous()
+
+
 def _shift1(x, fill):
     """y[:, i] = x[:, i - 1]; y[:, 0] = fill."""
     return torch.cat([torch.full_like(x[:, :1], fill), x[:, :-1]], dim=1)
 
 
 def wavefront_align(profile, qidx, ridx, qlen, rlen, *, open_, ext, mode,
-                    free, outputs, width="32", banded=False,
-                    bandwidth=0) -> dict:
+                    free, outputs, width="32", banded=False, bandwidth=0,
+                    col_offset=0, left=None, segment=False) -> dict:
     """Run the batched wavefront fill; return a dict of tensors on the
     inputs' device.
 
@@ -126,6 +136,21 @@ def wavefront_align(profile, qidx, ridx, qlen, rlen, *, open_, ext, mode,
 
     ``banded`` excludes cells with |i - j| > ``bandwidth`` (border cells
     beyond the band included), as the reference does.
+
+    ``segment=True`` fills one reference segment of longer pairs (the
+    plain version of the segment kernel, ``scan_kernel.score_segment``):
+    ``ridx`` holds columns [``col_offset``, ``col_offset`` + Rp) of the
+    pairs, ``rlen`` stays their whole length, and ``left`` carries the
+    column left of the segment: ``h`` and ``f`` (B, Qp), and for the stats
+    class ``pay``, the (6, B, Qp) payloads of both; None means the bordered
+    left column.  It returns the raw sweep, not the mode's outputs:
+    ``best`` / ``best_i`` / ``best_j`` (the first maximum among the
+    segment's candidates in row-major order, -2^30 at (Qp, 2^30) if none;
+    ``best_j`` a global column), ``best_pay`` (3, B), ``hmax`` / ``hmin``
+    over the segment's cells (0 if none), the new ``h`` / ``f`` / ``pay``
+    (each pair's last column in the segment, rows below ``qlen``; a pair
+    with no column here keeps ``left``'s), and the trace class's
+    ``trace_table``.
     """
     dev = ridx.device
     i32 = torch.int32
@@ -141,6 +166,7 @@ def wavefront_align(profile, qidx, ridx, qlen, rlen, *, open_, ext, mode,
     nplanes = 4 if want_stats else 1
     neg = NEG_INF32
     open_, ext, bw = int(open_), int(ext), int(bandwidth)
+    off = int(col_offset)
     ivec = torch.arange(Qp, dtype=i32, device=dev)
 
     def border(c, is_free):             # H[0][c] / H[c][0], golden's
@@ -158,11 +184,27 @@ def wavefront_align(profile, qidx, ridx, qlen, rlen, *, open_, ext, mode,
     if qidx is None:
         qidx = torch.zeros((1, Qp), dtype=i32, device=dev)
     qid = qidx.expand(B, Qp)
-    qlen_c, rlen_c = qlen[:, None], rlen[:, None]
+    # lengths within this segment's columns (the whole pair when off == 0)
+    qlen_c, rlen_c = qlen[:, None], (rlen - off)[:, None]
     brange = torch.arange(B, device=dev)
 
     def full(v, shape=(B, Qp)):
         return torch.full(shape, v, dtype=i32, device=dev)
+
+    # the column left of the segment: carried, or the bordered left column
+    if left is None:
+        left_h = boundary(ivec + 1, db)[None].expand(B, Qp)
+        left_f = full(neg)
+        left_p = [full(0), full(0), blen(ivec + 1, db)[None].expand(B, Qp),
+                  full(0), full(0), full(0)]
+    else:
+        left_h, left_f = left["h"], left["f"]
+        left_p = (list(left["pay"]) if want_stats else [])
+    if segment:
+        end_c = rlen_c.clamp(0, Rp) - 1       # each pair's last column here
+        st_h, st_f = left_h.clone(), left_f.clone()
+        st_p = [x.clone() for x in left_p] if want_stats else []
+        hmax_t, hmin_t = full(0, (B,)), full(0, (B,))
 
     H1, H2, E1, F1 = full(neg), full(neg), full(neg), full(neg)
     best, best_i, best_j = full(neg, (B,)), full(Qp, (B,)), full(Rp, (B,))
@@ -191,13 +233,14 @@ def wavefront_align(profile, qidx, ridx, qlen, rlen, *, open_, ext, mode,
         i0 = (ivec == 0)[None, :]
         j0 = (jvec == 0)[None, :]
 
-        h_up = torch.where(i0, boundary(jvec + 1, qb)[None], _shift1(H1, 0))
+        h_up = torch.where(i0, boundary(jvec + off + 1, qb)[None],
+                           _shift1(H1, 0))
         e_up = torch.where(i0, neg, _shift1(E1, 0))
-        h_left = torch.where(j0, boundary(ivec + 1, db)[None], H1)
-        f_left = torch.where(j0, neg, F1)
+        h_left = torch.where(j0, left_h, H1)
+        f_left = torch.where(j0, left_f, F1)
         h_diag = torch.where(
-            i0, boundary(jvec, qb)[None],
-            torch.where(j0, boundary(ivec, db)[None], _shift1(H2, 0)))
+            i0, boundary(jvec + off, qb)[None],
+            torch.where(j0, _shift1(left_h, 0), _shift1(H2, 0)))
 
         e_open, e_ext = h_up - open_, e_up - ext
         E = torch.maximum(e_open, e_ext)
@@ -224,23 +267,20 @@ def wavefront_align(profile, qidx, ridx, qlen, rlen, *, open_, ext, mode,
         F1 = torch.where(on_diag, F, F1)
 
         if want_stats:
-            top_l = blen(jvec + 1, qb)[None]
-            left_l = blen(ivec + 1, db)[None]
-            diag_l = torch.where(i0, blen(jvec, qb)[None],
-                                 torch.where(j0, blen(ivec, db)[None],
-                                             _shift1(Hp2[2], 0)))
+            top_l = blen(jvec + off + 1, qb)[None]
             up = [torch.where(i0, 0, _shift1(Hp1[0], 0)),
                   torch.where(i0, 0, _shift1(Hp1[1], 0)),
                   torch.where(i0, top_l, _shift1(Hp1[2], 0))]
             eup = [torch.where(i0, 0, _shift1(x, 0)) for x in Ep1]
-            left = [torch.where(j0, 0, Hp1[0]), torch.where(j0, 0, Hp1[1]),
-                    torch.where(j0, left_l, Hp1[2])]
-            fleft = [torch.where(j0, 0, x) for x in Fp1]
-            dg = [torch.where(i0 | j0, 0, _shift1(Hp2[0], 0)),
-                  torch.where(i0 | j0, 0, _shift1(Hp2[1], 0)), diag_l]
+            lft = [torch.where(j0, lp, x) for lp, x in zip(left_p[:3], Hp1)]
+            fleft = [torch.where(j0, lp, x) for lp, x in zip(left_p[3:], Fp1)]
+            top_d = [0, 0, blen(jvec + off, qb)[None]]
+            dg = [torch.where(i0, t, torch.where(j0, _shift1(lp, 0),
+                                                 _shift1(x, 0)))
+                  for t, lp, x in zip(top_d, left_p[:3], Hp2)]
             Ep = [torch.where(from_open_e, u, e) for u, e in zip(up, eup)]
             Ep[2] = Ep[2] + 1
-            Fp = [torch.where(from_open_f, u, f) for u, f in zip(left, fleft)]
+            Fp = [torch.where(from_open_f, u, f) for u, f in zip(lft, fleft)]
             Fp[2] = Fp[2] + 1
             Dp = [dg[0] + (qid == rd).to(i32), dg[1] + (s > 0).to(i32),
                   dg[2] + 1]
@@ -255,6 +295,15 @@ def wavefront_align(profile, qidx, ridx, qlen, rlen, *, open_, ext, mode,
 
         hs = torch.where(in_seq, H, 0)
         hmax, hmin = hs.amax(dim=1), hs.amin(dim=1)
+        if segment:
+            hmax_t = torch.maximum(hmax_t, hmax)
+            hmin_t = torch.minimum(hmin_t, hmin)
+            at_end = in_seq & (jvec[None, :] == end_c)
+            st_h = torch.where(at_end, H, st_h)
+            st_f = torch.where(at_end, F, st_f)
+            if want_stats:
+                st_p = [torch.where(at_end, n, o)
+                        for n, o in zip(Hp + Fp, st_p)]
         sat8 |= (hmax >= WIDTH_MAX["8"]) | (hmin <= WIDTH_MIN["8"])
         sat16 |= (hmax >= WIDTH_MAX["16"]) | (hmin <= WIDTH_MIN["16"])
 
@@ -270,7 +319,7 @@ def wavefront_align(profile, qidx, ridx, qlen, rlen, *, open_, ext, mode,
                 sel = sel | last_col
             cand = in_seq & sel
         else:
-            cand = last_row & last_col
+            cand = in_seq & last_row & last_col
         hc = torch.where(cand, H, neg)
         step_best = hc.amax(dim=1)
         step_i = torch.where(hc == step_best[:, None], ivec[None, :],
@@ -313,6 +362,19 @@ def wavefront_align(profile, qidx, ridx, qlen, rlen, *, open_, ext, mode,
             vals = [H] + (Hp if want_stats else [])
             slabs.append([torch.where(in_seq, v, 0) for v in vals])
 
+    if segment:
+        none = best <= neg
+        out = {"best": best,
+               "best_i": torch.where(none, Qp, best_i),
+               "best_j": torch.where(none, 1 << 30, best_j + off),
+               "hmax": hmax_t, "hmin": hmin_t, "h": st_h, "f": st_f}
+        if want_stats:
+            out["best_pay"] = torch.stack(best_p)
+            out["pay"] = torch.stack(st_p)
+        if want_trace:
+            out["trace_table"] = _undiagonalise(slabs, 0, B, Qp, Rp, dev,
+                                                torch.int8)
+        return out
     stats = best_p if want_stats else None
     if mode == "nw":
         score, eq, er = best, qlen - 1, rlen - 1
@@ -341,16 +403,9 @@ def wavefront_align(profile, qidx, ridx, qlen, rlen, *, open_, ext, mode,
 
     names = PLANES[:nplanes]
     if want_tables or want_trace:
-        ii = torch.arange(Qp, device=dev)[:, None]
-        dd = ii + torch.arange(Rp, device=dev)[None, :]      # (Qp, Rp)
         for k, name in enumerate(("trace",) if want_trace else names):
-            if D > 0:
-                slab = torch.stack([st[k] for st in slabs])  # (D, B, Qp)
-                plane = slab[dd, :, ii].permute(2, 0, 1)     # undiag
-            else:
-                plane = torch.zeros((B, Qp, Rp), dtype=torch.int8
-                                    if want_trace else i32, device=dev)
-            out[f"{name}_table"] = plane.contiguous()
+            out[f"{name}_table"] = _undiagonalise(
+                slabs, k, B, Qp, Rp, dev, torch.int8 if want_trace else i32)
     if want_rowcol:
         for k, name in enumerate(names):
             out[f"{name}_row"], out[f"{name}_col"] = rows[k], cols[k]

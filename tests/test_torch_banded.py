@@ -26,7 +26,12 @@ from parasail_rs_tpu.golden import banded_nw_fill  # noqa: E402
 import parasail_rs_tpu_torch as port  # noqa: E402
 from parasail_rs_tpu_torch.ops import scan_kernel as tk  # noqa: E402
 
-from test_torch_engine import _seqs, _summary  # noqa: E402
+from test_torch_engine import (  # noqa: E402
+    _seqs,
+    _summary,
+    matrix_for,
+    port_matrix,
+)
 from test_torch_kernel_host import build_host_lib, ragged  # noqa: E402
 
 NEG = -(1 << 30)
@@ -189,8 +194,8 @@ def test_empty_side_and_unreachable_corner(host_lib, lens, want):
         assert exp == (NEG if want is None else want)
     host = run_banded_host(host_lib, case, 4, 1, 2)
     plain = run_plain(case, 4, 1, 2)
-    aligner = (port.Aligner.new().matrix(DNA).gap_open(4).gap_extend(1)
-               .bandwidth(2).device("cpu").build())
+    aligner = (port.Aligner.new().matrix(port_matrix(DNA)).gap_open(4)
+               .gap_extend(1).bandwidth(2).device("cpu").build())
     api = aligner.banded_nw(q, r)
     assert (host[0, 0], plain["score"][0], api.get_score()) == (exp,) * 3
     if ql and rl:
@@ -226,7 +231,7 @@ def test_banded_nw_matches_full_nw_when_band_covers():
                 .astype("uint8").tobytes() for _ in range(2))
 
         def cfg(b, bw=None):
-            b = b.matrix(DNA).gap_open(5).gap_extend(1)
+            b = b.matrix(matrix_for(b, DNA)).gap_open(5).gap_extend(1)
             return b if bw is None else b.bandwidth(bw)
         full = cfg(port.Aligner.new()).device("cpu").build().align(q, r)
         p, jx = _pair(lambda b: cfg(b, max(len(q), len(r))))
@@ -247,8 +252,8 @@ def test_banded_nw_batch_matches_reference_and_oracle(bw, open_, ext):
                   .astype("uint8").tobytes())
         rs.append(rng.choice(list(b"ACGT"), size=rng.integers(4, 30))
                   .astype("uint8").tobytes())
-    p, jx = _pair(lambda b: b.matrix(DNA).gap_open(open_).gap_extend(ext)
-                  .bandwidth(bw))
+    p, jx = _pair(lambda b: b.matrix(matrix_for(b, DNA)).gap_open(open_)
+                  .gap_extend(ext).bandwidth(bw))
     got = p.banded_nw_batch(qs, rs)
     assert _summary(got) == _summary(jx.banded_nw_batch(qs, rs))
     for q, r, res in zip(qs, rs, got):
@@ -259,7 +264,7 @@ def test_banded_nw_batch_matches_reference_and_oracle(bw, open_, ext):
 
 
 def test_banded_nw_requires_bandwidth():
-    with pytest.raises(ref.errors.NoBandwidth):
+    with pytest.raises(port.errors.NoBandwidth):
         port.Aligner.new().device("cpu").build().banded_nw(b"ACGT", b"ACGT")
 
 
@@ -312,8 +317,8 @@ def test_banded_nw_batch_on_card_matches_cpu(cuda_device):
     rs = _seqs(42, b"ACGT", 40, 0, 60)
 
     def build(device):
-        return (port.Aligner.new().matrix(DNA).gap_open(4).gap_extend(1)
-                .bandwidth(5).device(device).build())
+        return (port.Aligner.new().matrix(port_matrix(DNA)).gap_open(4)
+                .gap_extend(1).bandwidth(5).device(device).build())
     card = build(cuda_device)
     got = _summary(card.banded_nw_batch(qs, rs))
     assert got == _summary(build("cpu").banded_nw_batch(qs, rs))

@@ -35,9 +35,26 @@ def _seqs(seed, alphabet, n, lo, hi):
             .astype(np.uint8).tobytes() for _ in range(n)]
 
 
+def port_matrix(m):
+    """A reference Matrix carried across to the port's own class."""
+    return convert.matrix_from_reference(
+        data=m.data, mapper=m.mapper, alphabet=m.alphabet, kind=m.kind,
+        name=m.name, builtin=m.builtin, approximate=m.approximate,
+        query=m.query)
+
+
+def matrix_for(builder, m):
+    """``m``, built once with the reference, as the class of the package
+    ``builder`` belongs to."""
+    return port_matrix(m) if isinstance(builder, port.AlignerBuilder) else m
+
+
 def _configure(builder, cfg):
-    """Apply one configuration (a list of (method, args)) to a builder."""
+    """Apply one configuration (a list of (method, args)) to a builder;
+    a matrix among the arguments goes to the port as the port's class."""
     for name, args in cfg:
+        args = tuple(matrix_for(builder, a) if isinstance(a, ref.Matrix)
+                     else a for a in args)
         builder = getattr(builder, name)(*args)
     return builder
 
@@ -164,9 +181,8 @@ def test_reference_expectations_score_class(name):
 def test_readme_profile_reuse_score_class():
     # README.md:37-63 of parasail-rs, on the score class
     query, refs = b"ACGT", [b"ACGTAACGTACA", b"TGGCAAGGTAGA"]
-    aligner = (port.Aligner.new().profile(port.Profile.new(query, False,
-                                                           IDENT))
-               .device("cpu").build())
+    aligner = (port.Aligner.new().profile(port.Profile.new(
+        query, False, port_matrix(IDENT))).device("cpu").build())
     for r in refs:
         g = golden.align_seqs(query, r, IDENT, 0, 0, "nw")
         assert aligner.align(None, r).get_score() == g.score
@@ -187,8 +203,8 @@ def test_profile_reuse_matches_reference():
     refs = _seqs(21, PROTEIN, 20, 1, 30)
     r_prof = ref.Profile.new(query, False, BLOSUM62)
     p_prof = convert.profile_from_reference(
-        query=r_prof.query, matrix=r_prof.matrix, rows=r_prof.rows,
-        qidx=r_prof.qidx, use_stats=r_prof.use_stats)
+        query=r_prof.query, matrix=port_matrix(r_prof.matrix),
+        rows=r_prof.rows, qidx=r_prof.qidx, use_stats=r_prof.use_stats)
     r = (ref.Aligner.new().profile(r_prof).gap_open(11).gap_extend(1)
          .local().scan().build())
     p = (port.Aligner.new().profile(p_prof).gap_open(11).gap_extend(1)
@@ -203,7 +219,7 @@ def test_profile_reuse_matches_reference():
 
 def test_profile_builder_matches_reference():
     query = b"ACGTTGCA"
-    p_prof = port.ProfileBuilder(query, DNA).build()
+    p_prof = port.ProfileBuilder(query, port_matrix(DNA)).build()
     r_prof = ref.ProfileBuilder(query, DNA).build()
     np.testing.assert_array_equal(p_prof.rows, r_prof.rows)
     np.testing.assert_array_equal(p_prof.qidx, r_prof.qidx)
@@ -277,7 +293,7 @@ def test_cuda_device_without_a_card_raises(monkeypatch):
 
 def test_query_required_without_profile():
     aligner = port.Aligner.new().device("cpu").build()
-    with pytest.raises(ref.errors.QueryRequired):
+    with pytest.raises(port.errors.QueryRequired):
         aligner.align(None, b"ACGT")
     assert aligner.align_batch([], []) == []
 

@@ -23,7 +23,13 @@ import parasail_rs_tpu_torch as port  # noqa: E402
 from parasail_rs_tpu_torch import convert  # noqa: E402
 from parasail_rs_tpu_torch.engine import dispatch  # noqa: E402
 
-from test_torch_engine import BLOSUM62, PROTEIN, _configure, _seqs  # noqa: E402
+from test_torch_engine import (  # noqa: E402
+    BLOSUM62,
+    PROTEIN,
+    _configure,
+    _seqs,
+    port_matrix,
+)
 from test_torch_engine_stats import CPU_ROUTE, SETTERS, _views  # noqa: E402
 
 DNA = ref.Matrix.create(b"ACGT", 2, -3)
@@ -97,8 +103,8 @@ def test_align_many_profile_mode(max_cells):
             .tobytes() for _ in range(40)]
     r_prof = ref.Profile.new(q, False, BLOSUM62)
     p_prof = convert.profile_from_reference(
-        query=r_prof.query, matrix=r_prof.matrix, rows=r_prof.rows,
-        qidx=r_prof.qidx, use_stats=r_prof.use_stats)
+        query=r_prof.query, matrix=port_matrix(r_prof.matrix),
+        rows=r_prof.rows, qidx=r_prof.qidx, use_stats=r_prof.use_stats)
     r = (ref.Aligner.new().profile(r_prof).gap_open(11).gap_extend(1)
          .local().scan().build())
     p = (port.Aligner.new().profile(p_prof).gap_open(11).gap_extend(1)
@@ -145,8 +151,8 @@ def test_align_many_fetches_every_bin_once(monkeypatch):
 
     monkeypatch.setattr(dispatch, "PendingResult", Counted)
     qs, rs = _mixed(17, 40)
-    p = (port.Aligner.new().matrix(BLOSUM62).gap_open(11).gap_extend(1)
-         .local().device("cpu").build())
+    p = (port.Aligner.new().matrix(port_matrix(BLOSUM62)).gap_open(11)
+         .gap_extend(1).local().device("cpu").build())
     got = p.align_many(qs, rs, max_cells=1 << 14)
     nbins = len(_bins(qs, rs, "score", 1 << 14))
     assert nbins > 2 and len(made) == nbins
@@ -163,7 +169,7 @@ def test_align_many_fetches_every_bin_once(monkeypatch):
 def test_align_many_edge_cases():
     p = port.Aligner.new().device("cpu").build()
     assert p.align_many([], []) == []
-    with pytest.raises(ref.errors.QueryRequired):
+    with pytest.raises(port.errors.QueryRequired):
         p.align_many(None, [b"ACGT"])
     got = p.align_many([b"ACGT", b"A"], [b"ACGA", b"AAAA"])
     assert [a.get_score() for a in got] == \

@@ -21,7 +21,12 @@ from parasail_rs_tpu.golden import model as golden  # noqa: E402
 import parasail_rs_tpu_torch as port  # noqa: E402
 from parasail_rs_tpu_torch import convert  # noqa: E402
 
-from test_torch_engine import BLOSUM62, PROTEIN, _seqs  # noqa: E402
+from test_torch_engine import (  # noqa: E402
+    BLOSUM62,
+    PROTEIN,
+    _seqs,
+    port_matrix,
+)
 from test_torch_engine_stats import CPU_ROUTE  # noqa: E402
 
 
@@ -33,14 +38,15 @@ def _ssw(results):
 
 def _both(matrix, open_, ext):
     r = ref.Aligner.new().matrix(matrix).gap_open(open_).gap_extend(ext)
-    p = port.Aligner.new().matrix(matrix).gap_open(open_).gap_extend(ext)
+    p = (port.Aligner.new().matrix(port_matrix(matrix)).gap_open(open_)
+         .gap_extend(ext))
     return r.build(), p.device("cpu").build()
 
 
 def _port_profile(r_prof):
     p = convert.profile_from_reference(
-        query=r_prof.query, matrix=r_prof.matrix, rows=r_prof.rows,
-        qidx=r_prof.qidx, use_stats=r_prof.use_stats)
+        query=r_prof.query, matrix=port_matrix(r_prof.matrix),
+        rows=r_prof.rows, qidx=r_prof.qidx, use_stats=r_prof.use_stats)
     p.score_size = r_prof.score_size
     return p
 
@@ -87,7 +93,7 @@ def test_ssw_profile_matches_query_path():
     assert _ssw(via_profile) == _ssw(pq.ssw_batch([q] * len(refs), refs))
     r = ref.Aligner.new().profile(r_prof).gap_open(4).gap_extend(1).build()
     assert _ssw(via_profile) == _ssw(r.ssw_batch(None, refs))
-    with pytest.raises(ref.errors.QueryRequired):
+    with pytest.raises(port.errors.QueryRequired):
         pq.ssw_batch(None, refs)
 
 
@@ -221,10 +227,10 @@ def cuda_device():
 @pytest.mark.parametrize("windowed", [False, True])
 def test_ssw_on_card_matches_cpu(windowed, cuda_device):
     qs, rs = _planted(9, 40)
-    cpu = (port.Aligner.new().matrix(BLOSUM62).gap_open(11).gap_extend(1)
-           .device("cpu").build())
-    card = (port.Aligner.new().matrix(BLOSUM62).gap_open(11).gap_extend(1)
-            .device(cuda_device).build())
+    cpu = (port.Aligner.new().matrix(port_matrix(BLOSUM62)).gap_open(11)
+           .gap_extend(1).device("cpu").build())
+    card = (port.Aligner.new().matrix(port_matrix(BLOSUM62)).gap_open(11)
+            .gap_extend(1).device(cuda_device).build())
     assert _ssw(card.ssw_batch(qs, rs, windowed=windowed)) == \
         _ssw(cpu.ssw_batch(qs, rs, windowed=windowed))
     assert set(card.route_counter) == {("cuda_kernel", "")}
@@ -236,7 +242,7 @@ def test_ssw_profile_on_card_matches_cpu(cuda_device):
     q = b"ACGT" * 40
     refs = _seqs(5, b"ACGT", 30, 10, 200) + [q]
     for size in (0, 2):
-        prof = port.Profile.new_ssw(q, m, size)
+        prof = port.Profile.new_ssw(q, port_matrix(m), size)
         got = [port.Aligner.new().profile(prof).gap_open(10).gap_extend(1)
                .device(d).build().ssw_batch(None, refs)
                for d in (cuda_device, "cpu")]

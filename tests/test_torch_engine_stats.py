@@ -30,6 +30,7 @@ from test_torch_engine import (  # noqa: E402
     IDENT,
     PROTEIN,
     _configure,
+    port_matrix,
     _seqs,
     _summary,
 )
@@ -155,7 +156,8 @@ def test_stats_blosum_profile_matches_reference(forced, monkeypatch):
         monkeypatch.setenv("PT_FORCE_PALLAS", "1")
     r = (ref.Aligner.new().profile(ref.Profile.new(q, True, BLOSUM62))
          .gap_open(1).gap_extend(2).local().build())
-    p = (port.Aligner.new().profile(port.Profile.new(q, True, BLOSUM62))
+    p = (port.Aligner.new().profile(port.Profile.new(
+        q, True, port_matrix(BLOSUM62)))
          .gap_open(1).gap_extend(2).local().device("cpu").build())
     assert p.key.outputs == "stats"
     want, routes = _ref_routes(lambda: _views(r.align_batch(None, rs)))
@@ -176,7 +178,8 @@ def test_profile_use_stats_table_matches_reference(monkeypatch):
     for use_stats, outputs in ((False, "table"), (True, "stats_table")):
         r = (ref.Aligner.new().profile(ref.Profile.new(q, use_stats, m))
              .use_stats().use_table().build())
-        p = (port.Aligner.new().profile(port.Profile.new(q, use_stats, m))
+        p = (port.Aligner.new().profile(port.Profile.new(
+            q, use_stats, port_matrix(m)))
              .use_stats().use_table().device("cpu").build())
         assert p.key.outputs == r.key.outputs == outputs
         want, routes = _ref_routes(lambda: _views(r.align_batch(None, refs)))
@@ -247,9 +250,9 @@ def test_tables_and_rowcol_expectations():
         assert np.asarray(f()).tolist() == want
     plain_rc = _cpu(("use_last_rowcol", ())).align(b"ACGT", b"ACG")
     assert plain_rc.is_rowcol() and not plain_rc.is_stats()
-    with pytest.raises(ref.errors.NoRowCol):
+    with pytest.raises(port.errors.NoRowCol):
         plain_rc.get_matches_row()
-    with pytest.raises(ref.errors.NoStats):
+    with pytest.raises(port.errors.NoStats):
         plain_rc.get_matches()
 
 

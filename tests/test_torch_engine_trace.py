@@ -30,6 +30,7 @@ from test_torch_engine import (  # noqa: E402
     PSSM,
     _both,
     _configure,
+    port_matrix,
     _seqs,
     _summary,
 )
@@ -154,7 +155,7 @@ def test_align_cigars_shared_profile(forced, monkeypatch):
     q = _seqs(61, PROTEIN, 1, 20, 30)[0]
     rs = _seqs(62, PROTEIN, 6, 15, 40)
     r_prof = ref.Profile.new(q, False, BLOSUM62)
-    p_prof = port.Profile.new(q, False, BLOSUM62)
+    p_prof = port.Profile.new(q, False, port_matrix(BLOSUM62))
     r = (ref.Aligner.new().profile(r_prof).gap_open(11).gap_extend(1)
          .local().build())
     p = (port.Aligner.new().profile(p_prof).gap_open(11).gap_extend(1)
@@ -190,8 +191,8 @@ def test_align_cigars_mixed_lengths_binned(monkeypatch):
 def test_align_cigars_chunked_matches_unchunked(monkeypatch):
     qs = _seqs(81, PROTEIN, 70, 20, 60)
     rs = _seqs(82, PROTEIN, 70, 20, 60)
-    p = (port.Aligner.new().matrix(BLOSUM62).gap_open(11).gap_extend(1)
-         .semi_global().device("cpu").build())
+    p = (port.Aligner.new().matrix(port_matrix(BLOSUM62)).gap_open(11)
+         .gap_extend(1).semi_global().device("cpu").build())
     monkeypatch.setattr(port.Aligner, "_CIGAR_CHUNK", 1 << 30)
     alns1, cigs1 = p.align_cigars(qs, rs)
     monkeypatch.setattr(port.Aligner, "_CIGAR_CHUNK", 32)   # 3 chunks
@@ -293,9 +294,9 @@ def test_empty_side_pairs_follow_golden_through_the_api(mk):
 def test_cigars_needs_trace_results():
     p = port.Aligner.new().device("cpu").build()
     alns = p.align_batch([b"AC"], [b"AC"])
-    with pytest.raises(ref.errors.NoTrace):
+    with pytest.raises(port.errors.NoTrace):
         p.cigars(alns, [b"AC"], [b"AC"])
-    with pytest.raises(ref.errors.NoTrace):
+    with pytest.raises(port.errors.NoTrace):
         alns[0].get_cigar(b"AC", b"AC")
 
 
