@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the kernels from ``parasail_rs_tpu_torch/csrc`` with nvcc and
-runs twenty phases on ``cuda``; any failure raises and the script exits
+runs twenty-four phases on ``cuda``; any failure raises and the script exits
 non-zero without printing a result:
 
 1. build: the library's path, build time and each kernel's registers;
@@ -117,7 +117,36 @@ non-zero without printing a result:
    outputs the segment kernel's must equal at this shape too), the trace
    class end to end with its stage clocks against its kernels alone
    (the copy overlap), each path's peak device memory, and bench.py's
-   headline batch through the segment kernel.
+   headline batch through the segment kernel;
+21. tile kernel vs plain: ``score_rowseg`` chained in superstep order
+   over S x D tiles against ``score_segment`` chained over the same
+   column shards and the one-shot ``score_align``, for the score, stats
+   and trace classes x NW, the nine SG free-end sets and SW x 11/1, 2/2
+   and 1/3, on 64 pairs of 0-192 by 0-192 letters, D in {1, 3, 4},
+   q_chunk in {24, 32, 64}, 1-8 warps a pair; and, for every mode and
+   class at one of the penalty pairs in turn, against
+   ``score_rowseg_plain`` chained the same way: exact equality of every
+   output, right-going state, down-state row and flag cell of every tile;
+22. the sequence-parallel path through ``dist.seqpar_align_scan`` on the
+   card, counted from zero: cfg6 at full width (128 DNA pairs of 16,384
+   bp, SW 5/1) over 4 virtual shards of 4,096 columns and row chunks of
+   2,048: 32 tiles, which must be 32 launches, equal to ``align_batch``
+   of the same pairs (the segment kernel) and its first four pairs to the
+   plain column sweep; then the 128 pairs of 50-4,096 bp with stats and
+   with trace (a 2 GiB plane over four shards, row chunks of 1,024):
+   equal to the one-shot kernel's outputs and flags, ``seqpar_cigars``
+   equal to ``align_cigars``, the short pairs equal to golden;
+23. data parallelism on the card, in a process group of ONE rank (NCCL
+   puts one rank on a device, so one card shows that this layer is
+   correct, not that it scales): ``sharded_align`` and ``align_global`` of
+   phase 3's 8,192 SW BLOSUM62 pairs, score and stats, on "cuda_kernel"
+   and equal to ``align_batch``;
+24. timings of the tile kernel, beside the card's name and power limit:
+   cfg6's 32 tiles through ``seqpar_align_scan`` (CUDA events and end to
+   end) beside the segment kernel's two launches on the same pairs, one
+   tile of each class at the main path's shape beside its plain version
+   (whose outputs it must equal there too), the stats and trace classes
+   at 4,096 bp, and the peak device memory.
 
 The line before the last is the card's name and power limit, the one
 before it a JSON summary of every kernel (launches on its main path,
@@ -621,6 +650,8 @@ def main() -> int:
                         blosum, card, (qs, rs))
     segments = segment_path(torch, pt, tk, tw, dispatch, golden, stages, rng,
                             card, (head_args, head_kw), long_k1)
+    tiles = dist_path(torch, pt, tk, dispatch, golden, rng, card, (qs, rs),
+                      sw, segments.pop("pairs"))
 
     print(json.dumps({"kernels": [{
         "name": "scan_score_align",
@@ -662,6 +693,12 @@ def main() -> int:
         "source": "parasail_rs_tpu_torch/csrc/scan_segment.cu",
         "replaces": "parasail_rs_tpu/ops/scan_kernel.py:1672",
         **segments[cls],
+    } for cls in ("score", "stats", "trace")] + [{
+        "name": f"scan_rowseg_step ({cls})",
+        "route": "cuda",
+        "source": "parasail_rs_tpu_torch/csrc/scan_rowseg.cu",
+        "replaces": "parasail_rs_tpu/ops/scan_kernel.py:1877",
+        **tiles[cls],
     } for cls in ("score", "stats", "trace")]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1711,14 +1748,400 @@ def segment_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
     h_k1 = time_cuda(torch, lambda: tk.score_align(*head_args, **hk))
     log(f"[20 timing] headline B=8192 Qp=Rp=160 SW 11/1: segment kernel "
         f"{h_k2} ms, one-shot kernel {h_k1} ms [{card}]")
-    return {cls: {"launches": launches[cls], "max_abs_err": errs[cls],
-                  "ms": times[cls][0], "plain_ms": times[cls][1],
-                  "shape": "128 pairs, Qp=Rp=4096, SW 5/1",
-                  "form": "a block per pair, 8 warps at this shape",
-                  # the state between segments is neither input nor output:
-                  # a chain's bound is the one-shot sweep's
-                  **sweep_bound(cls, a4, kw4)}
-            for cls in classes}
+    out = {cls: {"launches": launches[cls], "max_abs_err": errs[cls],
+                 "ms": times[cls][0], "plain_ms": times[cls][1],
+                 "shape": "128 pairs, Qp=Rp=4096, SW 5/1",
+                 "form": "a block per pair, 8 warps at this shape",
+                 # the state between segments is neither input nor output:
+                 # a chain's bound is the one-shot sweep's
+                 **sweep_bound(cls, a4, kw4)}
+           for cls in classes}
+    # the sequence-parallel phases run the same pairs
+    out["pairs"] = {"cfg6": (q6, r6), "mixed": (mq, mr), "short": short,
+                    "aligners": al, "k6_ms": k6}
+    return out
+
+
+def chain_tiles(torch, tk, tile_fn, args, subs, D, qc, kw):
+    """``tile_fn`` (score_rowseg or its plain version) over the S x D
+    tiles of the batch, through ``dist.seqpar_scan.pipeline`` on D
+    virtual shards (shard d runs row chunk t at superstep t + d, each
+    tile's right-going state handed to the next shard and its down-state
+    to the next row chunk).  Returns (out, records): the outputs read off
+    the merged accumulator (+ ``trace_table``), and every tile's (state,
+    down-state, trace tile, outputs so far)."""
+    from parasail_rs_tpu_torch.dist import make_device_mesh
+    from parasail_rs_tpu_torch.dist.seqpar_scan import pipeline
+
+    ridx, qlen, rlen = args
+    C = ridx.shape[1] // D
+    Qp = (subs["profile"] if subs.get("profile") is not None
+          else subs["qidx"]).shape[1]
+    records = {}
+
+    def recording(*a, **k):
+        tout, state, down, tile = tile_fn(*a, **k)
+        records[k["col_offset"] // C, k["row_offset"] // qc] = (
+            dict(state), down, tile, tout)
+        return tout, state, down, tile
+
+    acc, plane = pipeline(recording, ridx, qlen, rlen,
+                          mesh=make_device_mesh(D), q_chunk=qc, subs=subs,
+                          kw=kw)
+    out = tk.acc_outputs(acc, qlen, rlen, Qp, **kw)
+    if plane is not None:
+        out["trace_table"] = plane
+    return out, records
+
+
+def records_diff(torch, got, want) -> int:
+    """max |difference| over every tile's state, down-state, flags and
+    outputs."""
+    err = 0
+    for key, (ws, wd, wt, wo) in want.items():
+        gs, gd, gt, go = got[key]
+        err = max(err, max_abs_diff(gs, ws), max_abs_diff(go, wo),
+                  int((gd.long() - wd.long()).abs().max().item()))
+        if wt is not None:
+            err = max(err, int((gt.long() - wt.long()).abs().max().item()))
+    return err
+
+
+def tile_bound(cls: str, cols, qlen, rlen, subs, r0, qc, j0) -> dict:
+    """bound() of one tile: its real cells (each pair's rows in
+    [r0, r0 + qc) by its columns in [j0, j0 + C)), the inputs it reads
+    (letters, lengths, substitution scores and letters of its rows, the
+    right-going state, the down-state, the corner and the accumulator)
+    and what it writes (the same state again, the outputs and the trace
+    tile)."""
+    B, C = cols.shape
+    rows = (qlen.long() - r0).clamp(0, qc)
+    cells = int((rows * (rlen.long() - j0).clamp(0, C)).sum().item())
+    stats = cls == "stats"
+    state = ((2 + (6 if stats else 0)) * qc + 4 + 8 +
+             (8 if stats else 2) * C) * B * 4
+    nbytes = cols.numel() * 4 + 2 * B * 4 + 2 * state
+    if subs.get("table") is not None:
+        nbytes += subs["table"].numel() * 4 + subs["qidx"].shape[0] * qc * 4
+    else:
+        p = subs["profile"]
+        nbytes += p.shape[0] * qc * p.shape[2] * 4
+    nbytes += (8 if stats else 5) * B * 4
+    if cls == "trace":
+        nbytes += B * qc * C
+    return bound(cells * OPS_PER_CELL[cls], nbytes)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dist_path(torch, pt, tk, dispatch, golden, rng, card, protein, sw,
+              pairs) -> dict:
+    """Phases 21-24, the tile kernel and the dist layer; returns each
+    class's launches, error and times."""
+    from parasail_rs_tpu_torch import dist
+    from parasail_rs_tpu_torch.dist import multihost
+    from parasail_rs_tpu_torch.dist.sharded import gather_scores
+
+    dev = torch.device("cuda")
+    classes = ("score", "stats", "trace")
+    errs = dict.fromkeys(classes, 0)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    # -- 21. tile kernel vs plain, segments and the one-shot kernel ---------------
+    B, Qp, Rp, A = 64, 192, 192, 5
+    modes = ([("nw", F4)] + [("sg", f) for f in SG_FREE] +
+             [("sw", (True,) * 4)])
+    n = 0
+    for mi, (mode, free) in enumerate(modes):
+        for pi, (open_, ext) in enumerate(((11, 1), (2, 2), (1, 3))):
+            for ci, cls in enumerate(classes):
+                D = (1, 3, 4)[n % 3]
+                qc = (24, 32, 64)[(n // 3) % 3]
+                warps = (0, 1, 2, 8)[n % 4]         # 0: the launcher's pick
+                n += 1
+                ql = rng.integers(0, Qp + 1, size=B)
+                rl = rng.integers(0, Rp + 1, size=B)
+                # empty sides; queries that end above, inside and on a
+                # tile's last row; references that end on a shard's edge
+                ql[:8] = (0, 5, Qp, qc, qc + 1, 2 * qc - 1, 64, 65)
+                rl[:8] = (7, 0, Rp, Rp // D, 65, 64, min(Rp, Rp // D + 1), 129)
+                subs = dict(table=t(rng.integers(-4, 6, size=(A, A))),
+                            qidx=t(rng.integers(0, A, size=(B, Qp))))
+                kw = dict(open_=open_, ext=ext, mode=mode, free=free,
+                          outputs=cls, width="sat")
+                args = (t(rng.integers(0, A, size=(B, Rp))), t(ql), t(rl))
+                tk.SEGMENT_WARPS = warps
+                got, recs = chain_tiles(torch, tk, tk.score_rowseg, args,
+                                        subs, D, qc, kw)
+                tk.SEGMENT_WARPS = 0
+                segs, _ = chain_segments(torch, tk.score_segment, args,
+                                         Rp // D, {**kw, **subs})
+                one = tk.score_align(*args, **kw, **subs)
+                err = max(max_abs_diff(got, segs), max_abs_diff(got, one))
+                if (mi + ci) % 3 == pi:
+                    want, wrecs = chain_tiles(torch, tk,
+                                              tk.score_rowseg_plain, args,
+                                              subs, D, qc, kw)
+                    err = max(err, max_abs_diff(got, want),
+                              records_diff(torch, recs, wrecs))
+                torch.cuda.synchronize()
+                errs[cls] = max(errs[cls], err)
+                if err != 0:
+                    raise AssertionError(
+                        f"tile kernel != plain, segments or one-shot on "
+                        f"{cls} {mode}{tuple(int(x) for x in free)} "
+                        f"{open_}/{ext} D {D} q_chunk {qc} warps {warps}: "
+                        f"max |diff| {err}")
+        log(f"[21 tile vs plain] {mode}{tuple(int(x) for x in free)}: score, "
+            f"stats and trace at 11/1, 2/2, 1/3 over 1-4 shards, row chunks "
+            f"of 24-64, 1-8 warps a pair, equal to the segment chain and the "
+            f"one-shot kernel; one penalty pair a class equal to plain in "
+            f"every tile's state, down-state, flags and outputs")
+
+    # -- 22. the sequence-parallel path on the card ----------------------------------
+    al = pairs["aligners"]
+    q6, r6 = pairs["cfg6"]
+    mq, mr = pairs["mixed"]
+    sw51 = dict(open_=5, ext=1, mode="sw", free=(True,) * 4, width="sat")
+    b6, _, _ = al["score"]._pack(q6, r6)
+    mesh = dist.make_device_mesh(4)
+
+    def seqpar(batch, cls, qc):
+        return dist.seqpar_align_scan(
+            None, batch.ridx, batch.qlen_t, batch.rlen_t, batch.qidx,
+            table=batch.table, mesh=mesh, q_chunk=qc, outputs=cls, **sw51)
+
+    launches = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mib = torch.cuda.memory_allocated() / 2 ** 20
+    tk.ROWSEG_LAUNCHES = tk.SEGMENT_LAUNCHES = tk.LAUNCHES = 0
+    out6 = seqpar(b6, "score", CFG6_LEN // 8)
+    torch.cuda.synchronize()
+    launches["score"] = tk.ROWSEG_LAUNCHES
+    peak6 = torch.cuda.max_memory_allocated() / 2 ** 20 - base_mib
+    if launches["score"] != 32 or tk.SEGMENT_LAUNCHES or tk.LAUNCHES:
+        raise AssertionError(
+            f"cfg6 through seqpar_align_scan launched the tile kernel "
+            f"{launches['score']} times (expected 4 shards x 8 row chunks = "
+            f"32), the segment kernel {tk.SEGMENT_LAUNCHES} times")
+    res6 = al["score"].align_batch(q6, r6)              # the segment kernel
+    got6 = {k: v.cpu().numpy() for k, v in out6.items()}
+    for b, a in enumerate(res6):
+        for k in ("score", "end_query", "end_ref"):
+            if a.fields[k] != got6[k][b]:
+                raise AssertionError(f"cfg6 seqpar: pair {b} {k} "
+                                     f"{got6[k][b]} != align_batch "
+                                     f"{a.fields[k]}")
+    plain4 = plain_of(tk, al["score"], q6[:4], r6[:4])
+    for b in range(4):
+        for k in ("score", "end_query", "end_ref"):
+            if int(plain4[k][b]) != got6[k][b]:
+                raise AssertionError(f"cfg6 seqpar: pair {b} {k} differs "
+                                     f"from the plain column sweep")
+    log(f"[22 seqpar] cfg6 (128 x {CFG6_LEN} bp SW 5/1) through "
+        f"dist.seqpar_align_scan, 4 virtual shards of {CFG6_LEN // 4} "
+        f"columns x 8 row chunks of {CFG6_LEN // 8}: tile launches="
+        f"{launches['score']}, equal to align_batch (segment kernel), first 4 "
+        f"pairs equal to plain; peak device memory above the inputs "
+        f"{peak6} MiB [{card}]")
+    del out6, res6
+
+    mb, _, _ = al["score"]._pack(mq, mr)
+    margs = (mb.ridx, mb.qlen_t, mb.rlen_t)
+    mkw = dict(sw51, table=mb.table, qidx=mb.qidx)
+    m = pt.Matrix.default()
+    peaks = {}
+    for cls in ("stats", "trace"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mib = torch.cuda.memory_allocated() / 2 ** 20
+        tk.ROWSEG_LAUNCHES = 0
+        out = seqpar(mb, cls, LONG_LEN // 4)
+        torch.cuda.synchronize()
+        launches[cls] = tk.ROWSEG_LAUNCHES
+        peaks[cls] = torch.cuda.max_memory_allocated() / 2 ** 20 - base_mib
+        if launches[cls] != 16:
+            raise AssertionError(f"seqpar {cls}: {launches[cls]} tile "
+                                 f"launches, expected 4 x 4 = 16")
+        one = tk.score_align(*margs, **mkw, outputs=cls)
+        if cls == "trace":
+            plane, want_plane = out["trace_table"], one.pop("trace_table")
+            for b in range(0, 128, 16):
+                if not torch.equal(plane[b:b + 16], want_plane[b:b + 16]):
+                    raise AssertionError(
+                        f"seqpar trace: planes of pairs {b}-{b + 15} differ "
+                        f"from the one-shot kernel's")
+            del want_plane
+            scal = {k: v for k, v in out.items() if k != "trace_table"}
+        else:
+            scal = out
+        err = max_abs_diff(scal, one)
+        errs[cls] = max(errs[cls], err)
+        if err != 0:
+            raise AssertionError(f"seqpar {cls} != one-shot kernel: max "
+                                 f"|diff| {err}")
+        host = {k: v.cpu().numpy() for k, v in scal.items()}
+        for b in pairs["short"]:
+            g = golden.align_seqs(mq[b], mr[b], m, 5, 1, "sw")
+            if (host["score"][b], host["end_query"][b],
+                    host["end_ref"][b]) != (g.score, g.end_query, g.end_ref):
+                raise AssertionError(f"seqpar {cls}: pair {b} differs from "
+                                     f"golden")
+            if cls == "stats" and (host["matches"][b], host["similar"][b],
+                                   host["length"][b]) !=                     (g.matches, g.similar, g.length):
+                raise AssertionError(f"seqpar stats: pair {b} differs from "
+                                     f"golden")
+            if cls == "trace" and not np.array_equal(
+                    plane[b, :len(mq[b]), :len(mr[b])].cpu().numpy(),
+                    g.trace_table):
+                raise AssertionError(f"seqpar trace: pair {b}'s flags differ "
+                                     f"from golden")
+        if cls == "trace":
+            cig = dist.seqpar_cigars(out, mq, mr, "sw")
+            _, want_cig = al["score"].align_cigars(mq, mr)
+            if cig != list(want_cig):
+                bad = [b for b in range(128) if cig[b] != want_cig[b]]
+                raise AssertionError(f"seqpar_cigars != align_cigars on "
+                                     f"pairs {bad[:8]}")
+            del plane
+        del out, one, scal
+    log(f"[22 seqpar] 128 pairs of 50-{LONG_LEN} bp over 4 shards x 4 row "
+        f"chunks of {LONG_LEN // 4}: stats and trace, tile launches="
+        f"{launches['stats']} and {launches['trace']}, equal to the one-shot "
+        f"kernel (outputs and every flag), seqpar_cigars equal to "
+        f"align_cigars, short pairs equal to golden; peak device memory "
+        f"above the inputs: stats {peaks['stats']} MiB, trace "
+        f"{peaks['trace']} MiB [{card}]")
+
+    # -- 23. data parallelism, a group of one rank -------------------------------------
+    import torch.distributed as td
+
+    qs, rs = protein
+    batch, _, _ = sw._pack(qs, rs)
+    rows = tk._substitution_rows(batch.table, batch.qidx, None).contiguous()
+    arrays = (rows, batch.qidx, batch.ridx, batch.qlen, batch.rlen)
+    multihost.initialize(f"localhost:{free_port()}", 1, 0)
+    try:
+        if td.get_backend() != "nccl" or td.get_world_size() != 1:
+            raise AssertionError("expected a NCCL group of one rank")
+        gmesh = multihost.global_mesh()
+        for cls, aligner in (("score", sw),
+                             ("stats", pt.Aligner.new().matrix(
+                                 sw.matrix).gap_open(11).gap_extend(1)
+                                 .local().use_stats().build())):
+            want = aligner.align_batch(qs, rs)
+            kw = dict(open_=11, ext=1, mode="sw", free=(True,) * 4,
+                      outputs=cls, width="sat")
+            tk.LAUNCHES = 0
+            tk.CLASS_LAUNCHES = dict.fromkeys(PLANE_CLASSES, 0)
+            res = dist.sharded_align(gmesh, *arrays, **kw)
+            whole = multihost.align_global(gmesh, *arrays, **kw)
+            ran = tk.LAUNCHES + tk.CLASS_LAUNCHES["stats"]
+            if res.route != "cuda_kernel" or ran != 2:
+                raise AssertionError(f"sharded_align {cls}: route "
+                                     f"{res.route}, {ran} launches")
+            keys = ("score", "end_query", "end_ref") +                 (("matches", "similar", "length") if cls == "stats" else ())
+            for name, got in (("sharded_align", gather_scores(res)),
+                              ("align_global", whole)):
+                for k in keys:
+                    if got[k].tolist() != [a.fields[k] for a in want]:
+                        raise AssertionError(f"{name} {cls}: {k} differs "
+                                             f"from align_batch")
+    finally:
+        td.destroy_process_group()
+    del rows, arrays
+    log("[23 data parallel] sharded_align and align_global of the 8,192 SW "
+        "BLOSUM62 pairs in a NCCL group of one rank, score and stats: on "
+        "cuda_kernel, equal to align_batch (one rank shows that the layer "
+        "is correct, not that it scales)")
+
+    # -- 24. timings -------------------------------------------------------------------
+    def host_once(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    cells6 = 128 * CFG6_LEN * CFG6_LEN
+    chain6 = time_cuda(torch, lambda: seqpar(b6, "score", CFG6_LEN // 8),
+                       reps=3, warmup=1)
+    e2e6 = statistics.median(
+        host_once(lambda: seqpar(b6, "score", CFG6_LEN // 8))
+        for _ in range(3))
+    args6 = (b6.ridx, b6.qlen_t, b6.rlen_t)
+    kw6 = dict(sw51, table=b6.table, qidx=b6.qidx, outputs="score")
+    k2 = time_cuda(torch, lambda: chain_segments(
+        torch, tk.score_segment, args6, dispatch.SEGMENT_COLS["score"], kw6),
+        reps=1, warmup=0)
+    log(f"[24 timing] card: {card}")
+    log(f"[24 timing] cfg6 128 x {CFG6_LEN} bp SW 5/1 through "
+        f"seqpar_align_scan, 32 tiles of {CFG6_LEN // 8} rows x "
+        f"{CFG6_LEN // 4} columns on one card: {chain6} ms by CUDA events "
+        f"({cells6 / chain6 / 1e6} GCUPS, {chain6 * 1e6 / CFG6_LEN ** 2} ns "
+        f"per cell per pair), {e2e6} ms end to end on the host clock; the "
+        f"segment kernel's two launches on the same pairs {k2} ms (phase 20: "
+        f"{pairs['k6_ms']} ms) [{card}]")
+
+    # one tile of each class at the main path's shape, beside its plain
+    # version on the same inputs
+    out = {}
+    for cls, batch, qc in (("score", b6, CFG6_LEN // 8),
+                           ("stats", mb, LONG_LEN // 4),
+                           ("trace", mb, LONG_LEN // 4)):
+        Bn, C = batch.size, batch.rp // 4
+        subs = dict(table=batch.table, qidx=batch.qidx)
+        kw = dict(sw51, outputs=cls)
+        bkw = dict(open_=5, ext=1, mode="sw", free=(True,) * 4, outputs=cls,
+                   device=dev)
+        state = tk.rowseg_left_border(Bn, 0, qc, **bkw)
+        state["acc"] = tk.acc_init(Bn, batch.qp, "sw", dev)
+        down = tk.rowseg_top_border(Bn, 0, C, **bkw)
+        cols = batch.ridx[:, :C].contiguous()
+        call = (cols, batch.qlen_t, batch.rlen_t, state, down)
+        ckw = dict(kw, row_offset=0, q_chunk=qc, col_offset=0, **subs)
+        kept = {}
+        ms = time_cuda(torch, lambda: kept.update(
+            got=tk.score_rowseg(*call, **ckw)), reps=5)
+        plain_ms = time_cuda(torch, lambda: kept.update(
+            want=tk.score_rowseg_plain(*call, **ckw)), reps=1, warmup=0)
+        rec = {0: (kept["got"][1], kept["got"][2], kept["got"][3],
+                   kept["got"][0])}
+        wrec = {0: (kept["want"][1], kept["want"][2], kept["want"][3],
+                    kept["want"][0])}
+        errs[cls] = max(errs[cls], records_diff(torch, rec, wrec))
+        if errs[cls] != 0:
+            raise AssertionError(f"tile kernel != plain on one {cls} tile of "
+                                 f"{qc} x {C}: max |diff| {errs[cls]}")
+        del kept, rec, wrec
+        path_ms = None
+        if cls != "score":
+            path_ms = time_cuda(torch, lambda: seqpar(mb, cls, qc), reps=3,
+                                warmup=1)
+        b = tile_bound(cls, cols, batch.qlen_t, batch.rlen_t, subs, 0, qc, 0)
+        log(f"[24 timing] {cls} class, one tile of {qc} rows x {C} columns, "
+            f"{Bn} pairs SW 5/1: kernel {ms} ms, its plain version "
+            f"{plain_ms} ms, bound {b['bound_ms']} ms ({b['bound_by']})"
+            + (f"; the 16 tiles of the 128 pairs of 50-{LONG_LEN} bp through "
+               f"seqpar_align_scan {path_ms} ms" if path_ms else "")
+            + f" [{card}]")
+        out[cls] = {"launches": launches[cls], "max_abs_err": errs[cls],
+                    "ms": ms, "plain_ms": plain_ms,
+                    "shape": f"one tile, {Bn} pairs, {qc} rows x {C} "
+                             f"columns, SW 5/1",
+                    "form": "the segment kernel's block in its tile form, "
+                            "8 warps a pair at this shape",
+                    "path_ms": chain6 if cls == "score" else path_ms, **b}
+    return out
 
 
 if __name__ == "__main__":

@@ -7,7 +7,9 @@ public ``Aligner`` method (``align`` / ``align_batch`` / ``align_many``,
 class: score, stats, table, rowcol, trace) runs hand-written kernels
 (``csrc/*.cu``, built with ``nvcc`` on first use), long pairs through the
 resumable segment kernel; on the CPU they run the kernels' plain PyTorch
-versions.  ``StreamingAligner`` and the ``dist`` layer are not ported yet
+versions.  The ``dist`` layer (sequence-parallel long pairs over the
+tile kernel, data parallelism over ``torch.distributed``) is
+``parasail_rs_tpu_torch.dist``.  ``StreamingAligner`` is not ported yet
 (see ROADMAP.md).
 
 The package imports ``torch``, never ``jax``, and nothing of
@@ -16,15 +18,22 @@ The package imports ``torch``, never ``jax``, and nothing of
 reference's modules.
 """
 
+from .constants import InstructionSet, SolutionWidth, TraceFlags
+from .errors import ParasailError
 from .matrices import Matrix
+from . import errors
+
+# the port's own version; the reference package keeps its own
+__version__ = "0.6.0"
 
 __all__ = [
-    "Aligner",
-    "AlignerBuilder",
-    "Alignment",
     "Matrix",
-    "Profile",
-    "ProfileBuilder",
+    "TraceFlags",
+    "SolutionWidth",
+    "InstructionSet",
+    "ParasailError",
+    "errors",
+    "__version__",
 ]
 
 
@@ -35,7 +44,8 @@ def __getattr__(name):
         from .engine.aligner import Aligner, AlignerBuilder
 
         return {"Aligner": Aligner, "AlignerBuilder": AlignerBuilder}[name]
-    if name in ("Alignment", "Table", "TracebackTable", "Traceback"):
+    if name in ("Alignment", "Table", "TracebackTable", "Traceback",
+                "SSWResult"):
         from .engine import result as _r
 
         return getattr(_r, name)

@@ -582,6 +582,11 @@ struct SegPair {
   bool local, qb, qe, db, de;
   bool resume;
   int32_t A;
+  // the rows swept, [row_lo, row_hi): the pair's rows in the segment form,
+  // the tile's in the tile form, whose state buffers start at row_lo
+  int32_t row_lo, row_hi;
+  bool tile;               // the tile form (kernel K3), see below
+  int32_t down_row;        // tile: the row handed to the tile below, else -1
 };
 
 PT_HD SegPair seg_pair(int32_t qlen, int32_t rlen, int32_t qp, int32_t off,
@@ -602,6 +607,10 @@ PT_HD SegPair seg_pair(int32_t qlen, int32_t rlen, int32_t qp, int32_t off,
   p.de = mode == MODE_SG && (free_bits & FREE_DE);
   p.resume = resume;
   p.A = A;
+  p.row_lo = 0;
+  p.row_hi = p.qlen;
+  p.tile = false;
+  p.down_row = -1;
   return p;
 }
 
@@ -664,9 +673,10 @@ PT_HD void seg_row_begin(SegLane<kOut>& L, const SegPair& p, int32_t i,
                          int64_t pay_plane, SegUp& old) {
   using O = Out<kOut>;
   L.i = i;
-  L.on = i < p.qlen;
+  L.on = i < p.row_hi;
   old = SegUp();
   if (!L.on) return;
+  const int32_t k = i - p.row_lo;          // the row in the state buffers
   const int32_t qi = q ? q[i] : i;
   L.qok = !q || (qi >= 0 && qi < p.A);
   L.srow = rows + (int64_t)(L.qok ? qi : 0) * p.A;
@@ -675,12 +685,12 @@ PT_HD void seg_row_begin(SegLane<kOut>& L, const SegPair& p, int32_t i,
   L.row_all = p.local || (last_row && p.qe);
   L.row_last = last_row || p.de;
   if (p.resume) {
-    L.h_left = st_h[i];
-    L.f = st_f[i];
+    L.h_left = st_h[k];
+    L.f = st_f[k];
     if constexpr (O::stats) {
-      L.lp = Pay{st_pay[i], st_pay[pay_plane + i], st_pay[2 * pay_plane + i]};
-      L.fp = Pay{st_pay[3 * pay_plane + i], st_pay[4 * pay_plane + i],
-                 st_pay[5 * pay_plane + i]};
+      L.lp = Pay{st_pay[k], st_pay[pay_plane + k], st_pay[2 * pay_plane + k]};
+      L.fp = Pay{st_pay[3 * pay_plane + k], st_pay[4 * pay_plane + k],
+                 st_pay[5 * pay_plane + k]};
     }
   } else {
     L.h_left = border(i + 1, p.db, p.open, p.ext);
@@ -754,15 +764,16 @@ PT_HD void seg_cell(SegLane<kOut>& L, const SegPair& p, int32_t c, int32_t r,
     L.best.p = hp;
   }
   if (c == p.ncols - 1) {
-    st_h[L.i] = h;
-    st_f[L.i] = L.f;
+    const int32_t k = L.i - p.row_lo;
+    st_h[k] = h;
+    st_f[k] = L.f;
     if constexpr (O::stats) {
-      st_pay[L.i] = hp.m;
-      st_pay[pay_plane + L.i] = hp.s;
-      st_pay[2 * pay_plane + L.i] = hp.l;
-      st_pay[3 * pay_plane + L.i] = L.fp.m;
-      st_pay[4 * pay_plane + L.i] = L.fp.s;
-      st_pay[5 * pay_plane + L.i] = L.fp.l;
+      st_pay[k] = hp.m;
+      st_pay[pay_plane + k] = hp.s;
+      st_pay[2 * pay_plane + k] = hp.l;
+      st_pay[3 * pay_plane + k] = L.fp.m;
+      st_pay[4 * pay_plane + k] = L.fp.s;
+      st_pay[5 * pay_plane + k] = L.fp.l;
     }
   }
 }
@@ -837,7 +848,63 @@ PT_HD int32_t seg_group_steps(int32_t ncols, int32_t nw) {
 
 // Does the pair sweep any cell in this segment?
 PT_HD bool seg_sweeps(const SegPair& p) {
-  return p.qlen > 0 && p.ncols > 0;
+  return p.row_hi > p.row_lo && p.ncols > 0;
+}
+
+// ---------------------------------------------------------------------------
+// The tile form (kernel K3): query rows [r0, r0 + qc) by columns
+// [off, off + C) of a pair, one tile of a sequence-parallel fill (the TPU
+// package's scan_rowseg_step, scan_kernel.py:1737).  It is the segment form
+// with a row range and with every border a read:
+//
+//   left    the right-going state of the tile to the left, rows [r0, r0+qc):
+//           h, f (and the stats payloads), in buffers that start at row r0;
+//           the caller fills them with the bordered left column at off == 0
+//   above   the down-state of the tile above, per column: H and E of row
+//           r0 - 1 (and their payloads), in the layout of the segment
+//           form's scratch row; the caller fills it with the top border at
+//           r0 == 0.  The tile leaves there the same of row r0 + qc - 1, for
+//           the tile below, from whichever lane holds that row.  (The TPU
+//           kernel carries a prefix-max seed instead of E: it computes E by
+//           a prefix scan, this cell by the literal recurrence.)
+//   corner  H[r0-1][off-1] and its payload, four words `t`: what the tile
+//           to the left read above its last column, which it hands on as it
+//           was before it swept (t_out = the down-state in at column C - 1)
+//   acc     the accumulator of this column shard, folded over its tiles;
+//           shards are merged by the caller, by seg_better
+//
+// Lanes hold global row indices, so the candidate rules, the empty-side
+// rule and the state's meaning are the segment form's.
+
+PT_HD SegPair tile_pair(int32_t qlen, int32_t rlen, int32_t qp, int32_t r0,
+                        int32_t qc, int32_t off, int32_t cols, int32_t open,
+                        int32_t ext, int32_t mode, int32_t free_bits,
+                        int32_t A) {
+  SegPair p = seg_pair(qlen, rlen, qp, off, cols, open, ext, mode, free_bits,
+                       true, A);
+  p.tile = true;
+  p.row_lo = r0;
+  p.row_hi = imax(r0, imin(r0 + qc, p.qlen));
+  p.down_row = r0 + qc - 1;
+  return p;
+}
+
+// The corner of a tile from its four words, and the four words a tile
+// hands to its right neighbour: the down-state in at its last column.
+PT_HD SegUp tile_corner(const int32_t* t) {
+  SegUp u;
+  u.h = t[0];
+  u.hp = Pay{t[1], t[2], t[3]};
+  return u;
+}
+
+template <int32_t kOut>
+PT_HD void tile_corner_out(const int32_t* down, int32_t cols, int32_t* t) {
+  const SegUp u = seg_up_load<kOut>(down, cols, cols - 1);
+  t[0] = u.h;
+  t[1] = u.hp.m;
+  t[2] = u.hp.s;
+  t[3] = u.hp.l;
 }
 
 #if !defined(__CUDACC__)
@@ -857,6 +924,10 @@ PT_HD bool seg_sweeps(const SegPair& p) {
 //   st_pay:      stats: its six payload rows, `pay_plane` apart
 //   acc:         its accumulator (8)
 //   trace:       trace form: the pair's (qp, rseg) flags of this segment
+//
+// The tile form (p.tile): `down` is the down-state, read above the tile's
+// first row and left holding the tile's last row; the state rows and
+// `trace` start at row p.row_lo; `t_in` / `t_out` are the corner words.
 template <int32_t kOut>
 inline PairResult segment_pair_host(const int32_t* rows, const int32_t* q,
                                     const int32_t* mq,
@@ -865,27 +936,32 @@ inline PairResult segment_pair_host(const int32_t* rows, const int32_t* q,
                                     int32_t* bottom, int32_t* st_h,
                                     int32_t* st_f, int32_t* st_pay,
                                     int64_t pay_plane, int32_t* acc,
-                                    int8_t* trace, int32_t warps = 1) {
+                                    int8_t* trace, int32_t warps = 1,
+                                    int32_t* down = nullptr,
+                                    const int32_t* t_in = nullptr,
+                                    int32_t* t_out = nullptr) {
   using O = Out<kOut>;
   constexpr int32_t W = SEG_LANES;
   SegBest total = seg_best_init(p);
+  if (p.tile) tile_corner_out<kOut>(down, rseg, t_out);
   if (seg_sweeps(p)) {
     std::vector<SegLane<kOut>> lanes(warps * W);
     std::vector<SegUp> old(warps * W);
     std::vector<SegUp> ring((int64_t)warps * SEG_RING);
     for (auto& L : lanes) L.best = seg_best_init(p);
-    SegUp carry = seg_corner(p);    // row -1's H left of the segment
+    // the row above's H left of the segment (or tile)
+    SegUp carry = p.tile ? tile_corner(t_in) : seg_corner(p);
     const int32_t group = warps * W;
-    for (int32_t i0 = 0; i0 < p.qlen; i0 += group) {
+    for (int32_t i0 = p.row_lo; i0 < p.row_hi; i0 += group) {
       for (int32_t k = 0; k < group; ++k)
         seg_row_begin(lanes[k], p, i0 + k, rows, q, mq, st_h, st_f, st_pay,
                       pay_plane, old[k]);
       for (int32_t k = 0; k < group; ++k)
         seg_row_diag(lanes[k], k == 0 ? carry : old[k - 1]);
       carry = old[group - 1];
-      const int32_t nrows = imin(group, p.qlen - i0);
+      const int32_t nrows = imin(group, p.row_hi - i0);
       const int32_t nw = (nrows + W - 1) / W;       // warps with rows
-      const bool feeds = i0 + group < p.qlen;       // a group follows
+      const bool feeds = i0 + group < p.row_hi;     // a group follows
       const int32_t total_steps = seg_group_steps(p.ncols, nw);
       for (int32_t g = 0; g < total_steps; ++g) {
         for (int32_t w = nw - 1; w >= 0; --w) {
@@ -900,22 +976,23 @@ inline PairResult segment_pair_host(const int32_t* rows, const int32_t* q,
               up = lanes[w * W + l - 1].out;
             } else if (w > 0) {
               up = ring[(int64_t)(w - 1) * SEG_RING + c % SEG_RING];
-            } else if (i0 == 0) {
-              up = seg_top(p, p.off + c);
+            } else if (i0 == p.row_lo) {
+              up = p.tile ? seg_up_load<kOut>(down, rseg, c)
+                          : seg_top(p, p.off + c);
             } else {
               up = seg_up_load<kOut>(bottom, rseg, c);
             }
             SegLane<kOut>& L = lanes[w * W + l];
             const int32_t r = ridx_seg[c];
             seg_cell(L, p, c, r, seg_score(L, p, r), up,
-                     O::trace ? trace + (int64_t)L.i * rseg : nullptr, st_h,
-                     st_f, st_pay, pay_plane);
-            if (l != W - 1) continue;
-            if (w < warps - 1) {
+                     O::trace ? trace + (int64_t)(L.i - p.row_lo) * rseg
+                              : nullptr,
+                     st_h, st_f, st_pay, pay_plane);
+            if (l == W - 1 && w < warps - 1)
               ring[(int64_t)w * SEG_RING + c % SEG_RING] = L.out;
-            } else if (feeds) {
+            if (l == W - 1 && w == warps - 1 && feeds)
               seg_up_store<kOut>(bottom, rseg, c, L.out);
-            }
+            if (L.i == p.down_row) seg_up_store<kOut>(down, rseg, c, L.out);
           }
         }
       }

@@ -1,7 +1,7 @@
 // Host build of the kernels' per-pair code (score_cell.cuh, walk_step.cuh)
 // for the CPU tests: the same score_batch_pair and walk_pair the CUDA
 // kernels run, one pair at a time, with the row scratch at stride 1, and
-// the segment kernel's lanes stepped in a loop (segment_pair_host).
+// the segment and tile kernels' lanes stepped in a loop (segment_pair_host).
 // Build with
 //   g++ -O2 -std=c++17 -shared -fPIC -o libptscore_host.so score_host.cc
 #include <stdint.h>
@@ -209,6 +209,71 @@ extern "C" int pt_segment_host(int out_class, const int32_t* subs,
       r = ptscore::segment_pair_host<ptscore::OUT_STATS>(
           rows, q, mqb, rseg, Rseg, p, mode, bottom.data(), sh, sf, sp,
           pay_plane, ac, tr, warps);
+    }
+    out[b] = r.score;
+    out[B + b] = r.end_query;
+    out[2 * B + b] = r.end_ref;
+    out[3 * B + b] = r.sat8;
+    out[4 * B + b] = r.sat16;
+    out[5 * B + b] = r.matches;
+    out[6 * B + b] = r.similar;
+    out[7 * B + b] = r.length;
+  }
+  return 0;
+}
+
+// One tile of the tile form (pt_scan_rowseg's arguments minus the stream,
+// same layouts): rows [r0, r0 + qc) by columns [off, off + C).  `down`
+// (B, 2, C), or (B, 8, C) for stats, is read above the tile and left
+// holding its last row; `st_h` / `st_f`
+// (B, qc), `st_pay` (6, B, qc) and `acc` (B, 8) are updated in place;
+// `out` is (8, B); `trace` (B, qc, C) arrives zero-filled; `t_in` /
+// `t_out` are (B, 4).  Returns -1 for another class.
+extern "C" int pt_rowseg_host(int out_class, const int32_t* subs,
+                              const int32_t* qidx, const int32_t* mq,
+                              const int32_t* ridx, const int32_t* qlen,
+                              const int32_t* rlen, int32_t* down,
+                              int32_t* st_h, int32_t* st_f, int32_t* st_pay,
+                              int32_t* acc, int32_t* out, int8_t* trace,
+                              const int32_t* t_in, int32_t* t_out, int B,
+                              int Bq, int Bm, int Qp, int C, int A, int open,
+                              int ext, int mode, int free_bits, int off,
+                              int r0, int qc, int warps) {
+  if ((out_class != ptscore::OUT_SCORE && out_class != ptscore::OUT_TRACE &&
+       out_class != ptscore::OUT_STATS) || warps < 1)
+    return -1;
+  const int64_t pay_plane = (int64_t)B * qc;
+  const int down_rows = out_class == ptscore::OUT_STATS ? 8 : 2;
+  std::vector<int32_t> bottom((int64_t)down_rows * C);
+  for (int b = 0; b < B; ++b) {
+    const ptscore::SegPair p = ptscore::tile_pair(
+        qlen[b], rlen[b], Qp, r0, qc, off, C, open, ext, mode, free_bits, A);
+    const int64_t bq = Bq == 1 ? 0 : b;
+    const int32_t* rows = qidx ? subs : subs + bq * Qp * A;
+    const int32_t* q = qidx ? qidx + bq * Qp : nullptr;
+    const int32_t* mqb = mq ? mq + (Bm == 1 ? 0 : (int64_t)b * Qp) : nullptr;
+    const int32_t* rseg = ridx + (int64_t)b * C;
+    int32_t* dn = down + (int64_t)b * down_rows * C;
+    int32_t* sh = st_h + (int64_t)b * qc;
+    int32_t* sf = st_f + (int64_t)b * qc;
+    int32_t* sp = st_pay ? st_pay + (int64_t)b * qc : nullptr;
+    int32_t* ac = acc + (int64_t)b * 8;
+    int8_t* tr = trace ? trace + (int64_t)b * qc * C : nullptr;
+    const int32_t* ti = t_in + (int64_t)b * 4;
+    int32_t* to = t_out + (int64_t)b * 4;
+    ptscore::PairResult r;
+    if (out_class == ptscore::OUT_SCORE) {
+      r = ptscore::segment_pair_host<ptscore::OUT_SCORE>(
+          rows, q, mqb, rseg, C, p, mode, bottom.data(), sh, sf, sp,
+          pay_plane, ac, tr, warps, dn, ti, to);
+    } else if (out_class == ptscore::OUT_TRACE) {
+      r = ptscore::segment_pair_host<ptscore::OUT_TRACE>(
+          rows, q, mqb, rseg, C, p, mode, bottom.data(), sh, sf, sp,
+          pay_plane, ac, tr, warps, dn, ti, to);
+    } else {
+      r = ptscore::segment_pair_host<ptscore::OUT_STATS>(
+          rows, q, mqb, rseg, C, p, mode, bottom.data(), sh, sf, sp,
+          pay_plane, ac, tr, warps, dn, ti, to);
     }
     out[b] = r.score;
     out[B + b] = r.end_query;

@@ -3,7 +3,7 @@ result objects."""
 
 from .aligner import Aligner, AlignerBuilder
 from .profile import Profile, ProfileBuilder
-from .result import Alignment, Table, Traceback, TracebackTable
+from .result import Alignment, SSWResult, Table, Traceback, TracebackTable
 
 __all__ = [
     "Aligner",
@@ -11,6 +11,7 @@ __all__ = [
     "Alignment",
     "Profile",
     "ProfileBuilder",
+    "SSWResult",
     "Table",
     "Traceback",
     "TracebackTable",

@@ -78,22 +78,35 @@ def _build() -> str | None:
     return None
 
 
+def _reset_after_fork() -> None:
+    # a child forked while another thread held the lock must not inherit
+    # it held; it loads (from the cache) again
+    global _lock, _lib, _tried
+    _lock = threading.Lock()
+    _lib = None
+    _tried = False
+
+
+os.register_at_fork(after_in_child=_reset_after_fork)
+
+
 def _load():
     global _lib, _tried
-    with _lock:
-        if _tried:
-            return _lib
-        _tried = True
-        if os.environ.get("PT_NATIVE_PACK", "1") == "0":
-            return None
+    if _tried:
+        return _lib
+    # no lock is held while g++ runs: threads racing on a cold cache both
+    # compile, and the second rename wins harmlessly
+    lib = None
+    path = None
+    if os.environ.get("PT_NATIVE_PACK", "1") != "0":
         path = _build()
-        if path is None:
-            return None
+    if path is not None:
         try:
             # PyDLL: calls hold the GIL (the functions touch PyObjects)
             lib = ctypes.PyDLL(path)
         except OSError:
-            return None
+            lib = None
+    if lib is not None:
         lib.pt_pack_lens.restype = ctypes.c_longlong
         lib.pt_pack_lens.argtypes = [
             ctypes.py_object, ctypes.c_int32, ctypes.c_void_p]
@@ -101,7 +114,9 @@ def _load():
         lib.pt_pack_fill.argtypes = [
             ctypes.py_object, ctypes.c_int32, ctypes.c_int32,
             ctypes.c_void_p]
-        _lib = lib
+    with _lock:
+        if not _tried:
+            _lib, _tried = lib, True
         return _lib
 
 

@@ -77,19 +77,32 @@ def _build() -> str | None:
     return None
 
 
+def _reset_after_fork() -> None:
+    # a child forked while another thread held the lock must not inherit
+    # it held; it loads (from the cache) again
+    global _lock, _lib, _tried
+    _lock = threading.Lock()
+    _lib = None
+    _tried = False
+
+
+os.register_at_fork(after_in_child=_reset_after_fork)
+
+
 def _load():
     global _lib, _tried
-    with _lock:
-        if _tried:
-            return _lib
-        _tried = True
-        path = _build()
-        if path is None:
-            return None
+    if _tried:
+        return _lib
+    # no lock is held while g++ runs: threads racing on a cold cache both
+    # compile, and the second rename wins harmlessly
+    lib = None
+    path = _build()
+    if path is not None:
         try:
             lib = ctypes.CDLL(path)
         except OSError:
-            return None
+            lib = None
+    if lib is not None:
         lib.pt_walk_trace.restype = ctypes.c_int
         lib.pt_walk_trace.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -120,7 +133,9 @@ def _load():
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p,
         ]
-        _lib = lib
+    with _lock:
+        if not _tried:
+            _lib, _tried = lib, True
         return _lib
 
 

@@ -160,6 +160,8 @@ def load() -> ctypes.CDLL:
             lib.pt_scan_outputs.argtypes = [i] + [p] * 11 + [i] * 10 + [p]
             lib.pt_scan_segment.restype = i
             lib.pt_scan_segment.argtypes = [i] + [p] * 13 + [i] * 13 + [p]
+            lib.pt_scan_rowseg.restype = i
+            lib.pt_scan_rowseg.argtypes = [i] + [p] * 16 + [i] * 14 + [p]
             lib.pt_trace_walk.restype = i
             lib.pt_trace_walk.argtypes = ([p] + [ll] * 3 + [p] * 6 +
                                           [i] * 7 + [p])

@@ -60,6 +60,20 @@ time.  On CUDA tensors it launches the kernel in ``csrc/scan_segment.cu``
 the launch in :data:`SEGMENT_LAUNCHES`; on CPU tensors it runs
 :func:`score_segment_plain`, the wavefront over the segment with a left
 boundary.  No fallback here either.
+
+:func:`score_rowseg` is the port of
+``parasail_rs_tpu.ops.scan_kernel.scan_rowseg_step`` (kernel K3): one
+TILE of the same sweep, query rows [``row_offset``, ``row_offset`` +
+``q_chunk``) by the columns of one reference shard, for the
+sequence-parallel fill of ``dist.seqpar_scan``.  State goes two ways:
+rightward to the tile of the next shard (``h``, ``f``, the stats
+payloads and the corner ``t``), downward to the next row chunk of the
+same shard (``down``: H and E of the tile's last row per column).  On
+CUDA tensors it launches the kernel in ``csrc/scan_rowseg.cu`` (the
+segment kernel's block in its tile form) and counts the launch in
+:data:`ROWSEG_LAUNCHES`; on CPU tensors it runs
+:func:`score_rowseg_plain`, the wavefront with a left boundary, a top
+boundary and a row offset.  No fallback.
 """
 
 from __future__ import annotations
@@ -109,6 +123,9 @@ SEGMENT_OUTPUTS = ("score", "stats", "trace")
 # 32 query rows; the tests and chip_smoke.py set it to check and to time a
 # given number.
 SEGMENT_WARPS = 0
+# Launches of the tile kernel (csrc/scan_rowseg.cu); only score_rowseg's
+# CUDA branch adds to it.  Its block takes SEGMENT_WARPS too.
+ROWSEG_LAUNCHES = 0
 
 
 def _free_bits(free) -> int:
@@ -596,11 +613,8 @@ def score_segment_plain(ridx_seg, qlen, rlen, state=None, *, open_, ext,
         ridx_seg, qlen, rlen, state, table, qidx, profile, mode, width,
         outputs, col_offset, resume)
     dev = ridx_seg.device
-    i32 = torch.int32
     open_, ext = int(open_), int(ext)
-    local = mode == "sw"
     stats = outputs == "stats"
-    qb, qe, db, de = (True,) * 4 if local else tuple(bool(x) for x in free)
     left = None
     if resume:
         left = {"h": state["h"], "f": state["f"]}
@@ -611,29 +625,62 @@ def score_segment_plain(ridx_seg, qlen, rlen, state=None, *, open_, ext,
         open_=open_, ext=ext, mode=mode, free=free, outputs=outputs,
         col_offset=int(col_offset), left=left, segment=True)
 
-    if resume:
-        acc = state["acc"]
-    else:
-        acc = torch.zeros((B, 8), dtype=i32, device=dev)
-        if not local:
-            acc[:, 0], acc[:, 1], acc[:, 2] = NEG_INF32, Qp, BIG
-    best, bi, bj = acc[:, 0], acc[:, 1], acc[:, 2]
-    sb, si, sj = seg["best"], seg["best_i"], seg["best_j"]
-    ahead = (sb > best) | ((sb == best) & (
-        (si < bi) | ((si == bi) & (sj < bj))))
-    pay = seg["best_pay"] if stats else torch.zeros((3, B), dtype=i32,
-                                                    device=dev)
-    acc = torch.stack([
-        torch.where(ahead, sb, best), torch.where(ahead, si, bi),
-        torch.where(ahead, sj, bj), torch.maximum(acc[:, 3], seg["hmax"]),
-        torch.minimum(acc[:, 4], seg["hmin"]),
-        *(torch.where(ahead, pay[k], acc[:, 5 + k]) for k in range(3)),
-    ], dim=1).to(i32).contiguous()
+    acc = merge_acc(state["acc"] if resume else acc_init(B, Qp, mode, dev),
+                    _sweep_acc(seg, stats))
     new_state = {"h": seg["h"].contiguous(), "f": seg["f"].contiguous(),
                  "acc": acc}
     if stats:
         new_state["stats"] = seg["pay"].contiguous()
+    out = acc_outputs(acc, qlen, rlen, Qp, open_=open_, ext=ext, mode=mode,
+                      free=free, width=width, outputs=outputs)
+    if outputs == "trace":
+        out["trace_table_seg"] = seg["trace_table"]
+    return out, new_state
 
+
+def acc_init(B, Qp, mode, device) -> torch.Tensor:
+    """The (B, 8) accumulator before any cell: SW's empty alignment, 0 at
+    (0, 0); otherwise no candidate, -2^30 at (Qp, 2^30)."""
+    acc = torch.zeros((B, 8), dtype=torch.int32, device=device)
+    if mode != "sw":
+        acc[:, 0], acc[:, 1], acc[:, 2] = NEG_INF32, Qp, BIG
+    return acc
+
+
+def _sweep_acc(seg, stats) -> torch.Tensor:
+    """A raw wavefront sweep (``segment=True``) as an accumulator."""
+    B = seg["best"].shape[0]
+    pay = seg["best_pay"] if stats else seg["best"].new_zeros((3, B))
+    return torch.stack([seg["best"], seg["best_i"], seg["best_j"],
+                        seg["hmax"], seg["hmin"], *pay],
+                       dim=1).to(torch.int32)
+
+
+def merge_acc(a, b) -> torch.Tensor:
+    """Two (B, 8) accumulators over disjoint cells -> the one over both:
+    the best cell ahead in the end cell's order (H descending, i
+    ascending, j ascending: cells arrive in neither row nor column order
+    over segments, tiles and shards) with its payload, the larger maximum
+    and the smaller minimum of H (``seg_merge`` in csrc/score_cell.cuh)."""
+    ahead = (b[:, 0] > a[:, 0]) | ((b[:, 0] == a[:, 0]) & (
+        (b[:, 1] < a[:, 1]) | ((b[:, 1] == a[:, 1]) & (b[:, 2] < a[:, 2]))))
+    out = torch.where(ahead[:, None], b, a)
+    out[:, 3] = torch.maximum(a[:, 3], b[:, 3])
+    out[:, 4] = torch.minimum(a[:, 4], b[:, 4])
+    return out.contiguous()
+
+
+def acc_outputs(acc, qlen, rlen, Qp, *, open_, ext, mode, free, width,
+                outputs) -> dict:
+    """The per-pair outputs read off a (B, 8) accumulator, as
+    :func:`score_align_plain` reads them off its sweep (``seg_finish`` in
+    csrc/score_cell.cuh): NW ends at (qlen - 1, rlen - 1), a non-local
+    pair with an empty side takes :func:`~.wavefront.empty_side`, decided
+    from the whole lengths, and the extremes give the saturation flags."""
+    i32 = torch.int32
+    open_, ext = int(open_), int(ext)
+    local = mode == "sw"
+    qb, qe, db, de = (True,) * 4 if local else tuple(bool(x) for x in free)
     score = acc[:, 0]
     eq, er = (qlen - 1, rlen - 1) if mode == "nw" else (acc[:, 1], acc[:, 2])
     pay = [acc[:, 5], acc[:, 6], acc[:, 7]]
@@ -645,8 +692,9 @@ def score_segment_plain(ridx_seg, qlen, rlen, state=None, *, open_, ext,
                                torch.zeros_like(c))
 
         score, eq, er, elen, empty = empty_side(
-            score, eq, er, qlen, rlen, Qp, int(rlen.max()) if B else 0,
-            border, qb, qe and mode == "sg", db, de and mode == "sg")
+            score, eq, er, qlen, rlen, Qp,
+            int(rlen.max()) if rlen.numel() else 0, border, qb,
+            qe and mode == "sg", db, de and mode == "sg")
         pay = [torch.where(empty, 0, pay[0]), torch.where(empty, 0, pay[1]),
                torch.where(empty, elen, pay[2])]
     hmax, hmin = acc[:, 3], acc[:, 4]
@@ -654,8 +702,224 @@ def score_segment_plain(ridx_seg, qlen, rlen, state=None, *, open_, ext,
         score.to(i32), eq.to(i32), er.to(i32),
         (hmax >= WIDTH_MAX["8"]) | (hmin <= WIDTH_MIN["8"]),
         (hmax >= WIDTH_MAX["16"]) | (hmin <= WIDTH_MIN["16"]), width)
-    if stats:
+    if outputs == "stats":
         out.update(zip(STATS_KEYS, (p.to(i32) for p in pay)))
-    if outputs == "trace":
-        out["trace_table_seg"] = seg["trace_table"]
-    return out, new_state
+    return out
+
+
+# -- the tile form (kernel K3) -------------------------------------------------
+
+
+def _borders(open_, ext, mode, free):
+    local = mode == "sw"
+    qb, _, db, _ = (True,) * 4 if local else tuple(bool(x) for x in free)
+    open_, ext = int(open_), int(ext)
+
+    def border(c, is_free):
+        if is_free:
+            return torch.zeros_like(c)
+        return torch.where(c > 0, -(open_ + (c - 1) * ext),
+                           torch.zeros_like(c))
+
+    return border, qb, db
+
+
+def rowseg_left_border(B, row_offset, q_chunk, *, open_, ext, mode, free,
+                       outputs, device) -> dict:
+    """The right-going state a tile of the FIRST column shard reads: the
+    bordered left column at rows [``row_offset``, ``row_offset`` +
+    ``q_chunk``), F = -2^30, and the corner H[row_offset - 1][-1] (the
+    reference's ``bstate``, dist/seqpar_scan.py:149-175).  No ``acc``."""
+    border, _, db = _borders(open_, ext, mode, free)
+    i32 = torch.int32
+    r0 = int(row_offset)
+    ig = torch.arange(r0, r0 + q_chunk, dtype=i32, device=device)
+    zeros = torch.zeros((B, q_chunk), dtype=i32, device=device)
+    t = torch.zeros((B, 4), dtype=i32, device=device)
+    t[:, 0] = border(torch.tensor(r0, dtype=i32, device=device), db)
+    state = {"h": border(ig + 1, db)[None].expand(B, q_chunk).contiguous(),
+             "f": torch.full_like(zeros, NEG_INF32), "t": t}
+    if outputs == "stats":
+        t[:, 3] = 0 if db else r0
+        hl = zeros if db else (ig + 1)[None].expand(B, q_chunk)
+        state["stats"] = torch.stack([zeros, zeros, hl, zeros, zeros, zeros])
+    return state
+
+
+def rowseg_top_border(B, col_offset, cols, *, open_, ext, mode, free,
+                      outputs, device) -> torch.Tensor:
+    """The down-state a tile of the FIRST row chunk reads, (B, 2 or 8,
+    cols): the top border H[-1][j] at columns [``col_offset``,
+    ``col_offset`` + ``cols``), E = -2^30, and for the stats class the
+    border's payload (0, 0, characters consumed unless free) and E's
+    zeros."""
+    border, qb, _ = _borders(open_, ext, mode, free)
+    i32 = torch.int32
+    jg = torch.arange(int(col_offset), int(col_offset) + cols, dtype=i32,
+                      device=device)
+    down = torch.zeros((B, 8 if outputs == "stats" else 2, cols), dtype=i32,
+                       device=device)
+    down[:, 0] = border(jg + 1, qb)
+    down[:, 1] = NEG_INF32
+    if outputs == "stats" and not qb:
+        down[:, 4] = jg + 1
+    return down
+
+
+def _check_rowseg(ridx_seg, qlen, rlen, state, down, table, qidx, profile,
+                  mode, width, outputs, row_offset, q_chunk, col_offset):
+    """Validate a tile call; return (B, Bq, Qp, C, A)."""
+    if outputs not in SEGMENT_OUTPUTS:
+        raise ValueError(f"outputs {outputs!r}: the tile form serves "
+                         f"{SEGMENT_OUTPUTS}")
+    dims = _check(ridx_seg, qlen, rlen, table, qidx, profile, mode, width,
+                  outputs)
+    B, _, Qp, C, _ = dims
+    r0, qc, off = int(row_offset), int(q_chunk), int(col_offset)
+    if C < 1:
+        raise ValueError("a tile needs at least one column")
+    if qc < 1 or r0 < 0 or r0 + qc > Qp:
+        raise ValueError(f"rows [{r0}, {r0 + qc}) lie outside the padded "
+                         f"query (Qp = {Qp})")
+    if not 0 <= off < 2 ** 31:
+        raise ValueError(f"col_offset {off}")
+    want = {"h": (B, qc), "f": (B, qc), "t": (B, 4), "acc": (B, 8)}
+    if outputs == "stats":
+        want["stats"] = (6, B, qc)
+    given = dict(state, down=down)
+    want["down"] = (B, 8 if outputs == "stats" else 2, C)
+    for name, shape in want.items():
+        t = given.get(name)
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.int32 or \
+                tuple(t.shape) != shape or t.device != ridx_seg.device or \
+                not t.is_contiguous():
+            where = "down" if name == "down" else f"state[{name!r}]"
+            raise ValueError(f"{where} must be a contiguous int32 {shape} "
+                             f"tensor on {ridx_seg.device}")
+    return dims
+
+
+def score_rowseg(ridx_seg, qlen, rlen, state, down, *, open_, ext, mode,
+                 free, width="32", outputs="score", row_offset, q_chunk,
+                 col_offset, table=None, qidx=None, profile=None):
+    """One tile of a sequence-parallel score, stats or trace fill: query
+    rows [``row_offset``, ``row_offset`` + ``q_chunk``) by the columns
+    [``col_offset``, ``col_offset`` + C) of ``ridx_seg`` (B, C).
+
+    ``qlen`` / ``rlen`` are the pairs' WHOLE lengths and the substitution
+    inputs :func:`score_align`'s over the whole padded query: the tile
+    reads its own rows of them.  Every border is given, none computed:
+
+    - ``state``: what the tile to the left returned, or for the first
+      shard :func:`rowseg_left_border`: ``h`` and ``f`` (B, q_chunk), H
+      and F of the tile's rows at the pair's last column so far; ``t``
+      (B, 4), the corner H[row_offset - 1][col_offset - 1] and its
+      payload; for the stats class ``stats`` (6, B, q_chunk); and ``acc``
+      (B, 8), the accumulator of THIS shard (:func:`acc_init` before its
+      first tile), which does not travel with the rest.
+    - ``down`` (B, 2 or 8, C): what the tile above on this shard
+      returned, or for the first row chunk :func:`rowseg_top_border`: H
+      and E of row ``row_offset`` - 1 per column (stats: and their
+      payloads).
+
+    Returns ``(out, state, down, trace_tile)``, all new tensors: the
+    state for the tile to the right (a pair with no column here keeps
+    what it was given; ``t`` is ``down`` as given at the last column),
+    ``acc`` folded with this tile's cells; ``down`` for the tile below
+    (the tile's last row where the pair has that row and the column,
+    the given value elsewhere); ``out``, the outputs read off ``acc`` as
+    :func:`acc_outputs` reads them; and for the trace class the tile's
+    (B, q_chunk, C) int8 flags, 0 outside each pair's cells, else None.
+    Tiles may run in any order that respects the two flows; the shards'
+    accumulators are merged by :func:`merge_acc`.
+    """
+    B, Bq, Qp, C, A = _check_rowseg(
+        ridx_seg, qlen, rlen, state, down, table, qidx, profile, mode, width,
+        outputs, row_offset, q_chunk, col_offset)
+    dev = ridx_seg.device
+    kw = dict(open_=open_, ext=ext, mode=mode, free=free, width=width,
+              outputs=outputs, row_offset=row_offset, q_chunk=q_chunk,
+              col_offset=col_offset, table=table, qidx=qidx, profile=profile)
+    if dev.type == "cpu":
+        return score_rowseg_plain(ridx_seg, qlen, rlen, state, down, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    global ROWSEG_LAUNCHES
+    from . import _build
+
+    lib = _build.load()
+    stats = outputs == "stats"
+    qc = int(q_chunk)
+    # the kernel works in place: on copies, so that what the caller gave
+    # (a message from another rank, a border) stays as it was
+    new = {k: state[k].clone() for k in ("h", "f", "acc")}
+    if stats:
+        new["stats"] = state["stats"].clone()
+    new["t"] = torch.empty((B, 4), dtype=torch.int32, device=dev)
+    new_down = down.clone()
+    bottom = torch.empty_like(down)       # scratch between groups of rows
+    out = torch.empty((8 if stats else 5, B), dtype=torch.int32, device=dev)
+    tile = (torch.zeros((B, qc, C), dtype=torch.int8, device=dev)
+            if outputs == "trace" else None)
+    subs = table if table is not None else profile
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        rc = lib.pt_scan_rowseg(
+            OUTPUTS.index(outputs), subs.data_ptr(),
+            qidx.data_ptr() if table is not None else None,
+            _ptr(qidx if stats else None), ridx_seg.data_ptr(),
+            qlen.data_ptr(), rlen.data_ptr(), bottom.data_ptr(),
+            new_down.data_ptr(), new["h"].data_ptr(), new["f"].data_ptr(), _ptr(new.get("stats")),
+            new["acc"].data_ptr(), out.data_ptr(), _ptr(tile),
+            state["t"].data_ptr(), new["t"].data_ptr(), B, Bq,
+            qidx.shape[0] if stats else 0, Qp, C, A, int(open_), int(ext),
+            MODES[mode], _free_bits(free), int(col_offset), int(row_offset),
+            qc, int(SEGMENT_WARPS), stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"scan_rowseg ({outputs}) kernel launch failed: CUDA error {rc}")
+    ROWSEG_LAUNCHES += 1
+    res = flag_outputs(out[0], out[1], out[2], out[3] != 0, out[4] != 0,
+                       width)
+    if stats:
+        res.update(zip(STATS_KEYS, out[5:8]))
+    return res, new, new_down, tile
+
+
+def score_rowseg_plain(ridx_seg, qlen, rlen, state, down, *, open_, ext,
+                       mode, free, width="32", outputs="score", row_offset,
+                       q_chunk, col_offset, table=None, qidx=None,
+                       profile=None):
+    """Plain PyTorch version of :func:`score_rowseg`, same signature and
+    outputs: the wavefront (:func:`~.wavefront.wavefront_align` with
+    ``segment=True`` and ``top``) over the tile's rows and columns, from
+    the given left column, row above and corner; the tile's first
+    maximum is folded into the shard's accumulator by :func:`merge_acc`."""
+    B, Bq, Qp, C, A = _check_rowseg(
+        ridx_seg, qlen, rlen, state, down, table, qidx, profile, mode, width,
+        outputs, row_offset, q_chunk, col_offset)
+    stats = outputs == "stats"
+    r0, qc = int(row_offset), int(q_chunk)
+    rows = slice(r0, r0 + qc)
+    qx = None if qidx is None else qidx[:, rows]
+    left = {"h": state["h"], "f": state["f"]}
+    if stats:
+        left["pay"] = state["stats"]
+    seg = wavefront_align(
+        _substitution_rows(table, qx,
+                           None if profile is None else profile[:, rows]),
+        qx, ridx_seg, qlen, rlen, open_=int(open_), ext=int(ext), mode=mode,
+        free=free, outputs=outputs, col_offset=int(col_offset), left=left,
+        segment=True, row_offset=r0, top=down, corner=state["t"],
+        qp_total=Qp)
+    acc = merge_acc(state["acc"], _sweep_acc(seg, stats))
+    last = down[:, :, C - 1]
+    new = {"h": seg["h"].contiguous(), "f": seg["f"].contiguous(),
+           "t": torch.cat([last[:, :1], last[:, 2:5] if stats
+                           else last.new_zeros((B, 3))], dim=1).contiguous(),
+           "acc": acc}
+    if stats:
+        new["stats"] = seg["pay"].contiguous()
+    out = acc_outputs(acc, qlen, rlen, Qp, open_=open_, ext=ext, mode=mode,
+                      free=free, width=width, outputs=outputs)
+    return out, new, seg["down"], seg.get("trace_table")

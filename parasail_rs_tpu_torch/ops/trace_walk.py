@@ -12,6 +12,15 @@ in ``csrc/trace_walk.cu`` (one thread per pair, the state machine of
 CPU tensors it runs :func:`device_walk_plain`.  There is no fallback
 between the two: a build, launch or shape failure raises.
 
+The reference's ``device_walk_stats`` (matches, similar and length
+counted along the path) is not ported.  Its only callers are the
+reference's ``trace_walk`` routes for stats at gap_open <= gap_extend
+(``engine/dispatch.py`` and ``dist/sharded.py``), which exist because its
+one-pass stats kernel cannot serve those penalties.  The port's stats
+kernels (one-shot, segment and tile forms) follow golden's payload ties
+literally and serve every penalty pair in one pass, and no module of the
+port, ``dist.sharded`` included, has such a route.
+
 ``OP_*``, ``_OP_TO_CIGAR`` and the ``ops_to_runs*`` encoders are numpy
 only and copied from the reference module (which cannot be imported
 without jax); ``tests/test_torch_trace_walk.py`` holds them equal.

@@ -117,7 +117,8 @@ def _shift1(x, fill):
 
 def wavefront_align(profile, qidx, ridx, qlen, rlen, *, open_, ext, mode,
                     free, outputs, width="32", banded=False, bandwidth=0,
-                    col_offset=0, left=None, segment=False) -> dict:
+                    col_offset=0, left=None, segment=False, row_offset=0,
+                    top=None, corner=None, qp_total=None) -> dict:
     """Run the batched wavefront fill; return a dict of tensors on the
     inputs' device.
 
@@ -151,6 +152,18 @@ def wavefront_align(profile, qidx, ridx, qlen, rlen, *, open_, ext, mode,
     (each pair's last column in the segment, rows below ``qlen``; a pair
     with no column here keeps ``left``'s), and the trace class's
     ``trace_table``.
+
+    ``top`` (with ``segment=True``) fills one TILE of a sequence-parallel
+    fill (the plain version of the tile kernel,
+    ``scan_kernel.score_rowseg``): ``profile`` / ``qidx`` hold query rows
+    [``row_offset``, ``row_offset`` + Qp) of the pairs, ``qlen`` stays
+    their whole length, ``left`` is required and holds those rows, and
+    the row above the tile is read, not computed: ``top`` (B, 2 or 8, Rp)
+    holds per column H and E of row ``row_offset`` - 1 (stats: then the
+    payloads of H and of E), ``corner`` (B, 4) H and its payload left of
+    that row.  The raw sweep then has ``best_i`` as a global row
+    (``qp_total`` if none) and ``down``, ``top``'s layout: the tile's last
+    row where the pair has it, ``top`` elsewhere.
     """
     dev = ridx.device
     i32 = torch.int32
@@ -167,7 +180,12 @@ def wavefront_align(profile, qidx, ridx, qlen, rlen, *, open_, ext, mode,
     neg = NEG_INF32
     open_, ext, bw = int(open_), int(ext), int(bandwidth)
     off = int(col_offset)
+    r0 = int(row_offset)
     ivec = torch.arange(Qp, dtype=i32, device=dev)
+    ig = ivec + r0                      # the lanes' global rows
+    tile = top is not None
+    if tile:
+        down = top.clone()
 
     def border(c, is_free):             # H[0][c] / H[c][0], golden's
         base = torch.where(c > 0, -(open_ + (c - 1) * ext), 0).to(i32)
@@ -193,9 +211,9 @@ def wavefront_align(profile, qidx, ridx, qlen, rlen, *, open_, ext, mode,
 
     # the column left of the segment: carried, or the bordered left column
     if left is None:
-        left_h = boundary(ivec + 1, db)[None].expand(B, Qp)
+        left_h = boundary(ig + 1, db)[None].expand(B, Qp)
         left_f = full(neg)
-        left_p = [full(0), full(0), blen(ivec + 1, db)[None].expand(B, Qp),
+        left_p = [full(0), full(0), blen(ig + 1, db)[None].expand(B, Qp),
                   full(0), full(0), full(0)]
     else:
         left_h, left_f = left["h"], left["f"]
@@ -224,7 +242,7 @@ def wavefront_align(profile, qidx, ridx, qlen, rlen, *, open_, ext, mode,
     for d in range(D):
         jvec = d - ivec                                   # (Qp,)
         on_diag = ((jvec >= 0) & (jvec < Rp))[None, :]
-        in_seq = on_diag & (ivec[None, :] < qlen_c) & (jvec[None, :] < rlen_c)
+        in_seq = on_diag & (ig[None, :] < qlen_c) & (jvec[None, :] < rlen_c)
         rd = ridx[:, jvec.clamp(0, Rp - 1)]
         rd = torch.where(on_diag, rd, 0)
         rok = (rd >= 0) & (rd < A)
@@ -233,13 +251,26 @@ def wavefront_align(profile, qidx, ridx, qlen, rlen, *, open_, ext, mode,
         i0 = (ivec == 0)[None, :]
         j0 = (jvec == 0)[None, :]
 
-        h_up = torch.where(i0, boundary(jvec + off + 1, qb)[None],
-                           _shift1(H1, 0))
-        e_up = torch.where(i0, neg, _shift1(E1, 0))
+        if tile:
+            # row 0 of the tile is lane 0, at column d: what it reads from
+            # the row above is `top` at columns d and d - 1 (the corner)
+            t_at = top[:, :, min(d, Rp - 1)]
+            t_dg = corner if d == 0 else torch.cat(
+                [top[:, :1, min(d - 1, Rp - 1)],
+                 (top[:, 2:5, min(d - 1, Rp - 1)] if want_stats
+                  else top.new_zeros((B, 3)))], dim=1)
+            top_h, top_e = t_at[:, :1], t_at[:, 1:2]
+            top_hd = t_dg[:, :1]
+        else:
+            top_h = boundary(jvec + off + 1, qb)[None]
+            top_e = neg
+            top_hd = boundary(jvec + off, qb)[None]
+        h_up = torch.where(i0, top_h, _shift1(H1, 0))
+        e_up = torch.where(i0, top_e, _shift1(E1, 0))
         h_left = torch.where(j0, left_h, H1)
         f_left = torch.where(j0, left_f, F1)
         h_diag = torch.where(
-            i0, boundary(jvec + off, qb)[None],
+            i0, top_hd,
             torch.where(j0, _shift1(left_h, 0), _shift1(H2, 0)))
 
         e_open, e_ext = h_up - open_, e_up - ext
@@ -267,14 +298,20 @@ def wavefront_align(profile, qidx, ridx, qlen, rlen, *, open_, ext, mode,
         F1 = torch.where(on_diag, F, F1)
 
         if want_stats:
-            top_l = blen(jvec + off + 1, qb)[None]
-            up = [torch.where(i0, 0, _shift1(Hp1[0], 0)),
-                  torch.where(i0, 0, _shift1(Hp1[1], 0)),
-                  torch.where(i0, top_l, _shift1(Hp1[2], 0))]
-            eup = [torch.where(i0, 0, _shift1(x, 0)) for x in Ep1]
+            if tile:
+                top_u = [t_at[:, 2 + k:3 + k] for k in range(3)]
+                top_eu = [t_at[:, 5 + k:6 + k] for k in range(3)]
+                top_d = [t_dg[:, 1 + k:2 + k] for k in range(3)]
+            else:
+                top_u = [0, 0, blen(jvec + off + 1, qb)[None]]
+                top_eu = [0, 0, 0]
+                top_d = [0, 0, blen(jvec + off, qb)[None]]
+            up = [torch.where(i0, t, _shift1(x, 0))
+                  for t, x in zip(top_u, Hp1)]
+            eup = [torch.where(i0, t, _shift1(x, 0))
+                   for t, x in zip(top_eu, Ep1)]
             lft = [torch.where(j0, lp, x) for lp, x in zip(left_p[:3], Hp1)]
             fleft = [torch.where(j0, lp, x) for lp, x in zip(left_p[3:], Fp1)]
-            top_d = [0, 0, blen(jvec + off, qb)[None]]
             dg = [torch.where(i0, t, torch.where(j0, _shift1(lp, 0),
                                                  _shift1(x, 0)))
                   for t, lp, x in zip(top_d, left_p[:3], Hp2)]
@@ -295,6 +332,12 @@ def wavefront_align(profile, qidx, ridx, qlen, rlen, *, open_, ext, mode,
 
         hs = torch.where(in_seq, H, 0)
         hmax, hmin = hs.amax(dim=1), hs.amin(dim=1)
+        jl = d - (Qp - 1)               # the last lane's column
+        if tile and 0 <= jl < Rp:
+            vals = [H, E] + (Hp + Ep if want_stats else [])
+            new = torch.stack([v[:, Qp - 1] for v in vals], dim=1)
+            down[:, :, jl] = torch.where(in_seq[:, Qp - 1:], new,
+                                         down[:, :, jl])
         if segment:
             hmax_t = torch.maximum(hmax_t, hmax)
             hmin_t = torch.minimum(hmin_t, hmin)
@@ -307,7 +350,7 @@ def wavefront_align(profile, qidx, ridx, qlen, rlen, *, open_, ext, mode,
         sat8 |= (hmax >= WIDTH_MAX["8"]) | (hmin <= WIDTH_MIN["8"])
         sat16 |= (hmax >= WIDTH_MAX["16"]) | (hmin <= WIDTH_MIN["16"])
 
-        last_row = ivec[None, :] == qlen_c - 1
+        last_row = ig[None, :] == qlen_c - 1
         last_col = jvec[None, :] == rlen_c - 1
         if local:
             cand = in_seq & (H > 0)
@@ -365,7 +408,9 @@ def wavefront_align(profile, qidx, ridx, qlen, rlen, *, open_, ext, mode,
     if segment:
         none = best <= neg
         out = {"best": best,
-               "best_i": torch.where(none, Qp, best_i),
+               "best_i": torch.where(
+                   none, Qp if qp_total is None else int(qp_total),
+                   best_i + r0),
                "best_j": torch.where(none, 1 << 30, best_j + off),
                "hmax": hmax_t, "hmin": hmin_t, "h": st_h, "f": st_f}
         if want_stats:
@@ -374,6 +419,8 @@ def wavefront_align(profile, qidx, ridx, qlen, rlen, *, open_, ext, mode,
         if want_trace:
             out["trace_table"] = _undiagonalise(slabs, 0, B, Qp, Rp, dev,
                                                 torch.int8)
+        if tile:
+            out["down"] = down
         return out
     stats = best_p if want_stats else None
     if mode == "nw":

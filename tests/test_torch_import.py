@@ -33,6 +33,34 @@ qs, rs = [b"HEAGAWGHEE", b"MKVLAT"], [b"PAWHEAE", b"MKVINLAT"]
 got = [r.get_score() for r in a.align_batch(qs, rs)]
 want = [golden.align_seqs(q, r, m, 11, 1, "sw").score for q, r in zip(qs, rs)]
 assert got == want, (got, want)
+
+# the dist layer: virtual shards of one CPU device, and a mesh of one rank
+import numpy as np
+from parasail_rs_tpu_torch import dist, prelude
+from parasail_rs_tpu_torch.dist import multihost, sharded
+from parasail_rs_tpu_torch.engine.profile import profile_rows
+
+B, Qp, Rp = 2, 16, 16
+prof = np.zeros((B, Qp, m.size), np.int32)
+qidx = np.full((B, Qp), -1, np.int32)
+ridx = np.zeros((B, Rp), np.int32)
+for b, (q, r) in enumerate(zip(qs, rs)):
+    qi, ri = m.encode(q), m.encode(r)
+    prof[b, :len(qi)], qidx[b, :len(qi)] = profile_rows(m, qi), qi
+    ridx[b, :len(ri)] = ri
+lens = (np.array([len(q) for q in qs], np.int32),
+        np.array([len(r) for r in rs], np.int32))
+kw = dict(open_=11, ext=1, mode="sw", free=(True,) * 4, device="cpu")
+mesh = dist.make_device_mesh(2)
+out = dist.seqpar_align_scan(prof, ridx, *lens, qidx, mesh=mesh, q_chunk=8,
+                             outputs="stats", **kw)
+assert out["score"].tolist() == want, out["score"]
+out = dist.seqpar_align(prof.transpose(1, 2, 0), ridx.T, *lens, mesh=mesh,
+                        q_chunk=4, **kw)
+assert out["score"].tolist() == want, out["score"]
+res = sharded.gather_scores(dist.sharded_align(
+    mesh, prof, qidx, ridx, *lens, outputs="score", **kw))
+assert res["score"].tolist() == want and prelude.Aligner is pt.Aligner
 bad = sorted(k for k in sys.modules
              if k in ("jax", "parasail_rs_tpu")
              or k.startswith(("jax.", "jaxlib", "triton", "parasail_rs_tpu.")))
@@ -64,20 +92,53 @@ COPIED = ["constants.py", "errors.py",
           "ops/specs.py", "engine/profile.py", "engine/result.py"]
 
 
+# what the port's two native loaders set for themselves: where the build
+# is cached (``_lib_dir``), and a ``_load`` that runs g++ with no lock held
+# and starts over after a fork (``_reset_after_fork`` and its registration)
+NATIVE_OWN = ("_lib_dir", "_load", "_reset_after_fork")
+
+
+def _is_native_loader(path: str) -> bool:
+    return (os.path.basename(os.path.dirname(path)) == "native"
+            and os.path.basename(path) in ("packer.py", "walker.py"))
+
+
+def _is_fork_hook(node) -> bool:
+    return (isinstance(node, ast.Expr)
+            and ast.unparse(node.value).startswith("os.register_at_fork("))
+
+
 def _without_imports(path: str) -> list[str]:
     """Source lines of a module with every import statement set aside,
-    and the native loaders' ``_lib_dir`` (the build's cache directory, the
-    one thing the port's copies set for themselves)."""
+    and, in the native loaders, the definitions of :data:`NATIVE_OWN`."""
     with open(path) as f:
         src = f.read()
+    tree = ast.parse(src)
+    native = _is_native_loader(path)
     drop = set()
-    for node in ast.walk(ast.parse(src)):
+    for node in ast.walk(tree):
         if isinstance(node, (ast.Import, ast.ImportFrom)) or (
-                isinstance(node, ast.FunctionDef)
-                and node.name == "_lib_dir"
-                and os.path.basename(os.path.dirname(path)) == "native"):
+                native and isinstance(node, ast.FunctionDef)
+                and node.name in NATIVE_OWN):
             drop.update(range(node.lineno, node.end_lineno + 1))
-    return [ln for n, ln in enumerate(src.splitlines(), 1) if n not in drop]
+    if native:
+        for node in tree.body:
+            if _is_fork_hook(node):
+                drop.update(range(node.lineno, node.end_lineno + 1))
+    lines = [ln for n, ln in enumerate(src.splitlines(), 1) if n not in drop]
+    # blank lines around a dropped definition are not a difference
+    return [ln for ln in lines if ln.strip()] if native else lines
+
+
+def _load_declarations(path: str) -> list[str]:
+    """The C signatures a native loader's ``_load`` declares."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    load = next(n for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name == "_load")
+    return [ast.unparse(n) for n in ast.walk(load)
+            if isinstance(n, ast.Assign)
+            and ast.unparse(n.targets[0]).startswith("lib.")]
 
 
 @pytest.mark.parametrize("rel", COPIED)
@@ -85,6 +146,36 @@ def test_copied_module_matches_original(rel):
     got = _without_imports(os.path.join(PORT, rel))
     want = _without_imports(os.path.join(ROOT, "parasail_rs_tpu", rel))
     assert got == want
+    if _is_native_loader(os.path.join(PORT, rel)):
+        # the loaders differ in how _load locks, not in what it declares
+        decl = _load_declarations(os.path.join(PORT, rel))
+        assert decl and decl == _load_declarations(
+            os.path.join(ROOT, "parasail_rs_tpu", rel))
+
+
+@pytest.mark.parametrize("mod", ["packer", "walker"])
+def test_native_loader_builds_outside_its_lock(mod):
+    # the compiler runs with no lock held, and a forked child starts over
+    import importlib
+
+    m = importlib.import_module(f"parasail_rs_tpu_torch.native.{mod}")
+    with open(m.__file__) as f:
+        tree = ast.parse(f.read())
+    load = next(n for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name == "_load")
+    for node in ast.walk(load):
+        if isinstance(node, ast.With):
+            assert "_build" not in ast.unparse(node)
+    assert any(_is_fork_hook(n) for n in tree.body)
+    held = m._lock
+    held.acquire()
+    try:
+        m._reset_after_fork()
+        assert m._lock is not held and not m._lock.locked()
+        assert m._lib is None and m._tried is False
+        assert m.available() in (True, False)      # loads again, no deadlock
+    finally:
+        held.release()
 
 
 @pytest.mark.parametrize("rel", ["native/ptpack.cc", "native/ptwalk.cc"])
@@ -103,9 +194,11 @@ def test_native_builds_cache_under_the_port():
         assert os.path.dirname(mod._SRC) == os.path.join(PORT, "native")
 
 
+# the port's own sources; `_build/` holds what was built, not the package
 PORT_FILES = sorted(
-    os.path.relpath(p, PORT)
-    for p in glob.glob(os.path.join(PORT, "**", "*.py"), recursive=True))
+    rel for rel in (os.path.relpath(p, PORT) for p in glob.glob(
+        os.path.join(PORT, "**", "*.py"), recursive=True))
+    if not rel.startswith("_build" + os.sep))
 
 
 @pytest.mark.parametrize("rel", PORT_FILES + ["../chip_smoke.py"])
