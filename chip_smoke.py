@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the kernels from ``parasail_rs_tpu_torch/csrc`` with nvcc and
-runs twenty-four phases on ``cuda``; any failure raises and the script exits
+runs twenty-seven phases on ``cuda``; any failure raises and the script exits
 non-zero without printing a result:
 
 1. build: the library's path, build time and each kernel's registers;
@@ -146,7 +146,36 @@ non-zero without printing a result:
    end) beside the segment kernel's two launches on the same pairs, one
    tile of each class at the main path's shape beside its plain version
    (whose outputs it must equal there too), the stats and trace classes
-   at 4,096 bp, and the peak device memory.
+   at 4,096 bp, and the peak device memory;
+25. chunked sweep vs plain: ``score_chunked`` (kernel K1f, the block
+   kernel over all of a pair's columns) against the one-thread-per-pair
+   ``score_align`` for all seven classes x NW, the nine SG free-end sets
+   and SW x 11/1, 2/2 and 1/3, on 64 pairs of 0-600 by 0-200 letters at
+   Qp = 608 (one to three groups of 256 rows, empty sides, ragged
+   stripes), 1, 3 and 8 warps and the launcher's pick, and against
+   ``score_align_plain`` in every class and mode (one penalty pair each,
+   in turn); then every class on 16 pairs at 3,072 x 96 against both:
+   exact equality of every scalar, plane cell, row and column;
+26. the long one-shot path through the public API, counted from zero, on
+   the long mixed batch (120 DNA pairs of 1,024-4,096 bp and 8 of 50-200
+   bp, Qp = Rp = 4,096): ``align_cigars`` at SW 5/1 and SG 11/1,
+   ``ssw_batch``, ``use_last_rowcol()`` with and without stats, and
+   ``use_table()`` with and without stats on 16 of the pairs (the stats
+   classes also at 2,048 bp).  Every batch of long pairs must take
+   "cuda_chunked" (only the short pairs' bins one thread per pair, which
+   a recorder of its launches checks), the chunked sweep must launch;
+   CIGARs and scalars must equal ``use_trace()`` + ``cigars()`` on the
+   segment route, SSW ``align_cigars``, planes, rows and columns the
+   one-thread-per-pair kernel's (4,096 bp; the stats classes at 2,048),
+   the rowcol form on 4 of the pairs at Qp = Rp = 4,096 ``score_align_plain``,
+   and the short pairs golden;
+27. timings of the chunked sweep, beside the card's name and power limit:
+   each class against the one-thread-per-pair kernel at 128 x 4,096 (the
+   tables 16 x 4,096), 128 x 1,024 and 128 x 3,072 x 96, and below the
+   route's thresholds at 128 x 512 x 512 and 128 x 2,048 x 96, with the
+   peak device memory of one call; the score class on the headline batch; the trace class on the long mixed batch
+   beside its plain version; ``align_cigars`` of that batch end to end
+   with its stage clocks and peak memory; the forms' registers.
 
 The line before the last is the card's name and power limit, the one
 before it a JSON summary of every kernel (launches on its main path,
@@ -159,6 +188,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -507,6 +537,12 @@ def main() -> int:
 
     dev = torch.device("cuda")
     card = card_info()
+    start = time.perf_counter()
+
+    def clock(phases):
+        log(f"[clock] phases {phases} done, {time.perf_counter() - start:.1f}"
+            f" s since the start")
+
     log(f"card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
@@ -640,18 +676,27 @@ def main() -> int:
     log(f"[5 timing] profile vs 16384 refs e2e median {prof_ms} ms; "
         f"NW 150 bp single pair median {nw_ms} ms [{card}]")
 
+    clock("1-5")
     trace = trace_path(torch, pt, tk, tw, dispatch, golden, stages, rng,
                        blosum, card)
     planes = stats_path(torch, pt, tk, tw, dispatch, golden, stages, rng,
                         blosum, card, (qs, rs), trace["cfg4b"])
     banded = banded_path(torch, pt, tk, dispatch, golden, stages, rng, blosum,
                          card, (qs, rs))
+    clock("6-15")
     long_k1 = many_path(torch, pt, tk, tw, dispatch, golden, stages, rng,
                         blosum, card, (qs, rs))
+    clock("16-17")
     segments = segment_path(torch, pt, tk, tw, dispatch, golden, stages, rng,
                             card, (head_args, head_kw), long_k1)
+    pairs = segments.pop("pairs")
+    clock("18-20")
     tiles = dist_path(torch, pt, tk, dispatch, golden, rng, card, (qs, rs),
-                      sw, segments.pop("pairs"))
+                      sw, pairs)
+    clock("21-24")
+    chunked = chunked_path(torch, pt, tk, tw, dispatch, golden, stages, rng,
+                           card, pairs, (head_args, head_kw))
+    clock("25-27")
 
     print(json.dumps({"kernels": [{
         "name": "scan_score_align",
@@ -699,7 +744,13 @@ def main() -> int:
         "source": "parasail_rs_tpu_torch/csrc/scan_rowseg.cu",
         "replaces": "parasail_rs_tpu/ops/scan_kernel.py:1877",
         **tiles[cls],
-    } for cls in ("score", "stats", "trace")]}), flush=True)
+    } for cls in ("score", "stats", "trace")] + [{
+        "name": "scan_score_align, query in row chunks (K1f)",
+        "route": "cuda",
+        "source": "parasail_rs_tpu_torch/csrc/scan_chunked.cu",
+        "replaces": "parasail_rs_tpu/ops/scan_kernel.py:1453",
+        **chunked,
+    }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1255,10 +1306,11 @@ def check_fields(name, got, want) -> None:
                 raise AssertionError(f"{name}: pair {b} {k} differs")
 
 
-def merged_cigar(walk) -> str:
-    """golden's walk as SSW's CIGAR: '=' and 'X' merged into 'M'."""
+def merged_cigar(ops) -> str:
+    """A CIGAR's (count, op) runs, a golden walk's ``ops`` or a parsed
+    string, as SSW's CIGAR: '=' and 'X' merged into 'M'."""
     runs: list = []
-    for n, op in walk.ops:
+    for n, op in ops:
         op = "M" if op in "=X" else op
         if runs and runs[-1][1] == op:
             runs[-1][0] += n
@@ -1377,7 +1429,7 @@ def many_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum, card,
         w = golden.walk_trace(g.trace_table, qs[b], rs[b], g.end_query,
                               g.end_ref, "sw")
         want = (g.score, w.beg_query, g.end_query, w.beg_ref, g.end_ref,
-                merged_cigar(w))
+                merged_cigar(w.ops))
         if got[0][b] != want:
             raise AssertionError(f"ssw pair {b}: {got[0][b]} != golden "
                                  f"{want}")
@@ -1468,6 +1520,7 @@ def segment_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
 
     # -- 18. segment kernel vs plain ---------------------------------------------
+    t18 = time.perf_counter()
     B, Qp, Rp, A = 64, 100, 200, 5
     modes = ([("nw", F4)] + [("sg", f) for f in SG_FREE] +
              [("sw", (True,) * 4)])
@@ -1514,6 +1567,7 @@ def segment_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
         log(f"[18 segment vs plain] {mode}{tuple(int(x) for x in free)}: "
             f"score, stats and trace at 11/1, 2/2, 1/3 in 2-5 segments, 1-8 "
             f"warps a pair, equal to plain and to the one-shot kernel")
+    log(f"[18 segment vs plain] {time.perf_counter() - t18:.1f} s")
 
     # -- 19. the long-pair path through the public API ---------------------------
     q6 = random_seqs(rng, DNA, 128, CFG6_LEN, CFG6_LEN)  # cfg6, full width
@@ -2142,6 +2196,432 @@ def dist_path(torch, pt, tk, dispatch, golden, rng, card, protein, sw,
                             "8 warps a pair at this shape",
                     "path_ms": chain6 if cls == "score" else path_ms, **b}
     return out
+
+
+def check_planes(name, alignments, want, keys) -> None:
+    """Each alignment's ``keys`` fields (host slices of its planes, rows,
+    columns and scalars) against pair b of ``want`` (a score_align dict on
+    the card), over the pair's cells."""
+    host = {k: want[k].cpu().numpy() for k in keys}
+    for b, a in enumerate(alignments):
+        ql, rl = a.query_len, a.ref_len
+        for k in keys:
+            v = host[k][b]
+            if k.endswith("_table"):
+                v = v[:ql, :rl]
+            elif k.endswith("_row"):
+                v = v[:rl]
+            elif k.endswith("_col"):
+                v = v[:ql]
+            if not np.array_equal(np.asarray(a.fields[k]), v):
+                raise AssertionError(f"{name}: pair {b} {k} differs from the "
+                                     "one-thread-per-pair kernel")
+
+
+def chunked_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
+                 pairs, head) -> dict:
+    """Phases 25-27, the chunked sweep (kernel K1f) and the long one-shot
+    path; ``head`` is the headline batch's (args, kwargs).  Returns its
+    entry of the kernels line."""
+    from parasail_rs_tpu_torch.ops import _build
+
+    dev = torch.device("cuda")
+    classes = tk.OUTPUTS
+    err = 0
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    # -- 25. chunked sweep vs plain and the one-thread-per-pair kernel ----------
+    t25 = time.perf_counter()
+    B, Qp, Rp, A = 64, 608, 200, 5
+    modes = ([("nw", F4)] + [("sg", f) for f in SG_FREE] +
+             [("sw", (True,) * 4)])
+    n = 0
+    for mi, (mode, free) in enumerate(modes):
+        for pi, (open_, ext) in enumerate(((11, 1), (2, 2), (1, 3))):
+            for ci, cls in enumerate(classes):
+                warps = (1, 3, 8, 0)[n % 4]         # 0: the launcher's pick
+                n += 1
+                ql = rng.integers(0, 601, size=B)
+                rl = rng.integers(0, Rp + 1, size=B)
+                # empty sides; the last row in the first, second and third
+                # group of 256 rows, on a stripe's edge and inside one
+                ql[:8] = (0, 5, 600, 255, 256, 257, 513, 300)
+                rl[:8] = (7, 0, Rp, 64, 65, Rp, 1, 129)
+                kw = dict(open_=open_, ext=ext, mode=mode, free=free,
+                          outputs=cls, width="sat",
+                          table=t(rng.integers(-4, 6, size=(A, A))),
+                          qidx=t(rng.integers(0, A, size=(B, Qp))))
+                args = (t(rng.integers(0, A, size=(B, Rp))), t(ql), t(rl))
+                tk.SEGMENT_WARPS = warps
+                got = tk.score_chunked(*args, **kw)
+                tk.SEGMENT_WARPS = 0
+                e = max_abs_diff(got, tk.score_align(*args, **kw))
+                # the plain version (the wavefront for five classes) on
+                # every class and mode, one penalty pair each in turn
+                if (mi + ci) % 3 == pi:
+                    e = max(e, max_abs_diff(
+                        got, tk.score_align_plain(*args, **kw)))
+                torch.cuda.synchronize()
+                if e != 0:
+                    raise AssertionError(
+                        f"chunked sweep != one-shot kernel or plain on {cls} "
+                        f"{mode}{tuple(int(x) for x in free)} {open_}/{ext} "
+                        f"warps {warps}: max |diff| {e}")
+        log(f"[25 chunked vs plain] {mode}{tuple(int(x) for x in free)}: the "
+            f"seven classes at 11/1, 2/2, 1/3, {B} pairs of 0-600 x 0-{Rp} "
+            f"(Qp={Qp}: up to three groups of 256 rows), 1-8 warps a pair, "
+            f"equal to the one-thread-per-pair kernel; every class at one "
+            f"penalty pair in turn equal to plain")
+    tall_q = [int(x) for x in rng.integers(2049, 3073, size=12)] + \
+        [0, 1, 33, 100]
+    tall_q[0] = 3072
+    tall_r = [int(x) for x in rng.integers(1, 97, size=16)]
+    tall_r[0], tall_r[13] = 96, 0
+    m = pt.Matrix.default()
+    tall = (random_seqs_of(rng, DNA, tall_q), random_seqs_of(rng, DNA,
+                                                             tall_r))
+    targs, tsubs = pack_table(torch, dev, m, *tall, 3072)
+    targs = (targs[0][:, :96].contiguous(), *targs[1:])
+    for cls in classes:
+        kw = dict(open_=5, ext=1, mode="sw", free=(True,) * 4, width="sat",
+                  outputs=cls, **tsubs)
+        got = tk.score_chunked(*targs, **kw)
+        e = max(max_abs_diff(got, tk.score_align(*targs, **kw)),
+                max_abs_diff(got, tk.score_align_plain(*targs, **kw)))
+        torch.cuda.synchronize()
+        if e != 0:
+            raise AssertionError(f"chunked sweep != one-shot kernel or plain "
+                                 f"on 16 pairs of 3,072 x 96 ({cls}): max "
+                                 f"|diff| {e}")
+    log("[25 chunked vs plain] 16 pairs padded to 3,072 x 96 (queries of "
+        "2,049-3,072 letters and short ones, an empty reference), SW 5/1, "
+        "every class: equal to the one-thread-per-pair kernel and to plain")
+
+    log(f"[25 chunked vs plain] {time.perf_counter() - t25:.1f} s")
+
+    # -- 26. the long one-shot path through the public API ------------------------
+    mq, mr = pairs["mixed"]
+    short = pairs["short"]
+
+    def sw51():
+        return pt.Aligner.new().gap_open(5).gap_extend(1).local()
+
+    sg111 = pt.Aligner.new().gap_open(11).gap_extend(1).semi_global().build()
+    al = {"sw": sw51().build(), "sg": sg111,
+          "rowcol": sw51().use_last_rowcol().build(),
+          "stats_rowcol": sw51().use_stats().use_last_rowcol().build(),
+          "table": sw51().use_table().build(),
+          "stats_table": sw51().use_stats().use_table().build()}
+    sel = list(range(8)) + short                  # 16 pairs: pair 0 is 4,096
+    tq, tr = [mq[b] for b in sel], [mr[b] for b in sel]
+    q2, r2 = [q[:LONG_LEN // 2] for q in mq], [r[:LONG_LEN // 2] for r in mr]
+    k1_shapes = []
+    real_k1 = dispatch.score_align
+
+    def recording_k1(ridx, qlen, rlen, **kw):
+        subs = kw.get("profile")
+        subs = kw["qidx"] if subs is None else subs
+        k1_shapes.append((int(subs.shape[1]), int(ridx.shape[1])))
+        return real_k1(ridx, qlen, rlen, **kw)
+
+    dispatch.ROUTE_COUNTS.clear()
+    tk.LAUNCHES = tk.TRACE_LAUNCHES = tk.SEGMENT_LAUNCHES = 0
+    tk.CHUNKED_LAUNCHES = tw.LAUNCHES = 0
+    tk.CLASS_LAUNCHES = dict.fromkeys(PLANE_CLASSES, 0)
+    dispatch.score_align = recording_k1
+    try:
+        cig_sw = al["sw"].align_cigars(mq, mr)
+        per_cigars = tk.CHUNKED_LAUNCHES
+        cig_sg = al["sg"].align_cigars(mq, mr)
+        ssw = al["sw"].ssw_batch(mq, mr)
+        res = {"rowcol": al["rowcol"].align_batch(mq, mr),
+               "stats_rowcol": al["stats_rowcol"].align_batch(mq, mr),
+               "stats_rowcol_2048": al["stats_rowcol"].align_batch(q2, r2),
+               "table": al["table"].align_batch(tq, tr),
+               "stats_table": al["stats_table"].align_batch(tq, tr),
+               "stats_table_2048": al["stats_table"].align_batch(
+                   [q[:LONG_LEN // 2] for q in tq],
+                   [r[:LONG_LEN // 2] for r in tr])}
+    finally:
+        dispatch.score_align = real_k1
+    torch.cuda.synchronize()
+    routes = dict(dispatch.ROUTE_COUNTS)
+    chunked = tk.CHUNKED_LAUNCHES
+    log(f"[26 long one-shot path] chunked launches={chunked} (one "
+        f"align_cigars: {per_cigars}; walk {tw.LAUNCHES}, segment "
+        f"{tk.SEGMENT_LAUNCHES}, one-thread-per-pair launches on the padded "
+        f"shapes {sorted(set(k1_shapes))}) routes={routes}")
+    long_k1 = [s for s in k1_shapes
+               if s[0] * s[1] >= dispatch.SEGMENT_MIN_CELLS or
+               s[0] > dispatch.CHUNK_ROWS]
+    if chunked < 1 or per_cigars < 1 or tw.LAUNCHES < 1 or long_k1 or \
+            tk.SEGMENT_LAUNCHES:
+        raise AssertionError(
+            f"the long one-shot path left the chunked sweep: {chunked} "
+            f"chunked launches, one-thread-per-pair launches on long shapes "
+            f"{long_k1}, {tk.SEGMENT_LAUNCHES} segment launches")
+    if set(routes) - {("cuda_chunked", "long pairs, one launch"),
+                      ("cuda_kernel", "")} or \
+            routes.get(("cuda_kernel", ""), 0) != len(k1_shapes):
+        raise AssertionError(f"the long one-shot path left the chunked "
+                             f"route: {routes}")
+    # CIGARs and scalars against use_trace() + cigars() on the segment route
+    keys = ("score", "end_query", "end_ref")
+    for name, (alns, cigs), builder in (
+            ("SW 5/1", cig_sw, sw51()),
+            ("SG 11/1", cig_sg, pt.Aligner.new().gap_open(11).gap_extend(1)
+             .semi_global())):
+        tr_al = builder.use_trace().build()
+        t_alns = tr_al.align_batch(mq, mr)
+        if {r for r, _ in tr_al.route_counter} != {"cuda_segments"}:
+            raise AssertionError(f"use_trace() {name}: routes "
+                                 f"{tr_al.route_counter}")
+        if tr_al.cigars(t_alns, mq, mr) != list(cigs):
+            raise AssertionError(f"align_cigars {name} != use_trace() + "
+                                 "cigars() on the segment route")
+        for b, (a, w) in enumerate(zip(alns, t_alns)):
+            if any(a.fields[k] != w.fields[k] for k in keys):
+                raise AssertionError(f"align_cigars {name}: pair {b} "
+                                     "scalars differ from the segment route")
+        del t_alns
+    for b, (s, a, c) in enumerate(zip(ssw, cig_sw[0], cig_sw[1])):
+        if (s.score1, s.read_end1, s.ref_end1, s.cigar_string()) != (
+                min(a.get_score(), 0xFFFF), a.get_end_query(),
+                a.get_end_ref(), merged_cigar(
+                    (int(n), op) for n, op in re.findall(r"(\d+)(\D)", c))):
+            raise AssertionError(f"ssw_batch pair {b} differs from "
+                                 "align_cigars")
+    # planes, rows and columns against the one-thread-per-pair kernel: the
+    # score-valued classes at 4,096 bp, the stats classes at 2,048 bp
+    k1_ms = {}
+    for cls, qs, rs in (("rowcol", mq, mr), ("table", tq, tr),
+                        ("stats_rowcol_2048", q2, r2),
+                        ("stats_table_2048", [q[:LONG_LEN // 2] for q in tq],
+                         [r[:LONG_LEN // 2] for r in tr])):
+        kind = cls.replace("_2048", "")
+        batch, _, _ = al[kind]._pack(qs, rs)
+        kept = {}
+        ms = time_cuda(torch, lambda: kept.update(got=tk.score_align(
+            batch.ridx, batch.qlen_t, batch.rlen_t, open_=5, ext=1,
+            mode="sw", free=(True,) * 4, width="sat", outputs=kind,
+            table=batch.table, qidx=batch.qidx)), reps=1, warmup=0)
+        if not cls.endswith("_2048"):
+            k1_ms[kind] = ms
+        want = kept.pop("got")
+        check_planes(f"{cls} through align_batch", res[cls], want,
+                     [k for k in want if k not in ("saturated", "promoted")])
+        del want, kept
+    # a plane form at the path's shape against the plain version: rowcol on
+    # 4 of the pairs (pair 0 is 4,096 x 4,096)
+    batch, _, _ = al["rowcol"]._pack(mq[:4], mr[:4])
+    kw = dict(open_=5, ext=1, mode="sw", free=(True,) * 4, width="sat",
+              outputs="rowcol", table=batch.table, qidx=batch.qidx)
+    args = (batch.ridx, batch.qlen_t, batch.rlen_t)
+    if (args[0].shape[1], batch.qidx.shape[1]) != (LONG_LEN, LONG_LEN):
+        raise AssertionError(f"rowcol vs plain: padded to "
+                             f"{tuple(batch.qidx.shape)} x {args[0].shape}")
+    e = max_abs_diff(tk.score_chunked(*args, **kw),
+                     tk.score_align_plain(*args, **kw))
+    if e != 0:
+        raise AssertionError(f"chunked sweep != plain on rowcol, 4 pairs at "
+                             f"{LONG_LEN} x {LONG_LEN}: max |diff| {e}")
+    err = max(err, e)
+    # the stats classes' scalars at 4,096 bp against the segment route
+    st = pairs["aligners"]["stats"].align_batch(mq, mr)
+    for b, (a, w) in enumerate(zip(res["stats_rowcol"], st)):
+        if any(a.fields[k] != w.fields[k]
+               for k in keys + ("matches", "similar", "length")):
+            raise AssertionError(f"use_stats().use_last_rowcol() pair {b} "
+                                 "differs from the segment route's stats")
+    del st
+    for b in short:
+        g = golden.align_seqs(mq[b], mr[b], m, 5, 1, "sw")
+        w = golden.walk_trace(g.trace_table, mq[b], mr[b], g.end_query,
+                              g.end_ref, "sw")
+        gg = golden.align_seqs(mq[b], mr[b], m, 11, 1, "sg")
+        wg = golden.walk_trace(gg.trace_table, mq[b], mr[b], gg.end_query,
+                               gg.end_ref, "sg")
+        s = ssw[b]
+        if cig_sw[1][b] != w.cigar_string() or \
+                cig_sg[1][b] != wg.cigar_string() or \
+                (s.score1, s.read_begin1, s.ref_begin1) != (
+                    g.score, w.beg_query, w.beg_ref):
+            raise AssertionError(f"short pair {b}: CIGAR or SSW differs from "
+                                 "golden")
+        for cls in ("rowcol", "stats_rowcol"):
+            a = res[cls][b]
+            for k in a.fields:
+                if k.endswith(("_row", "_col")) and not np.array_equal(
+                        a.fields[k], getattr(g, k)):
+                    raise AssertionError(f"short pair {b}: {cls} {k} differs "
+                                         "from golden")
+        for cls in ("table", "stats_table"):
+            a = res[cls][sel.index(b)]
+            for k in a.fields:
+                if k.endswith("_table") and not np.array_equal(
+                        a.fields[k], getattr(g, k)):
+                    raise AssertionError(f"short pair {b}: {cls} {k} differs "
+                                         "from golden")
+    del res, ssw
+    log(f"[26 long one-shot path] the long mixed batch (120 DNA pairs of "
+        f"1,024-4,096 bp and 8 of 50-200, Qp=Rp={LONG_LEN}): align_cigars "
+        f"(SW 5/1, SG 11/1), ssw_batch, use_last_rowcol() with and without "
+        f"stats, use_table() with and without stats on 16 pairs, every long "
+        f"batch on cuda_chunked; CIGARs and scalars equal use_trace() + "
+        f"cigars() on the segment route, SSW equal align_cigars, planes, rows "
+        f"and columns equal the one-thread-per-pair kernel's (stats at "
+        f"2,048 bp), rowcol on 4 pairs at {LONG_LEN} x {LONG_LEN} equal to "
+        f"plain, the short pairs equal golden")
+
+    # -- 27. timings ------------------------------------------------------------------
+    b4, _, _ = al["sw"]._pack(mq, mr)
+    b16, _, _ = al["sw"]._pack(tq, tr)
+    shapes = {
+        "4096": ((b4.ridx, b4.qlen_t, b4.rlen_t),
+                 dict(table=b4.table, qidx=b4.qidx)),
+        "16x4096": ((b16.ridx, b16.qlen_t, b16.rlen_t),
+                    dict(table=b16.table, qidx=b16.qidx)),
+        "1024": ((b4.ridx[:, :MID_LEN].contiguous(),
+                  b4.qlen_t.clamp(max=MID_LEN), b4.rlen_t.clamp(max=MID_LEN)),
+                 dict(table=b4.table,
+                      qidx=b4.qidx[:, :MID_LEN].contiguous())),
+    }
+    tq128 = [int(x) for x in rng.integers(2049, 3073, size=128)]
+    tr128 = [int(x) for x in rng.integers(48, 97, size=128)]
+    tq128[0], tr128[0] = 3072, 96
+    ta, ts = pack_table(torch, dev, m, random_seqs_of(rng, DNA, tq128),
+                        random_seqs_of(rng, DNA, tr128), 3072)
+    shapes["3072x96"] = ((ta[0][:, :96].contiguous(), *ta[1:]), ts)
+    # below the route's thresholds: Qp * Rp < SEGMENT_MIN_CELLS, Qp <=
+    # CHUNK_ROWS
+    shapes["2048x96"] = ((shapes["3072x96"][0][0], ta[1].clamp(max=2048),
+                          ta[2]),
+                         dict(ts, qidx=ts["qidx"][:, :2048].contiguous()))
+    shapes["512"] = ((b4.ridx[:, :512].contiguous(), b4.qlen_t.clamp(max=512),
+                      b4.rlen_t.clamp(max=512)),
+                     dict(table=b4.table, qidx=b4.qidx[:, :512].contiguous()))
+    sw_kw = dict(open_=5, ext=1, mode="sw", free=(True,) * 4, width="sat")
+    times, peaks = {}, {}
+    for cls in classes:
+        big = "16x4096" if cls in ("table", "stats_table") else "4096"
+        for shape in (big, "1024", "3072x96", "2048x96", "512"):
+            args, subs = shapes[shape]
+            kw = dict(sw_kw, outputs=cls, **subs)
+            if shape == big:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                tk.score_chunked(*args, **kw)
+                torch.cuda.synchronize()
+                peaks[cls] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+            k_ms = time_cuda(torch, lambda: tk.score_chunked(*args, **kw),
+                             reps=3, warmup=1)
+            if shape == big and cls in k1_ms:
+                o_ms = k1_ms[cls]                     # timed in phase 26
+            else:
+                o_ms = time_cuda(torch, lambda: tk.score_align(*args, **kw),
+                                 reps=1, warmup=0 if shape == big else 1)
+            times[cls, shape] = (k_ms, o_ms)
+            B_, Qs, Rs = args[0].shape[0], subs["qidx"].shape[1], \
+                args[0].shape[1]
+            b = sweep_bound(cls, args, kw)
+            log(f"[27 timing] {cls}, {B_} pairs padded to {Qs} x {Rs}, SW "
+                f"5/1: chunked sweep {k_ms} ms, one thread per pair {o_ms} ms "
+                f"({o_ms / k_ms}x), bound {b['bound_ms']} ms "
+                f"({b['bound_by']})"
+                + (f"; peak device memory of one chunked call above its "
+                   f"inputs {peaks[cls]} MiB" if shape == big else "")
+                + f" [{card}]")
+    # the headline batch (8,192 pairs of 150 padded to 160), score class
+    h_args, h_kw = head
+    head_ms = (time_cuda(torch, lambda: tk.score_chunked(*h_args, **h_kw)),
+               time_cuda(torch, lambda: tk.score_align(*h_args, **h_kw)))
+    log(f"[27 timing] score, the headline batch (8,192 pairs padded to 160 x "
+        f"160, SW 11/1): chunked sweep {head_ms[0]} ms, one thread per pair "
+        f"{head_ms[1]} ms ({head_ms[1] / head_ms[0]}x) [{card}]")
+    # the main path's shape: the trace class on the long mixed batch, with
+    # its plain version (a column sweep) on the same inputs
+    args, subs = shapes["4096"]
+    kw = dict(sw_kw, outputs="trace", **subs)
+    kept = {}
+    plain_ms = time_cuda(torch, lambda: kept.update(
+        want=tk.score_align_plain(*args, **kw)), reps=1, warmup=0)
+    e = max_abs_diff(tk.score_chunked(*args, **kw), kept.pop("want"))
+    if e != 0:
+        raise AssertionError(f"chunked sweep != plain on the long mixed "
+                             f"batch (trace): max |diff| {e}")
+    err = max(err, e)
+    del kept
+    trace_ms = times["trace", "4096"][0]
+    bnd = sweep_bound("trace", args, kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    e2e_ms = time_host(lambda: al["sw"].align_cigars(mq, mr), reps=3)
+    cig_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    with stages.measuring():
+        al["sw"].align_cigars(mq, mr)
+        snap = stages.snapshot()
+    per_call = {k: v["ms"] for k, v in snap.items()}
+    # the same call on the rule before the chunked sweep (every bin on one
+    # thread per pair), once
+    saved = dispatch.SEGMENT_MIN_CELLS, dispatch.CHUNK_ROWS
+    dispatch.SEGMENT_MIN_CELLS = dispatch.CHUNK_ROWS = 1 << 62
+    try:
+        t0 = time.perf_counter()
+        k1_cigs = al["sw"].align_cigars(mq, mr)[1]
+        k1_e2e = (time.perf_counter() - t0) * 1e3
+    finally:
+        dispatch.SEGMENT_MIN_CELLS, dispatch.CHUNK_ROWS = saved
+    if list(k1_cigs) != list(cig_sw[1]):
+        raise AssertionError("align_cigars on one thread per pair != on the "
+                             "chunked sweep")
+    cells = sum(len(q) * len(r) for q, r in zip(mq, mr))
+    log(f"[27 timing] card: {card}")
+    log(f"[27 timing] trace class on the long mixed batch (128 pairs, "
+        f"Qp=Rp={LONG_LEN}): chunked sweep {trace_ms} ms, its plain version "
+        f"{plain_ms} ms, bound {bnd['bound_ms']} ms ({bnd['bound_by']}) "
+        f"[{card}]")
+    log(f"[27 timing] align_cigars SW 5/1 of the long mixed batch e2e median "
+        f"{e2e_ms} ms ({cells / e2e_ms / 1e6} GCUPS over {cells} cells), "
+        f"{per_cigars} chunked launches a call, peak device memory above the "
+        f"inputs {cig_peak} MiB; stages, ms: {json.dumps(per_call)}; on one "
+        f"thread per pair (the rule before), once, {k1_e2e} ms [{card}]")
+    regs = chunked_registers(_build.BUILD_LOG, classes)
+    log(f"[27 timing] registers of the block kernel's forms (nvcc "
+        f"{'ran' if _build.BUILD_LOG else 'cached'}): {regs}")
+    return {"launches": per_cigars, "max_abs_err": err, "ms": trace_ms,
+            "plain_ms": plain_ms,
+            "shape": f"trace class, the long mixed batch (128 pairs, "
+                     f"Qp=Rp={LONG_LEN}), SW 5/1",
+            "form": "the segment kernel's block over all columns, 8 warps a "
+                    "pair at this shape",
+            "e2e_ms": e2e_ms, "k1_e2e_ms": k1_e2e, **bnd}
+
+
+def chunked_registers(build_log: str, classes) -> dict:
+    """Registers of each segment_kernel<class, false> form from
+    ``-Xptxas -v``'s log: {class: registers}."""
+    regs, form = {}, None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            form = None
+            if "segment_kernelILi" in line:
+                k, tile = line.split("segment_kernelILi")[1][:5].split("ELb")
+                if tile.startswith("0"):
+                    form = classes[int(k)]
+        elif "registers" in line and form is not None:
+            regs[form] = int(line.split("Used")[1].split("registers")[0])
+    return regs
+
+
+def random_seqs_of(rng, alphabet: bytes, lens) -> list:
+    """Sequences of the given lengths, letters drawn uniformly."""
+    alpha = np.frombuffer(alphabet, np.uint8)
+    return [alpha[rng.integers(0, len(alpha), size=n)].tobytes()
+            for n in lens]
 
 
 if __name__ == "__main__":

@@ -702,6 +702,21 @@ PT_HD void seg_row_begin(SegLane<kOut>& L, const SegPair& p, int32_t i,
   old.hp = L.lp;
 }
 
+// The plane forms' outputs of one pair in the block kernel (the chunked
+// form, kernel K1f): plane k of the table holds cell (i, j) at
+// [k * tab_plane + j * qp + i], query-fastest, so that a warp's 32 rows at
+// one column are one run of 128 bytes; element j of the last row sits at
+// [k * row_plane + j], element i of the last column at [k * col_plane + i].
+// Plane k is 0 score, 1 matches, 2 similar, 3 length.
+struct SegPlanes {
+  int32_t* table = nullptr;      // table forms
+  int64_t tab_plane = 0;
+  int32_t* row = nullptr;        // rowcol forms: the last row
+  int64_t row_plane = 0;
+  int32_t* col = nullptr;        // rowcol forms: the last column
+  int64_t col_plane = 0;
+};
+
 // The first diagonal of a row: H[i-1][off-1] and its payload, taken from
 // the row above's `old` (row -1: the top border left of the segment).
 template <int32_t kOut>
@@ -724,14 +739,16 @@ PT_HD int32_t seg_score(const SegLane<kOut>& L, const SegPair& p, int32_t r) {
 }
 
 // One cell: row L.i, local column c (global off + c), reference letter r
-// and its score s = seg_score(L, p, r), `up` from the row above.  Writes the cell's flags (trace form), the
-// row's state at the pair's last column of the segment, and the lane's
-// best; leaves the cell in L.out.
+// and its score s = seg_score(L, p, r), `up` from the row above.  Writes
+// the cell's flags (trace form), its H and payload into the planes (table
+// forms; rowcol forms: on the pair's last row and last column), the row's
+// state at the pair's last column of the segment, and the lane's best;
+// leaves the cell in L.out.
 template <int32_t kOut>
 PT_HD void seg_cell(SegLane<kOut>& L, const SegPair& p, int32_t c, int32_t r,
                     int32_t s, const SegUp& up, int8_t* trace_row,
                     int32_t* st_h, int32_t* st_f, int32_t* st_pay,
-                    int64_t pay_plane) {
+                    int64_t pay_plane, const SegPlanes& pl = SegPlanes()) {
   using O = Out<kOut>;
   int32_t h, e;
   Pay hp{0, 0, 0}, ep{0, 0, 0};
@@ -756,6 +773,33 @@ PT_HD void seg_cell(SegLane<kOut>& L, const SegPair& p, int32_t c, int32_t r,
   L.best.hmax = imax(L.best.hmax, h);
   L.best.hmin = imin(L.best.hmin, h);
   const int32_t jg = p.off + c;
+  if constexpr (O::table) {
+    const int64_t t = (int64_t)jg * p.qp + L.i;
+    pl.table[t] = h;
+    if constexpr (O::stats) {
+      pl.table[pl.tab_plane + t] = hp.m;
+      pl.table[2 * pl.tab_plane + t] = hp.s;
+      pl.table[3 * pl.tab_plane + t] = hp.l;
+    }
+  }
+  if constexpr (O::rowcol) {
+    if (L.i == p.qlen - 1) {
+      pl.row[jg] = h;
+      if constexpr (O::stats) {
+        pl.row[pl.row_plane + jg] = hp.m;
+        pl.row[2 * pl.row_plane + jg] = hp.s;
+        pl.row[3 * pl.row_plane + jg] = hp.l;
+      }
+    }
+    if (jg == p.rlen - 1) {
+      pl.col[L.i] = h;
+      if constexpr (O::stats) {
+        pl.col[pl.col_plane + L.i] = hp.m;
+        pl.col[2 * pl.col_plane + L.i] = hp.s;
+        pl.col[3 * pl.col_plane + L.i] = hp.l;
+      }
+    }
+  }
   const bool cand = L.row_all || (L.row_last && jg == p.rlen - 1);
   if (cand && h > L.best.h) {
     L.best.h = h;
@@ -928,6 +972,7 @@ PT_HD void tile_corner_out(const int32_t* down, int32_t cols, int32_t* t) {
 // The tile form (p.tile): `down` is the down-state, read above the tile's
 // first row and left holding the tile's last row; the state rows and
 // `trace` start at row p.row_lo; `t_in` / `t_out` are the corner words.
+// The plane forms (the chunked form): `pl` is the pair's SegPlanes.
 template <int32_t kOut>
 inline PairResult segment_pair_host(const int32_t* rows, const int32_t* q,
                                     const int32_t* mq,
@@ -939,7 +984,8 @@ inline PairResult segment_pair_host(const int32_t* rows, const int32_t* q,
                                     int8_t* trace, int32_t warps = 1,
                                     int32_t* down = nullptr,
                                     const int32_t* t_in = nullptr,
-                                    int32_t* t_out = nullptr) {
+                                    int32_t* t_out = nullptr,
+                                    const SegPlanes& pl = SegPlanes()) {
   using O = Out<kOut>;
   constexpr int32_t W = SEG_LANES;
   SegBest total = seg_best_init(p);
@@ -987,7 +1033,7 @@ inline PairResult segment_pair_host(const int32_t* rows, const int32_t* q,
             seg_cell(L, p, c, r, seg_score(L, p, r), up,
                      O::trace ? trace + (int64_t)(L.i - p.row_lo) * rseg
                               : nullptr,
-                     st_h, st_f, st_pay, pay_plane);
+                     st_h, st_f, st_pay, pay_plane, pl);
             if (l == W - 1 && w < warps - 1)
               ring[(int64_t)w * SEG_RING + c % SEG_RING] = L.out;
             if (l == W - 1 && w == warps - 1 && feeds)

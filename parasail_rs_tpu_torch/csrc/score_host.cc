@@ -1,7 +1,8 @@
 // Host build of the kernels' per-pair code (score_cell.cuh, walk_step.cuh)
 // for the CPU tests: the same score_batch_pair and walk_pair the CUDA
 // kernels run, one pair at a time, with the row scratch at stride 1, and
-// the segment and tile kernels' lanes stepped in a loop (segment_pair_host).
+// the segment, tile and chunked kernels' lanes stepped in a loop
+// (segment_pair_host).
 // Build with
 //   g++ -O2 -std=c++17 -shared -fPIC -o libptscore_host.so score_host.cc
 #include <stdint.h>
@@ -275,6 +276,93 @@ extern "C" int pt_rowseg_host(int out_class, const int32_t* subs,
           rows, q, mqb, rseg, C, p, mode, bottom.data(), sh, sf, sp,
           pay_plane, ac, tr, warps, dn, ti, to);
     }
+    out[b] = r.score;
+    out[B + b] = r.end_query;
+    out[2 * B + b] = r.end_ref;
+    out[3 * B + b] = r.sat8;
+    out[4 * B + b] = r.sat16;
+    out[5 * B + b] = r.matches;
+    out[6 * B + b] = r.similar;
+    out[7 * B + b] = r.length;
+  }
+  return 0;
+}
+
+namespace {
+
+template <int32_t kOut>
+ptscore::PairResult chunked_pair(const int32_t* rows, const int32_t* q,
+                                 const int32_t* mq, const int32_t* ridx,
+                                 int Rp, const ptscore::SegPair& p, int mode,
+                                 int32_t* bottom, int32_t* st_h,
+                                 int32_t* st_f, int32_t* st_pay,
+                                 int32_t* acc, int8_t* trace, int warps,
+                                 const ptscore::SegPlanes& pl) {
+  return ptscore::segment_pair_host<kOut>(rows, q, mq, ridx, Rp, p, mode,
+                                          bottom, st_h, st_f, st_pay, p.qp,
+                                          acc, trace, warps, nullptr,
+                                          nullptr, nullptr, pl);
+}
+
+}  // namespace
+
+// The chunked sweep, every class: what score_chunked launches on the card
+// (pt_scan_chunked's four plane forms, pt_scan_segment's score, stats and
+// trace forms as one segment of Rp columns from column 0), with their
+// layouts, minus the scratch and the stream; `warps` warps on a pair as
+// the kernel's block would have.
+// `out` is (8, B); `trace` (B, Qp, Rp), `tab` (4, B, Rp, Qp), `rows`
+// (4, B, Rp) and `cols` (4, B, Qp) arrive zero-filled (planes beyond the
+// class's are left alone).  Returns -1 for an unknown class.
+extern "C" int pt_chunked_host(int out_class, const int32_t* subs,
+                               const int32_t* qidx, const int32_t* mq,
+                               const int32_t* ridx, const int32_t* qlen,
+                               const int32_t* rlen, int32_t* out,
+                               int8_t* trace, int32_t* tab, int32_t* rows,
+                               int32_t* cols, int B, int Bq, int Bm, int Qp,
+                               int Rp, int A, int open, int ext, int mode,
+                               int free_bits, int warps) {
+  if (out_class < ptscore::OUT_SCORE || out_class > ptscore::OUT_STATS_ROWCOL
+      || warps < 1)
+    return -1;
+  const int n = Rp > 0 ? Rp : 1;
+  std::vector<int32_t> bottom(8 * n), st_h(Qp), st_f(Qp), st_pay(6 * Qp),
+      acc(8);
+  for (int b = 0; b < B; ++b) {
+    const ptscore::SegPair p = ptscore::seg_pair(
+        qlen[b], rlen[b], Qp, 0, Rp, open, ext, mode, free_bits, false, A);
+    const int64_t bq = Bq == 1 ? 0 : b;
+    const int32_t* srows = qidx ? subs : subs + bq * Qp * A;
+    const int32_t* q = qidx ? qidx + bq * Qp : nullptr;
+    const int32_t* mqb = mq ? mq + (Bm == 1 ? 0 : (int64_t)b * Qp) : nullptr;
+    const int32_t* rb = ridx + (int64_t)b * Rp;
+    int8_t* tr = trace ? trace + (int64_t)b * Qp * Rp : nullptr;
+    ptscore::SegPlanes pl;
+    if (tab) {
+      pl.table = tab + (int64_t)b * Rp * Qp;
+      pl.tab_plane = (int64_t)B * Rp * Qp;
+    }
+    if (rows) {
+      pl.row = rows + (int64_t)b * Rp;
+      pl.row_plane = (int64_t)B * Rp;
+      pl.col = cols + (int64_t)b * Qp;
+      pl.col_plane = (int64_t)B * Qp;
+    }
+    ptscore::PairResult r;
+#define PT_CHUNK(k)                                                        \
+  r = chunked_pair<k>(srows, q, mqb, rb, Rp, p, mode, bottom.data(),       \
+                      st_h.data(), st_f.data(), st_pay.data(), acc.data(), \
+                      tr, warps, pl)
+    switch (out_class) {
+      case ptscore::OUT_SCORE: PT_CHUNK(ptscore::OUT_SCORE); break;
+      case ptscore::OUT_TRACE: PT_CHUNK(ptscore::OUT_TRACE); break;
+      case ptscore::OUT_STATS: PT_CHUNK(ptscore::OUT_STATS); break;
+      case ptscore::OUT_TABLE: PT_CHUNK(ptscore::OUT_TABLE); break;
+      case ptscore::OUT_STATS_TABLE: PT_CHUNK(ptscore::OUT_STATS_TABLE); break;
+      case ptscore::OUT_ROWCOL: PT_CHUNK(ptscore::OUT_ROWCOL); break;
+      default: PT_CHUNK(ptscore::OUT_STATS_ROWCOL); break;
+    }
+#undef PT_CHUNK
     out[b] = r.score;
     out[B + b] = r.end_query;
     out[2 * B + b] = r.end_ref;

@@ -1,8 +1,9 @@
-// The block kernel behind the segment form (scan_segment.cu, kernel K2)
-// and the tile form (scan_rowseg.cu, kernel K3): a block per pair, one to
-// eight warps, a query row a lane.  scan_segment.cu's header describes the
-// design; each of the two sources instantiates its own forms, so nvcc
-// builds them side by side.
+// The block kernel behind the segment form (scan_segment.cu, kernel K2),
+// the tile form (scan_rowseg.cu, kernel K3) and the chunked plane forms
+// (scan_chunked.cu, kernel K1f): a block per pair, one to eight warps, a
+// query row a lane.  scan_segment.cu's header describes the design; each
+// source instantiates its own forms (no two the same), so nvcc builds them
+// side by side.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -96,7 +97,10 @@ __global__ void segment_kernel(
     int32_t open, int32_t ext, int32_t mode, int32_t free_bits, int32_t off,
     int32_t resume, int32_t table_in_smem,
     int32_t Qs,                         // rows of the state: Qp; tile: qc
-    int32_t r0) {                       // tile: its first row
+    int32_t r0,                         // tile: its first row
+    int32_t* __restrict__ tab,          // table forms: (4 or 1, B, Rseg, Qp)
+    int32_t* __restrict__ rowp,         // rowcol forms: (4 or 1, B, Rseg)
+    int32_t* __restrict__ colp) {       // rowcol forms: (4 or 1, B, Qp)
   using O = ptscore::Out<kOut>;
   constexpr int32_t W = ptscore::SEG_LANES;
   constexpr int32_t R = ptscore::SEG_RING;
@@ -133,6 +137,17 @@ __global__ void segment_kernel(
   int32_t* sp = O::stats ? st_pay + (int64_t)b * Qs : nullptr;
   const int64_t pay_plane = (int64_t)B * Qs;
   int8_t* tr = O::trace ? trace + (int64_t)b * Qs * Rseg : nullptr;
+  ptscore::SegPlanes pl;
+  if constexpr (O::table) {
+    pl.table = tab + (int64_t)b * Rseg * Qp;
+    pl.tab_plane = (int64_t)B * Rseg * Qp;
+  }
+  if constexpr (O::rowcol) {
+    pl.row = rowp + (int64_t)b * Rseg;
+    pl.row_plane = (int64_t)B * Rseg;
+    pl.col = colp + (int64_t)b * Qp;
+    pl.col_plane = (int64_t)B * Qp;
+  }
   // the tile hands on what it read above its last column, before any lane
   // writes the down-state
   if (kTile && threadIdx.x == 0)
@@ -228,7 +243,8 @@ __global__ void segment_kernel(
             s_next = ptscore::seg_score(L, p, r_next);
           }
           if (t >= 0 && L.on && c >= 0 && c < p.ncols) {
-            ptscore::seg_cell(L, p, c, r, s, up, trow, sh, sf, sp, pay_plane);
+            ptscore::seg_cell(L, p, c, r, s, up, trow, sh, sf, sp, pay_plane,
+                              pl);
             if (lane == W - 1 && to_ring)
               ptscore::seg_up_store<kOut>(wr, R, c & (R - 1), L.out);
             if (lane == W - 1 && to_bot)
@@ -295,7 +311,8 @@ constexpr int kMaxWarps = 8;
 
 // down, Qs, r0, t_in, t_out: the tile form's down-state, state rows (its
 // qc), first row and corner words; the segment form passes null, Qp, 0
-// and null.
+// and null.  tab_out, rows_out, cols_out: the plane forms' outputs
+// (SegPlanes), null elsewhere.
 template <int32_t kOut, bool kTile>
 int launch(const void* subs, const void* qidx, const void* mq,
            const void* ridx, const void* qlen, const void* rlen, void* bottom,
@@ -304,7 +321,8 @@ int launch(const void* subs, const void* qidx, const void* mq,
            int Bq, int Bm,
            int Qp, int Rseg, int A, int open, int ext, int mode,
            int free_bits, int off, int resume, int warps, int Qs, int r0,
-           void* stream) {
+           void* stream, void* tab_out = nullptr, void* rows_out = nullptr,
+           void* cols_out = nullptr) {
   if (B <= 0) return 0;
   constexpr int rows = ptscore::Out<kOut>::stats ? 8 : 2;
   if (warps <= 0) {
@@ -330,7 +348,8 @@ int launch(const void* subs, const void* qidx, const void* mq,
           (int32_t*)st_pay,
           (int32_t*)acc, (int32_t*)out, (int8_t*)trace, (const int32_t*)t_in,
           (int32_t*)t_out, B, Bq, Bm, Qp, Rseg, A, open, ext, mode, free_bits,
-          off, resume, in_smem, Qs, r0);
+          off, resume, in_smem, Qs, r0, (int32_t*)tab_out, (int32_t*)rows_out,
+          (int32_t*)cols_out);
   return (int)cudaGetLastError();
 }
 

@@ -79,8 +79,9 @@ def plan_sharded_route(*, outputs: str, gap_open: int, gap_extend: int,
                        device=None) -> str:
     """The route a shard of ``shard_batch`` pairs padded to (Qp, Rp)
     takes: what the engine's :func:`~..engine.dispatch.plan_route` picks
-    for it, ``cuda_kernel`` / ``cuda_segments`` on a card, ``torch_plain``
-    / ``torch_segments`` on the CPU.  ``score_values`` is accepted for the
+    for it, ``cuda_kernel`` / ``cuda_segments`` / ``cuda_chunked`` on a
+    card, ``torch_plain`` / ``torch_segments`` / ``torch_chunked`` on the
+    CPU.  ``score_values`` is accepted for the
     reference's signature: no route depends on the scores' range
     (the reference's int8 gate, sharded.py:73), nor on the penalties (its
     ``trace_walk`` route, :61-72; see the module docstring)."""

@@ -20,7 +20,12 @@ PyTorch version); and for long pairs ``"cuda_segments"`` /
 right in segments through
 :func:`~parasail_rs_tpu_torch.ops.scan_kernel.score_segment`, carrying
 the sweep's state from launch to launch (the port of the reference's
-``_execute_pallas_streamed``); :func:`plan_route` says when.  There is no
+``_execute_pallas_streamed``); and ``"cuda_chunked"`` /
+``"torch_chunked"``: one launch of
+:func:`~parasail_rs_tpu_torch.ops.scan_kernel.score_chunked` (a block of
+warps per pair over all of its columns, every output class) for long
+pairs that need one launch or whose class has no segment form.
+:func:`plan_route` says which.  There is no
 fallback between routes and no CPU route for a batch that was asked to
 run on a card: a failure raises.  Every decision is tallied in
 :data:`ROUTE_COUNTS` and reported to the caller.
@@ -39,7 +44,7 @@ from ..utils.gcpause import gc_pause
 from ..utils.shapes import length_bucket
 
 from ..ops.scan_kernel import (OUTPUTS, SEGMENT_OUTPUTS, score_align,
-                               score_segment)
+                               score_chunked, score_segment)
 from ..ops.wavefront import STATS_CLASSES, STATS_KEYS
 
 log = logging.getLogger("parasail_rs_tpu_torch")
@@ -309,23 +314,63 @@ TRACE_ONE_SHOT_BYTES = 1 << 30
 # batch raises (the reference's bound).
 TRACE_HOST_BYTES = 4 << 30
 
+# A query longer than this is long whatever the reference length: the
+# padded length past which the reference holds the query in row chunks
+# (its _plan, parasail_rs_tpu/ops/scan_kernel.py:106-194), and the tall,
+# narrow batches (3,072 x 96) where one thread per pair sweeps thousands
+# of rows alone.
+CHUNK_ROWS = 2048
+
 SEGMENT_ROUTES = ("cuda_segments", "torch_segments")
+CHUNKED_ROUTES = ("cuda_chunked", "torch_chunked")
 
 
 def plan_route(batch: PairBatch, outputs: str, gap_open: int,
-               gap_extend: int, *, one_shot: bool = False) -> tuple[str, str]:
-    """("cuda_kernel" | "cuda_segments" | "torch_plain" |
-    "torch_segments", reason) for a batch.
+               gap_extend: int, *, one_shot: bool = False,
+               banded: bool = False) -> tuple[str, str]:
+    """("cuda_kernel" | "cuda_segments" | "cuda_chunked" | "torch_plain"
+    | "torch_segments" | "torch_chunked", reason) for a batch.
 
     The device picks between the card's routes and the CPU's; the batch's
-    padded shape alone picks between one launch and segments
-    (:func:`execute_segments`), for the three classes the segment kernel
-    serves: score and stats from :data:`SEGMENT_MIN_CELLS` padded cells a
-    pair (long pairs, where warps on a pair beat a thread per pair),
-    trace when its flag plane exceeds :data:`TRACE_ONE_SHOT_BYTES`.
-    ``one_shot=True`` is for callers that need one launch: the banded
-    mode, and ``align_cigars`` / ``ssw``, whose walk reads the whole
-    plane on the card.
+    padded shape and class pick between one thread per pair
+    (:func:`~..ops.scan_kernel.score_align`, kernel K1), segments
+    (:func:`execute_segments`, kernel K2) and the chunked sweep
+    (:func:`~..ops.scan_kernel.score_chunked`, kernel K1f: K2's block of
+    up to eight warps per pair, one launch over all columns, every
+    class):
+
+    - segments for the classes the segment kernel serves, unless the
+      caller needs one launch: score and stats from
+      :data:`SEGMENT_MIN_CELLS` padded cells a pair, trace when its flag
+      plane exceeds :data:`TRACE_ONE_SHOT_BYTES`;
+    - otherwise the chunked sweep for LONG pairs, ``Qp * Rp >=
+      SEGMENT_MIN_CELLS`` or ``Qp >`` :data:`CHUNK_ROWS`: the one-launch
+      callers (``align_cigars`` / ``ssw``, whose walk reads the whole
+      plane on the card), ``use_trace()`` under the plane bound, score
+      and stats of tall, narrow pairs, and the table, stats_table,
+      rowcol and stats_rowcol classes, which have no segment form;
+    - K1 for everything else and for every banded batch (K1e).
+
+    Why: on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6) K1 puts one
+    thread on a pair, 223-228 ns a cell, so 128 pairs of 4,096 bp take
+    3.74-3.82 s in every class; K2's block took 22.5 ms (score), 33.6 ms
+    (stats) and 41.3 ms (trace in four launches) on the same pairs, and
+    2.0 ms against K1's 239 ms at 1,024 bp, the smallest size measured,
+    which sets :data:`SEGMENT_MIN_CELLS`.  The chunked sweep is that block
+    with the plane classes' stores: 12x to 242x ahead of K1 in every class
+    at 128 × 1,024, 128 × 4,096 and 128 × 3,072 × 96 (PERF.md §6), so
+    it takes K2's threshold and every query past :data:`CHUNK_ROWS`, the
+    reference's chunk point.  These thresholds are not a crossover: below
+    them it is still ahead in every class, 28x to 116x at 128 × 512 × 512
+    (score 0.67 against 59.8 ms), 11x to 34x at 128 × 2,048 × 96 (score
+    1.37 against 15.8 ms) and 3.0x on 8,192 pairs of 160 × 160 (score
+    1.25 against 3.72 ms).  Short batches stay on K1 because their calls
+    are host-bound (K1's 2.5 ms in 21-23 ms of ``align_batch`` on 8,192
+    pairs), so moving them waits for end-to-end numbers (ROADMAP.md, "K2
+    on short pairs").  All on an NVIDIA H100 80GB HBM3 at 700 W, from
+    ``chip_smoke.py`` phases 5, 20 and 27.
+    ``one_shot=True`` is for callers that need one launch; ``banded=True``
+    for the banded mode, which only K1 serves.
 
     ``gap_open`` / ``gap_extend`` are accepted for the reference's
     signature: every penalty pair is exact on every route.  The kernels'
@@ -340,14 +385,17 @@ def plan_route(batch: PairBatch, outputs: str, gap_open: int,
     kind = batch.device.type
     if kind not in ("cuda", "cpu"):
         raise ValueError(f"no route for device {batch.device}")
-    if not one_shot and outputs in SEGMENT_OUTPUTS:
+    cells = batch.qp * batch.rp
+    if not one_shot and not banded and outputs in SEGMENT_OUTPUTS:
         segments = "cuda_segments" if kind == "cuda" else "torch_segments"
-        cells = batch.qp * batch.rp
         if outputs == "trace":
             if batch.size * cells > TRACE_ONE_SHOT_BYTES:
                 return segments, "trace plane beyond one launch"
         elif cells >= SEGMENT_MIN_CELLS:
             return segments, "long pairs"
+    if not banded and (cells >= SEGMENT_MIN_CELLS or batch.qp > CHUNK_ROWS):
+        return ("cuda_chunked" if kind == "cuda" else "torch_chunked",
+                "long pairs, one launch")
     if kind == "cuda":
         return "cuda_kernel", ""
     return "torch_plain", "batch on the cpu"
@@ -373,18 +421,23 @@ def launch(batch: PairBatch, *, gap_open: int, gap_extend: int, mode: str,
            free: tuple[bool, bool, bool, bool], outputs: str, width: str,
            on_route=None, banded: bool = False,
            bandwidth: int = 0) -> dict[str, torch.Tensor]:
-    """Run the one-shot kernel over the batch, in one launch; return its
-    outputs as tensors on the batch's device (``score_align``'s dict).
-    ``on_route(route, reason)`` is called with the routing decision;
-    ``banded`` / ``bandwidth`` select the banded mode."""
-    _tally(*plan_route(batch, outputs, gap_open, gap_extend, one_shot=True),
-           on_route)
+    """Run the batch in one launch, of the one-shot kernel (K1) or, for
+    long pairs, of the chunked sweep (:func:`plan_route` with
+    ``one_shot=True``); return its outputs as tensors on the batch's
+    device (``score_align``'s dict).  ``on_route(route, reason)`` is
+    called with the routing decision; ``banded`` / ``bandwidth`` select
+    the banded mode."""
+    route, reason = plan_route(batch, outputs, gap_open, gap_extend,
+                               one_shot=True, banded=banded)
+    _tally(route, reason, on_route)
+    kw = dict(open_=gap_open, ext=gap_extend, mode=mode, free=free,
+              width=width, outputs=outputs, **_substitution(batch, outputs))
     with stages.stage("dispatch"):
+        if route in CHUNKED_ROUTES:
+            return score_chunked(batch.ridx, batch.qlen_t, batch.rlen_t,
+                                 **kw)
         return score_align(batch.ridx, batch.qlen_t, batch.rlen_t,
-                           open_=gap_open, ext=gap_extend, mode=mode,
-                           free=free, width=width, outputs=outputs,
-                           banded=banded, bandwidth=bandwidth,
-                           **_substitution(batch, outputs))
+                           banded=banded, bandwidth=bandwidth, **kw)
 
 
 def execute_segments(batch: PairBatch, *, gap_open: int, gap_extend: int,
@@ -486,7 +539,7 @@ def _run(batch: PairBatch, *, on_route, banded=False, bandwidth=0,
     """Plan the route and enqueue the batch on it: :func:`launch`'s or
     :func:`execute_segments`'s dict."""
     route, reason = plan_route(batch, kw["outputs"], kw["gap_open"],
-                               kw["gap_extend"], one_shot=banded)
+                               kw["gap_extend"], banded=banded)
     if route in SEGMENT_ROUTES:
         _tally(route, reason, on_route)
         return execute_segments(batch, **kw)

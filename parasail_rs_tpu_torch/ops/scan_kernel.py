@@ -74,6 +74,19 @@ segment kernel's block in its tile form) and counts the launch in
 :data:`ROWSEG_LAUNCHES`; on CPU tensors it runs
 :func:`score_rowseg_plain`, the wavefront with a left boundary, a top
 boundary and a row offset.  No fallback.
+
+:func:`score_chunked` is the port of
+``parasail_rs_tpu.ops.scan_kernel.scan_score_align`` with the query in
+row chunks (kernel K1f, ``nq > 1``): the same function as
+:func:`score_align`, same signature (no banded mode) and outputs in all
+seven classes, for long pairs.  On CUDA tensors it launches, once over
+all of a pair's columns, the segment kernel's block (a block per pair,
+up to eight warps on stripes of 32 query rows, groups of rows handing
+their last row down) in ``csrc/scan_chunked.cu``, whose plane forms
+write the tables (laid out (nplanes, B, Rp, Qp) on the card and returned
+as (B, Qp, Rp) views), the last row and the last column; it counts the
+launch in :data:`CHUNKED_LAUNCHES`.  On CPU tensors it runs
+:func:`score_align_plain`.  No fallback.
 """
 
 from __future__ import annotations
@@ -126,6 +139,9 @@ SEGMENT_WARPS = 0
 # Launches of the tile kernel (csrc/scan_rowseg.cu); only score_rowseg's
 # CUDA branch adds to it.  Its block takes SEGMENT_WARPS too.
 ROWSEG_LAUNCHES = 0
+# Launches of the chunked sweep (csrc/scan_chunked.cu); only
+# score_chunked's CUDA branch adds to it.  Its block takes SEGMENT_WARPS.
+CHUNKED_LAUNCHES = 0
 
 
 def _free_bits(free) -> int:
@@ -188,6 +204,16 @@ def _check(ridx, qlen, rlen, table, qidx, profile, mode, width, outputs):
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def _kernel_scalars(out, width) -> dict:
+    """The per-pair outputs of a kernel's (5, B) block (score, end_query,
+    end_ref, sat8, sat16), or (8, B) with the stats payloads."""
+    res = flag_outputs(out[0], out[1], out[2], out[3] != 0, out[4] != 0,
+                       width)
+    if out.shape[0] == 8:
+        res.update(zip(STATS_KEYS, out[5:8]))
+    return res
 
 
 def score_align(ridx, qlen, rlen, *, open_, ext, mode, free, width="32",
@@ -269,10 +295,7 @@ def score_align(ridx, qlen, rlen, *, open_, ext, mode, free, width="32",
     if rc != 0:
         raise RuntimeError(
             f"scan_{outputs} kernel launch failed: CUDA error {rc}")
-    res = flag_outputs(out[0], out[1], out[2], out[3] != 0, out[4] != 0,
-                       width)
-    if stats:
-        res.update(zip(STATS_KEYS, out[5:8]))
+    res = _kernel_scalars(out, width)
     if banded:
         BANDED_LAUNCHES += 1
     elif outputs == "score":
@@ -544,18 +567,6 @@ def score_segment(ridx_seg, qlen, rlen, state=None, *, open_, ext, mode,
     global SEGMENT_LAUNCHES
     from . import _build
 
-    lib = _build.load()
-    i32 = torch.int32
-    stats = outputs == "stats"
-    if not resume:
-        state = {"h": torch.empty((B, Qp), dtype=i32, device=dev),
-                 "f": torch.empty((B, Qp), dtype=i32, device=dev),
-                 "acc": torch.empty((B, 8), dtype=i32, device=dev)}
-        if stats:
-            state["stats"] = torch.empty((6, B, Qp), dtype=i32, device=dev)
-    bottom = torch.empty((B, 8 if stats else 2, max(Rseg, 1)), dtype=i32,
-                         device=dev)
-    out = torch.empty((8 if stats else 5, B), dtype=i32, device=dev)
     plane = None
     if outputs == "trace":
         if trace_out is None:
@@ -567,31 +578,56 @@ def score_segment(ridx_seg, qlen, rlen, state=None, *, open_, ext, mode,
                 raise ValueError("trace_out must be a contiguous int8 "
                                  f"{(B, Qp, Rseg)} tensor on {dev}")
             plane = trace_out.zero_()
-    subs = table if table is not None else profile
-    with torch.cuda.device(dev):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        rc = lib.pt_scan_segment(
-            OUTPUTS.index(outputs), subs.data_ptr(),
-            qidx.data_ptr() if table is not None else None,
-            _ptr(qidx if stats else None), ridx_seg.data_ptr(),
-            qlen.data_ptr(), rlen.data_ptr(), bottom.data_ptr(),
-            state["h"].data_ptr(), state["f"].data_ptr(),
-            _ptr(state.get("stats")), state["acc"].data_ptr(),
-            out.data_ptr(), _ptr(plane), B, Bq,
-            qidx.shape[0] if stats else 0, Qp, Rseg, A, int(open_), int(ext),
-            MODES[mode], _free_bits(free), int(col_offset), int(bool(resume)),
-            int(SEGMENT_WARPS), stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"scan_segment ({outputs}) kernel launch failed: CUDA error {rc}")
+    res, state = _block_launch(
+        _build.load().pt_scan_segment, ridx_seg, qlen, rlen,
+        state if resume else None, (B, Bq, Qp, Rseg, A), (plane,),
+        (int(col_offset), int(bool(resume))), open_=open_, ext=ext,
+        mode=mode, free=free, width=width, outputs=outputs, table=table,
+        qidx=qidx, profile=profile)
     SEGMENT_LAUNCHES += 1
-    res = flag_outputs(out[0], out[1], out[2], out[3] != 0, out[4] != 0,
-                       width)
-    if stats:
-        res.update(zip(STATS_KEYS, out[5:8]))
     if plane is not None:
         res["trace_table_seg"] = plane
     return res, state
+
+
+def _block_launch(entry, ridx, qlen, rlen, state, dims, planes, tail, *,
+                  open_, ext, mode, free, width, outputs, table, qidx,
+                  profile) -> tuple[dict, dict]:
+    """Launch the block kernel through ``entry`` (``pt_scan_segment`` or
+    ``pt_scan_chunked``, whose arguments differ only in the output
+    ``planes`` after ``out`` and the ``tail`` of ints before ``warps``) on
+    ``dims`` = (B, Bq, Qp, R, A); ``state`` None makes a new one.  Returns
+    (the per-pair outputs, state); the caller counts the launch."""
+    B, Bq, Qp, R, A = dims
+    dev = ridx.device
+    i32 = torch.int32
+    stats = outputs in STATS_CLASSES
+    if state is None:
+        state = {"h": torch.empty((B, Qp), dtype=i32, device=dev),
+                 "f": torch.empty((B, Qp), dtype=i32, device=dev),
+                 "acc": torch.empty((B, 8), dtype=i32, device=dev)}
+        if stats:
+            state["stats"] = torch.empty((6, B, Qp), dtype=i32, device=dev)
+    bottom = torch.empty((B, 8 if stats else 2, max(R, 1)), dtype=i32,
+                         device=dev)
+    out = torch.empty((8 if stats else 5, B), dtype=i32, device=dev)
+    subs = table if table is not None else profile
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        rc = entry(
+            OUTPUTS.index(outputs), subs.data_ptr(),
+            qidx.data_ptr() if table is not None else None,
+            _ptr(qidx if stats else None), ridx.data_ptr(), qlen.data_ptr(),
+            rlen.data_ptr(), bottom.data_ptr(), state["h"].data_ptr(),
+            state["f"].data_ptr(), _ptr(state.get("stats")),
+            state["acc"].data_ptr(), out.data_ptr(),
+            *(_ptr(t) for t in planes), B, Bq,
+            qidx.shape[0] if stats else 0, Qp, R, A, int(open_), int(ext),
+            MODES[mode], _free_bits(free), *tail, int(SEGMENT_WARPS), stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry.__name__} ({outputs}) kernel launch "
+                           f"failed: CUDA error {rc}")
+    return _kernel_scalars(out, width), state
 
 
 def score_segment_plain(ridx_seg, qlen, rlen, state=None, *, open_, ext,
@@ -879,11 +915,7 @@ def score_rowseg(ridx_seg, qlen, rlen, state, down, *, open_, ext, mode,
         raise RuntimeError(
             f"scan_rowseg ({outputs}) kernel launch failed: CUDA error {rc}")
     ROWSEG_LAUNCHES += 1
-    res = flag_outputs(out[0], out[1], out[2], out[3] != 0, out[4] != 0,
-                       width)
-    if stats:
-        res.update(zip(STATS_KEYS, out[5:8]))
-    return res, new, new_down, tile
+    return _kernel_scalars(out, width), new, new_down, tile
 
 
 def score_rowseg_plain(ridx_seg, qlen, rlen, state, down, *, open_, ext,
@@ -923,3 +955,58 @@ def score_rowseg_plain(ridx_seg, qlen, rlen, state, down, *, open_, ext,
     out = acc_outputs(acc, qlen, rlen, Qp, open_=open_, ext=ext, mode=mode,
                       free=free, width=width, outputs=outputs)
     return out, new, seg["down"], seg.get("trace_table")
+
+
+# -- the chunked form (kernel K1f) ---------------------------------------------
+
+
+def score_chunked(ridx, qlen, rlen, *, open_, ext, mode, free, width="32",
+                  table=None, qidx=None, profile=None,
+                  outputs="score") -> dict:
+    """:func:`score_align` for long pairs: the same inputs and outputs,
+    every class, one launch of the block kernel over all Rp columns (the
+    module docstring).  On the card the trace plane is a contiguous
+    (B, Qp, Rp) tensor, the tables (B, Qp, Rp) views of (B, Rp, Qp)
+    buffers, the rows and columns contiguous (B, Rp) / (B, Qp)."""
+    B, Bq, Qp, Rp, A = _check(ridx, qlen, rlen, table, qidx, profile, mode,
+                              width, outputs)
+    kw = dict(open_=open_, ext=ext, mode=mode, free=free, width=width,
+              table=table, qidx=qidx, profile=profile, outputs=outputs)
+    if ridx.device.type == "cpu":
+        return score_align_plain(ridx, qlen, rlen, **kw)
+    if ridx.device.type != "cuda":
+        raise ValueError(f"no kernel for device {ridx.device}")
+    global CHUNKED_LAUNCHES
+    from . import _build
+
+    dev = ridx.device
+    kw = dict(kw, ridx=ridx, qlen=qlen, rlen=rlen, state=None,
+              dims=(B, Bq, Qp, Rp, A))
+    if outputs in SEGMENT_OUTPUTS:
+        # the segment form from column 0 (csrc/scan_chunked.cu): one
+        # segment of Rp columns, whose trace buffer is the whole plane
+        plane = (torch.zeros((B, Qp, Rp), dtype=torch.int8, device=dev)
+                 if outputs == "trace" else None)
+        res, _ = _block_launch(_build.load().pt_scan_segment, planes=(plane,),
+                               tail=(0, 0), **kw)
+        CHUNKED_LAUNCHES += 1
+        if plane is not None:
+            res["trace_table"] = plane
+        return res
+    nplanes = 4 if outputs in STATS_CLASSES else 1
+    tab = rows = cols = None
+    if outputs in ("table", "stats_table"):
+        tab = torch.zeros((nplanes, B, Rp, Qp), dtype=torch.int32, device=dev)
+    else:
+        rows = torch.zeros((nplanes, B, Rp), dtype=torch.int32, device=dev)
+        cols = torch.zeros((nplanes, B, Qp), dtype=torch.int32, device=dev)
+    res, _ = _block_launch(_build.load().pt_scan_chunked,
+                           planes=(tab, rows, cols), tail=(), **kw)
+    CHUNKED_LAUNCHES += 1
+    for k, name in enumerate(PLANES[:nplanes]):
+        if tab is not None:
+            res[f"{name}_table"] = tab[k].transpose(1, 2)
+        else:
+            res[f"{name}_row"] = rows[k]
+            res[f"{name}_col"] = cols[k]
+    return res

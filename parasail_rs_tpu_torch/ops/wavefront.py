@@ -111,8 +111,8 @@ def _undiagonalise(slabs, k, B, Qp, Rp, dev, dtype):
 
 
 def _shift1(x, fill):
-    """y[:, i] = x[:, i - 1]; y[:, 0] = fill."""
-    return torch.cat([torch.full_like(x[:, :1], fill), x[:, :-1]], dim=1)
+    """y[..., i] = x[..., i - 1]; y[..., 0] = fill (along the lanes)."""
+    return torch.nn.functional.pad(x[..., :-1], (1, 0), value=fill)
 
 
 def wavefront_align(profile, qidx, ridx, qlen, rlen, *, open_, ext, mode,
@@ -210,30 +210,42 @@ def wavefront_align(profile, qidx, ridx, qlen, rlen, *, open_, ext, mode,
         return torch.full(shape, v, dtype=i32, device=dev)
 
     # the column left of the segment: carried, or the bordered left column
+    # (the stats payloads travel stacked: (3, B, Qp) for H's m, s, l, and
+    # (6, B, Qp) for H's then F's)
     if left is None:
         left_h = boundary(ig + 1, db)[None].expand(B, Qp)
         left_f = full(neg)
-        left_p = [full(0), full(0), blen(ig + 1, db)[None].expand(B, Qp),
-                  full(0), full(0), full(0)]
+        left_p = torch.stack([full(0), full(0),
+                              blen(ig + 1, db)[None].expand(B, Qp),
+                              full(0), full(0), full(0)]) \
+            if want_stats else None
     else:
         left_h, left_f = left["h"], left["f"]
-        left_p = (list(left["pay"]) if want_stats else [])
+        left_p = left["pay"] if want_stats else None
     if segment:
         end_c = rlen_c.clamp(0, Rp) - 1       # each pair's last column here
         st_h, st_f = left_h.clone(), left_f.clone()
-        st_p = [x.clone() for x in left_p] if want_stats else []
-        hmax_t, hmin_t = full(0, (B,)), full(0, (B,))
+        st_p = left_p.clone() if want_stats else None
 
     H1, H2, E1, F1 = full(neg), full(neg), full(neg), full(neg)
     best, best_i, best_j = full(neg, (B,)), full(Qp, (B,)), full(Rp, (B,))
-    sat8 = torch.zeros(B, dtype=torch.bool, device=dev)
-    sat16 = torch.zeros(B, dtype=torch.bool, device=dev)
+    # the extremes of H over the in-sequence cells (0 if none), for the
+    # saturation flags
+    hmax_all, hmin_all = full(0, (B,)), full(0, (B,))
+    i0 = (ivec == 0)[None, :]
+    last_row = ig[None, :] == qlen_c - 1
     if want_stats:
-        Hp1 = [full(0) for _ in range(3)]     # H payloads (m, s, l), d - 1
-        Hp2 = [full(0) for _ in range(3)]     # d - 2
-        Ep1 = [full(0) for _ in range(3)]
-        Fp1 = [full(0) for _ in range(3)]
-        best_p = [full(0, (B,)) for _ in range(3)]
+        Hp1 = full(0, (3, B, Qp))             # H payloads (m, s, l), d - 1
+        Hp2 = full(0, (3, B, Qp))             # d - 2
+        Ep1 = full(0, (3, B, Qp))
+        Fp1 = full(0, (3, B, Qp))
+        best_p = full(0, (3, B))
+        left_hp, left_fp = left_p[:3], left_p[3:]
+        left_hp_dg = _shift1(left_hp, 0)      # the diagonal at column 0
+        step_l = torch.tensor([0, 0, 1], dtype=i32, device=dev)[:, None,
+                                                                None]
+        ones = full(1)
+        zq = torch.zeros(Qp, dtype=i32, device=dev)
     if want_rowcol:
         rows = [full(0, (B, Rp)) for _ in range(nplanes)]
         cols = [full(0, (B, Qp)) for _ in range(nplanes)]
@@ -248,7 +260,6 @@ def wavefront_align(profile, qidx, ridx, qlen, rlen, *, open_, ext, mode,
         rok = (rd >= 0) & (rd < A)
         s = torch.gather(prof, 2, rd.clamp(0, A - 1).long()[:, :, None])[..., 0]
         s = torch.where(rok, s, 0)
-        i0 = (ivec == 0)[None, :]
         j0 = (jvec == 0)[None, :]
 
         if tile:
@@ -299,58 +310,49 @@ def wavefront_align(profile, qidx, ridx, qlen, rlen, *, open_, ext, mode,
 
         if want_stats:
             if tile:
-                top_u = [t_at[:, 2 + k:3 + k] for k in range(3)]
-                top_eu = [t_at[:, 5 + k:6 + k] for k in range(3)]
-                top_d = [t_dg[:, 1 + k:2 + k] for k in range(3)]
+                top_u = t_at[:, 2:5].t()[:, :, None]          # (3, B, 1)
+                top_eu = t_at[:, 5:8].t()[:, :, None]
+                top_d = t_dg[:, 1:4].t()[:, :, None]
             else:
-                top_u = [0, 0, blen(jvec + off + 1, qb)[None]]
-                top_eu = [0, 0, 0]
-                top_d = [0, 0, blen(jvec + off, qb)[None]]
-            up = [torch.where(i0, t, _shift1(x, 0))
-                  for t, x in zip(top_u, Hp1)]
-            eup = [torch.where(i0, t, _shift1(x, 0))
-                   for t, x in zip(top_eu, Ep1)]
-            lft = [torch.where(j0, lp, x) for lp, x in zip(left_p[:3], Hp1)]
-            fleft = [torch.where(j0, lp, x) for lp, x in zip(left_p[3:], Fp1)]
-            dg = [torch.where(i0, t, torch.where(j0, _shift1(lp, 0),
-                                                 _shift1(x, 0)))
-                  for t, lp, x in zip(top_d, left_p[:3], Hp2)]
-            Ep = [torch.where(from_open_e, u, e) for u, e in zip(up, eup)]
-            Ep[2] = Ep[2] + 1
-            Fp = [torch.where(from_open_f, u, f) for u, f in zip(lft, fleft)]
-            Fp[2] = Fp[2] + 1
-            Dp = [dg[0] + (qid == rd).to(i32), dg[1] + (s > 0).to(i32),
-                  dg[2] + 1]
-            Hp = [torch.where(take_diag, x, torch.where(take_e, y, z))
-                  for x, y, z in zip(Dp, Ep, Fp)]
+                top_u = torch.stack([zq, zq, blen(jvec + off + 1, qb)])[
+                    :, None]                                  # (3, 1, Qp)
+                top_eu = 0
+                top_d = torch.stack([zq, zq, blen(jvec + off, qb)])[:, None]
+            up = torch.where(i0, top_u, _shift1(Hp1, 0))
+            eup = torch.where(i0, top_eu, _shift1(Ep1, 0))
+            lft = torch.where(j0, left_hp, Hp1)
+            fleft = torch.where(j0, left_fp, Fp1)
+            dg = torch.where(i0, top_d,
+                             torch.where(j0, left_hp_dg, _shift1(Hp2, 0)))
+            Ep = torch.where(from_open_e, up, eup) + step_l
+            Fp = torch.where(from_open_f, lft, fleft) + step_l
+            Dp = dg + torch.stack([(qid == rd).to(i32), (s > 0).to(i32),
+                                   ones])
+            Hp = torch.where(take_diag, Dp, torch.where(take_e, Ep, Fp))
             if local:
-                Hp = [torch.where(clamp0, 0, x) for x in Hp]
+                Hp = torch.where(clamp0, 0, Hp)
             Hp2 = Hp1
-            Hp1 = [torch.where(on_diag, n, o) for n, o in zip(Hp, Hp1)]
-            Ep1 = [torch.where(on_diag, n, o) for n, o in zip(Ep, Ep1)]
-            Fp1 = [torch.where(on_diag, n, o) for n, o in zip(Fp, Fp1)]
+            Hp1 = torch.where(on_diag, Hp, Hp1)
+            Ep1 = torch.where(on_diag, Ep, Ep1)
+            Fp1 = torch.where(on_diag, Fp, Fp1)
 
         hs = torch.where(in_seq, H, 0)
         hmax, hmin = hs.amax(dim=1), hs.amin(dim=1)
         jl = d - (Qp - 1)               # the last lane's column
         if tile and 0 <= jl < Rp:
-            vals = [H, E] + (Hp + Ep if want_stats else [])
+            vals = [H, E] + (list(Hp) + list(Ep) if want_stats else [])
             new = torch.stack([v[:, Qp - 1] for v in vals], dim=1)
             down[:, :, jl] = torch.where(in_seq[:, Qp - 1:], new,
                                          down[:, :, jl])
         if segment:
-            hmax_t = torch.maximum(hmax_t, hmax)
-            hmin_t = torch.minimum(hmin_t, hmin)
             at_end = in_seq & (jvec[None, :] == end_c)
             st_h = torch.where(at_end, H, st_h)
             st_f = torch.where(at_end, F, st_f)
             if want_stats:
-                st_p = [torch.where(at_end, n, o)
-                        for n, o in zip(Hp + Fp, st_p)]
-        sat8 |= (hmax >= WIDTH_MAX["8"]) | (hmin <= WIDTH_MIN["8"])
-        sat16 |= (hmax >= WIDTH_MAX["16"]) | (hmin <= WIDTH_MIN["16"])
+                st_p = torch.where(at_end, torch.cat([Hp, Fp]), st_p)
+        hmax_all = torch.maximum(hmax_all, hmax)
+        hmin_all = torch.minimum(hmin_all, hmin)
 
-        last_row = ig[None, :] == qlen_c - 1
         last_col = jvec[None, :] == rlen_c - 1
         if local:
             cand = in_seq & (H > 0)
@@ -373,12 +375,11 @@ def wavefront_align(profile, qidx, ridx, qlen, rlen, *, open_, ext, mode,
         best_i = torch.where(better, step_i, best_i)
         best_j = torch.where(better, d - step_i, best_j)
         if want_stats:
-            at = step_i.clamp(0, Qp - 1)[:, None]
-            best_p = [torch.where(better, p.gather(1, at)[:, 0], b)
-                      for p, b in zip(Hp1, best_p)]
+            at = step_i.clamp(0, Qp - 1)[None, :, None].expand(3, B, 1)
+            best_p = torch.where(better, Hp1.gather(2, at)[..., 0], best_p)
 
         if want_rowcol:
-            vals = [H] + (Hp if want_stats else [])
+            vals = [H] + (list(Hp) if want_stats else [])
             jcol = (d - (qlen - 1)).clamp(0, Rp - 1).long()
             icol = (d - (rlen - 1)).clamp(0, Qp - 1).long()
             at_row = (qlen - 1).clamp(0, Qp - 1).long()[:, None]
@@ -402,9 +403,11 @@ def wavefront_align(profile, qidx, ridx, qlen, rlen, *, open_, ext, mode,
             slabs.append([torch.where(in_seq, hflag | eflag | fflag, 0)
                           .to(torch.int8)])
         elif want_tables:
-            vals = [H] + (Hp if want_stats else [])
+            vals = [H] + (list(Hp) if want_stats else [])
             slabs.append([torch.where(in_seq, v, 0) for v in vals])
 
+    sat8 = (hmax_all >= WIDTH_MAX["8"]) | (hmin_all <= WIDTH_MIN["8"])
+    sat16 = (hmax_all >= WIDTH_MAX["16"]) | (hmin_all <= WIDTH_MIN["16"])
     if segment:
         none = best <= neg
         out = {"best": best,
@@ -412,10 +415,10 @@ def wavefront_align(profile, qidx, ridx, qlen, rlen, *, open_, ext, mode,
                    none, Qp if qp_total is None else int(qp_total),
                    best_i + r0),
                "best_j": torch.where(none, 1 << 30, best_j + off),
-               "hmax": hmax_t, "hmin": hmin_t, "h": st_h, "f": st_f}
+               "hmax": hmax_all, "hmin": hmin_all, "h": st_h, "f": st_f}
         if want_stats:
-            out["best_pay"] = torch.stack(best_p)
-            out["pay"] = torch.stack(st_p)
+            out["best_pay"] = best_p
+            out["pay"] = st_p
         if want_trace:
             out["trace_table"] = _undiagonalise(slabs, 0, B, Qp, Rp, dev,
                                                 torch.int8)

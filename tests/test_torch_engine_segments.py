@@ -294,7 +294,9 @@ def _batch_of(B, Qp, Rp):
 
 def test_plan_route_rule():
     plain = ("torch_plain", "batch on the cpu")
+    chunked = ("torch_chunked", "long pairs, one launch")
     assert dispatch.SEGMENT_MIN_CELLS == 1 << 20
+    assert dispatch.CHUNK_ROWS == 2048
     assert dispatch.SEGMENT_COLS == {"score": 8192, "stats": 4096,
                                      "trace": 1024}
     for outputs in ("score", "stats"):
@@ -305,24 +307,35 @@ def test_plan_route_rule():
         # open <= ext changes nothing: the segments carry literal payloads
         assert dispatch.plan_route(_batch_of(2, 1024, 1024), outputs, 1, 3) \
             == ("torch_segments", "long pairs")
+        # a caller that needs one launch takes the chunked sweep
         assert dispatch.plan_route(_batch_of(2, 1024, 1024), outputs, 5, 1,
+                                   one_shot=True) == chunked
+        assert dispatch.plan_route(_batch_of(2, 768, 1024), outputs, 5, 1,
                                    one_shot=True) == plain
-    # the trace class goes by its plane's bytes, not by the pairs' length
+    # the trace class streams when its plane's bytes exceed one launch's,
+    # and takes the chunked sweep below that when its pairs are long
     assert dispatch.plan_route(_batch_of(2, 1024, 1024), "trace", 5, 1) \
-        == plain
+        == chunked
     assert dispatch.plan_route(_batch_of(257, 2048, 2048), "trace", 5, 1) \
         == ("torch_segments", "trace plane beyond one launch")
     assert dispatch.plan_route(_batch_of(256, 2048, 2048), "trace", 5, 1) \
+        == chunked
+    assert dispatch.plan_route(_batch_of(256, 512, 512), "trace", 5, 1) \
         == plain
-    # the classes without a segment form stay on one launch at any size
+    # the classes without a segment form take one launch at any size: of
+    # the chunked sweep for long pairs
     for outputs in ("table", "stats_table", "rowcol", "stats_rowcol"):
         assert dispatch.plan_route(_batch_of(2, 2048, 2048), outputs, 5, 1) \
+            == chunked
+        assert dispatch.plan_route(_batch_of(2, 512, 1024), outputs, 5, 1) \
             == plain
     with pytest.raises(ValueError, match="outputs"):
         dispatch.plan_route(_batch_of(2, 16, 16), "nope", 5, 1)
 
 
 def test_banded_and_device_planes_stay_on_one_launch(short_segments):
+    # 64 x 64 padded cells are long here: the walk's plane comes from one
+    # launch of the chunked sweep, the banded batch from one thread a pair
     qs, rs = _long_pairs(81, n=3, qlo=60, qhi=64, rlo=60, rhi=64)
     m = port_matrix(DNA)
     p = (port.Aligner.new().matrix(m).gap_open(4).gap_extend(1).bandwidth(8)
@@ -330,7 +343,8 @@ def test_banded_and_device_planes_stay_on_one_launch(short_segments):
     p.banded_nw_batch(qs, rs)
     p.align_cigars(qs, rs)
     p.ssw_batch(qs, rs)
-    assert set(p.route_counter) == {("torch_plain", "batch on the cpu")}
+    assert p.route_counter == {("torch_plain", "batch on the cpu"): 1,
+                               ("torch_chunked", "long pairs, one launch"): 2}
 
 
 def test_trace_plane_beyond_the_host_bound_raises(monkeypatch,

@@ -124,6 +124,18 @@ def same_records(got, want, what):
             assert torch.equal(gt.cpu(), wt.cpu()), (what, key, "trace")
 
 
+def tiles_case(seed):
+    """20 pairs padded to 72 x 72 of a 5-letter table: empty sides, queries
+    that end above, inside and on the last row of a chunk of 8, 24 or 36
+    rows, references that end on the edge of a shard of 24 or 18
+    columns, before it and after it."""
+    case = make_case(seed, 20, Qp=72, Rp=72, qhi=72, rhi=72, qlo=0, rlo=0,
+                     edge=True, A=5)
+    case["qlen"][5:10] = (64, 24, 48, 47, 25)
+    case["rlen"][5:10] = (66, 72, 25, 24, 18)
+    return case
+
+
 def one_shot(case, kw, **extra):
     args, subs = tensors(case)
     subs.update(extra)
@@ -205,7 +217,7 @@ def test_plain_tiles_match_reference_segments_one_shot_and_golden(name,
     same(got, run_reference(PROBLEM, **pen, outputs=outputs, q_chunk=64),
          f"{name} {outputs} against the reference")
     args, subs = tensors(PROBLEM)
-    same(got, chain(tk.score_segment_plain, args, 32, {**kw, **subs})[0],
+    same(got, chain(tk.score_segment_plain, args, 64, {**kw, **subs})[0],
          f"{name} {outputs} against segments")
     same(got, one_shot(PROBLEM, kw), f"{name} {outputs} against one sweep")
     check_golden(PROBLEM, got, pen, outputs)

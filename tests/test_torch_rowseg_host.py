@@ -27,6 +27,7 @@ from test_torch_rowseg import (  # noqa: E402
     one_shot,
     run_tiles,
     same_records,
+    tiles_case,
 )
 from test_torch_segment import (  # noqa: E402
     CLASSES,
@@ -98,10 +99,7 @@ def test_host_tiles_match_plain_tiles(host_lib, name, open_, ext, outputs):
     # inside and on a tile's last row; q_chunk 24 and 36 are no multiple
     # of a warp's 32 rows
     mode, free = MODES[name]
-    case = make_case(5 * open_ + ext + len(name), 20, Qp=72, Rp=96, qhi=72,
-                     rhi=96, qlo=0, rlo=0, edge=True, A=5)
-    case["qlen"][5:10] = (64, 24, 48, 47, 25)
-    case["rlen"][5:10] = (90, 96, 33, 32, 31)
+    case = tiles_case(5 * open_ + ext + len(name))
     kw = dict(open_=open_, ext=ext, mode=mode, free=free, outputs=outputs,
               width="sat")
     k = (len(name) + open_ + CLASSES.index(outputs)) % 3

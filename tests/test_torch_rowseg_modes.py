@@ -3,8 +3,9 @@ against the one-shot sweep.
 
 ``score_rowseg_plain`` chained in superstep order (``run_tiles`` of
 ``test_torch_rowseg.py``) over 1, 3 and 4 column shards and row chunks of
-8, 24 and 36 rows, on ragged batches with empty sides and queries that
-end above, inside and on a tile's last row, must equal
+8, 24 and 36 rows, on ragged batches with empty sides, queries that end
+above, inside and on a tile's last row and references that end on a
+shard's edge, must equal
 ``score_align_plain`` exactly: NW, the nine semi-global free-end sets,
 semi-global with no free end and SW, for the score, stats and trace
 classes.
@@ -16,13 +17,13 @@ torch = pytest.importorskip("torch")
 
 from parasail_rs_tpu_torch.ops import scan_kernel as tk  # noqa: E402
 
-from test_torch_rowseg import MODES, one_shot, run_tiles  # noqa: E402
-from test_torch_segment import (  # noqa: E402
-    CLASSES,
-    PENALTIES,
-    make_case,
-    same,
+from test_torch_rowseg import (  # noqa: E402
+    MODES,
+    one_shot,
+    run_tiles,
+    tiles_case,
 )
+from test_torch_segment import CLASSES, PENALTIES, same  # noqa: E402
 
 
 @pytest.mark.parametrize("outputs", CLASSES)
@@ -32,10 +33,7 @@ from test_torch_segment import (  # noqa: E402
 def test_plain_tiles_match_one_shot(name, open_, ext, outputs):
     # empty sides, queries ending above, inside and on a tile's last row
     mode, free = MODES[name]
-    case = make_case(5 * open_ + ext + len(name), 20, Qp=72, Rp=96, qhi=72,
-                     rhi=96, qlo=0, rlo=0, edge=True, A=5)
-    case["qlen"][5:10] = (64, 24, 48, 47, 25)
-    case["rlen"][5:10] = (90, 96, 33, 32, 31)
+    case = tiles_case(5 * open_ + ext + len(name))
     kw = dict(open_=open_, ext=ext, mode=mode, free=free, outputs=outputs,
               width="sat")
     D, qc = ((3, 24), (4, 36), (1, 8))[(len(name) + open_ +
