@@ -69,19 +69,33 @@ non-zero without printing a result:
    ``use_stats()`` ``align_batch`` of the 8,192 pairs with its stage
    clocks, SG stats on cfg4b's pairs, and the peak device memory of the
    table phase;
-14. banded kernel vs plain: the banded score form (NW) against its plain
-   version (the wavefront with ``banded=True``) on 256-pair DNA batches
-   at 4/1, 2/2 and 1/3 and a BLOSUM62 batch at 11/1, lengths from 0 (so
-   empty sides and corners outside the band occur), at bands 0, 3, 16,
-   64 and 4,096, and on the empty-side and unreachable-corner pairs of
-   the banded repair, which must also equal golden's banded oracle
-   (-2^30 where it has none): exact equality;
+14. banded kernel vs plain: every class of the banded mode (K1e; the
+   score form sweeps the band alone, the others every cell, masked)
+   against its plain version (the wavefront with ``banded=True``), the
+   trace class's plane also walked by the walk kernel and its plain
+   version, on 256-pair DNA batches at 4/1, 2/2 and 1/3 and a BLOSUM62
+   batch at 11/1, lengths from 0 (so empty sides and corners or end rows
+   outside the band occur): the NW score form at bands 0, 3, 16, 64 and
+   4,096, every class x NW, SG (the nine free-end sets in turn) and SW at
+   one of them in turn; and every class x NW, SG and SW on the empty-side
+   and unreachable-corner pairs of the banded repair, whose NW scores must
+   also equal golden's banded oracle (-2^30 where it has none): exact
+   equality;
 15. the banded path through the public API: ``banded_nw_batch`` of phase
    3's 8,192 BLOSUM62 pairs, NW 11/1, bandwidth 16, counted from zero:
    the banded kernel must launch on "cuda_kernel", equal the plain
    version, and 16 sampled pairs golden's banded oracle; then the banded
    kernel, its plain version and the unbanded score kernel on that batch,
-   and ``banded_nw_batch`` end to end;
+   and ``banded_nw_batch`` end to end.  Then the banded slice on the same
+   8,192 pairs (Qp = Rp = 192), counted from zero: every class x NW, SG
+   (all ends free) and SW through ``dispatch.launch(banded=True)``, each
+   once, on "cuda_kernel"; the first 1,024 pairs of each equal to the
+   plain version, the trace planes walked by the walk kernel as by the
+   plain walk, the peak device memory of each call; then each class and
+   mode timed (CUDA-event medians) beside its plain version (NW, one run)
+   and its bound; and ``banded_nw_batch`` of 128 DNA pairs of 4,096 bp at
+   bw 64, NW 5/1 (the long-read banded path), its first 8 pairs equal to
+   the plain version, timed;
 16. ``align_many``, counted from zero: cfg5 (256 DNA pairs of 100-2,000
    bp, SW 5/2) equal to ``align_batch`` and to plain, a ``use_stats()``
    and a ``use_trace()`` batch equal to ``align_batch``, and 128 DNA
@@ -258,16 +272,18 @@ def bound(ops: float, nbytes: float) -> dict:
             "library_ms": None}
 
 
-def sweep_bound(cls: str, args, kw) -> dict:
+def sweep_bound(cls: str, args, kw, cells: int | None = None) -> dict:
     """bound() of one sweep of class ``cls`` over score_align's inputs:
-    the pairs' real cells, the input tensors, the scalars and the class's
-    planes."""
+    the pairs' real cells (``cells``: a banded batch's cells inside the
+    band), the input tensors, the scalars and the class's planes (every
+    padded cell, whatever the band)."""
     ridx, qlen, rlen = args
     B, Rp = ridx.shape
     subs = [kw.get(k) for k in ("table", "qidx", "profile")]
     Qp = (kw["profile"] if kw.get("profile") is not None
           else kw["qidx"]).shape[1]
-    cells = int((qlen.long() * rlen.long()).sum().item())
+    if cells is None:
+        cells = int((qlen.long() * rlen.long()).sum().item())
     nbytes = sum(t.numel() * t.element_size()
                  for t in (ridx, qlen, rlen, *subs) if t is not None)
     n = 4 if cls in STATS_CLASSES else 1
@@ -681,9 +697,10 @@ def main() -> int:
                        blosum, card)
     planes = stats_path(torch, pt, tk, tw, dispatch, golden, stages, rng,
                         blosum, card, (qs, rs), trace["cfg4b"])
-    banded = banded_path(torch, pt, tk, dispatch, golden, stages, rng, blosum,
-                         card, (qs, rs))
-    clock("6-15")
+    clock("6-13")
+    banded = banded_path(torch, pt, tk, tw, dispatch, golden, stages, rng,
+                         blosum, card, (qs, rs))
+    clock("14-15")
     long_k1 = many_path(torch, pt, tk, tw, dispatch, golden, stages, rng,
                         blosum, card, (qs, rs))
     clock("16-17")
@@ -727,12 +744,13 @@ def main() -> int:
         "replaces": "parasail_rs_tpu/ops/scan_kernel.py:1453",
         **planes[cls],
     } for cls in PLANE_CLASSES] + [{
-        "name": "scan_score_align (banded)",
+        "name": "scan_score_align (banded)" if cls == "score" else
+                f"scan_score_align (banded, {cls})",
         "route": "cuda",
         "source": "parasail_rs_tpu_torch/csrc/scan_score.cu",
         "replaces": "parasail_rs_tpu/ops/scan_kernel.py:1453",
-        **banded,
-    }] + [{
+        **banded[cls],
+    } for cls in tk.OUTPUTS] + [{
         "name": f"scan_score_segment ({cls})",
         "route": "cuda",
         "source": "parasail_rs_tpu_torch/csrc/scan_segment.cu",
@@ -1180,37 +1198,78 @@ def band_cells(qlen: np.ndarray, rlen: np.ndarray, bw: int) -> int:
     return total
 
 
-def banded_path(torch, pt, tk, dispatch, golden, stages, rng, blosum, card,
-                sw_pairs) -> dict:
-    """Phases 14-15 and the banded timings; returns the banded kernel's
-    launches, error and times."""
+# the banded slice's modes: NW, SG with all four ends free, SW
+BANDED_MODES = (("nw", F4), ("sg", (True,) * 4), ("sw", (True,) * 4))
+# the banded phase-14 batches' bands
+BANDS_14 = (0, 3, 16, 64, 4096)
+
+
+def banded_launches(tk) -> dict:
+    """The banded forms' launch counts by class."""
+    return {"score": tk.BANDED_LAUNCHES, **tk.BANDED_CLASS_LAUNCHES}
+
+
+def reset_banded_launches(tk) -> None:
+    tk.BANDED_LAUNCHES = 0
+    tk.BANDED_CLASS_LAUNCHES = dict.fromkeys(tk.BANDED_CLASS_LAUNCHES, 0)
+
+
+def banded_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum,
+                card, sw_pairs) -> dict:
+    """Phases 14-15 and the banded timings; returns each banded form's
+    launches, error and times, by class."""
     dev = torch.device("cuda")
     dna = pt.Matrix.create(DNA, 2, -3)
+    errs = dict.fromkeys(tk.OUTPUTS, 0)
+
+    def check(name, args, kw):
+        """A banded class against its plain version (and, for the trace
+        class, the walk kernel against the plain walk on its plane)."""
+        cls = kw["outputs"]
+        if cls == "trace":
+            err = max(compare_trace(torch, tk, tw, name, args, kw,
+                                    kw["qidx"], args[0]))
+        else:
+            err = compare(torch, tk, name, args, kw)
+        errs[cls] = max(errs[cls], err)
 
     # -- 14. banded kernel vs plain ------------------------------------------
-    err = 0
     batches = [("DNA 4/1", dna, DNA, 4, 1, 60), ("DNA 2/2", dna, DNA, 2, 2, 60),
                ("DNA 1/3", dna, DNA, 1, 3, 60),
                ("BLOSUM62 11/1", blosum, PROTEIN, 11, 1, 150)]
-    for name, m, alpha, open_, ext, hi in batches:
+    for bi, (name, m, alpha, open_, ext, hi) in enumerate(batches):
         n = 256
         qs = random_seqs(rng, alpha, n, 0, hi)
         rs = random_seqs(rng, alpha, n, 0, hi)
         args, subs = pack_table(torch, dev, m, qs, rs, hi + 4)
-        for bw in (0, 3, 16, 64, 4096):
-            kw = dict(open_=open_, ext=ext, mode="nw", free=F4, width="sat",
-                      banded=True, bandwidth=bw, **subs)
-            err = max(err, compare(torch, tk, f"banded {name} bw={bw}", args,
-                                   kw))
-        log(f"[14 banded vs plain] {name}, {n} pairs of 0-{hi}, bw 0, 3, 16, "
-            f"64, 4096: equal")
+        # the NW score form at every band, every other class and mode at
+        # one band a batch, in turn; SG takes the nine free-end sets in turn
+        for ci, cls in enumerate(tk.OUTPUTS):
+            for mi, (mode, free) in enumerate(BANDED_MODES):
+                k = bi + ci + mi
+                if mode == "sg":
+                    free = SG_FREE[k % len(SG_FREE)]
+                bands = BANDS_14 if (cls, mode) == ("score", "nw") else \
+                    (BANDS_14[k % 5],)
+                for bw in bands:
+                    check(f"banded {cls} {mode}{free if mode == 'sg' else ''}"
+                          f" {name} bw={bw}", args,
+                          dict(open_=open_, ext=ext, mode=mode, free=free,
+                               width="sat", banded=True, bandwidth=bw,
+                               outputs=cls, **subs))
+        log(f"[14 banded vs plain] {name}, {n} pairs of 0-{hi}: the NW "
+            f"score form at bw 0, 3, 16, 64, 4096, every class x NW, SG, SW "
+            f"at one of them: equal")
     q9, r9 = random_seqs(rng, DNA, 2, 9, 9)
     s0q = [q9[:a] for (a, _), _ in STEP0]
     s0r = [r9[:b] for (_, b), _ in STEP0]
     args, subs = pack_table(torch, dev, dna, s0q, s0r, 16)
     kw = dict(open_=4, ext=1, mode="nw", free=F4, width="32", banded=True,
               bandwidth=2, **subs)
-    err = max(err, compare(torch, tk, "banded step-0 pairs", args, kw))
+    for cls in tk.OUTPUTS:
+        for mode, free in BANDED_MODES + (("sg", (True, False, False, True)),):
+            check(f"banded step-0 pairs {cls} {mode}{free}", args,
+                  dict(kw, mode=mode, free=free, outputs=cls))
     out = tk.score_align(*args, **kw)
     for k, ((a, b), want) in enumerate(STEP0):
         oracle = banded_oracle(golden, dna, s0q[k], s0r[k], 4, 1, 2)
@@ -1219,8 +1278,9 @@ def banded_path(torch, pt, tk, dispatch, golden, stages, rng, blosum, card,
             raise AssertionError(f"banded ({a}, {b}): kernel {got}, oracle "
                                  f"{oracle}, expected {want}")
     log("[14 banded vs plain] empty sides and unreachable corners (0, 5), "
-        "(5, 0), (0, 2), (3, 9), (6, 6): equal to plain and to golden's "
-        f"banded oracle: {out['score'].tolist()}")
+        "(5, 0), (0, 2), (3, 9), (6, 6): every class x NW, SG, SW equal to "
+        "plain, the NW score equal to golden's banded oracle: "
+        f"{out['score'].tolist()}")
 
     # -- 15. the banded main path through the public API -----------------------
     qs, rs = sw_pairs
@@ -1228,7 +1288,8 @@ def banded_path(torch, pt, tk, dispatch, golden, stages, rng, blosum, card,
     bal = (pt.Aligner.new().matrix(blosum).gap_open(11).gap_extend(1)
            .bandwidth(bw).build())
     dispatch.ROUTE_COUNTS.clear()
-    tk.LAUNCHES = tk.TRACE_LAUNCHES = tk.BANDED_LAUNCHES = 0
+    tk.LAUNCHES = tk.TRACE_LAUNCHES = 0
+    reset_banded_launches(tk)
     res = bal.banded_nw_batch(qs, rs)
     launches = tk.BANDED_LAUNCHES
     routes = dict(dispatch.ROUTE_COUNTS)
@@ -1249,7 +1310,8 @@ def banded_path(torch, pt, tk, dispatch, golden, stages, rng, blosum, card,
              tk.score_align_plain(*args, **kw).items()}
     check_against_plain(f"banded_nw_batch {len(qs)} pairs bw {bw}", res,
                         plain)
-    err = max(err, compare(torch, tk, "phase 15 batch", args, kw))
+    errs["score"] = max(errs["score"],
+                        compare(torch, tk, "phase 15 batch", args, kw))
     if not all(a.is_banded() and a.is_global() for a in res):
         raise AssertionError("banded results have the wrong flags")
     for b in rng.choice(len(qs), size=16, replace=False).tolist():
@@ -1286,11 +1348,139 @@ def banded_path(torch, pt, tk, dispatch, golden, stages, rng, blosum, card,
     log(f"[15 timing] banded_nw_batch {len(qs)} pairs e2e median {e2e_ms} ms "
         f"({len(qs) / e2e_ms * 1e3} aln/s); stages, ms per call: "
         f"{json.dumps(per_call)} [{card}]")
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in (*args, kw["table"], kw["qidx"])) + 5 * len(qs) * 4
-    return {"launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms,
-            **bound(cells * OPS_PER_CELL["score"], nbytes)}
+    rows = {"score": {"launches": launches, "ms": ms, "plain_ms": plain_ms,
+                      **sweep_bound("score", args, kw, cells)}}
+
+    # -- 15. every banded class and mode at full width ---------------------------
+    rows.update(banded_classes(torch, tk, tw, dispatch, card, batch, bw))
+    long_banded(torch, pt, tk, card)
+    for cls, row in rows.items():
+        row["max_abs_err"] = errs[cls]
+    return rows
+
+
+def banded_classes(torch, tk, tw, dispatch, card, batch, bw) -> dict:
+    """The banded slice on the 8,192 BLOSUM62 pairs (Qp = Rp = 192), 11/1,
+    bw 16: every class under NW, SG (all ends free) and SW through
+    ``dispatch.launch`` once, counted from zero; each held to the plain
+    version on its first 1,024 pairs (the trace class also walked); then
+    each timed.  Returns the six non-score classes' rows."""
+    n_check = 1024
+    width = "32"
+    subset = (batch.ridx[:n_check], batch.qlen_t[:n_check],
+              batch.rlen_t[:n_check])
+    sub_kw = dict(table=batch.table, qidx=batch.qidx[:n_check])
+    dispatch.ROUTE_COUNTS.clear()
+    reset_banded_launches(tk)
+    peaks = {}
+    for cls in tk.OUTPUTS:
+        for mode, free in BANDED_MODES:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = dispatch.launch(batch, gap_open=11, gap_extend=1, mode=mode,
+                                  free=free, outputs=cls, width=width,
+                                  banded=True, bandwidth=bw)
+            torch.cuda.synchronize()
+            peaks[(cls, mode)] = (torch.cuda.max_memory_allocated() -
+                                  base) / 2 ** 20
+            want = tk.score_align_plain(
+                *subset, open_=11, ext=1, mode=mode, free=free, width=width,
+                outputs=cls, banded=True, bandwidth=bw, **sub_kw)
+            got = {k: v[:n_check] for k, v in out.items()}
+            err = max_abs_diff(got, want)
+            if err:
+                raise AssertionError(f"banded {cls} {mode} at {batch.size} x "
+                                     f"{batch.qp}: kernel != plain on the "
+                                     f"first {n_check} pairs, max |diff| "
+                                     f"{err}")
+            if cls == "trace":
+                walk = (got["trace_table"], sub_kw["qidx"], subset[0],
+                        got["end_query"], got["end_ref"], mode, free)
+                werr = max_abs_diff(dict(zip("obr", tw.device_walk(*walk))),
+                                    dict(zip("obr",
+                                             tw.device_walk_plain(*walk))))
+                if werr:
+                    raise AssertionError(f"banded {mode}: walk kernel != "
+                                         f"plain, max |diff| {werr}")
+            del out, got, want
+    launches = banded_launches(tk)
+    routes = dict(dispatch.ROUTE_COUNTS)
+    log(f"[15 banded classes] launches {launches}, routes {routes}")
+    if any(launches[cls] != len(BANDED_MODES) for cls in tk.OUTPUTS):
+        raise AssertionError(f"the banded slice launched {launches}, "
+                             f"expected {len(BANDED_MODES)} a class")
+    if routes != {("cuda_kernel", ""): len(tk.OUTPUTS) * len(BANDED_MODES)}:
+        raise AssertionError(f"the banded slice left the kernel route: "
+                             f"{routes}")
+    log(f"[15 banded classes] {batch.size} BLOSUM62 pairs, Qp = Rp = "
+        f"{batch.qp}, 11/1, bw {bw}, every class x NW, SG (all ends free), "
+        f"SW on cuda_kernel: the first {n_check} pairs equal to plain, the "
+        "trace planes walked by the walk kernel as by the plain walk")
+
+    args = (batch.ridx, batch.qlen_t, batch.rlen_t)
+    base_kw = dict(open_=11, ext=1, width=width, table=batch.table,
+                   qidx=batch.qidx, banded=True, bandwidth=bw)
+    cells = band_cells(batch.qlen, batch.rlen, bw)
+    log(f"[15 timing] banded classes, card: {card}")
+    rows = {}
+    for cls in tk.OUTPUTS:
+        times = {}
+        for mode, free in BANDED_MODES:
+            kw = dict(base_kw, mode=mode, free=free, outputs=cls)
+            times[mode] = time_cuda(torch, lambda: tk.score_align(*args, **kw),
+                                    reps=5, warmup=1)
+        kw = dict(base_kw, mode="nw", free=F4, outputs=cls)
+        plain_ms = time_cuda(torch,
+                             lambda: tk.score_align_plain(*args, **kw),
+                             reps=1, warmup=0)
+        b = sweep_bound(cls, args, kw, cells)
+        log(f"[15 timing] banded {cls}, {batch.size} x {batch.qp}^2 bw {bw}: "
+            f"kernel median NW {times['nw']} ms, SG {times['sg']} ms, SW "
+            f"{times['sw']} ms; plain (NW, one run) {plain_ms} ms; bound "
+            f"{b['bound_ms']} ms ({b['bound_by']}); peak device memory of "
+            f"one call NW / SG / SW "
+            f"{' / '.join(str(peaks[(cls, m)]) for m, _ in BANDED_MODES)} "
+            f"MiB above the inputs [{card}]")
+        if cls != "score":
+            rows[cls] = {"launches": launches[cls], "ms": times["nw"],
+                         "plain_ms": plain_ms, **b}
+    return rows
+
+
+def long_banded(torch, pt, tk, card) -> None:
+    """``banded_nw_batch`` of 128 DNA pairs of 4,096 bp at bw 64, NW 5/1
+    (K1's band-only score form as the long-read banded path): 8 pairs
+    against the plain version, the kernel and the call timed.  Its pairs
+    come from a generator of their own (numpy seed 15), so that the later
+    phases draw what they drew before."""
+    rng = np.random.default_rng(15)
+    dna = pt.Matrix.create(DNA, 2, -3)
+    bw = 64
+    qs = random_seqs(rng, DNA, 128, LONG_LEN, LONG_LEN)
+    rs = random_seqs(rng, DNA, 128, LONG_LEN, LONG_LEN)
+    al = (pt.Aligner.new().matrix(dna).gap_open(5).gap_extend(1)
+          .bandwidth(bw).build())
+    res = al.banded_nw_batch(qs, rs)
+    batch, _, _ = al._pack(qs, rs)
+    args = (batch.ridx, batch.qlen_t, batch.rlen_t)
+    kw = dict(open_=5, ext=1, mode="nw", free=F4, width="32",
+              table=batch.table, qidx=batch.qidx, banded=True, bandwidth=bw)
+    n = 8
+    plain = {k: v.cpu().numpy() for k, v in tk.score_align_plain(
+        *(a[:n] for a in args), **dict(kw, qidx=batch.qidx[:n])).items()}
+    check_against_plain(f"banded_nw_batch 128 x {LONG_LEN} bp bw {bw}",
+                        res[:n], plain)
+    ms = time_cuda(torch, lambda: tk.score_align(*args, **kw), reps=3,
+                   warmup=1)
+    e2e_ms = time_host(lambda: al.banded_nw_batch(qs, rs), reps=3)
+    cells = band_cells(batch.qlen, batch.rlen, bw)
+    b = sweep_bound("score", args, kw, cells)
+    log(f"[15 timing] banded_nw_batch 128 DNA pairs of {LONG_LEN} bp, NW "
+        f"5/1, bw {bw}: the first {n} pairs equal to plain; banded kernel "
+        f"median {ms} ms ({cells} band cells, {cells / ms / 1e6} GCUPS; "
+        f"bound {b['bound_ms']} ms, {b['bound_by']}), e2e median {e2e_ms} "
+        f"ms [{card}]")
 
 
 def check_fields(name, got, want) -> None:

@@ -6,9 +6,10 @@
 // at :865-888), its stats class (outputs="stats"; payloads at :844-863,
 // outputs at :1489-1496) and its plane classes (outputs="table",
 // "stats_table", "rowcol", "stats_rowcol"; :979-999, :1498-1519), and
-// its banded mode in the score class (banded=True, bandwidth; :1307-1308,
-// masks at :602-617, :722-725, :890-891), which sweeps only the band's
-// cells, O(qlen * (2 bw + 1)) per pair (pt_scan_banded).  Same
+// its banded mode in every class (banded=True, bandwidth; :1307-1308,
+// masks at :602-617, :722-725, :890-891): the score form sweeps only the
+// band's cells, O(qlen * (2 bw + 1)) per pair, the other forms every
+// cell, masked (pt_scan_banded).  Same
 // outputs: score, end_query, end_ref and the width-8/16 saturation
 // flags, bit for bit, for NW, the nine SG free-end sets and SW, with the
 // substitution given as an (A, A) table plus query letters or as (1 or
@@ -44,7 +45,10 @@
 // design's answer is to keep the chain short (one max-plus cell per step,
 // the loads of the next cell independent of the current one) and to leave
 // intra-pair parallelism, DPX max-plus instructions, packed payloads and a
-// fused byte-to-letter map to later versions.
+// fused byte-to-letter map to later versions.  The banded forms other than
+// score sweep every cell and mask (one compare and three selects a cell),
+// so they cost what their unbanded forms cost, however narrow the band: a
+// band-only sweep of the plane classes is a later redesign.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -138,6 +142,25 @@ int launch(const void* subs, const void* qidx, const void* ridx,
   return (int)cudaGetLastError();
 }
 
+// The batch's rows and planes for the stats, table and rowcol forms, over
+// the (2 or 8, Rp, B) scratch, the (1 or 4, Qp, Rp, B) planes and the
+// (1 or 4, Rp, B) / (1 or 4, Qp, B) last rows and columns.
+ptscore::PlaneIO plane_io(const void* mq, int32_t* scratch, void* planes,
+                          void* row, void* col, int B, int Qp, int Rp) {
+  const int64_t rows = (int64_t)Rp * B;
+  ptscore::PlaneIO io;
+  io.mq = (const int32_t*)mq;
+  io.pay = scratch + 2 * rows;
+  io.pay_plane = rows;
+  io.table = (int32_t*)planes;
+  io.tab_plane = (int64_t)Qp * rows;
+  io.row = (int32_t*)row;
+  io.row_plane = rows;
+  io.col = (int32_t*)col;
+  io.col_plane = (int64_t)Qp * B;
+  return io;
+}
+
 }  // namespace
 
 // Launches the score kernel on `stream` and returns cudaGetLastError()
@@ -152,21 +175,6 @@ extern "C" int pt_scan_score(const void* subs, const void* qidx,
   return launch<ptscore::OUT_SCORE>(subs, qidx, ridx, qlen, rlen, hrow, erow,
                                     out, nullptr, B, Bq, Qp, Rp, A, open, ext,
                                     mode, free_bits, stream);
-}
-
-// The banded score form (K1e): pt_scan_score's arguments plus the band's
-// half-width `bandwidth`; cells with |i - j| > bandwidth, and border cells
-// beyond it, do not exist.  The wrapper runs it as NW only.
-extern "C" int pt_scan_banded(const void* subs, const void* qidx,
-                              const void* ridx, const void* qlen,
-                              const void* rlen, void* hrow, void* erow,
-                              void* out, int B, int Bq, int Qp, int Rp, int A,
-                              int open, int ext, int mode, int free_bits,
-                              int bandwidth, void* stream) {
-  return launch<ptscore::OUT_SCORE, true>(
-      subs, qidx, ridx, qlen, rlen, hrow, erow, out, nullptr, B, Bq, Qp, Rp,
-      A, open, ext, mode, free_bits, stream, ptscore::PlaneIO(), 0,
-      ptscore::clamp_band(bandwidth, Qp, Rp));
 }
 
 // pt_scan_score plus the (Qp, Rp, B) int8 flag plane `trace`, of which
@@ -205,20 +213,57 @@ extern "C" int pt_scan_outputs(int out_class, const void* subs,
                                void* stream) {
   const int64_t rows = (int64_t)Rp * B;
   int32_t* sc = (int32_t*)scratch;
-  ptscore::PlaneIO io;
-  io.mq = (const int32_t*)mq;
-  io.pay = sc + 2 * rows;
-  io.pay_plane = rows;
-  io.table = (int32_t*)planes;
-  io.tab_plane = (int64_t)Qp * rows;
-  io.row = (int32_t*)row;
-  io.row_plane = rows;
-  io.col = (int32_t*)col;
-  io.col_plane = (int64_t)Qp * B;
+  const ptscore::PlaneIO io = plane_io(mq, sc, planes, row, col, B, Qp, Rp);
 #define PT_LAUNCH(k)                                                       \
   launch<k>(subs, qidx, ridx, qlen, rlen, sc, sc + rows, out, nullptr, B,  \
             Bq, Qp, Rp, A, open, ext, mode, free_bits, stream, io, Bm)
   switch (out_class) {
+    case ptscore::OUT_STATS:
+      return PT_LAUNCH(ptscore::OUT_STATS);
+    case ptscore::OUT_TABLE:
+      return PT_LAUNCH(ptscore::OUT_TABLE);
+    case ptscore::OUT_STATS_TABLE:
+      return PT_LAUNCH(ptscore::OUT_STATS_TABLE);
+    case ptscore::OUT_ROWCOL:
+      return PT_LAUNCH(ptscore::OUT_ROWCOL);
+    case ptscore::OUT_STATS_ROWCOL:
+      return PT_LAUNCH(ptscore::OUT_STATS_ROWCOL);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef PT_LAUNCH
+}
+
+// The banded forms of every class (K1e; out_class 0-6, ptscore::OutClass):
+// pt_scan_outputs's arguments plus the trace class's (Qp, Rp, B) flag
+// plane `trace` (as pt_scan_trace's) and the band's half-width
+// `bandwidth`; cells with |i - j| > bandwidth, and border cells beyond
+// it, are -2^30.  The score form sweeps only the band's cells; the others
+// sweep every cell of a pair and set H, E and F outside the band to -2^30
+// after taking the cell's flags and payloads, so every output equals the
+// plain version's.  NW, the SG free-end sets and SW.  An unknown class
+// returns cudaErrorInvalidValue.
+extern "C" int pt_scan_banded(int out_class, const void* subs,
+                              const void* qidx, const void* mq,
+                              const void* ridx, const void* qlen,
+                              const void* rlen, void* scratch, void* out,
+                              void* trace, void* planes, void* row,
+                              void* col, int B, int Bq, int Bm, int Qp,
+                              int Rp, int A, int open, int ext, int mode,
+                              int free_bits, int bandwidth, void* stream) {
+  const int64_t rows = (int64_t)Rp * B;
+  int32_t* sc = (int32_t*)scratch;
+  const ptscore::PlaneIO io = plane_io(mq, sc, planes, row, col, B, Qp, Rp);
+  const int bw = ptscore::clamp_band(bandwidth, Qp, Rp);
+#define PT_LAUNCH(k)                                                        \
+  launch<k, true>(subs, qidx, ridx, qlen, rlen, sc, sc + rows, out, trace,  \
+                  B, Bq, Qp, Rp, A, open, ext, mode, free_bits, stream, io, \
+                  Bm, bw)
+  switch (out_class) {
+    case ptscore::OUT_SCORE:
+      return PT_LAUNCH(ptscore::OUT_SCORE);
+    case ptscore::OUT_TRACE:
+      return PT_LAUNCH(ptscore::OUT_TRACE);
     case ptscore::OUT_STATS:
       return PT_LAUNCH(ptscore::OUT_STATS);
     case ptscore::OUT_TABLE:

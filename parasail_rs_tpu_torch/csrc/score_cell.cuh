@@ -47,10 +47,12 @@
 // qlen x rlen cells.  Because every value and payload follows golden's
 // literal comparisons, open < ext and open == ext need nothing special.
 //
-// The banded score form (kBanded, NW) sweeps only the cells with
-// |i - j| <= bw and masks the borders beyond bw, as the TPU kernel's
-// banded mode (scan_kernel.py:602-617, :722-725, :890-891); see
-// score_pair.
+// The banded forms (kBanded) are the TPU kernel's banded mode
+// (scan_kernel.py:602-617, :722-725, :890-891) in every class and mode:
+// cells with |i - j| > bw and border cells beyond bw are NEG_INF32.  The
+// score form sweeps only the band's cells; every other form sweeps every
+// cell and masks, so that its flags and payloads outside the band are the
+// plain version's; see score_pair.
 //
 // All arithmetic is exact int32 with NEG_INF32 = -2^30 as minus infinity,
 // so NEG_INF32 - open - ext cannot wrap.
@@ -231,8 +233,9 @@ PT_HD void cell_stats(int32_t h_diag, int32_t h_up, int32_t e_up,
 // candidates, value desc then (i, j) asc): the corner, plus the top row's
 // cells if qe (qlen == 0) or the left column's if de (rlen == 0).  Its
 // payload is (0, 0, the characters consumed, or 0 on a free border).
-// Banded (NW only), a border cell beyond bw is -inf, so a side longer
-// than the band scores NEG_INF32, as golden's banded_nw_fill.
+// Banded, a border cell beyond bw is -inf, so a side longer than the band
+// scores NEG_INF32, as golden's banded_nw_fill; when every candidate is
+// beyond it, the first candidate is the end cell, as in the plain version.
 template <bool kBanded = false>
 PT_HD PairResult empty_side(int32_t qlen, int32_t rlen, int32_t open,
                             int32_t ext, bool qb, bool qe, bool db,
@@ -241,11 +244,11 @@ PT_HD PairResult empty_side(int32_t qlen, int32_t rlen, int32_t open,
   const int32_t n = qlen == 0 ? rlen : qlen;
   const bool is_free = qlen == 0 ? qb : db;
   const bool end_free = qlen == 0 ? qe : de;
-  int32_t best = NEG_INF32, at = n;
+  int32_t best = NEG_INF32, at = 0;
   for (int32_t c = 1; c <= n; ++c) {
     const int32_t v = kBanded ? band_border(c, is_free, open, ext, bw)
                               : border(c, is_free, open, ext);
-    if ((end_free || c == n) && v > best) {
+    if ((end_free || c == n) && (at == 0 || v > best)) {
       best = v;
       at = c;
     }
@@ -266,32 +269,45 @@ PT_HD PairResult empty_side(int32_t qlen, int32_t rlen, int32_t open,
 //           qidx = nullptr).  A letter outside [0, A) scores 0.
 //   ridx:   the pair's reference letters.
 //   hrow, erow: H and E of the previous row, element j at [j * stride].
-//   qp:     padded query length (the SG end row before any candidate).
+//   qp, rp: padded lengths: a non-local pair with no candidate (banded SG,
+//           every candidate outside the band) ends at (qp, rp).
 //   trace:  OUT_TRACE only: cell (i, j)'s flags go to trace[i * tsi +
 //           j * tsj]; the table forms write their planes at the same
 //           strides.
 //   io:     the stats, table and rowcol forms' rows and planes.
 //
-// kBanded (the banded score form, K1e; run as NW): only cells with
-// |i - j| <= bw exist, so row i sweeps j in [max(0, i - bw),
-// min(rlen - 1, i + bw)] and a pair costs O(qlen * (2 bw + 1)) cells.
-// The edges give exactly what the plain version (the wavefront, which
-// masks H, E and F outside the band and the borders beyond bw to
-// NEG_INF32) gives: the top row starts as the masked border, so a cell
-// right of row i - 1's band, never written, reads NEG_INF32; at a left
-// edge lo > 0, H and F to the left are NEG_INF32 and the diagonal is row
-// i - 1's H at lo - 1; column 0 reads the masked border.  In-band E and F
-// keep the same unclamped int32 values (NEG_INF32 - open and so on).
-// bw must lie in [-1, qp + rlen] (the caller clamps it).
+// kBanded (K1e): only cells with |i - j| <= bw exist; bw must lie in
+// [-1, qp + rlen] (the caller clamps it).  Two sweeps give exactly what
+// the plain version (the wavefront, which masks H, E and F outside the
+// band and the borders beyond bw to NEG_INF32) gives:
+//
+// - the score form sweeps only the band: row i takes j in [max(0, i -
+//   bw), min(rlen - 1, i + bw)], O(qlen * (2 bw + 1)) cells a pair.  The
+//   top row starts as the masked border, so a cell right of row i - 1's
+//   band, never written, reads NEG_INF32; at a left edge lo > 0, H and F
+//   to the left are NEG_INF32 and the diagonal is row i - 1's H at lo -
+//   1; column 0 reads the masked border.  In-band E and F keep the same
+//   unclamped int32 values (NEG_INF32 - open and so on).  Out-of-band
+//   cells, never swept, are never candidates (the plain version's are
+//   NEG_INF32, which no candidate exceeds), and the saturation flags add
+//   the plain version's count of them as NEG_INF32 in closed form.
+// - every other form sweeps every cell, in the plain version's order:
+//   the cell from its (masked) neighbours with the SW clamp, then its
+//   flags and payloads from those unmasked comparisons, then H, E and F
+//   set to NEG_INF32 outside the band.  So the flags and payloads
+//   outside the band, and the extremes behind the saturation flags, are
+//   the plain version's; the payloads are never masked.
 template <int32_t kOut, bool kBanded = false>
 PT_HD PairResult score_pair(const int32_t* rows, const int32_t* qidx,
                             int32_t A, const int32_t* ridx, int32_t qlen,
-                            int32_t rlen, int32_t qp, int32_t* hrow,
-                            int32_t* erow, int64_t stride, int32_t open,
-                            int32_t ext, int32_t mode, int32_t free_bits,
-                            int8_t* trace, int64_t tsi, int64_t tsj,
-                            const PlaneIO& io, int32_t bw = 0) {
-  static_assert(!kBanded || kOut == OUT_SCORE, "banded: score form only");
+                            int32_t rlen, int32_t qp, int32_t rp,
+                            int32_t* hrow, int32_t* erow, int64_t stride,
+                            int32_t open, int32_t ext, int32_t mode,
+                            int32_t free_bits, int8_t* trace, int64_t tsi,
+                            int64_t tsj, const PlaneIO& io, int32_t bw = 0) {
+  // the band-only sweep (score form) and the masked full sweep (the rest)
+  constexpr bool kBandOnly = kBanded && kOut == OUT_SCORE;
+  constexpr bool kMasked = kBanded && kOut != OUT_SCORE;
   using O = Out<kOut>;
   const bool local = mode == MODE_SW;
   const bool qb = local || (free_bits & FREE_QB);
@@ -323,7 +339,7 @@ PT_HD PairResult score_pair(const int32_t* rows, const int32_t* qidx,
 
   int32_t best = local ? 0 : NEG_INF32;
   int32_t bi = local ? 0 : qp;
-  int32_t bj = local ? 0 : BIG;
+  int32_t bj = local ? 0 : rp;
   int32_t bm = 0, bs = 0, bl = 0;
   int32_t hmax = 0, hmin = 0;
 
@@ -336,17 +352,17 @@ PT_HD PairResult score_pair(const int32_t* rows, const int32_t* qidx,
     const bool row_all = local || (last_row && qe);
     const bool row_last = last_row || de;
 
-    int32_t h_diag = border(i, db, open, ext);      // H[i][0] (bordered)
-    int32_t h_left = border(i + 1, db, open, ext);  // H[i+1][0]
+    // H[i][0] and H[i+1][0] of the bordered grid
+    int32_t h_diag = kBanded ? band_border(i, db, open, ext, bw)
+                             : border(i, db, open, ext);
+    int32_t h_left = kBanded ? band_border(i + 1, db, open, ext, bw)
+                             : border(i + 1, db, open, ext);
     int32_t lo = 0, hi = rlen;                      // this row's [lo, hi)
-    if constexpr (kBanded) {
+    if constexpr (kBandOnly) {
       lo = imax(0, i - bw);
       hi = imin(rlen, i + bw + 1);
       if (lo >= hi) continue;
-      if (lo == 0) {
-        h_diag = band_border(i, db, open, ext, bw);
-        h_left = band_border(i + 1, db, open, ext, bw);
-      } else {
+      if (lo > 0) {
         h_diag = hrow[(lo - 1) * stride];
         h_left = NEG_INF32;
       }
@@ -390,6 +406,9 @@ PT_HD PairResult score_pair(const int32_t* rows, const int32_t* qidx,
         lp = hp;
       } else {
         cell(h_diag, h_up, e_up, h_left, s, open, ext, local, f, h, e);
+      }
+      if constexpr (kMasked) {
+        if (i - j > bw || j - i > bw) h = e = f = NEG_INF32;
       }
       if constexpr (O::table) {
         const int64_t t = i * tsi + j * tsj;
@@ -446,7 +465,7 @@ PT_HD PairResult score_pair(const int32_t* rows, const int32_t* qidx,
   out.end_ref = mode == MODE_NW ? rlen - 1 : bj;
   out.sat8 = (hmax >= W8_MAX || hmin <= W8_MIN) ? 1 : 0;
   out.sat16 = (hmax >= W16_MAX || hmin <= W16_MIN) ? 1 : 0;
-  if constexpr (kBanded) {
+  if constexpr (kBandOnly) {
     // the plain version counts every in-sequence cell outside the band as
     // H = NEG_INF32: there is one when the far corner of the longer side,
     // (qlen - 1, 0) or (0, rlen - 1), lies outside
@@ -484,7 +503,7 @@ PT_HD PairResult score_batch_pair(int32_t b, const int32_t* subs,
   const int32_t* q = qidx ? qidx + bq * Qp : nullptr;
   return score_pair<kOut, kBanded>(rows, q, A, ridx + (int64_t)b * Rp,
                                    imin(qlen[b], Qp), imin(rlen[b], Rp), Qp,
-                                   hrow, erow, stride, open, ext, mode,
+                                   Rp, hrow, erow, stride, open, ext, mode,
                                    free_bits, trace, tsi, tsj, io, bw);
 }
 

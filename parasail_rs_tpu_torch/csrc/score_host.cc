@@ -72,21 +72,6 @@ extern "C" int pt_score_host(const int32_t* subs, const int32_t* qidx,
   return 0;
 }
 
-// The banded score form: pt_score_host's arguments plus `bandwidth`, as
-// pt_scan_banded.
-extern "C" int pt_banded_host(const int32_t* subs, const int32_t* qidx,
-                              const int32_t* ridx, const int32_t* qlen,
-                              const int32_t* rlen, int32_t* out, int B,
-                              int Bq, int Qp, int Rp, int A, int open,
-                              int ext, int mode, int free_bits,
-                              int bandwidth) {
-  sweep<ptscore::OUT_SCORE, true>(subs, qidx, ridx, qlen, rlen, out, nullptr,
-                                  B, Bq, Qp, Rp, A, open, ext, mode,
-                                  free_bits, ptscore::PlaneIO(), 0,
-                                  ptscore::clamp_band(bandwidth, Qp, Rp));
-  return 0;
-}
-
 // pt_score_host plus the flags of each in-sequence cell into `trace`, a
 // (B, Qp, Rp) int8 plane the caller zero-fills.
 extern "C" int pt_trace_host(const int32_t* subs, const int32_t* qidx,
@@ -144,6 +129,56 @@ extern "C" int pt_outputs_host(int out_class, const int32_t* subs,
 #undef PT_SWEEP
 }
 
+// The banded forms of every class (out_class 0-6): pt_outputs_host's
+// arguments plus a (B, Qp, Rp) int8 flag plane `trace` for the trace
+// class and `bandwidth`, as pt_scan_banded.  `out` is (8, B).  Returns -1
+// for an unknown class.
+extern "C" int pt_banded_host(
+    int out_class, const int32_t* subs, const int32_t* qidx,
+    const int32_t* mq, const int32_t* ridx, const int32_t* qlen,
+    const int32_t* rlen, int32_t* out, int8_t* trace, int32_t* planes,
+    int32_t* row, int32_t* col, int B, int Bq, int Bm, int Qp, int Rp, int A,
+    int open, int ext, int mode, int free_bits, int bandwidth) {
+  ptscore::PlaneIO io;
+  io.mq = mq;
+  io.table = planes;
+  io.tab_plane = (int64_t)B * Qp * Rp;
+  io.row = row;
+  io.row_plane = (int64_t)B * Rp;
+  io.col = col;
+  io.col_plane = (int64_t)B * Qp;
+  const int bw = ptscore::clamp_band(bandwidth, Qp, Rp);
+#define PT_SWEEP(k)                                                         \
+  sweep<k, true>(subs, qidx, ridx, qlen, rlen, out, trace, B, Bq, Qp, Rp, A, \
+                 open, ext, mode, free_bits, io, Bm, bw)
+  switch (out_class) {
+    case ptscore::OUT_SCORE:
+      PT_SWEEP(ptscore::OUT_SCORE);
+      return 0;
+    case ptscore::OUT_TRACE:
+      PT_SWEEP(ptscore::OUT_TRACE);
+      return 0;
+    case ptscore::OUT_STATS:
+      PT_SWEEP(ptscore::OUT_STATS);
+      return 0;
+    case ptscore::OUT_TABLE:
+      PT_SWEEP(ptscore::OUT_TABLE);
+      return 0;
+    case ptscore::OUT_STATS_TABLE:
+      PT_SWEEP(ptscore::OUT_STATS_TABLE);
+      return 0;
+    case ptscore::OUT_ROWCOL:
+      PT_SWEEP(ptscore::OUT_ROWCOL);
+      return 0;
+    case ptscore::OUT_STATS_ROWCOL:
+      PT_SWEEP(ptscore::OUT_STATS_ROWCOL);
+      return 0;
+    default:
+      return -1;
+  }
+#undef PT_SWEEP
+}
+
 // Same arguments as pt_trace_walk minus the stream, over a contiguous
 // (B, Qp, Rp) plane; `ops` (B, Qp + Rp) arrives zero-filled, `beg` is
 // (2, B).
@@ -156,8 +191,8 @@ extern "C" int pt_walk_host(const int8_t* trace, const int32_t* qsym,
   for (int b = 0; b < B; ++b) {
     ptwalk::walk_pair(trace + (int64_t)b * Qp * Rp, Rp, 1,
                       qsym + (Bq == 1 ? 0 : (int64_t)b * Qp),
-                      rsym + (int64_t)b * Rp, end_q[b], end_r[b], L,
-                      local != 0, qb != 0, db != 0, ops + (int64_t)b * L,
+                      rsym + (int64_t)b * Rp, end_q[b], end_r[b], Qp, Rp,
+                      L, local != 0, qb != 0, db != 0, ops + (int64_t)b * L,
                       beg[b], beg[B + b]);
   }
   return 0;

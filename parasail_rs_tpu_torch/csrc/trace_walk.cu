@@ -42,7 +42,7 @@ __global__ void trace_walk_kernel(
   int32_t bq, br;
   ptwalk::walk_pair(trace + b * sb, si, sj,
                     qsym + (Bq == 1 ? 0 : (int64_t)b * Qp),
-                    rsym + (int64_t)b * Rp, end_q[b], end_r[b], L,
+                    rsym + (int64_t)b * Rp, end_q[b], end_r[b], Qp, Rp, L,
                     local != 0, qb != 0, db != 0, ops + (int64_t)b * L, bq,
                     br);
   beg[b] = bq;

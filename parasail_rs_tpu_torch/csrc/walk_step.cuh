@@ -89,20 +89,25 @@ PT_HD uint8_t walk_step(int32_t& i, int32_t& j, int32_t& state, int32_t t,
 //
 //   trace:  the pair's cell (0, 0); cell (i, j) at trace[i * si + j * sj]
 //   qsym, rsym: the pair's query and reference symbols
+//   qp, rp: the plane's padded sizes: a cell past them (the end cell
+//           (Qp, Rp) of a banded SG pair with no candidate) is read at
+//           (min(i, qp - 1), min(j, rp - 1)), as the plain version reads it
 //   L:      steps (Qp + Rp); ops[0 .. L) gets the opcodes, backward,
 //           and must arrive zero-filled: the walk stops writing when it
 //           ends
 PT_HD void walk_pair(const int8_t* trace, int64_t si, int64_t sj,
                      const int32_t* qsym, const int32_t* rsym, int32_t end_q,
-                     int32_t end_r, int32_t L, bool local, bool qb, bool db,
-                     uint8_t* ops, int32_t& beg_q, int32_t& beg_r) {
+                     int32_t end_r, int32_t qp, int32_t rp, int32_t L,
+                     bool local, bool qb, bool db, uint8_t* ops,
+                     int32_t& beg_q, int32_t& beg_r) {
   int32_t i = end_q, j = end_r, state = ST_H;
   for (int32_t k = 0; k < L && state != ST_DONE; ++k) {
     int32_t t = 0;
     bool same = false;
     if (i >= 0 && j >= 0) {
-      t = trace[i * si + j * sj];
-      same = state == ST_H && (t & TRACE_DIAG) && qsym[i] == rsym[j];
+      const int32_t ci = i < qp ? i : qp - 1, cj = j < rp ? j : rp - 1;
+      t = trace[ci * si + cj * sj];
+      same = state == ST_H && (t & TRACE_DIAG) && qsym[ci] == rsym[cj];
     }
     ops[k] = walk_step(i, j, state, t, same, local, qb, db);
   }

@@ -8,7 +8,8 @@ aligner's device, map bytes to letter indices there, run
 batch, and fetch the per-pair scalars in one pinned, non-blocking
 transfer (:class:`PendingResult`) and each plane (trace, table, row,
 column) in one copy of its own.  ``banded=True`` with ``bandwidth`` runs
-the banded score form (``Aligner.banded_nw``).  :func:`submit` is
+the banded mode (kernel K1e) in any class and mode; ``Aligner.banded_nw``
+runs its NW score form.  :func:`submit` is
 ``align_many``'s launch: it returns without waiting for the card where
 only per-pair scalars come back, so every bin is packed and launched
 before the first fetch.
@@ -349,7 +350,8 @@ def plan_route(batch: PairBatch, outputs: str, gap_open: int,
       plane on the card), ``use_trace()`` under the plane bound, score
       and stats of tall, narrow pairs, and the table, stats_table,
       rowcol and stats_rowcol classes, which have no segment form;
-    - K1 for everything else and for every banded batch (K1e).
+    - K1 for everything else and for every banded batch, of any class
+      and mode (K1e).
 
     Why: on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6) K1 puts one
     thread on a pair, 223-228 ns a cell, so 128 pairs of 4,096 bp take
@@ -370,7 +372,8 @@ def plan_route(batch: PairBatch, outputs: str, gap_open: int,
     on short pairs").  All on an NVIDIA H100 80GB HBM3 at 700 W, from
     ``chip_smoke.py`` phases 5, 20 and 27.
     ``one_shot=True`` is for callers that need one launch; ``banded=True``
-    for the banded mode, which only K1 serves.
+    for the banded mode, which only K1 serves (its score form sweeps the
+    band alone, its other forms every cell, masked).
 
     ``gap_open`` / ``gap_extend`` are accepted for the reference's
     signature: every penalty pair is exact on every route.  The kernels'

@@ -152,12 +152,12 @@ def load() -> ctypes.CDLL:
             ll = ctypes.c_longlong
             lib.pt_scan_score.restype = i
             lib.pt_scan_score.argtypes = [p] * 8 + [i] * 9 + [p]
-            lib.pt_scan_banded.restype = i
-            lib.pt_scan_banded.argtypes = [p] * 8 + [i] * 10 + [p]
             lib.pt_scan_trace.restype = i
             lib.pt_scan_trace.argtypes = [p] * 9 + [i] * 9 + [p]
             lib.pt_scan_outputs.restype = i
             lib.pt_scan_outputs.argtypes = [i] + [p] * 11 + [i] * 10 + [p]
+            lib.pt_scan_banded.restype = i
+            lib.pt_scan_banded.argtypes = [i] + [p] * 12 + [i] * 11 + [p]
             lib.pt_scan_segment.restype = i
             lib.pt_scan_segment.argtypes = [i] + [p] * 13 + [i] * 13 + [p]
             lib.pt_scan_rowseg.restype = i

@@ -40,13 +40,16 @@ empty side gets golden's end cell and payload on the bordered grid (the
 reference's kernels disagree there; ROADMAP Queue 3).
 
 ``banded=True`` with ``bandwidth`` bw is the reference's banded mode
-(kernel K1e): cells with |i - j| > bw and border cells beyond bw do not
-exist, and an unreachable NW corner scores -2^30.  On the card it runs
-the banded score form (``pt_scan_banded``, counted in
-:data:`BANDED_LAUNCHES`) in NW only, the configuration of
-``Aligner.banded_nw``; other modes and classes raise
-``NotImplementedError`` there.  Its plain version is the wavefront with
-``banded=True``.
+(kernel K1e), in every class and mode: cells with |i - j| > bw and border
+cells beyond bw are -2^30, so an unreachable NW corner scores -2^30 and
+an SG pair whose every end candidate lies outside the band ends at (Qp,
+Rp) with -2^30.  On the card it runs the kernel's banded forms
+(``pt_scan_banded``): the score form sweeps only the band (counted in
+:data:`BANDED_LAUNCHES`; ``Aligner.banded_nw`` runs it), the other six
+sweep every cell and mask (counted by class in
+:data:`BANDED_CLASS_LAUNCHES`).  Its plain version is the wavefront with
+``banded=True``, whose flags and payloads outside the band the kernel
+reproduces too.
 
 :func:`score_segment` is the port of
 ``parasail_rs_tpu.ops.scan_kernel.scan_score_segment`` (kernel K2): one
@@ -119,13 +122,14 @@ OUTPUTS = ("score", "trace", "stats", "table", "stats_table", "rowcol",
 BIG = 2 ** 30
 
 # Launches of the CUDA kernel in this process: score form, trace form,
-# the other five forms by class, and the banded score form.  Only
-# score_align's CUDA branch adds to them; set them to 0 to count one phase
-# of work.
+# the other five forms by class, the banded score form and the other six
+# banded forms by class.  Only score_align's CUDA branch adds to them; set
+# them to 0 to count one phase of work.
 LAUNCHES = 0
 TRACE_LAUNCHES = 0
 CLASS_LAUNCHES = dict.fromkeys(OUTPUTS[2:], 0)
 BANDED_LAUNCHES = 0
+BANDED_CLASS_LAUNCHES = dict.fromkeys(OUTPUTS[1:], 0)
 # Launches of the segment kernel (csrc/scan_segment.cu); only
 # score_segment's CUDA branch adds to it.
 SEGMENT_LAUNCHES = 0
@@ -241,10 +245,6 @@ def score_align(ridx, qlen, rlen, *, open_, ext, mode, free, width="32",
                                  bandwidth=bandwidth)
     if ridx.device.type != "cuda":
         raise ValueError(f"no kernel for device {ridx.device}")
-    if banded and (outputs != "score" or mode != "nw"):
-        raise NotImplementedError(
-            f"banded {mode} outputs={outputs!r} has no kernel on the card: "
-            "only the NW score form of K1e is ported (ROADMAP Queue 2, K1e)")
     global LAUNCHES, TRACE_LAUNCHES, BANDED_LAUNCHES
     from . import _build
 
@@ -268,16 +268,19 @@ def score_align(ridx, qlen, rlen, *, open_, ext, mode, free, width="32",
     elif outputs in ("rowcol", "stats_rowcol"):
         rows = torch.zeros((nplanes, Rp, B), dtype=i32, device=dev)
         cols = torch.zeros((nplanes, Qp, B), dtype=i32, device=dev)
+    bw = max(-1, min(int(bandwidth), Qp + Rp))
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         args = (subs.data_ptr(), qptr)
         lens = (ridx.data_ptr(), qlen.data_ptr(), rlen.data_ptr())
         if banded:
-            rc = lib.pt_scan_banded(*args, *lens, scratch[0].data_ptr(),
-                                    scratch[1].data_ptr(), out.data_ptr(),
-                                    *dims,
-                                    max(-1, min(int(bandwidth), Qp + Rp)),
-                                    stream)
+            rc = lib.pt_scan_banded(
+                OUTPUTS.index(outputs), *args, _ptr(qidx if stats else None),
+                *lens, scratch.data_ptr(), out.data_ptr(),
+                _ptr(plane if outputs == "trace" else None),
+                _ptr(plane if outputs != "trace" else None), _ptr(rows),
+                _ptr(cols), B, Bq, qidx.shape[0] if stats else 0, *dims[2:],
+                bw, stream)
         elif outputs == "score":
             rc = lib.pt_scan_score(*args, *lens, scratch[0].data_ptr(),
                                    scratch[1].data_ptr(), out.data_ptr(),
@@ -296,15 +299,19 @@ def score_align(ridx, qlen, rlen, *, open_, ext, mode, free, width="32",
         raise RuntimeError(
             f"scan_{outputs} kernel launch failed: CUDA error {rc}")
     res = _kernel_scalars(out, width)
-    if banded:
+    if banded and outputs == "score":
         BANDED_LAUNCHES += 1
+    elif banded:
+        BANDED_CLASS_LAUNCHES[outputs] += 1
     elif outputs == "score":
         LAUNCHES += 1
     elif outputs == "trace":
         TRACE_LAUNCHES += 1
-        res["trace_table"] = plane.permute(2, 0, 1)
     else:
         CLASS_LAUNCHES[outputs] += 1
+    if outputs == "trace":
+        res["trace_table"] = plane.permute(2, 0, 1)
+    else:
         for k, name in enumerate(PLANES[:nplanes]):
             if plane is not None:
                 res[f"{name}_table"] = plane[k].permute(2, 0, 1)

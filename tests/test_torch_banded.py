@@ -13,6 +13,9 @@ its Pallas kernel in interpret mode; on an empty side the JAX package
 gives -2^30 even where the oracle is finite (ROADMAP Queue 3), and the
 port follows the oracle.  ``banded_nw`` / ``banded_nw_batch`` are held to
 the JAX ``Aligner`` on its own tests' cases.  Every comparison is exact.
+The other classes and modes of the banded mode are in
+``test_torch_banded_classes.py``; on the card (tests marked ``cuda``)
+every class in every mode is held to the plain version here.
 """
 
 import numpy as np
@@ -25,6 +28,7 @@ from parasail_rs_tpu.golden import banded_nw_fill  # noqa: E402
 
 import parasail_rs_tpu_torch as port  # noqa: E402
 from parasail_rs_tpu_torch.ops import scan_kernel as tk  # noqa: E402
+from parasail_rs_tpu_torch.ops import trace_walk as tw  # noqa: E402
 
 from test_torch_engine import (  # noqa: E402
     _seqs,
@@ -46,18 +50,20 @@ def host_lib(tmp_path_factory):
 
 
 def run_banded_host(lib, case, open_, ext, bw):
-    """pt_banded_host on a table case: (5, B) score, end_query, end_ref,
-    sat8, sat16."""
+    """pt_banded_host's NW score form on a table case: (5, B) score,
+    end_query, end_ref, sat8, sat16."""
     B, Rp = case["ridx"].shape
     Bq, Qp = case["qidx"].shape
-    out = np.zeros((5, B), np.int32)
-    arrs = [np.ascontiguousarray(case[k], np.int32)
-            for k in ("table", "qidx", "ridx", "qlen", "rlen")]
-    rc = lib.pt_banded_host(*(a.ctypes.data for a in arrs), out.ctypes.data,
-                            B, Bq, Qp, Rp, case["table"].shape[0], open_,
-                            ext, 0, 0, bw)
+    out = np.zeros((8, B), np.int32)
+    table, qidx, ridx, qlen, rlen = (
+        np.ascontiguousarray(case[k], np.int32)
+        for k in ("table", "qidx", "ridx", "qlen", "rlen"))
+    rc = lib.pt_banded_host(
+        0, table.ctypes.data, qidx.ctypes.data, None, ridx.ctypes.data,
+        qlen.ctypes.data, rlen.ctypes.data, out.ctypes.data, None, None,
+        None, None, B, Bq, 0, Qp, Rp, table.shape[0], open_, ext, 0, 0, bw)
     assert rc == 0
-    return out
+    return out[:5]
 
 
 def run_plain(case, open_, ext, bw, width="sat"):
@@ -298,17 +304,49 @@ def test_banded_kernel_matches_plain_on_card(open_, ext, lo, hi, cuda_device):
             assert torch.equal(got[k], want[k]), (bw, k)
 
 
+# NW, the nine SG free-end sets of the other tests and SW
+SG_FREE = [(True, False, False, False), (False, True, False, False),
+           (True, True, False, False), (False, False, True, False),
+           (False, False, False, True), (False, False, True, True),
+           (True, False, False, True), (False, True, True, False),
+           (True, True, True, True)]
+CARD_MODES = ([("nw", (False,) * 4)] + [("sg", f) for f in SG_FREE] +
+              [("sw", (True,) * 4)])
+
+
 @pytest.mark.cuda
-def test_banded_other_classes_raise_on_card(cuda_device):
-    t = {k: torch.zeros(s, dtype=torch.int32, device=cuda_device)
-         for k, s in (("ridx", (2, 4)), ("qlen", (2,)), ("rlen", (2,)),
-                      ("table", (4, 4)), ("qidx", (2, 4)))}
-    for mode, outputs in (("sw", "score"), ("nw", "trace")):
-        with pytest.raises(NotImplementedError, match="K1e"):
-            tk.score_align(t["ridx"], t["qlen"], t["rlen"], open_=3, ext=1,
-                           mode=mode, free=(mode == "sw",) * 4,
-                           table=t["table"], qidx=t["qidx"], outputs=outputs,
-                           banded=True, bandwidth=2)
+@pytest.mark.parametrize("outputs", tk.OUTPUTS)
+def test_banded_every_class_matches_plain_on_card(outputs, cuda_device):
+    # every class in every mode launches its banded kernel form and equals
+    # the plain version; the trace class's plane is walked by the walk
+    # kernel as its plain version walks it
+    rng = np.random.default_rng([7, tk.OUTPUTS.index(outputs)])
+    case = ragged(rng, 96, 40, 44, 5, 0)
+    t = {k: torch.from_numpy(v).to(cuda_device) for k, v in case.items()}
+    for n, (mode, free) in enumerate(CARD_MODES):
+        open_, ext = PENALTIES[n % len(PENALTIES)][:2]
+        for bw in (*BANDS, -1):
+            kw = dict(open_=open_, ext=ext, mode=mode, free=free,
+                      width="sat", table=t["table"], qidx=t["qidx"],
+                      outputs=outputs, banded=True, bandwidth=bw)
+            before = (tk.BANDED_LAUNCHES, dict(tk.BANDED_CLASS_LAUNCHES))
+            got = tk.score_align(t["ridx"], t["qlen"], t["rlen"], **kw)
+            want = tk.score_align_plain(t["ridx"], t["qlen"], t["rlen"], **kw)
+            torch.cuda.synchronize()
+            if outputs == "score":
+                assert tk.BANDED_LAUNCHES == before[0] + 1
+            else:
+                assert tk.BANDED_CLASS_LAUNCHES[outputs] == \
+                    before[1][outputs] + 1
+            assert set(got) == set(want)
+            for k in got:
+                assert torch.equal(got[k], want[k]), (mode, free, bw, k)
+            if outputs == "trace":
+                walk = (got["trace_table"], t["qidx"], t["ridx"],
+                        got["end_query"], got["end_ref"], mode, free)
+                for a, b in zip(tw.device_walk(*walk),
+                                tw.device_walk_plain(*walk)):
+                    assert torch.equal(a, b), (mode, free, bw)
 
 
 @pytest.mark.cuda

@@ -43,8 +43,6 @@ def build_host_lib(tmp_path_factory):
                     "-o", str(out)], check=True, capture_output=True,
                    timeout=300)
     lib = ctypes.CDLL(str(out))
-    lib.pt_banded_host.restype = ctypes.c_int
-    lib.pt_banded_host.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
     lib.pt_score_host.restype = ctypes.c_int
     lib.pt_score_host.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
     lib.pt_trace_host.restype = ctypes.c_int
@@ -54,6 +52,9 @@ def build_host_lib(tmp_path_factory):
     lib.pt_outputs_host.restype = ctypes.c_int
     lib.pt_outputs_host.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10 +
                                     [ctypes.c_int] * 10)
+    lib.pt_banded_host.restype = ctypes.c_int
+    lib.pt_banded_host.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11 +
+                                   [ctypes.c_int] * 11)
     return lib
 
 
@@ -253,8 +254,10 @@ def test_host_kernel_empty_side_pairs_follow_golden(host_lib, mode):
 
 
 def run_outputs_host(lib, outputs, *, ridx, qlen, rlen, open_, ext, mode,
-                     free, qidx, table=None, profile=None, width="sat"):
-    """The stats, table and rowcol forms: ``score_align``'s dict, numpy."""
+                     free, qidx, table=None, profile=None, width="sat",
+                     bandwidth=None):
+    """The stats, table and rowcol forms: ``score_align``'s dict, numpy.
+    With ``bandwidth``, the banded form of any class (``pt_banded_host``)."""
     B, Rp = ridx.shape
     Bm, Qp = qidx.shape
     subs = np.ascontiguousarray(table if table is not None else profile,
@@ -266,18 +269,25 @@ def run_outputs_host(lib, outputs, *, ridx, qlen, rlen, open_, ext, mode,
     col = np.zeros((4, B, Qp), np.int32)
     q, r, ql, rl = (np.ascontiguousarray(a, np.int32)
                     for a in (qidx, ridx, qlen, rlen))
-    rc = lib.pt_outputs_host(
-        tk.OUTPUTS.index(outputs), subs.ctypes.data,
-        q.ctypes.data if table is not None else None, q.ctypes.data,
-        r.ctypes.data, ql.ctypes.data, rl.ctypes.data, out.ctypes.data,
-        planes.ctypes.data, row.ctypes.data, col.ctypes.data, B, Bq, Bm, Qp,
-        Rp, subs.shape[-1], open_, ext, MODES[mode], tk._free_bits(free))
+    head = (tk.OUTPUTS.index(outputs), subs.ctypes.data,
+            q.ctypes.data if table is not None else None, q.ctypes.data,
+            r.ctypes.data, ql.ctypes.data, rl.ctypes.data, out.ctypes.data)
+    tail = (planes.ctypes.data, row.ctypes.data, col.ctypes.data, B, Bq, Bm,
+            Qp, Rp, subs.shape[-1], open_, ext, MODES[mode],
+            tk._free_bits(free))
+    if bandwidth is None:
+        rc = lib.pt_outputs_host(*head, *tail)
+    else:
+        plane = np.zeros((B, Qp, Rp), np.int8)
+        rc = lib.pt_banded_host(*head, plane.ctypes.data, *tail, bandwidth)
     assert rc == 0
     res = {k: v.numpy() for k, v in tk.flag_outputs(*map(torch.from_numpy, (
         out[0], out[1], out[2], out[3] != 0, out[4] != 0)), width).items()}
     stats = outputs in ("stats", "stats_table", "stats_rowcol")
     if stats:
         res.update(matches=out[5], similar=out[6], length=out[7])
+    if outputs == "trace":
+        res["trace_table"] = plane
     for k, name in enumerate(("score", "matches", "similar",
                               "length")[:4 if stats else 1]):
         if outputs.endswith("table"):

@@ -134,13 +134,23 @@ def test_matches_jax_wavefront(outputs, mode, free, open_, ext):
                 assert not v[b, ql:].any() and not v[b, :, rl:].any()
 
 
-@pytest.mark.parametrize("outputs", ["score", "stats_table", "stats_rowcol"])
-def test_banded_matches_jax_wavefront(outputs):
+# (outputs, mode, free): NW in three classes, then SG and SW in every
+# class, the SG free sets rotating
+BANDED_CASES = (
+    [pytest.param(cls, "nw", (False,) * 4, id=cls)
+     for cls in ("score", "stats_table", "stats_rowcol")] +
+    [pytest.param(cls, mode, SG_SETS[n % 5] if mode == "sg" else (True,) * 4,
+                  id=f"{mode}-{cls}")
+     for n, cls in enumerate(CLASSES) for mode in ("sg", "sw")])
+
+
+@pytest.mark.parametrize("outputs,mode,free", BANDED_CASES)
+def test_banded_matches_jax_wavefront(outputs, mode, free):
     case = pack(_pairs(5, DNA, 10, 4, 14), IDENT, Qp=16, Rp=16)
-    kw = dict(open_=3, ext=1, mode="nw", free=(False,) * 4, outputs=outputs,
+    kw = dict(open_=3, ext=1, mode=mode, free=free, outputs=outputs,
               width="32", banded=True, bandwidth=4)
     assert_same_in_sequence(run_port(case, **kw), run_jax(case, **kw), case,
-                            f"banded {outputs}")
+                            f"banded {mode} {outputs}")
 
 
 def _golden(q, r, m, open_, ext, mode, free):
