@@ -242,6 +242,8 @@ def random_seqs(rng, alphabet: bytes, n: int, lo: int, hi: int) -> list:
 
 PLANE_CLASSES = ("stats", "table", "stats_table", "rowcol", "stats_rowcol")
 STATS_CLASSES = ("stats", "stats_table", "stats_rowcol")
+# the classes with block-kernel forms of 8 rows a lane
+WIDE_CLASSES = ("score", "rowcol")
 
 # The card's peaks for the bounds (NVIDIA H100 SXM data sheet): 3.35 TB/s
 # of device memory; 67 TFLOP/s of float32 outside the tensor cores, that
@@ -491,6 +493,33 @@ def time_cuda(torch, fn, reps=7, warmup=2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def plan_note(tk, cls, B, Qs, ncols, A, profile=False) -> str:
+    """The block kernel's form for a launch: rows a lane, warps a block and
+    blocks a pair, as its launcher takes them (``scan_kernel.block_plan``)."""
+    r, w, c = tk.block_plan(cls, B, Qs, ncols, A, profile)
+    return f"R {r}, {w} warps, C {c}"
+
+
+# (rows a lane, blocks a pair) forced in turn in the block kernel's checks;
+# (0, 0) is the launcher's pick; only the score and rowcol classes have
+# forms of 8 rows a lane, the others stop at 4
+BLOCK_FORMS = ((0, 0), (2, 1), (4, 2), (8, 3), (4, 8), (8, 1), (2, 4))
+
+
+def force_form(tk, cls, warps, form) -> str:
+    """Set the block kernel's warps, rows a lane and cluster for a check;
+    returns the form's name."""
+    rows, cluster = form
+    if cls not in WIDE_CLASSES and rows == 8:
+        rows = 4
+    tk.SEGMENT_WARPS, tk._LANE_ROWS, tk._CLUSTER = warps, rows, cluster
+    return f"warps {warps} R {rows} C {cluster}"
+
+
+def unforce(tk) -> None:
+    tk.SEGMENT_WARPS = tk._LANE_ROWS = tk._CLUSTER = 0
 
 
 def time_host(fn, reps=5, warmup=1) -> float:
@@ -1720,6 +1749,7 @@ def segment_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
             for cls in classes:
                 seg = (48, 80, 128)[n % 3]          # 5, 3 and 2 segments
                 warps = (0, 1, 2, 8)[n % 4]         # 0: the launcher's pick
+                form = BLOCK_FORMS[n % len(BLOCK_FORMS)]
                 n += 1
                 ql = rng.integers(0, Qp + 1, size=B)
                 rl = rng.integers(0, Rp + 1, size=B)
@@ -1730,16 +1760,16 @@ def segment_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
                           table=t(rng.integers(-4, 6, size=(A, A))),
                           qidx=t(rng.integers(0, A, size=(B, Qp))))
                 args = (t(rng.integers(0, A, size=(B, Rp))), t(ql), t(rl))
-                tk.SEGMENT_WARPS = warps
+                fname = force_form(tk, cls, warps, form)
                 got, gst = chain_segments(torch, tk.score_segment, args, seg,
                                           kw)
-                tk.SEGMENT_WARPS = 0
+                unforce(tk)
                 want, wst = chain_segments(torch, tk.score_segment_plain,
                                            args, seg, kw)
                 one = tk.score_align(*args, **kw)
                 torch.cuda.synchronize()
                 name = f"{cls} {mode}{tuple(int(x) for x in free)} " \
-                    f"{open_}/{ext} seg {seg} warps {warps}"
+                    f"{open_}/{ext} seg {seg} {fname}"
                 err = max(max_abs_diff(got, want), max_abs_diff(got, one))
                 # the state rows of the pairs' own query rows
                 rows = (torch.arange(Qp, device=dev)[None, :] <
@@ -1756,7 +1786,8 @@ def segment_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
                                          f"{err}")
         log(f"[18 segment vs plain] {mode}{tuple(int(x) for x in free)}: "
             f"score, stats and trace at 11/1, 2/2, 1/3 in 2-5 segments, 1-8 "
-            f"warps a pair, equal to plain and to the one-shot kernel")
+            f"warps a block, 2-8 rows a lane, 1-8 blocks a pair, equal to "
+            f"plain and to the one-shot kernel")
     log(f"[18 segment vs plain] {time.perf_counter() - t18:.1f} s")
 
     # -- 19. the long-pair path through the public API ---------------------------
@@ -1882,6 +1913,8 @@ def segment_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
     k6 = time_cuda(torch, lambda: chain_segments(
         torch, tk.score_segment, args6, seg_cols["score"], kw6), reps=1,
         warmup=0)
+    plan6 = plan_note(tk, "score", 128, b6.qp, seg_cols["score"],
+                      b6.table.shape[0])
     tk.SEGMENT_WARPS = 1
     k6_one = time_cuda(torch, lambda: chain_segments(
         torch, tk.score_segment, args6, seg_cols["score"], kw6), reps=1,
@@ -1892,7 +1925,8 @@ def segment_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
         f"call, {e2e6} ms ({cells6 / e2e6 / 1e6} GCUPS), peak device memory "
         f"{peak6} MiB; its two segment launches alone {k6} ms "
         f"({cells6 / k6 / 1e6} GCUPS, {k6 * 1e6 / CFG6_LEN ** 2} ns per "
-        f"cell per pair), with one warp a pair {k6_one} ms [{card}]")
+        f"cell per pair; {plan6}), with one warp a block {k6_one} ms "
+        f"[{card}]")
     del b6, args6, kw6
 
     # one-shot against segment kernel, 128 pairs of 1,024 and 4,096 bp
@@ -1932,8 +1966,10 @@ def segment_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
         log(f"[20 timing] {cls} class, 128 pairs SW 5/1: 1,024 bp one-shot "
             f"kernel {k1_1024} ms, segment kernel {k2_1024} ms; 4,096 bp "
             f"one-shot kernel {k1_4096}, segment kernel {k2_4096} ms "
-            f"({128 * LONG_LEN ** 2 / k2_4096 / 1e6} GCUPS; with one warp a "
-            f"pair {k2_one} ms), its plain version {plain_4096} ms [{card}]")
+            f"({128 * LONG_LEN ** 2 / k2_4096 / 1e6} GCUPS; "
+            f"{plan_note(tk, cls, 128, lb.qp, seg_cols[cls], lb.table.shape[0])}"
+            f"); with one warp a block {k2_one} ms; its plain version "
+            f"{plain_4096} ms [{card}]")
     st_e2e, st_peak = peak_of(lambda: al["stats"].align_batch(mq, mr))
     log(f"[20 timing] use_stats align_batch of the 128 pairs of 50-4,096 bp "
         f"e2e, one call, {st_e2e} ms, peak device memory {st_peak} MiB "
@@ -1976,8 +2012,9 @@ def segment_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
     times["trace"] = (tr_k2, tr_plain)
     log(f"[20 timing] trace class, 128 x 4,096 bp SW 5/1 (a 2 GiB plane): "
         f"segment kernel, {-(-LONG_LEN // seg_cols['trace'])} launches into "
-        f"two "
-        f"buffers, {tr_k2} ms, its plain version {tr_plain} ms; use_trace "
+        f"two buffers ("
+        f"{plan_note(tk, 'trace', 128, lb.qp, seg_cols['trace'], lb.table.shape[0])}"
+        f"), {tr_k2} ms, its plain version {tr_plain} ms; use_trace "
         f"align_batch e2e, one call, {tr_e2e} "
         f"ms, peak device memory {tr_peak} MiB; stages, ms: "
         f"{json.dumps(per_call)}; the one-shot trace kernel on the same "
@@ -1990,12 +2027,16 @@ def segment_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
     h_k2 = time_cuda(torch, lambda: chain_segments(
         torch, tk.score_segment, head_args, 160, hk))
     h_k1 = time_cuda(torch, lambda: tk.score_align(*head_args, **hk))
+    h_plan = plan_note(tk, "score", head_args[0].shape[0],
+                       hk["profile"].shape[1], 160, hk["profile"].shape[2],
+                       profile=True)
     log(f"[20 timing] headline B=8192 Qp=Rp=160 SW 11/1: segment kernel "
-        f"{h_k2} ms, one-shot kernel {h_k1} ms [{card}]")
+        f"{h_k2} ms ({h_plan}), one-shot kernel {h_k1} ms [{card}]")
     out = {cls: {"launches": launches[cls], "max_abs_err": errs[cls],
                  "ms": times[cls][0], "plain_ms": times[cls][1],
                  "shape": "128 pairs, Qp=Rp=4096, SW 5/1",
-                 "form": "a block per pair, 8 warps at this shape",
+                 "form": plan_note(tk, cls, 128, lb.qp, seg_cols[cls],
+                                   lb.table.shape[0]),
                  # the state between segments is neither input nor output:
                  # a chain's bound is the one-shot sweep's
                  **sweep_bound(cls, a4, kw4)}
@@ -2110,6 +2151,7 @@ def dist_path(torch, pt, tk, dispatch, golden, rng, card, protein, sw,
                 D = (1, 3, 4)[n % 3]
                 qc = (24, 32, 64)[(n // 3) % 3]
                 warps = (0, 1, 2, 8)[n % 4]         # 0: the launcher's pick
+                form = BLOCK_FORMS[n % len(BLOCK_FORMS)]
                 n += 1
                 ql = rng.integers(0, Qp + 1, size=B)
                 rl = rng.integers(0, Rp + 1, size=B)
@@ -2122,10 +2164,10 @@ def dist_path(torch, pt, tk, dispatch, golden, rng, card, protein, sw,
                 kw = dict(open_=open_, ext=ext, mode=mode, free=free,
                           outputs=cls, width="sat")
                 args = (t(rng.integers(0, A, size=(B, Rp))), t(ql), t(rl))
-                tk.SEGMENT_WARPS = warps
+                fname = force_form(tk, cls, warps, form)
                 got, recs = chain_tiles(torch, tk, tk.score_rowseg, args,
                                         subs, D, qc, kw)
-                tk.SEGMENT_WARPS = 0
+                unforce(tk)
                 segs, _ = chain_segments(torch, tk.score_segment, args,
                                          Rp // D, {**kw, **subs})
                 one = tk.score_align(*args, **kw, **subs)
@@ -2142,12 +2184,12 @@ def dist_path(torch, pt, tk, dispatch, golden, rng, card, protein, sw,
                     raise AssertionError(
                         f"tile kernel != plain, segments or one-shot on "
                         f"{cls} {mode}{tuple(int(x) for x in free)} "
-                        f"{open_}/{ext} D {D} q_chunk {qc} warps {warps}: "
+                        f"{open_}/{ext} D {D} q_chunk {qc} {fname}: "
                         f"max |diff| {err}")
         log(f"[21 tile vs plain] {mode}{tuple(int(x) for x in free)}: score, "
             f"stats and trace at 11/1, 2/2, 1/3 over 1-4 shards, row chunks "
-            f"of 24-64, 1-8 warps a pair, equal to the segment chain and the "
-            f"one-shot kernel; one penalty pair a class equal to plain in "
+            f"of 24-64, 1-8 warps a block, 2-8 rows a lane, 1-8 blocks a "
+            f"pair, equal to the segment chain and the one-shot kernel; one penalty pair a class equal to plain in "
             f"every tile's state, down-state, flags and outputs")
 
     # -- 22. the sequence-parallel path on the card ----------------------------------
@@ -2332,7 +2374,9 @@ def dist_path(torch, pt, tk, dispatch, golden, rng, card, protein, sw,
         f"seqpar_align_scan, 32 tiles of {CFG6_LEN // 8} rows x "
         f"{CFG6_LEN // 4} columns on one card: {chain6} ms by CUDA events "
         f"({cells6 / chain6 / 1e6} GCUPS, {chain6 * 1e6 / CFG6_LEN ** 2} ns "
-        f"per cell per pair), {e2e6} ms end to end on the host clock; the "
+        f"per cell per pair; a tile "
+        f"{plan_note(tk, 'score', 128, CFG6_LEN // 8, CFG6_LEN // 4, b6.table.shape[0])}"
+        f"), {e2e6} ms end to end on the host clock; the "
         f"segment kernel's two launches on the same pairs {k2} ms (phase 20: "
         f"{pairs['k6_ms']} ms) [{card}]")
 
@@ -2356,6 +2400,7 @@ def dist_path(torch, pt, tk, dispatch, golden, rng, card, protein, sw,
         kept = {}
         ms = time_cuda(torch, lambda: kept.update(
             got=tk.score_rowseg(*call, **ckw)), reps=5)
+        form = plan_note(tk, cls, Bn, qc, C, batch.table.shape[0])
         plain_ms = time_cuda(torch, lambda: kept.update(
             want=tk.score_rowseg_plain(*call, **ckw)), reps=1, warmup=0)
         rec = {0: (kept["got"][1], kept["got"][2], kept["got"][3],
@@ -2373,7 +2418,7 @@ def dist_path(torch, pt, tk, dispatch, golden, rng, card, protein, sw,
                                 warmup=1)
         b = tile_bound(cls, cols, batch.qlen_t, batch.rlen_t, subs, 0, qc, 0)
         log(f"[24 timing] {cls} class, one tile of {qc} rows x {C} columns, "
-            f"{Bn} pairs SW 5/1: kernel {ms} ms, its plain version "
+            f"{Bn} pairs SW 5/1: kernel {ms} ms ({form}), its plain version "
             f"{plain_ms} ms, bound {b['bound_ms']} ms ({b['bound_by']})"
             + (f"; the 16 tiles of the 128 pairs of 50-{LONG_LEN} bp through "
                f"seqpar_align_scan {path_ms} ms" if path_ms else "")
@@ -2382,8 +2427,7 @@ def dist_path(torch, pt, tk, dispatch, golden, rng, card, protein, sw,
                     "ms": ms, "plain_ms": plain_ms,
                     "shape": f"one tile, {Bn} pairs, {qc} rows x {C} "
                              f"columns, SW 5/1",
-                    "form": "the segment kernel's block in its tile form, "
-                            "8 warps a pair at this shape",
+                    "form": f"the block kernel's tile form, {form}",
                     "path_ms": chain6 if cls == "score" else path_ms, **b}
     return out
 
@@ -2432,6 +2476,7 @@ def chunked_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
         for pi, (open_, ext) in enumerate(((11, 1), (2, 2), (1, 3))):
             for ci, cls in enumerate(classes):
                 warps = (1, 3, 8, 0)[n % 4]         # 0: the launcher's pick
+                form = BLOCK_FORMS[n % len(BLOCK_FORMS)]
                 n += 1
                 ql = rng.integers(0, 601, size=B)
                 rl = rng.integers(0, Rp + 1, size=B)
@@ -2444,9 +2489,9 @@ def chunked_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
                           table=t(rng.integers(-4, 6, size=(A, A))),
                           qidx=t(rng.integers(0, A, size=(B, Qp))))
                 args = (t(rng.integers(0, A, size=(B, Rp))), t(ql), t(rl))
-                tk.SEGMENT_WARPS = warps
+                fname = force_form(tk, cls, warps, form)
                 got = tk.score_chunked(*args, **kw)
-                tk.SEGMENT_WARPS = 0
+                unforce(tk)
                 e = max_abs_diff(got, tk.score_align(*args, **kw))
                 # the plain version (the wavefront for five classes) on
                 # every class and mode, one penalty pair each in turn
@@ -2458,10 +2503,11 @@ def chunked_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
                     raise AssertionError(
                         f"chunked sweep != one-shot kernel or plain on {cls} "
                         f"{mode}{tuple(int(x) for x in free)} {open_}/{ext} "
-                        f"warps {warps}: max |diff| {e}")
+                        f"{fname}: max |diff| {e}")
         log(f"[25 chunked vs plain] {mode}{tuple(int(x) for x in free)}: the "
             f"seven classes at 11/1, 2/2, 1/3, {B} pairs of 0-600 x 0-{Rp} "
-            f"(Qp={Qp}: up to three groups of 256 rows), 1-8 warps a pair, "
+            f"(Qp={Qp}: one to five groups of rows), 1-8 warps a block, "
+            f"2-8 rows a lane, 1-8 blocks a pair, "
             f"equal to the one-thread-per-pair kernel; every class at one "
             f"penalty pair in turn equal to plain")
     tall_q = [int(x) for x in rng.integers(2049, 3073, size=12)] + \
@@ -2718,7 +2764,9 @@ def chunked_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
                 args[0].shape[1]
             b = sweep_bound(cls, args, kw)
             log(f"[27 timing] {cls}, {B_} pairs padded to {Qs} x {Rs}, SW "
-                f"5/1: chunked sweep {k_ms} ms, one thread per pair {o_ms} ms "
+                f"5/1: chunked sweep {k_ms} ms "
+                f"({plan_note(tk, cls, B_, Qs, Rs, subs['table'].shape[0])}), "
+                f"one thread per pair {o_ms} ms "
                 f"({o_ms / k_ms}x), bound {b['bound_ms']} ms "
                 f"({b['bound_by']})"
                 + (f"; peak device memory of one chunked call above its "
@@ -2728,9 +2776,12 @@ def chunked_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
     h_args, h_kw = head
     head_ms = (time_cuda(torch, lambda: tk.score_chunked(*h_args, **h_kw)),
                time_cuda(torch, lambda: tk.score_align(*h_args, **h_kw)))
+    h_plan = plan_note(tk, "score", h_args[0].shape[0],
+                       h_kw["profile"].shape[1], h_args[0].shape[1],
+                       h_kw["profile"].shape[2], profile=True)
     log(f"[27 timing] score, the headline batch (8,192 pairs padded to 160 x "
-        f"160, SW 11/1): chunked sweep {head_ms[0]} ms, one thread per pair "
-        f"{head_ms[1]} ms ({head_ms[1] / head_ms[0]}x) [{card}]")
+        f"160, SW 11/1): chunked sweep {head_ms[0]} ms ({h_plan}), one "
+        f"thread per pair {head_ms[1]} ms ({head_ms[1] / head_ms[0]}x) [{card}]")
     # the main path's shape: the trace class on the long mixed batch, with
     # its plain version (a column sweep) on the same inputs
     args, subs = shapes["4096"]
@@ -2751,6 +2802,11 @@ def chunked_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
     base = torch.cuda.memory_allocated()
     e2e_ms = time_host(lambda: al["sw"].align_cigars(mq, mr), reps=3)
     cig_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    bins = chunked_bins(torch, tk, dispatch, lambda: al["sw"].align_cigars(
+        mq, mr))
+    if bins["launches"] != per_cigars:
+        raise AssertionError(f"align_cigars made {bins['launches']} chunked "
+                             f"launches, phase 26 counted {per_cigars}")
     with stages.measuring():
         al["sw"].align_cigars(mq, mr)
         snap = stages.snapshot()
@@ -2779,32 +2835,148 @@ def chunked_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
         f"{per_cigars} chunked launches a call, peak device memory above the "
         f"inputs {cig_peak} MiB; stages, ms: {json.dumps(per_call)}; on one "
         f"thread per pair (the rule before), once, {k1_e2e} ms [{card}]")
-    regs = chunked_registers(_build.BUILD_LOG, classes)
-    log(f"[27 timing] registers of the block kernel's forms (nvcc "
-        f"{'ran' if _build.BUILD_LOG else 'cached'}): {regs}")
+    log(f"[27 timing] align_cigars' chunked launches (the bins' own, CUDA "
+        f"events around each, its plane's zero fill included): "
+        f"{bins['launches']} launches, {bins['ms']} ms in all, bound "
+        f"{bins['bound_ms']} ms; each (pairs, Qp, Rp, ms, form): "
+        f"{json.dumps(bins['each'])} [{card}]")
+    form_sweep(torch, tk, card, b4, b16, sw_kw, (h_args, h_kw))
+    regs = block_registers(_build.BUILD_LOG, classes)
+    log(f"[27 timing] registers and spill bytes of the block kernel's forms "
+        f"(nvcc {'ran' if _build.BUILD_LOG else 'cached'}): {regs}")
+    spilled = {k: v for k, v in regs.items() if v[1]}
+    if spilled:
+        raise AssertionError(f"block kernel forms spill: {spilled}")
     return {"launches": per_cigars, "max_abs_err": err, "ms": trace_ms,
             "plain_ms": plain_ms,
             "shape": f"trace class, the long mixed batch (128 pairs, "
                      f"Qp=Rp={LONG_LEN}), SW 5/1",
-            "form": "the segment kernel's block over all columns, 8 warps a "
-                    "pair at this shape",
-            "e2e_ms": e2e_ms, "k1_e2e_ms": k1_e2e, **bnd}
+            "form": "the block kernel over all columns, "
+                    + plan_note(tk, "trace", 128, LONG_LEN, LONG_LEN,
+                                b4.table.shape[0]),
+            "e2e_ms": e2e_ms, "k1_e2e_ms": k1_e2e,
+            "bins_launches": bins["launches"], "bins_ms": bins["ms"],
+            "bins_bound_ms": bins["bound_ms"], **bnd}
 
 
-def chunked_registers(build_log: str, classes) -> dict:
-    """Registers of each segment_kernel<class, false> form from
-    ``-Xptxas -v``'s log: {class: registers}."""
-    regs, form = {}, None
+def form_sweep(torch, tk, card, b4, b16, sw_kw, head) -> None:
+    """The block kernel at five main-path shapes in the launcher's form
+    and in others beside it (rows a lane, warps a block, blocks a pair),
+    CUDA-event medians: what the rule (csrc/score_cell.cuh, seg_plan)
+    chose against what it passed over."""
+    a4 = (b4.ridx, b4.qlen_t, b4.rlen_t)
+    k4 = dict(sw_kw, table=b4.table, qidx=b4.qidx)
+    a16 = (b16.ridx, b16.qlen_t, b16.rlen_t)
+    k16 = dict(sw_kw, table=b16.table, qidx=b16.qidx)
+    a512 = (b4.ridx[:, :512].contiguous(), b4.qlen_t.clamp(max=512),
+            b4.rlen_t.clamp(max=512))
+    k512 = dict(sw_kw, table=b4.table, qidx=b4.qidx[:, :512].contiguous())
+    pen = {k: sw_kw[k] for k in ("open_", "ext", "mode", "free")}
+    dev = b4.ridx.device
+    state = tk.rowseg_left_border(128, 0, LONG_LEN // 2, outputs="score",
+                                  device=dev, **pen)
+    state["acc"] = tk.acc_init(128, LONG_LEN, "sw", dev)
+    down = tk.rowseg_top_border(128, 0, LONG_LEN, outputs="score",
+                                device=dev, **pen)
+    h_args, h_kw = head
+    A = b4.table.shape[0]
+    prof = h_kw["profile"]
+    cases = (
+        ("K2 score, 128 x 4,096 bp, one segment",
+         ("score", 128, LONG_LEN, LONG_LEN, A),
+         lambda: tk.score_segment(*a4, **k4, outputs="score"),
+         ((8, 8, 1), (4, 8, 1), (8, 4, 1), (8, 8, 2))),
+        ("K3 score tile, 128 pairs, 2,048 rows x 4,096 columns",
+         ("score", 128, LONG_LEN // 2, LONG_LEN, A),
+         lambda: tk.score_rowseg(*a4, state, down, **k4, outputs="score",
+                                 row_offset=0, q_chunk=LONG_LEN // 2,
+                                 col_offset=0),
+         ((8, 8, 1), (4, 8, 1), (8, 4, 1))),
+        ("K1f trace, 16 pairs of the long mixed batch",
+         ("trace", 16, LONG_LEN, LONG_LEN, A),
+         lambda: tk.score_chunked(*a16, **k16, outputs="trace"),
+         ((4, 4, 8), (2, 8, 8), (4, 8, 2), (4, 8, 1))),
+        ("K1f stats_table, 128 pairs of the long mixed batch at 512 x 512",
+         ("stats_table", 128, 512, 512, A),
+         lambda: tk.score_chunked(*a512, **k512, outputs="stats_table"),
+         ((2, 8, 1), (4, 8, 1), (2, 4, 1))),
+        ("K2 score, the headline batch",
+         ("score", prof.shape[0], prof.shape[1], h_args[0].shape[1],
+          prof.shape[2], True),
+         lambda: tk.score_segment(*h_args, **h_kw, outputs="score"),
+         ((8, 1, 1), (4, 1, 1), (2, 1, 1), (4, 2, 1))),
+    )
+    for name, plan, fn, forms in cases:
+        times = {f"launcher ({plan_note(tk, *plan)})":
+                 time_cuda(torch, fn, reps=3, warmup=1)}
+        for rows, warps, cluster in forms:
+            tk._LANE_ROWS, tk.SEGMENT_WARPS, tk._CLUSTER = rows, warps, cluster
+            try:
+                times[f"R {rows}, {warps} warps, C {cluster}"] = time_cuda(
+                    torch, fn, reps=3, warmup=1)
+            finally:
+                unforce(tk)
+        log(f"[27 forms] {name}: ms by form {json.dumps(times)} [{card}]")
+
+
+def chunked_bins(torch, tk, dispatch, call) -> dict:
+    """Run ``call`` (an align_cigars) with CUDA events around each chunked
+    launch it makes: {"launches", "ms" (their sum), "bound_ms" (the sum of
+    sweep_bound over the launches' inputs), "each": [(pairs, Qp, Rp, ms,
+    form)]}."""
+    real = dispatch.score_chunked
+    marks = []
+
+    def timed(ridx, qlen, rlen, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(ridx, qlen, rlen, **kw)
+        end.record()
+        marks.append((start, end, (ridx, qlen, rlen), kw))
+        return out
+
+    dispatch.score_chunked = timed
+    try:
+        call()
+    finally:
+        dispatch.score_chunked = real
+    torch.cuda.synchronize()
+    each, total, bound_ms = [], 0.0, 0.0
+    for start, end, args, kw in marks:
+        ms = start.elapsed_time(end)
+        total += ms
+        bound_ms += sweep_bound(kw["outputs"], args, kw)["bound_ms"]
+        subs = kw["qidx"] if kw.get("profile") is None else kw["profile"]
+        shape = (int(args[0].shape[0]), int(subs.shape[1]),
+                 int(args[0].shape[1]))
+        A = (kw["table"] if kw.get("table") is not None
+             else kw["profile"]).shape[-1]
+        each.append((*shape, ms, plan_note(
+            tk, kw["outputs"], *shape, A, kw.get("profile") is not None)))
+    return {"launches": len(marks), "ms": total, "bound_ms": bound_ms,
+            "each": each}
+
+
+def block_registers(build_log: str, classes) -> dict:
+    """Registers and spill-store bytes of each segment_kernel form from
+    ``-Xptxas -v``'s log: {"<class> R<rows>[ tile]": (registers,
+    spill bytes)}."""
+    out, form, spill = {}, None, 0
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
-            form = None
+            form, spill = None, 0
             if "segment_kernelILi" in line:
-                k, tile = line.split("segment_kernelILi")[1][:5].split("ELb")
-                if tile.startswith("0"):
-                    form = classes[int(k)]
+                k, tile, rows = re.match(r"(\d+)ELb(\d)ELi(\d+)E", line.split(
+                    "segment_kernelILi")[1]).groups()
+                form = f"{classes[int(k)]} R{rows}" + (
+                    " tile" if tile == "1" else "")
+        elif "spill stores" in line and form is not None:
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
         elif "registers" in line and form is not None:
-            regs[form] = int(line.split("Used")[1].split("registers")[0])
-    return regs
+            out[form] = (int(line.split("Used")[1].split("registers")[0]),
+                         spill)
+    return out
 
 
 def random_seqs_of(rng, alphabet: bytes, lens) -> list:

@@ -1,5 +1,5 @@
 // Tile kernel for Hopper (sm_90a): one row chunk by one column shard of a
-// sequence-parallel fill, a block per pair.
+// sequence-parallel fill, a chain of warps per pair.
 //
 // Replaces: parasail_rs_tpu/ops/scan_kernel.py::scan_rowseg_step (the
 // pallas_call at scan_kernel.py:1877 over the body _make_kernel with
@@ -21,28 +21,29 @@
 // passed a group's last row to the next group through a per-pair row of C
 // columns in global memory; the down-state is a second such row, read
 // above the tile's first row and left holding its last row (written by
-// whichever lane holds row r0 + qc - 1: qc need be no multiple of 32; a
-// pair that ends above that row keeps what it was given, so the scratch
-// between the groups stays a buffer of its own).  The two closed-form borders of the segment form
-// become reads: the caller fills the state with the bordered left column
+// whichever lane holds row r0 + qc - 1 among its kR rows: qc need be no
+// multiple of 32 kR; a pair that ends above that row keeps what it was
+// given, so the scratch between the groups stays a buffer of its own).
+// The two closed-form borders of the segment form become reads: the caller fills the state with the bordered left column
 // at off == 0 and the down-state with the top border at r0 == 0, so the
 // kernel has one path for every tile.  The corner H[r0-1][off-1] arrives
 // as four words; a tile hands its right neighbour the down-state it was
-// given at its last column, which thread 0 reads before any lane writes
-// there.  The TPU kernel's 128-lane layout, VMEM tile plan and prefix scan
+// given at its last column, which thread 0 of the pair's first block
+// reads before any lane of the pair's blocks writes there.  The TPU kernel's 128-lane layout, VMEM tile plan and prefix scan
 // have no counterpart: E follows the literal recurrence, so the down-state
 // carries E where the TPU kernel carries a prefix-max seed.  It lives in
 // its own source so that nvcc builds it beside scan_segment.cu.
 //
-// What bounds it on this card: as the segment kernel, the latency of one
-// step of a warp, hidden by the batch's other warps (eight a pair at 128
-// pairs); a tile of few rows also pays the pipeline's fill (its rows
-// plus 64 steps a warp) against its C columns, and each tile is a launch.
-// The tiles of one superstep are independent and could share one launch.
+// What bounds it on this card: as the segment kernel (kR rows a lane on
+// DPX max-plus, the launcher's rule in score_cell.cuh's seg_plan), the
+// latency of a step's dependent chain at the warps 128 pairs give each
+// SM; a tile of few rows also pays the chain's fill (64 steps a warp a
+// group) against its C columns, and each tile is a launch.  The tiles of
+// one superstep are independent and could share one launch.
 #include "segment_block.cuh"
 
-// Launches the tile kernel on `stream` and returns cudaGetLastError() as
-// an int (0 = launched).  All pointers are device pointers.
+// Launches the tile kernel on `stream` and returns the launch's CUDA
+// error as an int (0 = launched).  All pointers are device pointers.
 //   out_class: 0 score, 1 trace, 2 stats; any other returns
 //              cudaErrorInvalidValue
 //   subs/qidx/mq: as pt_scan_segment, over the WHOLE padded query (Qp)
@@ -58,7 +59,7 @@
 //   out:       (5, B), or (8, B) for stats: read off `acc`
 //   trace:     trace: (B, qc, C) int8, zero-filled by the caller
 //   t_in/t_out: (B, 4) corner words in, and for the right neighbour
-//   warps:     warps a pair (1 to 8); 0 lets the batch's shape pick
+//   warps, rows, cluster: as pt_scan_segment
 extern "C" int pt_scan_rowseg(int out_class, const void* subs,
                               const void* qidx, const void* mq,
                               const void* ridx, const void* qlen,
@@ -68,22 +69,26 @@ extern "C" int pt_scan_rowseg(int out_class, const void* subs,
                               void* trace, const void* t_in, void* t_out,
                               int B, int Bq, int Bm, int Qp, int C, int A,
                               int open, int ext, int mode, int free_bits,
-                              int off, int r0, int qc, int warps,
-                              void* stream) {
-#define PT_TILE(k)                                                         \
-  ptsegblock::launch<k, true>(                                             \
-      subs, qidx, mq, ridx, qlen, rlen, bottom, down, st_h, st_f, st_pay,  \
-      acc, out, trace, t_in, t_out, B, Bq, Bm, Qp, C, A, open, ext, mode,  \
-      free_bits, off, 1, warps, qc, r0, stream)
+                              int off, int r0, int qc, int warps, int rows,
+                              int cluster, void* stream) {
+  const ptsegblock::SegArgs a{
+      (const int32_t*)subs, (const int32_t*)qidx, (const int32_t*)mq,
+      (const int32_t*)ridx, (const int32_t*)qlen, (const int32_t*)rlen,
+      (int32_t*)bottom, (int32_t*)down, (int32_t*)st_h, (int32_t*)st_f,
+      (int32_t*)st_pay, (int32_t*)acc, (int32_t*)out, (int8_t*)trace,
+      (const int32_t*)t_in, (int32_t*)t_out, nullptr, nullptr, nullptr, B,
+      Bq, Bm, Qp, C, A, open, ext, mode, free_bits, off, 1, qc, r0, 1};
   switch (out_class) {
     case ptscore::OUT_SCORE:
-      return PT_TILE(ptscore::OUT_SCORE);
+      return ptsegblock::launch<ptscore::OUT_SCORE, true>(a, warps, rows,
+                                                          cluster, stream);
     case ptscore::OUT_TRACE:
-      return PT_TILE(ptscore::OUT_TRACE);
+      return ptsegblock::launch<ptscore::OUT_TRACE, true>(a, warps, rows,
+                                                          cluster, stream);
     case ptscore::OUT_STATS:
-      return PT_TILE(ptscore::OUT_STATS);
+      return ptsegblock::launch<ptscore::OUT_STATS, true>(a, warps, rows,
+                                                          cluster, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
-#undef PT_TILE
 }

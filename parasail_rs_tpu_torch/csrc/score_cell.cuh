@@ -66,8 +66,10 @@
 
 #if defined(__CUDACC__)
 #define PT_HD __host__ __device__ __forceinline__
+#define PT_UNROLL _Pragma("unroll")
 #else
 #define PT_HD inline
+#define PT_UNROLL
 #endif
 
 namespace ptscore {
@@ -147,6 +149,42 @@ struct PairResult {
 PT_HD int32_t imax(int32_t a, int32_t b) { return a > b ? a : b; }
 PT_HD int32_t imin(int32_t a, int32_t b) { return a < b ? a : b; }
 
+// Max-plus on Hopper's DPX instructions (sm_90: one instruction each);
+// the same integer functions elsewhere, so the g++ build runs the same
+// header.  addmax(a, b, c) = max(a + b, c), max3 / min3 of three values,
+// max3_relu = max(a, b, c, 0), which is SW's clamp.
+PT_HD int32_t addmax(int32_t a, int32_t b, int32_t c) {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
+  return __viaddmax_s32(a, b, c);
+#else
+  return imax(a + b, c);
+#endif
+}
+
+PT_HD int32_t max3(int32_t a, int32_t b, int32_t c) {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
+  return __vimax3_s32(a, b, c);
+#else
+  return imax(imax(a, b), c);
+#endif
+}
+
+PT_HD int32_t min3(int32_t a, int32_t b, int32_t c) {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
+  return __vimin3_s32(a, b, c);
+#else
+  return imin(imin(a, b), c);
+#endif
+}
+
+PT_HD int32_t max3_relu(int32_t a, int32_t b, int32_t c) {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
+  return __vimax3_s32_relu(a, b, c);
+#else
+  return imax(imax(imax(a, b), c), 0);
+#endif
+}
+
 // Bordered H at c consumed characters (top_b / left_b of the TPU kernel).
 PT_HD int32_t border(int32_t c, bool is_free, int32_t open, int32_t ext) {
   return (is_free || c <= 0) ? 0 : -(open + (c - 1) * ext);
@@ -164,10 +202,9 @@ PT_HD int32_t band_border(int32_t c, bool is_free, int32_t open, int32_t ext,
 PT_HD void cell(int32_t h_diag, int32_t h_up, int32_t e_up, int32_t h_left,
                 int32_t s, int32_t open, int32_t ext, bool local,
                 int32_t& f, int32_t& h, int32_t& e) {
-  e = imax(h_up - open, e_up - ext);
-  f = imax(h_left - open, f - ext);
-  int32_t v = imax(imax(h_diag + s, e), f);
-  h = local ? imax(v, 0) : v;
+  e = addmax(h_up, -open, e_up - ext);
+  f = addmax(h_left, -open, f - ext);
+  h = local ? max3_relu(h_diag + s, e, f) : max3(h_diag + s, e, f);
 }
 
 // cell() plus the cell's trace flags.
@@ -180,11 +217,11 @@ PT_HD int32_t cell_trace(int32_t h_diag, int32_t h_up, int32_t e_up,
   e = imax(e_open, e_ext);
   f = imax(f_open, f_ext);
   const int32_t diag = h_diag + s;
-  const int32_t v = imax(imax(diag, e), f);
-  h = local ? imax(v, 0) : v;
+  // local: h == 0 exactly when max(diag, e, f) <= 0
+  h = local ? max3_relu(diag, e, f) : max3(diag, e, f);
   int32_t hflag = (diag >= e && diag >= f) ? TRACE_DIAG
                   : (e >= f ? TRACE_INS : TRACE_DEL);
-  if (local && v <= 0) hflag = 0;
+  if (local && h == 0) hflag = 0;
   return hflag | (e_open >= e_ext ? TRACE_DIAG_E : TRACE_INS_E) |
          (f_open >= f_ext ? TRACE_DIAG_F : TRACE_DEL_F);
 }
@@ -211,8 +248,7 @@ PT_HD void cell_stats(int32_t h_diag, int32_t h_up, int32_t e_up,
   e = imax(e_open, e_ext);
   f = imax(f_open, f_ext);
   const int32_t diag = h_diag + s;
-  const int32_t v = imax(imax(diag, e), f);
-  h = local ? imax(v, 0) : v;
+  h = local ? max3_relu(diag, e, f) : max3(diag, e, f);
   ep = e_open >= e_ext ? up : eup;
   ep.l += 1;
   if (f_open >= f_ext) fp = left;
@@ -226,7 +262,7 @@ PT_HD void cell_stats(int32_t h_diag, int32_t h_up, int32_t e_up,
   } else {
     hp = fp;
   }
-  if (local && v <= 0) hp = Pay{0, 0, 0};
+  if (local && h == 0) hp = Pay{0, 0, 0};
 }
 
 // End cell of a non-local pair with qlen == 0 or rlen == 0 (golden's
@@ -529,24 +565,44 @@ PT_HD int32_t clamp_band(int32_t bw, int32_t Qp, int32_t Rp) {
 // The first segment (resume = false) starts from the bordered left column
 // and F = -inf.  A segment beyond the pair's rlen leaves its state alone.
 //
-// The cells are swept by 32 lanes, one query row each, in stripes of 32
-// rows; lane l runs one column behind lane l - 1, so what a cell needs
-// from the row above (H, E and their payloads) is what that lane computed
-// one step earlier.  SegLane is one lane's registers, seg_cell one cell of
+// The cells are swept by lanes of 32, each holding kR consecutive query
+// rows (kR = 2, 4 or 8; 8 only in the score and rowcol forms), in groups
+// of rows; lane l runs one column behind lane l - 1.  At step t a lane
+// computes column t - l of its kR rows, top to bottom: E runs down the
+// rows in registers, each row's H to the left, F and diagonal stay in
+// registers, and only the bottom row's cell (H, E and their payloads)
+// reaches the lane below, one step later.  SegLane is one lane's registers, seg_lane_step one step of
 // it: every value, flag and payload comes from cell / cell_trace /
 // cell_stats above, so the tie rules are the one-shot form's.  The CUDA
-// kernel (scan_segment.cu) moves the values between lanes by warp shuffle;
-// segment_pair_host below steps the same lanes in a loop for the CPU tests.
+// kernel (segment_block.cuh) moves the bottom row between lanes by warp
+// shuffle; segment_pair_host below steps the same lanes in a loop for the
+// CPU tests.
 //
 // The end cell is the first maximum in row-major order over the WHOLE pair,
-// but cells arrive neither in row-major order (rows run in parallel) nor
-// all in one call.  So a lane keeps the first maximum of its own rows in
-// this segment (rows and then columns ascend there, so a strictly larger H
-// wins), the lanes reduce with seg_better (H descending, i ascending, j
-// ascending), and the segment's best replaces the carried one by the same
-// rule.
+// but cells arrive neither in row-major order nor all in one call.  A
+// lane's cells arrive column by column, its rows top to bottom at each
+// column, so (i + 1, c) comes before (i, c + 1): a lane takes a candidate
+// on a larger H, or on an equal H in an earlier row, which for cells that
+// arrive in this order is seg_better (H descending, i ascending, j
+// ascending).  Lanes, warps and blocks reduce with seg_better, and the
+// segment's best replaces the carried one by the same rule.
 
 constexpr int32_t SEG_LANES = 32;
+
+// Several warps on a pair: warp w of the pair's chain (the warps of its
+// block, or of the blocks of its cluster one after another) runs SEG_LAG
+// steps behind warp w - 1, whose last lane's bottom row it reads from a
+// ring of SEG_RING columns.  A step is a column of every lane, whatever
+// kR, so the lag and the ring are those of one row a lane: a column is
+// written at least one round of SEG_LANES steps (one barrier of the
+// pair's blocks) before it is read, and a slot is reused another round
+// after.
+constexpr int32_t SEG_LAG = 2 * SEG_LANES;
+constexpr int32_t SEG_RING = 4 * SEG_LANES;
+// The ring of the segment's reference letters a block stages ahead of its
+// warps: they read at most SEG_LAG * 7 + 2 * SEG_LANES columns behind the
+// newest.
+constexpr int32_t SEG_LETTERS = 1024;
 
 // Is candidate (h, i, j) ahead of (bh, bi, bj) in the end cell's order?
 PT_HD bool seg_better(int32_t h, int32_t i, int32_t j, int32_t bh, int32_t bi,
@@ -561,7 +617,7 @@ struct SegUp {
 };
 
 // A SegUp kept as rows `stride` apart, column k: H, E, and for the stats
-// forms their six payloads (the kernel's ring and scratch rows).
+// forms their six payloads (the kernel's rings and scratch rows).
 template <int32_t kOut>
 PT_HD SegUp seg_up_load(const int32_t* rows, int32_t stride, int32_t k) {
   SegUp u;
@@ -665,66 +721,147 @@ PT_HD SegBest seg_merge(const SegBest& a, const SegBest& b) {
   return r;
 }
 
-// One lane: query row i of the current stripe.
+// The substitution scores, as the kernel stages them in shared memory,
+// with a last column of 0, so that a reference letter outside [0, A)
+// reads 0 by its column (seg_col).  The table form stages the (A, A)
+// table as A + 1 rows of A + 1 scores, row A all 0 (a query letter outside
+// [0, A)); a row's scores start at so = row * (A + 1) and letter column c
+// is so + c.  The profile form stages the profile rows of the query rows
+// a block sweeps in a group, column by column: column c of staged row x
+// sits at c * seg_prof_stride(n) + seg_pad(x), where the pad of a word
+// every 32 rows puts the rows a warp's lanes read at one step (32 rows kR
+// apart) in 32 banks; a row's scores start at so = seg_pad(x), and letter
+// column c is so + c * seg_prof_stride(n).
+PT_HD int32_t seg_col(int32_t r, int32_t A) {
+  return (r >= 0 && r < A) ? r : A;
+}
+
+PT_HD int32_t seg_pad(int32_t x) { return x + (x >> 5); }
+
+// words of a staged profile column of n rows
+PT_HD int32_t seg_prof_stride(int32_t n) { return seg_pad(n - 1) + 1; }
+
+PT_HD int32_t seg_table_at(const int32_t* subs, int32_t A, int32_t k) {
+  const int32_t r = k / (A + 1), c = k % (A + 1);
+  return (r < A && c < A) ? subs[r * A + c] : 0;
+}
+
+// Stage `rows` profile rows from prow (row-major, A a row) into the
+// column-major layout of capacity `cap` rows, items [first, items) of
+// rows * (A + 1) taken `step` at a time (a block's threads, or one loop).
+PT_HD void seg_stage_profile(int32_t* sc, const int32_t* prow, int32_t rows,
+                             int32_t A, int32_t cap, int32_t first,
+                             int32_t step) {
+  const int32_t stride = seg_prof_stride(cap);
+  // item k is row x = k / A, column c = k % A; both advance by the step
+  // without a division an item
+  const int32_t dx = step / A, dc = step % A;
+  int32_t x = first / A, c = first % A;
+  for (int32_t k = first; k < rows * A; k += step) {
+    sc[c * stride + seg_pad(x)] = prow[k];
+    x += dx;
+    c += dc;
+    if (c >= A) {
+      c -= A;
+      ++x;
+    }
+  }
+  for (int32_t y = first; y < rows; y += step) sc[A * stride + seg_pad(y)] = 0;
+}
+
+// No candidate yet: below every H.
+constexpr int32_t SEG_NONE = -2147483647 - 1;
+
+// One query row of a lane.
 template <int32_t kOut>
-struct SegLane {
-  int32_t i = 0;
-  bool on = false;                 // i < qlen
-  const int32_t* srow = nullptr;   // the row's substitution scores
-  bool qok = false;
+struct SegRow {
+  int32_t h_left = 0, f = NEG_INF32, h_diag = 0;
+  int32_t so = 0;                  // its scores in the staged scores
   int32_t mqi = 0;                 // stats: the row's letter
   bool row_all = false, row_last = false;   // the row's candidates
-  int32_t h_left = 0, f = NEG_INF32, h_diag = 0;
   Pay lp{0, 0, 0}, fp{0, 0, 0}, dp{0, 0, 0};
-  SegUp out;                       // the last cell computed
+  // the row's first maximum among its candidates in this group, H and
+  // column (SEG_NONE: none yet); the forms without payloads keep it a row
+  int32_t bh = SEG_NONE, bj = 0;
+  uint32_t tw = 0;                 // trace: up to 4 flags, one word
+};
+
+// One lane: query rows i0 .. i0 + kR - 1 of the current group.
+template <int32_t kOut, int32_t kR>
+struct SegLane {
+  int32_t i0 = 0;
+  int32_t nr = 0;                  // its rows below row_hi, 0 to kR
+  SegRow<kOut> row[kR];
+  SegUp out;                       // the bottom row's last cell
   SegBest best;
 };
 
-// Start row i: its substitution row, its candidates, and the boundary
-// column left of the segment (the carried state, or the bordered left
-// column).  `old` receives H[i][off-1] and its payload as they were
-// before this segment: the row below needs them as its first diagonal.
-template <int32_t kOut>
-PT_HD void seg_row_begin(SegLane<kOut>& L, const SegPair& p, int32_t i,
-                         const int32_t* rows, const int32_t* q,
-                         const int32_t* mq, const int32_t* st_h,
-                         const int32_t* st_f, const int32_t* st_pay,
-                         int64_t pay_plane, SegUp& old) {
+// Start a lane's rows: their scores (so: table form, row q[i] of the
+// staged table; profile form, staged row i - prof_row0), candidates and
+// the boundary column left of the segment (the carried state, or the
+// bordered left column).  A row's first diagonal is the row above's H
+// left of the segment as it was before this segment; `old` receives that
+// of the lane's bottom row, for the lane below.
+template <int32_t kOut, int32_t kR>
+PT_HD void seg_lane_begin(SegLane<kOut, kR>& L, const SegPair& p, int32_t i0,
+                          const int32_t* q, int32_t prof_row0,
+                          const int32_t* mq, const int32_t* st_h,
+                          const int32_t* st_f, const int32_t* st_pay,
+                          int64_t pay_plane, SegUp& old) {
   using O = Out<kOut>;
-  L.i = i;
-  L.on = i < p.row_hi;
+  L.i0 = i0;
+  L.nr = imax(0, imin(kR, p.row_hi - i0));
   old = SegUp();
-  if (!L.on) return;
-  const int32_t k = i - p.row_lo;          // the row in the state buffers
-  const int32_t qi = q ? q[i] : i;
-  L.qok = !q || (qi >= 0 && qi < p.A);
-  L.srow = rows + (int64_t)(L.qok ? qi : 0) * p.A;
-  if constexpr (O::stats) L.mqi = mq[i];
-  const bool last_row = i == p.qlen - 1;
-  L.row_all = p.local || (last_row && p.qe);
-  L.row_last = last_row || p.de;
-  if (p.resume) {
-    L.h_left = st_h[k];
-    L.f = st_f[k];
-    if constexpr (O::stats) {
-      L.lp = Pay{st_pay[k], st_pay[pay_plane + k], st_pay[2 * pay_plane + k]};
-      L.fp = Pay{st_pay[3 * pay_plane + k], st_pay[4 * pay_plane + k],
-                 st_pay[5 * pay_plane + k]};
+PT_UNROLL
+  for (int32_t k = 0; k < kR; ++k) {
+    if (k >= L.nr) continue;
+    SegRow<kOut>& w = L.row[k];
+    const int32_t i = i0 + k;
+    const int32_t j = i - p.row_lo;        // the row in the state buffers
+    w.so = q ? seg_col(q[i], p.A) * (p.A + 1) : seg_pad(i - prof_row0);
+    if constexpr (O::stats) w.mqi = mq[i];
+    const bool last_row = i == p.qlen - 1;
+    w.row_all = p.local || (last_row && p.qe);
+    w.row_last = last_row || p.de;
+    w.bh = SEG_NONE;
+    w.tw = 0;
+    if (p.resume) {
+      w.h_left = st_h[j];
+      w.f = st_f[j];
+      if constexpr (O::stats) {
+        w.lp = Pay{st_pay[j], st_pay[pay_plane + j],
+                   st_pay[2 * pay_plane + j]};
+        w.fp = Pay{st_pay[3 * pay_plane + j], st_pay[4 * pay_plane + j],
+                   st_pay[5 * pay_plane + j]};
+      }
+    } else {
+      w.h_left = border(i + 1, p.db, p.open, p.ext);
+      w.f = NEG_INF32;
+      w.lp = Pay{0, 0, p.db ? 0 : i + 1};
+      w.fp = Pay{0, 0, 0};
     }
-  } else {
-    L.h_left = border(i + 1, p.db, p.open, p.ext);
-    L.f = NEG_INF32;
-    L.lp = Pay{0, 0, p.db ? 0 : i + 1};
-    L.fp = Pay{0, 0, 0};
+    if (k + 1 < kR) {
+      L.row[k + 1].h_diag = w.h_left;
+      L.row[k + 1].dp = w.lp;
+    }
+    old.h = w.h_left;
+    old.hp = w.lp;
   }
-  old.h = L.h_left;
-  old.hp = L.lp;
+}
+
+// The first diagonal of the lane's top row: H[i0-1][off-1] and its
+// payload, the lane above's `old` (row -1: the top border left of the
+// segment).
+template <int32_t kOut, int32_t kR>
+PT_HD void seg_lane_diag(SegLane<kOut, kR>& L, const SegUp& above) {
+  L.row[0].h_diag = above.h;
+  L.row[0].dp = above.hp;
 }
 
 // The plane forms' outputs of one pair in the block kernel (the chunked
 // form, kernel K1f): plane k of the table holds cell (i, j) at
-// [k * tab_plane + j * qp + i], query-fastest, so that a warp's 32 rows at
-// one column are one run of 128 bytes; element j of the last row sits at
+// [k * tab_plane + j * qp + i], query-fastest, so that a lane's kR rows at
+// one column are one vector store; element j of the last row sits at
 // [k * row_plane + j], element i of the last column at [k * col_plane + i].
 // Plane k is 0 score, 1 matches, 2 similar, 3 length.
 struct SegPlanes {
@@ -736,14 +873,6 @@ struct SegPlanes {
   int64_t col_plane = 0;
 };
 
-// The first diagonal of a row: H[i-1][off-1] and its payload, taken from
-// the row above's `old` (row -1: the top border left of the segment).
-template <int32_t kOut>
-PT_HD void seg_row_diag(SegLane<kOut>& L, const SegUp& above) {
-  L.h_diag = above.h;
-  L.dp = above.hp;
-}
-
 PT_HD SegUp seg_corner(const SegPair& p) {
   SegUp u;
   u.h = border(p.off, p.qb, p.open, p.ext);
@@ -751,94 +880,203 @@ PT_HD SegUp seg_corner(const SegPair& p) {
   return u;
 }
 
-// The row's substitution score against reference letter r.
-template <int32_t kOut>
-PT_HD int32_t seg_score(const SegLane<kOut>& L, const SegPair& p, int32_t r) {
-  return (L.qok && r >= 0 && r < p.A) ? L.srow[r] : 0;
+// kR consecutive values to dst, kR a multiple of 4: 16-byte vector stores
+// on the card (dst aligned to kR values), a loop elsewhere.
+template <int32_t kR>
+PT_HD void store_rows(int32_t* dst, const int32_t (&v)[kR]) {
+  static_assert(kR % 4 == 0, "whole vectors only");
+#if defined(__CUDA_ARCH__)
+PT_UNROLL
+  for (int32_t k = 0; k < kR; k += 4)
+    *reinterpret_cast<int4*>(dst + k) =
+        make_int4(v[k], v[k + 1], v[k + 2], v[k + 3]);
+#else
+  for (int32_t k = 0; k < kR; ++k) dst[k] = v[k];
+#endif
 }
 
-// One cell: row L.i, local column c (global off + c), reference letter r
-// and its score s = seg_score(L, p, r), `up` from the row above.  Writes
-// the cell's flags (trace form), its H and payload into the planes (table
-// forms; rowcol forms: on the pair's last row and last column), the row's
-// state at the pair's last column of the segment, and the lane's best;
-// leaves the cell in L.out.
-template <int32_t kOut>
-PT_HD void seg_cell(SegLane<kOut>& L, const SegPair& p, int32_t c, int32_t r,
-                    int32_t s, const SegUp& up, int8_t* trace_row,
-                    int32_t* st_h, int32_t* st_f, int32_t* st_pay,
-                    int64_t pay_plane, const SegPlanes& pl = SegPlanes()) {
+// Four flags at a 4-byte-aligned address.
+PT_HD void store_word(int8_t* dst, uint32_t v) {
+#if defined(__CUDA_ARCH__)
+  *reinterpret_cast<uint32_t*>(dst) = v;
+#else
+  for (int32_t k = 0; k < 4; ++k) dst[k] = (int8_t)(v >> (8 * k));
+#endif
+}
+
+// Fold each row's first maximum of the group into the lane's best (by
+// seg_better) and clear it: at the end of every group of rows.  The stats
+// forms keep the lane's best cell by cell instead.
+template <int32_t kOut, int32_t kR>
+PT_HD void seg_lane_fold(SegLane<kOut, kR>& L) {
+  if constexpr (!Out<kOut>::stats) {
+    PT_UNROLL
+    for (int32_t k = 0; k < kR; ++k) {
+      SegRow<kOut>& w = L.row[k];
+      if (w.bh != SEG_NONE &&
+          seg_better(w.bh, L.i0 + k, w.bj, L.best.h, L.best.i, L.best.j)) {
+        L.best.h = w.bh;
+        L.best.i = L.i0 + k;
+        L.best.j = w.bj;
+      }
+      w.bh = SEG_NONE;
+    }
+  }
+}
+
+// The scores of a lane's rows against letter column rc: sc[so + at] with
+// at = rc for the table form, rc * seg_prof_stride(rows) for the profile
+// form.  The kernel fetches them a step ahead of their use.
+template <int32_t kOut, int32_t kR>
+PT_HD void seg_lane_scores(const SegLane<kOut, kR>& L, const int32_t* sc,
+                           int32_t at, int32_t (&s)[kR]) {
+  PT_UNROLL
+  for (int32_t k = 0; k < kR; ++k) s[k] = sc[L.row[k].so + at];
+}
+
+// One step of a lane: column c (global off + c) of its rows, reference
+// letter r and the rows' scores against it (seg_lane_scores), `u` the
+// cell above its top row.  Writes each cell's flags (trace form; trace0
+// is the top row's, rows rseg apart; with `pack`, four columns a 32-bit
+// store, rseg a multiple of 4), its H and payload into the planes (table
+// forms: H of the kR rows one vector store when kR is a multiple of 4,
+// `vec` and every row is in the pair; rowcol forms: on the pair's last
+// row and last column), the
+// tile's down-state (`down`, on the tile's last row), the row's state at
+// the pair's last column of the segment, and the row's first maximum
+// (the stats forms: the lane's best, payload and all); leaves the bottom
+// row's cell in L.out.
+template <int32_t kOut, int32_t kR>
+PT_HD void seg_lane_step(SegLane<kOut, kR>& L, const SegPair& p, int32_t c,
+                         int32_t r, const int32_t (&sk)[kR], SegUp u,
+                         int8_t* trace0, int32_t rseg, int32_t* st_h,
+                         int32_t* st_f, int32_t* st_pay, int64_t pay_plane,
+                         const SegPlanes& pl, int32_t* down, bool vec,
+                         bool pack) {
   using O = Out<kOut>;
-  int32_t h, e;
-  Pay hp{0, 0, 0}, ep{0, 0, 0};
-  if constexpr (O::trace) {
-    trace_row[c] = (int8_t)cell_trace(L.h_diag, up.h, up.e, L.h_left, s,
-                                      p.open, p.ext, p.local, L.f, h, e);
-  } else if constexpr (O::stats) {
-    cell_stats(L.h_diag, up.h, up.e, L.h_left, s, p.open, p.ext, p.local,
-               L.mqi == r, up.hp, up.ep, L.lp, L.dp, L.fp, L.f, h, e, hp, ep);
-    L.dp = up.hp;
-    L.lp = hp;
-  } else {
-    cell(L.h_diag, up.h, up.e, L.h_left, s, p.open, p.ext, p.local, L.f, h,
-         e);
-  }
-  L.h_diag = up.h;
-  L.h_left = h;
-  L.out.h = h;
-  L.out.e = e;
-  L.out.hp = hp;
-  L.out.ep = ep;
-  L.best.hmax = imax(L.best.hmax, h);
-  L.best.hmin = imin(L.best.hmin, h);
   const int32_t jg = p.off + c;
+  const bool last_col = jg == p.rlen - 1;
+  const bool state_col = c == p.ncols - 1;
+  // the H plane's one vector store (16-byte stores: kR a multiple of 4)
+  const bool whole = kR % 4 == 0 && vec && L.nr == kR;
+  int32_t hv[kR];
+PT_UNROLL
+  for (int32_t k = 0; k < kR; ++k) {
+    // a row past the pair (the lane's last rows, where the pair ends
+    // inside it) is computed as the others, without a branch, and writes
+    // nothing; the extremes read row 0's H in its place
+    const bool on = k < L.nr;
+    SegRow<kOut>& w = L.row[k];
+    const int32_t i = L.i0 + k;
+    const int32_t s = sk[k];
+    int32_t h, e;
+    Pay hp{0, 0, 0}, ep{0, 0, 0};
+    if constexpr (O::trace) {
+      const int32_t fl = cell_trace(w.h_diag, u.h, u.e, w.h_left, s, p.open,
+                                    p.ext, p.local, w.f, h, e);
+      int8_t* at = trace0 + (int64_t)k * rseg;
+      if (pack) {
+        w.tw |= (uint32_t)fl << (8 * (c & 3));
+        if ((c & 3) == 3 || state_col) {
+          if (on) store_word(at + (c & ~3), w.tw);
+          w.tw = 0;
+        }
+      } else if (on) {
+        at[c] = (int8_t)fl;
+      }
+    } else if constexpr (O::stats) {
+      cell_stats(w.h_diag, u.h, u.e, w.h_left, s, p.open, p.ext, p.local,
+                 w.mqi == r, u.hp, u.ep, w.lp, w.dp, w.fp, w.f, h, e, hp, ep);
+      w.dp = u.hp;
+      w.lp = hp;
+    } else {
+      cell(w.h_diag, u.h, u.e, w.h_left, s, p.open, p.ext, p.local, w.f, h,
+           e);
+    }
+    w.h_diag = u.h;
+    w.h_left = h;
+    u.h = h;
+    u.e = e;
+    u.hp = hp;
+    u.ep = ep;
+    hv[k] = on ? h : hv[0];
+    if constexpr (O::table) {
+      const int64_t t = (int64_t)jg * p.qp + i;
+      if (on && !whole) pl.table[t] = h;
+      if constexpr (O::stats) {
+        if (on) {
+          pl.table[pl.tab_plane + t] = hp.m;
+          pl.table[2 * pl.tab_plane + t] = hp.s;
+          pl.table[3 * pl.tab_plane + t] = hp.l;
+        }
+      }
+    }
+    if constexpr (O::rowcol) {
+      if (on && i == p.qlen - 1) {
+        pl.row[jg] = h;
+        if constexpr (O::stats) {
+          pl.row[pl.row_plane + jg] = hp.m;
+          pl.row[2 * pl.row_plane + jg] = hp.s;
+          pl.row[3 * pl.row_plane + jg] = hp.l;
+        }
+      }
+      if (on && last_col) {
+        pl.col[i] = h;
+        if constexpr (O::stats) {
+          pl.col[pl.col_plane + i] = hp.m;
+          pl.col[2 * pl.col_plane + i] = hp.s;
+          pl.col[3 * pl.col_plane + i] = hp.l;
+        }
+      }
+    }
+    if (on && down != nullptr && i == p.down_row)
+      seg_up_store<kOut>(down, rseg, c, u);
+    const bool cand = on && (w.row_all || (w.row_last && last_col));
+    if constexpr (O::stats) {
+      // rows top to bottom, then columns: an equal H in an earlier row is
+      // ahead (seg_better for cells that arrive in this order)
+      if (cand && (h > L.best.h || (h == L.best.h && i < L.best.i))) {
+        L.best.h = h;
+        L.best.i = i;
+        L.best.j = jg;
+        L.best.p = hp;
+      }
+    } else if (cand && h > w.bh) {       // columns ascend within a row
+      w.bh = h;
+      w.bj = jg;
+    }
+    if (on && state_col) {
+      const int32_t j = i - p.row_lo;
+      st_h[j] = h;
+      st_f[j] = w.f;
+      if constexpr (O::stats) {
+        st_pay[j] = hp.m;
+        st_pay[pay_plane + j] = hp.s;
+        st_pay[2 * pay_plane + j] = hp.l;
+        st_pay[3 * pay_plane + j] = w.fp.m;
+        st_pay[4 * pay_plane + j] = w.fp.s;
+        st_pay[5 * pay_plane + j] = w.fp.l;
+      }
+    }
+  }
+  // the extremes, two rows an instruction
+  int32_t mx = L.best.hmax, mn = L.best.hmin;
+PT_UNROLL
+  for (int32_t k = 0; k + 1 < kR; k += 2) {
+    mx = max3(mx, hv[k], hv[k + 1]);
+    mn = min3(mn, hv[k], hv[k + 1]);
+  }
+  if constexpr (kR % 2 == 1) {
+    mx = imax(mx, hv[kR - 1]);
+    mn = imin(mn, hv[kR - 1]);
+  }
+  L.best.hmax = mx;
+  L.best.hmin = mn;
   if constexpr (O::table) {
-    const int64_t t = (int64_t)jg * p.qp + L.i;
-    pl.table[t] = h;
-    if constexpr (O::stats) {
-      pl.table[pl.tab_plane + t] = hp.m;
-      pl.table[2 * pl.tab_plane + t] = hp.s;
-      pl.table[3 * pl.tab_plane + t] = hp.l;
-    }
+    if constexpr (kR % 4 == 0)
+      if (whole) store_rows<kR>(pl.table + (int64_t)jg * p.qp + L.i0, hv);
   }
-  if constexpr (O::rowcol) {
-    if (L.i == p.qlen - 1) {
-      pl.row[jg] = h;
-      if constexpr (O::stats) {
-        pl.row[pl.row_plane + jg] = hp.m;
-        pl.row[2 * pl.row_plane + jg] = hp.s;
-        pl.row[3 * pl.row_plane + jg] = hp.l;
-      }
-    }
-    if (jg == p.rlen - 1) {
-      pl.col[L.i] = h;
-      if constexpr (O::stats) {
-        pl.col[pl.col_plane + L.i] = hp.m;
-        pl.col[2 * pl.col_plane + L.i] = hp.s;
-        pl.col[3 * pl.col_plane + L.i] = hp.l;
-      }
-    }
-  }
-  const bool cand = L.row_all || (L.row_last && jg == p.rlen - 1);
-  if (cand && h > L.best.h) {
-    L.best.h = h;
-    L.best.i = L.i;
-    L.best.j = jg;
-    L.best.p = hp;
-  }
-  if (c == p.ncols - 1) {
-    const int32_t k = L.i - p.row_lo;
-    st_h[k] = h;
-    st_f[k] = L.f;
-    if constexpr (O::stats) {
-      st_pay[k] = hp.m;
-      st_pay[pay_plane + k] = hp.s;
-      st_pay[2 * pay_plane + k] = hp.l;
-      st_pay[3 * pay_plane + k] = L.fp.m;
-      st_pay[4 * pay_plane + k] = L.fp.s;
-      st_pay[5 * pay_plane + k] = L.fp.l;
-    }
-  }
+  L.out = u;
 }
 
 // Fold the segment's best into the carried accumulator `acc` (8 values;
@@ -889,21 +1127,13 @@ PT_HD PairResult seg_finish(const SegPair& p, int32_t mode,
   return out;
 }
 
-// Several warps on a pair: a block's warps take SEG_LANES rows each, one
-// group of rows after another.  Warp w runs SEG_LAG steps behind warp
-// w - 1, whose last lane's row it reads from a ring of SEG_RING columns:
-// a column is written a whole round of SEG_LANES steps (one block
-// barrier) before it is read, and a slot is reused another round after.
-constexpr int32_t SEG_LAG = 2 * SEG_LANES;
-constexpr int32_t SEG_RING = 4 * SEG_LANES;
-
 // Warp w's own step at the group's step g.  Step -1 only fetches ahead.
 PT_HD int32_t seg_local_step(int32_t g, int32_t w) {
   return g - SEG_LAG * w - 1;
 }
 
-// Steps a group of rows takes when `nw` of its warps have rows: the last
-// warp starts SEG_LAG * (nw - 1) + 1 steps in and sweeps ncols columns
+// Steps a group of rows takes when `nw` warps of its chain have rows: the
+// last starts SEG_LAG * (nw - 1) + 1 steps in and sweeps ncols columns
 // with up to SEG_LANES lanes.
 PT_HD int32_t seg_group_steps(int32_t ncols, int32_t nw) {
   return SEG_LAG * (nw - 1) + 1 + ncols + SEG_LANES - 1;
@@ -912,6 +1142,121 @@ PT_HD int32_t seg_group_steps(int32_t ncols, int32_t nw) {
 // Does the pair sweep any cell in this segment?
 PT_HD bool seg_sweeps(const SegPair& p) {
   return p.row_hi > p.row_lo && p.ncols > 0;
+}
+
+// ---------------------------------------------------------------------------
+// The launcher's rule: kR rows a lane, W warps a block and C blocks (a
+// thread-block cluster) a pair, for B pairs of Qs rows by ncols columns.
+// What bounds a step is its dependent chain, so the rule fills each
+// warp's lanes with rows and puts the rows of a pair in as few groups as
+// it can, every group paying SEG_LAG steps of fill a warp:
+//
+//   kR  the largest of the class's forms whose eight warps of 32 kR rows
+//       the pair's Qs rows fill, else the largest whose one warp they
+//       fill, else 2; at most 4 where a step writes a plane cell by cell
+//       (trace, table, stats_table) or carries payloads (the stats
+//       classes), 8 elsewhere (score, rowcol).  The table classes take 4
+//       whenever one warp's 128 rows fill: their H plane is then one
+//       16-byte store a lane, which beats the warps 2 rows would fill
+//       (128 x 512^2: table 0.39 ms against 0.78, stats_table 2.79
+//       against 3.44; PERF.md);
+//   W   the warps whose 32 kR rows cover Qs, at most 8;
+//   C   when B blocks leave SMs idle, the pair's blocks on the idle SMs
+//       (132 / B), at most the blocks whose warps cover Qs, at most 8;
+//
+// and halves W while the block's shared memory (the profile form's
+// staged rows) passes SEG_SMEM_BUDGET.  A non-zero warps, rows or cluster
+// fixes that choice (the tests and chip_smoke.py check given forms so);
+// chip_smoke.py's phase 27 times the rule's pick beside other forms at
+// the main paths' shapes.
+struct SegPlan {
+  int32_t rows, warps, cluster;
+};
+
+constexpr int32_t SEG_SMS = 132;                 // the H100's SMs
+constexpr int32_t SEG_MAX_WARPS = 8;
+constexpr int32_t SEG_MAX_CLUSTER = 8;           // the portable limit
+constexpr int64_t SEG_SMEM_BUDGET = 160 * 1024;
+
+PT_HD bool seg_stats_class(int32_t out_class) {
+  return out_class == OUT_STATS || out_class == OUT_STATS_TABLE ||
+         out_class == OUT_STATS_ROWCOL;
+}
+
+// Does the class have forms of 8 rows a lane?  Only where a step neither
+// writes a plane cell by cell nor carries payloads: score and rowcol.
+PT_HD constexpr bool seg_wide_class(int32_t out_class) {
+  return out_class == OUT_SCORE || out_class == OUT_ROWCOL;
+}
+
+// rows a lane the class's forms are compiled for: the rows seg_plan picks
+PT_HD bool seg_rows_compiled(int32_t out_class, int32_t rows) {
+  return rows == 2 || rows == 4 || (rows == 8 && seg_wide_class(out_class));
+}
+
+// The letters a block stages: a ring of SEG_LETTERS columns, or, for a
+// segment of fewer columns, all of them (a power of two).
+PT_HD int32_t seg_letter_ring(int32_t ncols) {
+  int32_t n = SEG_LANES;
+  while (n < ncols && n < SEG_LETTERS) n *= 2;
+  return n;
+}
+
+// Profile rows a block stages: its rows of a group, at most the state's.
+PT_HD int32_t seg_prof_rows(int32_t rows, int32_t warps, int32_t Qs) {
+  return imax(1, imin(warps * SEG_LANES * rows, Qs));
+}
+
+// Shared memory of a block, words: the staged scores, the letter ring,
+// a ring per warp (read by it, written by the warp above it in the
+// chain), and the olds and bests of the pair's C W warps; the kernel
+// lays them out in this order.
+PT_HD int64_t seg_score_words(bool profile, int32_t rows, int32_t warps,
+                              int32_t Qs, int32_t A) {
+  return profile ? (int64_t)(A + 1) *
+                       seg_prof_stride(seg_prof_rows(rows, warps, Qs))
+                 : (int64_t)(A + 1) * (A + 1);
+}
+
+PT_HD int64_t seg_block_bytes(int32_t out_class, bool profile, int32_t rows,
+                              int32_t warps, int32_t cluster, int32_t A,
+                              int32_t Qs, int32_t ncols) {
+  const int64_t state = seg_stats_class(out_class) ? 8 : 2;
+  return 4 * (seg_score_words(profile, rows, warps, Qs, A) +
+              seg_letter_ring(ncols) + (int64_t)warps * state * SEG_RING +
+              (int64_t)warps * cluster * (4 + 8));
+}
+
+PT_HD int32_t seg_div_up(int32_t a, int32_t b) { return (a + b - 1) / b; }
+
+PT_HD SegPlan seg_plan(int32_t out_class, int32_t B, int32_t Qs,
+                       int32_t ncols, int32_t A, bool profile, int32_t warps,
+                       int32_t rows, int32_t cluster) {
+  Qs = imax(Qs, 1);
+  int32_t R = rows;
+  if (R <= 0) {
+    const int32_t most = seg_wide_class(out_class) ? 8 : 4;
+    const bool table = out_class == OUT_TABLE || out_class == OUT_STATS_TABLE;
+    // eight warps full, else one (the table classes: one)
+    const int32_t full[2] = {table ? 1 : SEG_MAX_WARPS, 1};
+    for (int32_t f : full)
+      for (int32_t r = most; R <= 0 && r >= 2; r /= 2)
+        if (SEG_LANES * r * f <= Qs) R = r;
+    if (R <= 0) R = 2;
+  }
+  int32_t W = warps > 0
+      ? imin(warps, SEG_MAX_WARPS)
+      : imax(1, imin(SEG_MAX_WARPS, seg_div_up(Qs, SEG_LANES * R)));
+  int32_t C = cluster;
+  if (C <= 0)
+    C = imax(1, imin(SEG_MAX_CLUSTER,
+                     imin(SEG_SMS / imax(B, 1),
+                          seg_div_up(Qs, SEG_LANES * R * W))));
+  if (warps <= 0)
+    while (W > 1 && seg_block_bytes(out_class, profile, R, W, C, A, Qs,
+                                    ncols) > SEG_SMEM_BUDGET)
+      W /= 2;
+  return SegPlan{R, W, C};
 }
 
 // ---------------------------------------------------------------------------
@@ -927,9 +1272,10 @@ PT_HD bool seg_sweeps(const SegPair& p) {
 //           r0 - 1 (and their payloads), in the layout of the segment
 //           form's scratch row; the caller fills it with the top border at
 //           r0 == 0.  The tile leaves there the same of row r0 + qc - 1, for
-//           the tile below, from whichever lane holds that row.  (The TPU
-//           kernel carries a prefix-max seed instead of E: it computes E by
-//           a prefix scan, this cell by the literal recurrence.)
+//           the tile below, from whichever lane holds that row among its kR
+//           rows.  (The TPU kernel carries a prefix-max seed instead of E:
+//           it computes E by a prefix scan, this cell by the literal
+//           recurrence.)
 //   corner  H[r0-1][off-1] and its payload, four words `t`: what the tile
 //           to the left read above its last column, which it hands on as it
 //           was before it swept (t_out = the down-state in at column C - 1)
@@ -972,17 +1318,21 @@ PT_HD void tile_corner_out(const int32_t* down, int32_t cols, int32_t* t) {
 
 #if !defined(__CUDACC__)
 // One pair's segment on the host: the kernel's lanes stepped in a loop.
-// `warps` warps of SEG_LANES lanes take SEG_LANES * warps rows abreast, as
-// the kernel's block does: warp w runs SEG_LAG steps behind warp w - 1 and
-// reads its last lane's row from a ring of SEG_RING columns (the kernel's
-// shared memory); warps and lanes are stepped last first, so each reads
-// what the one above left earlier.
+// `cluster` blocks of `warps` warps of SEG_LANES lanes, kR rows a lane,
+// take SEG_LANES * kR * warps * cluster rows abreast, as the kernel's
+// cluster does: warp w of the chain (block w / warps, warp w % warps)
+// runs SEG_LAG steps behind warp w - 1 and reads its last lane's bottom
+// row from a ring of SEG_RING columns (the kernel's shared memory, in the
+// reader's block); warps and lanes are stepped last first, so each reads
+// what the one above left earlier.  The scores are staged as the kernel
+// stages them (the profile rows of the whole pair at once: the values a
+// block stages are the same).
 //
-//   rows, q, mq: as score_pair's rows and qidx, and PlaneIO::mq
+//   subs, q, mq: the (A, A) table and the query letters, or the pair's
+//                (qp, A) profile rows and null; PlaneIO::mq
 //   ridx_seg:    the segment's reference letters (Rseg of them)
 //   bottom:      scratch, 8 rows of Rseg: the last row of each group of
-//                SEG_LANES * warps rows (H, E, and their payloads) for
-//                the next group
+//                rows (H, E, and their payloads) for the next group
 //   st_h, st_f:  the pair's state rows (qp each), updated in place
 //   st_pay:      stats: its six payload rows, `pay_plane` apart
 //   acc:         its accumulator (8)
@@ -992,46 +1342,61 @@ PT_HD void tile_corner_out(const int32_t* down, int32_t cols, int32_t* t) {
 // first row and left holding the tile's last row; the state rows and
 // `trace` start at row p.row_lo; `t_in` / `t_out` are the corner words.
 // The plane forms (the chunked form): `pl` is the pair's SegPlanes.
-template <int32_t kOut>
-inline PairResult segment_pair_host(const int32_t* rows, const int32_t* q,
+template <int32_t kOut, int32_t kR>
+inline PairResult segment_pair_host(const int32_t* subs, const int32_t* q,
                                     const int32_t* mq,
                                     const int32_t* ridx_seg, int32_t rseg,
                                     const SegPair& p, int32_t mode,
                                     int32_t* bottom, int32_t* st_h,
                                     int32_t* st_f, int32_t* st_pay,
                                     int64_t pay_plane, int32_t* acc,
-                                    int8_t* trace, int32_t warps = 1,
-                                    int32_t* down = nullptr,
+                                    int8_t* trace, int32_t warps,
+                                    int32_t cluster, int32_t* down = nullptr,
                                     const int32_t* t_in = nullptr,
                                     int32_t* t_out = nullptr,
                                     const SegPlanes& pl = SegPlanes()) {
   using O = Out<kOut>;
   constexpr int32_t W = SEG_LANES;
+  const int32_t A = p.A;
+  // the scores staged as a block stages them, the profile rows of the
+  // whole pair at once
+  const int32_t cs = q ? 1 : seg_prof_stride(p.qp);
+  std::vector<int32_t> sc(q ? (A + 1) * (A + 1) : (A + 1) * cs);
+  if (q) {
+    for (int32_t k = 0; k < (int32_t)sc.size(); ++k)
+      sc[k] = seg_table_at(subs, A, k);
+  } else {
+    seg_stage_profile(sc.data(), subs, p.qp, A, p.qp, 0, 1);
+  }
   SegBest total = seg_best_init(p);
   if (p.tile) tile_corner_out<kOut>(down, rseg, t_out);
   if (seg_sweeps(p)) {
-    std::vector<SegLane<kOut>> lanes(warps * W);
-    std::vector<SegUp> old(warps * W);
-    std::vector<SegUp> ring((int64_t)warps * SEG_RING);
+    const int32_t chain = warps * cluster;
+    const int32_t per_warp = W * kR;
+    std::vector<SegLane<kOut, kR>> lanes(chain * W);
+    std::vector<SegUp> old(chain * W);
+    std::vector<SegUp> ring((int64_t)chain * SEG_RING);
     for (auto& L : lanes) L.best = seg_best_init(p);
     // the row above's H left of the segment (or tile)
     SegUp carry = p.tile ? tile_corner(t_in) : seg_corner(p);
-    const int32_t group = warps * W;
+    const int32_t group = chain * per_warp;
+    const bool vec = p.qp % kR == 0;
     for (int32_t i0 = p.row_lo; i0 < p.row_hi; i0 += group) {
-      for (int32_t k = 0; k < group; ++k)
-        seg_row_begin(lanes[k], p, i0 + k, rows, q, mq, st_h, st_f, st_pay,
-                      pay_plane, old[k]);
-      for (int32_t k = 0; k < group; ++k)
-        seg_row_diag(lanes[k], k == 0 ? carry : old[k - 1]);
-      carry = old[group - 1];
+      for (int32_t x = 0; x < chain * W; ++x)
+        seg_lane_begin(lanes[x], p, i0 + x * kR, q, 0, mq, st_h, st_f,
+                       st_pay, pay_plane, old[x]);
+      for (int32_t x = 0; x < chain * W; ++x)
+        seg_lane_diag(lanes[x], x == 0 ? carry : old[x - 1]);
+      carry = old[chain * W - 1];
       const int32_t nrows = imin(group, p.row_hi - i0);
-      const int32_t nw = (nrows + W - 1) / W;       // warps with rows
+      const int32_t nw = (nrows + per_warp - 1) / per_warp;  // with rows
       const bool feeds = i0 + group < p.row_hi;     // a group follows
       const int32_t total_steps = seg_group_steps(p.ncols, nw);
       for (int32_t g = 0; g < total_steps; ++g) {
         for (int32_t w = nw - 1; w >= 0; --w) {
           const int32_t t = seg_local_step(g, w);
-          const int32_t nl = imin(W, nrows - w * W);
+          const int32_t nl =
+              imin(W, (nrows - w * per_warp + kR - 1) / kR);
           if (t < 0 || t >= p.ncols + nl - 1) continue;
           for (int32_t l = nl - 1; l >= 0; --l) {
             const int32_t c = t - l;
@@ -1040,27 +1405,30 @@ inline PairResult segment_pair_host(const int32_t* rows, const int32_t* q,
             if (l > 0) {
               up = lanes[w * W + l - 1].out;
             } else if (w > 0) {
-              up = ring[(int64_t)(w - 1) * SEG_RING + c % SEG_RING];
+              up = ring[(int64_t)w * SEG_RING + c % SEG_RING];
             } else if (i0 == p.row_lo) {
               up = p.tile ? seg_up_load<kOut>(down, rseg, c)
                           : seg_top(p, p.off + c);
             } else {
               up = seg_up_load<kOut>(bottom, rseg, c);
             }
-            SegLane<kOut>& L = lanes[w * W + l];
+            SegLane<kOut, kR>& L = lanes[w * W + l];
             const int32_t r = ridx_seg[c];
-            seg_cell(L, p, c, r, seg_score(L, p, r), up,
-                     O::trace ? trace + (int64_t)(L.i - p.row_lo) * rseg
-                              : nullptr,
-                     st_h, st_f, st_pay, pay_plane, pl);
-            if (l == W - 1 && w < warps - 1)
-              ring[(int64_t)w * SEG_RING + c % SEG_RING] = L.out;
-            if (l == W - 1 && w == warps - 1 && feeds)
+            int32_t sk[kR];
+            seg_lane_scores(L, sc.data(), seg_col(r, A) * cs, sk);
+            seg_lane_step(L, p, c, r, sk, up,
+                          O::trace ? trace + (int64_t)(L.i0 - p.row_lo) * rseg
+                                   : nullptr,
+                          rseg, st_h, st_f, st_pay, pay_plane, pl,
+                          p.tile ? down : nullptr, vec, rseg % 4 == 0);
+            if (l == W - 1 && w + 1 < nw)
+              ring[(int64_t)(w + 1) * SEG_RING + c % SEG_RING] = L.out;
+            if (l == W - 1 && w == chain - 1 && feeds)
               seg_up_store<kOut>(bottom, rseg, c, L.out);
-            if (L.i == p.down_row) seg_up_store<kOut>(down, rseg, c, L.out);
           }
         }
       }
+      for (auto& L : lanes) seg_lane_fold(L);
     }
     for (const auto& L : lanes) total = seg_merge(total, L.best);
   }

@@ -198,12 +198,73 @@ extern "C" int pt_walk_host(const int8_t* trace, const int32_t* qsym,
   return 0;
 }
 
+namespace {
+
+// segment_pair_host of class kOut with `rows` rows a lane, one of the
+// kernel's forms (the caller checks seg_rows_compiled).
+template <int32_t kOut>
+ptscore::PairResult pair_host(int rows, const int32_t* subs,
+                              const int32_t* q, const int32_t* mq,
+                              const int32_t* ridx, int rseg,
+                              const ptscore::SegPair& p, int mode,
+                              int32_t* bottom, int32_t* st_h, int32_t* st_f,
+                              int32_t* st_pay, int64_t pay_plane,
+                              int32_t* acc, int8_t* trace, int warps,
+                              int cluster, int32_t* down,
+                              const int32_t* t_in, int32_t* t_out,
+                              const ptscore::SegPlanes& pl) {
+#define PT_ROWS(r)                                                          \
+  return ptscore::segment_pair_host<kOut, r>(                               \
+      subs, q, mq, ridx, rseg, p, mode, bottom, st_h, st_f, st_pay,         \
+      pay_plane, acc, trace, warps, cluster, down, t_in, t_out, pl)
+  if (rows == 2) PT_ROWS(2);
+  if (rows == 4) PT_ROWS(4);
+  if constexpr (ptscore::seg_wide_class(kOut)) PT_ROWS(8);
+#undef PT_ROWS
+  return ptscore::PairResult{};
+}
+
+template <typename... Args>
+ptscore::PairResult class_host(int out_class, Args... args) {
+  switch (out_class) {
+    case ptscore::OUT_SCORE: return pair_host<ptscore::OUT_SCORE>(args...);
+    case ptscore::OUT_TRACE: return pair_host<ptscore::OUT_TRACE>(args...);
+    case ptscore::OUT_STATS: return pair_host<ptscore::OUT_STATS>(args...);
+    case ptscore::OUT_TABLE: return pair_host<ptscore::OUT_TABLE>(args...);
+    case ptscore::OUT_STATS_TABLE:
+      return pair_host<ptscore::OUT_STATS_TABLE>(args...);
+    case ptscore::OUT_ROWCOL: return pair_host<ptscore::OUT_ROWCOL>(args...);
+    default: return pair_host<ptscore::OUT_STATS_ROWCOL>(args...);
+  }
+}
+
+// Are (rows, warps, cluster) a form the kernel compiles and launches?
+bool form_ok(int out_class, int rows, int warps, int cluster) {
+  return ptscore::seg_rows_compiled(out_class, rows) && warps >= 1 &&
+         warps <= ptscore::SEG_MAX_WARPS && cluster >= 1 &&
+         cluster <= ptscore::SEG_MAX_CLUSTER;
+}
+
+void put_result(const ptscore::PairResult& r, int32_t* out, int B, int b) {
+  out[b] = r.score;
+  out[B + b] = r.end_query;
+  out[2 * B + b] = r.end_ref;
+  out[3 * B + b] = r.sat8;
+  out[4 * B + b] = r.sat16;
+  out[5 * B + b] = r.matches;
+  out[6 * B + b] = r.similar;
+  out[7 * B + b] = r.length;
+}
+
+}  // namespace
+
 // One segment of the segment form (pt_scan_segment's arguments minus the
 // scratch and the stream, same layouts): out_class 0 score, 1 trace,
 // 2 stats; `st_h` / `st_f` (B, Qp), `st_pay` (6, B, Qp) and `acc` (B, 8)
 // are read (if resume) and updated in place; `out` is (8, B); `trace`
-// (B, Qp, Rseg) arrives zero-filled; `warps` is the number of warps the
-// kernel's block would put on a pair.  Returns -1 for another class.
+// (B, Qp, Rseg) arrives zero-filled; `rows` rows a lane, `warps` warps a
+// block and `cluster` blocks a pair, as the kernel would take them.
+// Returns -1 for another class or a form the kernel has not.
 extern "C" int pt_segment_host(int out_class, const int32_t* subs,
                                const int32_t* qidx, const int32_t* mq,
                                const int32_t* ridx, const int32_t* qlen,
@@ -212,9 +273,9 @@ extern "C" int pt_segment_host(int out_class, const int32_t* subs,
                                int32_t* out, int8_t* trace, int B, int Bq,
                                int Bm, int Qp, int Rseg, int A, int open,
                                int ext, int mode, int free_bits, int off,
-                               int resume, int warps) {
-  if ((out_class != ptscore::OUT_SCORE && out_class != ptscore::OUT_TRACE &&
-       out_class != ptscore::OUT_STATS) || warps < 1)
+                               int resume, int warps, int rows, int cluster) {
+  if (out_class > ptscore::OUT_STATS || out_class < 0 ||
+      !form_ok(out_class, rows, warps, cluster))
     return -1;
   std::vector<int32_t> bottom(8 * (Rseg > 0 ? Rseg : 1));
   const int64_t pay_plane = (int64_t)B * Qp;
@@ -223,37 +284,18 @@ extern "C" int pt_segment_host(int out_class, const int32_t* subs,
         qlen[b], rlen[b], Qp, off, Rseg, open, ext, mode, free_bits,
         resume != 0, A);
     const int64_t bq = Bq == 1 ? 0 : b;
-    const int32_t* rows = qidx ? subs : subs + bq * Qp * A;
-    const int32_t* q = qidx ? qidx + bq * Qp : nullptr;
-    const int32_t* mqb = mq ? mq + (Bm == 1 ? 0 : (int64_t)b * Qp) : nullptr;
-    const int32_t* rseg = ridx + (int64_t)b * Rseg;
-    int32_t* sh = st_h + (int64_t)b * Qp;
-    int32_t* sf = st_f + (int64_t)b * Qp;
-    int32_t* sp = st_pay ? st_pay + (int64_t)b * Qp : nullptr;
-    int32_t* ac = acc + (int64_t)b * 8;
-    int8_t* tr = trace ? trace + (int64_t)b * Qp * Rseg : nullptr;
-    ptscore::PairResult r;
-    if (out_class == ptscore::OUT_SCORE) {
-      r = ptscore::segment_pair_host<ptscore::OUT_SCORE>(
-          rows, q, mqb, rseg, Rseg, p, mode, bottom.data(), sh, sf, sp,
-          pay_plane, ac, tr, warps);
-    } else if (out_class == ptscore::OUT_TRACE) {
-      r = ptscore::segment_pair_host<ptscore::OUT_TRACE>(
-          rows, q, mqb, rseg, Rseg, p, mode, bottom.data(), sh, sf, sp,
-          pay_plane, ac, tr, warps);
-    } else {
-      r = ptscore::segment_pair_host<ptscore::OUT_STATS>(
-          rows, q, mqb, rseg, Rseg, p, mode, bottom.data(), sh, sf, sp,
-          pay_plane, ac, tr, warps);
-    }
-    out[b] = r.score;
-    out[B + b] = r.end_query;
-    out[2 * B + b] = r.end_ref;
-    out[3 * B + b] = r.sat8;
-    out[4 * B + b] = r.sat16;
-    out[5 * B + b] = r.matches;
-    out[6 * B + b] = r.similar;
-    out[7 * B + b] = r.length;
+    put_result(
+        class_host(out_class, rows, qidx ? subs : subs + bq * Qp * A,
+                   qidx ? qidx + bq * Qp : nullptr,
+                   mq ? mq + (Bm == 1 ? 0 : (int64_t)b * Qp) : nullptr,
+                   ridx + (int64_t)b * Rseg, Rseg, p, mode, bottom.data(),
+                   st_h + (int64_t)b * Qp, st_f + (int64_t)b * Qp,
+                   st_pay ? st_pay + (int64_t)b * Qp : nullptr, pay_plane,
+                   acc + (int64_t)b * 8,
+                   trace ? trace + (int64_t)b * Qp * Rseg : nullptr, warps,
+                   cluster, (int32_t*)nullptr, (const int32_t*)nullptr,
+                   (int32_t*)nullptr, ptscore::SegPlanes()),
+        out, B, b);
   }
   return 0;
 }
@@ -261,10 +303,10 @@ extern "C" int pt_segment_host(int out_class, const int32_t* subs,
 // One tile of the tile form (pt_scan_rowseg's arguments minus the stream,
 // same layouts): rows [r0, r0 + qc) by columns [off, off + C).  `down`
 // (B, 2, C), or (B, 8, C) for stats, is read above the tile and left
-// holding its last row; `st_h` / `st_f`
-// (B, qc), `st_pay` (6, B, qc) and `acc` (B, 8) are updated in place;
-// `out` is (8, B); `trace` (B, qc, C) arrives zero-filled; `t_in` /
-// `t_out` are (B, 4).  Returns -1 for another class.
+// holding its last row; `st_h` / `st_f` (B, qc), `st_pay` (6, B, qc) and
+// `acc` (B, 8) are updated in place; `out` is (8, B); `trace` (B, qc, C)
+// arrives zero-filled; `t_in` / `t_out` are (B, 4); rows, warps, cluster
+// as pt_segment_host.  Returns -1 for another class or form.
 extern "C" int pt_rowseg_host(int out_class, const int32_t* subs,
                               const int32_t* qidx, const int32_t* mq,
                               const int32_t* ridx, const int32_t* qlen,
@@ -274,9 +316,10 @@ extern "C" int pt_rowseg_host(int out_class, const int32_t* subs,
                               const int32_t* t_in, int32_t* t_out, int B,
                               int Bq, int Bm, int Qp, int C, int A, int open,
                               int ext, int mode, int free_bits, int off,
-                              int r0, int qc, int warps) {
-  if ((out_class != ptscore::OUT_SCORE && out_class != ptscore::OUT_TRACE &&
-       out_class != ptscore::OUT_STATS) || warps < 1)
+                              int r0, int qc, int warps, int rows,
+                              int cluster) {
+  if (out_class > ptscore::OUT_STATS || out_class < 0 ||
+      !form_ok(out_class, rows, warps, cluster))
     return -1;
   const int64_t pay_plane = (int64_t)B * qc;
   const int down_rows = out_class == ptscore::OUT_STATS ? 8 : 2;
@@ -285,70 +328,31 @@ extern "C" int pt_rowseg_host(int out_class, const int32_t* subs,
     const ptscore::SegPair p = ptscore::tile_pair(
         qlen[b], rlen[b], Qp, r0, qc, off, C, open, ext, mode, free_bits, A);
     const int64_t bq = Bq == 1 ? 0 : b;
-    const int32_t* rows = qidx ? subs : subs + bq * Qp * A;
-    const int32_t* q = qidx ? qidx + bq * Qp : nullptr;
-    const int32_t* mqb = mq ? mq + (Bm == 1 ? 0 : (int64_t)b * Qp) : nullptr;
-    const int32_t* rseg = ridx + (int64_t)b * C;
-    int32_t* dn = down + (int64_t)b * down_rows * C;
-    int32_t* sh = st_h + (int64_t)b * qc;
-    int32_t* sf = st_f + (int64_t)b * qc;
-    int32_t* sp = st_pay ? st_pay + (int64_t)b * qc : nullptr;
-    int32_t* ac = acc + (int64_t)b * 8;
-    int8_t* tr = trace ? trace + (int64_t)b * qc * C : nullptr;
-    const int32_t* ti = t_in + (int64_t)b * 4;
-    int32_t* to = t_out + (int64_t)b * 4;
-    ptscore::PairResult r;
-    if (out_class == ptscore::OUT_SCORE) {
-      r = ptscore::segment_pair_host<ptscore::OUT_SCORE>(
-          rows, q, mqb, rseg, C, p, mode, bottom.data(), sh, sf, sp,
-          pay_plane, ac, tr, warps, dn, ti, to);
-    } else if (out_class == ptscore::OUT_TRACE) {
-      r = ptscore::segment_pair_host<ptscore::OUT_TRACE>(
-          rows, q, mqb, rseg, C, p, mode, bottom.data(), sh, sf, sp,
-          pay_plane, ac, tr, warps, dn, ti, to);
-    } else {
-      r = ptscore::segment_pair_host<ptscore::OUT_STATS>(
-          rows, q, mqb, rseg, C, p, mode, bottom.data(), sh, sf, sp,
-          pay_plane, ac, tr, warps, dn, ti, to);
-    }
-    out[b] = r.score;
-    out[B + b] = r.end_query;
-    out[2 * B + b] = r.end_ref;
-    out[3 * B + b] = r.sat8;
-    out[4 * B + b] = r.sat16;
-    out[5 * B + b] = r.matches;
-    out[6 * B + b] = r.similar;
-    out[7 * B + b] = r.length;
+    put_result(
+        class_host(out_class, rows, qidx ? subs : subs + bq * Qp * A,
+                   qidx ? qidx + bq * Qp : nullptr,
+                   mq ? mq + (Bm == 1 ? 0 : (int64_t)b * Qp) : nullptr,
+                   ridx + (int64_t)b * C, C, p, mode, bottom.data(),
+                   st_h + (int64_t)b * qc, st_f + (int64_t)b * qc,
+                   st_pay ? st_pay + (int64_t)b * qc : nullptr, pay_plane,
+                   acc + (int64_t)b * 8,
+                   trace ? trace + (int64_t)b * qc * C : nullptr, warps,
+                   cluster, down + (int64_t)b * down_rows * C,
+                   t_in + (int64_t)b * 4, t_out + (int64_t)b * 4,
+                   ptscore::SegPlanes()),
+        out, B, b);
   }
   return 0;
 }
 
-namespace {
-
-template <int32_t kOut>
-ptscore::PairResult chunked_pair(const int32_t* rows, const int32_t* q,
-                                 const int32_t* mq, const int32_t* ridx,
-                                 int Rp, const ptscore::SegPair& p, int mode,
-                                 int32_t* bottom, int32_t* st_h,
-                                 int32_t* st_f, int32_t* st_pay,
-                                 int32_t* acc, int8_t* trace, int warps,
-                                 const ptscore::SegPlanes& pl) {
-  return ptscore::segment_pair_host<kOut>(rows, q, mq, ridx, Rp, p, mode,
-                                          bottom, st_h, st_f, st_pay, p.qp,
-                                          acc, trace, warps, nullptr,
-                                          nullptr, nullptr, pl);
-}
-
-}  // namespace
-
 // The chunked sweep, every class: what score_chunked launches on the card
 // (pt_scan_chunked's four plane forms, pt_scan_segment's score, stats and
 // trace forms as one segment of Rp columns from column 0), with their
-// layouts, minus the scratch and the stream; `warps` warps on a pair as
-// the kernel's block would have.
-// `out` is (8, B); `trace` (B, Qp, Rp), `tab` (4, B, Rp, Qp), `rows`
-// (4, B, Rp) and `cols` (4, B, Qp) arrive zero-filled (planes beyond the
-// class's are left alone).  Returns -1 for an unknown class.
+// layouts, minus the scratch and the stream; rows, warps, cluster as
+// pt_segment_host.  `out` is (8, B); `trace` (B, Qp, Rp), `tab`
+// (4, B, Rp, Qp), `rows` (4, B, Rp) and `cols` (4, B, Qp) arrive
+// zero-filled (planes beyond the class's are left alone).  Returns -1 for
+// an unknown class or form.
 extern "C" int pt_chunked_host(int out_class, const int32_t* subs,
                                const int32_t* qidx, const int32_t* mq,
                                const int32_t* ridx, const int32_t* qlen,
@@ -356,9 +360,11 @@ extern "C" int pt_chunked_host(int out_class, const int32_t* subs,
                                int8_t* trace, int32_t* tab, int32_t* rows,
                                int32_t* cols, int B, int Bq, int Bm, int Qp,
                                int Rp, int A, int open, int ext, int mode,
-                               int free_bits, int warps) {
-  if (out_class < ptscore::OUT_SCORE || out_class > ptscore::OUT_STATS_ROWCOL
-      || warps < 1)
+                               int free_bits, int warps, int lane_rows,
+                               int cluster) {
+  if (out_class < ptscore::OUT_SCORE ||
+      out_class > ptscore::OUT_STATS_ROWCOL ||
+      !form_ok(out_class, lane_rows, warps, cluster))
     return -1;
   const int n = Rp > 0 ? Rp : 1;
   std::vector<int32_t> bottom(8 * n), st_h(Qp), st_f(Qp), st_pay(6 * Qp),
@@ -367,11 +373,6 @@ extern "C" int pt_chunked_host(int out_class, const int32_t* subs,
     const ptscore::SegPair p = ptscore::seg_pair(
         qlen[b], rlen[b], Qp, 0, Rp, open, ext, mode, free_bits, false, A);
     const int64_t bq = Bq == 1 ? 0 : b;
-    const int32_t* srows = qidx ? subs : subs + bq * Qp * A;
-    const int32_t* q = qidx ? qidx + bq * Qp : nullptr;
-    const int32_t* mqb = mq ? mq + (Bm == 1 ? 0 : (int64_t)b * Qp) : nullptr;
-    const int32_t* rb = ridx + (int64_t)b * Rp;
-    int8_t* tr = trace ? trace + (int64_t)b * Qp * Rp : nullptr;
     ptscore::SegPlanes pl;
     if (tab) {
       pl.table = tab + (int64_t)b * Rp * Qp;
@@ -383,29 +384,31 @@ extern "C" int pt_chunked_host(int out_class, const int32_t* subs,
       pl.col = cols + (int64_t)b * Qp;
       pl.col_plane = (int64_t)B * Qp;
     }
-    ptscore::PairResult r;
-#define PT_CHUNK(k)                                                        \
-  r = chunked_pair<k>(srows, q, mqb, rb, Rp, p, mode, bottom.data(),       \
-                      st_h.data(), st_f.data(), st_pay.data(), acc.data(), \
-                      tr, warps, pl)
-    switch (out_class) {
-      case ptscore::OUT_SCORE: PT_CHUNK(ptscore::OUT_SCORE); break;
-      case ptscore::OUT_TRACE: PT_CHUNK(ptscore::OUT_TRACE); break;
-      case ptscore::OUT_STATS: PT_CHUNK(ptscore::OUT_STATS); break;
-      case ptscore::OUT_TABLE: PT_CHUNK(ptscore::OUT_TABLE); break;
-      case ptscore::OUT_STATS_TABLE: PT_CHUNK(ptscore::OUT_STATS_TABLE); break;
-      case ptscore::OUT_ROWCOL: PT_CHUNK(ptscore::OUT_ROWCOL); break;
-      default: PT_CHUNK(ptscore::OUT_STATS_ROWCOL); break;
-    }
-#undef PT_CHUNK
-    out[b] = r.score;
-    out[B + b] = r.end_query;
-    out[2 * B + b] = r.end_ref;
-    out[3 * B + b] = r.sat8;
-    out[4 * B + b] = r.sat16;
-    out[5 * B + b] = r.matches;
-    out[6 * B + b] = r.similar;
-    out[7 * B + b] = r.length;
+    put_result(
+        class_host(out_class, lane_rows, qidx ? subs : subs + bq * Qp * A,
+                   qidx ? qidx + bq * Qp : nullptr,
+                   mq ? mq + (Bm == 1 ? 0 : (int64_t)b * Qp) : nullptr,
+                   ridx + (int64_t)b * Rp, Rp, p, mode, bottom.data(),
+                   st_h.data(), st_f.data(), st_pay.data(), (int64_t)Qp,
+                   acc.data(),
+                   trace ? trace + (int64_t)b * Qp * Rp : nullptr, warps,
+                   cluster, (int32_t*)nullptr, (const int32_t*)nullptr,
+                   (int32_t*)nullptr, pl),
+        out, B, b);
   }
+  return 0;
+}
+
+// The block kernel's launcher's rule (score_cell.cuh, seg_plan), as
+// pt_block_plan on the card: rows a lane, warps a block and blocks a pair
+// to plan[0..2].
+extern "C" int pt_block_plan_host(int out_class, int B, int Qs, int ncols,
+                                  int A, int profile, int warps, int rows,
+                                  int cluster, int32_t* plan) {
+  const ptscore::SegPlan p = ptscore::seg_plan(
+      out_class, B, Qs, ncols, A, profile != 0, warps, rows, cluster);
+  plan[0] = p.rows;
+  plan[1] = p.warps;
+  plan[2] = p.cluster;
   return 0;
 }

@@ -159,11 +159,13 @@ def load() -> ctypes.CDLL:
             lib.pt_scan_banded.restype = i
             lib.pt_scan_banded.argtypes = [i] + [p] * 12 + [i] * 11 + [p]
             lib.pt_scan_segment.restype = i
-            lib.pt_scan_segment.argtypes = [i] + [p] * 13 + [i] * 13 + [p]
+            lib.pt_scan_segment.argtypes = [i] + [p] * 13 + [i] * 15 + [p]
             lib.pt_scan_rowseg.restype = i
-            lib.pt_scan_rowseg.argtypes = [i] + [p] * 16 + [i] * 14 + [p]
+            lib.pt_scan_rowseg.argtypes = [i] + [p] * 16 + [i] * 16 + [p]
             lib.pt_scan_chunked.restype = i
-            lib.pt_scan_chunked.argtypes = [i] + [p] * 15 + [i] * 11 + [p]
+            lib.pt_scan_chunked.argtypes = [i] + [p] * 15 + [i] * 13 + [p]
+            lib.pt_block_plan.restype = i
+            lib.pt_block_plan.argtypes = [i] * 9 + [p]
             lib.pt_trace_walk.restype = i
             lib.pt_trace_walk.argtypes = ([p] + [ll] * 3 + [p] * 6 +
                                           [i] * 7 + [p])

@@ -59,7 +59,9 @@ over a pair's columns it gives :func:`score_align`'s outputs for the same
 class, bit for bit, at any reference length: the whole pair never has to
 fit one launch, and the trace class hands its flags over a segment at a
 time.  On CUDA tensors it launches the kernel in ``csrc/scan_segment.cu``
-(a block per pair, a query row per lane, up to eight warps) and counts
+(a chain of up to eight warps a block, and of up to eight blocks a pair
+in a cluster when the batch is small, two to eight query rows a lane)
+and counts
 the launch in :data:`SEGMENT_LAUNCHES`; on CPU tensors it runs
 :func:`score_segment_plain`, the wavefront over the segment with a left
 boundary.  No fallback here either.
@@ -83,9 +85,10 @@ boundary and a row offset.  No fallback.
 row chunks (kernel K1f, ``nq > 1``): the same function as
 :func:`score_align`, same signature (no banded mode) and outputs in all
 seven classes, for long pairs.  On CUDA tensors it launches, once over
-all of a pair's columns, the segment kernel's block (a block per pair,
-up to eight warps on stripes of 32 query rows, groups of rows handing
-their last row down) in ``csrc/scan_chunked.cu``, whose plane forms
+all of a pair's columns, the segment kernel's block (a chain of warps a
+pair, over a cluster of blocks when the batch is small, on stripes of
+32 kR query rows, groups of rows handing their last row down) in
+``csrc/scan_chunked.cu``, whose plane forms
 write the tables (laid out (nplanes, B, Rp, Qp) on the card and returned
 as (B, Qp, Rp) views), the last row and the last column; it counts the
 launch in :data:`CHUNKED_LAUNCHES`.  On CPU tensors it runs
@@ -135,11 +138,17 @@ BANDED_CLASS_LAUNCHES = dict.fromkeys(OUTPUTS[1:], 0)
 SEGMENT_LAUNCHES = 0
 # the classes the segment kernel serves (the reference streams the same)
 SEGMENT_OUTPUTS = ("score", "stats", "trace")
-# Warps the segment kernel puts on a pair, 1 to 8.  0 leaves it to the
-# launcher, which gives a pair as many as fill the card, at most one per
-# 32 query rows; the tests and chip_smoke.py set it to check and to time a
-# given number.
+# Warps the segment kernel puts on a block, 1 to 8.  0 leaves it to the
+# launcher's rule (csrc/score_cell.cuh, seg_plan), which also picks the
+# query rows a lane and the blocks a pair; the tests and chip_smoke.py set
+# it to check and to time a given number.
 SEGMENT_WARPS = 0
+# The block kernel's rows a lane (2, 4, or 8 for score and rowcol) and
+# blocks a pair (a thread-block cluster, 1 to 8), 0 for the launcher's
+# rule: the checks of chip_smoke.py and the cuda tests set them to hold
+# given forms to the plain versions; nothing else does.
+_LANE_ROWS = 0
+_CLUSTER = 0
 # Launches of the tile kernel (csrc/scan_rowseg.cu); only score_rowseg's
 # CUDA branch adds to it.  Its block takes SEGMENT_WARPS too.
 ROWSEG_LAUNCHES = 0
@@ -630,11 +639,28 @@ def _block_launch(entry, ridx, qlen, rlen, state, dims, planes, tail, *,
             state["acc"].data_ptr(), out.data_ptr(),
             *(_ptr(t) for t in planes), B, Bq,
             qidx.shape[0] if stats else 0, Qp, R, A, int(open_), int(ext),
-            MODES[mode], _free_bits(free), *tail, int(SEGMENT_WARPS), stream)
+            MODES[mode], _free_bits(free), *tail, int(SEGMENT_WARPS),
+            int(_LANE_ROWS), int(_CLUSTER), stream)
     if rc != 0:
         raise RuntimeError(f"{entry.__name__} ({outputs}) kernel launch "
                            f"failed: CUDA error {rc}")
     return _kernel_scalars(out, width), state
+
+
+def block_plan(outputs, B, Qs, ncols, A, profile=False) -> tuple:
+    """(rows a lane, warps a block, blocks a pair) that the block kernel's
+    launcher takes for a launch of class ``outputs`` on ``B`` pairs of
+    ``Qs`` state rows by ``ncols`` columns (``csrc/score_cell.cuh``,
+    ``seg_plan``), under the current :data:`SEGMENT_WARPS` and overrides.
+    Builds the kernels (it asks the library's own rule)."""
+    from . import _build
+
+    plan = (ctypes.c_int * 3)()
+    _build.load().pt_block_plan(
+        OUTPUTS.index(outputs), int(B), int(Qs), int(ncols), int(A),
+        int(bool(profile)), int(SEGMENT_WARPS), int(_LANE_ROWS),
+        int(_CLUSTER), ctypes.cast(plan, ctypes.c_void_p))
+    return tuple(plan)
 
 
 def score_segment_plain(ridx_seg, qlen, rlen, state=None, *, open_, ext,
@@ -917,7 +943,7 @@ def score_rowseg(ridx_seg, qlen, rlen, state, down, *, open_, ext, mode,
             state["t"].data_ptr(), new["t"].data_ptr(), B, Bq,
             qidx.shape[0] if stats else 0, Qp, C, A, int(open_), int(ext),
             MODES[mode], _free_bits(free), int(col_offset), int(row_offset),
-            qc, int(SEGMENT_WARPS), stream)
+            qc, int(SEGMENT_WARPS), int(_LANE_ROWS), int(_CLUSTER), stream)
     if rc != 0:
         raise RuntimeError(
             f"scan_rowseg ({outputs}) kernel launch failed: CUDA error {rc}")

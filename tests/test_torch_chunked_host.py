@@ -3,14 +3,15 @@ plain version.
 
 ``csrc/score_host.cc::pt_chunked_host`` steps the lanes of the block
 kernel as ``csrc/scan_chunked.cu`` launches it: one segment of all Rp
-columns from column 0, as many warps on a pair as the CUDA kernel's
-block would have, with the plane forms' writes (``SegPlanes`` in
+columns from column 0, with the rows a lane, warps a block and blocks a
+pair the CUDA kernel's launch would have, with the plane forms' writes (``SegPlanes`` in
 ``csrc/score_cell.cuh``: the H and payload tables, the last row and the
 last column).  So the code the card runs is held here, exactly, to
 ``score_align_plain`` (what ``score_chunked`` runs on the CPU) in all
 seven output classes: NW, the nine semi-global free-end sets and SW at
-11/1, 2/2 and 1/3, one to eight warps, one to four groups of rows, with
-empty sides, ragged stripes of 32 rows and the last row in any group.
+11/1, 2/2 and 1/3, two to eight rows a lane, one to eight warps, one to
+three blocks a pair, one to four groups of rows, with empty sides, ragged
+stripes and the last row in any group.
 """
 
 import ctypes
@@ -34,6 +35,12 @@ from test_torch_segment import (  # noqa: E402
     same,
     tensors,
 )
+from test_torch_segment_host import (  # noqa: E402
+    FORMS,
+    lane_rows,
+    plain_once,
+    tie_case,
+)
 
 OUTPUTS = tk.OUTPUTS
 SG_NAMES = sorted(n for n in MODES if n.startswith("sg"))
@@ -44,15 +51,17 @@ def host_lib(tmp_path_factory):
     lib = build_host_lib(tmp_path_factory)
     lib.pt_chunked_host.restype = ctypes.c_int
     lib.pt_chunked_host.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11 +
-                                    [ctypes.c_int] * 11)
+                                    [ctypes.c_int] * 13)
     return lib
 
 
 def run_host_chunked(lib, case, *, open_, ext, mode, free, outputs, warps,
-                     shared=False, profile=None):
-    """``pt_chunked_host`` over the case; returns ``score_align``'s dict
-    (width sat) as numpy, the tables as (B, Qp, Rp) like the plain
-    version's."""
+                     rows=2, cluster=1, shared=False, profile=None):
+    """``pt_chunked_host`` over the case, ``rows`` rows a lane (the stats
+    classes: at most 4), ``warps`` warps a block and ``cluster`` blocks a
+    pair; returns ``score_align``'s dict (width sat) as numpy, the tables
+    as (B, Qp, Rp) like the plain version's."""
+    lane = lane_rows(outputs, rows)
     ridx, table = case["ridx"], case["table"]
     qidx = np.ascontiguousarray(case["qidx"][:1] if shared else case["qidx"])
     B, Rp = ridx.shape
@@ -77,7 +86,7 @@ def run_host_chunked(lib, case, *, open_, ext, mode, free, outputs, warps,
         ptr(case["qlen"]), ptr(case["rlen"]), ptr(out), ptr(trace), ptr(tab),
         ptr(rows), ptr(cols), B, Bq, Bq if stats else 0, Qp, Rp,
         subs.shape[-1], open_, ext, tk.MODES[mode], tk._free_bits(free),
-        warps)
+        warps, lane, cluster)
     assert rc == 0
     res = {"score": out[0], "end_query": out[1], "end_ref": out[2],
            "saturated": out[4] != 0, "promoted": out[3] != 0}
@@ -100,10 +109,12 @@ def plain(case, kw, **subs_over):
             for k, v in tk.score_chunked(*args, **kw, **subs).items()}
 
 
+@pytest.mark.parametrize("rows,cluster", FORMS[:2])
 @pytest.mark.parametrize("open_,ext", PENALTIES,
                          ids=[f"{a}_{b}" for a, b in PENALTIES])
 @pytest.mark.parametrize("outputs", OUTPUTS)
-def test_host_chunked_matches_plain(host_lib, outputs, open_, ext):
+def test_host_chunked_matches_plain(host_lib, outputs, open_, ext, rows,
+                                    cluster):
     # NW, SW and, in turn over the 21 cases, each semi-global free-end
     # set; 100 query rows in groups of 32, 64 and 96 rows (one, two and
     # three warps), the last row in any group
@@ -116,15 +127,20 @@ def test_host_chunked_matches_plain(host_lib, outputs, open_, ext):
     for name in ("nw", "sw", SG_NAMES[n % len(SG_NAMES)]):
         mode, free = MODES[name]
         kw = dict(open_=open_, ext=ext, mode=mode, free=free, outputs=outputs)
-        want = plain(case, dict(kw, width="sat"))
+        want = plain_once(("chunked", outputs, open_, ext, name),
+                          lambda: plain(case, dict(kw, width="sat")))
         for warps in (1, 2, 3):
-            got = run_host_chunked(host_lib, case, warps=warps, **kw)
-            same(got, want, f"{name} {outputs} warps {warps}")
+            got = run_host_chunked(host_lib, case, warps=warps, rows=rows,
+                                   cluster=cluster, **kw)
+            same(got, want, f"{name} {outputs} warps {warps} rows {rows} "
+                 f"cluster {cluster}")
 
 
+@pytest.mark.parametrize("rows,cluster", FORMS)
 @pytest.mark.parametrize("outputs", OUTPUTS)
 @pytest.mark.parametrize("warps", [3, 8])
-def test_host_chunked_several_groups(host_lib, warps, outputs):
+def test_host_chunked_several_groups(host_lib, warps, outputs, rows,
+                                     cluster):
     # 300 query rows: two groups of 256 rows at eight warps (warps with no
     # rows in the second), four of 96 at three; the last row on a lane
     # that is no warp's last, in either group
@@ -136,9 +152,12 @@ def test_host_chunked_several_groups(host_lib, warps, outputs):
     mode, free = MODES[name]
     kw = dict(open_=(11, 2)[warps % 2], ext=(1, 2)[warps % 2], mode=mode,
               free=free, outputs=outputs)
-    got = run_host_chunked(host_lib, case, warps=warps, **kw)
-    same(got, plain(case, dict(kw, width="sat")),
-         f"{name} {outputs} warps {warps}")
+    got = run_host_chunked(host_lib, case, warps=warps, rows=rows,
+                           cluster=cluster, **kw)
+    want = plain_once(("groups", warps, outputs),
+                      lambda: plain(case, dict(kw, width="sat")))
+    same(got, want,
+         f"{name} {outputs} warps {warps} rows {rows} cluster {cluster}")
 
 
 def test_host_chunked_profile_and_shared_query(host_lib):
@@ -156,13 +175,28 @@ def test_host_chunked_profile_and_shared_query(host_lib):
             profile=torch.from_numpy(rows),
             **({"qidx": subs["qidx"]} if stats else {}))
         got = run_host_chunked(host_lib, case, outputs=outputs, warps=2,
-                               profile=rows, **kw)
+                               rows=8, cluster=2, profile=rows, **kw)
         same(got, {k: v.numpy() for k, v in want.items()},
              f"profile {outputs}")
     case["qlen"][:] = case["qlen"][0]
     for outputs in ("stats_table", "rowcol"):
         got = run_host_chunked(host_lib, case, outputs=outputs, warps=1,
-                               shared=True, **kw)
+                               rows=4, shared=True, **kw)
         want = plain(case, dict(kw, outputs=outputs, width="sat"),
                      qidx=torch.from_numpy(case["qidx"][:1].copy()))
         same(got, want, f"shared query {outputs}")
+
+
+@pytest.mark.parametrize("rows,cluster", FORMS)
+def test_host_chunked_end_cell_on_two_rows_of_a_lane(host_lib, rows,
+                                                    cluster):
+    # the end cell on two rows of one lane at descending columns, every
+    # class (test_torch_segment_host.py's tie_case)
+    case, _ = tie_case()
+    kw = dict(open_=5, ext=1, mode="sw", free=(True,) * 4)
+    for outputs in OUTPUTS:
+        got = run_host_chunked(host_lib, case, outputs=outputs, warps=1,
+                               rows=rows, cluster=cluster, **kw)
+        want = plain_once(("chunked_tie", outputs), lambda: plain(
+            case, dict(kw, outputs=outputs, width="sat")))
+        same(got, want, f"{outputs} rows {rows} cluster {cluster}")
