@@ -4,8 +4,12 @@
     python3 chip_smoke.py
 
 Builds the kernels from ``parasail_rs_tpu_torch/csrc`` with nvcc and
-runs twenty-seven phases on ``cuda``; any failure raises and the script exits
-non-zero without printing a result:
+runs twenty-nine phases on ``cuda``; any failure raises and the script exits
+non-zero without printing a result.  ``score_align``'s trace and stats
+classes run the short form (kernels K1b and K1c, ``csrc/scan_short.cu``,
+one warp a pair) up to 256 padded query rows and the block kernel's
+one-shot form past them, so phases 6-13, 16, 17 and 23 hold and time
+those forms where they say "trace kernel" or "stats kernel":
 
 1. build: the library's path, build time and each kernel's registers;
 2. kernel vs plain: the score kernel against its plain PyTorch version
@@ -162,38 +166,69 @@ non-zero without printing a result:
    (whose outputs it must equal there too), the stats and trace classes
    at 4,096 bp, and the peak device memory;
 25. chunked sweep vs plain: ``score_chunked`` (kernel K1f, the block
-   kernel over all of a pair's columns) against the one-thread-per-pair
-   ``score_align`` for all seven classes x NW, the nine SG free-end sets
-   and SW x 11/1, 2/2 and 1/3, on 64 pairs of 0-600 by 0-200 letters at
-   Qp = 608 (one to three groups of 256 rows, empty sides, ragged
-   stripes), 1, 3 and 8 warps and the launcher's pick, and against
-   ``score_align_plain`` in every class and mode (one penalty pair each,
-   in turn); then every class on 16 pairs at 3,072 x 96 against both:
-   exact equality of every scalar, plane cell, row and column;
+   kernel over all of a pair's columns) for all seven classes x NW, the
+   nine SG free-end sets and SW x 11/1, 2/2 and 1/3, on 64 pairs of 0-600
+   by 0-200 letters at Qp = 608 (one to three groups of 256 rows, empty
+   sides, ragged stripes), 1, 3 and 8 warps and the launcher's pick:
+   trace and stats (which ``score_align`` sends to this very sweep past
+   256 rows) against ``score_align_plain`` at every penalty pair, the
+   other classes against ``score_align`` (one thread per pair) and
+   against ``score_align_plain`` at one penalty pair each, in turn; then
+   every class on 16 pairs at 3,072 x 96 against the plain version (and,
+   but for trace and stats, the one-thread kernel): exact equality of
+   every scalar, plane cell, row and column;
 26. the long one-shot path through the public API, counted from zero, on
    the long mixed batch (120 DNA pairs of 1,024-4,096 bp and 8 of 50-200
    bp, Qp = Rp = 4,096): ``align_cigars`` at SW 5/1 and SG 11/1,
    ``ssw_batch``, ``use_last_rowcol()`` with and without stats, and
    ``use_table()`` with and without stats on 16 of the pairs (the stats
    classes also at 2,048 bp).  Every batch of long pairs must take
-   "cuda_chunked" (only the short pairs' bins one thread per pair, which
-   a recorder of its launches checks), the chunked sweep must launch;
+   "cuda_chunked" (only the short pairs' bins "cuda_kernel", which a
+   recorder of ``dispatch.score_align``'s shapes checks), the chunked
+   sweep must launch;
    CIGARs and scalars must equal ``use_trace()`` + ``cigars()`` on the
    segment route, SSW ``align_cigars``, planes, rows and columns the
    one-thread-per-pair kernel's (4,096 bp; the stats classes at 2,048),
    the rowcol form on 4 of the pairs at Qp = Rp = 4,096 ``score_align_plain``,
    and the short pairs golden;
 27. timings of the chunked sweep, beside the card's name and power limit:
-   each class against the one-thread-per-pair kernel at 128 x 4,096 (the
-   tables 16 x 4,096), 128 x 1,024 and 128 x 3,072 x 96, and below the
-   route's thresholds at 128 x 512 x 512 and 128 x 2,048 x 96, with the
-   peak device memory of one call; the score class on the headline batch; the trace class on the long mixed batch
-   beside its plain version; ``align_cigars`` of that batch end to end
-   with its stage clocks and peak memory; the forms' registers.
+   each class (but trace and stats, which have no unbanded one-thread
+   form) against the one-thread-per-pair kernel at 128 x 4,096 (the
+   tables 16 x 4,096), 128 x 1,024 and 128 x 3,072 x 96, and below the route's
+   thresholds at 128 x 512 x 512 and 128 x 2,048 x 96, with the peak
+   device memory of one call; the score class on the headline batch; the
+   trace class on the long mixed batch beside its plain version;
+   ``align_cigars`` of that batch end to end with its stage clocks and
+   peak memory; the forms' registers;
+28. the short form (K1b, K1c) vs plain: the trace and stats classes of
+   ``score_align`` on phase 2's small batches and the empty-side pairs,
+   on 256 pairs at Qp x Rp = 24 x 24 (stats payloads [m | s | l] in one
+   word), 16 x 1,100 ([m | s] and l), 128 x 96 (4 rows a lane), 129 x 96
+   (5), 192 x 64 (6), 193 x 64 and 256 x 64 (8) and 300 x 64 (past 256
+   rows: the block kernel's one-shot form), on align_cigars' 512-pair
+   chunk of cfg4b, ssw_batch's 1,024 SW pairs and 1,024 pairs of the
+   stats headline; the trace planes walked by the walk
+   kernel and its plain version; the form the rule picks
+   (``scan_kernel.short_plan``) must be the one the counters show ran,
+   and everything equal to the plain version.  Then, counted from zero
+   each: ``align_cigars`` of cfg4b, ``ssw_batch`` of 1,024 BLOSUM62 pairs
+   and ``use_stats()`` ``align_batch`` of phase 3's 8,192 pairs must
+   launch the short form, not the block form, and no banded trace or
+   stats form (the only one-thread-per-pair ones left), by the launch
+   counters;
+29. timings of the short form, beside the card's name and power limit:
+   K1b's 512-pair chunk of cfg4b, the whole 4,096 pairs and ssw_batch's
+   1,024 pairs, and K1c's stats headline, the short form
+   against the block kernel's one-shot form on the same inputs, a call
+   by CUDA events and the kernel alone by torch.profiler's device time;
+   ``align_cigars`` of cfg4b and ``use_stats()`` ``align_batch`` of the
+   8,192 pairs end to end with their stage clocks; the short forms'
+   registers and spills (none allowed).
 
 The line before the last is the card's name and power limit, the one
 before it a JSON summary of every kernel (launches on its main path,
-error, times, and the least time the card could take: ``bound``); the
+error, times, and the least time the card could take: ``bound``; the
+trace and stats rows are the short form's, with phase 29's times); the
 last line is ``{"ok": true, "device": {...}}``.  Imports no JAX and
 nothing of the JAX package.
 """
@@ -244,6 +279,9 @@ PLANE_CLASSES = ("stats", "table", "stats_table", "rowcol", "stats_rowcol")
 STATS_CLASSES = ("stats", "stats_table", "stats_rowcol")
 # the classes with block-kernel forms of 8 rows a lane
 WIDE_CLASSES = ("score", "rowcol")
+# the classes with no unbanded one-thread-per-pair form: score_align
+# launches the short form, or past its rows the block kernel's one-shot form
+SHORT_CLASSES = ("trace", "stats")
 
 # The card's peaks for the bounds (NVIDIA H100 SXM data sheet): 3.35 TB/s
 # of device memory; 67 TFLOP/s of float32 outside the tensor cores, that
@@ -495,6 +533,15 @@ def time_cuda(torch, fn, reps=7, warmup=2) -> float:
     return statistics.median(times)
 
 
+def reset_launches(tk, tw) -> None:
+    """Set every kernel's launch count to 0, to count one phase's work."""
+    tk.LAUNCHES = tk.BANDED_LAUNCHES = tk.SEGMENT_LAUNCHES = 0
+    tk.ROWSEG_LAUNCHES = tk.CHUNKED_LAUNCHES = tw.LAUNCHES = 0
+    tk.CLASS_LAUNCHES = dict.fromkeys(tk.CLASS_LAUNCHES, 0)
+    tk.SHORT_LAUNCHES = dict.fromkeys(tk.SHORT_LAUNCHES, 0)
+    tk.BANDED_CLASS_LAUNCHES = dict.fromkeys(tk.BANDED_CLASS_LAUNCHES, 0)
+
+
 def plan_note(tk, cls, B, Qs, ncols, A, profile=False) -> str:
     """The block kernel's form for a launch: rows a lane, warps a block and
     blocks a pair, as its launcher takes them (``scan_kernel.block_plan``)."""
@@ -656,15 +703,15 @@ def main() -> int:
     lq = random_seqs(rng, DNA, 128, 2000, 2000)
     lr = random_seqs(rng, DNA, 128, 2000, 2000)
     dispatch.ROUTE_COUNTS.clear()
-    tk.LAUNCHES = tk.TRACE_LAUNCHES = tw.LAUNCHES = tk.SEGMENT_LAUNCHES = 0
+    reset_launches(tk, tw)
     res_sw = sw.align_batch(qs, rs)
     res_prof = pa.align_batch(None, refs)
     res_nw = nw.align(q150, r150)
     res_long = lng.align_batch(lq, lr)
     launches = tk.LAUNCHES
     routes = dict(dispatch.ROUTE_COUNTS)
-    log(f"[4 main path] launches={launches} (trace "
-        f"{tk.TRACE_LAUNCHES}, walk {tw.LAUNCHES}, segment "
+    log(f"[4 main path] launches={launches} (short form "
+        f"{tk.SHORT_LAUNCHES}, walk {tw.LAUNCHES}, segment "
         f"{tk.SEGMENT_LAUNCHES}) routes={routes}")
     if launches < 3 or tk.SEGMENT_LAUNCHES < 1:
         raise AssertionError(
@@ -743,6 +790,14 @@ def main() -> int:
     chunked = chunked_path(torch, pt, tk, tw, dispatch, golden, stages, rng,
                            card, pairs, (head_args, head_kw))
     clock("25-27")
+    short = short_path(torch, pt, tk, tw, dispatch, stages, rng, blosum, card,
+                       (qs, rs), trace["cfg4b"])
+    clock("28-29")
+
+    def with_short(cls, row):
+        """A class's row, phases 6-13, with phases 28-29's numbers."""
+        return {**row, **short[cls], "max_abs_err": max(
+            row["max_abs_err"], short[cls]["max_abs_err"])}
 
     print(json.dumps({"kernels": [{
         "name": "scan_score_align",
@@ -755,11 +810,11 @@ def main() -> int:
         "plain_ms": plain_ms,
         **sweep_bound("score", head_args, head_kw),
     }, {
-        "name": "scan_score_align (trace)",
+        "name": "scan_score_align (trace), one warp a pair",
         "route": "cuda",
-        "source": "parasail_rs_tpu_torch/csrc/scan_score.cu",
+        "source": "parasail_rs_tpu_torch/csrc/scan_short.cu",
         "replaces": "parasail_rs_tpu/ops/scan_kernel.py:1453",
-        **trace["trace"],
+        **with_short("trace", trace["trace"]),
     }, {
         "name": "trace_walk._walk_impl",
         "route": "cuda",
@@ -767,12 +822,18 @@ def main() -> int:
         "replaces": "parasail_rs_tpu/ops/trace_walk.py:122",
         **trace["walk"],
     }] + [{
+        "name": "scan_score_align (stats), one warp a pair",
+        "route": "cuda",
+        "source": "parasail_rs_tpu_torch/csrc/scan_short.cu",
+        "replaces": "parasail_rs_tpu/ops/scan_kernel.py:1453",
+        **with_short("stats", planes["stats"]),
+    }] + [{
         "name": f"scan_score_align ({cls})",
         "route": "cuda",
         "source": "parasail_rs_tpu_torch/csrc/scan_score.cu",
         "replaces": "parasail_rs_tpu/ops/scan_kernel.py:1453",
         **planes[cls],
-    } for cls in PLANE_CLASSES] + [{
+    } for cls in PLANE_CLASSES[1:]] + [{
         "name": "scan_score_align (banded)" if cls == "score" else
                 f"scan_score_align (banded, {cls})",
         "route": "cuda",
@@ -841,17 +902,17 @@ def trace_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum,
     tr_al = (pt.Aligner.new().matrix(blosum).gap_open(11).gap_extend(1)
              .semi_global().use_trace().build())
     dispatch.ROUTE_COUNTS.clear()
-    tk.LAUNCHES = tk.TRACE_LAUNCHES = tw.LAUNCHES = 0
+    reset_launches(tk, tw)
     alns_c, cigs = cig_al.align_cigars(q4b, r4b)
     alns_t = tr_al.align_batch(q4b, r4b)
     cigs_t = tr_al.cigars(alns_t, q4b, r4b)
-    trace_launches, walk_launches = tk.TRACE_LAUNCHES, tw.LAUNCHES
+    trace_launches, walk_launches = tk.SHORT_LAUNCHES["trace"], tw.LAUNCHES
     routes = dict(dispatch.ROUTE_COUNTS)
     log(f"[7 trace path] trace launches={trace_launches} walk "
         f"launches={walk_launches} (score {tk.LAUNCHES}) routes={routes}")
     if trace_launches < 1 or walk_launches < 1:
-        raise AssertionError("the trace path did not launch the trace and "
-                             "walk kernels")
+        raise AssertionError("the trace path did not launch the short "
+                             "form's trace class and the walk kernel")
     if set(routes) != {("cuda_kernel", "")} or \
             set(cig_al.route_counter) | set(tr_al.route_counter) != \
             {("cuda_kernel", "")}:
@@ -1090,13 +1151,14 @@ def stats_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum,
          qs[:512], rs[:512]),
     ]
     dispatch.ROUTE_COUNTS.clear()
-    tk.LAUNCHES = tk.TRACE_LAUNCHES = tw.LAUNCHES = 0
-    tk.CLASS_LAUNCHES = dict.fromkeys(PLANE_CLASSES, 0)
+    reset_launches(tk, tw)
     results = [al.align_batch(q, r) for _, al, q, r in cases]
-    launches = dict(tk.CLASS_LAUNCHES)
+    # the stats class is the short form's, the plane classes one thread's
+    launches = {"stats": tk.SHORT_LAUNCHES["stats"], **tk.CLASS_LAUNCHES}
     routes = dict(dispatch.ROUTE_COUNTS)
     log(f"[11 stats/planes path] launches={launches} (score {tk.LAUNCHES}, "
-        f"trace {tk.TRACE_LAUNCHES}, walk {tw.LAUNCHES}) routes={routes}")
+        f"short trace {tk.SHORT_LAUNCHES['trace']}, walk {tw.LAUNCHES}) "
+        f"routes={routes}")
     if min(launches.values()) < 1:
         raise AssertionError(f"a new form did not launch: {launches}")
     bad = [n for n, al, _, _ in cases
@@ -1317,8 +1379,7 @@ def banded_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum,
     bal = (pt.Aligner.new().matrix(blosum).gap_open(11).gap_extend(1)
            .bandwidth(bw).build())
     dispatch.ROUTE_COUNTS.clear()
-    tk.LAUNCHES = tk.TRACE_LAUNCHES = 0
-    reset_banded_launches(tk)
+    reset_launches(tk, tw)
     res = bal.banded_nw_batch(qs, rs)
     launches = tk.BANDED_LAUNCHES
     routes = dict(dispatch.ROUTE_COUNTS)
@@ -1566,17 +1627,16 @@ def many_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum, card,
     lr = random_seqs(rng, DNA, 128, LONG_LEN, LONG_LEN)
     lg = pt.Aligner.new().gap_open(5).gap_extend(1).local().build()
     dispatch.ROUTE_COUNTS.clear()
-    tk.LAUNCHES = tk.TRACE_LAUNCHES = tk.BANDED_LAUNCHES = tw.LAUNCHES = 0
-    tk.SEGMENT_LAUNCHES = 0
-    tk.CLASS_LAUNCHES = dict.fromkeys(PLANE_CLASSES, 0)
+    reset_launches(tk, tw)
     res5 = mx.align_many(mq, mr)
     res_st = st_al.align_many(sq, sr)
     res_tr = tr_al.align_many(tq, tr)
     t0 = time.perf_counter()
     res_long = lg.align_many(lq, lr)
     long_s = time.perf_counter() - t0
-    launches = {"score": tk.LAUNCHES, "stats": tk.CLASS_LAUNCHES["stats"],
-                "trace": tk.TRACE_LAUNCHES, "segment": tk.SEGMENT_LAUNCHES}
+    launches = {"score": tk.LAUNCHES, "stats": tk.SHORT_LAUNCHES["stats"],
+                "trace": tk.SHORT_LAUNCHES["trace"],
+                "segment": tk.SEGMENT_LAUNCHES}
     routes = dict(dispatch.ROUTE_COUNTS)
     nbins = len(merge_bins(plan_bins([len(q) for q in mq],
                                      [len(r) for r in mr], max_cells=1 << 33,
@@ -1626,9 +1686,9 @@ def many_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum, card,
 
     card_al, card_profs = ssw_aligners("cuda")
     dispatch.ROUTE_COUNTS.clear()
-    tk.LAUNCHES = tk.TRACE_LAUNCHES = tw.LAUNCHES = 0
+    reset_launches(tk, tw)
     got = ssw_runs(card_al, card_profs)
-    launches = {"score": tk.LAUNCHES, "trace": tk.TRACE_LAUNCHES,
+    launches = {"score": tk.LAUNCHES, "trace": tk.SHORT_LAUNCHES["trace"],
                 "walk": tw.LAUNCHES}
     routes = dict(dispatch.ROUTE_COUNTS)
     log(f"[17 ssw] launches={launches} routes={routes}")
@@ -1809,8 +1869,7 @@ def segment_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
     al = {"score": sw51().build(), "stats": sw51().use_stats().build(),
           "trace": sw51().use_trace().build()}
     dispatch.ROUTE_COUNTS.clear()
-    tk.LAUNCHES = tk.TRACE_LAUNCHES = tk.SEGMENT_LAUNCHES = 0
-    tk.CLASS_LAUNCHES = dict.fromkeys(PLANE_CLASSES, 0)
+    reset_launches(tk, tw)
     res6 = al["score"].align_batch(q6, r6)
     launches = {"score": tk.SEGMENT_LAUNCHES}
     res = {}
@@ -1820,10 +1879,10 @@ def segment_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
         launches[cls] = launches.get(cls, 0) + tk.SEGMENT_LAUNCHES - before
     routes = dict(dispatch.ROUTE_COUNTS)
     log(f"[19 long pairs] segment launches={launches} (one-shot score "
-        f"{tk.LAUNCHES}, trace {tk.TRACE_LAUNCHES}, stats "
-        f"{tk.CLASS_LAUNCHES['stats']}) routes={routes}")
-    if min(launches.values()) < 1 or tk.LAUNCHES or tk.TRACE_LAUNCHES or \
-            tk.CLASS_LAUNCHES["stats"]:
+        f"{tk.LAUNCHES}, short form {tk.SHORT_LAUNCHES}, chunked "
+        f"{tk.CHUNKED_LAUNCHES}) routes={routes}")
+    if min(launches.values()) < 1 or tk.LAUNCHES or \
+            sum(tk.SHORT_LAUNCHES.values()) or tk.CHUNKED_LAUNCHES:
         raise AssertionError(f"the long-pair path did not run on the "
                              f"segment kernel alone: {launches}")
     if {r for r, _ in routes} != {"cuda_segments"} or any(
@@ -2328,10 +2387,10 @@ def dist_path(torch, pt, tk, dispatch, golden, rng, card, protein, sw,
             kw = dict(open_=11, ext=1, mode="sw", free=(True,) * 4,
                       outputs=cls, width="sat")
             tk.LAUNCHES = 0
-            tk.CLASS_LAUNCHES = dict.fromkeys(PLANE_CLASSES, 0)
+            tk.SHORT_LAUNCHES = dict.fromkeys(tk.SHORT_LAUNCHES, 0)
             res = dist.sharded_align(gmesh, *arrays, **kw)
             whole = multihost.align_global(gmesh, *arrays, **kw)
-            ran = tk.LAUNCHES + tk.CLASS_LAUNCHES["stats"]
+            ran = tk.LAUNCHES + tk.SHORT_LAUNCHES["stats"]
             if res.route != "cuda_kernel" or ran != 2:
                 raise AssertionError(f"sharded_align {cls}: route "
                                      f"{res.route}, {ran} launches")
@@ -2492,24 +2551,30 @@ def chunked_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
                 fname = force_form(tk, cls, warps, form)
                 got = tk.score_chunked(*args, **kw)
                 unforce(tk)
-                e = max_abs_diff(got, tk.score_align(*args, **kw))
-                # the plain version (the wavefront for five classes) on
-                # every class and mode, one penalty pair each in turn
-                if (mi + ci) % 3 == pi:
+                # trace and stats: score_align launches this sweep itself
+                # at Qp = 608, so the plain version at every penalty pair;
+                # the other classes: the one-thread-per-pair kernel, and
+                # the plain version (the wavefront for five classes) at
+                # one penalty pair each in turn
+                e = 0
+                if cls not in SHORT_CLASSES:
+                    e = max_abs_diff(got, tk.score_align(*args, **kw))
+                if cls in SHORT_CLASSES or (mi + ci) % 3 == pi:
                     e = max(e, max_abs_diff(
                         got, tk.score_align_plain(*args, **kw)))
                 torch.cuda.synchronize()
                 if e != 0:
                     raise AssertionError(
-                        f"chunked sweep != one-shot kernel or plain on {cls} "
+                        f"chunked sweep != score_align or plain on {cls} "
                         f"{mode}{tuple(int(x) for x in free)} {open_}/{ext} "
                         f"{fname}: max |diff| {e}")
         log(f"[25 chunked vs plain] {mode}{tuple(int(x) for x in free)}: the "
             f"seven classes at 11/1, 2/2, 1/3, {B} pairs of 0-600 x 0-{Rp} "
             f"(Qp={Qp}: one to five groups of rows), 1-8 warps a block, "
-            f"2-8 rows a lane, 1-8 blocks a pair, "
-            f"equal to the one-thread-per-pair kernel; every class at one "
-            f"penalty pair in turn equal to plain")
+            f"2-8 rows a lane, 1-8 blocks a pair: trace and stats equal to "
+            f"plain at every penalty pair; the other classes equal to the "
+            f"one-thread-per-pair kernel, and to plain at one penalty pair "
+            f"in turn")
     tall_q = [int(x) for x in rng.integers(2049, 3073, size=12)] + \
         [0, 1, 33, 100]
     tall_q[0] = 3072
@@ -2524,8 +2589,9 @@ def chunked_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
         kw = dict(open_=5, ext=1, mode="sw", free=(True,) * 4, width="sat",
                   outputs=cls, **tsubs)
         got = tk.score_chunked(*targs, **kw)
-        e = max(max_abs_diff(got, tk.score_align(*targs, **kw)),
-                max_abs_diff(got, tk.score_align_plain(*targs, **kw)))
+        e = max_abs_diff(got, tk.score_align_plain(*targs, **kw))
+        if cls not in SHORT_CLASSES:
+            e = max(e, max_abs_diff(got, tk.score_align(*targs, **kw)))
         torch.cuda.synchronize()
         if e != 0:
             raise AssertionError(f"chunked sweep != one-shot kernel or plain "
@@ -2533,7 +2599,8 @@ def chunked_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
                                  f"|diff| {e}")
     log("[25 chunked vs plain] 16 pairs padded to 3,072 x 96 (queries of "
         "2,049-3,072 letters and short ones, an empty reference), SW 5/1, "
-        "every class: equal to the one-thread-per-pair kernel and to plain")
+        "every class: equal to plain, and but for trace and stats to the "
+        "one-thread-per-pair kernel")
 
     log(f"[25 chunked vs plain] {time.perf_counter() - t25:.1f} s")
 
@@ -2563,9 +2630,7 @@ def chunked_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
         return real_k1(ridx, qlen, rlen, **kw)
 
     dispatch.ROUTE_COUNTS.clear()
-    tk.LAUNCHES = tk.TRACE_LAUNCHES = tk.SEGMENT_LAUNCHES = 0
-    tk.CHUNKED_LAUNCHES = tw.LAUNCHES = 0
-    tk.CLASS_LAUNCHES = dict.fromkeys(PLANE_CLASSES, 0)
+    reset_launches(tk, tw)
     dispatch.score_align = recording_k1
     try:
         cig_sw = al["sw"].align_cigars(mq, mr)
@@ -2587,7 +2652,7 @@ def chunked_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
     chunked = tk.CHUNKED_LAUNCHES
     log(f"[26 long one-shot path] chunked launches={chunked} (one "
         f"align_cigars: {per_cigars}; walk {tw.LAUNCHES}, segment "
-        f"{tk.SEGMENT_LAUNCHES}, one-thread-per-pair launches on the padded "
+        f"{tk.SEGMENT_LAUNCHES}, cuda_kernel launches on the padded "
         f"shapes {sorted(set(k1_shapes))}) routes={routes}")
     long_k1 = [s for s in k1_shapes
                if s[0] * s[1] >= dispatch.SEGMENT_MIN_CELLS or
@@ -2596,7 +2661,7 @@ def chunked_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
             tk.SEGMENT_LAUNCHES:
         raise AssertionError(
             f"the long one-shot path left the chunked sweep: {chunked} "
-            f"chunked launches, one-thread-per-pair launches on long shapes "
+            f"chunked launches, cuda_kernel launches on long shapes "
             f"{long_k1}, {tk.SEGMENT_LAUNCHES} segment launches")
     if set(routes) - {("cuda_chunked", "long pairs, one launch"),
                       ("cuda_kernel", "")} or \
@@ -2754,20 +2819,24 @@ def chunked_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
                 peaks[cls] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
             k_ms = time_cuda(torch, lambda: tk.score_chunked(*args, **kw),
                              reps=3, warmup=1)
+            # the one-thread-per-pair kernel beside it; trace and stats
+            # have none unbanded (score_align is this sweep at these Qp)
+            o_note = ""
             if shape == big and cls in k1_ms:
                 o_ms = k1_ms[cls]                     # timed in phase 26
-            else:
+            elif cls not in SHORT_CLASSES:
                 o_ms = time_cuda(torch, lambda: tk.score_align(*args, **kw),
                                  reps=1, warmup=0 if shape == big else 1)
-            times[cls, shape] = (k_ms, o_ms)
+            if cls not in SHORT_CLASSES:
+                o_note = f", one thread per pair {o_ms} ms ({o_ms / k_ms}x)"
+            times[cls, shape] = k_ms
             B_, Qs, Rs = args[0].shape[0], subs["qidx"].shape[1], \
                 args[0].shape[1]
             b = sweep_bound(cls, args, kw)
             log(f"[27 timing] {cls}, {B_} pairs padded to {Qs} x {Rs}, SW "
                 f"5/1: chunked sweep {k_ms} ms "
-                f"({plan_note(tk, cls, B_, Qs, Rs, subs['table'].shape[0])}), "
-                f"one thread per pair {o_ms} ms "
-                f"({o_ms / k_ms}x), bound {b['bound_ms']} ms "
+                f"({plan_note(tk, cls, B_, Qs, Rs, subs['table'].shape[0])})"
+                f"{o_note}, bound {b['bound_ms']} ms "
                 f"({b['bound_by']})"
                 + (f"; peak device memory of one chunked call above its "
                    f"inputs {peaks[cls]} MiB" if shape == big else "")
@@ -2781,7 +2850,8 @@ def chunked_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
                        h_kw["profile"].shape[2], profile=True)
     log(f"[27 timing] score, the headline batch (8,192 pairs padded to 160 x "
         f"160, SW 11/1): chunked sweep {head_ms[0]} ms ({h_plan}), one "
-        f"thread per pair {head_ms[1]} ms ({head_ms[1] / head_ms[0]}x) [{card}]")
+        f"thread per pair {head_ms[1]} ms ({head_ms[1] / head_ms[0]}x) "
+        f"[{card}]")
     # the main path's shape: the trace class on the long mixed batch, with
     # its plain version (a column sweep) on the same inputs
     args, subs = shapes["4096"]
@@ -2795,7 +2865,7 @@ def chunked_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
                              f"batch (trace): max |diff| {e}")
     err = max(err, e)
     del kept
-    trace_ms = times["trace", "4096"][0]
+    trace_ms = times["trace", "4096"]
     bnd = sweep_bound("trace", args, kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2811,19 +2881,6 @@ def chunked_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
         al["sw"].align_cigars(mq, mr)
         snap = stages.snapshot()
     per_call = {k: v["ms"] for k, v in snap.items()}
-    # the same call on the rule before the chunked sweep (every bin on one
-    # thread per pair), once
-    saved = dispatch.SEGMENT_MIN_CELLS, dispatch.CHUNK_ROWS
-    dispatch.SEGMENT_MIN_CELLS = dispatch.CHUNK_ROWS = 1 << 62
-    try:
-        t0 = time.perf_counter()
-        k1_cigs = al["sw"].align_cigars(mq, mr)[1]
-        k1_e2e = (time.perf_counter() - t0) * 1e3
-    finally:
-        dispatch.SEGMENT_MIN_CELLS, dispatch.CHUNK_ROWS = saved
-    if list(k1_cigs) != list(cig_sw[1]):
-        raise AssertionError("align_cigars on one thread per pair != on the "
-                             "chunked sweep")
     cells = sum(len(q) * len(r) for q, r in zip(mq, mr))
     log(f"[27 timing] card: {card}")
     log(f"[27 timing] trace class on the long mixed batch (128 pairs, "
@@ -2833,8 +2890,8 @@ def chunked_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
     log(f"[27 timing] align_cigars SW 5/1 of the long mixed batch e2e median "
         f"{e2e_ms} ms ({cells / e2e_ms / 1e6} GCUPS over {cells} cells), "
         f"{per_cigars} chunked launches a call, peak device memory above the "
-        f"inputs {cig_peak} MiB; stages, ms: {json.dumps(per_call)}; on one "
-        f"thread per pair (the rule before), once, {k1_e2e} ms [{card}]")
+        f"inputs {cig_peak} MiB; stages, ms: {json.dumps(per_call)} "
+        f"[{card}]")
     log(f"[27 timing] align_cigars' chunked launches (the bins' own, CUDA "
         f"events around each, its plane's zero fill included): "
         f"{bins['launches']} launches, {bins['ms']} ms in all, bound "
@@ -2854,7 +2911,7 @@ def chunked_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
             "form": "the block kernel over all columns, "
                     + plan_note(tk, "trace", 128, LONG_LEN, LONG_LEN,
                                 b4.table.shape[0]),
-            "e2e_ms": e2e_ms, "k1_e2e_ms": k1_e2e,
+            "e2e_ms": e2e_ms,
             "bins_launches": bins["launches"], "bins_ms": bins["ms"],
             "bins_bound_ms": bins["bound_ms"], **bnd}
 
@@ -2977,6 +3034,262 @@ def block_registers(build_log: str, classes) -> dict:
             out[form] = (int(line.split("Used")[1].split("registers")[0]),
                          spill)
     return out
+
+
+def device_ms(torch, fn, name: str, n: int = 10) -> float:
+    """Milliseconds a call of fn() spends in the device kernels whose name
+    holds ``name``: torch.profiler's device time over n calls after a
+    warm-up, the wrapper's host work and other kernels (a plane's zero
+    fill) left out.  Raises where the profiler saw no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if name in e.key:
+            total += (getattr(e, "device_time_total", None) or
+                      getattr(e, "cuda_time_total", 0) or 0)
+    if total <= 0:
+        raise AssertionError(f"the profiler saw no device time of {name}")
+    return total / 1e3 / n
+
+
+def short_registers(build_log: str) -> dict:
+    """Registers and spill-store bytes of each short_kernel form from
+    ``-Xptxas -v``'s log: {"<class> R<rows> <payload ops>": (registers,
+    spill bytes)}."""
+    out, form, spill = {}, None, 0
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            form, spill = None, 0
+            m = re.search(r"short_kernelILi(\d)ELi(\d)EN7ptscore\d+(\w+?)E",
+                          line)
+            if m:
+                form = (f"{('trace', 'stats')[int(m.group(1)) - 1]} "
+                        f"R{m.group(2)} {m.group(3)}")
+        elif "spill stores" in line and form is not None:
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif "registers" in line and form is not None:
+            out[form] = (int(line.split("Used")[1].split("registers")[0]),
+                         spill)
+    return out
+
+
+def short_path(torch, pt, tk, tw, dispatch, stages, rng, blosum, card,
+               sw_pairs, cfg4b) -> dict:
+    """Phases 28-29, the short form of the trace and stats classes (kernels
+    K1b and K1c, csrc/scan_short.cu: one warp a pair); returns each
+    class's yardstick and kernel times for the kernels line."""
+    from parasail_rs_tpu_torch.ops import _build
+
+    dev = torch.device("cuda")
+    errs = {"trace": 0, "stats": 0}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    def check(cls, name, args, kw, qsym=None):
+        """score_align of class cls against its plain version (and, for
+        trace, the walk of its plane), with the form the rule picks,
+        which the counters must show ran."""
+        ridx = args[0]
+        subs = kw["profile"] if kw.get("profile") is not None else kw["qidx"]
+        A = (kw["profile"] if kw.get("profile") is not None
+             else kw["table"]).shape[-1]
+        plan = tk.short_plan(cls, ridx.shape[0], subs.shape[0],
+                             subs.shape[1], ridx.shape[1], A,
+                             kw.get("profile") is not None)
+        before = (tk.SHORT_LAUNCHES[cls], tk.CHUNKED_LAUNCHES)
+        got = tk.score_align(*args, **kw, outputs=cls)
+        ran = (tk.SHORT_LAUNCHES[cls] - before[0],
+               tk.CHUNKED_LAUNCHES - before[1])
+        if ran != ((1, 0) if plan[0] else (0, 1)):
+            raise AssertionError(f"{cls} {name}: plan {plan} but short / "
+                                 f"block launches {ran}")
+        want = tk.score_align_plain(*args, **kw, outputs=cls)
+        torch.cuda.synchronize()
+        e = max_abs_diff(got, want)
+        if cls == "trace" and qsym is not None:
+            walk = (got["trace_table"], qsym, ridx, got["end_query"],
+                    got["end_ref"], kw["mode"], kw["free"])
+            e = max(e, max_abs_diff(
+                dict(zip("obr", tw.device_walk(*walk))),
+                dict(zip("obr", tw.device_walk_plain(*walk)))))
+        if e != 0:
+            raise AssertionError(f"short form != plain on {cls} {name} "
+                                 f"(plan {plan}): max |diff| {e}")
+        errs[cls] = max(errs[cls], e)
+        return plan
+
+    def batch(B, Qp, Rp, A=20, full=2):
+        """B random table-form pairs of 0-Qp by 0-Rp letters, the first
+        ``full`` of them Qp by Rp."""
+        ql = rng.integers(0, Qp + 1, size=B)
+        rl = rng.integers(0, Rp + 1, size=B)
+        ql[:full], rl[:full] = Qp, Rp
+        qidx = rng.integers(0, A, size=(B, Qp))
+        qidx[np.arange(Qp)[None, :] >= ql[:, None]] = -1
+        ridx = rng.integers(0, A, size=(B, Rp))
+        args = (t(ridx), t(ql), t(rl))
+        return args, {"table": t(rng.integers(-4, 8, size=(A, A))),
+                      "qidx": t(qidx)}
+
+    # -- 28. the short form vs plain, and its main paths -----------------------
+    for cls in ("trace", "stats"):
+        for name, (args, subs), kw in small_cases(rng, torch, dev):
+            check(cls, name, args, {**kw, **with_letters(torch, rng, subs,
+                                                         cls)},
+                  subs.get("qidx"))
+        for name, (args, subs), kw, _want in empty_side_cases(torch, dev):
+            check(cls, name, args, {**kw, **subs}, subs["qidx"])
+        log(f"[28 short form vs plain] {cls}: phase 2's small batches and "
+            f"the empty-side pairs equal, walks included")
+    modes = (("nw", F4, 2, 2), ("sg", (True, False, False, True), 1, 3),
+             ("sw", (True,) * 4, 11, 1))
+    forms = {}
+    # both payload layouts; the rows bounds (4 rows a lane up to Qp = 128,
+    # 5 to 160, 6 to 192, 8 past it); the flags 16 columns a store (Rp a
+    # multiple of 16) or 4 (24); past 256 rows, the block kernel's
+    # one-shot form
+    for Qp, Rp in ((24, 24), (16, 1100), (128, 96), (129, 96), (192, 64),
+                   (193, 64), (256, 64), (300, 64)):
+        args, subs = batch(256, Qp, Rp)
+        for cls in ("trace", "stats"):
+            for mode, free, o, e in modes:
+                forms[cls, Qp, Rp] = check(
+                    cls, f"{Qp} x {Rp} {mode} {o}/{e}", args,
+                    dict(subs, open_=o, ext=e, mode=mode, free=free,
+                         width="sat"), subs["qidx"])
+    log(f"[28 short form vs plain] 256 pairs at Qp x Rp = 24 x 24, 16 x "
+        f"1,100, 128 x 96, 129 x 96, 192 x 64, 193 x 64, 256 x 64 and 300 "
+        f"x 64, NW 2/2, SG 1/3, SW 11/1: equal, walks included; (rows, "
+        f"pairs a block, layout) "
+        f"{dict((f'{c} {q}x{r}', v) for (c, q, r), v in forms.items())}")
+    if forms["stats", 24, 24][2] != 1 or forms["stats", 16, 1100][2] != 2 \
+            or [forms["trace", q, r][0] for q, r in (
+                (128, 96), (129, 96), (192, 64), (193, 64))] != [4, 5, 6, 8] \
+            or forms["stats", 300, 64][0]:
+        raise AssertionError(f"the short form's rule picked {forms}")
+    q4b, r4b = cfg4b
+    cig_al = (pt.Aligner.new().matrix(blosum).gap_open(11).gap_extend(1)
+              .semi_global().build())
+    b4b, _, _ = cig_al._pack(q4b, r4b)
+    chunk = (b4b.ridx[:512], b4b.qlen_t[:512], b4b.rlen_t[:512])
+    chunk_kw = dict(open_=11, ext=1, mode="sg", free=(True,) * 4,
+                    width="sat", table=b4b.table, qidx=b4b.qidx[:512])
+    check("trace", "cfg4b's first 512 pairs", chunk, chunk_kw,
+          b4b.qbytes[:512])
+    qs, rs = sw_pairs
+    ssw_al = (pt.Aligner.new().matrix(blosum).gap_open(11).gap_extend(1)
+              .build())
+    sb, _, _ = ssw_al._pack(qs[:1024], rs[:1024])
+    ssw_args = (sb.ridx, sb.qlen_t, sb.rlen_t)
+    ssw_kw = dict(chunk_kw, mode="sw", table=sb.table, qidx=sb.qidx)
+    check("trace", "ssw_batch's 1,024 SW pairs", ssw_args, ssw_kw, sb.qbytes)
+    head_args, head_kw = headline_inputs(torch, dev)
+    hb, hq, ha = head_kw["profile"].shape
+    head_kw["qidx"] = t(np.random.default_rng(3).integers(
+        0, ha, size=(hb, hq)))                        # bench.py:621-624
+    check("stats", "the headline's first 1,024 pairs",
+          tuple(a[:1024] for a in head_args),
+          dict(head_kw, profile=head_kw["profile"][:1024],
+               qidx=head_kw["qidx"][:1024]))
+    log("[28 short form vs plain] align_cigars' 512-pair chunk of cfg4b "
+        "and ssw_batch's 1,024 SW pairs (trace, walk), 1,024 pairs of the "
+        "stats headline: equal")
+
+    # the main paths: align_cigars, ssw_batch and use_stats() align_batch
+    # on the short form; the one-thread-per-pair trace and stats forms left
+    # are the banded ones, which these paths must not launch
+    st_al = (pt.Aligner.new().matrix(blosum).gap_open(11).gap_extend(1)
+             .local().use_stats().build())
+    launches = {}
+    for name, call, cls in (
+            ("align_cigars", lambda: cig_al.align_cigars(q4b, r4b), "trace"),
+            ("ssw_batch", lambda: ssw_al.ssw_batch(qs[:1024], rs[:1024]),
+             "trace"),
+            ("use_stats align_batch", lambda: st_al.align_batch(qs, rs),
+             "stats")):
+        reset_launches(tk, tw)
+        call()
+        torch.cuda.synchronize()
+        launches[name] = {"short": tk.SHORT_LAUNCHES[cls],
+                          "block": tk.CHUNKED_LAUNCHES,
+                          "banded": tk.BANDED_CLASS_LAUNCHES[cls],
+                          "walk": tw.LAUNCHES}
+    log(f"[28 short form main paths] launches {launches}")
+    if any(v["short"] < 1 or v["block"] or v["banded"]
+           for v in launches.values()):
+        raise AssertionError(f"a main path left the short form: {launches}")
+
+    # -- 29. timings ---------------------------------------------------------------
+    chunk_kw = dict(chunk_kw, outputs="trace")
+    head_kw = dict(head_kw, outputs="stats")
+    # the trace class also at the whole of cfg4b (use_trace() align_batch's
+    # one launch) and at ssw_batch's 1,024 SW pairs: more pairs a launch
+    # than align_cigars' chunk
+    shapes = (("K1b chunk", chunk, chunk_kw),
+              ("K1b cfg4b 4,096", (b4b.ridx, b4b.qlen_t, b4b.rlen_t),
+               dict(chunk_kw, qidx=b4b.qidx)),
+              ("K1b ssw_batch 1,024", ssw_args, dict(ssw_kw, outputs="trace")),
+              ("K1c headline", head_args, head_kw))
+    times = {}
+    for name, args, kw in shapes:
+        short = time_cuda(torch, lambda: tk.score_align(*args, **kw))
+        block = time_cuda(torch, lambda: tk.score_chunked(*args, **kw))
+        short_k = device_ms(torch, lambda: tk.score_align(*args, **kw),
+                            "short_kernel")
+        block_k = device_ms(torch, lambda: tk.score_chunked(*args, **kw),
+                            "segment_kernel")
+        times[name] = (short, block, short_k, block_k)
+        B, Rp = args[0].shape
+        Qp = (kw["qidx"] if kw.get("profile") is None
+              else kw["profile"]).shape[1]
+        log(f"[29 timing] {name} ({B} pairs padded to {Qp} x {Rp}): short "
+            f"form {short} ms a call, kernel {short_k} ms; the block "
+            f"kernel's one-shot form {block} ms a call, kernel {block_k} ms "
+            f"[{card}]")
+    e2e = {}
+    for name, call in (("align_cigars cfg4b",
+                        lambda: cig_al.align_cigars(q4b, r4b)),
+                       ("use_stats align_batch SW 8192",
+                        lambda: st_al.align_batch(qs, rs))):
+        ms = time_host(call)
+        with stages.measuring():
+            for _ in range(5):
+                call()
+            snap = stages.snapshot()
+        e2e[name] = ms
+        log(f"[29 timing] {name} e2e median {ms} ms; stages, ms per call "
+            f"summed over its launches: "
+            f"{json.dumps({k: v['ms'] / 5 for k, v in snap.items()})} "
+            f"[{card}]")
+    regs = short_registers(_build.BUILD_LOG)
+    log(f"[29 timing] registers and spill bytes of the short form (nvcc "
+        f"{'ran' if _build.BUILD_LOG else 'cached'}): {regs}")
+    spilled = {k: v for k, v in regs.items() if v[1]}
+    if spilled:
+        raise AssertionError(f"short forms spill: {spilled}")
+    return {"trace": {"max_abs_err": errs["trace"],
+                      "chunk_ms": times["K1b chunk"][0],
+                      "chunk_kernel_ms": times["K1b chunk"][2],
+                      "block_chunk_ms": times["K1b chunk"][1],
+                      "block_chunk_kernel_ms": times["K1b chunk"][3],
+                      "kernel_ms_beside_block": {
+                          k: {"short": v[2], "block": v[3]}
+                          for k, v in times.items() if k.startswith("K1b")},
+                      "e2e_ms": e2e["align_cigars cfg4b"]},
+            "stats": {"max_abs_err": errs["stats"],
+                      "kernel_ms": times["K1c headline"][2],
+                      "block_ms": times["K1c headline"][1],
+                      "block_kernel_ms": times["K1c headline"][3],
+                      "e2e_ms": e2e["use_stats align_batch SW 8192"]}}
 
 
 def random_seqs_of(rng, alphabet: bytes, lens) -> list:

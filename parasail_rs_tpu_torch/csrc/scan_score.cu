@@ -1,15 +1,16 @@
-// Batched alignment kernel for Hopper (sm_90a), every output class.
+// Batched alignment kernel for Hopper (sm_90a): one thread per pair.
 //
 // Replaces: parasail_rs_tpu/ops/scan_kernel.py::scan_score_align (the
 // pallas_call at scan_kernel.py:1453 over the body _make_kernel) in its
-// score class (outputs="score"), its trace class (outputs="trace"; flags
-// at :865-888), its stats class (outputs="stats"; payloads at :844-863,
-// outputs at :1489-1496) and its plane classes (outputs="table",
+// score class (outputs="score"), its plane classes (outputs="table",
 // "stats_table", "rowcol", "stats_rowcol"; :979-999, :1498-1519), and
 // its banded mode in every class (banded=True, bandwidth; :1307-1308,
 // masks at :602-617, :722-725, :890-891): the score form sweeps only the
 // band's cells, O(qlen * (2 bw + 1)) per pair, the other forms every
-// cell, masked (pt_scan_banded).  Same
+// cell, masked (pt_scan_banded), the banded trace class (flags at
+// :865-888) and stats class (payloads at :844-863) among them.  The
+// unbanded trace and stats classes are the short form's (scan_short.cu,
+// one warp a pair) and, for long queries, the block kernel's.  Same
 // outputs: score, end_query, end_ref and the width-8/16 saturation
 // flags, bit for bit, for NW, the nine SG free-end sets and SW, with the
 // substitution given as an (A, A) table plus query letters or as (1 or
@@ -44,11 +45,12 @@
 // about the whole L2; a table class writes 4 or 16 bytes per cell).  The
 // design's answer is to keep the chain short (one max-plus cell per step,
 // the loads of the next cell independent of the current one) and to leave
-// intra-pair parallelism, DPX max-plus instructions, packed payloads and a
-// fused byte-to-letter map to later versions.  The banded forms other than
-// score sweep every cell and mask (one compare and three selects a cell),
-// so they cost what their unbanded forms cost, however narrow the band: a
-// band-only sweep of the plane classes is a later redesign.
+// intra-pair parallelism to the short form and the block kernel, which
+// have taken over the unbanded trace and stats classes.  The banded forms
+// other than score sweep every cell and mask (one compare and three
+// selects a cell), so they cost what their unbanded forms cost, however
+// narrow the band: a band-only sweep of the plane classes is a later
+// redesign.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -177,23 +179,10 @@ extern "C" int pt_scan_score(const void* subs, const void* qidx,
                                     mode, free_bits, stream);
 }
 
-// pt_scan_score plus the (Qp, Rp, B) int8 flag plane `trace`, of which
-// it writes the in-sequence cells (the caller zero-fills it).
-extern "C" int pt_scan_trace(const void* subs, const void* qidx,
-                             const void* ridx, const void* qlen,
-                             const void* rlen, void* hrow, void* erow,
-                             void* out, void* trace, int B, int Bq, int Qp,
-                             int Rp, int A, int open, int ext, int mode,
-                             int free_bits, void* stream) {
-  return launch<ptscore::OUT_TRACE>(subs, qidx, ridx, qlen, rlen, hrow, erow,
-                                    out, trace, B, Bq, Qp, Rp, A, open, ext,
-                                    mode, free_bits, stream);
-}
-
-// The stats, table and rowcol classes (out_class 2-6, ptscore::OutClass).
+// The table and rowcol classes (out_class 3-6, ptscore::OutClass).
 // Beyond pt_scan_score's arguments:
-//   mq:      stats classes: (Bm, Qp) query letters for `matches` (the
-//            profile form has no other letters)
+//   mq:      stats_table, stats_rowcol: (Bm, Qp) query letters for
+//            `matches` (the profile form has no other letters)
 //   scratch: (2, Rp, B) rows H and E, or (8, Rp, B) with the payload rows
 //   out:     (5, B), or (8, B) with matches, similar, length
 //   planes:  table classes: (1 or 4, Qp, Rp, B) score (, matches, similar,
@@ -201,8 +190,9 @@ extern "C" int pt_scan_trace(const void* subs, const void* qidx,
 //   row/col: rowcol classes: (1 or 4, Rp, B) last row, (1 or 4, Qp, B)
 //            last column
 // The caller zero-fills the planes, rows and columns; cells outside a
-// pair's qlen x rlen are never written.  An unknown class returns
-// cudaErrorInvalidValue.
+// pair's qlen x rlen are never written.  Another class returns
+// cudaErrorInvalidValue: the unbanded stats class is the short form's
+// (scan_short.cu, pt_scan_short).
 extern "C" int pt_scan_outputs(int out_class, const void* subs,
                                const void* qidx, const void* mq,
                                const void* ridx, const void* qlen,
@@ -218,8 +208,6 @@ extern "C" int pt_scan_outputs(int out_class, const void* subs,
   launch<k>(subs, qidx, ridx, qlen, rlen, sc, sc + rows, out, nullptr, B,  \
             Bq, Qp, Rp, A, open, ext, mode, free_bits, stream, io, Bm)
   switch (out_class) {
-    case ptscore::OUT_STATS:
-      return PT_LAUNCH(ptscore::OUT_STATS);
     case ptscore::OUT_TABLE:
       return PT_LAUNCH(ptscore::OUT_TABLE);
     case ptscore::OUT_STATS_TABLE:
@@ -236,7 +224,7 @@ extern "C" int pt_scan_outputs(int out_class, const void* subs,
 
 // The banded forms of every class (K1e; out_class 0-6, ptscore::OutClass):
 // pt_scan_outputs's arguments plus the trace class's (Qp, Rp, B) flag
-// plane `trace` (as pt_scan_trace's) and the band's half-width
+// plane `trace` (laid out as the other planes) and the band's half-width
 // `bandwidth`; cells with |i - j| > bandwidth, and border cells beyond
 // it, are -2^30.  The score form sweeps only the band's cells; the others
 // sweep every cell of a pair and set H, E and F outside the band to -2^30

@@ -1,0 +1,270 @@
+// The trace and stats classes of the one-shot sweep for short pairs, for
+// Hopper (sm_90a): one warp a pair, several pairs a block.
+//
+// Replaces: parasail_rs_tpu/ops/scan_kernel.py::scan_score_align (the
+// pallas_call at scan_kernel.py:1453 over the body _make_kernel) in its
+// trace class (outputs="trace", kernel K1b; flags at :865-888) and its
+// stats class (outputs="stats", kernel K1c; payloads at :844-863, packed
+// as stats_pack_params / stats_pack2_params lay them out, :364-402), for
+// pairs of Qp <= 256 padded query rows.  Same outputs, bit for bit, as the
+// one-thread-per-pair forms it takes over from: score, end_query, end_ref,
+// the width-8/16 saturation flags, each in-sequence cell's flags or the
+// winning path's matches / similar / length, in NW, the nine SG free-end
+// sets and SW, with an (A, A) table and letters or (1 or B, Qp, A)
+// profile rows, at every penalty pair.
+//
+// Design (score_cell.cuh, "the short form"): lane L of a pair's warp holds
+// query rows [L kR, L kR + kR), kR = 4, 5, 6 or 8, the fewest whose warp
+// holds Qp, and at step t computes column t - L of them top to bottom on
+// DPX max-plus; H, E and F stay in registers, and one shuffle a step
+// brings the bottom row of the lane above (H, E and, for stats, their
+// packed payloads: four words, or six with the length apart).  A pair
+// takes Rp + Qp / kR steps instead of the Qp x Rp dependent cells of one
+// thread a pair.  The block stages
+// the (A + 1)^2 table (a column and a row of 0 for letters outside the
+// alphabet) or a shared profile once, each warp its pair's profile rows
+// and all of its reference letters (cp.async): no ring, no refill, no
+// barrier after the staging, no cluster.  The end cell is folded across
+// the warp by shuffles (seg_merge).  The trace class gathers each row's
+// flags four columns a word and 16 columns a 16-byte store into the
+// pair's (Qp, Rp) plane (rows Rp bytes apart; Rp a multiple of 16, else a
+// byte a cell: short_wide), which the traceback walk reads in place.  A
+// warp's store lands on as many rows as it has lanes, so each is a
+// transaction of its own; wide stores make them few.
+//
+// What bounds it on this card: the step's dependent chain (kR cells, each
+// a few DPX operations, E running down the rows) times Rp + Qp / kR
+// steps, and how many warps the SMs hold to hide it; the pairs a block
+// (score_cell.cuh, short_plan) put a 512-pair chunk on 128 SMs.  The
+// trace class writes one byte a cell, the stats class nothing but the
+// scalars.  Pairs of Qp > 256, or whose letters a block cannot stage, are
+// the block kernel's (the caller launches its one-shot form instead).
+#include "segment_block.cuh"
+
+namespace {
+
+using ptscore::SegBest;
+using ptscore::ShortLane;
+using ptscore::ShortUp;
+using ptsegblock::kFull;
+
+struct ShortArgs {
+  const int32_t* subs;   // (A, A) table or (Bq, Qp, A) rows
+  const int32_t* qidx;   // (Bq, Qp) letters; null: profile
+  const int32_t* mq;     // stats: (Bm, Qp) letters
+  const int32_t* ridx;   // (B, Rp)
+  const int32_t* qlen;   // (B,)
+  const int32_t* rlen;   // (B,)
+  int32_t* out;          // (5 or 8, B)
+  int8_t* trace;         // trace: (B, Qp, Rp) flags, zero-filled
+  int32_t B, Bq, Bm, Qp, Rp, A, open, ext, mode, free_bits;
+};
+
+__device__ __forceinline__ int32_t shfl_up1(int32_t v) {
+  return __shfl_up_sync(kFull, v, 1);
+}
+__device__ __forceinline__ ptscore::Pay2 shfl_up1(const ptscore::Pay2& v) {
+  return ptscore::Pay2{shfl_up1(v.ms), shfl_up1(v.l)};
+}
+__device__ __forceinline__ ptscore::NoPay shfl_up1(const ptscore::NoPay& v) {
+  return v;
+}
+
+template <class PO>
+__device__ __forceinline__ ShortUp<PO> shfl_up1(const ShortUp<PO>& v) {
+  ShortUp<PO> r;
+  r.h = shfl_up1(v.h);
+  r.e = shfl_up1(v.e);
+  r.hp = shfl_up1(v.hp);
+  r.ep = shfl_up1(v.ep);
+  return r;
+}
+
+template <int32_t kOut, int32_t kR, class PO>
+__global__ void __launch_bounds__(ptscore::SHORT_MAX_PAIRS *
+                                  ptscore::SEG_LANES)
+    short_kernel(const ShortArgs a, const PO po) {
+  using O = ptscore::Out<kOut>;
+  constexpr int32_t W = ptscore::SEG_LANES;
+  extern __shared__ int32_t smem[];
+  const int32_t pairs = blockDim.x / W;
+  const int32_t w = threadIdx.x / W;
+  const int32_t lane = threadIdx.x & (W - 1);
+  const int32_t b = blockIdx.x * pairs + w;
+  const bool profile = a.qidx == nullptr;
+  const bool per_pair = profile && a.Bq != 1;
+  const int32_t A = a.A;
+  const int32_t cs = profile ? ptscore::seg_prof_stride(ptscore::imax(a.Qp, 1))
+                             : 1;
+  const int64_t set = ptscore::short_score_words(profile, a.Qp, A);
+  int32_t* sc = smem + (per_pair ? w * set : 0);
+  int32_t* letters = smem + set * (per_pair ? pairs : 1) +
+                     (int64_t)w * ptscore::imax(a.Rp, 1);
+  // the block's scores, once: the table, or the profile every pair shares
+  if (!profile) {
+    for (int32_t k = threadIdx.x; k < (A + 1) * (A + 1); k += blockDim.x)
+      smem[k] = ptscore::seg_table_at(a.subs, A, k);
+  } else if (!per_pair) {
+    ptscore::seg_stage_profile(smem, a.subs, a.Qp, A, ptscore::imax(a.Qp, 1),
+                               threadIdx.x, blockDim.x);
+  }
+  __syncthreads();
+  if (b >= a.B) return;                  // whole warps: b is the warp's
+  const ptscore::SegPair p = ptscore::seg_pair(
+      a.qlen[b], a.rlen[b], a.Qp, 0, a.Rp, a.open, a.ext, a.mode,
+      a.free_bits, false, A);
+  const int64_t bq = a.Bq == 1 ? 0 : b;
+  // the warp's own inputs: its pair's profile rows, and its letters
+  if (per_pair)
+    ptscore::seg_stage_profile(sc, a.subs + bq * a.Qp * A, a.Qp, A,
+                               ptscore::imax(a.Qp, 1), lane, W);
+  const int32_t* rb = a.ridx + (int64_t)b * a.Rp;
+  for (int32_t k = lane; k < p.ncols; k += W)
+    ptsegblock::copy_async4(letters + k, rb + k);
+  ptsegblock::copy_async_wait();
+  __syncwarp();
+
+  SegBest total = ptscore::seg_best_init(p);
+  if (ptscore::seg_sweeps(p)) {          // the whole warp, or none of it
+    const int32_t* q = profile ? nullptr : a.qidx + bq * a.Qp;
+    const int32_t* mq =
+        O::stats ? a.mq + (a.Bm == 1 ? 0 : (int64_t)b * a.Qp) : nullptr;
+    ShortLane<kR, PO> L;
+    ShortUp<PO> old;
+    ptscore::short_lane_begin<kOut>(L, p, lane, q, mq, po, old);
+    ShortUp<PO> above = shfl_up1(old);
+    if (lane == 0) {                     // the corner H[-1][-1]
+      above.h = 0;
+      above.hp = po.zero();
+    }
+    ptscore::short_lane_diag(L, above);
+    const int32_t nl = ptscore::imin(W, ptscore::seg_div_up(p.qlen, kR));
+    int8_t* trow = O::trace ? a.trace + ((int64_t)b * a.Qp + L.i0) * a.Rp
+                            : nullptr;
+    const bool wide = ptscore::short_wide(a.Rp);
+    // each lane fetches its next letter and its rows' scores a step ahead
+    int32_t r_next = 0;
+    int32_t s_next[kR];
+    ptscore::short_lane_scores(L, sc, A * cs, s_next);
+#pragma unroll 2
+    for (int32_t t = -1; t < p.ncols + nl - 1; ++t) {
+      ShortUp<PO> up = shfl_up1(L.out);
+      const int32_t c = t - lane;
+      if (lane == 0) up = ptscore::short_top(p, c, po);
+      const int32_t r = r_next;
+      int32_t s[kR];
+#pragma unroll
+      for (int32_t k = 0; k < kR; ++k) s[k] = s_next[k];
+      if (L.nr > 0 && c + 1 >= 0 && c + 1 < p.ncols) {
+        r_next = letters[c + 1];
+        ptscore::short_lane_scores(L, sc, ptscore::seg_col(r_next, A) * cs,
+                                   s_next);
+      }
+      if (t >= 0 && L.nr > 0 && c >= 0 && c < p.ncols)
+        ptscore::short_lane_step<kOut>(L, p, c, r, s, up, trow, a.Rp, wide,
+                                       po);
+    }
+    total = ptscore::short_lane_best(L, po);
+    for (int m = W / 2; m > 0; m >>= 1)
+      total = ptscore::seg_merge(total, ptsegblock::shfl_xor_best(total, m));
+  }
+  if (lane == 0) {
+    int32_t acc[8];
+    const ptscore::PairResult r =
+        ptscore::seg_finish<kOut>(p, a.mode, total, acc);
+    const int32_t B = a.B;
+    a.out[b] = r.score;
+    a.out[B + b] = r.end_query;
+    a.out[2 * B + b] = r.end_ref;
+    a.out[3 * B + b] = r.sat8;
+    a.out[4 * B + b] = r.sat16;
+    if constexpr (O::stats) {
+      a.out[5 * B + b] = r.matches;
+      a.out[6 * B + b] = r.similar;
+      a.out[7 * B + b] = r.length;
+    }
+  }
+}
+
+template <int32_t kOut, int32_t kR, class PO>
+int launch_form(const ShortArgs& a, const ptscore::ShortPlan& plan,
+                const PO& po, cudaStream_t stream) {
+  auto kernel = short_kernel<kOut, kR, PO>;
+  static std::atomic<bool> allowed[ptsegblock::kMaxDevices];
+  const cudaError_t smem = ptsegblock::allow_smem(kernel, allowed);
+  if (smem != cudaSuccess) return (int)smem;
+  const bool profile = a.qidx == nullptr;
+  const size_t bytes = (size_t)ptscore::short_block_bytes(
+      plan.pairs, a.Qp, a.Rp, a.A, profile, profile && a.Bq != 1);
+  const int blocks = ptscore::seg_div_up(a.B, plan.pairs);
+  kernel<<<blocks, plan.pairs * ptscore::SEG_LANES, bytes, stream>>>(a, po);
+  return (int)cudaGetLastError();
+}
+
+template <int32_t kOut, class PO>
+int launch_rows(const ShortArgs& a, const ptscore::ShortPlan& plan,
+                const PO& po, cudaStream_t stream) {
+  switch (plan.rows) {
+    case 4:
+      return launch_form<kOut, 4>(a, plan, po, stream);
+    case 5:
+      return launch_form<kOut, 5>(a, plan, po, stream);
+    case 6:
+      return launch_form<kOut, 6>(a, plan, po, stream);
+    default:
+      return launch_form<kOut, 8>(a, plan, po, stream);
+  }
+}
+
+}  // namespace
+
+// Launches the short form of class `out_class` (1 trace, 2 stats) on
+// `stream` and returns the launch's CUDA error as an int (0 = launched).
+// All pointers are device pointers:
+//   subs, qidx: (A, A) table and (Bq, Qp) letters, or (Bq, Qp, A) profile
+//               rows and null
+//   mq:         stats: (Bm, Qp) query letters for `matches`
+//   ridx:       (B, Rp) letters; qlen, rlen: (B,)
+//   out:        (5, B) score, end_query, end_ref, sat8, sat16, or (8, B)
+//               with matches, similar, length (stats)
+//   trace:      trace: (B, Qp, Rp) int8 flags, zero-filled; the kernel
+//               writes each pair's qlen x rlen cells
+// A batch the rule (score_cell.cuh, short_plan) does not give the short
+// form, or another class, returns cudaErrorInvalidValue.
+extern "C" int pt_scan_short(int out_class, const void* subs,
+                             const void* qidx, const void* mq,
+                             const void* ridx, const void* qlen,
+                             const void* rlen, void* out, void* trace, int B,
+                             int Bq, int Bm, int Qp, int Rp, int A, int open,
+                             int ext, int mode, int free_bits, void* stream) {
+  if (B <= 0) return 0;
+  const bool profile = qidx == nullptr;
+  const ptscore::ShortPlan plan = ptscore::short_plan(
+      out_class, B, Qp, Rp, A, profile, profile && Bq != 1);
+  if (plan.rows == 0) return (int)cudaErrorInvalidValue;
+  const ShortArgs a{(const int32_t*)subs, (const int32_t*)qidx,
+                    (const int32_t*)mq,   (const int32_t*)ridx,
+                    (const int32_t*)qlen, (const int32_t*)rlen,
+                    (int32_t*)out,        (int8_t*)trace,
+                    B, Bq, Bm, Qp, Rp, A, open, ext, mode, free_bits};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (out_class == ptscore::OUT_TRACE)
+    return launch_rows<ptscore::OUT_TRACE>(a, plan, ptscore::NoPayOps(), s);
+  if (plan.layout == ptscore::SHORT_PACKED)
+    return launch_rows<ptscore::OUT_STATS>(a, plan,
+                                           ptscore::pack_ops(Qp, Rp), s);
+  return launch_rows<ptscore::OUT_STATS>(a, plan, ptscore::pack2_ops(Qp), s);
+}
+
+// The short form's rule for a launch (score_cell.cuh, short_plan): rows a
+// lane (0: the short form does not take the batch), pairs a block and the
+// stats payload layout (1 [m | s | l], 2 [m | s] + l) to plan[0..2].
+extern "C" int pt_short_plan(int out_class, int B, int Bq, int Qp, int Rp,
+                             int A, int profile, int* plan) {
+  const ptscore::ShortPlan p = ptscore::short_plan(
+      out_class, B, Qp, Rp, A, profile != 0, profile != 0 && Bq != 1);
+  plan[0] = p.rows;
+  plan[1] = p.pairs;
+  plan[2] = p.layout;
+  return 0;
+}

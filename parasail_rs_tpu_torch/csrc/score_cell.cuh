@@ -231,38 +231,67 @@ struct Pay {
   int32_t m, s, l;
 };
 
-// cell() plus golden's payloads.  `up` and `eup` are the payloads of
-// H[i-1][j] and E[i-1][j], `left` of H[i][j-1], `diag` of H[i-1][j-1];
-// `fp` carries F[i][j-1]'s in and F[i][j]'s out; `match` says whether the
-// mapped letters are equal.  `hp` and `ep` receive H[i][j]'s and E[i][j]'s.
-// E and F take the opening cell's payload when open >= extend (golden's
-// `>=`), H the diagonal's when diag >= E and diag >= F, else E's when
-// E >= F, else F's; a local cell with max(diag, E, F) <= 0 zeroes its own.
-PT_HD void cell_stats(int32_t h_diag, int32_t h_up, int32_t e_up,
-                      int32_t h_left, int32_t s, int32_t open, int32_t ext,
-                      bool local, bool match, const Pay& up, const Pay& eup,
-                      const Pay& left, const Pay& diag_p, Pay& fp, int32_t& f,
-                      int32_t& h, int32_t& e, Pay& hp, Pay& ep) {
+// What the stats forms do to a payload: select it, add a step to its
+// length (ext), add a diagonal step (diag: the length, and matches /
+// similar by one where the letters match / the score is > 0), or zero it.
+// PayOps keeps golden's three values apart; the short form packs them
+// into one or two words (PackOps, Pack2Ops, below), where the same steps
+// are additions to fields that cannot carry.
+struct PayOps {
+  using V = Pay;
+  PT_HD V ext(V p) const {
+    p.l += 1;
+    return p;
+  }
+  PT_HD V diag(const V& p, bool match, bool sim) const {
+    return Pay{p.m + (match ? 1 : 0), p.s + (sim ? 1 : 0), p.l + 1};
+  }
+  PT_HD V zero() const { return Pay{0, 0, 0}; }
+};
+
+// cell() plus golden's payloads, in the representation of `po`.  `up`
+// and `eup` are the payloads of H[i-1][j] and E[i-1][j], `left` of
+// H[i][j-1], `diag_p` of H[i-1][j-1]; `fp` carries F[i][j-1]'s in and
+// F[i][j]'s out; `match` says whether the mapped letters are equal.  `hp`
+// and `ep` receive H[i][j]'s and E[i][j]'s.  E and F take the opening
+// cell's payload when open >= extend (golden's `>=`), H the diagonal's
+// when diag >= E and diag >= F, else E's when E >= F, else F's; a local
+// cell with max(diag, E, F) <= 0 zeroes its own.
+template <class PO>
+PT_HD void cell_stats_of(const PO& po, int32_t h_diag, int32_t h_up,
+                         int32_t e_up, int32_t h_left, int32_t s, int32_t open,
+                         int32_t ext, bool local, bool match,
+                         const typename PO::V& up, const typename PO::V& eup,
+                         const typename PO::V& left,
+                         const typename PO::V& diag_p, typename PO::V& fp,
+                         int32_t& f, int32_t& h, int32_t& e,
+                         typename PO::V& hp, typename PO::V& ep) {
   const int32_t e_open = h_up - open, e_ext = e_up - ext;
   const int32_t f_open = h_left - open, f_ext = f - ext;
   e = imax(e_open, e_ext);
   f = imax(f_open, f_ext);
   const int32_t diag = h_diag + s;
   h = local ? max3_relu(diag, e, f) : max3(diag, e, f);
-  ep = e_open >= e_ext ? up : eup;
-  ep.l += 1;
-  if (f_open >= f_ext) fp = left;
-  fp.l += 1;
+  ep = po.ext(e_open >= e_ext ? up : eup);
+  fp = po.ext(f_open >= f_ext ? left : fp);
   if (diag >= e && diag >= f) {
-    hp.m = diag_p.m + (match ? 1 : 0);
-    hp.s = diag_p.s + (s > 0 ? 1 : 0);
-    hp.l = diag_p.l + 1;
+    hp = po.diag(diag_p, match, s > 0);
   } else if (e >= f) {
     hp = ep;
   } else {
     hp = fp;
   }
-  if (local && h == 0) hp = Pay{0, 0, 0};
+  if (local && h == 0) hp = po.zero();
+}
+
+// cell_stats_of with golden's three values.
+PT_HD void cell_stats(int32_t h_diag, int32_t h_up, int32_t e_up,
+                      int32_t h_left, int32_t s, int32_t open, int32_t ext,
+                      bool local, bool match, const Pay& up, const Pay& eup,
+                      const Pay& left, const Pay& diag_p, Pay& fp, int32_t& f,
+                      int32_t& h, int32_t& e, Pay& hp, Pay& ep) {
+  cell_stats_of(PayOps(), h_diag, h_up, e_up, h_left, s, open, ext, local,
+                match, up, eup, left, diag_p, fp, f, h, e, hp, ep);
 }
 
 // End cell of a non-local pair with qlen == 0 or rlen == 0 (golden's
@@ -904,6 +933,19 @@ PT_HD void store_word(int8_t* dst, uint32_t v) {
 #endif
 }
 
+// Four words, 16 bytes, at a 16-byte aligned dst.
+PT_HD void store_words4(int8_t* dst, uint32_t a, uint32_t b, uint32_t c,
+                        uint32_t d) {
+#if defined(__CUDA_ARCH__)
+  *reinterpret_cast<uint4*>(dst) = make_uint4(a, b, c, d);
+#else
+  store_word(dst, a);
+  store_word(dst + 4, b);
+  store_word(dst + 8, c);
+  store_word(dst + 12, d);
+#endif
+}
+
 // Fold each row's first maximum of the group into the lane's best (by
 // seg_better) and clear it: at the end of every group of rows.  The stats
 // forms keep the lane's best cell by cell instead.
@@ -1316,6 +1358,411 @@ PT_HD void tile_corner_out(const int32_t* down, int32_t cols, int32_t* t) {
   t[3] = u.hp.l;
 }
 
+// ---------------------------------------------------------------------------
+// The short form (csrc/scan_short.cu; kernels K1b and K1c): the trace and
+// stats classes of the one-shot sweep for pairs of at most SEG_LANES kR
+// padded query rows, ONE warp a pair, several pairs a block.  Lane L holds
+// query rows [L kR, L kR + kR) and at step t computes column t - L of them
+// top to bottom, as a lane of the segment form does (cell_trace /
+// cell_stats_of, the DPX max-plus helpers, the end cell's order of
+// seg_better, the outputs of seg_finish); one shuffle a step brings the
+// bottom row of the lane above.  What the segment form's lane carries
+// beyond that (state rows, rings, the plane classes' stores, groups of
+// rows) a one-shot pair of one warp needs not, so the short form has its
+// own lane registers: H, E and F stay in registers for the whole pair.
+//
+// The stats payloads travel PACKED, as the reference's one-pass kernel
+// packs them (parasail_rs_tpu/ops/scan_kernel.py, stats_pack_params and
+// stats_pack2_params): [m | s | l] in one int32 where its rule says the
+// fields fit 31 bits (Qp + Rp up to about 1,000), else [m | s] in one
+// int32 and l in another.  The length field holds l itself (the
+// reference's OFFL offset serves its prefix scan, which a cell-by-cell
+// recurrence does not have).  A payload moves only by selects and by
+// field increments (cell_stats_of), and no field can outgrow its width on
+// a pair's cells: l <= Qp + Rp, m and s <= Qp.  So the values are
+// golden's exactly, the local reset is the word 0, and the row below
+// reads four words a step (H, E and their payloads; six with l apart)
+// instead of eight.
+
+// [m | s | l] in one word: l in bits [0, sh_s), s in [sh_s, sh_m), m above.
+struct PackOps {
+  using V = int32_t;
+  int32_t sh_m = 0, sh_s = 0;
+  int32_t inc_m = 0, inc_s = 0;   // 1 << sh_m, 1 << sh_s
+  PT_HD V ext(V p) const { return p + 1; }
+  PT_HD V diag(V p, bool match, bool sim) const {
+    return p + (match ? inc_m : 0) + (sim ? inc_s : 0) + 1;
+  }
+  PT_HD V zero() const { return 0; }
+  PT_HD V border(int32_t l) const { return l; }
+  PT_HD Pay unpack(V p) const {
+    return Pay{p >> sh_m, (p >> sh_s) & (inc_m / inc_s - 1),
+               p & (inc_s - 1)};
+  }
+};
+
+// [m | s] in one word (s in bits [0, sh)) and l in another.
+struct Pay2 {
+  int32_t ms = 0, l = 0;
+};
+
+struct Pack2Ops {
+  using V = Pay2;
+  int32_t sh = 0;
+  int32_t inc_m = 0;              // 1 << sh
+  PT_HD V ext(V p) const {
+    p.l += 1;
+    return p;
+  }
+  PT_HD V diag(const V& p, bool match, bool sim) const {
+    return Pay2{p.ms + (match ? inc_m : 0) + (sim ? 1 : 0), p.l + 1};
+  }
+  PT_HD V zero() const { return Pay2{0, 0}; }
+  PT_HD V border(int32_t l) const { return Pay2{0, l}; }
+  PT_HD Pay unpack(const V& p) const {
+    return Pay{p.ms >> sh, p.ms & (inc_m - 1), p.l};
+  }
+};
+
+// The trace class carries no payload.
+struct NoPay {};
+
+struct NoPayOps {
+  using V = NoPay;
+  PT_HD V zero() const { return V(); }
+  PT_HD V border(int32_t) const { return V(); }
+  PT_HD Pay unpack(const V&) const { return Pay{0, 0, 0}; }
+};
+
+PT_HD int32_t bit_length(int32_t x) {
+  int32_t n = 0;
+  for (; x > 0; x >>= 1) ++n;
+  return n;
+}
+
+// The payload layouts of the short form's stats class.
+enum ShortLayout : int32_t { SHORT_UNPACKED = 0, SHORT_PACKED = 1,
+                             SHORT_PACKED2 = 2 };
+
+// The reference's rule (stats_pack_params): [m | s | l] in one word when
+// two fields of bit_length(Qp + Rp + 1) bits and one of bit_length(2 Qp +
+// Rp + 1) fit 31 bits; else [m | s] + l (stats_pack2_params: two fields of
+// bit_length(Qp) bits, which fit for every Qp the short form takes).
+PT_HD int32_t short_layout(int32_t Qp, int32_t Rp) {
+  const int32_t span = Qp + Rp;
+  const int32_t bm = imax(1, bit_length(span + 1));
+  const int32_t bl = imax(1, bit_length(span + Qp + 1));
+  return 2 * bm + bl <= 31 ? SHORT_PACKED : SHORT_PACKED2;
+}
+
+PT_HD PackOps pack_ops(int32_t Qp, int32_t Rp) {
+  const int32_t span = Qp + Rp;
+  PackOps po;
+  po.sh_s = imax(1, bit_length(span + Qp + 1));
+  po.sh_m = po.sh_s + imax(1, bit_length(span + 1));
+  po.inc_s = 1 << po.sh_s;
+  po.inc_m = 1 << po.sh_m;
+  return po;
+}
+
+PT_HD Pack2Ops pack2_ops(int32_t Qp) {
+  Pack2Ops po;
+  po.sh = imax(1, bit_length(Qp));
+  po.inc_m = 1 << po.sh;
+  return po;
+}
+
+// The launcher's rule: kR rows a lane, pairs (warps) a block and the
+// payload layout, for B pairs of Qp by Rp padded cells.  kR is the fewest
+// rows of a form (short_rows) whose 32 kR rows hold the query: a step
+// costs kR cells and lanes past the query idle, so the fewer the better
+// (5 rows at Qp = 160 keep every lane busy, 8 would idle 12 of 32).
+// Rows 0 means the short form does not take the batch (another class, Qp
+// > SEG_LANES * 8, or a block that cannot stage its inputs), which the
+// block kernel's one-shot forms then serve.  Pairs a
+// block: enough blocks for every SM (B / SEG_SMS, at most
+// SHORT_MAX_PAIRS), fewer while the block's shared memory passes
+// SHORT_SMEM_BUDGET (two blocks an SM).
+struct ShortPlan {
+  int32_t rows, pairs, layout;
+};
+
+constexpr int32_t SHORT_MAX_PAIRS = 8;
+constexpr int32_t SHORT_MAX_QP = SEG_LANES * 8;
+
+// The forms' rows a lane (4, 5, 6 or 8): the fewest whose warp holds Qp.
+PT_HD int32_t short_rows(int32_t Qp) {
+  for (int32_t r = 4; r < 8; ++r)
+    if (r != 7 && SEG_LANES * r >= Qp) return r;
+  return 8;
+}
+
+constexpr int64_t SHORT_SMEM_BUDGET = 112 * 1024;
+constexpr int64_t SHORT_SMEM_MAX = 200 * 1024;
+
+// Words of one staged set of scores: the (A + 1)^2 table, or a pair's
+// profile rows column by column (seg_stage_profile's layout, Qp rows).
+PT_HD int64_t short_score_words(bool profile, int32_t Qp, int32_t A) {
+  return profile ? (int64_t)(A + 1) * seg_prof_stride(imax(Qp, 1))
+                 : (int64_t)(A + 1) * (A + 1);
+}
+
+// Shared memory of a block: one set of scores (the table, or a profile
+// all pairs share), or one a pair (per-pair profiles); then each pair's
+// reference letters, all of them.
+PT_HD int64_t short_block_bytes(int32_t pairs, int32_t Qp, int32_t Rp,
+                                int32_t A, bool profile, bool per_pair) {
+  return 4 * (short_score_words(profile, Qp, A) * (per_pair ? pairs : 1) +
+              (int64_t)pairs * imax(Rp, 1));
+}
+
+PT_HD ShortPlan short_plan(int32_t out_class, int32_t B, int32_t Qp,
+                           int32_t Rp, int32_t A, bool profile,
+                           bool per_pair) {
+  const ShortPlan none{0, 0, 0};
+  if ((out_class != OUT_TRACE && out_class != OUT_STATS) ||
+      Qp > SHORT_MAX_QP)
+    return none;
+  int32_t pairs = imax(1, imin(SHORT_MAX_PAIRS, seg_div_up(B, SEG_SMS)));
+  while (pairs > 1 && short_block_bytes(pairs, Qp, Rp, A, profile,
+                                        per_pair) > SHORT_SMEM_BUDGET)
+    --pairs;
+  if (short_block_bytes(pairs, Qp, Rp, A, profile, per_pair) >
+      SHORT_SMEM_MAX)
+    return none;
+  return ShortPlan{short_rows(Qp), pairs,
+                   out_class == OUT_STATS ? short_layout(Qp, Rp)
+                                          : SHORT_UNPACKED};
+}
+
+// Whether the trace class stores its flags 16 columns a 16-byte store, for
+// rows `rstride` bytes apart (else a byte a cell).  A warp's stores land
+// on as many rows as it has lanes, so each is a memory transaction of its
+// own: wide ones make them few.
+PT_HD bool short_wide(int64_t rstride) { return rstride % 16 == 0; }
+
+// What the row below reads of a cell: H and E, and their payloads.
+template <class PO>
+struct ShortUp {
+  int32_t h = NEG_INF32, e = NEG_INF32;
+  typename PO::V hp{}, ep{};
+};
+
+template <class PO>
+struct ShortRow {
+  int32_t h_left = 0, f = NEG_INF32, h_diag = 0;
+  int32_t so = 0;                  // its scores in the staged scores
+  int32_t mqi = 0;                 // stats: the row's letter
+  bool row_all = false, row_last = false;   // the row's candidates
+  typename PO::V lp{}, fp{}, dp{};
+  int32_t bh = SEG_NONE, bj = 0;   // trace: the row's first maximum
+  uint32_t tw = 0;                 // trace: up to 4 flags, one word
+  uint32_t tq[3] = {0, 0, 0};      // trace: the words before it in 16
+};
+
+// One lane: query rows i0 .. i0 + kR - 1 of the pair.  The stats class
+// keeps the lane's best cell (bh, bi, bj, bp) cell by cell, the trace
+// class each row's first maximum, folded at the end (short_lane_best).
+template <int32_t kR, class PO>
+struct ShortLane {
+  int32_t i0 = 0;
+  int32_t nr = 0;                  // its rows below qlen, 0 to kR
+  ShortRow<PO> row[kR];
+  ShortUp<PO> out;                 // the bottom row's last cell
+  int32_t bh = 0, bi = 0, bj = 0;
+  typename PO::V bp{};
+  int32_t hmax = 0, hmin = 0;
+};
+
+// Start lane `lane`'s rows: their scores (table form, row q[i] of the
+// staged table; profile form, staged row i), letters, candidates and the
+// bordered left column; `old` receives the bottom row's left border, the
+// lane below's first diagonal.
+template <int32_t kOut, int32_t kR, class PO>
+PT_HD void short_lane_begin(ShortLane<kR, PO>& L, const SegPair& p,
+                            int32_t lane, const int32_t* q,
+                            const int32_t* mq, const PO& po,
+                            ShortUp<PO>& old) {
+  L.i0 = lane * kR;
+  L.nr = imax(0, imin(kR, p.qlen - L.i0));
+  L.bh = p.local ? 0 : NEG_INF32;
+  L.bi = p.local ? BIG : p.qp;
+  L.bj = BIG;
+  old = ShortUp<PO>();
+PT_UNROLL
+  for (int32_t k = 0; k < kR; ++k) {
+    if (k >= L.nr) continue;
+    ShortRow<PO>& w = L.row[k];
+    const int32_t i = L.i0 + k;
+    w.so = q ? seg_col(q[i], p.A) * (p.A + 1) : seg_pad(i);
+    if constexpr (Out<kOut>::stats) w.mqi = mq[i];
+    const bool last_row = i == p.qlen - 1;
+    w.row_all = p.local || (last_row && p.qe);
+    w.row_last = last_row || p.de;
+    w.h_left = border(i + 1, p.db, p.open, p.ext);
+    w.lp = po.border(p.db ? 0 : i + 1);
+    if (k + 1 < kR) {
+      L.row[k + 1].h_diag = w.h_left;
+      L.row[k + 1].dp = w.lp;
+    }
+    old.h = w.h_left;
+    old.hp = w.lp;
+  }
+}
+
+// The first diagonal of the lane's top row, H[i0 - 1][-1]: the lane
+// above's `old`, for lane 0 the corner (0, its payload 0).
+template <int32_t kR, class PO>
+PT_HD void short_lane_diag(ShortLane<kR, PO>& L, const ShortUp<PO>& above) {
+  L.row[0].h_diag = above.h;
+  L.row[0].dp = above.hp;
+}
+
+// The top border above column c: H[-1][c], E = -inf, and its payload.
+template <class PO>
+PT_HD ShortUp<PO> short_top(const SegPair& p, int32_t c, const PO& po) {
+  ShortUp<PO> u;
+  u.h = border(c + 1, p.qb, p.open, p.ext);
+  u.hp = po.border(p.qb ? 0 : c + 1);
+  return u;
+}
+
+template <int32_t kR, class PO>
+PT_HD void short_lane_scores(const ShortLane<kR, PO>& L, const int32_t* sc,
+                             int32_t at, int32_t (&s)[kR]) {
+  PT_UNROLL
+  for (int32_t k = 0; k < kR; ++k) s[k] = sc[L.row[k].so + at];
+}
+
+// The trace class's stores of a lane's rows after column c, the last of
+// a word or the pair's: the word waits in tq until the last word of its 16
+// columns or the pair's, then the 16 columns go out in one 16-byte store.
+// One branch a step for the lane's rows, the rows past the pair masked
+// (a branch a row would split the warp once a row).
+template <int32_t kR, class PO>
+PT_HD void short_lane_flush(ShortLane<kR, PO>& L, int8_t* trace0,
+                            int64_t rstride, int32_t c, bool last_col) {
+  const int32_t m = (c >> 2) & 3;      // the word's place among 16 columns
+PT_UNROLL
+  for (int32_t k = 0; k < kR; ++k) {
+    ShortRow<PO>& w = L.row[k];
+    w.tq[0] = m == 0 ? w.tw : w.tq[0];
+    w.tq[1] = m == 1 ? w.tw : w.tq[1];
+    w.tq[2] = m == 2 ? w.tw : w.tq[2];
+  }
+  if (m == 3 || last_col) {
+PT_UNROLL
+    for (int32_t k = 0; k < kR; ++k) {
+      ShortRow<PO>& w = L.row[k];
+      if (k < L.nr)
+        store_words4(trace0 + k * rstride + (c & ~15), w.tq[0], w.tq[1],
+                     w.tq[2], m == 3 ? w.tw : 0);
+      w.tq[0] = w.tq[1] = w.tq[2] = 0;
+    }
+  }
+PT_UNROLL
+  for (int32_t k = 0; k < kR; ++k) L.row[k].tw = 0;
+}
+
+// One step of a lane: column c of its rows, reference letter r and the
+// rows' scores against it, `u` the cell above its top row.  The trace
+// class writes each cell's flags (trace0: the top row's, rows `rstride`
+// apart): with `wide` (short_wide) 16 columns a store, else a byte a cell;
+// rows past the pair are computed as the others, without a branch, and
+// write nothing.  Leaves the bottom row's cell in L.out.
+template <int32_t kOut, int32_t kR, class PO>
+PT_HD void short_lane_step(ShortLane<kR, PO>& L, const SegPair& p, int32_t c,
+                           int32_t r, const int32_t (&sk)[kR],
+                           ShortUp<PO> u, int8_t* trace0, int64_t rstride,
+                           bool wide, const PO& po) {
+  using O = Out<kOut>;
+  const bool last_col = c == p.rlen - 1;
+  int32_t hv[kR];
+PT_UNROLL
+  for (int32_t k = 0; k < kR; ++k) {
+    const bool on = k < L.nr;
+    ShortRow<PO>& w = L.row[k];
+    const int32_t i = L.i0 + k;
+    int32_t h, e;
+    typename PO::V hp{}, ep{};
+    if constexpr (O::trace) {
+      const int32_t fl = cell_trace(w.h_diag, u.h, u.e, w.h_left, sk[k],
+                                    p.open, p.ext, p.local, w.f, h, e);
+      if (wide)
+        w.tw |= (uint32_t)fl << (8 * (c & 3));
+      else if (on)
+        trace0[k * rstride + c] = (int8_t)fl;
+    } else {
+      cell_stats_of(po, w.h_diag, u.h, u.e, w.h_left, sk[k], p.open, p.ext,
+                    p.local, w.mqi == r, u.hp, u.ep, w.lp, w.dp, w.fp, w.f,
+                    h, e, hp, ep);
+      w.dp = u.hp;
+      w.lp = hp;
+    }
+    w.h_diag = u.h;
+    w.h_left = h;
+    u.h = h;
+    u.e = e;
+    u.hp = hp;
+    u.ep = ep;
+    hv[k] = on ? h : hv[0];
+    const bool cand = on && (w.row_all || (w.row_last && last_col));
+    if constexpr (O::stats) {
+      // rows top to bottom, then columns: an equal H in an earlier row is
+      // ahead (seg_better for cells that arrive in this order)
+      if (cand && (h > L.bh || (h == L.bh && i < L.bi))) {
+        L.bh = h;
+        L.bi = i;
+        L.bj = c;
+        L.bp = hp;
+      }
+    } else if (cand && h > w.bh) {       // columns ascend within a row
+      w.bh = h;
+      w.bj = c;
+    }
+  }
+  if constexpr (O::trace) {
+    if (wide && ((c & 3) == 3 || last_col))
+      short_lane_flush(L, trace0, rstride, c, last_col);
+  }
+  int32_t mx = L.hmax, mn = L.hmin;
+PT_UNROLL
+  for (int32_t k = 0; k + 1 < kR; k += 2) {
+    mx = max3(mx, hv[k], hv[k + 1]);
+    mn = min3(mn, hv[k], hv[k + 1]);
+  }
+  if constexpr (kR % 2 == 1) {
+    mx = imax(mx, hv[kR - 1]);
+    mn = imin(mn, hv[kR - 1]);
+  }
+  L.hmax = mx;
+  L.hmin = mn;
+  L.out = u;
+}
+
+// The lane's best cell and extremes, payload unpacked: the trace class
+// folds its rows' first maxima by seg_better.
+template <int32_t kR, class PO>
+PT_HD SegBest short_lane_best(const ShortLane<kR, PO>& L, const PO& po) {
+  SegBest b;
+  b.h = L.bh;
+  b.i = L.bi;
+  b.j = L.bj;
+  b.p = po.unpack(L.bp);
+  PT_UNROLL
+  for (int32_t k = 0; k < kR; ++k) {
+    const ShortRow<PO>& w = L.row[k];
+    if (w.bh != SEG_NONE && seg_better(w.bh, L.i0 + k, w.bj, b.h, b.i, b.j)) {
+      b.h = w.bh;
+      b.i = L.i0 + k;
+      b.j = w.bj;
+    }
+  }
+  b.hmax = L.hmax;
+  b.hmin = L.hmin;
+  return b;
+}
+
 #if !defined(__CUDACC__)
 // One pair's segment on the host: the kernel's lanes stepped in a loop.
 // `cluster` blocks of `warps` warps of SEG_LANES lanes, kR rows a lane,
@@ -1432,6 +1879,65 @@ inline PairResult segment_pair_host(const int32_t* subs, const int32_t* q,
     }
     for (const auto& L : lanes) total = seg_merge(total, L.best);
   }
+  return seg_finish<kOut>(p, mode, total, acc);
+}
+
+// One pair of the short form on the host: the warp's SEG_LANES lanes
+// stepped in a loop, last first, so that each reads what the lane above
+// left a step earlier (the kernel's shuffle).  The scores are staged as
+// the kernel stages them.
+//
+//   subs, q, mq: the (A, A) table and the query letters, or the pair's
+//                (qp, A) profile rows and null; the stats letters
+//   ridx:        the pair's reference letters
+//   trace:       trace class: the pair's (qp, rstride) flag plane, 16
+//                columns a store where `wide` (short_wide)
+template <int32_t kOut, int32_t kR, class PO>
+inline PairResult short_pair_host(const int32_t* subs, const int32_t* q,
+                                  const int32_t* mq, const int32_t* ridx,
+                                  const SegPair& p, int32_t mode,
+                                  int8_t* trace, int64_t rstride,
+                                  bool wide, const PO& po) {
+  constexpr int32_t W = SEG_LANES;
+  const int32_t A = p.A;
+  const int32_t cs = q ? 1 : seg_prof_stride(imax(p.qp, 1));
+  std::vector<int32_t> sc(short_score_words(q == nullptr, p.qp, A));
+  if (q) {
+    for (int32_t k = 0; k < (int32_t)sc.size(); ++k)
+      sc[k] = seg_table_at(subs, A, k);
+  } else {
+    seg_stage_profile(sc.data(), subs, p.qp, A, imax(p.qp, 1), 0, 1);
+  }
+  SegBest total = seg_best_init(p);
+  if (seg_sweeps(p)) {
+    std::vector<ShortLane<kR, PO>> lanes(W);
+    std::vector<ShortUp<PO>> old(W);
+    for (int32_t x = 0; x < W; ++x)
+      short_lane_begin<kOut>(lanes[x], p, x, q, mq, po, old[x]);
+    ShortUp<PO> corner;
+    corner.h = 0;
+    corner.hp = po.zero();
+    for (int32_t x = 0; x < W; ++x)
+      short_lane_diag(lanes[x], x == 0 ? corner : old[x - 1]);
+    const int32_t nl = imin(W, seg_div_up(p.qlen, kR));
+    for (int32_t t = 0; t < p.ncols + nl - 1; ++t) {
+      for (int32_t l = nl - 1; l >= 0; --l) {
+        const int32_t c = t - l;
+        if (c < 0 || c >= p.ncols) continue;
+        ShortLane<kR, PO>& L = lanes[l];
+        const ShortUp<PO> up = l == 0 ? short_top(p, c, po)
+                                      : lanes[l - 1].out;
+        const int32_t r = ridx[c];
+        int32_t sk[kR];
+        short_lane_scores(L, sc.data(), seg_col(r, A) * cs, sk);
+        short_lane_step<kOut>(L, p, c, r, sk, up,
+                              trace ? trace + L.i0 * rstride : nullptr,
+                              rstride, wide, po);
+      }
+    }
+    for (const auto& L : lanes) total = seg_merge(total, short_lane_best(L, po));
+  }
+  int32_t acc[8];
   return seg_finish<kOut>(p, mode, total, acc);
 }
 #endif

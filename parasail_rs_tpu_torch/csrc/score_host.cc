@@ -73,7 +73,11 @@ extern "C" int pt_score_host(const int32_t* subs, const int32_t* qidx,
 }
 
 // pt_score_host plus the flags of each in-sequence cell into `trace`, a
-// (B, Qp, Rp) int8 plane the caller zero-fills.
+// (B, Qp, Rp) int8 plane the caller zero-fills: the one-thread form's
+// trace class.  On the card that form runs only banded (pt_scan_banded,
+// which shares its template); the unbanded trace class is the short
+// form's (pt_short_host below) or the block kernel's, so this twin holds
+// the template the banded form instantiates.
 extern "C" int pt_trace_host(const int32_t* subs, const int32_t* qidx,
                              const int32_t* ridx, const int32_t* qlen,
                              const int32_t* rlen, int32_t* out, int8_t* trace,
@@ -85,10 +89,12 @@ extern "C" int pt_trace_host(const int32_t* subs, const int32_t* qidx,
   return 0;
 }
 
-// The stats, table and rowcol classes (out_class 2-6): pt_scan_outputs's
-// arguments minus the scratch and the stream, with batch-major planes the
-// caller zero-fills: `out` (8, B), `planes` (4, B, Qp, Rp), `row`
-// (4, B, Rp), `col` (4, B, Qp).  Returns -1 for an unknown class.
+// The stats, table and rowcol classes (out_class 2-6) of the one-thread
+// form: pt_scan_outputs's arguments (which take classes 3-6 on the card)
+// minus the scratch and the stream, with batch-major planes the caller
+// zero-fills: `out` (8, B), `planes` (4, B, Qp, Rp), `row` (4, B, Rp),
+// `col` (4, B, Qp).  The stats class runs on the card only banded, as
+// the trace class does (pt_trace_host).  Returns -1 for an unknown class.
 extern "C" int pt_outputs_host(int out_class, const int32_t* subs,
                                const int32_t* qidx, const int32_t* mq,
                                const int32_t* ridx, const int32_t* qlen,
@@ -410,5 +416,89 @@ extern "C" int pt_block_plan_host(int out_class, int B, int Qs, int ncols,
   plan[0] = p.rows;
   plan[1] = p.warps;
   plan[2] = p.cluster;
+  return 0;
+}
+
+namespace {
+
+// short_pair_host of class kOut at kR rows a lane, each pair's payloads
+// in `layout` (stats) with the ops of its padded shape.
+template <int32_t kOut, int32_t kR>
+ptscore::PairResult short_host(int layout, const int32_t* subs,
+                               const int32_t* q, const int32_t* mq,
+                               const int32_t* ridx, const ptscore::SegPair& p,
+                               int mode, int8_t* trace, int64_t rstride,
+                               bool wide, int Rp) {
+  if constexpr (kOut == ptscore::OUT_TRACE) {
+    return ptscore::short_pair_host<kOut, kR>(subs, q, mq, ridx, p, mode,
+                                               trace, rstride, wide,
+                                               ptscore::NoPayOps());
+  } else if (layout == ptscore::SHORT_PACKED) {
+    return ptscore::short_pair_host<kOut, kR>(subs, q, mq, ridx, p, mode,
+                                               trace, rstride, wide,
+                                               ptscore::pack_ops(p.qp, Rp));
+  } else {
+    return ptscore::short_pair_host<kOut, kR>(subs, q, mq, ridx, p, mode,
+                                               trace, rstride, wide,
+                                               ptscore::pack2_ops(p.qp));
+  }
+}
+
+}  // namespace
+
+// The short form (pt_scan_short's arguments minus the stream, same
+// layouts): out_class 1 trace, 2 stats; `out` is (8, B); `trace`
+// (B, Qp, Rp) arrives zero-filled; `rows` rows a lane (4, 5, 6 or 8)
+// and the stats `layout` (1 packed, 2 [m | s] + l), as the kernel would
+// take them.  Returns -1 for another class, rows or layout.
+extern "C" int pt_short_host(int out_class, const int32_t* subs,
+                             const int32_t* qidx, const int32_t* mq,
+                             const int32_t* ridx, const int32_t* qlen,
+                             const int32_t* rlen, int32_t* out, int8_t* trace,
+                             int B, int Bq, int Bm, int Qp, int Rp, int A,
+                             int open, int ext, int mode, int free_bits,
+                             int rows, int layout) {
+  const bool stats = out_class == ptscore::OUT_STATS;
+  if ((out_class != ptscore::OUT_TRACE && !stats) ||
+      (rows < 4 || rows > 8 || rows == 7) ||
+      (stats && layout != ptscore::SHORT_PACKED &&
+       layout != ptscore::SHORT_PACKED2))
+    return -1;
+  for (int b = 0; b < B; ++b) {
+    const ptscore::SegPair p = ptscore::seg_pair(
+        qlen[b], rlen[b], Qp, 0, Rp, open, ext, mode, free_bits, false, A);
+    const int64_t bq = Bq == 1 ? 0 : b;
+    const int32_t* s = qidx ? subs : subs + bq * Qp * A;
+    const int32_t* q = qidx ? qidx + bq * Qp : nullptr;
+    const int32_t* m = mq ? mq + (Bm == 1 ? 0 : (int64_t)b * Qp) : nullptr;
+    int8_t* tr = trace ? trace + (int64_t)b * Qp * Rp : nullptr;
+    const bool wide = ptscore::short_wide(Rp);
+#define PT_SHORT(k, r) \
+  short_host<k, r>(layout, s, q, m, ridx + (int64_t)b * Rp, p, mode, tr, Rp, \
+                   wide, Rp)
+#define PT_ROWS_OF(k)                                                    \
+  (rows == 4 ? PT_SHORT(k, 4)                                              \
+             : rows == 5 ? PT_SHORT(k, 5)                                  \
+                         : rows == 6 ? PT_SHORT(k, 6) : PT_SHORT(k, 8))
+    put_result(stats ? PT_ROWS_OF(ptscore::OUT_STATS)
+                     : PT_ROWS_OF(ptscore::OUT_TRACE),
+               out, B, b);
+#undef PT_ROWS_OF
+#undef PT_SHORT
+  }
+  return 0;
+}
+
+// The short form's launcher's rule (score_cell.cuh, short_plan), as
+// pt_short_plan on the card: rows a lane (0: the batch is the block
+// kernel's), pairs a block and the stats layout to plan[0..2].
+extern "C" int pt_short_plan_host(int out_class, int B, int Bq, int Qp,
+                                  int Rp, int A, int profile,
+                                  int32_t* plan) {
+  const ptscore::ShortPlan p = ptscore::short_plan(
+      out_class, B, Qp, Rp, A, profile != 0, profile != 0 && Bq != 1);
+  plan[0] = p.rows;
+  plan[1] = p.pairs;
+  plan[2] = p.layout;
   return 0;
 }

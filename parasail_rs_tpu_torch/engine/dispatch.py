@@ -333,8 +333,10 @@ def plan_route(batch: PairBatch, outputs: str, gap_open: int,
     | "torch_segments" | "torch_chunked", reason) for a batch.
 
     The device picks between the card's routes and the CPU's; the batch's
-    padded shape and class pick between one thread per pair
-    (:func:`~..ops.scan_kernel.score_align`, kernel K1), segments
+    padded shape and class pick between the one-shot kernels
+    (:func:`~..ops.scan_kernel.score_align`, kernel K1: one thread per
+    pair, and for the trace and stats classes one warp a pair up to 256
+    padded query rows, the block kernel's one-shot form past them), segments
     (:func:`execute_segments`, kernel K2) and the chunked sweep
     (:func:`~..ops.scan_kernel.score_chunked`, kernel K1f: K2's block of
     up to eight warps per pair, one launch over all columns, every
@@ -359,7 +361,8 @@ def plan_route(batch: PairBatch, outputs: str, gap_open: int,
     (stats) and 41.3 ms (trace in four launches) on the same pairs, and
     2.0 ms against K1's 239 ms at 1,024 bp, the smallest size measured,
     which sets :data:`SEGMENT_MIN_CELLS`.  The chunked sweep is that block
-    with the plane classes' stores: 12x to 242x ahead of K1 in every class
+    with the plane classes' stores: 12x to 242x ahead of K1's one thread a
+    pair in every class
     at 128 × 1,024, 128 × 4,096 and 128 × 3,072 × 96 (PERF.md §6), so
     it takes K2's threshold and every query past :data:`CHUNK_ROWS`, the
     reference's chunk point.  These thresholds are not a crossover: below
@@ -369,7 +372,9 @@ def plan_route(batch: PairBatch, outputs: str, gap_open: int,
     1.25 against 3.72 ms).  Short batches stay on K1 because their calls
     are host-bound (K1's 2.5 ms in 21-23 ms of ``align_batch`` on 8,192
     pairs), so moving them waits for end-to-end numbers (ROADMAP.md, "K2
-    on short pairs").  All on an NVIDIA H100 80GB HBM3 at 700 W, from
+    on short pairs"); K1's trace and stats classes no longer run one
+    thread a pair (``score_align`` picks the short form or the block
+    kernel itself).  All on an NVIDIA H100 80GB HBM3 at 700 W, from
     ``chip_smoke.py`` phases 5, 20 and 27.
     ``one_shot=True`` is for callers that need one launch; ``banded=True``
     for the banded mode, which only K1 serves (its score form sweeps the

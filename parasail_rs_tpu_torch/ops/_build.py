@@ -152,8 +152,6 @@ def load() -> ctypes.CDLL:
             ll = ctypes.c_longlong
             lib.pt_scan_score.restype = i
             lib.pt_scan_score.argtypes = [p] * 8 + [i] * 9 + [p]
-            lib.pt_scan_trace.restype = i
-            lib.pt_scan_trace.argtypes = [p] * 9 + [i] * 9 + [p]
             lib.pt_scan_outputs.restype = i
             lib.pt_scan_outputs.argtypes = [i] + [p] * 11 + [i] * 10 + [p]
             lib.pt_scan_banded.restype = i
@@ -164,6 +162,10 @@ def load() -> ctypes.CDLL:
             lib.pt_scan_rowseg.argtypes = [i] + [p] * 16 + [i] * 16 + [p]
             lib.pt_scan_chunked.restype = i
             lib.pt_scan_chunked.argtypes = [i] + [p] * 15 + [i] * 13 + [p]
+            lib.pt_scan_short.restype = i
+            lib.pt_scan_short.argtypes = [i] + [p] * 8 + [i] * 10 + [p]
+            lib.pt_short_plan.restype = i
+            lib.pt_short_plan.argtypes = [i] * 7 + [p]
             lib.pt_block_plan.restype = i
             lib.pt_block_plan.argtypes = [i] * 9 + [p]
             lib.pt_trace_walk.restype = i

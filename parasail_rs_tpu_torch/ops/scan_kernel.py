@@ -15,10 +15,16 @@ the stats rows and columns), the last row and column.  Planes are zero
 outside each pair's qlen x rlen cells, rows and columns beyond its
 lengths.
 
-On CUDA tensors it launches the hand-written kernel in
-``csrc/scan_score.cu`` (one thread per pair) and counts the launch in
-:data:`LAUNCHES` (score), :data:`TRACE_LAUNCHES` (trace) or
-:data:`CLASS_LAUNCHES` (the other five classes).  On CPU tensors it runs
+On CUDA tensors it launches a hand-written kernel: the score and the
+plane classes the one in ``csrc/scan_score.cu`` (one thread per pair),
+counted in :data:`LAUNCHES` (score) or :data:`CLASS_LAUNCHES` (the four
+plane classes); the trace and stats classes the short form in
+``csrc/scan_short.cu`` (one warp a pair, several pairs a block, the stats
+payloads packed), counted in :data:`SHORT_LAUNCHES`, for pairs of up to
+256 padded query rows, and beyond that, or where a block cannot stage a
+pair's inputs, the block kernel's one-shot form (:func:`score_chunked`,
+counted in :data:`CHUNKED_LAUNCHES`).  :func:`short_plan` reads the
+rule that picks between them.  On CPU tensors it runs
 the plain version, :func:`score_align_plain`: its own column sweep for
 the score and trace classes, the wavefront
 (:func:`~.wavefront.wavefront_align`) for the others.  There is no
@@ -124,15 +130,16 @@ OUTPUTS = ("score", "trace", "stats", "table", "stats_table", "rowcol",
            "stats_rowcol")
 BIG = 2 ** 30
 
-# Launches of the CUDA kernel in this process: score form, trace form,
-# the other five forms by class, the banded score form and the other six
-# banded forms by class.  Only score_align's CUDA branch adds to them; set
-# them to 0 to count one phase of work.
+# Launches of the one-thread-per-pair kernel in this process: score
+# form, the four plane forms by class, the banded score form and the other
+# six banded forms by class; and of the short form (csrc/scan_short.cu)
+# by class.  Only score_align's CUDA branch adds to them; set them to 0 to
+# count one phase of work.
 LAUNCHES = 0
-TRACE_LAUNCHES = 0
-CLASS_LAUNCHES = dict.fromkeys(OUTPUTS[2:], 0)
+CLASS_LAUNCHES = dict.fromkeys(OUTPUTS[3:], 0)
 BANDED_LAUNCHES = 0
 BANDED_CLASS_LAUNCHES = dict.fromkeys(OUTPUTS[1:], 0)
+SHORT_LAUNCHES = dict.fromkeys(OUTPUTS[1:3], 0)
 # Launches of the segment kernel (csrc/scan_segment.cu); only
 # score_segment's CUDA branch adds to it.
 SEGMENT_LAUNCHES = 0
@@ -240,7 +247,9 @@ def score_align(ridx, qlen, rlen, *, open_, ext, mode, free, width="32",
     ``score`` / ``end_query`` / ``end_ref`` and bool ``saturated`` (+
     ``promoted`` at width ``sat``), on that device, plus the class's
     outputs (see the module docstring).  On the card the planes, rows and
-    columns are strided views of the kernel's batch-last buffers.
+    columns of the one-thread-per-pair kernel are strided views of its
+    batch-last buffers; the trace plane of an unbanded batch is a
+    contiguous (B, Qp, Rp) tensor.
     Lengths must not exceed the padded sizes.  ``banded`` /
     ``bandwidth``: the banded mode (module docstring).
     """
@@ -254,7 +263,13 @@ def score_align(ridx, qlen, rlen, *, open_, ext, mode, free, width="32",
                                  bandwidth=bandwidth)
     if ridx.device.type != "cuda":
         raise ValueError(f"no kernel for device {ridx.device}")
-    global LAUNCHES, TRACE_LAUNCHES, BANDED_LAUNCHES
+    if not banded and outputs in SHORT_LAUNCHES:
+        kw = dict(open_=open_, ext=ext, mode=mode, free=free, width=width,
+                  table=table, qidx=qidx, profile=profile, outputs=outputs)
+        if short_plan(outputs, B, Bq, Qp, Rp, A, profile is not None)[0]:
+            return _short_launch(ridx, qlen, rlen, (B, Bq, Qp, Rp, A), **kw)
+        return score_chunked(ridx, qlen, rlen, **kw)
+    global LAUNCHES, BANDED_LAUNCHES
     from . import _build
 
     lib = _build.load()
@@ -294,10 +309,6 @@ def score_align(ridx, qlen, rlen, *, open_, ext, mode, free, width="32",
             rc = lib.pt_scan_score(*args, *lens, scratch[0].data_ptr(),
                                    scratch[1].data_ptr(), out.data_ptr(),
                                    *dims, stream)
-        elif outputs == "trace":
-            rc = lib.pt_scan_trace(*args, *lens, scratch[0].data_ptr(),
-                                   scratch[1].data_ptr(), out.data_ptr(),
-                                   plane.data_ptr(), *dims, stream)
         else:
             rc = lib.pt_scan_outputs(
                 OUTPUTS.index(outputs), *args, _ptr(qidx if stats else None),
@@ -314,8 +325,6 @@ def score_align(ridx, qlen, rlen, *, open_, ext, mode, free, width="32",
         BANDED_CLASS_LAUNCHES[outputs] += 1
     elif outputs == "score":
         LAUNCHES += 1
-    elif outputs == "trace":
-        TRACE_LAUNCHES += 1
     else:
         CLASS_LAUNCHES[outputs] += 1
     if outputs == "trace":
@@ -327,6 +336,60 @@ def score_align(ridx, qlen, rlen, *, open_, ext, mode, free, width="32",
             if rows is not None:
                 res[f"{name}_row"] = rows[k].t()
                 res[f"{name}_col"] = cols[k].t()
+    return res
+
+
+def short_plan(outputs, B, Bq, Qp, Rp, A, profile=False) -> tuple:
+    """(rows a lane, pairs a block, stats payload layout) that the short
+    form's launcher takes for a launch of class ``outputs`` on ``B`` pairs
+    of ``Qp`` by ``Rp`` padded cells (``csrc/score_cell.cuh``,
+    ``short_plan``): rows 4, 5, 6 or 8, the fewest whose 32 lanes hold
+    ``Qp``, or 0 where the short form does not take the batch (another
+    class, ``Qp`` > 256, or inputs a block cannot stage;
+    :func:`score_align` then launches the block kernel's one-shot form);
+    layout 1 for [m | s | l] in one word, 2 for [m | s] and l, 0 for the
+    trace class.  ``Bq`` is the query side's batch (1: one profile
+    for every pair).  Builds the kernels (it asks the library's own
+    rule)."""
+    from . import _build
+
+    plan = (ctypes.c_int * 3)()
+    _build.load().pt_short_plan(
+        OUTPUTS.index(outputs), int(B), int(Bq), int(Qp), int(Rp), int(A),
+        int(bool(profile)), ctypes.cast(plan, ctypes.c_void_p))
+    return tuple(plan)
+
+
+def _short_launch(ridx, qlen, rlen, dims, *, open_, ext, mode, free, width,
+                  table, qidx, profile, outputs) -> dict:
+    """Launch the short form (``pt_scan_short``) of the trace or stats
+    class on a batch :func:`short_plan` gives it; count the launch.  The
+    trace plane is a contiguous (B, Qp, Rp) tensor."""
+    from . import _build
+
+    B, Bq, Qp, Rp, A = dims
+    dev = ridx.device
+    stats = outputs == "stats"
+    out = torch.empty((8 if stats else 5, B), dtype=torch.int32, device=dev)
+    plane = (torch.zeros((B, Qp, Rp), dtype=torch.int8, device=dev)
+             if outputs == "trace" else None)
+    subs = table if table is not None else profile
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        rc = _build.load().pt_scan_short(
+            OUTPUTS.index(outputs), subs.data_ptr(),
+            qidx.data_ptr() if table is not None else None,
+            _ptr(qidx if stats else None), ridx.data_ptr(), qlen.data_ptr(),
+            rlen.data_ptr(), out.data_ptr(), _ptr(plane), B, Bq,
+            qidx.shape[0] if stats else 0, Qp, Rp, A, int(open_), int(ext),
+            MODES[mode], _free_bits(free), stream)
+    if rc != 0:
+        raise RuntimeError(f"scan_short ({outputs}) kernel launch failed: "
+                           f"CUDA error {rc}")
+    SHORT_LAUNCHES[outputs] += 1
+    res = _kernel_scalars(out, width)
+    if plane is not None:
+        res["trace_table"] = plane
     return res
 
 

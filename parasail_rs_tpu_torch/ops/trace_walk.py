@@ -93,8 +93,8 @@ def device_walk(trace, qsym, rsym, end_q, end_r, mode: str,
                 free: tuple[bool, bool, bool, bool]):
     """Walk every pair's trace back from its end cell.
 
-    trace: (B, Qp, Rp) int8 flag plane, any strides (the trace kernel's
-           plane is a permuted view)
+    trace: (B, Qp, Rp) int8 flag plane, any strides (the banded trace
+           form's plane is a permuted view of a batch-last buffer)
     qsym:  (B or 1, Qp) query symbols, int32 or uint8 (raw bytes where
            the batch has them: '=' against 'X' compares these)
     rsym:  (B, Rp) reference symbols, of the same kind

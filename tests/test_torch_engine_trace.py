@@ -319,9 +319,10 @@ def test_card_cigars_match_cpu(name, cuda_device):
     cfg, qs, rs = CIGAR_CASES[name]
     cpu = _configure(port.Aligner.new(), cfg).device("cpu").build()
     card = _configure(port.Aligner.new(), cfg).device(cuda_device).build()
-    before = (tk.TRACE_LAUNCHES, tw.LAUNCHES)
+    before = (tk.SHORT_LAUNCHES["trace"], tw.LAUNCHES)
     alns, cigs = card.align_cigars(qs, rs)
-    assert tk.TRACE_LAUNCHES > before[0] and tw.LAUNCHES > before[1]
+    assert tk.SHORT_LAUNCHES["trace"] > before[0] and \
+        tw.LAUNCHES > before[1]
     c_alns, c_cigs = cpu.align_cigars(qs, rs)
     assert cigs == c_cigs and _summary(alns) == _summary(c_alns)
     traced = _configure(port.Aligner.new(), cfg + [("use_trace", ())]) \

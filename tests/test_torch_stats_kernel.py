@@ -293,12 +293,12 @@ def test_wrapper_runs_the_wavefront_on_cpu(monkeypatch):
     monkeypatch.setattr(scan_kernel, "wavefront_align",
                         lambda *a, **k: calls.append(k["outputs"]) or
                         real(*a, **k))
-    before = dict(tk.CLASS_LAUNCHES)
+    before = (dict(tk.CLASS_LAUNCHES), dict(tk.SHORT_LAUNCHES))
     for outputs in CLASSES:
         run_plain(case, outputs, open_=5, ext=2, mode="sw", free=SW,
                   width="sat")
     assert calls == list(CLASSES)
-    assert tk.CLASS_LAUNCHES == before
+    assert (tk.CLASS_LAUNCHES, tk.SHORT_LAUNCHES) == before
 
 
 # -- on the card ----------------------------------------------------------
@@ -321,10 +321,12 @@ def test_kernel_matches_plain_on_card(mode, free, open_, ext, outputs,
     args = (t.pop("ridx"), t.pop("qlen"), t.pop("rlen"))
     kw = dict(open_=open_, ext=ext, mode=mode, free=free, width="sat",
               outputs=outputs, **t)
-    before = tk.CLASS_LAUNCHES[outputs]
+    # the stats class is the short form's, the plane classes one thread's
+    counts = tk.SHORT_LAUNCHES if outputs == "stats" else tk.CLASS_LAUNCHES
+    before = counts[outputs]
     got = tk.score_align(*args, **kw)
     torch.cuda.synchronize()
-    assert tk.CLASS_LAUNCHES[outputs] == before + 1
+    assert counts[outputs] == before + 1
     want = tk.score_align_plain(*args, **kw)
     assert set(got) == set(want)
     for k in want:

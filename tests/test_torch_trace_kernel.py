@@ -239,10 +239,13 @@ def test_wrapper_runs_plain_trace_on_cpu(monkeypatch):
     monkeypatch.setattr(tk, "score_align_plain",
                         lambda *a, **k: calls.append(k["outputs"]) or
                         real(*a, **k))
-    before = (tk.LAUNCHES, tk.TRACE_LAUNCHES)
+    def launches():
+        return tk.LAUNCHES, dict(tk.SHORT_LAUNCHES), tk.CHUNKED_LAUNCHES
+
+    before = launches()
     run_plain(case, open_=5, ext=2, mode="sw", free=SW, width="sat")
     assert calls == ["trace"]
-    assert (tk.LAUNCHES, tk.TRACE_LAUNCHES) == before
+    assert launches() == before
 
 
 def test_wrapper_rejects_unknown_outputs():
@@ -274,10 +277,10 @@ def test_trace_kernel_matches_plain_on_card(mode, free, open_, ext,
     args = (t.pop("ridx"), t.pop("qlen"), t.pop("rlen"))
     kw = dict(open_=open_, ext=ext, mode=mode, free=free, width="sat",
               outputs="trace", **t)
-    before = tk.TRACE_LAUNCHES
+    before = tk.SHORT_LAUNCHES["trace"]
     got = tk.score_align(*args, **kw)
     torch.cuda.synchronize()
-    assert tk.TRACE_LAUNCHES == before + 1
+    assert tk.SHORT_LAUNCHES["trace"] == before + 1
     want = tk.score_align_plain(*args, **kw)
     assert set(got) == set(want)
     for k in want:
