@@ -5,11 +5,12 @@
 
 Builds the kernels from ``parasail_rs_tpu_torch/csrc`` with nvcc and
 runs twenty-nine phases on ``cuda``; any failure raises and the script exits
-non-zero without printing a result.  ``score_align``'s trace and stats
-classes run the short form (kernels K1b and K1c, ``csrc/scan_short.cu``,
-one warp a pair) up to 256 padded query rows and the block kernel's
-one-shot form past them, so phases 6-13, 16, 17 and 23 hold and time
-those forms where they say "trace kernel" or "stats kernel":
+non-zero without printing a result.  ``score_align`` runs every unbanded
+class on the short form (kernels K1a-K1d, ``csrc/scan_short.cu``, one
+warp a pair) up to 256 padded query rows and on the block kernel's
+one-shot form past them, so phases 2-13, 16, 17 and 23 hold and time
+those forms where they say "score kernel", "trace kernel", "stats
+kernel" or name a plane class:
 
 1. build: the library's path, build time and each kernel's registers;
 2. kernel vs plain: the score kernel against its plain PyTorch version
@@ -25,12 +26,16 @@ those forms where they say "trace kernel" or "stats kernel":
    BLOSUM62 on 8,192 protein pairs of 140-160 residues, one profile
    against 16,384 references, one 150 bp NW DNA pair, and 128 DNA pairs
    of 2,000 bp.  Every kernel's launches are counted from zero over this
-   phase only; the score kernel must launch, every route must be
+   phase only; the short form's score class must launch three times and
+   the block kernel's one-shot form not at all, every route must be
    "cuda_kernel" (the 2,000 bp batch: "cuda_segments"), and the scores
    must equal the plain version's;
-5. timings of the score path: kernel and plain medians at the headline
-   shape (CUDA events, after warm-up) and the end-to-end ``align_batch``
-   time of the 8,192 pairs, beside the card's name and power limit;
+5. timings of the score path: the short form's score class (K1a), the
+   block kernel's one-shot form and the plain version at the headline
+   shape and on phase 3's 8,192 table-form pairs (CUDA-event medians,
+   after warm-up) beside the bound, and the end-to-end ``align_batch``
+   time of the 8,192 pairs and ``Aligner.align`` of the 150 bp pair,
+   beside the card's name and power limit;
 6. trace kernel and walk kernel vs plain: the trace class of the kernel
    against its plain version on batches drawn like phase 2's, the
    empty-side pairs
@@ -62,17 +67,20 @@ those forms where they say "trace kernel" or "stats kernel":
    ``semi_global().use_stats()`` on cfg4b's 4,096 pairs at 11/1 and at
    2/2, ``use_last_rowcol()`` with and without stats on the 8,192 pairs
    and ``use_table()`` with and without stats on 512 of them.  Launches
-   are counted from zero over this phase only; every new form must
-   launch, every route must be "cuda_kernel", and every result must equal
-   the plain version's;
+   are counted from zero over this phase only; every class must launch
+   the short form and nothing the block kernel's or a banded form, every
+   route must be "cuda_kernel", and every result must equal the plain
+   version's;
 12. golden: 16 sampled pairs of each phase-11 case against golden's
    stats, tables, rows and columns;
 13. timings: the stats kernel and its plain version at the headline (and
    the score kernel beside it, and the stats kernel on 2,048 of its
-   pairs), each plane form and its plain version at the 512-pair batch,
-   ``use_stats()`` ``align_batch`` of the 8,192 pairs with its stage
-   clocks, SG stats on cfg4b's pairs, and the peak device memory of the
-   table phase;
+   pairs), each plane class (K1d) on the short form, on the block
+   kernel's one-shot form and plain at the 512-pair batch beside its
+   bound, ``use_stats()`` ``align_batch`` of the 8,192 pairs with its
+   stage clocks, ``use_last_rowcol()`` with and without stats on them,
+   SG stats on cfg4b's pairs, and the peak device memory of the table
+   phase;
 14. banded kernel vs plain: every class of the banded mode (K1e; the
    score form sweeps the band alone, the others every cell, masked)
    against its plain version (the wavefront with ``banded=True``), the
@@ -106,8 +114,7 @@ those forms where they say "trace kernel" or "stats kernel":
    pairs of 4,096 bp (SW 5/1; cfg6 at a quarter of its length), whose
    first 16 pairs must equal plain; the bins of long pairs take the
    segment kernel; then cfg5 end to end (binned, with stage clocks and
-   GCUPS; unbinned; with more bins) and the 4,096 bp batch's time on the
-   one-shot kernel;
+   GCUPS; unbinned; with more bins);
 17. SSW, counted from zero: ``ssw_batch`` of 1,024 of the BLOSUM62 pairs
    at 11/1, one pass and ``windowed=True``, and a profile at score_size 0
    and 2, on "cuda_kernel" and equal to the same calls on the CPU, 16
@@ -126,11 +133,14 @@ those forms where they say "trace kernel" or "stats kernel":
    ``align_batch`` with the score class, ``use_stats()`` and
    ``use_trace()`` (a 2 GiB plane, streamed out in segments): every
    route "cuda_segments", the segment kernel launched, every output
-   equal to the one-shot kernel's on the same pairs, and the short
-   pairs equal to golden (score, end cell, stats, flags, CIGAR);
+   equal to the block kernel's one-shot form on the same pairs (one
+   launch of the same block: a check of the chain, whose plain version
+   phase 20 holds at this shape), and the short pairs equal to golden
+   (score, end cell, stats, flags, CIGAR);
 20. timings of the segment kernel, beside the card's name and power
-   limit: cfg6 end to end and as a chain of launches, 128 x 1,024 /
-   4,096 bp through the one-shot and the segment kernel, the stats and
+   limit: cfg6 end to end and as a chain of launches, 128 x 1,024 bp
+   through the block kernel's one-shot form and the segment kernel, 128
+   x 4,096 bp through the segment kernel, the stats and
    trace classes on 128 x 4,096 bp with their plain versions (whose
    outputs the segment kernel's must equal at this shape too), the trace
    class end to end with its stage clocks against its kernels alone
@@ -166,17 +176,16 @@ those forms where they say "trace kernel" or "stats kernel":
    (whose outputs it must equal there too), the stats and trace classes
    at 4,096 bp, and the peak device memory;
 25. chunked sweep vs plain: ``score_chunked`` (kernel K1f, the block
-   kernel over all of a pair's columns) for all seven classes x NW, the
-   nine SG free-end sets and SW x 11/1, 2/2 and 1/3, on 64 pairs of 0-600
-   by 0-200 letters at Qp = 608 (one to three groups of 256 rows, empty
-   sides, ragged stripes), 1, 3 and 8 warps and the launcher's pick:
-   trace and stats (which ``score_align`` sends to this very sweep past
-   256 rows) against ``score_align_plain`` at every penalty pair, the
-   other classes against ``score_align`` (one thread per pair) and
-   against ``score_align_plain`` at one penalty pair each, in turn; then
-   every class on 16 pairs at 3,072 x 96 against the plain version (and,
-   but for trace and stats, the one-thread kernel): exact equality of
-   every scalar, plane cell, row and column;
+   kernel over all of a pair's columns, which ``score_align`` launches
+   itself past 256 rows) for all seven classes x NW, the nine SG
+   free-end sets and SW x 11/1, 2/2 and 1/3, on 64 pairs of 0-600 by
+   0-200 letters at Qp = 608 (one to three groups of 256 rows, empty
+   sides, ragged stripes), 1, 3 and 8 warps and the launcher's pick,
+   against the plain version at every penalty pair (the seven classes'
+   plain outputs from its stats_table and trace calls on each input,
+   held to each class's own plain call at the first); then every class
+   on 16 pairs at 3,072 x 96 against the plain version: exact equality
+   of every scalar, plane cell, row and column;
 26. the long one-shot path through the public API, counted from zero, on
    the long mixed batch (120 DNA pairs of 1,024-4,096 bp and 8 of 50-200
    bp, Qp = Rp = 4,096): ``align_cigars`` at SW 5/1 and SG 11/1,
@@ -187,40 +196,44 @@ those forms where they say "trace kernel" or "stats kernel":
    recorder of ``dispatch.score_align``'s shapes checks), the chunked
    sweep must launch;
    CIGARs and scalars must equal ``use_trace()`` + ``cigars()`` on the
-   segment route, SSW ``align_cigars``, planes, rows and columns the
-   one-thread-per-pair kernel's (4,096 bp; the stats classes at 2,048),
-   the rowcol form on 4 of the pairs at Qp = Rp = 4,096 ``score_align_plain``,
-   and the short pairs golden;
+   segment route, SSW ``align_cigars``, the planes, rows and columns of
+   4 of the pairs ``score_align_plain``'s at Qp = Rp = 4,096 and (the
+   stats classes) 2,048, and the short pairs golden;
 27. timings of the chunked sweep, beside the card's name and power limit:
-   each class (but trace and stats, which have no unbanded one-thread
-   form) against the one-thread-per-pair kernel at 128 x 4,096 (the
-   tables 16 x 4,096), 128 x 1,024 and 128 x 3,072 x 96, and below the route's
-   thresholds at 128 x 512 x 512 and 128 x 2,048 x 96, with the peak
-   device memory of one call; the score class on the headline batch; the
-   trace class on the long mixed batch beside its plain version;
+   each class at 128 x 4,096 (the tables 16 x 4,096), 128 x 1,024 and
+   128 x 3,072 x 96, and below the route's thresholds at 128 x 512 x 512
+   and 128 x 2,048 x 96, with the peak device memory of one call; the
+   score class on the headline batch beside the short form; the trace
+   class on the long mixed batch beside its plain version;
    ``align_cigars`` of that batch end to end with its stage clocks and
    peak memory; the forms' registers;
-28. the short form (K1b, K1c) vs plain: the trace and stats classes of
-   ``score_align`` on phase 2's small batches and the empty-side pairs,
-   on 256 pairs at Qp x Rp = 24 x 24 (stats payloads [m | s | l] in one
-   word), 16 x 1,100 ([m | s] and l), 128 x 96 (4 rows a lane), 129 x 96
-   (5), 192 x 64 (6), 193 x 64 and 256 x 64 (8) and 300 x 64 (past 256
-   rows: the block kernel's one-shot form), on align_cigars' 512-pair
-   chunk of cfg4b, ssw_batch's 1,024 SW pairs and 1,024 pairs of the
-   stats headline; the trace planes walked by the walk
-   kernel and its plain version; the form the rule picks
-   (``scan_kernel.short_plan``) must be the one the counters show ran,
-   and everything equal to the plain version.  Then, counted from zero
-   each: ``align_cigars`` of cfg4b, ``ssw_batch`` of 1,024 BLOSUM62 pairs
-   and ``use_stats()`` ``align_batch`` of phase 3's 8,192 pairs must
-   launch the short form, not the block form, and no banded trace or
-   stats form (the only one-thread-per-pair ones left), by the launch
-   counters;
+28. the short form (K1a-K1d) vs plain: the trace and stats classes of
+   ``score_align`` on phase 2's small batches and the empty-side pairs;
+   every class on 256 pairs at Qp x Rp = 24 x 24 (stats payloads
+   [m | s | l] in one word), 16 x 1,100 ([m | s] and l), 128 x 96 (4
+   rows a lane), 129 x 96 and 130 x 64 (5), 186 x 64 and 192 x 64 (6),
+   193 x 64, 250 x 64 and 256 x 64 (8) and 300 x 64 (past 256 rows: the
+   block kernel's one-shot form), the plane classes' stores whole
+   vectors, pairs of words or word by word by Qp, trace and stats in
+   three modes and the other classes in one in turn; every class on one
+   pair of 192 x 192 (one warp); align_cigars' 512-pair chunk of cfg4b,
+   ssw_batch's 1,024 SW pairs and 1,024 pairs of the stats headline; the
+   trace planes walked by the walk kernel and its plain version; the
+   form the rule picks (``scan_kernel.short_plan``) must be the one the
+   counters show ran, and everything equal to the plain version.  Then,
+   counted from zero each: ``align_cigars`` of cfg4b, ``ssw_batch`` of
+   1,024 BLOSUM62 pairs, ``align_batch`` of phase 3's 8,192 pairs with
+   the score class, ``use_stats()`` and ``use_last_rowcol()``,
+   ``Aligner.align`` of a 150 bp pair and ``use_table()`` +
+   ``use_stats()`` on 512 of the pairs must launch the short form, not
+   the block form, and no banded form (the only one-thread-per-pair ones
+   left), by the launch counters;
 29. timings of the short form, beside the card's name and power limit:
    K1b's 512-pair chunk of cfg4b, the whole 4,096 pairs and ssw_batch's
-   1,024 pairs, and K1c's stats headline, the short form
-   against the block kernel's one-shot form on the same inputs, a call
-   by CUDA events and the kernel alone by torch.profiler's device time;
+   1,024 pairs, K1c's stats headline, K1a's score headline and K1d's
+   four classes at phase 13's 512-pair batch, the short form against
+   the block kernel's one-shot form on the same inputs, a call by CUDA
+   events and the kernel alone by torch.profiler's device time;
    ``align_cigars`` of cfg4b and ``use_stats()`` ``align_batch`` of the
    8,192 pairs end to end with their stage clocks; the short forms'
    registers and spills (none allowed).
@@ -228,9 +241,10 @@ those forms where they say "trace kernel" or "stats kernel":
 The line before the last is the card's name and power limit, the one
 before it a JSON summary of every kernel (launches on its main path,
 error, times, and the least time the card could take: ``bound``; the
-trace and stats rows are the short form's, with phase 29's times); the
-last line is ``{"ok": true, "device": {...}}``.  Imports no JAX and
-nothing of the JAX package.
+score, trace, stats and plane rows are the short form's, with phase
+29's kernel times beside the block form's); the last line is
+``{"ok": true, "device": {...}}``.  Imports no JAX and nothing of the
+JAX package.
 """
 
 from __future__ import annotations
@@ -279,9 +293,6 @@ PLANE_CLASSES = ("stats", "table", "stats_table", "rowcol", "stats_rowcol")
 STATS_CLASSES = ("stats", "stats_table", "stats_rowcol")
 # the classes with block-kernel forms of 8 rows a lane
 WIDE_CLASSES = ("score", "rowcol")
-# the classes with no unbanded one-thread-per-pair form: score_align
-# launches the short form, or past its rows the block kernel's one-shot form
-SHORT_CLASSES = ("trace", "stats")
 
 # The card's peaks for the bounds (NVIDIA H100 SXM data sheet): 3.35 TB/s
 # of device memory; 67 TFLOP/s of float32 outside the tensor cores, that
@@ -535,9 +546,8 @@ def time_cuda(torch, fn, reps=7, warmup=2) -> float:
 
 def reset_launches(tk, tw) -> None:
     """Set every kernel's launch count to 0, to count one phase's work."""
-    tk.LAUNCHES = tk.BANDED_LAUNCHES = tk.SEGMENT_LAUNCHES = 0
+    tk.BANDED_LAUNCHES = tk.SEGMENT_LAUNCHES = 0
     tk.ROWSEG_LAUNCHES = tk.CHUNKED_LAUNCHES = tw.LAUNCHES = 0
-    tk.CLASS_LAUNCHES = dict.fromkeys(tk.CLASS_LAUNCHES, 0)
     tk.SHORT_LAUNCHES = dict.fromkeys(tk.SHORT_LAUNCHES, 0)
     tk.BANDED_CLASS_LAUNCHES = dict.fromkeys(tk.BANDED_CLASS_LAUNCHES, 0)
 
@@ -708,15 +718,17 @@ def main() -> int:
     res_prof = pa.align_batch(None, refs)
     res_nw = nw.align(q150, r150)
     res_long = lng.align_batch(lq, lr)
-    launches = tk.LAUNCHES
+    launches = tk.SHORT_LAUNCHES["score"]
     routes = dict(dispatch.ROUTE_COUNTS)
-    log(f"[4 main path] launches={launches} (short form "
-        f"{tk.SHORT_LAUNCHES}, walk {tw.LAUNCHES}, segment "
-        f"{tk.SEGMENT_LAUNCHES}) routes={routes}")
-    if launches < 3 or tk.SEGMENT_LAUNCHES < 1:
+    log(f"[4 main path] score launches={launches} (short form "
+        f"{tk.SHORT_LAUNCHES}, chunked {tk.CHUNKED_LAUNCHES}, walk "
+        f"{tw.LAUNCHES}, segment {tk.SEGMENT_LAUNCHES}) routes={routes}")
+    if launches < 3 or tk.SEGMENT_LAUNCHES < 1 or tk.CHUNKED_LAUNCHES:
         raise AssertionError(
-            f"main path launched the score kernel {launches} times and the "
-            f"segment kernel {tk.SEGMENT_LAUNCHES} times, expected 3 and 1")
+            f"main path launched the short form's score class {launches} "
+            f"times, the segment kernel {tk.SEGMENT_LAUNCHES} times and the "
+            f"block kernel's one-shot form {tk.CHUNKED_LAUNCHES} times, "
+            f"expected 3, 1 and 0")
     if routes != {("cuda_kernel", ""): 3, ("cuda_segments", "long pairs"): 1}:
         raise AssertionError(f"main path left the kernel routes: {routes}")
     check_against_plain("SW BLOSUM62 8192 pairs", res_sw,
@@ -736,13 +748,22 @@ def main() -> int:
         "to plain")
 
     # -- 5. timings -----------------------------------------------------------
+    # the short form's score class (K1a) at the headline, the block
+    # kernel's one-shot form beside it on the same inputs
     ms = time_cuda(torch, lambda: tk.score_align(*head_args, **head_kw))
+    block_ms = time_cuda(torch, lambda: tk.score_chunked(*head_args,
+                                                         **head_kw))
     plain_ms = time_cuda(
         torch, lambda: tk.score_align_plain(*head_args, **head_kw), reps=5,
         warmup=1)
-    table_ms = time_cuda(torch, lambda: tk.score_align(
-        batch.ridx, batch.qlen_t, batch.rlen_t, open_=11, ext=1, mode="sw",
-        free=(True,) * 4, width="sat", table=batch.table, qidx=batch.qidx))
+    tab_args = (batch.ridx, batch.qlen_t, batch.rlen_t)
+    tab_kw = dict(open_=11, ext=1, mode="sw", free=(True,) * 4, width="sat",
+                  table=batch.table, qidx=batch.qidx)
+    table_ms = time_cuda(torch, lambda: tk.score_align(*tab_args, **tab_kw))
+    table_block_ms = time_cuda(torch, lambda: tk.score_chunked(*tab_args,
+                                                               **tab_kw))
+    head_bound = sweep_bound("score", head_args, head_kw)
+    tab_bound = sweep_bound("score", tab_args, tab_kw)
     torch.cuda.reset_peak_memory_stats()
     e2e_ms = time_host(lambda: sw.align_batch(qs, rs))
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
@@ -755,11 +776,17 @@ def main() -> int:
         snap = stages.snapshot()
     per_call = {k: v["ms"] / v["calls"] for k, v in snap.items()}
     log(f"[5 timing] card: {card}")
-    log(f"[5 timing] headline kernel median {ms} ms "
+    log(f"[5 timing] headline (8,192 per-pair profiles, 160 x 160): short "
+        f"form (K1a, {tk.short_plan('score', 8192, 8192, 160, 160, 25, True)}"
+        f" rows a lane, pairs a block, layout) median {ms} ms "
         f"({8192 / ms * 1e3} aln/s, {8192 * 150 * 150 / ms / 1e6} GCUPS); "
-        f"plain median {plain_ms} ms [{card}]")
-    log(f"[5 timing] kernel on the SW BLOSUM62 8192-pair batch (table "
-        f"form) median {table_ms} ms [{card}]")
+        f"the block kernel's one-shot form {block_ms} ms; plain median "
+        f"{plain_ms} ms; bound {head_bound['bound_ms']} ms "
+        f"({head_bound['bound_by']}) [{card}]")
+    log(f"[5 timing] the SW BLOSUM62 8192-pair batch (table form, Qp=Rp="
+        f"{batch.qidx.shape[1]}): short form median {table_ms} ms, the block "
+        f"kernel's one-shot form {table_block_ms} ms, bound "
+        f"{tab_bound['bound_ms']} ms ({tab_bound['bound_by']}) [{card}]")
     log(f"[5 timing] align_batch SW BLOSUM62 8192 pairs e2e median "
         f"{e2e_ms} ms ({8192 / e2e_ms * 1e3} aln/s), peak device memory "
         f"{peak_mib} MiB [{card}]")
@@ -791,24 +818,26 @@ def main() -> int:
                            card, pairs, (head_args, head_kw))
     clock("25-27")
     short = short_path(torch, pt, tk, tw, dispatch, stages, rng, blosum, card,
-                       (qs, rs), trace["cfg4b"])
+                       (qs, rs), trace["cfg4b"], planes.pop("tab"),
+                       (head_args, head_kw))
     clock("28-29")
 
     def with_short(cls, row):
-        """A class's row, phases 6-13, with phases 28-29's numbers."""
+        """A class's row, phases 4-13, with phases 28-29's numbers."""
         return {**row, **short[cls], "max_abs_err": max(
             row["max_abs_err"], short[cls]["max_abs_err"])}
 
     print(json.dumps({"kernels": [{
-        "name": "scan_score_align",
+        "name": "scan_score_align (score), one warp a pair",
         "route": "cuda",
-        "source": "parasail_rs_tpu_torch/csrc/scan_score.cu",
+        "source": "parasail_rs_tpu_torch/csrc/scan_short.cu",
         "replaces": "parasail_rs_tpu/ops/scan_kernel.py:1453",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        **sweep_bound("score", head_args, head_kw),
+        **with_short("score", {
+            "launches": launches, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "block_ms": block_ms,
+            "e2e_ms": {"align_batch 8192": e2e_ms,
+                       "Aligner.align 150 bp": nw_ms},
+            **head_bound}),
     }, {
         "name": "scan_score_align (trace), one warp a pair",
         "route": "cuda",
@@ -828,11 +857,11 @@ def main() -> int:
         "replaces": "parasail_rs_tpu/ops/scan_kernel.py:1453",
         **with_short("stats", planes["stats"]),
     }] + [{
-        "name": f"scan_score_align ({cls})",
+        "name": f"scan_score_align ({cls}), one warp a pair",
         "route": "cuda",
-        "source": "parasail_rs_tpu_torch/csrc/scan_score.cu",
+        "source": "parasail_rs_tpu_torch/csrc/scan_short.cu",
         "replaces": "parasail_rs_tpu/ops/scan_kernel.py:1453",
-        **planes[cls],
+        **with_short(cls, planes[cls]),
     } for cls in PLANE_CLASSES[1:]] + [{
         "name": "scan_score_align (banded)" if cls == "score" else
                 f"scan_score_align (banded, {cls})",
@@ -909,7 +938,8 @@ def trace_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum,
     trace_launches, walk_launches = tk.SHORT_LAUNCHES["trace"], tw.LAUNCHES
     routes = dict(dispatch.ROUTE_COUNTS)
     log(f"[7 trace path] trace launches={trace_launches} walk "
-        f"launches={walk_launches} (score {tk.LAUNCHES}) routes={routes}")
+        f"launches={walk_launches} (score {tk.SHORT_LAUNCHES['score']}) "
+        f"routes={routes}")
     if trace_launches < 1 or walk_launches < 1:
         raise AssertionError("the trace path did not launch the short "
                              "form's trace class and the walk kernel")
@@ -1153,14 +1183,18 @@ def stats_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum,
     dispatch.ROUTE_COUNTS.clear()
     reset_launches(tk, tw)
     results = [al.align_batch(q, r) for _, al, q, r in cases]
-    # the stats class is the short form's, the plane classes one thread's
-    launches = {"stats": tk.SHORT_LAUNCHES["stats"], **tk.CLASS_LAUNCHES}
+    # every class is the short form's
+    launches = {cls: tk.SHORT_LAUNCHES[cls] for cls in PLANE_CLASSES}
     routes = dict(dispatch.ROUTE_COUNTS)
-    log(f"[11 stats/planes path] launches={launches} (score {tk.LAUNCHES}, "
-        f"short trace {tk.SHORT_LAUNCHES['trace']}, walk {tw.LAUNCHES}) "
-        f"routes={routes}")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a new form did not launch: {launches}")
+    log(f"[11 stats/planes path] short form launches={launches} (score "
+        f"{tk.SHORT_LAUNCHES['score']}, trace {tk.SHORT_LAUNCHES['trace']}, "
+        f"chunked {tk.CHUNKED_LAUNCHES}, banded "
+        f"{banded_launches(tk)}, walk {tw.LAUNCHES}) routes={routes}")
+    if min(launches.values()) < 1 or tk.CHUNKED_LAUNCHES or \
+            sum(banded_launches(tk).values()):
+        raise AssertionError(f"a class did not launch the short form: "
+                             f"{launches}, chunked {tk.CHUNKED_LAUNCHES}, "
+                             f"banded {banded_launches(tk)}")
     bad = [n for n, al, _, _ in cases
            if set(al.route_counter) != {("cuda_kernel", "")}]
     if set(routes) != {("cuda_kernel", "")} or bad:
@@ -1197,12 +1231,15 @@ def stats_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum,
                  if k not in ("qidx", "outputs")}))
     times = {"stats": (st_ms, st_plain)}
     torch.cuda.reset_peak_memory_stats()
+    block = {}
     for cls in PLANE_CLASSES[1:]:
         kw = {**tab_kw, "outputs": cls}
         times[cls] = (
             time_cuda(torch, lambda: tk.score_align(*tab_args, **kw)),
             time_cuda(torch, lambda: tk.score_align_plain(*tab_args, **kw),
                       reps=3, warmup=1))
+        block[cls] = time_cuda(torch, lambda: tk.score_chunked(*tab_args,
+                                                               **kw))
     tab_peak = torch.cuda.max_memory_allocated() / 2 ** 20
     stats_al = cases[0][1]
     e2e_ms = time_host(lambda: stats_al.align_batch(qs, rs))
@@ -1217,28 +1254,44 @@ def stats_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum,
     tab_e2e = time_host(lambda: cases[6][1].align_batch(qs[:512], rs[:512]),
                         reps=3)
     api_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    rc_e2e = time_host(lambda: cases[3][1].align_batch(qs, rs))
+    src_e2e = time_host(lambda: cases[4][1].align_batch(qs, rs))
     log(f"[13 timing] card: {card}")
     log(f"[13 timing] headline B=8192 Qp=Rp=160 SW 11/1 sat: stats kernel "
         f"median {st_ms} ms ({8192 / st_ms * 1e3} aln/s), plain {st_plain} "
         f"ms; score kernel on the same inputs {sc_ms} ms; on 2,048 of the "
         f"pairs stats {st_2048} ms, score {sc_2048} ms [{card}]")
     for cls in PLANE_CLASSES[1:]:
-        log(f"[13 timing] {cls} kernel on the 512-pair batch median "
-            f"{times[cls][0]} ms, plain {times[cls][1]} ms [{card}]")
+        b = sweep_bound(cls, tab_args, tab_kw)
+        log(f"[13 timing] {cls} on the 512-pair batch (Qp={tb.qidx.shape[1]}, "
+            f"Rp={tb.ridx.shape[1]}): short form (K1d, "
+            f"{tk.short_plan(cls, 512, 512, tb.qidx.shape[1], tb.ridx.shape[1], tb.table.shape[0])}"
+            f" rows a lane, pairs a block, layout) median {times[cls][0]} ms, "
+            f"the block kernel's one-shot form {block[cls]} ms, plain "
+            f"{times[cls][1]} ms, bound {b['bound_ms']} ms ({b['bound_by']}) "
+            f"[{card}]")
     log(f"[13 timing] peak device memory of the plane timings {tab_peak} "
         f"MiB; use_table + stats align_batch of 512 pairs e2e median "
         f"{tab_e2e} ms, peak {api_peak} MiB [{card}]")
     log(f"[13 timing] use_stats align_batch SW BLOSUM62 {n} pairs e2e "
         f"median {e2e_ms} ms ({n / e2e_ms * 1e3} aln/s); stages, ms per "
         f"call: {json.dumps(per_call)} [{card}]")
+    log(f"[13 timing] use_last_rowcol align_batch SW BLOSUM62 {n} pairs e2e "
+        f"median {rc_e2e} ms, with use_stats {src_e2e} ms [{card}]")
     log(f"[13 timing] SG use_stats cfg4b {len(q4b)} pairs e2e median {sg_ms} "
         f"ms ({len(q4b) / sg_ms * 1e3} aln/s) at 11/1, {sg22_ms} ms at 2/2 "
         f"[{card}]")
-    return {cls: {"launches": launches[cls], "max_abs_err": errs[cls],
-                  "ms": times[cls][0], "plain_ms": times[cls][1],
-                  **(sweep_bound(cls, head_args, head_kw) if cls == "stats"
-                     else sweep_bound(cls, tab_args, tab_kw))}
-            for cls in PLANE_CLASSES}
+    out = {cls: {"launches": launches[cls], "max_abs_err": errs[cls],
+                 "ms": times[cls][0], "plain_ms": times[cls][1],
+                 **(sweep_bound(cls, head_args, head_kw) if cls == "stats"
+                    else sweep_bound(cls, tab_args, tab_kw))}
+           for cls in PLANE_CLASSES}
+    for cls in PLANE_CLASSES[1:]:
+        out[cls].update(block_ms=block[cls],
+                        shape=f"512 BLOSUM62 pairs, Qp={tb.qidx.shape[1]}, "
+                              f"Rp={tb.ridx.shape[1]}, SW 11/1")
+    out["tab"] = (tab_args, tab_kw)       # for phase 29's kernel times
+    return out
 
 
 F4 = (False,) * 4
@@ -1383,7 +1436,8 @@ def banded_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum,
     res = bal.banded_nw_batch(qs, rs)
     launches = tk.BANDED_LAUNCHES
     routes = dict(dispatch.ROUTE_COUNTS)
-    log(f"[15 banded path] banded launches={launches} (score {tk.LAUNCHES}) "
+    log(f"[15 banded path] banded launches={launches} (short score "
+        f"{tk.SHORT_LAUNCHES['score']}) "
         f"routes={routes}")
     if launches < 1:
         raise AssertionError("banded_nw_batch did not launch the banded "
@@ -1607,7 +1661,7 @@ def ssw_view(results) -> list:
 def many_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum, card,
               sw_pairs) -> dict:
     """Phases 16-17: align_many and SSW, with their timings; returns the
-    128 x 4,096 bp batch and the one-shot kernel's time on it."""
+    128 x 4,096 bp batch and its pairs."""
     from parasail_rs_tpu_torch.batch import merge_bins, plan_bins
 
     # -- 16. align_many ---------------------------------------------------------
@@ -1629,12 +1683,15 @@ def many_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum, card,
     dispatch.ROUTE_COUNTS.clear()
     reset_launches(tk, tw)
     res5 = mx.align_many(mq, mr)
+    # cfg5's bins: the short form up to 256 rows, the block kernel's
+    # one-shot form past them (score_align's two one-shot forms)
+    one_shot5 = tk.SHORT_LAUNCHES["score"] + tk.CHUNKED_LAUNCHES
     res_st = st_al.align_many(sq, sr)
     res_tr = tr_al.align_many(tq, tr)
     t0 = time.perf_counter()
     res_long = lg.align_many(lq, lr)
     long_s = time.perf_counter() - t0
-    launches = {"score": tk.LAUNCHES, "stats": tk.SHORT_LAUNCHES["stats"],
+    launches = {"score": one_shot5, "stats": tk.SHORT_LAUNCHES["stats"],
                 "trace": tk.SHORT_LAUNCHES["trace"],
                 "segment": tk.SEGMENT_LAUNCHES}
     routes = dict(dispatch.ROUTE_COUNTS)
@@ -1644,7 +1701,7 @@ def many_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum, card,
                            max_launches=8, max_cells=1 << 33))
     log(f"[16 align_many] launches={launches} routes={routes}; cfg5 in "
         f"{nbins} bins")
-    # every bin is one launch of the one-shot kernel or, for long pairs, a
+    # every bin is one launch of a one-shot form or, for long pairs, a
     # chain of the segment kernel's
     if min(launches.values()) < 1 or \
             launches["score"] + launches["segment"] < nbins + 1:
@@ -1688,7 +1745,8 @@ def many_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum, card,
     dispatch.ROUTE_COUNTS.clear()
     reset_launches(tk, tw)
     got = ssw_runs(card_al, card_profs)
-    launches = {"score": tk.LAUNCHES, "trace": tk.SHORT_LAUNCHES["trace"],
+    launches = {"score": tk.SHORT_LAUNCHES["score"],
+                "trace": tk.SHORT_LAUNCHES["trace"],
                 "walk": tw.LAUNCHES}
     routes = dict(dispatch.ROUTE_COUNTS)
     log(f"[17 ssw] launches={launches} routes={routes}")
@@ -1738,10 +1796,6 @@ def many_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum, card,
                                     lane_quantum=128),
                           max_launches=8, max_cells=1 << 27))
     lb, _, _ = lg._pack(lq, lr)
-    long_ms = time_cuda(torch, lambda: tk.score_align(
-        lb.ridx, lb.qlen_t, lb.rlen_t, open_=5, ext=1, mode="sw",
-        free=(True,) * 4, width="sat", table=lb.table, qidx=lb.qidx),
-        reps=1, warmup=0)
     one_ms = time_host(lambda: card_al.ssw_batch(qs, rs), reps=3)
     win_ms = time_host(lambda: card_al.ssw_batch(qs, rs, windowed=True),
                        reps=3)
@@ -1751,13 +1805,11 @@ def many_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum, card,
         f"per call: {json.dumps(per_call)}; align_batch of the same pairs "
         f"(one launch, Qp=Rp=2048) {b5_ms} ms; align_many max_cells=2^27 "
         f"({nb27} bins) {c27_ms} ms [{card}]")
-    log(f"[16 timing] 128 x 4,096 bp SW 5/1: one-shot score kernel, one "
-        f"call, {long_ms} ms ({128 * 4096 * 4096 / long_ms / 1e6} GCUPS, "
-        f"{long_ms * 1e6 / (4096 * 4096)} ns per cell per thread); "
-        f"align_many (segment route) once {long_s * 1e3} ms [{card}]")
+    log(f"[16 timing] 128 x 4,096 bp SW 5/1: align_many (segment route) "
+        f"once {long_s * 1e3} ms [{card}]")
     log(f"[17 timing] ssw_batch {len(qs)} BLOSUM62 pairs e2e median: one "
         f"pass {one_ms} ms, windowed {win_ms} ms [{card}]")
-    return {"batch": lb, "k1_ms": long_ms, "pairs": (lq, lr)}
+    return {"batch": lb, "pairs": (lq, lr)}
 
 
 def chain_segments(torch, fn, args, seg, kw, bufs=None):
@@ -1878,10 +1930,10 @@ def segment_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
         res[cls] = al[cls].align_batch(mq, mr)
         launches[cls] = launches.get(cls, 0) + tk.SEGMENT_LAUNCHES - before
     routes = dict(dispatch.ROUTE_COUNTS)
-    log(f"[19 long pairs] segment launches={launches} (one-shot score "
-        f"{tk.LAUNCHES}, short form {tk.SHORT_LAUNCHES}, chunked "
-        f"{tk.CHUNKED_LAUNCHES}) routes={routes}")
-    if min(launches.values()) < 1 or tk.LAUNCHES or \
+    log(f"[19 long pairs] segment launches={launches} (short form "
+        f"{tk.SHORT_LAUNCHES}, chunked {tk.CHUNKED_LAUNCHES}) "
+        f"routes={routes}")
+    if min(launches.values()) < 1 or \
             sum(tk.SHORT_LAUNCHES.values()) or tk.CHUNKED_LAUNCHES:
         raise AssertionError(f"the long-pair path did not run on the "
                              f"segment kernel alone: {launches}")
@@ -2020,11 +2072,10 @@ def segment_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
         if errs[cls] != 0:
             raise AssertionError(f"segment kernel != plain on 128 x 4,096 bp "
                                  f"({cls}): max |diff| {errs[cls]}")
-        k1_4096 = (f"{long_k1['k1_ms']} ms (one call, phase 16)"
-                   if cls == "score" else "not measured")
-        log(f"[20 timing] {cls} class, 128 pairs SW 5/1: 1,024 bp one-shot "
-            f"kernel {k1_1024} ms, segment kernel {k2_1024} ms; 4,096 bp "
-            f"one-shot kernel {k1_4096}, segment kernel {k2_4096} ms "
+        log(f"[20 timing] {cls} class, 128 pairs SW 5/1: 1,024 bp the block "
+            f"kernel's one-shot form {k1_1024} ms, segment kernel {k2_1024} "
+            f"ms; 4,096 bp segment kernel {k2_4096} ms (the one-shot form: "
+            f"phase 27) "
             f"({128 * LONG_LEN ** 2 / k2_4096 / 1e6} GCUPS; "
             f"{plan_note(tk, cls, 128, lb.qp, seg_cols[cls], lb.table.shape[0])}"
             f"); with one warp a block {k2_one} ms; its plain version "
@@ -2268,16 +2319,20 @@ def dist_path(torch, pt, tk, dispatch, golden, rng, card, protein, sw,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base_mib = torch.cuda.memory_allocated() / 2 ** 20
-    tk.ROWSEG_LAUNCHES = tk.SEGMENT_LAUNCHES = tk.LAUNCHES = 0
+    tk.ROWSEG_LAUNCHES = tk.SEGMENT_LAUNCHES = tk.CHUNKED_LAUNCHES = 0
+    tk.SHORT_LAUNCHES = dict.fromkeys(tk.SHORT_LAUNCHES, 0)
     out6 = seqpar(b6, "score", CFG6_LEN // 8)
     torch.cuda.synchronize()
     launches["score"] = tk.ROWSEG_LAUNCHES
     peak6 = torch.cuda.max_memory_allocated() / 2 ** 20 - base_mib
-    if launches["score"] != 32 or tk.SEGMENT_LAUNCHES or tk.LAUNCHES:
+    if launches["score"] != 32 or tk.SEGMENT_LAUNCHES or \
+            tk.CHUNKED_LAUNCHES or sum(tk.SHORT_LAUNCHES.values()):
         raise AssertionError(
             f"cfg6 through seqpar_align_scan launched the tile kernel "
             f"{launches['score']} times (expected 4 shards x 8 row chunks = "
-            f"32), the segment kernel {tk.SEGMENT_LAUNCHES} times")
+            f"32), the segment kernel {tk.SEGMENT_LAUNCHES} times, the "
+            f"one-shot forms {tk.CHUNKED_LAUNCHES} and "
+            f"{tk.SHORT_LAUNCHES} times")
     res6 = al["score"].align_batch(q6, r6)              # the segment kernel
     got6 = {k: v.cpu().numpy() for k, v in out6.items()}
     for b, a in enumerate(res6):
@@ -2386,11 +2441,10 @@ def dist_path(torch, pt, tk, dispatch, golden, rng, card, protein, sw,
             want = aligner.align_batch(qs, rs)
             kw = dict(open_=11, ext=1, mode="sw", free=(True,) * 4,
                       outputs=cls, width="sat")
-            tk.LAUNCHES = 0
             tk.SHORT_LAUNCHES = dict.fromkeys(tk.SHORT_LAUNCHES, 0)
             res = dist.sharded_align(gmesh, *arrays, **kw)
             whole = multihost.align_global(gmesh, *arrays, **kw)
-            ran = tk.LAUNCHES + tk.SHORT_LAUNCHES["stats"]
+            ran = tk.SHORT_LAUNCHES[cls]
             if res.route != "cuda_kernel" or ran != 2:
                 raise AssertionError(f"sharded_align {cls}: route "
                                      f"{res.route}, {ran} launches")
@@ -2508,7 +2562,42 @@ def check_planes(name, alignments, want, keys) -> None:
                 v = v[:ql]
             if not np.array_equal(np.asarray(a.fields[k]), v):
                 raise AssertionError(f"{name}: pair {b} {k} differs from the "
-                                     "one-thread-per-pair kernel")
+                                     "plain version")
+
+
+def plain_every_class(torch, tk, args, kw, trace=True) -> dict:
+    """The plain version's outputs of every class on one input, class ->
+    dict, from two plain calls: stats_table (the wavefront: the scalars,
+    the payloads and every plane; the rowcol classes' rows and columns
+    are its planes' last row and last column, zero beyond the lengths)
+    and, with ``trace``, trace (the column sweep)."""
+    _, qlen, rlen = args
+    st = tk.score_align_plain(*args, **dict(kw, outputs="stats_table"))
+    B, Qp, Rp = st["score_table"].shape
+    dev = qlen.device
+    b = torch.arange(B, device=dev)
+    qi, ri = (qlen.long() - 1).clamp(min=0), (rlen.long() - 1).clamp(min=0)
+    on_row = (torch.arange(Rp, device=dev)[None] < rlen[:, None]) & \
+        (qlen > 0)[:, None]
+    on_col = (torch.arange(Qp, device=dev)[None] < qlen[:, None]) & \
+        (rlen > 0)[:, None]
+    names = ("score", "matches", "similar", "length")
+    rows = {n: torch.where(on_row, st[f"{n}_table"][b, qi], 0) for n in names}
+    cols = {n: torch.where(on_col, st[f"{n}_table"][b, :, ri], 0)
+            for n in names}
+    stats = {k: v for k, v in st.items() if not k.endswith("_table")}
+    base = {k: v for k, v in stats.items()
+            if k not in ("matches", "similar", "length")}
+    out = {"score": base, "stats": stats, "stats_table": st,
+           "table": {**base, "score_table": st["score_table"]},
+           "rowcol": {**base, "score_row": rows["score"],
+                      "score_col": cols["score"]},
+           "stats_rowcol": {**stats, **{f"{n}_row": rows[n] for n in names},
+                            **{f"{n}_col": cols[n] for n in names}}}
+    if trace:
+        out["trace"] = tk.score_align_plain(*args, **dict(kw,
+                                                          outputs="trace"))
+    return out
 
 
 def chunked_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
@@ -2525,7 +2614,7 @@ def chunked_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
 
-    # -- 25. chunked sweep vs plain and the one-thread-per-pair kernel ----------
+    # -- 25. chunked sweep vs plain ---------------------------------------------
     t25 = time.perf_counter()
     B, Qp, Rp, A = 64, 608, 200, 5
     modes = ([("nw", F4)] + [("sg", f) for f in SG_FREE] +
@@ -2533,48 +2622,43 @@ def chunked_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
     n = 0
     for mi, (mode, free) in enumerate(modes):
         for pi, (open_, ext) in enumerate(((11, 1), (2, 2), (1, 3))):
+            ql = rng.integers(0, 601, size=B)
+            rl = rng.integers(0, Rp + 1, size=B)
+            # empty sides; the last row in the first, second and third
+            # group of 256 rows, on a stripe's edge and inside one
+            ql[:8] = (0, 5, 600, 255, 256, 257, 513, 300)
+            rl[:8] = (7, 0, Rp, 64, 65, Rp, 1, 129)
+            kw = dict(open_=open_, ext=ext, mode=mode, free=free,
+                      width="sat", table=t(rng.integers(-4, 6, size=(A, A))),
+                      qidx=t(rng.integers(0, A, size=(B, Qp))))
+            args = (t(rng.integers(0, A, size=(B, Rp))), t(ql), t(rl))
+            # every class against the plain version (score_align at Qp =
+            # 608 is this very sweep); the plain outputs of the seven
+            # classes come from two plain calls, and at the first input
+            # each class's own plain call holds that derivation
+            want = plain_every_class(torch, tk, args, kw)
             for ci, cls in enumerate(classes):
                 warps = (1, 3, 8, 0)[n % 4]         # 0: the launcher's pick
                 form = BLOCK_FORMS[n % len(BLOCK_FORMS)]
                 n += 1
-                ql = rng.integers(0, 601, size=B)
-                rl = rng.integers(0, Rp + 1, size=B)
-                # empty sides; the last row in the first, second and third
-                # group of 256 rows, on a stripe's edge and inside one
-                ql[:8] = (0, 5, 600, 255, 256, 257, 513, 300)
-                rl[:8] = (7, 0, Rp, 64, 65, Rp, 1, 129)
-                kw = dict(open_=open_, ext=ext, mode=mode, free=free,
-                          outputs=cls, width="sat",
-                          table=t(rng.integers(-4, 6, size=(A, A))),
-                          qidx=t(rng.integers(0, A, size=(B, Qp))))
-                args = (t(rng.integers(0, A, size=(B, Rp))), t(ql), t(rl))
                 fname = force_form(tk, cls, warps, form)
-                got = tk.score_chunked(*args, **kw)
+                got = tk.score_chunked(*args, **kw, outputs=cls)
                 unforce(tk)
-                # trace and stats: score_align launches this sweep itself
-                # at Qp = 608, so the plain version at every penalty pair;
-                # the other classes: the one-thread-per-pair kernel, and
-                # the plain version (the wavefront for five classes) at
-                # one penalty pair each in turn
-                e = 0
-                if cls not in SHORT_CLASSES:
-                    e = max_abs_diff(got, tk.score_align(*args, **kw))
-                if cls in SHORT_CLASSES or (mi + ci) % 3 == pi:
-                    e = max(e, max_abs_diff(
-                        got, tk.score_align_plain(*args, **kw)))
+                e = max_abs_diff(got, want[cls])
+                if mi == pi == 0:
+                    e = max(e, max_abs_diff(want[cls], tk.score_align_plain(
+                        *args, **kw, outputs=cls)))
                 torch.cuda.synchronize()
                 if e != 0:
                     raise AssertionError(
-                        f"chunked sweep != score_align or plain on {cls} "
+                        f"chunked sweep != plain on {cls} "
                         f"{mode}{tuple(int(x) for x in free)} {open_}/{ext} "
                         f"{fname}: max |diff| {e}")
         log(f"[25 chunked vs plain] {mode}{tuple(int(x) for x in free)}: the "
             f"seven classes at 11/1, 2/2, 1/3, {B} pairs of 0-600 x 0-{Rp} "
             f"(Qp={Qp}: one to five groups of rows), 1-8 warps a block, "
-            f"2-8 rows a lane, 1-8 blocks a pair: trace and stats equal to "
-            f"plain at every penalty pair; the other classes equal to the "
-            f"one-thread-per-pair kernel, and to plain at one penalty pair "
-            f"in turn")
+            f"2-8 rows a lane, 1-8 blocks a pair: equal to plain at every "
+            f"penalty pair")
     tall_q = [int(x) for x in rng.integers(2049, 3073, size=12)] + \
         [0, 1, 33, 100]
     tall_q[0] = 3072
@@ -2585,22 +2669,19 @@ def chunked_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
                                                              tall_r))
     targs, tsubs = pack_table(torch, dev, m, *tall, 3072)
     targs = (targs[0][:, :96].contiguous(), *targs[1:])
+    tkw = dict(open_=5, ext=1, mode="sw", free=(True,) * 4, width="sat",
+               **tsubs)
+    want = plain_every_class(torch, tk, targs, tkw)
     for cls in classes:
-        kw = dict(open_=5, ext=1, mode="sw", free=(True,) * 4, width="sat",
-                  outputs=cls, **tsubs)
-        got = tk.score_chunked(*targs, **kw)
-        e = max_abs_diff(got, tk.score_align_plain(*targs, **kw))
-        if cls not in SHORT_CLASSES:
-            e = max(e, max_abs_diff(got, tk.score_align(*targs, **kw)))
+        e = max_abs_diff(tk.score_chunked(*targs, **tkw, outputs=cls),
+                         want[cls])
         torch.cuda.synchronize()
         if e != 0:
-            raise AssertionError(f"chunked sweep != one-shot kernel or plain "
-                                 f"on 16 pairs of 3,072 x 96 ({cls}): max "
-                                 f"|diff| {e}")
+            raise AssertionError(f"chunked sweep != plain on 16 pairs of "
+                                 f"3,072 x 96 ({cls}): max |diff| {e}")
     log("[25 chunked vs plain] 16 pairs padded to 3,072 x 96 (queries of "
         "2,049-3,072 letters and short ones, an empty reference), SW 5/1, "
-        "every class: equal to plain, and but for trace and stats to the "
-        "one-thread-per-pair kernel")
+        "every class: equal to plain")
 
     log(f"[25 chunked vs plain] {time.perf_counter() - t25:.1f} s")
 
@@ -2694,41 +2775,41 @@ def chunked_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
                     (int(n), op) for n, op in re.findall(r"(\d+)(\D)", c))):
             raise AssertionError(f"ssw_batch pair {b} differs from "
                                  "align_cigars")
-    # planes, rows and columns against the one-thread-per-pair kernel: the
-    # score-valued classes at 4,096 bp, the stats classes at 2,048 bp
-    k1_ms = {}
-    for cls, qs, rs in (("rowcol", mq, mr), ("table", tq, tr),
-                        ("stats_rowcol_2048", q2, r2),
-                        ("stats_table_2048", [q[:LONG_LEN // 2] for q in tq],
-                         [r[:LONG_LEN // 2] for r in tr])):
-        kind = cls.replace("_2048", "")
-        batch, _, _ = al[kind]._pack(qs, rs)
-        kept = {}
-        ms = time_cuda(torch, lambda: kept.update(got=tk.score_align(
-            batch.ridx, batch.qlen_t, batch.rlen_t, open_=5, ext=1,
-            mode="sw", free=(True,) * 4, width="sat", outputs=kind,
-            table=batch.table, qidx=batch.qidx)), reps=1, warmup=0)
-        if not cls.endswith("_2048"):
-            k1_ms[kind] = ms
-        want = kept.pop("got")
-        check_planes(f"{cls} through align_batch", res[cls], want,
-                     [k for k in want if k not in ("saturated", "promoted")])
-        del want, kept
-    # a plane form at the path's shape against the plain version: rowcol on
-    # 4 of the pairs (pair 0 is 4,096 x 4,096)
-    batch, _, _ = al["rowcol"]._pack(mq[:4], mr[:4])
-    kw = dict(open_=5, ext=1, mode="sw", free=(True,) * 4, width="sat",
-              outputs="rowcol", table=batch.table, qidx=batch.qidx)
-    args = (batch.ridx, batch.qlen_t, batch.rlen_t)
-    if (args[0].shape[1], batch.qidx.shape[1]) != (LONG_LEN, LONG_LEN):
-        raise AssertionError(f"rowcol vs plain: padded to "
-                             f"{tuple(batch.qidx.shape)} x {args[0].shape}")
-    e = max_abs_diff(tk.score_chunked(*args, **kw),
-                     tk.score_align_plain(*args, **kw))
-    if e != 0:
-        raise AssertionError(f"chunked sweep != plain on rowcol, 4 pairs at "
-                             f"{LONG_LEN} x {LONG_LEN}: max |diff| {e}")
-    err = max(err, e)
+    # planes, rows and columns against the plain version on 4 of the pairs
+    # (score_align is this very sweep at these Qp): the four classes at
+    # 4,096 bp (pair 0 is 4,096 x 4,096) and the stats classes at 2,048,
+    # each length from one plain stats_table call (plain_every_class)
+    kw = dict(open_=5, ext=1, mode="sw", free=(True,) * 4, width="sat")
+    for bp, (qs4, rs4) in ((LONG_LEN, (mq[:4], mr[:4])),
+                           (LONG_LEN // 2, (q2[:4], r2[:4]))):
+        batch, _, _ = al["rowcol"]._pack(qs4, rs4)
+        args = (batch.ridx, batch.qlen_t, batch.rlen_t)
+        if (args[0].shape[1], batch.qidx.shape[1]) != (bp, bp):
+            raise AssertionError(f"plain on 4 pairs: padded to "
+                                 f"{tuple(batch.qidx.shape)} x "
+                                 f"{tuple(args[0].shape)}")
+        want = plain_every_class(torch, tk, args, dict(
+            kw, table=batch.table, qidx=batch.qidx), trace=False)
+        suffix = "" if bp == LONG_LEN else "_2048"
+        for cls in (("rowcol", "table", "stats_rowcol", "stats_table")
+                    if bp == LONG_LEN else ("stats_rowcol", "stats_table")):
+            check_planes(f"{cls} through align_batch at {bp} bp",
+                         res[cls + suffix][:4], want[cls],
+                         [k for k in want[cls]
+                          if k not in ("saturated", "promoted")])
+        if bp == LONG_LEN:
+            # the sweep itself on the padded batch: every cell, row and
+            # column, zeros beyond the pairs' lengths included
+            e = max_abs_diff(tk.score_chunked(*args, **kw, outputs="rowcol",
+                                              table=batch.table,
+                                              qidx=batch.qidx),
+                             want["rowcol"])
+            if e != 0:
+                raise AssertionError(f"chunked sweep != plain on rowcol, 4 "
+                                     f"pairs at {LONG_LEN} x {LONG_LEN}: max "
+                                     f"|diff| {e}")
+            err = max(err, e)
+        del want
     # the stats classes' scalars at 4,096 bp against the segment route
     st = pairs["aligners"]["stats"].align_batch(mq, mr)
     for b, (a, w) in enumerate(zip(res["stats_rowcol"], st)):
@@ -2771,10 +2852,9 @@ def chunked_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
         f"(SW 5/1, SG 11/1), ssw_batch, use_last_rowcol() with and without "
         f"stats, use_table() with and without stats on 16 pairs, every long "
         f"batch on cuda_chunked; CIGARs and scalars equal use_trace() + "
-        f"cigars() on the segment route, SSW equal align_cigars, planes, rows "
-        f"and columns equal the one-thread-per-pair kernel's (stats at "
-        f"2,048 bp), rowcol on 4 pairs at {LONG_LEN} x {LONG_LEN} equal to "
-        f"plain, the short pairs equal golden")
+        f"cigars() on the segment route, SSW equal align_cigars, the planes, "
+        f"rows and columns of 4 pairs equal to plain at {LONG_LEN} and "
+        f"{LONG_LEN // 2} bp, the short pairs equal golden")
 
     # -- 27. timings ------------------------------------------------------------------
     b4, _, _ = al["sw"]._pack(mq, mr)
@@ -2819,16 +2899,6 @@ def chunked_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
                 peaks[cls] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
             k_ms = time_cuda(torch, lambda: tk.score_chunked(*args, **kw),
                              reps=3, warmup=1)
-            # the one-thread-per-pair kernel beside it; trace and stats
-            # have none unbanded (score_align is this sweep at these Qp)
-            o_note = ""
-            if shape == big and cls in k1_ms:
-                o_ms = k1_ms[cls]                     # timed in phase 26
-            elif cls not in SHORT_CLASSES:
-                o_ms = time_cuda(torch, lambda: tk.score_align(*args, **kw),
-                                 reps=1, warmup=0 if shape == big else 1)
-            if cls not in SHORT_CLASSES:
-                o_note = f", one thread per pair {o_ms} ms ({o_ms / k_ms}x)"
             times[cls, shape] = k_ms
             B_, Qs, Rs = args[0].shape[0], subs["qidx"].shape[1], \
                 args[0].shape[1]
@@ -2836,7 +2906,7 @@ def chunked_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
             log(f"[27 timing] {cls}, {B_} pairs padded to {Qs} x {Rs}, SW "
                 f"5/1: chunked sweep {k_ms} ms "
                 f"({plan_note(tk, cls, B_, Qs, Rs, subs['table'].shape[0])})"
-                f"{o_note}, bound {b['bound_ms']} ms "
+                f", bound {b['bound_ms']} ms "
                 f"({b['bound_by']})"
                 + (f"; peak device memory of one chunked call above its "
                    f"inputs {peaks[cls]} MiB" if shape == big else "")
@@ -2849,9 +2919,9 @@ def chunked_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
                        h_kw["profile"].shape[1], h_args[0].shape[1],
                        h_kw["profile"].shape[2], profile=True)
     log(f"[27 timing] score, the headline batch (8,192 pairs padded to 160 x "
-        f"160, SW 11/1): chunked sweep {head_ms[0]} ms ({h_plan}), one "
-        f"thread per pair {head_ms[1]} ms ({head_ms[1] / head_ms[0]}x) "
-        f"[{card}]")
+        f"160, SW 11/1): chunked sweep {head_ms[0]} ms ({h_plan}), the "
+        f"short form (score_align) {head_ms[1]} ms ({head_ms[1] / head_ms[0]}"
+        f"x) [{card}]")
     # the main path's shape: the trace class on the long mixed batch, with
     # its plain version (a column sweep) on the same inputs
     args, subs = shapes["4096"]
@@ -3060,19 +3130,19 @@ def device_ms(torch, fn, name: str, n: int = 10) -> float:
     return total / 1e3 / n
 
 
-def short_registers(build_log: str) -> dict:
+def short_registers(build_log: str, classes) -> dict:
     """Registers and spill-store bytes of each short_kernel form from
     ``-Xptxas -v``'s log: {"<class> R<rows> <payload ops>": (registers,
-    spill bytes)}."""
+    spill bytes)}; ``classes`` names the classes in OutClass order."""
     out, form, spill = {}, None, 0
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
             form, spill = None, 0
-            m = re.search(r"short_kernelILi(\d)ELi(\d)EN7ptscore\d+(\w+?)E",
-                          line)
+            m = re.search(r"short_kernel(?:_one)?ILi(\d)ELi(\d)EN7ptscore"
+                          r"\d+(\w+?)E", line)
             if m:
-                form = (f"{('trace', 'stats')[int(m.group(1)) - 1]} "
-                        f"R{m.group(2)} {m.group(3)}")
+                form = (f"{classes[int(m.group(1))]} R{m.group(2)} "
+                        f"{m.group(3)}")
         elif "spill stores" in line and form is not None:
             spill = int(line.split("bytes spill stores")[0].split(",")[-1])
         elif "registers" in line and form is not None:
@@ -3082,14 +3152,15 @@ def short_registers(build_log: str) -> dict:
 
 
 def short_path(torch, pt, tk, tw, dispatch, stages, rng, blosum, card,
-               sw_pairs, cfg4b) -> dict:
-    """Phases 28-29, the short form of the trace and stats classes (kernels
-    K1b and K1c, csrc/scan_short.cu: one warp a pair); returns each
-    class's yardstick and kernel times for the kernels line."""
+               sw_pairs, cfg4b, tab, head) -> dict:
+    """Phases 28-29, the short form (kernels K1a-K1d, csrc/scan_short.cu:
+    one warp a pair), every class; returns the trace and stats classes'
+    yardstick and kernel times for the kernels line, and every class's
+    error."""
     from parasail_rs_tpu_torch.ops import _build
 
     dev = torch.device("cuda")
-    errs = {"trace": 0, "stats": 0}
+    errs = dict.fromkeys(tk.OUTPUTS, 0)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
@@ -3156,26 +3227,52 @@ def short_path(torch, pt, tk, tw, dispatch, stages, rng, blosum, card,
     # both payload layouts; the rows bounds (4 rows a lane up to Qp = 128,
     # 5 to 160, 6 to 192, 8 past it); the flags 16 columns a store (Rp a
     # multiple of 16) or 4 (24); past 256 rows, the block kernel's
-    # one-shot form
-    for Qp, Rp in ((24, 24), (16, 1100), (128, 96), (129, 96), (192, 64),
-                   (193, 64), (256, 64), (300, 64)):
+    # one-shot form.  Trace and stats in three modes on the first eight
+    # shapes; the score and plane classes in one mode in turn, on the
+    # shapes that set their rows and their stores' width: a 16-byte
+    # vector (Qp 24, 16, 128, 256), 8 bytes (186, 192) or word by word
+    # (129, 130, 193, 250)
+    shapes = ((24, 24), (16, 1100), (128, 96), (129, 96), (192, 64),
+              (193, 64), (256, 64), (300, 64), (130, 64), (186, 64),
+              (250, 64))
+    for si, (Qp, Rp) in enumerate(shapes):
         args, subs = batch(256, Qp, Rp)
-        for cls in ("trace", "stats"):
-            for mode, free, o, e in modes:
+        for ci, cls in enumerate(tk.OUTPUTS):
+            for mi, (mode, free, o, e) in enumerate(modes):
+                if cls in ("trace", "stats"):
+                    if si >= 8:
+                        continue
+                elif (si + ci) % 3 != mi or (Qp, Rp) == (16, 1100) and \
+                        cls not in STATS_CLASSES:
+                    continue
                 forms[cls, Qp, Rp] = check(
                     cls, f"{Qp} x {Rp} {mode} {o}/{e}", args,
                     dict(subs, open_=o, ext=e, mode=mode, free=free,
                          width="sat"), subs["qidx"])
-    log(f"[28 short form vs plain] 256 pairs at Qp x Rp = 24 x 24, 16 x "
-        f"1,100, 128 x 96, 129 x 96, 192 x 64, 193 x 64, 256 x 64 and 300 "
-        f"x 64, NW 2/2, SG 1/3, SW 11/1: equal, walks included; (rows, "
-        f"pairs a block, layout) "
+    log(f"[28 short form vs plain] 256 pairs at Qp x Rp = "
+        f"{', '.join(f'{q} x {r}' for q, r in shapes)}: trace and stats in NW "
+        f"2/2, SG 1/3 and SW 11/1 on the first eight, the other five classes "
+        f"in one mode in turn: equal, walks included; (rows, pairs a block, "
+        f"layout) "
         f"{dict((f'{c} {q}x{r}', v) for (c, q, r), v in forms.items())}")
     if forms["stats", 24, 24][2] != 1 or forms["stats", 16, 1100][2] != 2 \
-            or [forms["trace", q, r][0] for q, r in (
-                (128, 96), (129, 96), (192, 64), (193, 64))] != [4, 5, 6, 8] \
-            or forms["stats", 300, 64][0]:
+            or forms["stats_table", 16, 1100][2] != 2 \
+            or any([forms[c, q, r][0] for q, r in (
+                (128, 96), (129, 96), (192, 64), (193, 64))] != [4, 5, 6, 8]
+                for c in tk.OUTPUTS) \
+            or [forms["table", q, 64][0] for q in (130, 186, 250)] != [5, 6, 8] \
+            or any(forms[c, 300, 64][0] for c in tk.OUTPUTS):
         raise AssertionError(f"the short form's rule picked {forms}")
+    # one pair (Aligner.align's launch): one warp on the card
+    args, subs = batch(1, 192, 192, full=1)
+    for cls in tk.OUTPUTS:
+        plan = check(cls, "one pair of 192 x 192 SW 11/1", args,
+                     dict(subs, open_=11, ext=1, mode="sw", free=(True,) * 4,
+                          width="sat"), subs["qidx"])
+        if plan[:2] != (6, 1):
+            raise AssertionError(f"one pair: the rule picked {plan}")
+    log("[28 short form vs plain] one pair of 192 x 192, every class: equal, "
+        "one warp")
     q4b, r4b = cfg4b
     cig_al = (pt.Aligner.new().matrix(blosum).gap_open(11).gap_extend(1)
               .semi_global().build())
@@ -3204,24 +3301,37 @@ def short_path(torch, pt, tk, tw, dispatch, stages, rng, blosum, card,
         "and ssw_batch's 1,024 SW pairs (trace, walk), 1,024 pairs of the "
         "stats headline: equal")
 
-    # the main paths: align_cigars, ssw_batch and use_stats() align_batch
-    # on the short form; the one-thread-per-pair trace and stats forms left
+    # the main paths on the short form; the one-thread-per-pair forms left
     # are the banded ones, which these paths must not launch
-    st_al = (pt.Aligner.new().matrix(blosum).gap_open(11).gap_extend(1)
-             .local().use_stats().build())
+    def sw():
+        return pt.Aligner.new().matrix(blosum).gap_open(11).gap_extend(1) \
+            .local()
+
+    st_al = sw().use_stats().build()
+    one = pt.Aligner.new().gap_open(5).gap_extend(2).build()
+    q150, r150 = random_seqs(rng, DNA, 2, 150, 150)
     launches = {}
     for name, call, cls in (
             ("align_cigars", lambda: cig_al.align_cigars(q4b, r4b), "trace"),
             ("ssw_batch", lambda: ssw_al.ssw_batch(qs[:1024], rs[:1024]),
              "trace"),
             ("use_stats align_batch", lambda: st_al.align_batch(qs, rs),
-             "stats")):
+             "stats"),
+            ("align_batch", lambda: sw().build().align_batch(qs, rs),
+             "score"),
+            ("Aligner.align 150 bp", lambda: one.align(q150, r150), "score"),
+            ("use_last_rowcol align_batch",
+             lambda: sw().use_last_rowcol().build().align_batch(qs, rs),
+             "rowcol"),
+            ("use_table + use_stats align_batch of 512",
+             lambda: sw().use_table().use_stats().build().align_batch(
+                 qs[:512], rs[:512]), "stats_table")):
         reset_launches(tk, tw)
         call()
         torch.cuda.synchronize()
         launches[name] = {"short": tk.SHORT_LAUNCHES[cls],
                           "block": tk.CHUNKED_LAUNCHES,
-                          "banded": tk.BANDED_CLASS_LAUNCHES[cls],
+                          "banded": banded_launches(tk)[cls],
                           "walk": tw.LAUNCHES}
     log(f"[28 short form main paths] launches {launches}")
     if any(v["short"] < 1 or v["block"] or v["banded"]
@@ -3233,12 +3343,19 @@ def short_path(torch, pt, tk, tw, dispatch, stages, rng, blosum, card,
     head_kw = dict(head_kw, outputs="stats")
     # the trace class also at the whole of cfg4b (use_trace() align_batch's
     # one launch) and at ssw_batch's 1,024 SW pairs: more pairs a launch
-    # than align_cigars' chunk
+    # than align_cigars' chunk; K1a at the score headline, K1d at phase
+    # 13's 512-pair batch
+    tab_args, tab_kw = tab
     shapes = (("K1b chunk", chunk, chunk_kw),
               ("K1b cfg4b 4,096", (b4b.ridx, b4b.qlen_t, b4b.rlen_t),
                dict(chunk_kw, qidx=b4b.qidx)),
               ("K1b ssw_batch 1,024", ssw_args, dict(ssw_kw, outputs="trace")),
-              ("K1c headline", head_args, head_kw))
+              ("K1c headline", head_args, head_kw),
+              ("K1a headline", head[0], dict(head[1], outputs="score"))) + \
+        tuple((f"K1d {cls} 512", tab_args, dict(tab_kw, outputs=cls))
+              for cls in PLANE_CLASSES[1:]) + \
+        tuple((f"{k} at K1d's 512", tab_args, dict(tab_kw, outputs=cls))
+              for k, cls in (("K1a", "score"), ("K1c", "stats")))
     times = {}
     for name, args, kw in shapes:
         short = time_cuda(torch, lambda: tk.score_align(*args, **kw))
@@ -3270,7 +3387,7 @@ def short_path(torch, pt, tk, tw, dispatch, stages, rng, blosum, card,
             f"summed over its launches: "
             f"{json.dumps({k: v['ms'] / 5 for k, v in snap.items()})} "
             f"[{card}]")
-    regs = short_registers(_build.BUILD_LOG)
+    regs = short_registers(_build.BUILD_LOG, tk.OUTPUTS)
     log(f"[29 timing] registers and spill bytes of the short form (nvcc "
         f"{'ran' if _build.BUILD_LOG else 'cached'}): {regs}")
     spilled = {k: v for k, v in regs.items() if v[1]}
@@ -3289,7 +3406,12 @@ def short_path(torch, pt, tk, tw, dispatch, stages, rng, blosum, card,
                       "kernel_ms": times["K1c headline"][2],
                       "block_ms": times["K1c headline"][1],
                       "block_kernel_ms": times["K1c headline"][3],
-                      "e2e_ms": e2e["use_stats align_batch SW 8192"]}}
+                      "e2e_ms": e2e["use_stats align_batch SW 8192"]},
+            **{cls: {"max_abs_err": errs[cls],
+                     "kernel_ms": times[name][2],
+                     "block_kernel_ms": times[name][3]}
+               for cls, name in [("score", "K1a headline")] + [
+                   (c, f"K1d {c} 512") for c in PLANE_CLASSES[1:]]}}
 
 
 def random_seqs_of(rng, alphabet: bytes, lens) -> list:

@@ -10,9 +10,9 @@
 // chunk to the next (dH and the prefix-max seed; dE for the trace class;
 // the H and prefix-max payloads for the stats classes, scan_kernel.py:920-
 // 952).  One call sweeps columns [0, Rp) of every pair of a padded batch
-// and returns what the one-thread-per-pair kernel (scan_score.cu) returns
-// for the class, bit for bit: the per-pair scalars, and the trace plane,
-// the H (and payload) planes, or the last row and column.
+// and returns what the short form (scan_short.cu) returns for the class,
+// bit for bit: the per-pair scalars, and the trace plane, the H (and
+// payload) planes, or the last row and column.
 //
 // Design: this is the segment kernel's block (segment_block.cuh; design
 // notes in scan_segment.cu) run as ONE segment of Rp columns, so it is not

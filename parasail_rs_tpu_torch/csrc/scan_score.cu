@@ -1,56 +1,48 @@
-// Batched alignment kernel for Hopper (sm_90a): one thread per pair.
+// The banded mode of the one-shot sweep for Hopper (sm_90a): one thread
+// per pair.
 //
 // Replaces: parasail_rs_tpu/ops/scan_kernel.py::scan_score_align (the
 // pallas_call at scan_kernel.py:1453 over the body _make_kernel) in its
-// score class (outputs="score"), its plane classes (outputs="table",
-// "stats_table", "rowcol", "stats_rowcol"; :979-999, :1498-1519), and
-// its banded mode in every class (banded=True, bandwidth; :1307-1308,
-// masks at :602-617, :722-725, :890-891): the score form sweeps only the
-// band's cells, O(qlen * (2 bw + 1)) per pair, the other forms every
-// cell, masked (pt_scan_banded), the banded trace class (flags at
-// :865-888) and stats class (payloads at :844-863) among them.  The
-// unbanded trace and stats classes are the short form's (scan_short.cu,
-// one warp a pair) and, for long queries, the block kernel's.  Same
-// outputs: score, end_query, end_ref and the width-8/16 saturation
-// flags, bit for bit, for NW, the nine SG free-end sets and SW, with the
-// substitution given as an (A, A) table plus query letters or as (1 or
-// B, Qp, A) profile rows; the trace class adds each cell's int8 flags,
-// the stats classes matches / similar / length along the winning path,
-// the table classes every cell's H (and payload), the rowcol classes the
-// last row's and the last column's.
+// banded mode, every output class (banded=True, bandwidth; kernel K1e;
+// :1307-1308, masks at :602-617, :722-725, :890-891): the score form
+// sweeps only the band's cells, O(qlen * (2 bw + 1)) per pair, the other
+// forms every cell, masked, the trace class's flags (:865-888) and the
+// stats classes' payloads (:844-863) among them.  Every unbanded class is
+// the short form's (scan_short.cu, one warp a pair) or, for long queries,
+// the block kernel's.  Same outputs: score, end_query, end_ref and the
+// width-8/16 saturation flags, bit for bit, for NW, the nine SG free-end
+// sets and SW, with the substitution given as an (A, A) table plus query
+// letters or as (1 or B, Qp, A) profile rows; the trace class adds each
+// cell's int8 flags, the stats classes matches / similar / length along
+// the winning path, the table classes every cell's H (and payload), the
+// rowcol classes the last row's and the last column's.
 //
 // Design: one thread per pair (inter-task).  Each thread sweeps its own
 // qlen x rlen cells row by row with the literal Gotoh recurrence of
-// score_cell.cuh, so per-pair loop bounds and the integer tie rules need
-// no masking and no cross-thread communication.  One row of H and E per
-// pair lives in global scratch laid out [Rp][B], so the 32 threads of a
-// warp, which sweep in step, touch 32 neighbouring words; the stats forms
-// add six such rows (H's and E's matches / similar / length) and keep the
-// diagonal's, the left cell's and F's payloads in registers.  The (A, A)
-// table sits in shared memory; profile rows and reference letters are
-// read from global memory and stay in L1 across a row.  The trace plane
-// and the table planes are laid out [Qp][Rp][B], the last row [Rp][B]
-// and the last column [Qp][B], for the same reason: a warp's 32 values of
-// one cell are neighbours.  The wrapper hands them on as strided (B, Qp,
-// Rp), (B, Rp) and (B, Qp) views, which the traceback walk reads in
-// place.
+// score_cell.cuh (score_pair), so per-pair loop bounds, the band's edges
+// and the integer tie rules need no masking across threads and no
+// cross-thread communication.  One row of H and E per pair lives in global
+// scratch laid out [Rp][B], so the 32 threads of a warp, which sweep in
+// step, touch 32 neighbouring words; the stats forms add six such rows
+// (H's and E's matches / similar / length) and keep the diagonal's, the
+// left cell's and F's payloads in registers.  The (A, A) table sits in
+// shared memory; profile rows and reference letters are read from global
+// memory and stay in L1 across a row.  The trace plane and the table
+// planes are laid out [Qp][Rp][B], the last row [Rp][B] and the last
+// column [Qp][B], for the same reason: a warp's 32 values of one cell are
+// neighbours.  The wrapper hands them on as strided (B, Qp, Rp), (B, Rp)
+// and (B, Qp) views, which the traceback walk reads in place.
 //
 // What bounds it on this card: with one thread per pair an 8,192-pair
 // batch fills only about two warps per SM, so the sweep is bound by the
 // latency of the dependent cell chain and of the scratch loads, not by
-// bandwidth or by integer throughput (the 2 x 4 bytes of scratch traffic
-// per cell stay in the 50 MB L2 at that size; the trace class adds one
-// byte per cell, written and never read back by the sweep; the stats
-// classes 6 x 4 bytes more, read and written, which at 8,192 x 192 fill
-// about the whole L2; a table class writes 4 or 16 bytes per cell).  The
-// design's answer is to keep the chain short (one max-plus cell per step,
-// the loads of the next cell independent of the current one) and to leave
-// intra-pair parallelism to the short form and the block kernel, which
-// have taken over the unbanded trace and stats classes.  The banded forms
-// other than score sweep every cell and mask (one compare and three
-// selects a cell), so they cost what their unbanded forms cost, however
-// narrow the band: a band-only sweep of the plane classes is a later
-// redesign.
+// bandwidth or by integer throughput.  The design's answer is to keep the
+// chain short (one max-plus cell per step, the loads of the next cell
+// independent of the current one).  The forms other than score sweep
+// every cell and mask (one compare and three selects a cell), so they
+// cost what a full sweep costs, however narrow the band: a band-only
+// sweep of the other classes, or the band on the short form's warps, is a
+// later redesign.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,7 +50,7 @@
 
 namespace {
 
-template <int32_t kOut, bool kBanded = false>
+template <int32_t kOut>
 __global__ void scan_kernel(
     const int32_t* __restrict__ subs,  // (A, A) table or (Bq, Qp, A) rows
     const int32_t* __restrict__ qidx,  // (Bq, Qp) letters; null: profile form
@@ -74,7 +66,7 @@ __global__ void scan_kernel(
     int32_t ext, int32_t mode, int32_t free_bits, int32_t table_in_smem,
     ptscore::PlaneIO io,               // the batch's rows and planes
     int32_t Bm,                        // stats: io.mq is (Bm, Qp)
-    int32_t bw) {                      // kBanded: the band's half-width
+    int32_t bw) {                      // the band's half-width
   using O = ptscore::Out<kOut>;
   extern __shared__ int32_t smem[];
   const int32_t* table = subs;
@@ -101,7 +93,7 @@ __global__ void scan_kernel(
     p.col = io.col + b;
     p.col_plane = io.col_plane;
   }
-  const ptscore::PairResult r = ptscore::score_batch_pair<kOut, kBanded>(
+  const ptscore::PairResult r = ptscore::score_batch_pair<kOut, true>(
       b, subs, table, qidx, ridx, qlen, rlen, hrow + b, erow + b,
       (int64_t)B, Bq, Qp, Rp, A, open, ext, mode, free_bits,
       O::trace ? trace + b : nullptr, (int64_t)Rp * B, (int64_t)B, p, bw);
@@ -120,13 +112,12 @@ __global__ void scan_kernel(
 constexpr int kThreads = 64;
 constexpr size_t kStaticSmemLimit = 48 * 1024;
 
-template <int32_t kOut, bool kBanded = false>
+template <int32_t kOut>
 int launch(const void* subs, const void* qidx, const void* ridx,
            const void* qlen, const void* rlen, void* hrow, void* erow,
            void* out, void* trace, int B, int Bq, int Qp, int Rp, int A,
            int open, int ext, int mode, int free_bits, void* stream,
-           const ptscore::PlaneIO& io = ptscore::PlaneIO(), int Bm = 0,
-           int bw = 0) {
+           const ptscore::PlaneIO& io, int Bm, int bw) {
   if (B <= 0) return 0;
   size_t smem = 0;
   int in_smem = 0;
@@ -135,7 +126,7 @@ int launch(const void* subs, const void* qidx, const void* ridx,
     in_smem = 1;
   }
   const int blocks = (B + kThreads - 1) / kThreads;
-  scan_kernel<kOut, kBanded>
+  scan_kernel<kOut>
       <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
           (const int32_t*)subs, (const int32_t*)qidx, (const int32_t*)ridx,
           (const int32_t*)qlen, (const int32_t*)rlen, (int32_t*)hrow,
@@ -165,72 +156,26 @@ ptscore::PlaneIO plane_io(const void* mq, int32_t* scratch, void* planes,
 
 }  // namespace
 
-// Launches the score kernel on `stream` and returns cudaGetLastError()
-// as an int (0 = launched).  All pointers are device pointers; `qidx` is
-// null for the profile form.
-extern "C" int pt_scan_score(const void* subs, const void* qidx,
-                             const void* ridx, const void* qlen,
-                             const void* rlen, void* hrow, void* erow,
-                             void* out, int B, int Bq, int Qp, int Rp, int A,
-                             int open, int ext, int mode, int free_bits,
-                             void* stream) {
-  return launch<ptscore::OUT_SCORE>(subs, qidx, ridx, qlen, rlen, hrow, erow,
-                                    out, nullptr, B, Bq, Qp, Rp, A, open, ext,
-                                    mode, free_bits, stream);
-}
-
-// The table and rowcol classes (out_class 3-6, ptscore::OutClass).
-// Beyond pt_scan_score's arguments:
-//   mq:      stats_table, stats_rowcol: (Bm, Qp) query letters for
-//            `matches` (the profile form has no other letters)
+// The banded forms of every class (K1e; out_class 0-6, ptscore::OutClass),
+// launched on `stream`; returns cudaGetLastError() as an int (0 =
+// launched).  All pointers are device pointers; `qidx` is null for the
+// profile form.
+//   mq:      stats classes: (Bm, Qp) query letters for `matches` (the
+//            profile form has no other letters)
 //   scratch: (2, Rp, B) rows H and E, or (8, Rp, B) with the payload rows
 //   out:     (5, B), or (8, B) with matches, similar, length
+//   trace:   trace class: (Qp, Rp, B) int8 flags
 //   planes:  table classes: (1 or 4, Qp, Rp, B) score (, matches, similar,
 //            length) of every in-sequence cell
 //   row/col: rowcol classes: (1 or 4, Rp, B) last row, (1 or 4, Qp, B)
 //            last column
-// The caller zero-fills the planes, rows and columns; cells outside a
-// pair's qlen x rlen are never written.  Another class returns
-// cudaErrorInvalidValue: the unbanded stats class is the short form's
-// (scan_short.cu, pt_scan_short).
-extern "C" int pt_scan_outputs(int out_class, const void* subs,
-                               const void* qidx, const void* mq,
-                               const void* ridx, const void* qlen,
-                               const void* rlen, void* scratch, void* out,
-                               void* planes, void* row, void* col, int B,
-                               int Bq, int Bm, int Qp, int Rp, int A,
-                               int open, int ext, int mode, int free_bits,
-                               void* stream) {
-  const int64_t rows = (int64_t)Rp * B;
-  int32_t* sc = (int32_t*)scratch;
-  const ptscore::PlaneIO io = plane_io(mq, sc, planes, row, col, B, Qp, Rp);
-#define PT_LAUNCH(k)                                                       \
-  launch<k>(subs, qidx, ridx, qlen, rlen, sc, sc + rows, out, nullptr, B,  \
-            Bq, Qp, Rp, A, open, ext, mode, free_bits, stream, io, Bm)
-  switch (out_class) {
-    case ptscore::OUT_TABLE:
-      return PT_LAUNCH(ptscore::OUT_TABLE);
-    case ptscore::OUT_STATS_TABLE:
-      return PT_LAUNCH(ptscore::OUT_STATS_TABLE);
-    case ptscore::OUT_ROWCOL:
-      return PT_LAUNCH(ptscore::OUT_ROWCOL);
-    case ptscore::OUT_STATS_ROWCOL:
-      return PT_LAUNCH(ptscore::OUT_STATS_ROWCOL);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef PT_LAUNCH
-}
-
-// The banded forms of every class (K1e; out_class 0-6, ptscore::OutClass):
-// pt_scan_outputs's arguments plus the trace class's (Qp, Rp, B) flag
-// plane `trace` (laid out as the other planes) and the band's half-width
-// `bandwidth`; cells with |i - j| > bandwidth, and border cells beyond
-// it, are -2^30.  The score form sweeps only the band's cells; the others
-// sweep every cell of a pair and set H, E and F outside the band to -2^30
-// after taking the cell's flags and payloads, so every output equals the
-// plain version's.  NW, the SG free-end sets and SW.  An unknown class
-// returns cudaErrorInvalidValue.
+// The caller zero-fills the planes, rows and columns.  Cells with
+// |i - j| > bandwidth, and border cells beyond it, are -2^30.  The score
+// form sweeps only the band's cells; the others sweep every cell of a
+// pair and set H, E and F outside the band to -2^30 after taking the
+// cell's flags and payloads, so every output equals the plain version's.
+// NW, the SG free-end sets and SW.  An unknown class returns
+// cudaErrorInvalidValue.
 extern "C" int pt_scan_banded(int out_class, const void* subs,
                               const void* qidx, const void* mq,
                               const void* ridx, const void* qlen,
@@ -244,9 +189,8 @@ extern "C" int pt_scan_banded(int out_class, const void* subs,
   const ptscore::PlaneIO io = plane_io(mq, sc, planes, row, col, B, Qp, Rp);
   const int bw = ptscore::clamp_band(bandwidth, Qp, Rp);
 #define PT_LAUNCH(k)                                                        \
-  launch<k, true>(subs, qidx, ridx, qlen, rlen, sc, sc + rows, out, trace,  \
-                  B, Bq, Qp, Rp, A, open, ext, mode, free_bits, stream, io, \
-                  Bm, bw)
+  launch<k>(subs, qidx, ridx, qlen, rlen, sc, sc + rows, out, trace, B, Bq, \
+            Qp, Rp, A, open, ext, mode, free_bits, stream, io, Bm, bw)
   switch (out_class) {
     case ptscore::OUT_SCORE:
       return PT_LAUNCH(ptscore::OUT_SCORE);

@@ -8,7 +8,7 @@
 // the pair's last column so far, the stats payloads of both, and the
 // accumulator (best cell, extremes of H, the best cell's payload); see
 // score_cell.cuh, "the segment form".  After the last segment the outputs
-// are the one-shot kernel's (scan_score.cu) for the same class, bit for
+// are the one-shot sweep's (scan_short.cu) for the same class, bit for
 // bit; the trace class writes the segment's flags, (B, Qp, Rseg) int8.
 //
 // Design: a chain of warps per pair, kR query rows a lane (2, 4 or 8;
@@ -68,7 +68,7 @@
 // error as an int (0 = launched).  All pointers are device pointers.
 //   out_class: 0 score, 1 trace, 2 stats (ptscore::OutClass); any other
 //              returns cudaErrorInvalidValue
-//   subs/qidx: as pt_scan_score (qidx null: the profile form)
+//   subs/qidx: as pt_scan_short (qidx null: the profile form)
 //   mq:        stats: (Bm, Qp) query letters for `matches`
 //   ridx:      (B, Rseg) letters of columns [off, off + Rseg)
 //   rlen:      the pairs' whole reference lengths

@@ -1,26 +1,29 @@
-// The trace and stats classes of the one-shot sweep for short pairs, for
+// The unbanded one-shot sweep of short pairs, every output class, for
 // Hopper (sm_90a): one warp a pair, several pairs a block.
 //
 // Replaces: parasail_rs_tpu/ops/scan_kernel.py::scan_score_align (the
-// pallas_call at scan_kernel.py:1453 over the body _make_kernel) in its
-// trace class (outputs="trace", kernel K1b; flags at :865-888) and its
-// stats class (outputs="stats", kernel K1c; payloads at :844-863, packed
-// as stats_pack_params / stats_pack2_params lay them out, :364-402), for
-// pairs of Qp <= 256 padded query rows.  Same outputs, bit for bit, as the
-// one-thread-per-pair forms it takes over from: score, end_query, end_ref,
-// the width-8/16 saturation flags, each in-sequence cell's flags or the
-// winning path's matches / similar / length, in NW, the nine SG free-end
-// sets and SW, with an (A, A) table and letters or (1 or B, Qp, A)
-// profile rows, at every penalty pair.
+// pallas_call at scan_kernel.py:1453 over the body _make_kernel) in all
+// seven of its output classes, unbanded, for pairs of Qp <= 256 padded
+// query rows: score (outputs="score", kernel K1a; the end cell's ties at
+// :1011-1101, the width-8/16 flags at :1127-1149), trace (K1b; flags at
+// :865-888), stats (K1c; payloads at :844-863, packed as
+// stats_pack_params / stats_pack2_params lay them out, :364-402), and the
+// plane classes table, stats_table, rowcol and stats_rowcol (K1d;
+// :979-999, :1498-1519).  Same outputs, bit for bit: score, end_query,
+// end_ref, the width-8/16 saturation flags, each in-sequence cell's flags,
+// the winning path's matches / similar / length, every in-sequence cell's
+// H (and payload), or the last row's and last column's, in NW, the nine SG
+// free-end sets and SW, with an (A, A) table and letters or (1 or B, Qp,
+// A) profile rows, at every penalty pair.
 //
 // Design (score_cell.cuh, "the short form"): lane L of a pair's warp holds
 // query rows [L kR, L kR + kR), kR = 4, 5, 6 or 8, the fewest whose warp
 // holds Qp, and at step t computes column t - L of them top to bottom on
 // DPX max-plus; H, E and F stay in registers, and one shuffle a step
-// brings the bottom row of the lane above (H, E and, for stats, their
-// packed payloads: four words, or six with the length apart).  A pair
-// takes Rp + Qp / kR steps instead of the Qp x Rp dependent cells of one
-// thread a pair.  The block stages
+// brings the bottom row of the lane above (H, E and, for the stats
+// classes, their packed payloads: four words, or six with the length
+// apart).  A pair takes Rp + Qp / kR steps instead of the Qp x Rp
+// dependent cells of one thread a pair.  The block stages
 // the (A + 1)^2 table (a column and a row of 0 for letters outside the
 // alphabet) or a shared profile once, each warp its pair's profile rows
 // and all of its reference letters (cp.async): no ring, no refill, no
@@ -30,15 +33,24 @@
 // pair's (Qp, Rp) plane (rows Rp bytes apart; Rp a multiple of 16, else a
 // byte a cell: short_wide), which the traceback walk reads in place.  A
 // warp's store lands on as many rows as it has lanes, so each is a
-// transaction of its own; wide stores make them few.
+// transaction of its own; wide stores make them few.  The table classes
+// write each lane's kR rows of a column into (nplanes, B, Rp, Qp) planes,
+// query-fastest, as one short vector a plane (16 bytes at 4 and 8 rows,
+// 8 at 6, word by word at 5 or where Qp does not align it), payloads
+// unpacked at the store; the rowcol classes the last row from the lane
+// that holds row qlen - 1, a word a step, and every lane's rows of the
+// last column once the sweep ends.  A lane with rows past the pair stores
+// row by row, masked, so no store lands outside the pair's cells.
 //
 // What bounds it on this card: the step's dependent chain (kR cells, each
 // a few DPX operations, E running down the rows) times Rp + Qp / kR
 // steps, and how many warps the SMs hold to hide it; the pairs a block
 // (score_cell.cuh, short_plan) put a 512-pair chunk on 128 SMs.  The
-// trace class writes one byte a cell, the stats class nothing but the
-// scalars.  Pairs of Qp > 256, or whose letters a block cannot stage, are
-// the block kernel's (the caller launches its one-shot form instead).
+// score, stats and rowcol classes write little beyond the scalars; the
+// trace class one byte a cell, the table classes 4 or 16 bytes a cell,
+// as 32 scattered vectors a warp store (each lane its own column).  Pairs
+// of Qp > 256, or whose letters a block cannot stage, are the block
+// kernel's (the caller launches its one-shot form instead).
 #include "segment_block.cuh"
 
 namespace {
@@ -57,6 +69,9 @@ struct ShortArgs {
   const int32_t* rlen;   // (B,)
   int32_t* out;          // (5 or 8, B)
   int8_t* trace;         // trace: (B, Qp, Rp) flags, zero-filled
+  int32_t* tab;          // table classes: (1 or 4, B, Rp, Qp), zero-filled
+  int32_t* row;          // rowcol classes: (1 or 4, B, Rp), zero-filled
+  int32_t* col;          //                 (1 or 4, B, Qp), zero-filled
   int32_t B, Bq, Bm, Qp, Rp, A, open, ext, mode, free_bits;
 };
 
@@ -80,10 +95,10 @@ __device__ __forceinline__ ShortUp<PO> shfl_up1(const ShortUp<PO>& v) {
   return r;
 }
 
+// One block's pairs, a warp each (the body of both kernels below).
 template <int32_t kOut, int32_t kR, class PO>
-__global__ void __launch_bounds__(ptscore::SHORT_MAX_PAIRS *
-                                  ptscore::SEG_LANES)
-    short_kernel(const ShortArgs a, const PO po) {
+__device__ __forceinline__ void short_block(const ShortArgs& a,
+                                            const PO& po) {
   using O = ptscore::Out<kOut>;
   constexpr int32_t W = ptscore::SEG_LANES;
   extern __shared__ int32_t smem[];
@@ -142,6 +157,18 @@ __global__ void __launch_bounds__(ptscore::SHORT_MAX_PAIRS *
     int8_t* trow = O::trace ? a.trace + ((int64_t)b * a.Qp + L.i0) * a.Rp
                             : nullptr;
     const bool wide = ptscore::short_wide(a.Rp);
+    ptscore::SegPlanes pl;               // the pair's planes, rows, columns
+    if constexpr (O::table) {
+      pl.table = a.tab + (int64_t)b * a.Rp * a.Qp;
+      pl.tab_plane = (int64_t)a.B * a.Rp * a.Qp;
+    }
+    if constexpr (O::rowcol) {
+      pl.row = a.row + (int64_t)b * a.Rp;
+      pl.row_plane = (int64_t)a.B * a.Rp;
+      pl.col = a.col + (int64_t)b * a.Qp;
+      pl.col_plane = (int64_t)a.B * a.Qp;
+    }
+    const bool vec = ptscore::short_vec_ok(kR, a.Qp);
     // each lane fetches its next letter and its rows' scores a step ahead
     int32_t r_next = 0;
     int32_t s_next[kR];
@@ -162,8 +189,9 @@ __global__ void __launch_bounds__(ptscore::SHORT_MAX_PAIRS *
       }
       if (t >= 0 && L.nr > 0 && c >= 0 && c < p.ncols)
         ptscore::short_lane_step<kOut>(L, p, c, r, s, up, trow, a.Rp, wide,
-                                       po);
+                                       pl, vec, po);
     }
+    if (L.nr > 0) ptscore::short_lane_last_col<kOut>(L, p, pl, vec, po);
     total = ptscore::short_lane_best(L, po);
     for (int m = W / 2; m > 0; m >>= 1)
       total = ptscore::seg_merge(total, ptsegblock::shfl_xor_best(total, m));
@@ -186,10 +214,34 @@ __global__ void __launch_bounds__(ptscore::SHORT_MAX_PAIRS *
   }
 }
 
+constexpr int32_t kThreads = ptscore::SHORT_MAX_PAIRS * ptscore::SEG_LANES;
+
+// The trace and stats classes: ptxas picks the registers.
+template <int32_t kOut, int32_t kR, class PO>
+__global__ void __launch_bounds__(kThreads)
+    short_kernel(const ShortArgs a, const PO po) {
+  short_block<kOut, kR>(a, po);
+}
+
+// The score and plane classes ask for one block an SM or more: left to
+// itself, ptxas held stats_table's [m | s] + l form at 6 rows to 128
+// registers and spilled; asked so, it spills nothing, and the other forms
+// keep about the registers they took unbounded.
+template <int32_t kOut, int32_t kR, class PO>
+__global__ void __launch_bounds__(kThreads, 1)
+    short_kernel_one(const ShortArgs a, const PO po) {
+  short_block<kOut, kR>(a, po);
+}
+
 template <int32_t kOut, int32_t kR, class PO>
 int launch_form(const ShortArgs& a, const ptscore::ShortPlan& plan,
                 const PO& po, cudaStream_t stream) {
-  auto kernel = short_kernel<kOut, kR, PO>;
+  using O = ptscore::Out<kOut>;
+  void (*kernel)(const ShortArgs, const PO);
+  if constexpr (O::trace || kOut == ptscore::OUT_STATS)
+    kernel = short_kernel<kOut, kR, PO>;
+  else
+    kernel = short_kernel_one<kOut, kR, PO>;
   static std::atomic<bool> allowed[ptsegblock::kMaxDevices];
   const cudaError_t smem = ptsegblock::allow_smem(kernel, allowed);
   if (smem != cudaSuccess) return (int)smem;
@@ -218,25 +270,31 @@ int launch_rows(const ShortArgs& a, const ptscore::ShortPlan& plan,
 
 }  // namespace
 
-// Launches the short form of class `out_class` (1 trace, 2 stats) on
-// `stream` and returns the launch's CUDA error as an int (0 = launched).
-// All pointers are device pointers:
+// Launches the short form of class `out_class` (ptscore::OutClass, 0-6)
+// on `stream` and returns the launch's CUDA error as an int (0 =
+// launched).  All pointers are device pointers:
 //   subs, qidx: (A, A) table and (Bq, Qp) letters, or (Bq, Qp, A) profile
 //               rows and null
-//   mq:         stats: (Bm, Qp) query letters for `matches`
+//   mq:         stats classes: (Bm, Qp) query letters for `matches`
 //   ridx:       (B, Rp) letters; qlen, rlen: (B,)
 //   out:        (5, B) score, end_query, end_ref, sat8, sat16, or (8, B)
-//               with matches, similar, length (stats)
-//   trace:      trace: (B, Qp, Rp) int8 flags, zero-filled; the kernel
-//               writes each pair's qlen x rlen cells
-// A batch the rule (score_cell.cuh, short_plan) does not give the short
-// form, or another class, returns cudaErrorInvalidValue.
+//               with matches, similar, length (stats classes)
+//   trace:      trace: (B, Qp, Rp) int8 flags
+//   tab:        table, stats_table: (1 or 4, B, Rp, Qp) H (, matches,
+//               similar, length) of every cell, query-fastest
+//   row, col:   rowcol, stats_rowcol: (1 or 4, B, Rp) last row and
+//               (1 or 4, B, Qp) last column
+// The caller zero-fills the planes, rows and columns; the kernel writes
+// each pair's qlen x rlen cells, its last row's rlen and its last
+// column's qlen.  A batch the rule (score_cell.cuh, short_plan) does not
+// give the short form returns cudaErrorInvalidValue.
 extern "C" int pt_scan_short(int out_class, const void* subs,
                              const void* qidx, const void* mq,
                              const void* ridx, const void* qlen,
-                             const void* rlen, void* out, void* trace, int B,
-                             int Bq, int Bm, int Qp, int Rp, int A, int open,
-                             int ext, int mode, int free_bits, void* stream) {
+                             const void* rlen, void* out, void* trace,
+                             void* tab, void* row, void* col, int B, int Bq,
+                             int Bm, int Qp, int Rp, int A, int open, int ext,
+                             int mode, int free_bits, void* stream) {
   if (B <= 0) return 0;
   const bool profile = qidx == nullptr;
   const ptscore::ShortPlan plan = ptscore::short_plan(
@@ -246,19 +304,39 @@ extern "C" int pt_scan_short(int out_class, const void* subs,
                     (const int32_t*)mq,   (const int32_t*)ridx,
                     (const int32_t*)qlen, (const int32_t*)rlen,
                     (int32_t*)out,        (int8_t*)trace,
-                    B, Bq, Bm, Qp, Rp, A, open, ext, mode, free_bits};
+                    (int32_t*)tab,        (int32_t*)row,
+                    (int32_t*)col,        B, Bq, Bm, Qp, Rp, A, open, ext,
+                    mode, free_bits};
   cudaStream_t s = (cudaStream_t)stream;
-  if (out_class == ptscore::OUT_TRACE)
-    return launch_rows<ptscore::OUT_TRACE>(a, plan, ptscore::NoPayOps(), s);
-  if (plan.layout == ptscore::SHORT_PACKED)
-    return launch_rows<ptscore::OUT_STATS>(a, plan,
-                                           ptscore::pack_ops(Qp, Rp), s);
-  return launch_rows<ptscore::OUT_STATS>(a, plan, ptscore::pack2_ops(Qp), s);
+  const ptscore::NoPayOps none;
+  const bool packed = plan.layout == ptscore::SHORT_PACKED;
+  // the stats classes in the payload layout of the plan
+#define PT_STATS(k)                                                       \
+  (packed ? launch_rows<k>(a, plan, ptscore::pack_ops(Qp, Rp), s)          \
+          : launch_rows<k>(a, plan, ptscore::pack2_ops(Qp), s))
+  switch (out_class) {
+    case ptscore::OUT_SCORE:
+      return launch_rows<ptscore::OUT_SCORE>(a, plan, none, s);
+    case ptscore::OUT_TRACE:
+      return launch_rows<ptscore::OUT_TRACE>(a, plan, none, s);
+    case ptscore::OUT_STATS:
+      return PT_STATS(ptscore::OUT_STATS);
+    case ptscore::OUT_TABLE:
+      return launch_rows<ptscore::OUT_TABLE>(a, plan, none, s);
+    case ptscore::OUT_STATS_TABLE:
+      return PT_STATS(ptscore::OUT_STATS_TABLE);
+    case ptscore::OUT_ROWCOL:
+      return launch_rows<ptscore::OUT_ROWCOL>(a, plan, none, s);
+    default:
+      return PT_STATS(ptscore::OUT_STATS_ROWCOL);
+  }
+#undef PT_STATS
 }
 
 // The short form's rule for a launch (score_cell.cuh, short_plan): rows a
 // lane (0: the short form does not take the batch), pairs a block and the
-// stats payload layout (1 [m | s | l], 2 [m | s] + l) to plan[0..2].
+// stats classes' payload layout (1 [m | s | l], 2 [m | s] + l; 0 for the
+// other classes) to plan[0..2].
 extern "C" int pt_short_plan(int out_class, int B, int Bq, int Qp, int Rp,
                              int A, int profile, int* plan) {
   const ptscore::ShortPlan p = ptscore::short_plan(

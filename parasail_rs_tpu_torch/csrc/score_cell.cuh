@@ -1,5 +1,6 @@
-// Per-pair affine-gap (Gotoh) score sweep, shared by the CUDA kernel
-// (scan_score.cu) and the host harness the CPU tests build with g++.
+// Per-pair affine-gap (Gotoh) score sweep, shared by the CUDA kernels
+// (scan_score.cu, scan_short.cu, segment_block.cuh) and the host harness
+// the CPU tests build with g++.
 //
 // Semantics are those of parasail_rs_tpu's score class
 // (ops/scan_kernel.py::_make_kernel, score branch; golden/model.py:156-237):
@@ -1000,7 +1001,9 @@ PT_HD void seg_lane_step(SegLane<kOut, kR>& L, const SegPair& p, int32_t c,
   const bool last_col = jg == p.rlen - 1;
   const bool state_col = c == p.ncols - 1;
   // the H plane's one vector store (16-byte stores: kR a multiple of 4)
-  const bool whole = kR % 4 == 0 && vec && L.nr == kR;
+  // where the lane holds kR rows (L.nr == kR, written against row_hi for
+  // the reason short_whole gives)
+  const bool whole = kR % 4 == 0 && vec && L.i0 + kR <= p.row_hi;
   int32_t hv[kR];
 PT_UNROLL
   for (int32_t k = 0; k < kR; ++k) {
@@ -1359,17 +1362,20 @@ PT_HD void tile_corner_out(const int32_t* down, int32_t cols, int32_t* t) {
 }
 
 // ---------------------------------------------------------------------------
-// The short form (csrc/scan_short.cu; kernels K1b and K1c): the trace and
-// stats classes of the one-shot sweep for pairs of at most SEG_LANES kR
-// padded query rows, ONE warp a pair, several pairs a block.  Lane L holds
-// query rows [L kR, L kR + kR) and at step t computes column t - L of them
-// top to bottom, as a lane of the segment form does (cell_trace /
+// The short form (csrc/scan_short.cu; kernels K1a-K1d): every class of
+// the unbanded one-shot sweep for pairs of at most SEG_LANES kR padded
+// query rows, ONE warp a pair, several pairs a block.  Lane L holds query
+// rows [L kR, L kR + kR) and at step t computes column t - L of them top
+// to bottom, as a lane of the segment form does (cell / cell_trace /
 // cell_stats_of, the DPX max-plus helpers, the end cell's order of
 // seg_better, the outputs of seg_finish); one shuffle a step brings the
 // bottom row of the lane above.  What the segment form's lane carries
-// beyond that (state rows, rings, the plane classes' stores, groups of
-// rows) a one-shot pair of one warp needs not, so the short form has its
-// own lane registers: H, E and F stay in registers for the whole pair.
+// beyond that (state rows, rings, groups of rows) a one-shot pair of one
+// warp needs not, so the short form has its own lane registers: H, E and
+// F stay in registers for the whole pair.  The plane classes write what
+// the chunked form writes (SegPlanes: the tables laid out (nplanes, B,
+// Rp, Qp), the last row and the last column), a lane's kR rows of a
+// column as one short vector where it holds kR rows of the pair.
 //
 // The stats payloads travel PACKED, as the reference's one-pass kernel
 // packs them (parasail_rs_tpu/ops/scan_kernel.py, stats_pack_params and
@@ -1424,7 +1430,7 @@ struct Pack2Ops {
   }
 };
 
-// The trace class carries no payload.
+// The classes without stats carry no payload.
 struct NoPay {};
 
 struct NoPayOps {
@@ -1440,7 +1446,7 @@ PT_HD int32_t bit_length(int32_t x) {
   return n;
 }
 
-// The payload layouts of the short form's stats class.
+// The payload layouts of the short form's stats classes.
 enum ShortLayout : int32_t { SHORT_UNPACKED = 0, SHORT_PACKED = 1,
                              SHORT_PACKED2 = 2 };
 
@@ -1477,9 +1483,9 @@ PT_HD Pack2Ops pack2_ops(int32_t Qp) {
 // rows of a form (short_rows) whose 32 kR rows hold the query: a step
 // costs kR cells and lanes past the query idle, so the fewer the better
 // (5 rows at Qp = 160 keep every lane busy, 8 would idle 12 of 32).
-// Rows 0 means the short form does not take the batch (another class, Qp
-// > SEG_LANES * 8, or a block that cannot stage its inputs), which the
-// block kernel's one-shot forms then serve.  Pairs a
+// Rows 0 means the short form does not take the batch (Qp > SEG_LANES *
+// 8, or a block that cannot stage its inputs), which the block kernel's
+// one-shot forms then serve.  Pairs a
 // block: enough blocks for every SM (B / SEG_SMS, at most
 // SHORT_MAX_PAIRS), fewer while the block's shared memory passes
 // SHORT_SMEM_BUDGET (two blocks an SM).
@@ -1520,7 +1526,7 @@ PT_HD ShortPlan short_plan(int32_t out_class, int32_t B, int32_t Qp,
                            int32_t Rp, int32_t A, bool profile,
                            bool per_pair) {
   const ShortPlan none{0, 0, 0};
-  if ((out_class != OUT_TRACE && out_class != OUT_STATS) ||
+  if (out_class < OUT_SCORE || out_class > OUT_STATS_ROWCOL ||
       Qp > SHORT_MAX_QP)
     return none;
   int32_t pairs = imax(1, imin(SHORT_MAX_PAIRS, seg_div_up(B, SEG_SMS)));
@@ -1531,8 +1537,8 @@ PT_HD ShortPlan short_plan(int32_t out_class, int32_t B, int32_t Qp,
       SHORT_SMEM_MAX)
     return none;
   return ShortPlan{short_rows(Qp), pairs,
-                   out_class == OUT_STATS ? short_layout(Qp, Rp)
-                                          : SHORT_UNPACKED};
+                   seg_stats_class(out_class) ? short_layout(Qp, Rp)
+                                              : SHORT_UNPACKED};
 }
 
 // Whether the trace class stores its flags 16 columns a 16-byte store, for
@@ -1540,6 +1546,51 @@ PT_HD ShortPlan short_plan(int32_t out_class, int32_t B, int32_t Qp,
 // on as many rows as it has lanes, so each is a memory transaction of its
 // own: wide ones make them few.
 PT_HD bool short_wide(int64_t rstride) { return rstride % 16 == 0; }
+
+// The words of the plane classes' vector stores at kR rows a lane: 16
+// bytes where kR is a multiple of 4, 8 where of 2, else a word.  A lane's
+// rows of a column start at word j Qp + L kR, so the vector is aligned
+// where Qp is a multiple of it too (short_vec_ok).
+PT_HD constexpr int32_t short_vec(int32_t kR) {
+  return kR % 4 == 0 ? 4 : (kR % 2 == 0 ? 2 : 1);
+}
+
+PT_HD bool short_vec_ok(int32_t kR, int32_t Qp) {
+  return Qp % short_vec(kR) == 0;
+}
+
+// A lane's kR values to dst, its rows of one column of a plane (or of the
+// last column): whole vectors (short_vec) where `whole` (the lane holds kR
+// rows of the pair and dst is aligned), else word by word with the rows
+// past the pair (k >= nr) masked, so that no store lands on a padding row
+// or, with (B, Rp, Qp) planes, on the next column.
+template <int32_t kR>
+PT_HD void short_store(int32_t* dst, const int32_t (&v)[kR], int32_t nr,
+                       bool whole) {
+#if defined(__CUDA_ARCH__)
+  if constexpr (short_vec(kR) > 1) {
+    if (whole) {
+PT_UNROLL
+      for (int32_t k = 0; k < kR; k += short_vec(kR)) {
+        if constexpr (short_vec(kR) == 4)
+          *reinterpret_cast<int4*>(dst + k) =
+              make_int4(v[k], v[k + 1], v[k + 2], v[k + 3]);
+        else
+          *reinterpret_cast<int2*>(dst + k) = make_int2(v[k], v[k + 1]);
+      }
+    } else {
+PT_UNROLL
+      for (int32_t k = 0; k < kR; ++k)
+        if (k < nr) dst[k] = v[k];
+    }
+    return;
+  }
+#endif
+  (void)whole;
+PT_UNROLL
+  for (int32_t k = 0; k < kR; ++k)
+    if (k < nr) dst[k] = v[k];
+}
 
 // What the row below reads of a cell: H and E, and their payloads.
 template <class PO>
@@ -1555,14 +1606,14 @@ struct ShortRow {
   int32_t mqi = 0;                 // stats: the row's letter
   bool row_all = false, row_last = false;   // the row's candidates
   typename PO::V lp{}, fp{}, dp{};
-  int32_t bh = SEG_NONE, bj = 0;   // trace: the row's first maximum
+  int32_t bh = SEG_NONE, bj = 0;   // no stats: the row's first maximum
   uint32_t tw = 0;                 // trace: up to 4 flags, one word
   uint32_t tq[3] = {0, 0, 0};      // trace: the words before it in 16
 };
 
-// One lane: query rows i0 .. i0 + kR - 1 of the pair.  The stats class
-// keeps the lane's best cell (bh, bi, bj, bp) cell by cell, the trace
-// class each row's first maximum, folded at the end (short_lane_best).
+// One lane: query rows i0 .. i0 + kR - 1 of the pair.  The stats classes
+// keep the lane's best cell (bh, bi, bj, bp) cell by cell, the others
+// each row's first maximum, folded at the end (short_lane_best).
 template <int32_t kR, class PO>
 struct ShortLane {
   int32_t i0 = 0;
@@ -1664,20 +1715,116 @@ PT_UNROLL
   for (int32_t k = 0; k < kR; ++k) L.row[k].tw = 0;
 }
 
+// Does a lane store whole vectors (short_store)?  Where it holds kR rows
+// of the pair (L.nr == kR, written against qlen: for that comparison the
+// CUDA compiler took the predicate of the min that computes L.nr, which
+// also holds below kR, and the stats forms stored whole vectors past the
+// pair; phase 28 of chip_smoke.py holds the lanes' edges) and `vec`
+// (short_vec_ok) aligns them.
+template <int32_t kR, class PO>
+PT_HD bool short_whole(const ShortLane<kR, PO>& L, const SegPair& p,
+                       bool vec) {
+  return vec && L.i0 + kR <= p.qlen;
+}
+
+// A lane's kR rows of one column: H to dst and, for the stats classes,
+// the payloads (unpacked here, plane by plane) `plane` words apart after
+// it.
+template <bool kStats, int32_t kR, class PO>
+PT_HD void short_store_planes(int32_t* dst, int64_t plane,
+                              const int32_t (&hv)[kR],
+                              const typename PO::V (&pv)[kR], int32_t nr,
+                              bool whole, const PO& po) {
+  short_store<kR>(dst, hv, nr, whole);
+  if constexpr (kStats) {
+    int32_t v[kR];
+PT_UNROLL
+    for (int32_t k = 0; k < kR; ++k) v[k] = po.unpack(pv[k]).m;
+    short_store<kR>(dst + plane, v, nr, whole);
+PT_UNROLL
+    for (int32_t k = 0; k < kR; ++k) v[k] = po.unpack(pv[k]).s;
+    short_store<kR>(dst + 2 * plane, v, nr, whole);
+PT_UNROLL
+    for (int32_t k = 0; k < kR; ++k) v[k] = po.unpack(pv[k]).l;
+    short_store<kR>(dst + 3 * plane, v, nr, whole);
+  }
+}
+
+// The plane classes' stores of a lane's step at column c (SegPlanes of the
+// pair): the tables' column c, and the last row where the lane holds row
+// qlen - 1.  `hv` holds the rows' H, `pv` their payloads.  The last column
+// is written once, after the sweep (short_lane_last_col).
+template <int32_t kOut, int32_t kR, class PO>
+PT_HD void short_lane_planes(const ShortLane<kR, PO>& L, const SegPair& p,
+                             int32_t c, const int32_t (&hv)[kR],
+                             const typename PO::V (&pv)[kR],
+                             const SegPlanes& pl, bool vec, const PO& po) {
+  using O = Out<kOut>;
+  if constexpr (O::table)
+    short_store_planes<O::stats>(pl.table + (int64_t)c * p.qp + L.i0,
+                                 pl.tab_plane, hv, pv, L.nr,
+                                 short_whole(L, p, vec), po);
+  if constexpr (O::rowcol) {
+    // the last row: one word a step (a plane), from the lane that holds
+    // it, its row picked by selects
+    const int32_t x = p.qlen - 1 - L.i0;
+    if (x >= 0 && x < L.nr) {
+      int32_t h = hv[0];
+      typename PO::V pk = pv[0];
+PT_UNROLL
+      for (int32_t k = 1; k < kR; ++k) {
+        h = k == x ? hv[k] : h;
+        pk = k == x ? pv[k] : pk;
+      }
+      pl.row[c] = h;
+      if constexpr (O::stats) {
+        const Pay u = po.unpack(pk);
+        pl.row[pl.row_plane + c] = u.m;
+        pl.row[2 * pl.row_plane + c] = u.s;
+        pl.row[3 * pl.row_plane + c] = u.l;
+      }
+    }
+  }
+}
+
+// The rowcol classes' last column, after the sweep: each row's H left of
+// the next column and its payload (h_left, lp) are those of column rlen -
+// 1, the pair's last; a lane's rows one short vector a plane.
+template <int32_t kOut, int32_t kR, class PO>
+PT_HD void short_lane_last_col(const ShortLane<kR, PO>& L, const SegPair& p,
+                               const SegPlanes& pl, bool vec, const PO& po) {
+  if constexpr (Out<kOut>::rowcol) {
+    int32_t hv[kR];
+    typename PO::V pv[kR];
+PT_UNROLL
+    for (int32_t k = 0; k < kR; ++k) {
+      hv[k] = L.row[k].h_left;
+      pv[k] = L.row[k].lp;
+    }
+    short_store_planes<Out<kOut>::stats>(pl.col + L.i0, pl.col_plane, hv, pv,
+                                         L.nr, short_whole(L, p, vec), po);
+  }
+}
+
 // One step of a lane: column c of its rows, reference letter r and the
 // rows' scores against it, `u` the cell above its top row.  The trace
 // class writes each cell's flags (trace0: the top row's, rows `rstride`
 // apart): with `wide` (short_wide) 16 columns a store, else a byte a cell;
-// rows past the pair are computed as the others, without a branch, and
-// write nothing.  Leaves the bottom row's cell in L.out.
+// the plane classes their planes (`pl`, short_lane_planes; `vec`:
+// short_vec_ok); rows past the pair are computed as the others, without a
+// branch, and write nothing.  The stats classes keep the lane's best cell
+// cell by cell, the others each row's first maximum.  Leaves the bottom
+// row's cell in L.out.
 template <int32_t kOut, int32_t kR, class PO>
 PT_HD void short_lane_step(ShortLane<kR, PO>& L, const SegPair& p, int32_t c,
                            int32_t r, const int32_t (&sk)[kR],
                            ShortUp<PO> u, int8_t* trace0, int64_t rstride,
-                           bool wide, const PO& po) {
+                           bool wide, const SegPlanes& pl, bool vec,
+                           const PO& po) {
   using O = Out<kOut>;
   const bool last_col = c == p.rlen - 1;
   int32_t hv[kR];
+  typename PO::V pv[kR];
 PT_UNROLL
   for (int32_t k = 0; k < kR; ++k) {
     const bool on = k < L.nr;
@@ -1692,12 +1839,15 @@ PT_UNROLL
         w.tw |= (uint32_t)fl << (8 * (c & 3));
       else if (on)
         trace0[k * rstride + c] = (int8_t)fl;
-    } else {
+    } else if constexpr (O::stats) {
       cell_stats_of(po, w.h_diag, u.h, u.e, w.h_left, sk[k], p.open, p.ext,
                     p.local, w.mqi == r, u.hp, u.ep, w.lp, w.dp, w.fp, w.f,
                     h, e, hp, ep);
       w.dp = u.hp;
       w.lp = hp;
+    } else {
+      cell(w.h_diag, u.h, u.e, w.h_left, sk[k], p.open, p.ext, p.local, w.f,
+           h, e);
     }
     w.h_diag = u.h;
     w.h_left = h;
@@ -1705,7 +1855,8 @@ PT_UNROLL
     u.e = e;
     u.hp = hp;
     u.ep = ep;
-    hv[k] = on ? h : hv[0];
+    hv[k] = (k == 0 || on) ? h : hv[0];
+    pv[k] = hp;
     const bool cand = on && (w.row_all || (w.row_last && last_col));
     if constexpr (O::stats) {
       // rows top to bottom, then columns: an equal H in an earlier row is
@@ -1725,6 +1876,8 @@ PT_UNROLL
     if (wide && ((c & 3) == 3 || last_col))
       short_lane_flush(L, trace0, rstride, c, last_col);
   }
+  if constexpr (O::table || O::rowcol)
+    short_lane_planes<kOut>(L, p, c, hv, pv, pl, vec, po);
   int32_t mx = L.hmax, mn = L.hmin;
 PT_UNROLL
   for (int32_t k = 0; k + 1 < kR; k += 2) {
@@ -1740,8 +1893,8 @@ PT_UNROLL
   L.out = u;
 }
 
-// The lane's best cell and extremes, payload unpacked: the trace class
-// folds its rows' first maxima by seg_better.
+// The lane's best cell and extremes, payload unpacked: the classes
+// without stats fold their rows' first maxima by seg_better.
 template <int32_t kR, class PO>
 PT_HD SegBest short_lane_best(const ShortLane<kR, PO>& L, const PO& po) {
   SegBest b;
@@ -1882,22 +2035,24 @@ inline PairResult segment_pair_host(const int32_t* subs, const int32_t* q,
   return seg_finish<kOut>(p, mode, total, acc);
 }
 
-// One pair of the short form on the host: the warp's SEG_LANES lanes
-// stepped in a loop, last first, so that each reads what the lane above
-// left a step earlier (the kernel's shuffle).  The scores are staged as
-// the kernel stages them.
+// One pair of the short form on the host, any class: the warp's SEG_LANES
+// lanes stepped in a loop, last first, so that each reads what the lane
+// above left a step earlier (the kernel's shuffle).  The scores are staged
+// as the kernel stages them.
 //
 //   subs, q, mq: the (A, A) table and the query letters, or the pair's
 //                (qp, A) profile rows and null; the stats letters
 //   ridx:        the pair's reference letters
 //   trace:       trace class: the pair's (qp, rstride) flag plane, 16
 //                columns a store where `wide` (short_wide)
+//   pl:          the plane classes: the pair's SegPlanes
 template <int32_t kOut, int32_t kR, class PO>
 inline PairResult short_pair_host(const int32_t* subs, const int32_t* q,
                                   const int32_t* mq, const int32_t* ridx,
                                   const SegPair& p, int32_t mode,
                                   int8_t* trace, int64_t rstride,
-                                  bool wide, const PO& po) {
+                                  bool wide, const PO& po,
+                                  const SegPlanes& pl = SegPlanes()) {
   constexpr int32_t W = SEG_LANES;
   const int32_t A = p.A;
   const int32_t cs = q ? 1 : seg_prof_stride(imax(p.qp, 1));
@@ -1932,10 +2087,13 @@ inline PairResult short_pair_host(const int32_t* subs, const int32_t* q,
         short_lane_scores(L, sc.data(), seg_col(r, A) * cs, sk);
         short_lane_step<kOut>(L, p, c, r, sk, up,
                               trace ? trace + L.i0 * rstride : nullptr,
-                              rstride, wide, po);
+                              rstride, wide, pl, short_vec_ok(kR, p.qp), po);
       }
     }
-    for (const auto& L : lanes) total = seg_merge(total, short_lane_best(L, po));
+    for (const auto& L : lanes) {
+      short_lane_last_col<kOut>(L, p, pl, short_vec_ok(kR, p.qp), po);
+      total = seg_merge(total, short_lane_best(L, po));
+    }
   }
   int32_t acc[8];
   return seg_finish<kOut>(p, mode, total, acc);

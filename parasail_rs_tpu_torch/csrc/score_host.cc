@@ -1,8 +1,8 @@
 // Host build of the kernels' per-pair code (score_cell.cuh, walk_step.cuh)
 // for the CPU tests: the same score_batch_pair and walk_pair the CUDA
 // kernels run, one pair at a time, with the row scratch at stride 1, and
-// the segment, tile and chunked kernels' lanes stepped in a loop
-// (segment_pair_host).
+// the segment, tile and chunked kernels' lanes (segment_pair_host) and the
+// short form's warp (short_pair_host) stepped in a loop.
 // Build with
 //   g++ -O2 -std=c++17 -shared -fPIC -o libptscore_host.so score_host.cc
 #include <stdint.h>
@@ -59,8 +59,13 @@ void sweep(const int32_t* subs, const int32_t* qidx, const int32_t* ridx,
 
 }  // namespace
 
-// Same arguments as pt_scan_score minus the scratch and the stream;
-// `out` is (5, B): score, end_query, end_ref, sat8, sat16.
+// The one-thread form's score class, unbanded: the table or profile, the
+// letters, lengths and penalties of pt_scan_banded minus the band, the
+// scratch and the stream; `out` is (5, B): score, end_query, end_ref,
+// sat8, sat16.  On the card that form runs only banded (pt_scan_banded,
+// whose template, score_pair, this runs without the band); every
+// unbanded class is the short form's (pt_short_host below) or the block
+// kernel's.
 extern "C" int pt_score_host(const int32_t* subs, const int32_t* qidx,
                              const int32_t* ridx, const int32_t* qlen,
                              const int32_t* rlen, int32_t* out, int B, int Bq,
@@ -74,10 +79,7 @@ extern "C" int pt_score_host(const int32_t* subs, const int32_t* qidx,
 
 // pt_score_host plus the flags of each in-sequence cell into `trace`, a
 // (B, Qp, Rp) int8 plane the caller zero-fills: the one-thread form's
-// trace class.  On the card that form runs only banded (pt_scan_banded,
-// which shares its template); the unbanded trace class is the short
-// form's (pt_short_host below) or the block kernel's, so this twin holds
-// the template the banded form instantiates.
+// trace class, unbanded, as pt_score_host.
 extern "C" int pt_trace_host(const int32_t* subs, const int32_t* qidx,
                              const int32_t* ridx, const int32_t* qlen,
                              const int32_t* rlen, int32_t* out, int8_t* trace,
@@ -90,11 +92,10 @@ extern "C" int pt_trace_host(const int32_t* subs, const int32_t* qidx,
 }
 
 // The stats, table and rowcol classes (out_class 2-6) of the one-thread
-// form: pt_scan_outputs's arguments (which take classes 3-6 on the card)
-// minus the scratch and the stream, with batch-major planes the caller
+// form, unbanded, as pt_score_host: pt_scan_banded's arguments minus the
+// band, the scratch and the stream, with batch-major planes the caller
 // zero-fills: `out` (8, B), `planes` (4, B, Qp, Rp), `row` (4, B, Rp),
-// `col` (4, B, Qp).  The stats class runs on the card only banded, as
-// the trace class does (pt_trace_host).  Returns -1 for an unknown class.
+// `col` (4, B, Qp).  Returns -1 for an unknown class.
 extern "C" int pt_outputs_host(int out_class, const int32_t* subs,
                                const int32_t* qidx, const int32_t* mq,
                                const int32_t* ridx, const int32_t* qlen,
@@ -422,44 +423,74 @@ extern "C" int pt_block_plan_host(int out_class, int B, int Qs, int ncols,
 namespace {
 
 // short_pair_host of class kOut at kR rows a lane, each pair's payloads
-// in `layout` (stats) with the ops of its padded shape.
+// in `layout` (the stats classes) with the ops of its padded shape.
 template <int32_t kOut, int32_t kR>
 ptscore::PairResult short_host(int layout, const int32_t* subs,
                                const int32_t* q, const int32_t* mq,
                                const int32_t* ridx, const ptscore::SegPair& p,
                                int mode, int8_t* trace, int64_t rstride,
-                               bool wide, int Rp) {
-  if constexpr (kOut == ptscore::OUT_TRACE) {
+                               bool wide, int Rp,
+                               const ptscore::SegPlanes& pl) {
+  if constexpr (!ptscore::Out<kOut>::stats) {
     return ptscore::short_pair_host<kOut, kR>(subs, q, mq, ridx, p, mode,
                                                trace, rstride, wide,
-                                               ptscore::NoPayOps());
+                                               ptscore::NoPayOps(), pl);
   } else if (layout == ptscore::SHORT_PACKED) {
     return ptscore::short_pair_host<kOut, kR>(subs, q, mq, ridx, p, mode,
                                                trace, rstride, wide,
-                                               ptscore::pack_ops(p.qp, Rp));
+                                               ptscore::pack_ops(p.qp, Rp),
+                                               pl);
   } else {
     return ptscore::short_pair_host<kOut, kR>(subs, q, mq, ridx, p, mode,
                                                trace, rstride, wide,
-                                               ptscore::pack2_ops(p.qp));
+                                               ptscore::pack2_ops(p.qp), pl);
+  }
+}
+
+template <int32_t kOut>
+ptscore::PairResult short_rows_host(int rows, int layout,
+                                    const int32_t* subs, const int32_t* q,
+                                    const int32_t* mq, const int32_t* ridx,
+                                    const ptscore::SegPair& p, int mode,
+                                    int8_t* trace, int Rp,
+                                    const ptscore::SegPlanes& pl) {
+  const bool wide = ptscore::short_wide(Rp);
+  switch (rows) {
+    case 4:
+      return short_host<kOut, 4>(layout, subs, q, mq, ridx, p, mode, trace,
+                                 Rp, wide, Rp, pl);
+    case 5:
+      return short_host<kOut, 5>(layout, subs, q, mq, ridx, p, mode, trace,
+                                 Rp, wide, Rp, pl);
+    case 6:
+      return short_host<kOut, 6>(layout, subs, q, mq, ridx, p, mode, trace,
+                                 Rp, wide, Rp, pl);
+    default:
+      return short_host<kOut, 8>(layout, subs, q, mq, ridx, p, mode, trace,
+                                 Rp, wide, Rp, pl);
   }
 }
 
 }  // namespace
 
 // The short form (pt_scan_short's arguments minus the stream, same
-// layouts): out_class 1 trace, 2 stats; `out` is (8, B); `trace`
-// (B, Qp, Rp) arrives zero-filled; `rows` rows a lane (4, 5, 6 or 8)
-// and the stats `layout` (1 packed, 2 [m | s] + l), as the kernel would
-// take them.  Returns -1 for another class, rows or layout.
+// layouts): every class (out_class 0-6); `out` is (8, B); `trace`
+// (B, Qp, Rp), `tab` (1 or 4, B, Rp, Qp), `row` (1 or 4, B, Rp) and `col`
+// (1 or 4, B, Qp) arrive zero-filled (null where the class has none);
+// `rows` rows a lane (4, 5, 6 or 8) and the stats classes' `layout` (1
+// packed, 2 [m | s] + l), as the kernel would take them.  Returns -1 for
+// another class, rows or layout.
 extern "C" int pt_short_host(int out_class, const int32_t* subs,
                              const int32_t* qidx, const int32_t* mq,
                              const int32_t* ridx, const int32_t* qlen,
                              const int32_t* rlen, int32_t* out, int8_t* trace,
-                             int B, int Bq, int Bm, int Qp, int Rp, int A,
-                             int open, int ext, int mode, int free_bits,
-                             int rows, int layout) {
-  const bool stats = out_class == ptscore::OUT_STATS;
-  if ((out_class != ptscore::OUT_TRACE && !stats) ||
+                             int32_t* tab, int32_t* row, int32_t* col, int B,
+                             int Bq, int Bm, int Qp, int Rp, int A, int open,
+                             int ext, int mode, int free_bits, int rows,
+                             int layout) {
+  const bool stats = ptscore::seg_stats_class(out_class);
+  if (out_class < ptscore::OUT_SCORE ||
+      out_class > ptscore::OUT_STATS_ROWCOL ||
       (rows < 4 || rows > 8 || rows == 7) ||
       (stats && layout != ptscore::SHORT_PACKED &&
        layout != ptscore::SHORT_PACKED2))
@@ -472,26 +503,53 @@ extern "C" int pt_short_host(int out_class, const int32_t* subs,
     const int32_t* q = qidx ? qidx + bq * Qp : nullptr;
     const int32_t* m = mq ? mq + (Bm == 1 ? 0 : (int64_t)b * Qp) : nullptr;
     int8_t* tr = trace ? trace + (int64_t)b * Qp * Rp : nullptr;
-    const bool wide = ptscore::short_wide(Rp);
-#define PT_SHORT(k, r) \
-  short_host<k, r>(layout, s, q, m, ridx + (int64_t)b * Rp, p, mode, tr, Rp, \
-                   wide, Rp)
-#define PT_ROWS_OF(k)                                                    \
-  (rows == 4 ? PT_SHORT(k, 4)                                              \
-             : rows == 5 ? PT_SHORT(k, 5)                                  \
-                         : rows == 6 ? PT_SHORT(k, 6) : PT_SHORT(k, 8))
-    put_result(stats ? PT_ROWS_OF(ptscore::OUT_STATS)
-                     : PT_ROWS_OF(ptscore::OUT_TRACE),
-               out, B, b);
-#undef PT_ROWS_OF
+    const int32_t* r = ridx + (int64_t)b * Rp;
+    ptscore::SegPlanes pl;             // pair b's, as the kernel sets them
+    if (tab) {
+      pl.table = tab + (int64_t)b * Rp * Qp;
+      pl.tab_plane = (int64_t)B * Rp * Qp;
+    }
+    if (row) {
+      pl.row = row + (int64_t)b * Rp;
+      pl.row_plane = (int64_t)B * Rp;
+      pl.col = col + (int64_t)b * Qp;
+      pl.col_plane = (int64_t)B * Qp;
+    }
+#define PT_SHORT(k) \
+  short_rows_host<k>(rows, layout, s, q, m, r, p, mode, tr, Rp, pl)
+    ptscore::PairResult res;
+    switch (out_class) {
+      case ptscore::OUT_SCORE:
+        res = PT_SHORT(ptscore::OUT_SCORE);
+        break;
+      case ptscore::OUT_TRACE:
+        res = PT_SHORT(ptscore::OUT_TRACE);
+        break;
+      case ptscore::OUT_STATS:
+        res = PT_SHORT(ptscore::OUT_STATS);
+        break;
+      case ptscore::OUT_TABLE:
+        res = PT_SHORT(ptscore::OUT_TABLE);
+        break;
+      case ptscore::OUT_STATS_TABLE:
+        res = PT_SHORT(ptscore::OUT_STATS_TABLE);
+        break;
+      case ptscore::OUT_ROWCOL:
+        res = PT_SHORT(ptscore::OUT_ROWCOL);
+        break;
+      default:
+        res = PT_SHORT(ptscore::OUT_STATS_ROWCOL);
+        break;
+    }
 #undef PT_SHORT
+    put_result(res, out, B, b);
   }
   return 0;
 }
 
 // The short form's launcher's rule (score_cell.cuh, short_plan), as
 // pt_short_plan on the card: rows a lane (0: the batch is the block
-// kernel's), pairs a block and the stats layout to plan[0..2].
+// kernel's), pairs a block and the stats classes' layout to plan[0..2].
 extern "C" int pt_short_plan_host(int out_class, int B, int Bq, int Qp,
                                   int Rp, int A, int profile,
                                   int32_t* plan) {

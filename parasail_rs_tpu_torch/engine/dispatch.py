@@ -298,12 +298,12 @@ def _golden64_merge(out: dict, batch: PairBatch, idx: np.ndarray, *,
 SEGMENT_COLS = {"score": 8192, "stats": 4096, "trace": 1024}
 
 # Score and stats batches take the segment route from this many padded
-# cells a pair (Qp * Rp).  The one-shot kernel puts one thread on a pair
-# and the segment kernel up to eight warps; PERF.md has both kernels'
-# times on 128 pairs of 1,024 and 4,096 bp (2.0 against 239 ms, 22.5 ms
-# against 3.8 s) and the segment kernel's at 16,384 bp, on an NVIDIA H100
-# 80GB HBM3, 700 W: the segment kernel was ahead wherever both ran, so
-# the threshold is the smallest size measured.
+# cells a pair (Qp * Rp).  The one-shot kernel put one thread on a pair
+# when this was set, and the segment kernel up to eight warps; PERF.md has
+# both kernels' times on 128 pairs of 1,024 and 4,096 bp (2.0 against 239
+# ms, 22.5 ms against 3.8 s) and the segment kernel's at 16,384 bp, on an
+# NVIDIA H100 80GB HBM3, 700 W: the segment kernel was ahead wherever both
+# ran, so the threshold is the smallest size measured.
 SEGMENT_MIN_CELLS = 1 << 20
 
 # A trace batch whose (B, Qp, Rp) int8 plane is larger than this streams
@@ -334,9 +334,9 @@ def plan_route(batch: PairBatch, outputs: str, gap_open: int,
 
     The device picks between the card's routes and the CPU's; the batch's
     padded shape and class pick between the one-shot kernels
-    (:func:`~..ops.scan_kernel.score_align`, kernel K1: one thread per
-    pair, and for the trace and stats classes one warp a pair up to 256
-    padded query rows, the block kernel's one-shot form past them), segments
+    (:func:`~..ops.scan_kernel.score_align`, kernel K1: unbanded, one
+    warp a pair up to 256 padded query rows and the block kernel's
+    one-shot form past them; banded, one thread a pair), segments
     (:func:`execute_segments`, kernel K2) and the chunked sweep
     (:func:`~..ops.scan_kernel.score_chunked`, kernel K1f: K2's block of
     up to eight warps per pair, one launch over all columns, every
@@ -355,8 +355,8 @@ def plan_route(batch: PairBatch, outputs: str, gap_open: int,
     - K1 for everything else and for every banded batch, of any class
       and mode (K1e).
 
-    Why: on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6) K1 puts one
-    thread on a pair, 223-228 ns a cell, so 128 pairs of 4,096 bp take
+    Why: on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6) K1 put one
+    thread on a pair, 223-228 ns a cell, so 128 pairs of 4,096 bp took
     3.74-3.82 s in every class; K2's block took 22.5 ms (score), 33.6 ms
     (stats) and 41.3 ms (trace in four launches) on the same pairs, and
     2.0 ms against K1's 239 ms at 1,024 bp, the smallest size measured,
@@ -372,10 +372,11 @@ def plan_route(batch: PairBatch, outputs: str, gap_open: int,
     1.25 against 3.72 ms).  Short batches stay on K1 because their calls
     are host-bound (K1's 2.5 ms in 21-23 ms of ``align_batch`` on 8,192
     pairs), so moving them waits for end-to-end numbers (ROADMAP.md, "K2
-    on short pairs"); K1's trace and stats classes no longer run one
-    thread a pair (``score_align`` picks the short form or the block
-    kernel itself).  All on an NVIDIA H100 80GB HBM3 at 700 W, from
-    ``chip_smoke.py`` phases 5, 20 and 27.
+    on short pairs"); no unbanded class of K1 runs one thread a pair any
+    more (``score_align`` picks the short form, one warp a pair, or the
+    block kernel itself), so the one-thread times above are what set the
+    thresholds, not what K1 costs now.  All on an NVIDIA H100 80GB HBM3 at
+    700 W, from ``chip_smoke.py`` phases 5, 20 and 27.
     ``one_shot=True`` is for callers that need one launch; ``banded=True``
     for the banded mode, which only K1 serves (its score form sweeps the
     band alone, its other forms every cell, masked).

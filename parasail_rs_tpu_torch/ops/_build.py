@@ -150,10 +150,6 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(path)
             p, i = ctypes.c_void_p, ctypes.c_int
             ll = ctypes.c_longlong
-            lib.pt_scan_score.restype = i
-            lib.pt_scan_score.argtypes = [p] * 8 + [i] * 9 + [p]
-            lib.pt_scan_outputs.restype = i
-            lib.pt_scan_outputs.argtypes = [i] + [p] * 11 + [i] * 10 + [p]
             lib.pt_scan_banded.restype = i
             lib.pt_scan_banded.argtypes = [i] + [p] * 12 + [i] * 11 + [p]
             lib.pt_scan_segment.restype = i
@@ -163,7 +159,7 @@ def load() -> ctypes.CDLL:
             lib.pt_scan_chunked.restype = i
             lib.pt_scan_chunked.argtypes = [i] + [p] * 15 + [i] * 13 + [p]
             lib.pt_scan_short.restype = i
-            lib.pt_scan_short.argtypes = [i] + [p] * 8 + [i] * 10 + [p]
+            lib.pt_scan_short.argtypes = [i] + [p] * 11 + [i] * 10 + [p]
             lib.pt_short_plan.restype = i
             lib.pt_short_plan.argtypes = [i] * 7 + [p]
             lib.pt_block_plan.restype = i

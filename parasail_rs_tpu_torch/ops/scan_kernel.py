@@ -15,12 +15,10 @@ the stats rows and columns), the last row and column.  Planes are zero
 outside each pair's qlen x rlen cells, rows and columns beyond its
 lengths.
 
-On CUDA tensors it launches a hand-written kernel: the score and the
-plane classes the one in ``csrc/scan_score.cu`` (one thread per pair),
-counted in :data:`LAUNCHES` (score) or :data:`CLASS_LAUNCHES` (the four
-plane classes); the trace and stats classes the short form in
-``csrc/scan_short.cu`` (one warp a pair, several pairs a block, the stats
-payloads packed), counted in :data:`SHORT_LAUNCHES`, for pairs of up to
+On CUDA tensors it launches a hand-written kernel: every class the short
+form in ``csrc/scan_short.cu`` (one warp a pair, several pairs a block,
+the stats payloads packed; the tables (B, Qp, Rp) views of (B, Rp, Qp)
+buffers), counted by class in :data:`SHORT_LAUNCHES`, for pairs of up to
 256 padded query rows, and beyond that, or where a block cannot stage a
 pair's inputs, the block kernel's one-shot form (:func:`score_chunked`,
 counted in :data:`CHUNKED_LAUNCHES`).  :func:`short_plan` reads the
@@ -49,8 +47,9 @@ reference's kernels disagree there; ROADMAP Queue 3).
 (kernel K1e), in every class and mode: cells with |i - j| > bw and border
 cells beyond bw are -2^30, so an unreachable NW corner scores -2^30 and
 an SG pair whose every end candidate lies outside the band ends at (Qp,
-Rp) with -2^30.  On the card it runs the kernel's banded forms
-(``pt_scan_banded``): the score form sweeps only the band (counted in
+Rp) with -2^30.  On the card it runs the banded forms of
+``csrc/scan_score.cu`` (one thread per pair, ``pt_scan_banded``): the
+score form sweeps only the band (counted in
 :data:`BANDED_LAUNCHES`; ``Aligner.banded_nw`` runs it), the other six
 sweep every cell and mask (counted by class in
 :data:`BANDED_CLASS_LAUNCHES`).  Its plain version is the wavefront with
@@ -130,16 +129,14 @@ OUTPUTS = ("score", "trace", "stats", "table", "stats_table", "rowcol",
            "stats_rowcol")
 BIG = 2 ** 30
 
-# Launches of the one-thread-per-pair kernel in this process: score
-# form, the four plane forms by class, the banded score form and the other
-# six banded forms by class; and of the short form (csrc/scan_short.cu)
-# by class.  Only score_align's CUDA branch adds to them; set them to 0 to
+# Launches in this process of the banded one-thread-per-pair kernel
+# (csrc/scan_score.cu): its score form, and the other six forms by class;
+# and of the short form (csrc/scan_short.cu), every unbanded class, by
+# class.  Only score_align's CUDA branch adds to them; set them to 0 to
 # count one phase of work.
-LAUNCHES = 0
-CLASS_LAUNCHES = dict.fromkeys(OUTPUTS[3:], 0)
 BANDED_LAUNCHES = 0
 BANDED_CLASS_LAUNCHES = dict.fromkeys(OUTPUTS[1:], 0)
-SHORT_LAUNCHES = dict.fromkeys(OUTPUTS[1:3], 0)
+SHORT_LAUNCHES = dict.fromkeys(OUTPUTS, 0)
 # Launches of the segment kernel (csrc/scan_segment.cu); only
 # score_segment's CUDA branch adds to it.
 SEGMENT_LAUNCHES = 0
@@ -246,10 +243,11 @@ def score_align(ridx, qlen, rlen, *, open_, ext, mode, free, width="32",
     the stats classes): all int32 on one device.  Returns int32
     ``score`` / ``end_query`` / ``end_ref`` and bool ``saturated`` (+
     ``promoted`` at width ``sat``), on that device, plus the class's
-    outputs (see the module docstring).  On the card the planes, rows and
-    columns of the one-thread-per-pair kernel are strided views of its
-    batch-last buffers; the trace plane of an unbanded batch is a
-    contiguous (B, Qp, Rp) tensor.
+    outputs (see the module docstring).  On the card an unbanded batch's
+    trace plane is a contiguous (B, Qp, Rp) tensor, its tables (B, Qp,
+    Rp) views of (B, Rp, Qp) buffers, its rows and columns contiguous;
+    the planes, rows and columns of a banded batch are strided views of
+    the one-thread-per-pair kernel's batch-last buffers.
     Lengths must not exceed the padded sizes.  ``banded`` /
     ``bandwidth``: the banded mode (module docstring).
     """
@@ -263,13 +261,13 @@ def score_align(ridx, qlen, rlen, *, open_, ext, mode, free, width="32",
                                  bandwidth=bandwidth)
     if ridx.device.type != "cuda":
         raise ValueError(f"no kernel for device {ridx.device}")
-    if not banded and outputs in SHORT_LAUNCHES:
+    if not banded:
         kw = dict(open_=open_, ext=ext, mode=mode, free=free, width=width,
                   table=table, qidx=qidx, profile=profile, outputs=outputs)
         if short_plan(outputs, B, Bq, Qp, Rp, A, profile is not None)[0]:
             return _short_launch(ridx, qlen, rlen, (B, Bq, Qp, Rp, A), **kw)
         return score_chunked(ridx, qlen, rlen, **kw)
-    global LAUNCHES, BANDED_LAUNCHES
+    global BANDED_LAUNCHES
     from . import _build
 
     lib = _build.load()
@@ -281,8 +279,6 @@ def score_align(ridx, qlen, rlen, *, open_, ext, mode, free, width="32",
     out = torch.empty((8 if stats else 5, B), dtype=i32, device=dev)
     subs = table if table is not None else profile
     qptr = qidx.data_ptr() if table is not None else None
-    dims = (B, Bq, Qp, Rp, A, int(open_), int(ext), MODES[mode],
-            _free_bits(free))
     nplanes = 4 if stats else 1
     plane = rows = cols = None
     if outputs == "trace":
@@ -295,38 +291,22 @@ def score_align(ridx, qlen, rlen, *, open_, ext, mode, free, width="32",
     bw = max(-1, min(int(bandwidth), Qp + Rp))
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        args = (subs.data_ptr(), qptr)
-        lens = (ridx.data_ptr(), qlen.data_ptr(), rlen.data_ptr())
-        if banded:
-            rc = lib.pt_scan_banded(
-                OUTPUTS.index(outputs), *args, _ptr(qidx if stats else None),
-                *lens, scratch.data_ptr(), out.data_ptr(),
-                _ptr(plane if outputs == "trace" else None),
-                _ptr(plane if outputs != "trace" else None), _ptr(rows),
-                _ptr(cols), B, Bq, qidx.shape[0] if stats else 0, *dims[2:],
-                bw, stream)
-        elif outputs == "score":
-            rc = lib.pt_scan_score(*args, *lens, scratch[0].data_ptr(),
-                                   scratch[1].data_ptr(), out.data_ptr(),
-                                   *dims, stream)
-        else:
-            rc = lib.pt_scan_outputs(
-                OUTPUTS.index(outputs), *args, _ptr(qidx if stats else None),
-                *lens, scratch.data_ptr(), out.data_ptr(), _ptr(plane),
-                _ptr(rows), _ptr(cols), B, Bq,
-                qidx.shape[0] if stats else 0, *dims[2:], stream)
+        rc = lib.pt_scan_banded(
+            OUTPUTS.index(outputs), subs.data_ptr(), qptr,
+            _ptr(qidx if stats else None), ridx.data_ptr(), qlen.data_ptr(),
+            rlen.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+            _ptr(plane if outputs == "trace" else None),
+            _ptr(plane if outputs != "trace" else None), _ptr(rows),
+            _ptr(cols), B, Bq, qidx.shape[0] if stats else 0, Qp, Rp, A,
+            int(open_), int(ext), MODES[mode], _free_bits(free), bw, stream)
     if rc != 0:
         raise RuntimeError(
-            f"scan_{outputs} kernel launch failed: CUDA error {rc}")
+            f"scan_{outputs} banded kernel launch failed: CUDA error {rc}")
     res = _kernel_scalars(out, width)
-    if banded and outputs == "score":
+    if outputs == "score":
         BANDED_LAUNCHES += 1
-    elif banded:
-        BANDED_CLASS_LAUNCHES[outputs] += 1
-    elif outputs == "score":
-        LAUNCHES += 1
     else:
-        CLASS_LAUNCHES[outputs] += 1
+        BANDED_CLASS_LAUNCHES[outputs] += 1
     if outputs == "trace":
         res["trace_table"] = plane.permute(2, 0, 1)
     else:
@@ -344,11 +324,11 @@ def short_plan(outputs, B, Bq, Qp, Rp, A, profile=False) -> tuple:
     form's launcher takes for a launch of class ``outputs`` on ``B`` pairs
     of ``Qp`` by ``Rp`` padded cells (``csrc/score_cell.cuh``,
     ``short_plan``): rows 4, 5, 6 or 8, the fewest whose 32 lanes hold
-    ``Qp``, or 0 where the short form does not take the batch (another
-    class, ``Qp`` > 256, or inputs a block cannot stage;
-    :func:`score_align` then launches the block kernel's one-shot form);
-    layout 1 for [m | s | l] in one word, 2 for [m | s] and l, 0 for the
-    trace class.  ``Bq`` is the query side's batch (1: one profile
+    ``Qp``, or 0 where the short form does not take the batch (``Qp`` >
+    256, or inputs a block cannot stage; :func:`score_align` then
+    launches the block kernel's one-shot form); layout 1 for [m | s | l]
+    in one word, 2 for [m | s] and l (the stats classes), 0 for the
+    others.  ``Bq`` is the query side's batch (1: one profile
     for every pair).  Builds the kernels (it asks the library's own
     rule)."""
     from . import _build
@@ -362,17 +342,27 @@ def short_plan(outputs, B, Bq, Qp, Rp, A, profile=False) -> tuple:
 
 def _short_launch(ridx, qlen, rlen, dims, *, open_, ext, mode, free, width,
                   table, qidx, profile, outputs) -> dict:
-    """Launch the short form (``pt_scan_short``) of the trace or stats
-    class on a batch :func:`short_plan` gives it; count the launch.  The
-    trace plane is a contiguous (B, Qp, Rp) tensor."""
+    """Launch the short form (``pt_scan_short``) of class ``outputs`` on a
+    batch :func:`short_plan` gives it; count the launch.  The trace plane
+    is a contiguous (B, Qp, Rp) tensor, the tables (B, Qp, Rp) views of
+    (B, Rp, Qp) buffers (as :func:`score_chunked`'s), the rows and
+    columns contiguous (B, Rp) / (B, Qp)."""
     from . import _build
 
     B, Bq, Qp, Rp, A = dims
     dev = ridx.device
-    stats = outputs == "stats"
-    out = torch.empty((8 if stats else 5, B), dtype=torch.int32, device=dev)
-    plane = (torch.zeros((B, Qp, Rp), dtype=torch.int8, device=dev)
-             if outputs == "trace" else None)
+    i32 = torch.int32
+    stats = outputs in STATS_CLASSES
+    nplanes = 4 if stats else 1
+    out = torch.empty((8 if stats else 5, B), dtype=i32, device=dev)
+    plane = tab = rows = cols = None
+    if outputs == "trace":
+        plane = torch.zeros((B, Qp, Rp), dtype=torch.int8, device=dev)
+    elif outputs in ("table", "stats_table"):
+        tab = torch.zeros((nplanes, B, Rp, Qp), dtype=i32, device=dev)
+    elif outputs in ("rowcol", "stats_rowcol"):
+        rows = torch.zeros((nplanes, B, Rp), dtype=i32, device=dev)
+        cols = torch.zeros((nplanes, B, Qp), dtype=i32, device=dev)
     subs = table if table is not None else profile
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
@@ -380,9 +370,10 @@ def _short_launch(ridx, qlen, rlen, dims, *, open_, ext, mode, free, width,
             OUTPUTS.index(outputs), subs.data_ptr(),
             qidx.data_ptr() if table is not None else None,
             _ptr(qidx if stats else None), ridx.data_ptr(), qlen.data_ptr(),
-            rlen.data_ptr(), out.data_ptr(), _ptr(plane), B, Bq,
-            qidx.shape[0] if stats else 0, Qp, Rp, A, int(open_), int(ext),
-            MODES[mode], _free_bits(free), stream)
+            rlen.data_ptr(), out.data_ptr(), _ptr(plane), _ptr(tab),
+            _ptr(rows), _ptr(cols), B, Bq, qidx.shape[0] if stats else 0, Qp,
+            Rp, A, int(open_), int(ext), MODES[mode], _free_bits(free),
+            stream)
     if rc != 0:
         raise RuntimeError(f"scan_short ({outputs}) kernel launch failed: "
                            f"CUDA error {rc}")
@@ -390,6 +381,12 @@ def _short_launch(ridx, qlen, rlen, dims, *, open_, ext, mode, free, width,
     res = _kernel_scalars(out, width)
     if plane is not None:
         res["trace_table"] = plane
+    for k, name in enumerate(PLANES[:nplanes]):
+        if tab is not None:
+            res[f"{name}_table"] = tab[k].transpose(1, 2)
+        if rows is not None:
+            res[f"{name}_row"] = rows[k]
+            res[f"{name}_col"] = cols[k]
     return res
 
 

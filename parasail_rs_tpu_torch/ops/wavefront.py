@@ -2,10 +2,11 @@
 
 The port of ``parasail_rs_tpu.ops.wavefront.wavefront_align`` (XLA in
 the reference, so plain PyTorch here, not a hand kernel).  It is the
-plain version of the CUDA kernel's stats, table and rowcol forms
-(``csrc/scan_score.cu``): :func:`~.scan_kernel.score_align` runs it on
-CPU tensors for those classes, and ``chip_smoke.py`` holds the kernel to
-it on the card.
+plain version of the CUDA kernels' stats, table and rowcol forms
+(``csrc/scan_short.cu``, ``csrc/scan_chunked.cu``) and of every banded
+form (``csrc/scan_score.cu``): :func:`~.scan_kernel.score_align` runs it
+on CPU tensors for those classes, and ``chip_smoke.py`` holds the kernels
+to it on the card.
 
 Cells on one anti-diagonal of the affine-gap recurrence do not depend on
 each other, so the reference's ``lax.scan`` over the D = Qp + Rp - 1

@@ -326,8 +326,8 @@ def test_card_route_matches_cpu(name, cuda_device):
     cfg, qs, rs = CASES[name]
     cpu = _configure(port.Aligner.new(), cfg).device("cpu").build()
     card = _configure(port.Aligner.new(), cfg).device(cuda_device).build()
-    before = tk.LAUNCHES
+    before = tk.SHORT_LAUNCHES["score"]
     got = _summary(card.align_batch(qs, rs))
-    assert tk.LAUNCHES == before + 1
+    assert tk.SHORT_LAUNCHES["score"] == before + 1
     assert got == _summary(cpu.align_batch(qs, rs))
     assert set(card.route_counter) == {("cuda_kernel", "")}

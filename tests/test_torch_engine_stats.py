@@ -341,10 +341,9 @@ def test_card_route_matches_cpu(name, outputs, cuda_device):
     cfg = cfg + SETTERS[outputs]
     cpu = _configure(port.Aligner.new(), cfg).device("cpu").build()
     card = _configure(port.Aligner.new(), cfg).device(cuda_device).build()
-    # the stats class is the short form's, the plane classes one thread's
-    counts = tk.SHORT_LAUNCHES if outputs == "stats" else tk.CLASS_LAUNCHES
-    before = counts[outputs]
+    # every class is the short form's
+    before = tk.SHORT_LAUNCHES[outputs]
     got = _views(card.align_batch(qs, rs))
-    assert counts[outputs] == before + 1
+    assert tk.SHORT_LAUNCHES[outputs] == before + 1
     assert got == _views(cpu.align_batch(qs, rs))
     assert set(card.route_counter) == {("cuda_kernel", "")}

@@ -316,9 +316,10 @@ def test_wrapper_runs_plain_version_on_cpu(cases, monkeypatch):
     real = tk.score_align_plain
     monkeypatch.setattr(tk, "score_align_plain",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
-    before = tk.LAUNCHES
+    before = (dict(tk.SHORT_LAUNCHES), tk.CHUNKED_LAUNCHES)
     run_port(case, **kw)
-    assert calls == [1] and tk.LAUNCHES == before
+    assert calls == [1]
+    assert (tk.SHORT_LAUNCHES, tk.CHUNKED_LAUNCHES) == before
 
 
 def test_wrapper_rejects_bad_inputs(cases):
@@ -357,8 +358,60 @@ def cuda_device():
 def test_kernel_matches_plain_on_card(cases, name, cuda_device):
     case = _case(cases, name)
     kw = CASES[name][1]
-    before = tk.LAUNCHES
+    before = tk.SHORT_LAUNCHES["score"]
     got = run_port(case, device=cuda_device, **kw)
     torch.cuda.synchronize()
-    assert tk.LAUNCHES == before + 1
+    assert tk.SHORT_LAUNCHES["score"] == before + 1
     assert_same(got, run_port(case, **kw), name)
+
+
+# (padded query rows, reference columns, pairs, form) of the score class on
+# the short form (one warp a pair, 4 to 8 rows a lane) and past its 256
+# rows: bench.py's headline shape on fewer pairs (per-pair profiles of
+# 160 rows), one profile against many references, a lane's edges at 129
+# and 193 rows, the single pair, and the block kernel's one-shot form
+SHORT_SCORE = {
+    "headline_profile_160": (160, 160, 64, "profile"),
+    "shared_profile_192": (192, 192, 96, "shared"),
+    "table_129": (129, 70, 64, "table"),
+    "table_193": (193, 70, 64, "table"),
+    "single_pair_192": (192, 192, 1, "table"),
+    "table_300_block_form": (300, 64, 32, "table"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SHORT_SCORE))
+def test_short_score_matches_plain_on_card(name, cuda_device):
+    Qp, Rp, n, form = SHORT_SCORE[name]
+    rng = np.random.default_rng(Qp * 1000 + n)
+    qlen = rng.integers(0, Qp + 1, size=n).astype(np.int32)
+    qlen[:4] = (Qp, Qp - 1, 4 * (Qp // 8), 0)[:n]
+    rlen = rng.integers(0, Rp + 1, size=n).astype(np.int32)
+    rlen[:2] = (Rp, 1)[:n]
+    t = {"ridx": rng.integers(0, 25, size=(n, Rp)), "qlen": qlen,
+         "rlen": rlen}
+    if form == "table":
+        t.update(table=rng.integers(-4, 8, size=(25, 25)),
+                 qidx=rng.integers(0, 25, size=(n, Qp)))
+    else:
+        t["profile"] = rng.integers(-4, 12, size=(
+            1 if form == "shared" else n, Qp, 25))
+    t = {k: torch.from_numpy(np.ascontiguousarray(v, np.int32)).to(
+        cuda_device) for k, v in t.items()}
+    args = (t.pop("ridx"), t.pop("qlen"), t.pop("rlen"))
+    for mode, free, open_, ext in (("sw", (True,) * 4, 11, 1),
+                                   ("nw", (False,) * 4, 1, 3),
+                                   ("sg", SG_FREE["sg_qe_db"], 2, 2)):
+        kw = dict(open_=open_, ext=ext, mode=mode, free=free, width="sat",
+                  **t)
+        before = (tk.SHORT_LAUNCHES["score"], tk.CHUNKED_LAUNCHES)
+        got = tk.score_align(*args, **kw)
+        torch.cuda.synchronize()
+        short = Qp <= 256
+        assert (tk.SHORT_LAUNCHES["score"], tk.CHUNKED_LAUNCHES) == (
+            before[0] + short, before[1] + (not short))
+        want = tk.score_align_plain(*args, **kw)
+        assert set(got) == set(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (name, mode, k)

@@ -26,6 +26,10 @@ from parasail_rs_tpu.golden import model as golden  # noqa: E402
 
 from parasail_rs_tpu_torch.ops import scan_kernel as tk  # noqa: E402
 from parasail_rs_tpu_torch.ops import trace_walk as tw  # noqa: E402
+from parasail_rs_tpu_torch.ops.wavefront import (  # noqa: E402
+    PLANES,
+    STATS_CLASSES,
+)
 
 from test_torch_kernel_host import build_host_lib, run_host_walk  # noqa: E402
 from test_torch_segment_host import tie_case  # noqa: E402
@@ -53,15 +57,20 @@ PENALTIES = [(11, 1), (2, 2), (1, 3)]
 CLASSES = ("trace", "stats")
 
 
-@pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
+def build_short_lib(tmp_path_factory):
+    """The g++ build with the short form's entry points declared."""
     lib = build_host_lib(tmp_path_factory)
     lib.pt_short_host.restype = ctypes.c_int
-    lib.pt_short_host.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8 +
+    lib.pt_short_host.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11 +
                                   [ctypes.c_int] * 12)
     lib.pt_short_plan_host.restype = ctypes.c_int
     lib.pt_short_plan_host.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
     return lib
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    return build_short_lib(tmp_path_factory)
 
 
 def short_plan(lib, outputs, B, Bq, Qp, Rp, A, profile=False):
@@ -84,8 +93,9 @@ def _sides(case):
 def run_short(lib, case, outputs, *, open_, ext, mode, free, width="32",
               rows=None, layout=None):
     """``pt_short_host`` on a numpy case: score_align's dict (numpy), the
-    trace plane as the kernel leaves it.  ``rows`` and ``layout`` default
-    to the launcher's rule."""
+    trace plane as the kernel leaves it, the (B, Rp, Qp) tables as
+    (B, Qp, Rp) views.  ``rows`` and ``layout`` default to the launcher's
+    rule."""
     subs, Bq, A, profile = _sides(case)
     qidx, ridx = (np.ascontiguousarray(case[k], np.int32)
                   for k in ("qidx", "ridx"))
@@ -96,22 +106,37 @@ def run_short(lib, case, outputs, *, open_, ext, mode, free, width="32",
     rule = short_plan(lib, outputs, B, Bq, Qp, Rp, A, profile)
     rows = rows or rule[0]
     layout = rule[2] if layout is None else layout
-    stats = outputs == "stats"
+    stats = outputs in STATS_CLASSES
+    n = 4 if stats else 1
     out = np.zeros((8, B), np.int32)
     plane = np.zeros((B, Qp, Rp), np.int8) if outputs == "trace" else None
+    tab = (np.zeros((n, B, Rp, Qp), np.int32)
+           if outputs in ("table", "stats_table") else None)
+    row, col = ((np.zeros((n, B, Rp), np.int32), np.zeros((n, B, Qp),
+                                                          np.int32))
+                if outputs in ("rowcol", "stats_rowcol") else (None, None))
+
+    def ptr(a):
+        return None if a is None else a.ctypes.data
+
     rc = lib.pt_short_host(
         tk.OUTPUTS.index(outputs), subs.ctypes.data,
         None if profile else qidx.ctypes.data,
         qidx.ctypes.data if stats else None, ridx.ctypes.data,
-        qlen.ctypes.data, rlen.ctypes.data, out.ctypes.data,
-        None if plane is None else plane.ctypes.data, B, Bq,
-        qidx.shape[0], Qp, Rp, A, open_, ext, tk.MODES[mode],
-        tk._free_bits(free), rows, layout)
+        qlen.ctypes.data, rlen.ctypes.data, out.ctypes.data, ptr(plane),
+        ptr(tab), ptr(row), ptr(col), B, Bq, qidx.shape[0], Qp, Rp, A, open_,
+        ext, tk.MODES[mode], tk._free_bits(free), rows, layout)
     assert rc == 0, (outputs, rows, layout)
     res = {k: v.numpy() for k, v in tk._kernel_scalars(
         torch.from_numpy(out[:8 if stats else 5]), width).items()}
     if plane is not None:
         res["trace_table"] = plane
+    for k, name in enumerate(PLANES[:n]):
+        if tab is not None:
+            res[f"{name}_table"] = tab[k].transpose(0, 2, 1)
+        if row is not None:
+            res[f"{name}_row"] = row[k]
+            res[f"{name}_col"] = col[k]
     return res
 
 
@@ -305,9 +330,10 @@ def test_short_plan_of_the_main_paths(host_lib):
     assert (rows, layout) == (5, 1) and 2 <= pairs <= 8
     # a warp's 128 rows hold the query: 4 rows a lane
     assert short_plan(host_lib, "stats", 1024, 1024, 128, 128, 24)[0] == 4
-    # the block kernel's: past 256 rows, another class, letters a block
-    # cannot stage
+    # every class is the short form's (the plane classes:
+    # test_torch_short_planes_host.py); the block kernel's: past 256 rows,
+    # letters a block cannot stage
+    assert short_plan(host_lib, "score", 512, 512, 160, 160, 24)[0] == 5
+    assert short_plan(host_lib, "table", 512, 512, 160, 160, 24)[0] == 5
     assert short_plan(host_lib, "trace", 512, 512, 257, 192, 24)[0] == 0
-    assert short_plan(host_lib, "score", 512, 512, 160, 160, 24)[0] == 0
-    assert short_plan(host_lib, "table", 512, 512, 160, 160, 24)[0] == 0
     assert short_plan(host_lib, "trace", 4, 4, 16, 65536, 24)[0] == 0

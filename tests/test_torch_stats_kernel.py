@@ -293,12 +293,12 @@ def test_wrapper_runs_the_wavefront_on_cpu(monkeypatch):
     monkeypatch.setattr(scan_kernel, "wavefront_align",
                         lambda *a, **k: calls.append(k["outputs"]) or
                         real(*a, **k))
-    before = (dict(tk.CLASS_LAUNCHES), dict(tk.SHORT_LAUNCHES))
+    before = (dict(tk.SHORT_LAUNCHES), tk.CHUNKED_LAUNCHES)
     for outputs in CLASSES:
         run_plain(case, outputs, open_=5, ext=2, mode="sw", free=SW,
                   width="sat")
     assert calls == list(CLASSES)
-    assert (tk.CLASS_LAUNCHES, tk.SHORT_LAUNCHES) == before
+    assert (tk.SHORT_LAUNCHES, tk.CHUNKED_LAUNCHES) == before
 
 
 # -- on the card ----------------------------------------------------------
@@ -321,12 +321,11 @@ def test_kernel_matches_plain_on_card(mode, free, open_, ext, outputs,
     args = (t.pop("ridx"), t.pop("qlen"), t.pop("rlen"))
     kw = dict(open_=open_, ext=ext, mode=mode, free=free, width="sat",
               outputs=outputs, **t)
-    # the stats class is the short form's, the plane classes one thread's
-    counts = tk.SHORT_LAUNCHES if outputs == "stats" else tk.CLASS_LAUNCHES
-    before = counts[outputs]
+    # every class is the short form's
+    before = tk.SHORT_LAUNCHES[outputs]
     got = tk.score_align(*args, **kw)
     torch.cuda.synchronize()
-    assert counts[outputs] == before + 1
+    assert tk.SHORT_LAUNCHES[outputs] == before + 1
     want = tk.score_align_plain(*args, **kw)
     assert set(got) == set(want)
     for k in want:
@@ -345,3 +344,53 @@ def test_kernel_forms_match_plain_on_card(name, cuda_device):
         assert set(got) == set(want)
         for k in want:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+# (padded query rows, reference columns, pairs, form) of the plane classes
+# on the short form: whole vector stores at 4 and 8 rows a lane (Qp a
+# multiple of 4), pairs of words at 6, word by word at 5 and where Qp
+# does not align them (130, 250), lanes' edges, the single pair, and
+# BLOSUM62 pairs padded as the API pads them (192 x 192)
+SHORT_PLANES = {
+    "table_128": (128, 40, 48, "table"),
+    "profile_130": (130, 40, 48, "profile"),
+    "table_186": (186, 33, 48, "table"),
+    "shared_profile_192": (192, 40, 32, "shared"),
+    "table_250": (250, 24, 32, "table"),
+    "single_pair_160": (160, 160, 1, "table"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("outputs", CLASSES[1:])
+@pytest.mark.parametrize("name", sorted(SHORT_PLANES))
+def test_short_planes_match_plain_on_card(name, outputs, cuda_device):
+    Qp, Rp, n, form = SHORT_PLANES[name]
+    case = make_case(("short planes", name), n=n, Qp=Qp, Rp=Rp, minlen=0,
+                     profile=form != "table", shared=form == "shared",
+                     lo=-4, hi=12)
+    kR = tk.short_plan(outputs, n, case["qidx"].shape[0], Qp, Rp, 6,
+                       form != "table")[0]
+    assert kR in (4, 5, 6, 8)
+    if form != "shared":
+        # the last row the last of a lane, one short of it, the first of
+        # the next, and the whole query
+        edges = (kR * (Qp // kR - 1), kR * (Qp // kR - 1) - 1,
+                 kR * (Qp // kR - 1) + 1, Qp)[:n]
+        case["qlen"][:len(edges)] = edges
+        case["qidx"][:len(edges)] = np.random.default_rng(Qp).integers(
+            0, 6, size=(len(edges), Qp))
+    t = {k: torch.from_numpy(v).to(cuda_device) for k, v in case.items()}
+    args = (t.pop("ridx"), t.pop("qlen"), t.pop("rlen"))
+    for mode, free, open_, ext in (("sw", SW, 11, 1), ("nw", NW, 1, 3),
+                                   ("sg", SG_FREE[6], 2, 2)):
+        kw = dict(open_=open_, ext=ext, mode=mode, free=free, width="sat",
+                  outputs=outputs, **t)
+        before = tk.SHORT_LAUNCHES[outputs]
+        got = tk.score_align(*args, **kw)
+        torch.cuda.synchronize()
+        assert tk.SHORT_LAUNCHES[outputs] == before + 1
+        want = tk.score_align_plain(*args, **kw)
+        assert set(got) == set(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (name, mode, k)

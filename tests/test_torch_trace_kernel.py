@@ -240,7 +240,7 @@ def test_wrapper_runs_plain_trace_on_cpu(monkeypatch):
                         lambda *a, **k: calls.append(k["outputs"]) or
                         real(*a, **k))
     def launches():
-        return tk.LAUNCHES, dict(tk.SHORT_LAUNCHES), tk.CHUNKED_LAUNCHES
+        return dict(tk.SHORT_LAUNCHES), tk.CHUNKED_LAUNCHES
 
     before = launches()
     run_plain(case, open_=5, ext=2, mode="sw", free=SW, width="sat")
