@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the kernels from ``parasail_rs_tpu_torch/csrc`` with nvcc and
-runs twenty-nine phases on ``cuda``; any failure raises and the script exits
+runs thirty phases on ``cuda``; any failure raises and the script exits
 non-zero without printing a result.  ``score_align`` runs every unbanded
 class on the short form (kernels K1a-K1d, ``csrc/scan_short.cu``, one
 warp a pair) up to 256 padded query rows and on the block kernel's
@@ -40,8 +40,8 @@ kernel" or name a plane class:
    against its plain version on batches drawn like phase 2's, the
    empty-side pairs
    and cfg4b's 4,096-pair shape (scalars and every flag cell), and the
-   walk kernel against its plain version on those planes (opcode rows
-   and begin cells): exact equality;
+   walk kernel (the tiled walk) against its plain version on those
+   planes (opcode rows and begin cells): exact equality;
 7. the trace + CIGAR path through the public API: ``align_cigars`` of
    cfg4b (4,096 SG BLOSUM62 11/1 protein pairs of 140-160 residues), and
    ``use_trace()`` + ``align_batch`` + ``Aligner.cigars`` on the same
@@ -50,8 +50,9 @@ kernel" or name a plane class:
    "cuda_kernel", and the two paths' CIGARs and scalars must be equal;
 8. golden: 16 sampled pairs of phase 7 against golden's alignment and
    walk (score, end cell, CIGAR);
-9. timings of the trace path: trace kernel, walk kernel and their plain
-   versions at cfg4b's shape, ``align_cigars`` end to end with its stage
+9. timings of the trace path: trace kernel, walk kernel (a call, on the
+   4,096 pairs and on a 512-pair chunk; the kernel alone in phase 29)
+   and their plain versions at cfg4b's shape, ``align_cigars`` end to end with its stage
    clocks and at one chunk of 4,096 pairs, ``use_trace()`` +
    ``cigars()`` end to end, and the peak device memory;
 10. stats and plane forms vs plain: the kernel's stats, table,
@@ -95,10 +96,17 @@ kernel" or name a plane class:
    equality;
 15. the banded path through the public API: ``banded_nw_batch`` of phase
    3's 8,192 BLOSUM62 pairs, NW 11/1, bandwidth 16, counted from zero:
-   the banded kernel must launch on "cuda_kernel", equal the plain
-   version, and 16 sampled pairs golden's banded oracle; then the banded
-   kernel, its plain version and the unbanded score kernel on that batch,
-   and ``banded_nw_batch`` end to end.  Then the banded slice on the same
+   the banded warp form (K1e's score class, a ring of row blocks,
+   ``csrc/scan_banded.cu``) must launch on "cuda_kernel" and the
+   one-thread form not, equal the plain version and the one-thread form,
+   and 16 sampled pairs golden's banded oracle; the warp form at every
+   (G, kR) it has, at the widest band each reaches, against the plain
+   version, and one past it refused; ``banded_nw_batch`` of 64 DNA pairs
+   of 700-1,000 bp at bw 200, past the ring's reach, on the one-thread
+   form alone; then the warp form and the one-thread form (a call by
+   CUDA events; the kernels alone in phase 29), the plain version and
+   the unbanded score kernel on that batch, and ``banded_nw_batch`` end
+   to end.  Then the banded slice on the same
    8,192 pairs (Qp = Rp = 192), counted from zero: every class x NW, SG
    (all ends free) and SW through ``dispatch.launch(banded=True)``, each
    once, on "cuda_kernel"; the first 1,024 pairs of each equal to the
@@ -106,8 +114,9 @@ kernel" or name a plane class:
    plain walk, the peak device memory of each call; then each class and
    mode timed (CUDA-event medians) beside its plain version (NW, one run)
    and its bound; and ``banded_nw_batch`` of 128 DNA pairs of 4,096 bp at
-   bw 64, NW 5/1 (the long-read banded path), its first 8 pairs equal to
-   the plain version, timed;
+   bw 64, NW 5/1 (the long-read banded path) on the warp form, its first
+   8 pairs equal to the plain version and all 128 to the one-thread form,
+   both forms timed, the call end to end with its stage clocks;
 16. ``align_many``, counted from zero: cfg5 (256 DNA pairs of 100-2,000
    bp, SW 5/2) equal to ``align_batch`` and to plain, a ``use_stats()``
    and a ``use_trace()`` batch equal to ``align_batch``, and 128 DNA
@@ -236,7 +245,16 @@ kernel" or name a plane class:
    events and the kernel alone by torch.profiler's device time;
    ``align_cigars`` of cfg4b and ``use_stats()`` ``align_batch`` of the
    8,192 pairs end to end with their stage clocks; the short forms'
-   registers and spills (none allowed).
+   registers and spills (none allowed); then, by torch.profiler, the
+   banded warp form and the one-thread form on phase 15's cfg2 and long
+   batches, and the tiled walk (a warp a pair, ``csrc/trace_walk.cu``) on
+   phase 9's cfg4b planes, the 4,096 pairs and a 512-pair chunk
+   (torch.profiler is used from this phase on only);
+30. the walk on long global paths: 16 DNA pairs of 4,096 bp, each query
+   its reference with 10% of the letters redrawn (numpy seed 30), NW
+   5/1, the chunked sweep's trace (K1f) then the tiled walk, counted from
+   zero; 2 pairs equal to the plain walk, every walk beginning at (0,
+   0); the walk timed by CUDA events and torch.profiler.
 
 The line before the last is the card's name and power limit, the one
 before it a JSON summary of every kernel (launches on its main path,
@@ -546,7 +564,8 @@ def time_cuda(torch, fn, reps=7, warmup=2) -> float:
 
 def reset_launches(tk, tw) -> None:
     """Set every kernel's launch count to 0, to count one phase's work."""
-    tk.BANDED_LAUNCHES = tk.SEGMENT_LAUNCHES = 0
+    tk.BANDED_WARP_LAUNCHES = tk.BANDED_THREAD_LAUNCHES = 0
+    tk.SEGMENT_LAUNCHES = 0
     tk.ROWSEG_LAUNCHES = tk.CHUNKED_LAUNCHES = tw.LAUNCHES = 0
     tk.SHORT_LAUNCHES = dict.fromkeys(tk.SHORT_LAUNCHES, 0)
     tk.BANDED_CLASS_LAUNCHES = dict.fromkeys(tk.BANDED_CLASS_LAUNCHES, 0)
@@ -820,7 +839,18 @@ def main() -> int:
     short = short_path(torch, pt, tk, tw, dispatch, stages, rng, blosum, card,
                        (qs, rs), trace["cfg4b"], planes.pop("tab"),
                        (head_args, head_kw))
+    times = kernel_times(torch, tk, tw, card, banded.pop("inputs"),
+                         trace.pop("walk_inputs"))
     clock("28-29")
+    trace["walk"].update(long_walk(torch, pt, tk, tw, card))
+    trace["walk"].update(kernel_ms=times["walk"]["cfg4b 4,096"],
+                         chunk_kernel_ms=times["walk"]["cfg4b chunk of 512"])
+    banded["score"].update(kernel_ms=times["band"]["cfg2"],
+                           thread_kernel_ms=times["thread"]["cfg2"])
+    banded["score"]["long"].update(kernel_ms=times["band"]["long"],
+                                   thread_kernel_ms=times["thread"]["long"])
+    banded["score_thread"].update(kernel_ms=times["thread"]["cfg2"])
+    clock("30")
 
     def with_short(cls, row):
         """A class's row, phases 4-13, with phases 28-29's numbers."""
@@ -845,7 +875,7 @@ def main() -> int:
         "replaces": "parasail_rs_tpu/ops/scan_kernel.py:1453",
         **with_short("trace", trace["trace"]),
     }, {
-        "name": "trace_walk._walk_impl",
+        "name": "trace_walk._walk_impl, a warp a pair over staged tiles",
         "route": "cuda",
         "source": "parasail_rs_tpu_torch/csrc/trace_walk.cu",
         "replaces": "parasail_rs_tpu/ops/trace_walk.py:122",
@@ -863,13 +893,25 @@ def main() -> int:
         "replaces": "parasail_rs_tpu/ops/scan_kernel.py:1453",
         **with_short(cls, planes[cls]),
     } for cls in PLANE_CLASSES[1:]] + [{
-        "name": "scan_score_align (banded)" if cls == "score" else
-                f"scan_score_align (banded, {cls})",
+        "name": "scan_score_align (banded), a ring of row blocks",
+        "route": "cuda",
+        "source": "parasail_rs_tpu_torch/csrc/scan_banded.cu",
+        "replaces": "parasail_rs_tpu/ops/scan_kernel.py:1453",
+        **banded["score"],
+    }, {
+        "name": "scan_score_align (banded), one thread a pair, bands past "
+                "the ring's reach",
+        "route": "cuda",
+        "source": "parasail_rs_tpu_torch/csrc/scan_score.cu",
+        "replaces": "parasail_rs_tpu/ops/scan_kernel.py:1453",
+        **banded["score_thread"],
+    }] + [{
+        "name": f"scan_score_align (banded, {cls})",
         "route": "cuda",
         "source": "parasail_rs_tpu_torch/csrc/scan_score.cu",
         "replaces": "parasail_rs_tpu/ops/scan_kernel.py:1453",
         **banded[cls],
-    } for cls in tk.OUTPUTS] + [{
+    } for cls in tk.OUTPUTS[1:]] + [{
         "name": f"scan_score_segment ({cls})",
         "route": "cuda",
         "source": "parasail_rs_tpu_torch/csrc/scan_segment.cu",
@@ -988,6 +1030,8 @@ def trace_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum,
     chunk_ms = time_cuda(torch, lambda: tk.score_align(
         *sub, **{**trace_kw, "qidx": b4b.qidx[:512]}))
     w_ms = time_cuda(torch, lambda: tw.device_walk(*walk_args))
+    chunk_walk = tuple(a[:512] for a in walk_args[:5]) + walk_args[5:]
+    w_chunk_ms = time_cuda(torch, lambda: tw.device_walk(*chunk_walk))
     w_plain = time_cuda(torch, lambda: tw.device_walk_plain(*walk_args),
                         reps=3, warmup=1)
     torch.cuda.reset_peak_memory_stats()
@@ -1014,7 +1058,8 @@ def trace_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum,
     log(f"[9 timing] cfg4b shape B=4096 Qp=Rp=192: trace kernel median "
         f"{t_ms} ms, plain {t_plain} ms; score kernel on the same batch "
         f"{s_ms} ms; trace kernel on a 512-pair chunk {chunk_ms} ms; walk "
-        f"kernel {w_ms} ms, plain {w_plain} ms [{card}]")
+        f"kernel (tiled) {w_ms} ms a call, on the 512-pair chunk "
+        f"{w_chunk_ms} ms a call; plain {w_plain} ms [{card}]")
     log(f"[9 timing] align_cigars 4096 pairs e2e median {cig_ms} ms "
         f"({4096 / cig_ms * 1e3} CIGARs/s), chunks of 512; peak device "
         f"memory {peak_mib} MiB [{card}]")
@@ -1036,7 +1081,10 @@ def trace_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum,
                       "ms": t_ms, "plain_ms": t_plain,
                       **sweep_bound("trace", args4b, kw4b)},
             "walk": {"launches": walk_launches, "max_abs_err": errs[1],
-                     "ms": w_ms, "plain_ms": w_plain, **walk_bound},
+                     "ms": w_ms, "chunk_ms": w_chunk_ms, "plain_ms": w_plain,
+                     **walk_bound},
+            "walk_inputs": {"cfg4b 4,096": walk_args,
+                            "cfg4b chunk of 512": chunk_walk},
             "cfg4b": (q4b, r4b)}
 
 
@@ -1349,13 +1397,35 @@ BANDS_14 = (0, 3, 16, 64, 4096)
 
 
 def banded_launches(tk) -> dict:
-    """The banded forms' launch counts by class."""
-    return {"score": tk.BANDED_LAUNCHES, **tk.BANDED_CLASS_LAUNCHES}
+    """The banded forms' launch counts by class (the score class on the
+    warp form and on the one-thread form together)."""
+    return {"score": tk.BANDED_WARP_LAUNCHES + tk.BANDED_THREAD_LAUNCHES,
+            **tk.BANDED_CLASS_LAUNCHES}
 
 
 def reset_banded_launches(tk) -> None:
-    tk.BANDED_LAUNCHES = 0
+    tk.BANDED_WARP_LAUNCHES = tk.BANDED_THREAD_LAUNCHES = 0
     tk.BANDED_CLASS_LAUNCHES = dict.fromkeys(tk.BANDED_CLASS_LAUNCHES, 0)
+
+
+# (G lanes, kR rows) of the banded warp form, every form it has
+BAND_FORMS = tuple((g, r) for g in (8, 16, 32) for r in (4, 5, 6, 8))
+
+
+def band_reach(form) -> int:
+    """The widest band (half-width) a warp form reaches: 2 bw < (G - 1)
+    kR + G + 1."""
+    g, r = form
+    return ((g - 1) * r + g) // 2
+
+
+def banded_one_thread(tk, fn):
+    """fn() with the banded score class forced onto the one-thread form."""
+    tk._BAND_FORM = (0, 0)
+    try:
+        return fn()
+    finally:
+        tk._BAND_FORM = None
 
 
 def banded_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum,
@@ -1434,14 +1504,14 @@ def banded_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum,
     dispatch.ROUTE_COUNTS.clear()
     reset_launches(tk, tw)
     res = bal.banded_nw_batch(qs, rs)
-    launches = tk.BANDED_LAUNCHES
+    launches = tk.BANDED_WARP_LAUNCHES
     routes = dict(dispatch.ROUTE_COUNTS)
-    log(f"[15 banded path] banded launches={launches} (short score "
-        f"{tk.SHORT_LAUNCHES['score']}) "
-        f"routes={routes}")
-    if launches < 1:
+    log(f"[15 banded path] banded warp form launches={launches} (one-thread "
+        f"form {tk.BANDED_THREAD_LAUNCHES}, short score "
+        f"{tk.SHORT_LAUNCHES['score']}) routes={routes}")
+    if launches < 1 or tk.BANDED_THREAD_LAUNCHES:
         raise AssertionError("banded_nw_batch did not launch the banded "
-                             "kernel")
+                             "warp form alone")
     if set(routes) != {("cuda_kernel", "")} or \
             set(bal.route_counter) != {("cuda_kernel", "")}:
         raise AssertionError(f"the banded path left the kernel route: "
@@ -1469,8 +1539,16 @@ def banded_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum,
         f"sampled pairs equal to golden's banded oracle; {unreachable} "
         "corners out of the band (-2^30)")
 
+    errs["score_thread"] = banded_one_thread(
+        tk, lambda: compare(torch, tk, "phase 15 batch, one-thread form",
+                            args, kw))
+    errs["score"] = max(errs["score"], band_forms(torch, tk, card))
+    thread_launches = wide_band(torch, pt, tk, tw, dispatch)
+
     # -- banded timings ---------------------------------------------------------
     ms = time_cuda(torch, lambda: tk.score_align(*args, **kw))
+    thread_ms = banded_one_thread(tk, lambda: time_cuda(
+        torch, lambda: tk.score_align(*args, **kw)))
     plain_ms = time_cuda(torch, lambda: tk.score_align_plain(*args, **kw),
                          reps=3, warmup=1)
     unb = {k: v for k, v in kw.items() if k not in ("banded", "bandwidth")}
@@ -1484,23 +1562,119 @@ def banded_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum,
     cells = band_cells(batch.qlen, batch.rlen, bw)
     full = int((batch.qlen.astype(np.int64) * batch.rlen).sum())
     log(f"[15 timing] card: {card}")
+    b = sweep_bound("score", args, kw, cells)
+    form = tk.band_plan(len(qs), batch.qp, batch.ridx.shape[1],
+                        batch.table.shape[0], bw)
     log(f"[15 timing] {len(qs)} pairs Qp={batch.qidx.shape[1]} "
-        f"Rp={batch.ridx.shape[1]} NW 11/1: banded kernel (bw {bw}) median "
-        f"{ms} ms ({cells} band cells, {cells / ms / 1e6} GCUPS), plain "
-        f"{plain_ms} ms; unbanded score kernel on the same batch {unb_ms} ms "
-        f"({full} cells, {full / unb_ms / 1e6} GCUPS) [{card}]")
+        f"Rp={batch.ridx.shape[1]} NW 11/1, bw {bw}: banded warp form "
+        f"({form} lanes a pair, rows a block) median {ms} ms a call "
+        f"({cells} band cells, {cells / ms / 1e6} GCUPS); the one-thread "
+        f"form {thread_ms} ms a call; plain {plain_ms} ms; bound "
+        f"{b['bound_ms']} ms "
+        f"({b['bound_by']}); unbanded score kernel on the same batch "
+        f"{unb_ms} ms ({full} cells, {full / unb_ms / 1e6} GCUPS) [{card}]")
     log(f"[15 timing] banded_nw_batch {len(qs)} pairs e2e median {e2e_ms} ms "
         f"({len(qs) / e2e_ms * 1e3} aln/s); stages, ms per call: "
         f"{json.dumps(per_call)} [{card}]")
     rows = {"score": {"launches": launches, "ms": ms, "plain_ms": plain_ms,
-                      **sweep_bound("score", args, kw, cells)}}
+                      "e2e_ms": e2e_ms, "thread_ms": thread_ms, **b},
+            "score_thread": {"launches": thread_launches, "ms": thread_ms,
+                             "plain_ms": plain_ms, **b}}
 
     # -- 15. every banded class and mode at full width ---------------------------
     rows.update(banded_classes(torch, tk, tw, dispatch, card, batch, bw))
-    long_banded(torch, pt, tk, card)
+    rows["score"]["long"], long_inputs = long_banded(torch, pt, tk, card,
+                                                     errs)
     for cls, row in rows.items():
         row["max_abs_err"] = errs[cls]
+    # the kernels alone are profiled in phase 29 (kernel_times)
+    rows["inputs"] = {"cfg2": (args, kw), "long": long_inputs}
     return rows
+
+
+def band_forms(torch, tk, card) -> int:
+    """The banded warp form at every (G, kR) it has, each at the widest
+    band it reaches, on 256 DNA pairs longer than the band (lengths no
+    multiple of kR, one side far shorter on a few), NW, SG and SW in turn,
+    against the plain version; and a band one past each form's reach, which
+    that form refuses.  Its pairs come from a generator of their own (numpy
+    seed 12).  Returns the largest error (0)."""
+    from parasail_rs_tpu_torch.matrices import Matrix
+
+    rng = np.random.default_rng(12)
+    dev = torch.device("cuda")
+    dna = Matrix.create(DNA, 2, -3)
+    err = 0
+    for n, form in enumerate(BAND_FORMS):
+        bw = band_reach(form)
+        hi = 2 * bw + 40
+        qs = random_seqs(rng, DNA, 256, 2 * bw + 1, hi)
+        rs = random_seqs(rng, DNA, 256, 2 * bw + 1, hi)
+        qs[:4] = [q[:9 + k] for k, q in enumerate(qs[:4])]
+        args, subs = pack_table(torch, dev, dna, qs, rs, hi)
+        mode, free = BANDED_MODES[n % 3]
+        if mode == "sg":
+            free = SG_FREE[n % len(SG_FREE)]
+        kw = dict(open_=4, ext=1, mode=mode, free=free, width="sat",
+                  banded=True, bandwidth=bw, **subs)
+        tk._BAND_FORM = form
+        try:
+            before = tk.BANDED_WARP_LAUNCHES
+            err = max(err, compare(torch, tk, f"warp form {form} bw {bw}",
+                                   args, kw))
+            if tk.BANDED_WARP_LAUNCHES != before + 1:
+                raise AssertionError(f"warp form {form} did not launch")
+            try:
+                tk.score_align(*args, **dict(kw, bandwidth=bw + 1))
+            except RuntimeError:
+                pass
+            else:
+                raise AssertionError(f"warp form {form} took bw {bw + 1}, "
+                                     "past its reach")
+        finally:
+            tk._BAND_FORM = None
+    log(f"[15 banded warp forms] every (G, kR) of {BAND_FORMS} at the widest "
+        "band it reaches, 256 DNA pairs longer than the band, NW / SG / SW "
+        "in turn: equal to plain; one past its reach refused [" + card + "]")
+    return err
+
+
+def wide_band(torch, pt, tk, tw, dispatch) -> int:
+    """``banded_nw_batch`` of 64 DNA pairs of 700-1,000 bp at bw 200, past
+    the warp form's reach (bw 140), counted from zero: it must launch the
+    one-thread band-only form on "cuda_kernel" and equal the plain version.
+    Its pairs come from a generator of their own (numpy seed 13).  Returns
+    that form's launches."""
+    rng = np.random.default_rng(13)
+    dna = pt.Matrix.create(DNA, 2, -3)
+    qs = random_seqs(rng, DNA, 64, 700, 1000)
+    rs = random_seqs(rng, DNA, 64, 700, 1000)
+    al = (pt.Aligner.new().matrix(dna).gap_open(5).gap_extend(1)
+          .bandwidth(200).build())
+    dispatch.ROUTE_COUNTS.clear()
+    reset_launches(tk, tw)
+    res = al.banded_nw_batch(qs, rs)
+    launches = (tk.BANDED_WARP_LAUNCHES, tk.BANDED_THREAD_LAUNCHES)
+    routes = dict(dispatch.ROUTE_COUNTS)
+    if launches != (0, 1) or set(routes) != {("cuda_kernel", "")}:
+        raise AssertionError(f"banded_nw_batch at bw 200 launched (warp, "
+                             f"one-thread) {launches} on {routes}")
+    check_against_plain("banded_nw_batch 64 x 700-1,000 bp bw 200", res,
+                        plain_of_banded(tk, al, qs, rs, 200))
+    log(f"[15 banded path] banded_nw_batch of 64 DNA pairs of 700-1,000 bp "
+        f"at bw 200 (past the warp form's reach): (warp, one-thread) "
+        f"launches {launches} on {routes}, equal to plain")
+    return launches[1]
+
+
+def plain_of_banded(tk, aligner, qs, rs, bw) -> dict:
+    """The plain version's NW outputs of ``banded_nw_batch``'s batch."""
+    batch, _, _ = aligner._pack(qs, rs)
+    out = tk.score_align_plain(
+        batch.ridx, batch.qlen_t, batch.rlen_t, open_=aligner.gap_open,
+        ext=aligner.gap_extend, mode="nw", free=F4, width="32",
+        table=batch.table, qidx=batch.qidx, banded=True, bandwidth=bw)
+    return {k: v.cpu().numpy() for k, v in out.items()}
 
 
 def banded_classes(torch, tk, tw, dispatch, card, batch, bw) -> dict:
@@ -1550,8 +1724,10 @@ def banded_classes(torch, tk, tw, dispatch, card, batch, bw) -> dict:
             del out, got, want
     launches = banded_launches(tk)
     routes = dict(dispatch.ROUTE_COUNTS)
-    log(f"[15 banded classes] launches {launches}, routes {routes}")
-    if any(launches[cls] != len(BANDED_MODES) for cls in tk.OUTPUTS):
+    log(f"[15 banded classes] launches {launches} (score: warp form "
+        f"{tk.BANDED_WARP_LAUNCHES}), routes {routes}")
+    if any(launches[cls] != len(BANDED_MODES) for cls in tk.OUTPUTS) or \
+            tk.BANDED_THREAD_LAUNCHES:
         raise AssertionError(f"the banded slice launched {launches}, "
                              f"expected {len(BANDED_MODES)} a class")
     if routes != {("cuda_kernel", ""): len(tk.OUTPUTS) * len(BANDED_MODES)}:
@@ -1592,12 +1768,18 @@ def banded_classes(torch, tk, tw, dispatch, card, batch, bw) -> dict:
     return rows
 
 
-def long_banded(torch, pt, tk, card) -> None:
+def long_banded(torch, pt, tk, card, errs) -> dict:
     """``banded_nw_batch`` of 128 DNA pairs of 4,096 bp at bw 64, NW 5/1
-    (K1's band-only score form as the long-read banded path): 8 pairs
-    against the plain version, the kernel and the call timed.  Its pairs
-    come from a generator of their own (numpy seed 15), so that the later
-    phases draw what they drew before."""
+    (K1e's band-only score form as the long-read banded path), counted
+    from zero: the warp form must launch; 8 pairs against the plain
+    version, all 128 against the one-thread form; the warp form and the
+    one-thread form timed (a call by CUDA events, the kernel by
+    torch.profiler) and the call end to end with its stage clocks.  Its
+    pairs come from a generator of their own (numpy seed 15), so that the
+    later phases draw what they drew before.  Returns the times."""
+    from parasail_rs_tpu_torch.ops import trace_walk as tw
+    from parasail_rs_tpu_torch.utils import stages
+
     rng = np.random.default_rng(15)
     dna = pt.Matrix.create(DNA, 2, -3)
     bw = 64
@@ -1605,7 +1787,12 @@ def long_banded(torch, pt, tk, card) -> None:
     rs = random_seqs(rng, DNA, 128, LONG_LEN, LONG_LEN)
     al = (pt.Aligner.new().matrix(dna).gap_open(5).gap_extend(1)
           .bandwidth(bw).build())
+    reset_launches(tk, tw)
     res = al.banded_nw_batch(qs, rs)
+    launches = (tk.BANDED_WARP_LAUNCHES, tk.BANDED_THREAD_LAUNCHES)
+    if launches != (1, 0):
+        raise AssertionError(f"the long banded batch launched (warp, "
+                             f"one-thread) {launches}")
     batch, _, _ = al._pack(qs, rs)
     args = (batch.ridx, batch.qlen_t, batch.rlen_t)
     kw = dict(open_=5, ext=1, mode="nw", free=F4, width="32",
@@ -1615,16 +1802,38 @@ def long_banded(torch, pt, tk, card) -> None:
         *(a[:n] for a in args), **dict(kw, qidx=batch.qidx[:n])).items()}
     check_against_plain(f"banded_nw_batch 128 x {LONG_LEN} bp bw {bw}",
                         res[:n], plain)
-    ms = time_cuda(torch, lambda: tk.score_align(*args, **kw), reps=3,
+    warp = tk.score_align(*args, **kw)
+    thread = banded_one_thread(tk, lambda: tk.score_align(*args, **kw))
+    torch.cuda.synchronize()
+    err = max_abs_diff(warp, thread)
+    if err:
+        raise AssertionError(f"the long banded batch: warp form != "
+                             f"one-thread form, max |diff| {err}")
+    errs["score"] = max(errs["score"], err)
+    ms = time_cuda(torch, lambda: tk.score_align(*args, **kw), reps=5,
                    warmup=1)
+    thread_ms = banded_one_thread(tk, lambda: time_cuda(
+        torch, lambda: tk.score_align(*args, **kw), reps=3, warmup=1))
     e2e_ms = time_host(lambda: al.banded_nw_batch(qs, rs), reps=3)
+    with stages.measuring():
+        for _ in range(3):
+            al.banded_nw_batch(qs, rs)
+        snap = stages.snapshot()
+    per_call = {k: v["ms"] / 3 for k, v in snap.items()}
     cells = band_cells(batch.qlen, batch.rlen, bw)
     b = sweep_bound("score", args, kw, cells)
+    form = tk.band_plan(128, batch.qp, batch.ridx.shape[1],
+                        batch.table.shape[0], bw)
     log(f"[15 timing] banded_nw_batch 128 DNA pairs of {LONG_LEN} bp, NW "
-        f"5/1, bw {bw}: the first {n} pairs equal to plain; banded kernel "
-        f"median {ms} ms ({cells} band cells, {cells / ms / 1e6} GCUPS; "
-        f"bound {b['bound_ms']} ms, {b['bound_by']}), e2e median {e2e_ms} "
-        f"ms [{card}]")
+        f"5/1, bw {bw}: warp form launched ({form} lanes, rows), the first "
+        f"{n} pairs equal to plain, all 128 to the one-thread form; warp "
+        f"form median {ms} ms a call ({cells} band cells, "
+        f"{cells / ms / 1e6} GCUPS; bound {b['bound_ms']} ms, "
+        f"{b['bound_by']}); the one-thread form {thread_ms} ms a call; e2e "
+        f"median {e2e_ms} ms; stages, ms per call: {json.dumps(per_call)} "
+        f"[{card}]")
+    return ({"ms": ms, "thread_ms": thread_ms, "e2e_ms": e2e_ms,
+             "bound_ms": b["bound_ms"]}, (args, kw))
 
 
 def check_fields(name, got, want) -> None:
@@ -3107,10 +3316,12 @@ def block_registers(build_log: str, classes) -> dict:
 
 
 def device_ms(torch, fn, name: str, n: int = 10) -> float:
-    """Milliseconds a call of fn() spends in the device kernels whose name
-    holds ``name``: torch.profiler's device time over n calls after a
-    warm-up, the wrapper's host work and other kernels (a plane's zero
-    fill) left out.  Raises where the profiler saw no such kernel."""
+    """Milliseconds a launch of the device kernel whose name holds
+    ``name`` takes in fn(), which launches it once: torch.profiler's
+    device time over n calls after a warm-up, averaged over the launches
+    the profiler recorded, the wrapper's host work and other kernels (a
+    plane's zero fill) left out.  Raises where the profiler saw no such
+    kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -3120,14 +3331,17 @@ def device_ms(torch, fn, name: str, n: int = 10) -> float:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
+    total, count = 0.0, 0
     for e in prof.key_averages():
         if name in e.key:
-            total += (getattr(e, "device_time_total", None) or
-                      getattr(e, "cuda_time_total", 0) or 0)
-    if total <= 0:
+            t = (getattr(e, "device_time_total", None) or
+                 getattr(e, "cuda_time_total", 0) or 0)
+            if t > 0:
+                total += t
+                count += e.count
+    if total <= 0 or count <= 0:
         raise AssertionError(f"the profiler saw no device time of {name}")
-    return total / 1e3 / n
+    return total / 1e3 / count
 
 
 def short_registers(build_log: str, classes) -> dict:
@@ -3412,6 +3626,81 @@ def short_path(torch, pt, tk, tw, dispatch, stages, rng, blosum, card,
                      "block_kernel_ms": times[name][3]}
                for cls, name in [("score", "K1a headline")] + [
                    (c, f"K1d {c} 512") for c in PLANE_CLASSES[1:]]}}
+
+
+def kernel_times(torch, tk, tw, card, band_inputs, walk_inputs) -> dict:
+    """Phase 29's kernel times of the banded score class and the walk,
+    by torch.profiler (which this script uses only from phase 29 on): the
+    banded warp form and the one-thread form on cfg2 and on the long
+    banded batch (phase 15's inputs), the tiled walk on cfg4b's 4,096
+    pairs and a 512-pair chunk of them (phase 9's planes).  Returns them
+    by kernel."""
+    out = {"band": {}, "thread": {}, "walk": {}}
+    for name, (args, kw) in band_inputs.items():
+        out["band"][name] = device_ms(
+            torch, lambda: tk.score_align(*args, **kw), "band_kernel", n=5)
+        out["thread"][name] = banded_one_thread(tk, lambda: device_ms(
+            torch, lambda: tk.score_align(*args, **kw), "scan_kernel", n=3))
+        log(f"[29 timing] banded {name}: the warp form's kernel "
+            f"{out['band'][name]} ms, the one-thread form's "
+            f"{out['thread'][name]} ms [{card}]")
+    for name, walk in walk_inputs.items():
+        out["walk"][name] = device_ms(torch, lambda: tw.device_walk(*walk),
+                                      "trace_walk_kernel")
+        log(f"[29 timing] the tiled walk on {name}: {out['walk'][name]} ms "
+            f"of kernel [{card}]")
+    return out
+
+
+def long_walk(torch, pt, tk, tw, card) -> dict:
+    """Phase 30: the walk on long global paths.  16 DNA pairs of 4,096 bp,
+    each query its reference with 10% of the letters redrawn (numpy seed
+    30, a generator of its own), NW 5/1: the chunked sweep's trace class
+    (K1f), counted from zero, then the tiled walk; 2 pairs held to the
+    plain walk, all 16 to golden's CIGAR rule through the runs; the walk
+    timed by CUDA events and torch.profiler.  Returns its row's numbers."""
+    rng = np.random.default_rng(30)
+    alpha = np.frombuffer(DNA, np.uint8)
+    refs = rng.integers(0, 4, size=(16, LONG_LEN))
+    qrys = np.where(rng.random(refs.shape) < 0.1,
+                    rng.integers(0, 4, size=refs.shape), refs)
+    qs = [alpha[q].tobytes() for q in qrys]
+    rs = [alpha[r].tobytes() for r in refs]
+    al = (pt.Aligner.new().matrix(pt.Matrix.create(DNA, 2, -3)).gap_open(5)
+          .gap_extend(1).build())
+    batch, _, _ = al._pack(qs, rs)
+    args = (batch.ridx, batch.qlen_t, batch.rlen_t)
+    kw = dict(open_=5, ext=1, mode="nw", free=F4, width="32",
+              table=batch.table, qidx=batch.qidx, outputs="trace")
+    reset_launches(tk, tw)
+    out = tk.score_align(*args, **kw)
+    walk = (out["trace_table"], batch.qbytes, batch.rbytes,
+            out["end_query"], out["end_ref"], "nw", F4)
+    ops, bq, br = tw.device_walk(*walk)
+    torch.cuda.synchronize()
+    launches = (tk.CHUNKED_LAUNCHES, tw.LAUNCHES)
+    if launches != (1, 1):
+        raise AssertionError(f"the long walk launched (chunked, walk) "
+                             f"{launches}")
+    n = 2
+    want = tw.device_walk_plain(*(a[:n] for a in walk[:5]), "nw", F4)
+    err = max_abs_diff(dict(zip("obr", (ops[:n], bq[:n], br[:n]))),
+                       dict(zip("obr", want)))
+    if err:
+        raise AssertionError(f"long walk != plain, max |diff| {err}")
+    if (bq != 0).any() or (br != 0).any():
+        raise AssertionError("a global walk did not begin at (0, 0)")
+    steps = int((ops != 0).sum().item())
+    ms = time_cuda(torch, lambda: tw.device_walk(*walk))
+    kernel_ms = device_ms(torch, lambda: tw.device_walk(*walk),
+                          "trace_walk_kernel", n=5)
+    log(f"[30 long walk] 16 DNA pairs of {LONG_LEN} bp, 10% redrawn, NW 5/1: "
+        f"the chunked sweep's trace, then the tiled walk ({steps} steps, "
+        f"{steps / 16} a pair); {n} pairs equal to the plain walk, every "
+        f"walk begins at (0, 0); {ms} ms a call, {kernel_ms} ms of kernel, "
+        f"{kernel_ms * 1e6 / (steps / 16)} ns a step [{card}]")
+    return {"long_ms": ms, "long_kernel_ms": kernel_ms,
+            "long_steps": steps}
 
 
 def random_seqs_of(rng, alphabet: bytes, lens) -> list:

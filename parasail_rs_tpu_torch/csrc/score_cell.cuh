@@ -1916,6 +1916,427 @@ PT_HD SegBest short_lane_best(const ShortLane<kR, PO>& L, const PO& po) {
   return b;
 }
 
+// ---------------------------------------------------------------------------
+// The banded warp form (csrc/scan_banded.cu; kernel K1e's score class):
+// the band-only sweep of score_pair<OUT_SCORE, true> on the short form's
+// step, with a pair's query rows as a RING of row blocks over a group of
+// G lanes (G = 8, 16 or 32, so several pairs share a warp on narrow
+// bands).  Row block k, query rows [k kR, k kR + kR), lives on lane
+// k mod G; at step s it computes column s - k of its kR rows (cell, DPX
+// max-plus), H, E and F in registers, and one shuffle from the ring's
+// predecessor lane brings the bottom row of block k - 1.  A block sweeps
+// only its band's columns, [k kR - bw, k kR + kR - 1 + bw] clipped to
+// [0, rlen), and sets H of those cells outside the band to NEG_INF32, as
+// the masked forms do (band_lane_step: E and F need no mask).  Block
+// k + G starts on the lane after block k has ended exactly when 2 bw <
+// (G - 1) kR + G + 1 (band_reach): block k ends at step hi_k + k, block
+// k + G starts at step lo_{k+G} + k + G.  Wider bands keep the one-thread
+// band-only form.
+//
+// What a block's rows read, so that every in-band cell equals
+// score_pair's:
+// - the row above at column c, on the top row: block k - 1's bottom row,
+//   received a step after the predecessor computed it; block 0 reads the
+//   masked top border.  Block k - 1 ends at column k kR - 1 + bw, so the
+//   last kR columns of block k, which lie outside the band of the row
+//   above, take NEG_INF32 there instead of the shuffle (by then the
+//   predecessor may hold its next block);
+// - the first diagonal: at a left edge lo = 0 the masked left border; at
+//   lo > 0 the top row's is block k - 1's bottom row at lo - 1, received
+//   the step before, and every other row's (and every row's left cell and
+//   F) lies outside the band, NEG_INF32;
+// - the end cell: each row's first maximum among its in-band candidates
+//   above the pair's floor (SW 0, else NEG_INF32, score_pair's running
+//   best), folded into the lane's best by seg_better when a block ends,
+//   and across the group by seg_merge (H descending, i ascending, j
+//   ascending);
+// - the width-8/16 flags: score_pair's closed form for the cells outside
+//   the band, which sets both whenever one exists (band_outside); else,
+//   with no cell masked, the extremes of in-sequence H (never a padding
+//   row; band_finish).
+// A band wider than the padded pair is the whole pair (band_eff), so it
+// is planned as max(Qp, Rp).
+
+// The lanes' reach: the ring form takes 2 bw < band_reach(G, kR).
+PT_HD int32_t band_reach(int32_t G, int32_t kR) {
+  return (G - 1) * kR + G + 1;
+}
+
+// A band's half-width for the ring form: clamp_band's, and no wider than
+// the padded pair (the same cells and borders).
+PT_HD int32_t band_eff(int32_t bw, int32_t Qp, int32_t Rp) {
+  return imin(clamp_band(bw, Qp, Rp), imax(Qp, Rp));
+}
+
+// The launcher's rule: G lanes a pair and kR rows a block for B pairs of
+// Qp by Rp padded cells at half-width bw, or {0, 0} where no form reaches
+// the band, or the table form's (A + 1)^2 scores do not fit a block's
+// shared memory (BAND_TABLE_BYTES; the one-thread form then runs).  For each G the fewest rows
+// kR of {4, 5, 6, 8} that reach; then the G whose cost is least (the
+// fewer lanes on a tie).  A pair takes about Rp + Qp / kR steps of kR
+// dependent cells, so its chain is kR Rp + Qp cells whatever G; the card
+// runs B G lanes, and an SM keeps about BAND_LANES_SM of them busy, so
+// past SEG_SMS * BAND_LANES_SM lanes the time grows with B G:
+//   cost = (kR Rp + Qp) * max(B G, SEG_SMS * BAND_LANES_SM).
+// cfg2 (8,192 pairs, Qp = Rp = 192, bw 16) gets G = 8, kR = 4; 128 pairs
+// of 4,096 at bw 64 G = 32, kR = 4 (G = 16 would need 8 rows and half
+// the lanes); G = 32 at kR = 8 reaches bw 140.
+struct BandPlan {
+  int32_t lanes, rows;
+};
+
+constexpr int32_t BAND_LANES_SM = 8 * SEG_LANES;
+constexpr int64_t BAND_TABLE_BYTES = 32 * 1024;
+
+PT_HD bool band_form(int32_t G, int32_t kR) {
+  return (G == 8 || G == 16 || G == 32) &&
+         (kR == 4 || kR == 5 || kR == 6 || kR == 8);
+}
+
+PT_HD BandPlan band_plan(int32_t B, int32_t Qp, int32_t Rp, int32_t bw,
+                         int32_t A, bool profile) {
+  bw = band_eff(bw, Qp, Rp);
+  BandPlan best{0, 0};
+  if (!profile && (int64_t)(A + 1) * (A + 1) * 4 > BAND_TABLE_BYTES)
+    return best;
+  int64_t best_cost = 0;
+  for (int32_t G = 8; G <= SEG_LANES; G *= 2) {
+    int32_t kR = 0;
+    for (int32_t r = 4; r <= 8 && kR == 0; ++r)
+      if (r != 7 && 2 * bw < band_reach(G, r)) kR = r;
+    if (kR == 0) continue;
+    const int64_t lanes = (int64_t)imax(B, 1) * G;
+    const int64_t busy = (int64_t)SEG_SMS * BAND_LANES_SM;
+    const int64_t cost =
+        ((int64_t)kR * Rp + Qp) * (lanes > busy ? lanes : busy);
+    if (best.lanes == 0 || cost < best_cost) {
+      best = BandPlan{G, kR};
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+// Substitution scores of the ring form: the (A + 1)^2 table a block
+// stages (seg_table_at: a zero row and column for letters outside [0,
+// A); row so = seg_col(q, A) (A + 1), letter column seg_col(r, A)), or
+// (kProfile) the pair's (Qp, A) profile rows, read through L1 (row so =
+// i A, letter column r, -1 outside [0, A), which scores 0).  A step finds
+// its letter's column once (col) and each row's score with one load (at).
+template <bool kProfile>
+struct BandScores {
+  const int32_t* sc;
+  int32_t A;
+  PT_HD int32_t row(const int32_t* q, int32_t i) const {
+    return kProfile ? i * A : seg_col(q[i], A) * (A + 1);
+  }
+  PT_HD int32_t col(int32_t r) const {
+    return kProfile ? ((r >= 0 && r < A) ? r : -1) : seg_col(r, A);
+  }
+  PT_HD int32_t at(int32_t so, int32_t c) const {
+    return (kProfile && c < 0) ? 0 : sc[so + c];
+  }
+};
+
+// A pair of the ring form: the segment form's configuration (one segment
+// of all rlen columns), the band, its last block with columns, the steps
+// until that block ends, and whether the saturation flags need the
+// extremes (track: every in-sequence cell lies in the band; otherwise the
+// closed form sets both flags).
+struct BandPair {
+  SegPair p;
+  int32_t rp, bw;
+  int32_t kl;          // the last block with columns (-1: none)
+  int32_t steps;       // hi_kl + kl + 1
+  bool track;
+};
+
+PT_HD int32_t band_lo(int32_t i0, int32_t bw) { return imax(0, i0 - bw); }
+
+PT_HD int32_t band_hi(int32_t i0, int32_t kR, int32_t rlen, int32_t bw) {
+  return imin(rlen - 1, i0 + kR - 1 + bw);
+}
+
+// The closed form of score_pair<OUT_SCORE, true>'s saturation flags: an
+// in-sequence cell outside the band counts as H = NEG_INF32.
+PT_HD bool band_outside(int32_t qlen, int32_t rlen, int32_t bw) {
+  return qlen > 0 && rlen > 0 && imax(qlen, rlen) - 1 > bw;
+}
+
+PT_HD BandPair band_pair(int32_t qlen, int32_t rlen, int32_t qp, int32_t rp,
+                         int32_t open, int32_t ext, int32_t mode,
+                         int32_t free_bits, int32_t A, int32_t bw,
+                         int32_t kR) {
+  BandPair bp;
+  bp.p = seg_pair(qlen, imin(rlen, rp), qp, 0, rp, open, ext, mode,
+                  free_bits, false, A);
+  bp.rp = rp;
+  bp.bw = bw;
+  bp.kl = -1;
+  bp.steps = 0;
+  bp.track = !band_outside(bp.p.qlen, bp.p.rlen, bw);
+  if (bw >= 0 && bp.p.qlen > 0 && bp.p.rlen > 0) {
+    // block k has columns while k kR - bw <= rlen - 1
+    bp.kl = imin(seg_div_up(bp.p.qlen, kR) - 1,
+                 (bp.p.rlen - 1 + bw) / kR);
+    bp.steps = band_hi(bp.kl * kR, kR, bp.p.rlen, bw) + bp.kl + 1;
+  }
+  return bp;
+}
+
+// One query row of a block.
+struct BandRow {
+  int32_t h_left = 0, f = NEG_INF32, h_diag = 0;
+  int32_t so = 0;                  // its scores (BandScores)
+  bool row_all = false, row_last = false;   // the row's candidates
+  int32_t bh = 0, bj = -1;         // its first maximum in the block (bj -1:
+                                   // none above the floor)
+};
+
+// One lane of the ring: its current block kb, rows i0 .. i0 + kR - 1
+// (nr of them in the pair), columns [lo, hi].
+template <int32_t kR>
+struct BandLane {
+  int32_t kb = 0, i0 = 0, nr = 0, lo = 0, hi = -1;
+  bool cands = false;              // a row of the block has candidates
+  BandRow row[kR];
+  int32_t out_h = NEG_INF32, out_e = NEG_INF32;   // bottom row, last step
+  int32_t up_h = NEG_INF32;        // H received a step ago
+  int32_t s_next[kR];              // the next step's scores
+  int32_t so_next[kR];             // the rows' scores of the lane's next
+                                   // block, loaded a block ahead
+  SegBest best;
+};
+
+// The floor a candidate must pass, and the end cell when none does:
+// score_pair's initial best (SW 0 at (0, 0); else NEG_INF32 at (qp, rp)).
+PT_HD SegBest band_best_init(const BandPair& bp) {
+  SegBest b;
+  b.h = bp.p.local ? 0 : NEG_INF32;
+  b.i = bp.p.local ? 0 : bp.p.qp;
+  b.j = bp.p.local ? 0 : bp.rp;
+  return b;
+}
+
+// The rows' scores of block kb (so_next), where the block has rows: rows
+// past the pair take the block's first row's, and nothing reads them back.
+template <int32_t kR, class Sc>
+PT_HD void band_lane_rows(BandLane<kR>& L, const BandPair& bp, int32_t kb,
+                          const int32_t* q, const Sc& sc) {
+  if (kb > bp.kl) return;
+  const int32_t i0 = kb * kR;
+PT_UNROLL
+  for (int32_t k = 0; k < kR; ++k)
+    L.so_next[k] = sc.row(q, i0 + k < bp.p.qlen ? i0 + k : i0);
+}
+
+// Start block kb on a lane (its rows' scores in so_next): candidates (none
+// on rows past the pair) and left edge; and load the scores of the lane's
+// block after it, kb + G.
+template <int32_t kR, class Sc>
+PT_HD void band_lane_begin(BandLane<kR>& L, const BandPair& bp, int32_t kb,
+                           int32_t G, const int32_t* q, const Sc& sc) {
+  const SegPair& p = bp.p;
+  L.kb = kb;
+  L.i0 = kb * kR;
+  L.nr = imax(0, imin(kR, p.qlen - L.i0));
+  L.lo = band_lo(L.i0, bp.bw);
+  L.hi = band_hi(L.i0, kR, p.rlen, bp.bw);
+  L.cands = false;
+  const int32_t floor = p.local ? 0 : NEG_INF32;
+PT_UNROLL
+  for (int32_t k = 0; k < kR; ++k) {
+    BandRow& w = L.row[k];
+    const int32_t i = L.i0 + k;
+    const bool on = k < L.nr;
+    w.so = L.so_next[k];
+    const bool last_row = i == p.qlen - 1;
+    w.row_all = on && (p.local || (last_row && p.qe));
+    w.row_last = on && (last_row || p.de);
+    L.cands = L.cands || w.row_all || w.row_last;
+    w.h_left = w.h_diag = w.f = NEG_INF32;
+    w.bh = floor;
+    w.bj = -1;
+  }
+  if (L.lo == 0) {                 // the left border, on the first blocks
+PT_UNROLL
+    for (int32_t k = 0; k < kR; ++k) {
+      L.row[k].h_left = band_border(L.i0 + k + 1, p.db, p.open, p.ext, bp.bw);
+      L.row[k].h_diag = band_border(L.i0 + k, p.db, p.open, p.ext, bp.bw);
+    }
+  }
+  band_lane_rows(L, bp, kb + G, q, sc);
+}
+
+// Column c of a lane's block: the rows' scores sk, (uh, ue) the cell above
+// the top row.  H of a cell outside the band becomes NEG_INF32 (row k is
+// in the band at column c when d - k lies in [0, 2 bw], d = c - i0 + bw:
+// one unsigned compare); E and F outside it are not masked, since they
+// reach no cell of the band: E runs down a column and F along a row,
+// away from the band on its left side, and on its right side they come
+// from masked H and the masked top (cells of the band take their H from
+// a real diagonal, far above NEG_INF32, so those E and F never win).
+// Candidates are tested where the block has candidate rows (a masked H is
+// never above the floor), extremes where the pair tracks them (no cell is
+// masked then; rows past the pair count as 0).
+template <int32_t kR>
+PT_HD void band_lane_step(BandLane<kR>& L, const BandPair& bp, int32_t c,
+                          const int32_t (&sk)[kR], int32_t uh, int32_t ue) {
+  const SegPair& p = bp.p;
+  const int32_t d = c - L.i0 + bp.bw;
+  const uint32_t width = 2u * (uint32_t)bp.bw;
+  int32_t hv[kR];
+PT_UNROLL
+  for (int32_t k = 0; k < kR; ++k) {
+    BandRow& w = L.row[k];
+    int32_t h, e;
+    cell(w.h_diag, uh, ue, w.h_left, sk[k], p.open, p.ext, p.local, w.f, h,
+         e);
+    h = (uint32_t)(d - k) <= width ? h : NEG_INF32;
+    w.h_diag = uh;
+    w.h_left = h;
+    uh = h;
+    ue = e;
+    hv[k] = h;
+  }
+  L.out_h = uh;
+  L.out_e = ue;
+  if (L.cands) {
+    const bool last_col = c == p.rlen - 1;
+PT_UNROLL
+    for (int32_t k = 0; k < kR; ++k) {
+      BandRow& w = L.row[k];
+      // columns ascend within a row: the first maximum stays
+      if ((w.row_all || (w.row_last && last_col)) && hv[k] > w.bh) {
+        w.bh = hv[k];
+        w.bj = c;
+      }
+    }
+  }
+  if (bp.track) {
+    int32_t mx = L.best.hmax, mn = L.best.hmin;
+PT_UNROLL
+    for (int32_t k = 0; k < kR; ++k) hv[k] = k < L.nr ? hv[k] : 0;
+PT_UNROLL
+    for (int32_t k = 0; k + 1 < kR; k += 2) {
+      mx = max3(mx, hv[k], hv[k + 1]);
+      mn = min3(mn, hv[k], hv[k + 1]);
+    }
+    if constexpr (kR % 2 == 1) {
+      mx = imax(mx, hv[kR - 1]);
+      mn = imin(mn, hv[kR - 1]);
+    }
+    L.best.hmax = mx;
+    L.best.hmin = mn;
+  }
+}
+
+// A block's rows' first maxima into the lane's best, when it ends (a
+// block without candidate rows has none).
+template <int32_t kR>
+PT_HD void band_lane_fold(BandLane<kR>& L) {
+  if (!L.cands) return;
+PT_UNROLL
+  for (int32_t k = 0; k < kR; ++k) {
+    const BandRow& w = L.row[k];
+    if (w.bj >= 0 &&
+        seg_better(w.bh, L.i0 + k, w.bj, L.best.h, L.best.i, L.best.j)) {
+      L.best.h = w.bh;
+      L.best.i = L.i0 + k;
+      L.best.j = w.bj;
+    }
+  }
+}
+
+// A lane's first block (its lane index in the group), before step -1.
+template <int32_t kR, class Sc>
+PT_HD void band_lane_start(BandLane<kR>& L, const BandPair& bp, int32_t gl,
+                           int32_t G, const int32_t* q, const Sc& sc) {
+  L.best = band_best_init(bp);
+  L.kb = gl;
+  if (gl <= bp.kl) {
+    band_lane_rows(L, bp, gl, q, sc);
+    band_lane_begin(L, bp, gl, G, q, sc);
+  }
+}
+
+// The scores of column c1 of the lane's block into s_next, where the
+// block has that column.
+template <int32_t kR, class Sc>
+PT_HD void band_lane_fetch(BandLane<kR>& L, int32_t c1,
+                           const int32_t* letters, const Sc& sc) {
+  if ((uint32_t)(c1 - L.lo) <= (uint32_t)(L.hi - L.lo)) {
+    const int32_t col = sc.col(letters[c1]);
+PT_UNROLL
+    for (int32_t k = 0; k < kR; ++k) L.s_next[k] = sc.at(L.row[k].so, col);
+  }
+}
+
+// Step s of a lane (s = -1 only fetches ahead): (raw_h, raw_e) is what
+// the ring's predecessor left at step s - 1.  Fetches the scores of step
+// s + 1 first, so that their loads run beside the cells; computes the
+// lane's column s - kb where its block has it; and after the block's last
+// column starts the lane's next block (kb + G), fetching its first column
+// if step s + 1 has it.
+template <int32_t kR, class Sc>
+PT_HD void band_lane_iter(BandLane<kR>& L, const BandPair& bp, int32_t G,
+                          int32_t s, int32_t raw_h, int32_t raw_e,
+                          const int32_t* q, const int32_t* letters,
+                          const Sc& sc) {
+  if (L.kb <= bp.kl) {
+    const int32_t c = s - L.kb;
+    int32_t sk[kR];
+PT_UNROLL
+    for (int32_t k = 0; k < kR; ++k) sk[k] = L.s_next[k];
+    band_lane_fetch(L, c + 1, letters, sc);
+    if (s >= 0 && (uint32_t)(c - L.lo) <= (uint32_t)(L.hi - L.lo)) {
+      const SegPair& p = bp.p;
+      int32_t uh, ue;
+      if (L.kb == 0) {
+        uh = band_border(c + 1, p.qb, p.open, p.ext, bp.bw);
+        ue = NEG_INF32;
+      } else {
+        // the row above is in its band up to column i0 - 1 + bw
+        const bool above = c - (L.i0 - 1) <= bp.bw;
+        uh = above ? raw_h : NEG_INF32;
+        ue = above ? raw_e : NEG_INF32;
+      }
+      if (c == L.lo && L.lo > 0) L.row[0].h_diag = L.up_h;
+      band_lane_step(L, bp, c, sk, uh, ue);
+      if (c == L.hi) {
+        band_lane_fold(L);
+        if (L.kb + G <= bp.kl) {
+          band_lane_begin(L, bp, L.kb + G, G, q, sc);
+          band_lane_fetch(L, s + 1 - L.kb, letters, sc);
+        } else {
+          L.kb += G;
+        }
+      }
+    }
+  }
+  L.up_h = raw_h;
+}
+
+// The pair's outputs from its group's merged best (band_best_init's
+// floor, seg_merge): score_pair<OUT_SCORE, true>'s, empty sides and the
+// closed-form saturation flags included.
+PT_HD PairResult band_finish(const BandPair& bp, int32_t mode,
+                             const SegBest& best) {
+  const SegPair& p = bp.p;
+  if (!p.local && (p.qlen == 0 || p.rlen == 0))
+    return empty_side<true>(p.qlen, p.rlen, p.open, p.ext, p.qb, p.qe, p.db,
+                            p.de, bp.bw);
+  PairResult out{};
+  out.score = best.h;
+  out.end_query = mode == MODE_NW ? p.qlen - 1 : best.i;
+  out.end_ref = mode == MODE_NW ? p.rlen - 1 : best.j;
+  const bool outside = !bp.track;
+  out.sat8 = (outside || best.hmax >= W8_MAX || best.hmin <= W8_MIN) ? 1 : 0;
+  out.sat16 =
+      (outside || best.hmax >= W16_MAX || best.hmin <= W16_MIN) ? 1 : 0;
+  return out;
+}
+
 #if !defined(__CUDACC__)
 // One pair's segment on the host: the kernel's lanes stepped in a loop.
 // `cluster` blocks of `warps` warps of SEG_LANES lanes, kR rows a lane,
@@ -2098,6 +2519,34 @@ inline PairResult short_pair_host(const int32_t* subs, const int32_t* q,
   int32_t acc[8];
   return seg_finish<kOut>(p, mode, total, acc);
 }
+// One pair of the banded warp form on the host: the ring's G lanes
+// stepped in a loop, each reading what its predecessor left at the step
+// before (the kernel's shuffle, from a copy taken before the step), for
+// G idle steps past the pair's last, as a warp runs to its longest pair.
+// The scores are laid out as the kernel has them (BandScores).
+template <int32_t kR, class Sc>
+inline PairResult band_pair_host(int32_t G, const Sc& sc, const int32_t* q,
+                                 const int32_t* ridx, const BandPair& bp,
+                                 int32_t mode) {
+  std::vector<BandLane<kR>> lanes(G);
+  for (int32_t gl = 0; gl < G; ++gl)
+    band_lane_start(lanes[gl], bp, gl, G, q, sc);
+  std::vector<int32_t> oh(G), oe(G);
+  for (int32_t s = -1; s < bp.steps + G; ++s) {
+    for (int32_t gl = 0; gl < G; ++gl) {
+      oh[gl] = lanes[gl].out_h;
+      oe[gl] = lanes[gl].out_e;
+    }
+    for (int32_t gl = 0; gl < G; ++gl) {
+      const int32_t pred = (gl + G - 1) % G;
+      band_lane_iter(lanes[gl], bp, G, s, oh[pred], oe[pred], q, ridx, sc);
+    }
+  }
+  SegBest total = band_best_init(bp);
+  for (const auto& L : lanes) total = seg_merge(total, L.best);
+  return band_finish(bp, mode, total);
+}
+
 #endif
 
 }  // namespace ptscore

@@ -560,3 +560,165 @@ extern "C" int pt_short_plan_host(int out_class, int B, int Bq, int Qp,
   plan[2] = p.layout;
   return 0;
 }
+
+namespace {
+
+template <class Sc>
+ptscore::PairResult band_rows_host(int rows, int G, const Sc& sc,
+                                   const int32_t* q, const int32_t* ridx,
+                                   const ptscore::BandPair& bp, int mode) {
+  switch (rows) {
+    case 4:
+      return ptscore::band_pair_host<4>(G, sc, q, ridx, bp, mode);
+    case 5:
+      return ptscore::band_pair_host<5>(G, sc, q, ridx, bp, mode);
+    case 6:
+      return ptscore::band_pair_host<6>(G, sc, q, ridx, bp, mode);
+    default:
+      return ptscore::band_pair_host<8>(G, sc, q, ridx, bp, mode);
+  }
+}
+
+}  // namespace
+
+// The banded warp form (pt_scan_band_ring's arguments minus the stream,
+// same layouts): the ring's lanes stepped in a loop, `lanes` G and `rows`
+// kR as the kernel would take them (0 and 0: the rule's, band_plan);
+// `out` is (5, B).  Returns -1 where the kernel's launcher refuses: a
+// form it has not, one that does not reach the band, a table too large.
+extern "C" int pt_band_host(const int32_t* subs, const int32_t* qidx,
+                            const int32_t* ridx, const int32_t* qlen,
+                            const int32_t* rlen, int32_t* out, int B, int Bq,
+                            int Qp, int Rp, int A, int open, int ext,
+                            int mode, int free_bits, int bandwidth, int lanes,
+                            int rows) {
+  const int bw = ptscore::band_eff(bandwidth, Qp, Rp);
+  const bool profile = qidx == nullptr;
+  if (lanes == 0 && rows == 0) {
+    const ptscore::BandPlan plan =
+        ptscore::band_plan(B, Qp, Rp, bandwidth, A, profile);
+    lanes = plan.lanes;
+    rows = plan.rows;
+  }
+  if (!ptscore::band_form(lanes, rows) ||
+      2 * bw >= ptscore::band_reach(lanes, rows) ||
+      (!profile && (int64_t)(A + 1) * (A + 1) * 4 > ptscore::BAND_TABLE_BYTES))
+    return -1;
+  // the table as a block stages it: (A + 1)^2, a zero row and column
+  std::vector<int32_t> table(profile ? 0 : (A + 1) * (A + 1));
+  for (int32_t k = 0; k < (int32_t)table.size(); ++k)
+    table[k] = ptscore::seg_table_at(subs, A, k);
+  for (int b = 0; b < B; ++b) {
+    const int64_t bq = Bq == 1 ? 0 : b;
+    const int32_t* q = qidx ? qidx + bq * Qp : nullptr;
+    const ptscore::BandPair bp = ptscore::band_pair(
+        qlen[b], ptscore::imin(rlen[b], Rp), Qp, Rp, open, ext, mode,
+        free_bits, A, bw, rows);
+    const int32_t* r = ridx + (int64_t)b * Rp;
+    const ptscore::PairResult res =
+        profile ? band_rows_host(rows, lanes,
+                                 ptscore::BandScores<true>{subs + bq * Qp * A,
+                                                           A},
+                                 q, r, bp, mode)
+                : band_rows_host(rows, lanes,
+                                 ptscore::BandScores<false>{table.data(), A},
+                                 q, r, bp, mode);
+    out[b] = res.score;
+    out[B + b] = res.end_query;
+    out[2 * B + b] = res.end_ref;
+    out[3 * B + b] = res.sat8;
+    out[4 * B + b] = res.sat16;
+  }
+  return 0;
+}
+
+// The banded warp form's rule (score_cell.cuh, band_plan), as pt_band_plan
+// on the card: lanes a pair and rows a block to plan[0..1] (0 and 0: the
+// one-thread form's batch).
+extern "C" int pt_band_plan_host(int B, int Qp, int Rp, int bandwidth, int A,
+                                 int profile, int32_t* plan) {
+  const ptscore::BandPlan p =
+      ptscore::band_plan(B, Qp, Rp, bandwidth, A, profile != 0);
+  plan[0] = p.lanes;
+  plan[1] = p.rows;
+  return 0;
+}
+
+namespace {
+
+// The IO of walk_pair_tiled on the host: the slots in vectors, copied
+// whole when loaded (cells outside the plane poisoned, so a read the walk
+// should not make shows), the stage flushed into the opcode row.
+struct HostWalkIO {
+  const int8_t* plane;
+  int64_t si, sj;
+  const int32_t* qsym;
+  const int32_t* rsym;
+  int32_t qp, rp;
+  uint8_t* ops;
+  std::vector<int8_t> fl[ptwalk::WALK_SLOTS];
+  std::vector<int32_t> q[ptwalk::WALK_SLOTS], r[ptwalk::WALK_SLOTS];
+  uint8_t st[ptwalk::WALK_STAGE];
+
+  bool leader() const { return true; }
+  int32_t share(int32_t v) const { return v; }
+  const int8_t* flags(int32_t s) const { return fl[s].data(); }
+  const int32_t* qs(int32_t s) const { return q[s].data(); }
+  const int32_t* rs(int32_t s) const { return r[s].data(); }
+  uint8_t* stage() { return st; }
+  void load(int32_t s, const ptwalk::Tile& t, bool) {
+    using ptwalk::TILE_C;
+    using ptwalk::TILE_R;
+    fl[s].assign(TILE_R * TILE_C, (int8_t)0x7f);
+    q[s].assign(TILE_R, -7);
+    r[s].assign(TILE_C, -9);
+    for (int32_t x = 0; x < TILE_R; ++x) {
+      const int32_t i = t.r0 + x;
+      if (i < 0 || i >= qp) continue;
+      q[s][x] = qsym[i];
+      for (int32_t y = 0; y < TILE_C; ++y) {
+        const int32_t j = t.c0 + y;
+        if (j >= 0 && j < rp) fl[s][x * TILE_C + y] = plane[i * si + j * sj];
+      }
+    }
+    for (int32_t y = 0; y < TILE_C; ++y) {
+      const int32_t j = t.c0 + y;
+      if (j >= 0 && j < rp) r[s][y] = rsym[j];
+    }
+  }
+  void wait(int32_t) const {}
+  void flush(int32_t k0, int32_t n) {
+    for (int32_t x = 0; x < n; ++x) ops[k0 + x] = st[x];
+  }
+  void fill(int32_t k0, int32_t n, uint8_t op) {
+    for (int32_t x = 0; x < n; ++x) ops[k0 + x] = op;
+  }
+};
+
+}  // namespace
+
+// The tiled walk (pt_trace_walk's arguments minus the stream): the
+// kernel's loop, walk_pair_tiled, over tiles copied on the host from a
+// plane of any strides (in bytes).  `ops` (B, Qp + Rp) is written whole.
+extern "C" int pt_walk_tiled_host(const int8_t* trace, long long sb,
+                                  long long si, long long sj,
+                                  const int32_t* qsym, const int32_t* rsym,
+                                  const int32_t* end_q, const int32_t* end_r,
+                                  uint8_t* ops, int32_t* beg, int B, int Bq,
+                                  int Qp, int Rp, int local, int qb, int db) {
+  const int32_t L = Qp + Rp;
+  for (int b = 0; b < B; ++b) {
+    HostWalkIO io;
+    io.plane = trace + (int64_t)b * sb;
+    io.si = si;
+    io.sj = sj;
+    io.qsym = qsym + (Bq == 1 ? 0 : (int64_t)b * Qp);
+    io.rsym = rsym + (int64_t)b * Rp;
+    io.qp = Qp;
+    io.rp = Rp;
+    io.ops = ops + (int64_t)b * L;
+    ptwalk::walk_pair_tiled(io, end_q[b], end_r[b], Qp, Rp, L, local != 0,
+                            qb != 0, db != 0, beg[b], beg[B + b]);
+  }
+  return 0;
+}

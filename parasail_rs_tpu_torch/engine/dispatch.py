@@ -336,7 +336,9 @@ def plan_route(batch: PairBatch, outputs: str, gap_open: int,
     padded shape and class pick between the one-shot kernels
     (:func:`~..ops.scan_kernel.score_align`, kernel K1: unbanded, one
     warp a pair up to 256 padded query rows and the block kernel's
-    one-shot form past them; banded, one thread a pair), segments
+    one-shot form past them; banded, the score class a ring of row blocks
+    on a group of lanes up to bw 140 and one thread a pair past it, the
+    other classes one thread a pair), segments
     (:func:`execute_segments`, kernel K2) and the chunked sweep
     (:func:`~..ops.scan_kernel.score_chunked`, kernel K1f: K2's block of
     up to eight warps per pair, one launch over all columns, every

@@ -47,14 +47,18 @@ reference's kernels disagree there; ROADMAP Queue 3).
 (kernel K1e), in every class and mode: cells with |i - j| > bw and border
 cells beyond bw are -2^30, so an unreachable NW corner scores -2^30 and
 an SG pair whose every end candidate lies outside the band ends at (Qp,
-Rp) with -2^30.  On the card it runs the banded forms of
-``csrc/scan_score.cu`` (one thread per pair, ``pt_scan_banded``): the
-score form sweeps only the band (counted in
-:data:`BANDED_LAUNCHES`; ``Aligner.banded_nw`` runs it), the other six
-sweep every cell and mask (counted by class in
-:data:`BANDED_CLASS_LAUNCHES`).  Its plain version is the wavefront with
-``banded=True``, whose flags and payloads outside the band the kernel
-reproduces too.
+Rp) with -2^30.  On the card the score class (``Aligner.banded_nw``
+runs it) sweeps only the band: on the banded warp form in
+``csrc/scan_banded.cu`` (a pair's row blocks on a ring of 8, 16 or 32
+lanes, ``pt_scan_band_ring``; counted in :data:`BANDED_WARP_LAUNCHES`)
+wherever its rule reaches the band (:func:`band_plan`: up to bw 140 on
+long pairs, any band on pairs of up to 140 padded letters), else on the
+one-thread-per-pair band-only form of ``csrc/scan_score.cu``
+(``pt_scan_banded``, counted in :data:`BANDED_THREAD_LAUNCHES`).  The
+other six classes run the one-thread forms that sweep every cell and
+mask (counted by class in :data:`BANDED_CLASS_LAUNCHES`).  Its plain
+version is the wavefront with ``banded=True``, whose flags and payloads
+outside the band the kernels reproduce too.
 
 :func:`score_segment` is the port of
 ``parasail_rs_tpu.ops.scan_kernel.scan_score_segment`` (kernel K2): one
@@ -129,12 +133,14 @@ OUTPUTS = ("score", "trace", "stats", "table", "stats_table", "rowcol",
            "stats_rowcol")
 BIG = 2 ** 30
 
-# Launches in this process of the banded one-thread-per-pair kernel
-# (csrc/scan_score.cu): its score form, and the other six forms by class;
-# and of the short form (csrc/scan_short.cu), every unbanded class, by
-# class.  Only score_align's CUDA branch adds to them; set them to 0 to
-# count one phase of work.
-BANDED_LAUNCHES = 0
+# Launches in this process of the banded score class on the banded warp
+# form (csrc/scan_banded.cu) and on the one-thread-per-pair band-only form
+# (csrc/scan_score.cu), of the other six banded classes' one-thread forms
+# by class, and of the short form (csrc/scan_short.cu), every unbanded
+# class, by class.  Only score_align's CUDA branch adds to them; set them
+# to 0 to count one phase of work.
+BANDED_WARP_LAUNCHES = 0
+BANDED_THREAD_LAUNCHES = 0
 BANDED_CLASS_LAUNCHES = dict.fromkeys(OUTPUTS[1:], 0)
 SHORT_LAUNCHES = dict.fromkeys(OUTPUTS, 0)
 # Launches of the segment kernel (csrc/scan_segment.cu); only
@@ -153,6 +159,11 @@ SEGMENT_WARPS = 0
 # given forms to the plain versions; nothing else does.
 _LANE_ROWS = 0
 _CLUSTER = 0
+# The banded score class's form: None for the rule (band_plan), (G, kR)
+# for the warp form at G lanes and kR rows (which must reach the band),
+# (0, 0) for the one-thread form.  The cuda tests and chip_smoke.py set
+# it to hold and time given forms; nothing else does.
+_BAND_FORM = None
 # Launches of the tile kernel (csrc/scan_rowseg.cu); only score_rowseg's
 # CUDA branch adds to it.  Its block takes SEGMENT_WARPS too.
 ROWSEG_LAUNCHES = 0
@@ -267,7 +278,15 @@ def score_align(ridx, qlen, rlen, *, open_, ext, mode, free, width="32",
         if short_plan(outputs, B, Bq, Qp, Rp, A, profile is not None)[0]:
             return _short_launch(ridx, qlen, rlen, (B, Bq, Qp, Rp, A), **kw)
         return score_chunked(ridx, qlen, rlen, **kw)
-    global BANDED_LAUNCHES
+    if outputs == "score":
+        form = _BAND_FORM or band_plan(B, Qp, Rp, A, bandwidth,
+                                       profile is not None)
+        if form[0]:
+            return _band_ring(ridx, qlen, rlen, (B, Bq, Qp, Rp, A), form,
+                              open_=open_, ext=ext, mode=mode, free=free,
+                              width=width, table=table, qidx=qidx,
+                              profile=profile, bandwidth=bandwidth)
+    global BANDED_THREAD_LAUNCHES
     from . import _build
 
     lib = _build.load()
@@ -304,7 +323,7 @@ def score_align(ridx, qlen, rlen, *, open_, ext, mode, free, width="32",
             f"scan_{outputs} banded kernel launch failed: CUDA error {rc}")
     res = _kernel_scalars(out, width)
     if outputs == "score":
-        BANDED_LAUNCHES += 1
+        BANDED_THREAD_LAUNCHES += 1
     else:
         BANDED_CLASS_LAUNCHES[outputs] += 1
     if outputs == "trace":
@@ -317,6 +336,53 @@ def score_align(ridx, qlen, rlen, *, open_, ext, mode, free, width="32",
                 res[f"{name}_row"] = rows[k].t()
                 res[f"{name}_col"] = cols[k].t()
     return res
+
+
+def _band_ring(ridx, qlen, rlen, dims, form, *, open_, ext, mode, free,
+               width, table, qidx, profile, bandwidth) -> dict:
+    """The banded score class on the banded warp form at ``form`` (G
+    lanes a pair, kR rows a block)."""
+    global BANDED_WARP_LAUNCHES
+    from . import _build
+
+    B, Bq, Qp, Rp, A = dims
+    lib = _build.load()
+    dev = ridx.device
+    out = torch.empty((5, B), dtype=torch.int32, device=dev)
+    subs = table if table is not None else profile
+    bw = max(-1, min(int(bandwidth), Qp + Rp))
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        rc = lib.pt_scan_band_ring(
+            subs.data_ptr(), _ptr(qidx if table is not None else None),
+            ridx.data_ptr(), qlen.data_ptr(), rlen.data_ptr(),
+            out.data_ptr(), B, Bq, Qp, Rp, A, int(open_), int(ext),
+            MODES[mode], _free_bits(free), bw, int(form[0]), int(form[1]),
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"banded warp form {tuple(form)} launch failed: "
+                           f"CUDA error {rc}")
+    BANDED_WARP_LAUNCHES += 1
+    return _kernel_scalars(out, width)
+
+
+def band_plan(B, Qp, Rp, A, bandwidth, profile=False) -> tuple:
+    """(lanes a pair, rows a block) that the banded warp form's launcher
+    takes for ``B`` pairs of ``Qp`` by ``Rp`` padded cells at half-width
+    ``bandwidth`` over ``A`` letters (``csrc/score_cell.cuh``,
+    ``band_plan``): G of 8, 16 or 32 and kR of 4, 5, 6 or 8 with 2 bw <
+    (G - 1) kR + G + 1, or (0, 0) where no form reaches the band or the
+    table form's (A + 1)^2 scores pass 32 KB (:func:`score_align` then
+    launches the one-thread form).  Builds the kernels (it asks the
+    library's own rule)."""
+    from . import _build
+
+    plan = (ctypes.c_int * 2)()
+    bw = max(-1, min(int(bandwidth), int(Qp) + int(Rp)))
+    _build.load().pt_band_plan(int(B), int(Qp), int(Rp), bw, int(A),
+                               int(bool(profile)),
+                               ctypes.cast(plan, ctypes.c_void_p))
+    return tuple(plan)
 
 
 def short_plan(outputs, B, Bq, Qp, Rp, A, profile=False) -> tuple:

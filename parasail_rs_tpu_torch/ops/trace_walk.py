@@ -7,9 +7,12 @@ pair of a batch is walked back from its end cell through its (Qp, Rp)
 flag plane, and the walk's backward opcodes (``OP_*``) and begin cells
 come back, so the host fetches B * (Qp + Rp) opcode bytes instead of the
 B * Qp * Rp plane.  On CUDA tensors it launches the hand-written kernel
-in ``csrc/trace_walk.cu`` (one thread per pair, the state machine of
-``csrc/walk_step.cuh``) and counts the launch in :data:`LAUNCHES`; on
-CPU tensors it runs :func:`device_walk_plain`.  There is no fallback
+in ``csrc/trace_walk.cu`` (a warp a pair: one lane runs the state
+machine of ``csrc/walk_step.cuh`` on 32 x 64 tiles of the plane staged
+in shared memory while the others copy the next tiles; the tiled
+loop ``walk_pair_tiled`` is shared with the g++ twin) and counts the
+launch in :data:`LAUNCHES`; on CPU tensors it runs
+:func:`device_walk_plain`.  There is no fallback
 between the two: a build, launch or shape failure raises.
 
 The reference's ``device_walk_stats`` (matches, similar and length
@@ -118,7 +121,8 @@ def device_walk(trace, qsym, rsym, end_q, end_r, mode: str,
     qsym = qsym.to(torch.int32).contiguous()
     rsym = rsym.to(torch.int32).contiguous()
     end_q, end_r = end_q.contiguous(), end_r.contiguous()
-    ops = torch.zeros((B, Qp + Rp), dtype=torch.uint8, device=dev)
+    # the kernel writes every opcode row whole, zeros after the walk
+    ops = torch.empty((B, Qp + Rp), dtype=torch.uint8, device=dev)
     beg = torch.empty((2, B), dtype=torch.int32, device=dev)
     sb, si, sj = trace.stride()
     with torch.cuda.device(dev):

@@ -284,6 +284,21 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def banded_score_launches():
+    """(warp form, one-thread form) launches of the banded score class."""
+    return tk.BANDED_WARP_LAUNCHES, tk.BANDED_THREAD_LAUNCHES
+
+
+def banded_score_moved(before, ridx, qidx, bw, A=5):
+    """The counts after one banded score launch of the table form: the
+    warp form's where its rule takes the batch, else the one-thread
+    form's."""
+    warp = tk.band_plan(ridx.shape[0], qidx.shape[1], ridx.shape[1], A,
+                        bw)[0]
+    return (before[0] + 1, before[1]) if warp else (before[0],
+                                                    before[1] + 1)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("open_,ext,lo,hi", PENALTIES)
 def test_banded_kernel_matches_plain_on_card(open_, ext, lo, hi, cuda_device):
@@ -294,11 +309,12 @@ def test_banded_kernel_matches_plain_on_card(open_, ext, lo, hi, cuda_device):
     for bw in (*BANDS, -1):
         kw = dict(open_=open_, ext=ext, width="sat", table=t["table"],
                   qidx=t["qidx"], banded=True, bandwidth=bw, **NW)
-        before = tk.BANDED_LAUNCHES
+        before = banded_score_launches()
         got = tk.score_align(t["ridx"], t["qlen"], t["rlen"], **kw)
         want = tk.score_align_plain(t["ridx"], t["qlen"], t["rlen"], **kw)
         torch.cuda.synchronize()
-        assert tk.BANDED_LAUNCHES == before + 1
+        assert banded_score_launches() == banded_score_moved(
+            before, t["ridx"], t["qidx"], bw)
         assert set(got) == set(want)
         for k in got:
             assert torch.equal(got[k], want[k]), (bw, k)
@@ -329,12 +345,14 @@ def test_banded_every_class_matches_plain_on_card(outputs, cuda_device):
             kw = dict(open_=open_, ext=ext, mode=mode, free=free,
                       width="sat", table=t["table"], qidx=t["qidx"],
                       outputs=outputs, banded=True, bandwidth=bw)
-            before = (tk.BANDED_LAUNCHES, dict(tk.BANDED_CLASS_LAUNCHES))
+            before = (banded_score_launches(),
+                      dict(tk.BANDED_CLASS_LAUNCHES))
             got = tk.score_align(t["ridx"], t["qlen"], t["rlen"], **kw)
             want = tk.score_align_plain(t["ridx"], t["qlen"], t["rlen"], **kw)
             torch.cuda.synchronize()
             if outputs == "score":
-                assert tk.BANDED_LAUNCHES == before[0] + 1
+                assert banded_score_launches() == banded_score_moved(
+                    before[0], t["ridx"], t["qidx"], bw)
             else:
                 assert tk.BANDED_CLASS_LAUNCHES[outputs] == \
                     before[1][outputs] + 1
