@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the kernels from ``parasail_rs_tpu_torch/csrc`` with nvcc and
-runs thirty phases on ``cuda``; any failure raises and the script exits
+runs thirty-one phases on ``cuda``; any failure raises and the script exits
 non-zero without printing a result.  ``score_align`` runs every unbanded
 class on the short form (kernels K1a-K1d, ``csrc/scan_short.cu``, one
 warp a pair) up to 256 padded query rows and on the block kernel's
@@ -254,7 +254,28 @@ kernel" or name a plane class:
    its reference with 10% of the letters redrawn (numpy seed 30), NW
    5/1, the chunked sweep's trace (K1f) then the tiled walk, counted from
    zero; 2 pairs equal to the plain walk, every walk beginning at (0,
-   0); the walk timed by CUDA events and torch.profiler.
+   0); the walk timed by CUDA events and torch.profiler;
+31. ``StreamingAligner`` on the card: cfg7 (bench.py's stream, 16,384 SW
+   BLOSUM62 11/1 protein pairs of 140-160 residues, numpy seed 31,
+   ``submit_many`` + ``flush`` at flush 8,192), counted from zero: only
+   the short form's score class may launch, once for each bucket the
+   flush rule makes (3: the 2^28-cell cap holds a (192, 192) bucket to
+   7,281 pairs), every route "cuda_kernel", every field equal to
+   ``align_batch`` and 16 sampled pairs to golden; its end-to-end time
+   (median of 5, the results read) beside ``align_batch`` of the same
+   pairs and the stream's stage clocks; a mixed stream of 2,000 pairs of
+   50-250 residues submitted one at a time at flush 1,024, topped up with
+   cfg7 pairs until its (192, 192) bucket fills, which must resolve
+   without ``flush()`` while the other buckets wait, ``result()`` of a
+   partial bucket's handle launching that bucket alone; ``use_stats()``
+   (4,096 pairs), ``use_trace()`` (512, CIGARs also against
+   ``align_cigars``) and ``use_table()`` (64) streams, and a bucket of 8
+   DNA pairs of 4,096 bp on "cuda_segments", each equal to
+   ``align_batch``; then ``utils.profiling.capture`` around one
+   ``align_batch`` of 8,192 of the pairs and one cfg7 run, whose Chrome
+   trace (under ``chiprun_out/phase31_trace/``) must hold the
+   ``pt.execute.sw.score`` region, with the kernel events and the card's
+   busy share of each window logged.
 
 The line before the last is the card's name and power limit, the one
 before it a JSON summary of every kernel (launches on its main path,
@@ -267,6 +288,7 @@ JAX package.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import re
@@ -851,6 +873,9 @@ def main() -> int:
                                    thread_kernel_ms=times["thread"]["long"])
     banded["score_thread"].update(kernel_ms=times["thread"]["cfg2"])
     clock("30")
+    streamed = stream_path(torch, pt, tk, tw, dispatch, golden, stages,
+                           blosum, card)
+    clock("31")
 
     def with_short(cls, row):
         """A class's row, phases 4-13, with phases 28-29's numbers."""
@@ -866,7 +891,9 @@ def main() -> int:
             "launches": launches, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "block_ms": block_ms,
             "e2e_ms": {"align_batch 8192": e2e_ms,
-                       "Aligner.align 150 bp": nw_ms},
+                       "Aligner.align 150 bp": nw_ms,
+                       "stream cfg7 16384": streamed["stream_ms"],
+                       "align_batch cfg7 16384": streamed["batch_ms"]},
             **head_bound}),
     }, {
         "name": "scan_score_align (trace), one warp a pair",
@@ -3701,6 +3728,255 @@ def long_walk(torch, pt, tk, tw, card) -> dict:
         f"{kernel_ms * 1e6 / (steps / 16)} ns a step [{card}]")
     return {"long_ms": ms, "long_kernel_ms": kernel_ms,
             "long_steps": steps}
+
+
+CFG7_PAIRS = 16384
+# device activity in a Chrome trace of torch.profiler
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def check_stream(name, got, want) -> None:
+    """A stream's results: as many as align_batch's, every field equal."""
+    if len(got) != len(want):
+        raise AssertionError(f"{name}: {len(got)} results, {len(want)} "
+                             f"wanted")
+    check_fields(name, got, want)
+
+
+def busy_share(events, window) -> dict:
+    """The card's share of busy time inside a window of a Chrome trace:
+    the union of its kernels, copies and fills, clipped to the window's
+    [ts, ts + dur], over dur.  Also the kernels' count inside."""
+    lo, hi = window["ts"], window["ts"] + window["dur"]
+    spans = sorted((max(lo, e["ts"]), min(hi, e["ts"] + e.get("dur", 0)))
+                   for e in events if e.get("cat") in DEVICE_CATS
+                   and e["ts"] < hi and e["ts"] + e.get("dur", 0) > lo)
+    busy, end = 0.0, lo
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    kernels = sum(1 for e in events if e.get("cat") == "kernel"
+                  and lo <= e["ts"] < hi)
+    return {"window_ms": window["dur"] / 1e3, "busy_ms": busy / 1e3,
+            "busy_share": busy / window["dur"], "kernels": kernels}
+
+
+def stream_path(torch, pt, tk, tw, dispatch, golden, stages, blosum,
+                card) -> dict:
+    """Phase 31: ``StreamingAligner`` on the card, and a captured trace.
+    cfg7 (bench.py's stream: 16,384 SW BLOSUM62 11/1 protein pairs of
+    140-160 residues at flush 8,192, numpy seed 31, a generator of its
+    own) counted from zero and held to ``align_batch`` and golden, then
+    timed beside ``align_batch`` of the same pairs; a mixed stream of
+    single submissions; the stats, trace and table classes and a long
+    DNA bucket on the segment route; and ``utils.profiling.capture``
+    around ``align_batch`` and a cfg7 run, with the card's busy share of
+    each.  Returns the numbers for the kernels line."""
+    from parasail_rs_tpu_torch.engine import StreamingAligner
+    from parasail_rs_tpu_torch.utils import profiling
+    from parasail_rs_tpu_torch.utils.shapes import length_bucket
+
+    rng = np.random.default_rng(31)
+    qs = random_seqs(rng, PROTEIN, CFG7_PAIRS, 140, 160)
+    rs = random_seqs(rng, PROTEIN, CFG7_PAIRS, 140, 160)
+
+    def build(*setters, matrix=blosum, open_=11, ext=1):
+        b = (pt.Aligner.new().matrix(matrix).gap_open(open_)
+             .gap_extend(ext).local())
+        for name in setters:
+            b = getattr(b, name)()
+        return b.build()
+
+    def stream(aligner, q, r, flush_size=2048):
+        with StreamingAligner(aligner, flush_size=flush_size) as st:
+            handles = st.submit_many(q, r)
+            st.flush()
+            return [h.result(timeout=120) for h in handles]
+
+    def stream_run():
+        # bench.py's cfg7 run: the results are read inside the window
+        with StreamingAligner(sw, flush_size=8192) as st:
+            handles = st.submit_many(qs, rs)
+            st.flush()
+            return sum(h.result().get_score() for h in handles)
+
+    # -- cfg7, counted from zero ---------------------------------------------
+    sw = build()
+    # the stream's cap of 2^28 cells a launch (the reference's) holds a
+    # (192, 192) bucket to 7,281 pairs, below the flush size
+    cap = min(8192, (1 << 28) // (192 * 192))
+    want_launches = -(-CFG7_PAIRS // cap)
+    reset_launches(tk, tw)
+    got = stream(sw, qs, rs, 8192)
+    short = dict(tk.SHORT_LAUNCHES)
+    others = (tk.CHUNKED_LAUNCHES, tk.SEGMENT_LAUNCHES, tk.ROWSEG_LAUNCHES,
+              tk.BANDED_WARP_LAUNCHES, tk.BANDED_THREAD_LAUNCHES,
+              sum(tk.BANDED_CLASS_LAUNCHES.values()), tw.LAUNCHES)
+    launches = short["score"]
+    if launches != want_launches or sum(short.values()) != launches or \
+            any(others):
+        raise AssertionError(
+            f"cfg7 stream launched the short form {short} and (chunked, "
+            f"segment, tile, banded warp, banded thread, banded classes, "
+            f"walk) {others}; expected {want_launches} score launches "
+            f"and nothing else")
+    if sw.route_counter != {("cuda_kernel", ""): want_launches}:
+        raise AssertionError(f"cfg7 stream routes {sw.route_counter}")
+    check_stream("cfg7 stream", got, sw.align_batch(qs, rs))
+    for b in rng.choice(CFG7_PAIRS, size=16, replace=False).tolist():
+        g = golden.align_seqs(qs[b], rs[b], blosum, 11, 1, "sw")
+        if (got[b].get_score(), got[b].get_end_query(),
+                got[b].get_end_ref()) != (g.score, g.end_query, g.end_ref):
+            raise AssertionError(f"cfg7 stream pair {b} != golden")
+    log(f"[31 stream] cfg7: {CFG7_PAIRS} pairs at flush 8192 in "
+        f"{launches} launches of the short form's score class (buckets of "
+        f"at most {cap} pairs by the 2^28-cell cap), nothing else, all on "
+        f"cuda_kernel; scores and end cells equal to align_batch, 16 "
+        f"sampled pairs equal to golden")
+
+    stream_ms = time_host(stream_run)
+    batch_ms = time_host(
+        lambda: sum(a.get_score() for a in sw.align_batch(qs, rs)))
+    with stages.measuring():
+        stream_run()
+        snap = stages.snapshot()
+    log(f"[31 timing] cfg7 stream e2e median {stream_ms} ms "
+        f"({CFG7_PAIRS / stream_ms * 1e3} aln/s); align_batch of the same "
+        f"{CFG7_PAIRS} pairs (one launch) {batch_ms} ms "
+        f"({CFG7_PAIRS / batch_ms * 1e3} aln/s); the stream's stages, ms "
+        f"in one run (the threads overlap): {json.dumps(snap)} [{card}]")
+
+    # -- a mixed stream of single submissions ---------------------------------
+    alpha = list(PROTEIN)
+
+    def draw():
+        return rng.choice(alpha, size=rng.integers(50, 250)).astype(
+            "uint8").tobytes()
+
+    mq = [draw() for _ in range(2000)]
+    mr = [draw() for _ in range(2000)]
+    keys = [(length_bucket(len(q)), length_bucket(len(r)))
+            for q, r in zip(mq, mr)]
+    st = StreamingAligner(sw, flush_size=1024)
+    try:
+        hs = [st.submit(q, r) for q, r in zip(mq, mr)]
+        if any(h.done() for h in hs):
+            raise AssertionError("a bucket of the mixed stream resolved "
+                                 "before it filled")
+        # no bucket of 2,000 such pairs holds 1,024: top the (192, 192)
+        # bucket up with cfg7 pairs until it launches
+        top = 1024 - keys.count((192, 192))
+        tq, tr = qs[:top], rs[:top]
+        hs += [st.submit(q, r) for q, r in zip(tq, tr)]
+        keys += [(192, 192)] * top
+        full = [h for h, k in zip(hs, keys) if k == (192, 192)]
+        deadline = time.perf_counter() + 60
+        while not all(h.done() for h in full) and \
+                time.perf_counter() < deadline:
+            time.sleep(0.002)
+        counts = collections.Counter(keys)
+        small = min(counts, key=counts.get)
+        part = [h for h, k in zip(hs, keys) if k == small]
+        rest = [h for h, k in zip(hs, keys) if k not in (small, (192, 192))]
+        if not all(h.done() for h in full) or \
+                any(h.done() for h in part + rest):
+            raise AssertionError(
+                "mixed stream: the full (192, 192) bucket did not resolve "
+                "alone without flush()")
+        reset_launches(tk, tw)
+        part[0].result(timeout=60)
+        if tk.SHORT_LAUNCHES["score"] != 1 or \
+                not all(h.done() for h in part) or \
+                any(h.done() for h in rest):
+            raise AssertionError(
+                f"mixed stream: result() of a {small} handle launched "
+                f"{tk.SHORT_LAUNCHES} and did not resolve its bucket alone")
+        st.flush()
+        check_stream("mixed stream", [h.result(timeout=60) for h in hs],
+                   sw.align_batch(mq + tq, mr + tr))
+    finally:
+        st.close()
+    log(f"[31 stream] mixed: 2000 pairs of 50-250 residues in "
+        f"{len(counts)} buckets, then {top} cfg7 pairs, submitted one at a "
+        f"time at flush 1024: the (192, 192) bucket resolved without "
+        f"flush() while the others waited; result() of a {small} handle "
+        f"({counts[small]} pairs) launched that bucket alone; all equal "
+        f"to align_batch")
+
+    # -- the other classes ----------------------------------------------------
+    stats = build("use_stats")
+    got = stream(stats, qs[:4096], rs[:4096])
+    want = stats.align_batch(qs[:4096], rs[:4096])
+    check_stream("stats stream", got, want)
+    tr = build("use_trace")
+    q5, r5 = qs[:512], rs[:512]
+    got = stream(tr, q5, r5, 256)
+    want = tr.align_batch(q5, r5)
+    check_stream("trace stream", got, want)
+    cigars = tr.cigars(got, q5, r5)
+    if cigars != tr.cigars(want, q5, r5) or \
+            cigars != tr.align_cigars(q5, r5)[1]:
+        raise AssertionError("trace stream: CIGARs differ from align_batch "
+                             "+ cigars() or align_cigars")
+    tab = build("use_table")
+    got = stream(tab, qs[:64], rs[:64])
+    want = tab.align_batch(qs[:64], rs[:64])
+    check_stream("table stream", got, want)
+    dq = random_seqs(rng, DNA, 8, LONG_LEN, LONG_LEN)
+    dr = random_seqs(rng, DNA, 8, LONG_LEN, LONG_LEN)
+    dna = build(matrix=pt.Matrix.create(DNA, 2, -3), open_=5, ext=1)
+    reset_launches(tk, tw)
+    got = stream(dna, dq, dr)
+    seg = tk.SEGMENT_LAUNCHES
+    if dna.route_counter != {("cuda_segments", "long pairs"): 1} or not seg:
+        raise AssertionError(f"long DNA bucket: routes {dna.route_counter}, "
+                             f"segment launches {seg}")
+    check_stream("long DNA stream", got, dna.align_batch(dq, dr))
+    log(f"[31 stream] use_stats() 4096 pairs, use_trace() 512 (CIGARs), "
+        f"use_table() 64: equal to align_batch; 8 DNA pairs of {LONG_LEN} "
+        f"bp SW 5/1: one bucket on cuda_segments ({seg} segment launches), "
+        f"equal to align_batch")
+
+    # -- a captured trace -----------------------------------------------------
+    log_dir = os.path.join(HERE, "chiprun_out", "phase31_trace")
+    q8, r8 = qs[:8192], rs[:8192]
+    sw.align_batch(q8, r8)
+    torch.cuda.synchronize()
+    with profiling.capture(log_dir):
+        with profiling.trace_region("smoke.align_batch"):
+            sum(a.get_score() for a in sw.align_batch(q8, r8))
+        with profiling.trace_region("smoke.stream"):
+            stream_run()
+        torch.cuda.synchronize()
+    files = profiling.trace_files(log_dir)
+    if not files:
+        raise AssertionError(f"capture wrote no trace under {log_dir}")
+    with open(files[-1]) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    names = collections.Counter(e.get("name") for e in events)
+    if not names["pt.execute.sw.score"]:
+        raise AssertionError("the captured trace holds no "
+                             "pt.execute.sw.score region")
+    windows = {}
+    for name in ("smoke.align_batch", "smoke.stream"):
+        w = next(e for e in events if e.get("name") == name
+                 and e.get("cat") == "user_annotation")
+        windows[name] = busy_share(events, w)
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    if not kernels:
+        for w in windows.values():
+            w["busy_ms"] = w["busy_share"] = None
+    log(f"[31 trace] {os.path.relpath(files[-1], HERE)}: "
+        f"{names['pt.execute.sw.score']} pt.execute.sw.score regions, "
+        f"{kernels} kernel events"
+        + ("" if kernels else " (the profiler recorded no kernel: the "
+           "busy shares below are not measured)")
+        + f"; the card's busy share of each window: {json.dumps(windows)} "
+        f"[{card}]")
+    return {"stream_ms": stream_ms, "batch_ms": batch_ms, "stages": snap,
+            "launches": launches, "windows": windows, "kernels": kernels}
 
 
 def random_seqs_of(rng, alphabet: bytes, lens) -> list:

@@ -9,13 +9,15 @@ class: score, stats, table, rowcol, trace) runs hand-written kernels
 resumable segment kernel; on the CPU they run the kernels' plain PyTorch
 versions.  The ``dist`` layer (sequence-parallel long pairs over the
 tile kernel, data parallelism over ``torch.distributed``) is
-``parasail_rs_tpu_torch.dist``.  ``StreamingAligner`` is not ported yet
-(see ROADMAP.md).
+``parasail_rs_tpu_torch.dist``; the streaming executor is
+``parasail_rs_tpu_torch.engine.StreamingAligner``, and
+``utils.profiling`` names every batch for torch's profiler.
 
 The package imports ``torch``, never ``jax``, and nothing of
 ``parasail_rs_tpu``: ``constants``, ``errors``, ``matrices``, ``golden``,
 ``native``, ``batch`` and ``utils`` here are its own copies of the
-reference's modules.
+reference's modules (``utils.profiling`` is rewritten on torch's
+profiler).
 """
 
 from .constants import InstructionSet, SolutionWidth, TraceFlags

@@ -40,7 +40,7 @@ from collections import Counter
 import numpy as np
 import torch
 
-from ..utils import stages
+from ..utils import profiling, stages
 from ..utils.gcpause import gc_pause
 from ..utils.shapes import length_bucket
 
@@ -548,14 +548,16 @@ def execute_segments(batch: PairBatch, *, gap_open: int, gap_extend: int,
 def _run(batch: PairBatch, *, on_route, banded=False, bandwidth=0,
          **kw) -> dict:
     """Plan the route and enqueue the batch on it: :func:`launch`'s or
-    :func:`execute_segments`'s dict."""
-    route, reason = plan_route(batch, kw["outputs"], kw["gap_open"],
-                               kw["gap_extend"], banded=banded)
-    if route in SEGMENT_ROUTES:
-        _tally(route, reason, on_route)
-        return execute_segments(batch, **kw)
-    return launch(batch, on_route=on_route, banded=banded,
-                  bandwidth=bandwidth, **kw)
+    :func:`execute_segments`'s dict, in a region named for the profiler
+    as the reference names it."""
+    with profiling.trace_region(f"pt.execute.{kw['mode']}.{kw['outputs']}"):
+        route, reason = plan_route(batch, kw["outputs"], kw["gap_open"],
+                                   kw["gap_extend"], banded=banded)
+        if route in SEGMENT_ROUTES:
+            _tally(route, reason, on_route)
+            return execute_segments(batch, **kw)
+        return launch(batch, on_route=on_route, banded=banded,
+                      bandwidth=bandwidth, **kw)
 
 
 _BOOLS = ("saturated", "promoted")
