@@ -83,8 +83,10 @@ kernel" or name a plane class:
    SG stats on cfg4b's pairs, and the peak device memory of the table
    phase;
 14. banded kernel vs plain: every class of the banded mode (K1e; the
-   score form sweeps the band alone, the others every cell, masked)
-   against its plain version (the wavefront with ``banded=True``), the
+   score class sweeps the band alone on the ring where it reaches, every
+   other launch every cell, masked, on the short form or past 256 query
+   rows the block kernel) against its plain version (the wavefront with
+   ``banded=True``), the
    trace class's plane also walked by the walk kernel and its plain
    version, on 256-pair DNA batches at 4/1, 2/2 and 1/3 and a BLOSUM62
    batch at 11/1, lengths from 0 (so empty sides and corners or end rows
@@ -92,31 +94,38 @@ kernel" or name a plane class:
    4,096, every class x NW, SG (the nine free-end sets in turn) and SW at
    one of them in turn; and every class x NW, SG and SW on the empty-side
    and unreachable-corner pairs of the banded repair, whose NW scores must
-   also equal golden's banded oracle (-2^30 where it has none): exact
-   equality;
+   also equal golden's banded oracle (-2^30 where it has none); every
+   class x NW, SG and SW on 32 DNA pairs of 200-300 x 40-120 letters
+   (Qp 304, numpy seed 14) at bw 5, 64 or 200, whose masked launches
+   must all be the block kernel's: exact equality;
 15. the banded path through the public API: ``banded_nw_batch`` of phase
    3's 8,192 BLOSUM62 pairs, NW 11/1, bandwidth 16, counted from zero:
    the banded warp form (K1e's score class, a ring of row blocks,
-   ``csrc/scan_banded.cu``) must launch on "cuda_kernel" and the
-   one-thread form not, equal the plain version and the one-thread form,
-   and 16 sampled pairs golden's banded oracle; the warp form at every
-   (G, kR) it has, at the widest band each reaches, against the plain
-   version, and one past it refused; ``banded_nw_batch`` of 64 DNA pairs
-   of 700-1,000 bp at bw 200, past the ring's reach, on the one-thread
-   form alone; then the warp form and the one-thread form (a call by
+   ``csrc/scan_banded.cu``) must launch on "cuda_kernel" and no masked
+   sweep, equal the plain version and the score class's masked sweep
+   (forced), and 16 sampled pairs golden's banded oracle; the warp form
+   at every (G, kR) it has, at the widest band each reaches, against the
+   plain version, and one past it refused; ``banded_nw_batch`` of 64 DNA
+   pairs of 700-1,000 bp at bw 200, past the ring's reach, on the block
+   kernel's masked sweep (``csrc/scan_chunked_banded.cu``) alone, equal
+   to plain and timed; then the warp form and the masked sweep (a call by
    CUDA events; the kernels alone in phase 29), the plain version and
-   the unbanded score kernel on that batch, and ``banded_nw_batch`` end
-   to end.  Then the banded slice on the same
-   8,192 pairs (Qp = Rp = 192), counted from zero: every class x NW, SG
-   (all ends free) and SW through ``dispatch.launch(banded=True)``, each
-   once, on "cuda_kernel"; the first 1,024 pairs of each equal to the
-   plain version, the trace planes walked by the walk kernel as by the
-   plain walk, the peak device memory of each call; then each class and
-   mode timed (CUDA-event medians) beside its plain version (NW, one run)
-   and its bound; and ``banded_nw_batch`` of 128 DNA pairs of 4,096 bp at
-   bw 64, NW 5/1 (the long-read banded path) on the warp form, its first
-   8 pairs equal to the plain version and all 128 to the one-thread form,
-   both forms timed, the call end to end with its stage clocks;
+   the unbanded score kernel on cfg2, and ``banded_nw_batch`` end to end.
+   Then the banded slice on the same 8,192 pairs (Qp = Rp = 192),
+   counted from zero: every class x NW, SG (all ends free) and SW through
+   ``dispatch.launch(banded=True)``, each once, on "cuda_kernel": the
+   score class 3 launches on the ring, every other class 3 on the short
+   form's masked sweep (``csrc/scan_short_banded.cu``), none on another
+   form; the first 1,024 pairs of each equal to the plain version, the
+   trace planes walked by the walk kernel as by the plain walk, the peak
+   device memory of each call; then each class and mode timed
+   (CUDA-event medians) beside its plain version (NW, one run) and its
+   bounds over the band's cells and over every cell; and
+   ``banded_nw_batch`` of 128 DNA pairs of 4,096 bp at bw 64, NW 5/1 (the
+   long-read banded path) on the warp form, its first 8 pairs equal to
+   the plain version and all 128 to the block kernel's masked sweep
+   (forced), both forms timed, the call end to end with its stage
+   clocks;
 16. ``align_many``, counted from zero: cfg5 (256 DNA pairs of 100-2,000
    bp, SW 5/2) equal to ``align_batch`` and to plain, a ``use_stats()``
    and a ``use_trace()`` batch equal to ``align_batch``, and 128 DNA
@@ -235,8 +244,7 @@ kernel" or name a plane class:
    the score class, ``use_stats()`` and ``use_last_rowcol()``,
    ``Aligner.align`` of a 150 bp pair and ``use_table()`` +
    ``use_stats()`` on 512 of the pairs must launch the short form, not
-   the block form, and no banded form (the only one-thread-per-pair ones
-   left), by the launch counters;
+   the block form, and no banded form, by the launch counters;
 29. timings of the short form, beside the card's name and power limit:
    K1b's 512-pair chunk of cfg4b, the whole 4,096 pairs and ssw_batch's
    1,024 pairs, K1c's stats headline, K1a's score headline and K1d's
@@ -245,9 +253,11 @@ kernel" or name a plane class:
    events and the kernel alone by torch.profiler's device time;
    ``align_cigars`` of cfg4b and ``use_stats()`` ``align_batch`` of the
    8,192 pairs end to end with their stage clocks; the short forms'
-   registers and spills (none allowed); then, by torch.profiler, the
-   banded warp form and the one-thread form on phase 15's cfg2 and long
-   batches, and the tiled walk (a warp a pair, ``csrc/trace_walk.cu``) on
+   registers and spills (none allowed; the masked forms' too); then, by
+   torch.profiler, the banded warp form and the score class's masked
+   sweep on phase 15's cfg2 and long batches, the block kernel's masked
+   sweep on its bw 200 batch, each other banded class (NW) on cfg2 on
+   the short form's masked sweep, and the tiled walk (a warp a pair, ``csrc/trace_walk.cu``) on
    phase 9's cfg4b planes, the 4,096 pairs and a 512-pair chunk
    (torch.profiler is used from this phase on only);
 30. the walk on long global paths: 16 DNA pairs of 4,096 bp, each query
@@ -586,11 +596,10 @@ def time_cuda(torch, fn, reps=7, warmup=2) -> float:
 
 def reset_launches(tk, tw) -> None:
     """Set every kernel's launch count to 0, to count one phase's work."""
-    tk.BANDED_WARP_LAUNCHES = tk.BANDED_THREAD_LAUNCHES = 0
     tk.SEGMENT_LAUNCHES = 0
     tk.ROWSEG_LAUNCHES = tk.CHUNKED_LAUNCHES = tw.LAUNCHES = 0
     tk.SHORT_LAUNCHES = dict.fromkeys(tk.SHORT_LAUNCHES, 0)
-    tk.BANDED_CLASS_LAUNCHES = dict.fromkeys(tk.BANDED_CLASS_LAUNCHES, 0)
+    reset_banded_launches(tk)
 
 
 def plan_note(tk, cls, B, Qs, ncols, A, profile=False) -> str:
@@ -868,10 +877,12 @@ def main() -> int:
     trace["walk"].update(kernel_ms=times["walk"]["cfg4b 4,096"],
                          chunk_kernel_ms=times["walk"]["cfg4b chunk of 512"])
     banded["score"].update(kernel_ms=times["band"]["cfg2"],
-                           thread_kernel_ms=times["thread"]["cfg2"])
+                           masked_kernel_ms=times["masked"]["cfg2"])
     banded["score"]["long"].update(kernel_ms=times["band"]["long"],
-                                   thread_kernel_ms=times["thread"]["long"])
-    banded["score_thread"].update(kernel_ms=times["thread"]["cfg2"])
+                                   masked_kernel_ms=times["masked"]["long"])
+    banded["score_block"].update(kernel_ms=times["wide"])
+    for cls, t in times["classes"].items():
+        banded[cls].update(kernel_ms=t)
     clock("30")
     streamed = stream_path(torch, pt, tk, tw, dispatch, golden, stages,
                            blosum, card)
@@ -926,16 +937,16 @@ def main() -> int:
         "replaces": "parasail_rs_tpu/ops/scan_kernel.py:1453",
         **banded["score"],
     }, {
-        "name": "scan_score_align (banded), one thread a pair, bands past "
-                "the ring's reach",
+        "name": "scan_score_align (banded), the block kernel's masked sweep "
+                "past the ring's reach",
         "route": "cuda",
-        "source": "parasail_rs_tpu_torch/csrc/scan_score.cu",
+        "source": "parasail_rs_tpu_torch/csrc/scan_chunked_banded.cu",
         "replaces": "parasail_rs_tpu/ops/scan_kernel.py:1453",
-        **banded["score_thread"],
+        **banded["score_block"],
     }] + [{
-        "name": f"scan_score_align (banded, {cls})",
+        "name": f"scan_score_align (banded, {cls}), one warp a pair, masked",
         "route": "cuda",
-        "source": "parasail_rs_tpu_torch/csrc/scan_score.cu",
+        "source": "parasail_rs_tpu_torch/csrc/scan_short_banded.cu",
         "replaces": "parasail_rs_tpu/ops/scan_kernel.py:1453",
         **banded[cls],
     } for cls in tk.OUTPUTS[1:]] + [{
@@ -1425,14 +1436,16 @@ BANDS_14 = (0, 3, 16, 64, 4096)
 
 def banded_launches(tk) -> dict:
     """The banded forms' launch counts by class (the score class on the
-    warp form and on the one-thread form together)."""
-    return {"score": tk.BANDED_WARP_LAUNCHES + tk.BANDED_THREAD_LAUNCHES,
-            **tk.BANDED_CLASS_LAUNCHES}
+    ring and on the masked full sweep together)."""
+    return {**tk.BANDED_CLASS_LAUNCHES,
+            "score": tk.BANDED_WARP_LAUNCHES +
+            tk.BANDED_CLASS_LAUNCHES["score"]}
 
 
 def reset_banded_launches(tk) -> None:
-    tk.BANDED_WARP_LAUNCHES = tk.BANDED_THREAD_LAUNCHES = 0
+    tk.BANDED_WARP_LAUNCHES = 0
     tk.BANDED_CLASS_LAUNCHES = dict.fromkeys(tk.BANDED_CLASS_LAUNCHES, 0)
+    tk.BANDED_FORM_LAUNCHES = dict.fromkeys(tk.BANDED_FORM_LAUNCHES, 0)
 
 
 # (G lanes, kR rows) of the banded warp form, every form it has
@@ -1446,8 +1459,9 @@ def band_reach(form) -> int:
     return ((g - 1) * r + g) // 2
 
 
-def banded_one_thread(tk, fn):
-    """fn() with the banded score class forced onto the one-thread form."""
+def banded_masked(tk, fn):
+    """fn() with the banded score class forced onto the masked full sweep
+    (off the ring)."""
     tk._BAND_FORM = (0, 0)
     try:
         return fn()
@@ -1522,6 +1536,35 @@ def banded_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum,
         "(5, 0), (0, 2), (3, 9), (6, 6): every class x NW, SG, SW equal to "
         "plain, the NW score equal to golden's banded oracle: "
         f"{out['score'].tolist()}")
+    # past 256 query rows the short form does not take a batch: the block
+    # kernel's masked form, every class, counted by form (pairs from a
+    # generator of their own, numpy seed 14, so that the later phases draw
+    # what they drew before)
+    long_rng = np.random.default_rng(14)
+    qs = random_seqs(long_rng, DNA, 32, 200, 300)
+    rs = random_seqs(long_rng, DNA, 32, 40, 120)
+    args, subs = pack_table(torch, dev, dna, qs, rs, 304)
+    reset_banded_launches(tk)
+    for ci, cls in enumerate(tk.OUTPUTS):
+        for mi, (mode, free) in enumerate(BANDED_MODES):
+            if mode == "sg":
+                free = SG_FREE[ci % len(SG_FREE)]
+            bw = (5, 64, 200)[(ci + mi) % 3]
+            check(f"banded {cls} {mode}{free if mode == 'sg' else ''} "
+                  f"32 DNA pairs of 200-300 x 40-120 bw={bw}", args,
+                  dict(open_=4, ext=1, mode=mode, free=free, width="sat",
+                       banded=True, bandwidth=bw, outputs=cls, **subs))
+    masked = sum(tk.BANDED_CLASS_LAUNCHES.values())
+    log(f"[14 banded vs plain] 32 DNA pairs of 200-300 x 40-120 (Qp 304), "
+        f"every class x NW, SG, SW at bw 5, 64 or 200: equal to plain; "
+        f"masked sweeps by form {tk.BANDED_FORM_LAUNCHES}, the ring "
+        f"{tk.BANDED_WARP_LAUNCHES}")
+    if tk.BANDED_FORM_LAUNCHES != {"short": 0, "block": masked} or \
+            masked + tk.BANDED_WARP_LAUNCHES != len(tk.OUTPUTS) * len(
+                BANDED_MODES):
+        raise AssertionError(f"the Qp 304 batch launched the masked sweep "
+                             f"{tk.BANDED_FORM_LAUNCHES}, expected the "
+                             "block kernel's alone")
 
     # -- 15. the banded main path through the public API -----------------------
     qs, rs = sw_pairs
@@ -1533,10 +1576,10 @@ def banded_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum,
     res = bal.banded_nw_batch(qs, rs)
     launches = tk.BANDED_WARP_LAUNCHES
     routes = dict(dispatch.ROUTE_COUNTS)
-    log(f"[15 banded path] banded warp form launches={launches} (one-thread "
-        f"form {tk.BANDED_THREAD_LAUNCHES}, short score "
+    log(f"[15 banded path] banded warp form launches={launches} (masked "
+        f"sweep {tk.BANDED_CLASS_LAUNCHES['score']}, short score "
         f"{tk.SHORT_LAUNCHES['score']}) routes={routes}")
-    if launches < 1 or tk.BANDED_THREAD_LAUNCHES:
+    if launches < 1 or sum(tk.BANDED_CLASS_LAUNCHES.values()):
         raise AssertionError("banded_nw_batch did not launch the banded "
                              "warp form alone")
     if set(routes) != {("cuda_kernel", "")} or \
@@ -1566,15 +1609,15 @@ def banded_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum,
         f"sampled pairs equal to golden's banded oracle; {unreachable} "
         "corners out of the band (-2^30)")
 
-    errs["score_thread"] = banded_one_thread(
-        tk, lambda: compare(torch, tk, "phase 15 batch, one-thread form",
-                            args, kw))
+    errs["score"] = max(errs["score"], banded_masked(
+        tk, lambda: compare(torch, tk, "phase 15 batch, masked sweep", args,
+                            kw)))
     errs["score"] = max(errs["score"], band_forms(torch, tk, card))
-    thread_launches = wide_band(torch, pt, tk, tw, dispatch)
+    wide, wide_inputs = wide_band(torch, pt, tk, tw, dispatch, card)
 
     # -- banded timings ---------------------------------------------------------
     ms = time_cuda(torch, lambda: tk.score_align(*args, **kw))
-    thread_ms = banded_one_thread(tk, lambda: time_cuda(
+    masked_ms = banded_masked(tk, lambda: time_cuda(
         torch, lambda: tk.score_align(*args, **kw)))
     plain_ms = time_cuda(torch, lambda: tk.score_align_plain(*args, **kw),
                          reps=3, warmup=1)
@@ -1595,8 +1638,9 @@ def banded_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum,
     log(f"[15 timing] {len(qs)} pairs Qp={batch.qidx.shape[1]} "
         f"Rp={batch.ridx.shape[1]} NW 11/1, bw {bw}: banded warp form "
         f"({form} lanes a pair, rows a block) median {ms} ms a call "
-        f"({cells} band cells, {cells / ms / 1e6} GCUPS); the one-thread "
-        f"form {thread_ms} ms a call; plain {plain_ms} ms; bound "
+        f"({cells} band cells, {cells / ms / 1e6} GCUPS); the score class "
+        f"on the masked full sweep (short form) {masked_ms} ms a call; "
+        f"plain {plain_ms} ms; bound "
         f"{b['bound_ms']} ms "
         f"({b['bound_by']}); unbanded score kernel on the same batch "
         f"{unb_ms} ms ({full} cells, {full / unb_ms / 1e6} GCUPS) [{card}]")
@@ -1604,18 +1648,18 @@ def banded_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum,
         f"({len(qs) / e2e_ms * 1e3} aln/s); stages, ms per call: "
         f"{json.dumps(per_call)} [{card}]")
     rows = {"score": {"launches": launches, "ms": ms, "plain_ms": plain_ms,
-                      "e2e_ms": e2e_ms, "thread_ms": thread_ms, **b},
-            "score_thread": {"launches": thread_launches, "ms": thread_ms,
-                             "plain_ms": plain_ms, **b}}
+                      "e2e_ms": e2e_ms, "masked_ms": masked_ms, **b},
+            "score_block": wide}
 
     # -- 15. every banded class and mode at full width ---------------------------
     rows.update(banded_classes(torch, tk, tw, dispatch, card, batch, bw))
     rows["score"]["long"], long_inputs = long_banded(torch, pt, tk, card,
                                                      errs)
     for cls, row in rows.items():
-        row["max_abs_err"] = errs[cls]
+        row["max_abs_err"] = errs.get(cls, row.get("max_abs_err"))
     # the kernels alone are profiled in phase 29 (kernel_times)
-    rows["inputs"] = {"cfg2": (args, kw), "long": long_inputs}
+    rows["inputs"] = {"cfg2": (args, kw), "long": long_inputs,
+                      "wide": wide_inputs}
     return rows
 
 
@@ -1666,32 +1710,63 @@ def band_forms(torch, tk, card) -> int:
     return err
 
 
-def wide_band(torch, pt, tk, tw, dispatch) -> int:
+def wide_band(torch, pt, tk, tw, dispatch, card) -> tuple:
     """``banded_nw_batch`` of 64 DNA pairs of 700-1,000 bp at bw 200, past
     the warp form's reach (bw 140), counted from zero: it must launch the
-    one-thread band-only form on "cuda_kernel" and equal the plain version.
-    Its pairs come from a generator of their own (numpy seed 13).  Returns
-    that form's launches."""
+    block kernel's masked full sweep (past 256 query rows) once, and
+    nothing else, on "cuda_kernel", and equal the plain version; then
+    that launch timed (a call by CUDA events; the kernel alone in phase
+    29) beside the plain version and its bounds.  Its pairs come from a
+    generator of their own (numpy seed 13).  Returns its row and inputs."""
     rng = np.random.default_rng(13)
     dna = pt.Matrix.create(DNA, 2, -3)
+    bw = 200
     qs = random_seqs(rng, DNA, 64, 700, 1000)
     rs = random_seqs(rng, DNA, 64, 700, 1000)
     al = (pt.Aligner.new().matrix(dna).gap_open(5).gap_extend(1)
-          .bandwidth(200).build())
+          .bandwidth(bw).build())
     dispatch.ROUTE_COUNTS.clear()
     reset_launches(tk, tw)
     res = al.banded_nw_batch(qs, rs)
-    launches = (tk.BANDED_WARP_LAUNCHES, tk.BANDED_THREAD_LAUNCHES)
+    launches = (tk.BANDED_WARP_LAUNCHES, dict(tk.BANDED_CLASS_LAUNCHES),
+                dict(tk.BANDED_FORM_LAUNCHES))
     routes = dict(dispatch.ROUTE_COUNTS)
-    if launches != (0, 1) or set(routes) != {("cuda_kernel", "")}:
-        raise AssertionError(f"banded_nw_batch at bw 200 launched (warp, "
-                             f"one-thread) {launches} on {routes}")
-    check_against_plain("banded_nw_batch 64 x 700-1,000 bp bw 200", res,
-                        plain_of_banded(tk, al, qs, rs, 200))
+    if launches != (0, {**dict.fromkeys(tk.OUTPUTS, 0), "score": 1},
+                    {"short": 0, "block": 1}) or \
+            set(routes) != {("cuda_kernel", "")} or \
+            sum(tk.SHORT_LAUNCHES.values()) or tk.CHUNKED_LAUNCHES:
+        raise AssertionError(f"banded_nw_batch at bw {bw} launched (ring, "
+                             f"masked by class, by form) {launches} on "
+                             f"{routes}")
+    plain = plain_of_banded(tk, al, qs, rs, bw)
+    check_against_plain(f"banded_nw_batch 64 x 700-1,000 bp bw {bw}", res,
+                        plain)
+    batch, _, _ = al._pack(qs, rs)
+    args = (batch.ridx, batch.qlen_t, batch.rlen_t)
+    kw = dict(open_=5, ext=1, mode="nw", free=F4, width="32",
+              table=batch.table, qidx=batch.qidx, banded=True, bandwidth=bw)
+    err = compare(torch, tk, f"the bw {bw} batch", args, kw)
+    ms = time_cuda(torch, lambda: tk.score_align(*args, **kw), reps=5,
+                   warmup=1)
+    plain_ms = time_cuda(torch, lambda: tk.score_align_plain(*args, **kw),
+                         reps=1, warmup=0)
+    e2e_ms = time_host(lambda: al.banded_nw_batch(qs, rs), reps=3)
+    cells = band_cells(batch.qlen, batch.rlen, bw)
+    b = sweep_bound("score", args, kw, cells)
+    full = sweep_bound("score", args, kw)
+    Qp, Rp = batch.qidx.shape[1], batch.ridx.shape[1]
+    form = plan_note(tk, "score", 64, Qp, Rp, batch.table.shape[0])
     log(f"[15 banded path] banded_nw_batch of 64 DNA pairs of 700-1,000 bp "
-        f"at bw 200 (past the warp form's reach): (warp, one-thread) "
-        f"launches {launches} on {routes}, equal to plain")
-    return launches[1]
+        f"at bw {bw} (past the warp form's reach): the block kernel's "
+        f"masked sweep ({form}) launched once on {routes}, equal to plain")
+    log(f"[15 timing] the bw {bw} batch (64 pairs, Qp {Qp}, Rp {Rp}): the "
+        f"block kernel's masked sweep median {ms} ms a call ({cells} band "
+        f"cells; bound {b['bound_ms']} ms, {b['bound_by']}; the masked "
+        f"sweep's every cell {full['bound_ms']} ms); plain {plain_ms} ms; "
+        f"banded_nw_batch e2e median {e2e_ms} ms [{card}]")
+    return ({"launches": 1, "ms": ms, "plain_ms": plain_ms,
+             "e2e_ms": e2e_ms, "max_abs_err": err, "form": form,
+             "full_bound_ms": full["bound_ms"], **b}, (args, kw))
 
 
 def plain_of_banded(tk, aligner, qs, rs, bw) -> dict:
@@ -1707,9 +1782,12 @@ def plain_of_banded(tk, aligner, qs, rs, bw) -> dict:
 def banded_classes(torch, tk, tw, dispatch, card, batch, bw) -> dict:
     """The banded slice on the 8,192 BLOSUM62 pairs (Qp = Rp = 192), 11/1,
     bw 16: every class under NW, SG (all ends free) and SW through
-    ``dispatch.launch`` once, counted from zero; each held to the plain
-    version on its first 1,024 pairs (the trace class also walked); then
-    each timed.  Returns the six non-score classes' rows."""
+    ``dispatch.launch`` once, counted from zero: the score class must take
+    the ring, every other class the short form's masked sweep and no other
+    form; each held to the plain version on its first 1,024 pairs (the
+    trace class also walked); then each timed, beside its bound over the
+    band's cells and over every cell (what a masked full sweep can reach).
+    Returns the six non-score classes' rows."""
     n_check = 1024
     width = "32"
     subset = (batch.ridx[:n_check], batch.qlen_t[:n_check],
@@ -1750,13 +1828,19 @@ def banded_classes(torch, tk, tw, dispatch, card, batch, bw) -> dict:
                                          f"plain, max |diff| {werr}")
             del out, got, want
     launches = banded_launches(tk)
+    forms = dict(tk.BANDED_FORM_LAUNCHES)
     routes = dict(dispatch.ROUTE_COUNTS)
     log(f"[15 banded classes] launches {launches} (score: warp form "
-        f"{tk.BANDED_WARP_LAUNCHES}), routes {routes}")
-    if any(launches[cls] != len(BANDED_MODES) for cls in tk.OUTPUTS) or \
-            tk.BANDED_THREAD_LAUNCHES:
-        raise AssertionError(f"the banded slice launched {launches}, "
-                             f"expected {len(BANDED_MODES)} a class")
+        f"{tk.BANDED_WARP_LAUNCHES}; the masked sweep by form {forms}), "
+        f"routes {routes}")
+    n = len(BANDED_MODES)
+    if any(launches[cls] != n for cls in tk.OUTPUTS) or \
+            tk.BANDED_WARP_LAUNCHES != n or \
+            forms != {"short": n * (len(tk.OUTPUTS) - 1), "block": 0}:
+        raise AssertionError(f"the banded slice launched {launches}, by "
+                             f"form {forms}, expected {n} a class, the "
+                             "score class on the ring and the others on the "
+                             "short form")
     if routes != {("cuda_kernel", ""): len(tk.OUTPUTS) * len(BANDED_MODES)}:
         raise AssertionError(f"the banded slice left the kernel route: "
                              f"{routes}")
@@ -1781,17 +1865,27 @@ def banded_classes(torch, tk, tw, dispatch, card, batch, bw) -> dict:
         plain_ms = time_cuda(torch,
                              lambda: tk.score_align_plain(*args, **kw),
                              reps=1, warmup=0)
+        # the unbanded class on the same pairs: what the mask costs
+        unb = {k: v for k, v in kw.items() if k not in ("banded",
+                                                       "bandwidth")}
+        unb_ms = time_cuda(torch, lambda: tk.score_align(*args, **unb),
+                           reps=5, warmup=1)
         b = sweep_bound(cls, args, kw, cells)
+        full = sweep_bound(cls, args, kw)
         log(f"[15 timing] banded {cls}, {batch.size} x {batch.qp}^2 bw {bw}: "
             f"kernel median NW {times['nw']} ms, SG {times['sg']} ms, SW "
-            f"{times['sw']} ms; plain (NW, one run) {plain_ms} ms; bound "
-            f"{b['bound_ms']} ms ({b['bound_by']}); peak device memory of "
+            f"{times['sw']} ms; unbanded NW {unb_ms} ms; plain (NW, one run) "
+            f"{plain_ms} ms; bound {b['bound_ms']} ms ({b['bound_by']}), "
+            f"over every cell {full['bound_ms']} ms ({full['bound_by']}); "
+            f"peak device memory of "
             f"one call NW / SG / SW "
             f"{' / '.join(str(peaks[(cls, m)]) for m, _ in BANDED_MODES)} "
             f"MiB above the inputs [{card}]")
         if cls != "score":
             rows[cls] = {"launches": launches[cls], "ms": times["nw"],
-                         "plain_ms": plain_ms, **b}
+                         "sg_ms": times["sg"], "sw_ms": times["sw"],
+                         "unbanded_ms": unb_ms, "plain_ms": plain_ms,
+                         "full_bound_ms": full["bound_ms"], **b}
     return rows
 
 
@@ -1799,9 +1893,10 @@ def long_banded(torch, pt, tk, card, errs) -> dict:
     """``banded_nw_batch`` of 128 DNA pairs of 4,096 bp at bw 64, NW 5/1
     (K1e's band-only score form as the long-read banded path), counted
     from zero: the warp form must launch; 8 pairs against the plain
-    version, all 128 against the one-thread form; the warp form and the
-    one-thread form timed (a call by CUDA events, the kernel by
-    torch.profiler) and the call end to end with its stage clocks.  Its
+    version, all 128 against the masked full sweep (the block kernel's,
+    forced); the warp form and the masked sweep timed (a call by CUDA
+    events, the kernel by torch.profiler) and the call end to end with its
+    stage clocks.  Its
     pairs come from a generator of their own (numpy seed 15), so that the
     later phases draw what they drew before.  Returns the times."""
     from parasail_rs_tpu_torch.ops import trace_walk as tw
@@ -1816,10 +1911,10 @@ def long_banded(torch, pt, tk, card, errs) -> dict:
           .bandwidth(bw).build())
     reset_launches(tk, tw)
     res = al.banded_nw_batch(qs, rs)
-    launches = (tk.BANDED_WARP_LAUNCHES, tk.BANDED_THREAD_LAUNCHES)
+    launches = (tk.BANDED_WARP_LAUNCHES, tk.BANDED_CLASS_LAUNCHES["score"])
     if launches != (1, 0):
         raise AssertionError(f"the long banded batch launched (warp, "
-                             f"one-thread) {launches}")
+                             f"masked sweep) {launches}")
     batch, _, _ = al._pack(qs, rs)
     args = (batch.ridx, batch.qlen_t, batch.rlen_t)
     kw = dict(open_=5, ext=1, mode="nw", free=F4, width="32",
@@ -1830,16 +1925,16 @@ def long_banded(torch, pt, tk, card, errs) -> dict:
     check_against_plain(f"banded_nw_batch 128 x {LONG_LEN} bp bw {bw}",
                         res[:n], plain)
     warp = tk.score_align(*args, **kw)
-    thread = banded_one_thread(tk, lambda: tk.score_align(*args, **kw))
+    masked = banded_masked(tk, lambda: tk.score_align(*args, **kw))
     torch.cuda.synchronize()
-    err = max_abs_diff(warp, thread)
+    err = max_abs_diff(warp, masked)
     if err:
         raise AssertionError(f"the long banded batch: warp form != "
-                             f"one-thread form, max |diff| {err}")
+                             f"the masked sweep, max |diff| {err}")
     errs["score"] = max(errs["score"], err)
     ms = time_cuda(torch, lambda: tk.score_align(*args, **kw), reps=5,
                    warmup=1)
-    thread_ms = banded_one_thread(tk, lambda: time_cuda(
+    masked_ms = banded_masked(tk, lambda: time_cuda(
         torch, lambda: tk.score_align(*args, **kw), reps=3, warmup=1))
     e2e_ms = time_host(lambda: al.banded_nw_batch(qs, rs), reps=3)
     with stages.measuring():
@@ -1853,13 +1948,14 @@ def long_banded(torch, pt, tk, card, errs) -> dict:
                         batch.table.shape[0], bw)
     log(f"[15 timing] banded_nw_batch 128 DNA pairs of {LONG_LEN} bp, NW "
         f"5/1, bw {bw}: warp form launched ({form} lanes, rows), the first "
-        f"{n} pairs equal to plain, all 128 to the one-thread form; warp "
+        f"{n} pairs equal to plain, all 128 to the masked sweep; warp "
         f"form median {ms} ms a call ({cells} band cells, "
         f"{cells / ms / 1e6} GCUPS; bound {b['bound_ms']} ms, "
-        f"{b['bound_by']}); the one-thread form {thread_ms} ms a call; e2e "
+        f"{b['bound_by']}); the block kernel's masked sweep {masked_ms} ms a "
+        f"call; e2e "
         f"median {e2e_ms} ms; stages, ms per call: {json.dumps(per_call)} "
         f"[{card}]")
-    return ({"ms": ms, "thread_ms": thread_ms, "e2e_ms": e2e_ms,
+    return ({"ms": ms, "masked_ms": masked_ms, "e2e_ms": e2e_ms,
              "bound_ms": b["bound_ms"]}, (args, kw))
 
 
@@ -3323,17 +3419,19 @@ def chunked_bins(torch, tk, dispatch, call) -> dict:
 
 def block_registers(build_log: str, classes) -> dict:
     """Registers and spill-store bytes of each segment_kernel form from
-    ``-Xptxas -v``'s log: {"<class> R<rows>[ tile]": (registers,
+    ``-Xptxas -v``'s log: {"<class> R<rows>[ tile| banded]": (registers,
     spill bytes)}."""
     out, form, spill = {}, None, 0
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
             form, spill = None, 0
             if "segment_kernelILi" in line:
-                k, tile, rows = re.match(r"(\d+)ELb(\d)ELi(\d+)E", line.split(
-                    "segment_kernelILi")[1]).groups()
+                k, tile, rows, band = re.match(
+                    r"(\d+)ELb(\d)ELi(\d+)ELb(\d)E",
+                    line.split("segment_kernelILi")[1]).groups()
                 form = f"{classes[int(k)]} R{rows}" + (
-                    " tile" if tile == "1" else "")
+                    " tile" if tile == "1" else "") + (
+                    " banded" if band == "1" else "")
         elif "spill stores" in line and form is not None:
             spill = int(line.split("bytes spill stores")[0].split(",")[-1])
         elif "registers" in line and form is not None:
@@ -3373,17 +3471,19 @@ def device_ms(torch, fn, name: str, n: int = 10) -> float:
 
 def short_registers(build_log: str, classes) -> dict:
     """Registers and spill-store bytes of each short_kernel form from
-    ``-Xptxas -v``'s log: {"<class> R<rows> <payload ops>": (registers,
-    spill bytes)}; ``classes`` names the classes in OutClass order."""
+    ``-Xptxas -v``'s log: {"<class> R<rows> <payload ops>[ banded]":
+    (registers, spill bytes)}; ``classes`` names the classes in OutClass
+    order."""
     out, form, spill = {}, None, 0
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
             form, spill = None, 0
-            m = re.search(r"short_kernel(?:_one)?ILi(\d)ELi(\d)EN7ptscore"
-                          r"\d+(\w+?)E", line)
+            m = re.search(r"short_kernel(?:_one)?ILi(\d)ELi(\d)ELb(\d)E"
+                          r"N7ptscore\d+(\w+?)E", line)
             if m:
                 form = (f"{classes[int(m.group(1))]} R{m.group(2)} "
-                        f"{m.group(3)}")
+                        f"{m.group(4)}" +
+                        (" banded" if m.group(3) == "1" else ""))
         elif "spill stores" in line and form is not None:
             spill = int(line.split("bytes spill stores")[0].split(",")[-1])
         elif "registers" in line and form is not None:
@@ -3542,8 +3642,7 @@ def short_path(torch, pt, tk, tw, dispatch, stages, rng, blosum, card,
         "and ssw_batch's 1,024 SW pairs (trace, walk), 1,024 pairs of the "
         "stats headline: equal")
 
-    # the main paths on the short form; the one-thread-per-pair forms left
-    # are the banded ones, which these paths must not launch
+    # the main paths on the short form, and no banded form
     def sw():
         return pt.Aligner.new().matrix(blosum).gap_open(11).gap_extend(1) \
             .local()
@@ -3656,21 +3755,39 @@ def short_path(torch, pt, tk, tw, dispatch, stages, rng, blosum, card,
 
 
 def kernel_times(torch, tk, tw, card, band_inputs, walk_inputs) -> dict:
-    """Phase 29's kernel times of the banded score class and the walk,
-    by torch.profiler (which this script uses only from phase 29 on): the
-    banded warp form and the one-thread form on cfg2 and on the long
-    banded batch (phase 15's inputs), the tiled walk on cfg4b's 4,096
-    pairs and a 512-pair chunk of them (phase 9's planes).  Returns them
-    by kernel."""
-    out = {"band": {}, "thread": {}, "walk": {}}
-    for name, (args, kw) in band_inputs.items():
+    """Phase 29's kernel times of the banded mode and the walk, by
+    torch.profiler (which this script uses only from phase 29 on): the
+    banded warp form and the score class's masked full sweep (forced) on
+    cfg2 and on the long banded batch (phase 15's inputs), the block
+    kernel's masked sweep on the bw 200 batch, each other banded class
+    (NW) on cfg2 on the short form's masked sweep, and the tiled walk on
+    cfg4b's 4,096 pairs and a 512-pair chunk of them (phase 9's planes).
+    Returns them by kernel."""
+    out = {"band": {}, "masked": {}, "classes": {}, "walk": {}}
+    masked_kernel = {"cfg2": "short_kernel", "long": "segment_kernel"}
+    for name in ("cfg2", "long"):
+        args, kw = band_inputs[name]
         out["band"][name] = device_ms(
             torch, lambda: tk.score_align(*args, **kw), "band_kernel", n=5)
-        out["thread"][name] = banded_one_thread(tk, lambda: device_ms(
-            torch, lambda: tk.score_align(*args, **kw), "scan_kernel", n=3))
+        out["masked"][name] = banded_masked(tk, lambda: device_ms(
+            torch, lambda: tk.score_align(*args, **kw), masked_kernel[name],
+            n=3))
         log(f"[29 timing] banded {name}: the warp form's kernel "
-            f"{out['band'][name]} ms, the one-thread form's "
-            f"{out['thread'][name]} ms [{card}]")
+            f"{out['band'][name]} ms, the masked sweep's (score class, "
+            f"{masked_kernel[name]}) {out['masked'][name]} ms [{card}]")
+    args, kw = band_inputs["wide"]
+    out["wide"] = device_ms(torch, lambda: tk.score_align(*args, **kw),
+                            "segment_kernel", n=3)
+    log(f"[29 timing] the bw 200 batch: the block kernel's masked sweep "
+        f"{out['wide']} ms of kernel [{card}]")
+    args, kw = band_inputs["cfg2"]
+    for cls in tk.OUTPUTS[1:]:
+        ckw = dict(kw, outputs=cls)
+        out["classes"][cls] = device_ms(
+            torch, lambda: tk.score_align(*args, **ckw), "short_kernel",
+            n=3)
+    log(f"[29 timing] banded classes on cfg2 (NW 11/1, bw 16), the short "
+        f"form's masked sweep, ms of kernel: {out['classes']} [{card}]")
     for name, walk in walk_inputs.items():
         out["walk"][name] = device_ms(torch, lambda: tw.device_walk(*walk),
                                       "trace_walk_kernel")
@@ -3811,15 +3928,15 @@ def stream_path(torch, pt, tk, tw, dispatch, golden, stages, blosum,
     got = stream(sw, qs, rs, 8192)
     short = dict(tk.SHORT_LAUNCHES)
     others = (tk.CHUNKED_LAUNCHES, tk.SEGMENT_LAUNCHES, tk.ROWSEG_LAUNCHES,
-              tk.BANDED_WARP_LAUNCHES, tk.BANDED_THREAD_LAUNCHES,
-              sum(tk.BANDED_CLASS_LAUNCHES.values()), tw.LAUNCHES)
+              tk.BANDED_WARP_LAUNCHES, sum(tk.BANDED_CLASS_LAUNCHES.values()),
+              tw.LAUNCHES)
     launches = short["score"]
     if launches != want_launches or sum(short.values()) != launches or \
             any(others):
         raise AssertionError(
             f"cfg7 stream launched the short form {short} and (chunked, "
-            f"segment, tile, banded warp, banded thread, banded classes, "
-            f"walk) {others}; expected {want_launches} score launches "
+            f"segment, tile, banded warp, banded masked sweep, walk) "
+            f"{others}; expected {want_launches} score launches "
             f"and nothing else")
     if sw.route_counter != {("cuda_kernel", ""): want_launches}:
         raise AssertionError(f"cfg7 stream routes {sw.route_counter}")

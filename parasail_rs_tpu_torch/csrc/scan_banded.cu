@@ -7,11 +7,13 @@
 // masks at :602-617, :722-725, :890-891), for bands the ring reaches
 // (score_cell.cuh, band_plan: 2 bw < (G - 1) kR + G + 1, bw up to 140 at
 // G = 32, kR = 8; a band wider than the padded pair counts as the pair).
-// Same outputs as the one-thread band-only form (scan_score.cu, class 0),
-// bit for bit: score, end_query, end_ref and the width-8/16 saturation
-// flags, NW, the nine SG free-end sets and SW, with an (A, A) table plus
-// query letters or (1 or B, Qp, A) profile rows.  Wider bands keep that
-// form.
+// Same outputs as the band-only sweep of score_pair<OUT_SCORE, true> (the
+// g++-tested recurrence) and the plain version, bit for bit: score,
+// end_query, end_ref and the width-8/16 saturation flags, NW, the nine SG
+// free-end sets and SW, with an (A, A) table plus query letters or (1 or
+// B, Qp, A) profile rows.  Wider bands take the masked full sweep (the
+// short form, scan_short_banded.cu, or the block kernel,
+// scan_chunked_banded.cu).
 //
 // Design (score_cell.cuh, "the banded warp form"): a pair's G lanes hold
 // its row blocks of kR rows in a ring, block k on lane k mod G, which at
@@ -25,12 +27,12 @@
 // column's letter and scores a step ahead.  The end cell is folded per
 // lane across its blocks and across the group by shuffles (seg_merge);
 // lane 0 of the group writes the outputs.  A pair takes about Rp + Qp /
-// kR steps, against the qlen x (2 bw + 1) dependent cells of one thread
-// a pair.
+// kR steps, against the qlen x (2 bw + 1) dependent cells of a one-thread
+// band-only sweep.
 //
 // Staging: the block stages the table form's (A + 1)^2 scores (a zero row
 // and column for letters outside the alphabet; the rule leaves tables
-// past 32 KB to the one-thread form) and each pair's reference letters
+// past 32 KB to the masked full sweep) and each pair's reference letters
 // when the block's letters fit 48 KB (cfg2's 16 pairs of 192 a block and
 // the long batch's one pair of 4,096 do); letters that do not fit, and
 // every profile (up to Qp x A words a pair), are read through L1.  The
@@ -180,8 +182,8 @@ int launch_rows(const BandArgs& a, int32_t rows, cudaStream_t stream) {
 // `lanes` and `rows` pick the form (G 8, 16 or 32, kR 4, 5, 6 or 8); 0
 // and 0 take the rule's (score_cell.cuh, band_plan).  A form that does
 // not reach the band, a band no form reaches, or a table past
-// BAND_TABLE_BYTES returns cudaErrorInvalidValue: the one-thread form
-// (pt_scan_banded) serves those.
+// BAND_TABLE_BYTES returns cudaErrorInvalidValue: the masked full sweep
+// (pt_scan_short_banded, pt_scan_chunked_banded) serves those.
 extern "C" int pt_scan_band_ring(const void* subs, const void* qidx,
                                  const void* ridx, const void* qlen,
                                  const void* rlen, void* out, int B, int Bq,
@@ -217,8 +219,8 @@ extern "C" int pt_scan_band_ring(const void* subs, const void* qidx,
 }
 
 // The banded warp form's rule (score_cell.cuh, band_plan): lanes a pair
-// and rows a block to plan[0..1], 0 and 0 where the one-thread form takes
-// the batch (A letters, `profile` 1 for the profile form).
+// and rows a block to plan[0..1], 0 and 0 where the masked full sweep
+// takes the batch (A letters, `profile` 1 for the profile form).
 extern "C" int pt_band_plan(int B, int Qp, int Rp, int bandwidth, int A,
                             int profile, int* plan) {
   const ptscore::BandPlan p =

@@ -10,7 +10,7 @@
 // chunk to the next (dH and the prefix-max seed; dE for the trace class;
 // the H and prefix-max payloads for the stats classes, scan_kernel.py:920-
 // 952).  One call sweeps columns [0, Rp) of every pair of a padded batch
-// and returns what the short form (scan_short.cu) returns for the class,
+// and returns what the short form (scan_short.cuh) returns for the class,
 // bit for bit: the per-pair scalars, and the trace plane, the H (and
 // payload) planes, or the last row and column.
 //

@@ -8,7 +8,7 @@
 // the pair's last column so far, the stats payloads of both, and the
 // accumulator (best cell, extremes of H, the best cell's payload); see
 // score_cell.cuh, "the segment form".  After the last segment the outputs
-// are the one-shot sweep's (scan_short.cu) for the same class, bit for
+// are the one-shot sweep's (scan_short.cuh) for the same class, bit for
 // bit; the trace class writes the segment's flags, (B, Qp, Rseg) int8.
 //
 // Design: a chain of warps per pair, kR query rows a lane (2, 4 or 8;

@@ -1,5 +1,5 @@
 // Per-pair affine-gap (Gotoh) score sweep, shared by the CUDA kernels
-// (scan_score.cu, scan_short.cu, segment_block.cuh) and the host harness
+// (scan_short.cuh, scan_banded.cu, segment_block.cuh) and the host harness
 // the CPU tests build with g++.
 //
 // Semantics are those of parasail_rs_tpu's score class
@@ -51,9 +51,11 @@
 // The banded forms (kBanded) are the TPU kernel's banded mode
 // (scan_kernel.py:602-617, :722-725, :890-891) in every class and mode:
 // cells with |i - j| > bw and border cells beyond bw are NEG_INF32.  The
-// score form sweeps only the band's cells; every other form sweeps every
-// cell and masks, so that its flags and payloads outside the band are the
-// plain version's; see score_pair.
+// score form of score_pair (and the ring, below) sweeps only the band's
+// cells; every other form sweeps every cell and masks, so that its flags
+// and payloads outside the band are the plain version's; see score_pair.
+// The card runs the masked sweep on the short form and the block kernel
+// (their kBanded instantiations: band_out, seg_border).
 //
 // All arithmetic is exact int32 with NEG_INF32 = -2^30 as minus infinity,
 // so NEG_INF32 - open - ext cannot wrap.
@@ -196,6 +198,11 @@ PT_HD int32_t border(int32_t c, bool is_free, int32_t open, int32_t ext) {
 PT_HD int32_t band_border(int32_t c, bool is_free, int32_t open, int32_t ext,
                           int32_t bw) {
   return c <= bw ? border(c, is_free, open, ext) : NEG_INF32;
+}
+
+// Does cell (i, j) lie outside the band of half-width bw?
+PT_HD bool band_out(int32_t i, int32_t j, int32_t bw) {
+  return i - j > bw || j - i > bw;
 }
 
 // One DP cell.  h_diag = H[i-1][j-1], h_up = H[i-1][j], e_up = E[i-1][j],
@@ -692,6 +699,11 @@ struct SegPair {
   int32_t row_lo, row_hi;
   bool tile;               // the tile form (kernel K3), see below
   int32_t down_row;        // tile: the row handed to the tile below, else -1
+  // read only by the banded (masked) instantiations of the one-shot forms
+  // (kBanded below): the band's half-width, in [-1, qp + rlen], and the
+  // padded reference length, the end column of a non-local pair whose
+  // every candidate lies outside the band (score_pair's (qp, rp))
+  int32_t bw = 0, rp = 0;
 };
 
 PT_HD SegPair seg_pair(int32_t qlen, int32_t rlen, int32_t qp, int32_t off,
@@ -719,11 +731,29 @@ PT_HD SegPair seg_pair(int32_t qlen, int32_t rlen, int32_t qp, int32_t off,
   return p;
 }
 
+// `p` with the band of half-width bw and the padded reference length rp,
+// for the masked forms.
+PT_HD SegPair with_band(SegPair p, int32_t bw, int32_t rp) {
+  p.bw = bw;
+  p.rp = rp;
+  return p;
+}
+
+// A bordered H at c consumed characters of a pair: border(), or with
+// kBanded (the masked one-shot forms, from column 0 only) band_border().
+template <bool kBanded>
+PT_HD int32_t seg_border(const SegPair& p, int32_t c, bool is_free) {
+  if constexpr (kBanded) return band_border(c, is_free, p.open, p.ext, p.bw);
+  return border(c, is_free, p.open, p.ext);
+}
+
 // The top border above column jg (global): H[-1][jg], E = -inf, and the
-// border's payload (0, 0, characters consumed unless free).
+// border's payload (0, 0, characters consumed unless free; the masked
+// forms mask H only, never a payload).
+template <bool kBanded = false>
 PT_HD SegUp seg_top(const SegPair& p, int32_t jg) {
   SegUp u;
-  u.h = border(jg + 1, p.qb, p.open, p.ext);
+  u.h = seg_border<kBanded>(p, jg + 1, p.qb);
   u.hp.l = p.qb ? 0 : jg + 1;
   return u;
 }
@@ -831,8 +861,9 @@ struct SegLane {
 // the boundary column left of the segment (the carried state, or the
 // bordered left column).  A row's first diagonal is the row above's H
 // left of the segment as it was before this segment; `old` receives that
-// of the lane's bottom row, for the lane below.
-template <int32_t kOut, int32_t kR>
+// of the lane's bottom row, for the lane below.  kBanded: the masked
+// form's left border (band_border), from column 0 only.
+template <bool kBanded = false, int32_t kOut, int32_t kR>
 PT_HD void seg_lane_begin(SegLane<kOut, kR>& L, const SegPair& p, int32_t i0,
                           const int32_t* q, int32_t prof_row0,
                           const int32_t* mq, const int32_t* st_h,
@@ -865,7 +896,7 @@ PT_UNROLL
                    st_pay[5 * pay_plane + j]};
       }
     } else {
-      w.h_left = border(i + 1, p.db, p.open, p.ext);
+      w.h_left = seg_border<kBanded>(p, i + 1, p.db);
       w.f = NEG_INF32;
       w.lp = Pay{0, 0, p.db ? 0 : i + 1};
       w.fp = Pay{0, 0, 0};
@@ -903,9 +934,10 @@ struct SegPlanes {
   int64_t col_plane = 0;
 };
 
+template <bool kBanded = false>
 PT_HD SegUp seg_corner(const SegPair& p) {
   SegUp u;
-  u.h = border(p.off, p.qb, p.open, p.ext);
+  u.h = seg_border<kBanded>(p, p.off, p.qb);
   u.hp.l = p.qb ? 0 : p.off;
   return u;
 }
@@ -988,8 +1020,12 @@ PT_HD void seg_lane_scores(const SegLane<kOut, kR>& L, const int32_t* sc,
 // tile's down-state (`down`, on the tile's last row), the row's state at
 // the pair's last column of the segment, and the row's first maximum
 // (the stats forms: the lane's best, payload and all); leaves the bottom
-// row's cell in L.out.
-template <int32_t kOut, int32_t kR>
+// row's cell in L.out.  kBanded (the masked one-shot form): each cell
+// takes its flags and payloads first, then H, E and F become NEG_INF32
+// outside the band (band_out at its global column, p.bw), before anything
+// stores, passes on or folds them, and such a cell is no candidate;
+// score_pair's masked sweep, cell for cell.
+template <int32_t kOut, int32_t kR, bool kBanded = false>
 PT_HD void seg_lane_step(SegLane<kOut, kR>& L, const SegPair& p, int32_t c,
                          int32_t r, const int32_t (&sk)[kR], SegUp u,
                          int8_t* trace0, int32_t rseg, int32_t* st_h,
@@ -1038,6 +1074,12 @@ PT_UNROLL
       cell(w.h_diag, u.h, u.e, w.h_left, s, p.open, p.ext, p.local, w.f, h,
            e);
     }
+    const bool out = kBanded && band_out(i, jg, p.bw);
+    if constexpr (kBanded) {
+      h = out ? NEG_INF32 : h;
+      e = out ? NEG_INF32 : e;
+      w.f = out ? NEG_INF32 : w.f;
+    }
     w.h_diag = u.h;
     w.h_left = h;
     u.h = h;
@@ -1076,7 +1118,7 @@ PT_UNROLL
     }
     if (on && down != nullptr && i == p.down_row)
       seg_up_store<kOut>(down, rseg, c, u);
-    const bool cand = on && (w.row_all || (w.row_last && last_col));
+    const bool cand = on && !out && (w.row_all || (w.row_last && last_col));
     if constexpr (O::stats) {
       // rows top to bottom, then columns: an equal H in an earlier row is
       // ahead (seg_better for cells that arrive in this order)
@@ -1128,15 +1170,18 @@ PT_UNROLL
 // initialised here when !resume) and derive the pair's outputs from it,
 // as score_pair's: the SW clamp is the accumulator's initial (0, 0, 0),
 // NW ends at (qlen - 1, rlen - 1), and a non-local pair with an empty side
-// takes empty_side(), decided from the global lengths.
-template <int32_t kOut>
+// takes empty_side(), decided from the global lengths (kBanded: the
+// banded one, band_border's; and a non-local pair with no candidate in the
+// band, score -2^30, ends at (qp, rp) as score_pair's).
+template <int32_t kOut, bool kBanded = false>
 PT_HD PairResult seg_finish(const SegPair& p, int32_t mode,
                             const SegBest& seg, int32_t* acc) {
   using O = Out<kOut>;
   if (!p.local && (p.qlen == 0 || p.rlen == 0)) {
     if (!p.resume)
       for (int32_t k = 0; k < 8; ++k) acc[k] = 0;
-    return empty_side(p.qlen, p.rlen, p.open, p.ext, p.qb, p.qe, p.db, p.de);
+    return empty_side<kBanded>(p.qlen, p.rlen, p.open, p.ext, p.qb, p.qe,
+                               p.db, p.de, p.bw);
   }
   SegBest a;
   if (p.resume) {
@@ -1149,7 +1194,7 @@ PT_HD PairResult seg_finish(const SegPair& p, int32_t mode,
   } else {
     a.h = p.local ? 0 : NEG_INF32;
     a.i = p.local ? 0 : p.qp;
-    a.j = p.local ? 0 : BIG;
+    a.j = p.local ? 0 : (kBanded ? p.rp : BIG);
   }
   a = seg_merge(a, seg);
   acc[0] = a.h;
@@ -1362,9 +1407,11 @@ PT_HD void tile_corner_out(const int32_t* down, int32_t cols, int32_t* t) {
 }
 
 // ---------------------------------------------------------------------------
-// The short form (csrc/scan_short.cu; kernels K1a-K1d): every class of
-// the unbanded one-shot sweep for pairs of at most SEG_LANES kR padded
-// query rows, ONE warp a pair, several pairs a block.  Lane L holds query
+// The short form (csrc/scan_short.cuh; kernels K1a-K1d, and K1e's masked
+// classes): every class of the one-shot sweep for pairs of at most
+// SEG_LANES kR padded query rows, ONE warp a pair, several pairs a block,
+// unbanded (scan_short.cu) or masked to a band (kBanded, as score_pair's
+// masked sweep; scan_short_banded.cu).  Lane L holds query
 // rows [L kR, L kR + kR) and at step t computes column t - L of them top
 // to bottom, as a lane of the segment form does (cell / cell_trace /
 // cell_stats_of, the DPX max-plus helpers, the end cell's order of
@@ -1627,9 +1674,9 @@ struct ShortLane {
 
 // Start lane `lane`'s rows: their scores (table form, row q[i] of the
 // staged table; profile form, staged row i), letters, candidates and the
-// bordered left column; `old` receives the bottom row's left border, the
-// lane below's first diagonal.
-template <int32_t kOut, int32_t kR, class PO>
+// bordered left column (kBanded: band_border's); `old` receives the bottom
+// row's left border, the lane below's first diagonal.
+template <int32_t kOut, bool kBanded = false, int32_t kR, class PO>
 PT_HD void short_lane_begin(ShortLane<kR, PO>& L, const SegPair& p,
                             int32_t lane, const int32_t* q,
                             const int32_t* mq, const PO& po,
@@ -1650,7 +1697,7 @@ PT_UNROLL
     const bool last_row = i == p.qlen - 1;
     w.row_all = p.local || (last_row && p.qe);
     w.row_last = last_row || p.de;
-    w.h_left = border(i + 1, p.db, p.open, p.ext);
+    w.h_left = seg_border<kBanded>(p, i + 1, p.db);
     w.lp = po.border(p.db ? 0 : i + 1);
     if (k + 1 < kR) {
       L.row[k + 1].h_diag = w.h_left;
@@ -1669,11 +1716,12 @@ PT_HD void short_lane_diag(ShortLane<kR, PO>& L, const ShortUp<PO>& above) {
   L.row[0].dp = above.hp;
 }
 
-// The top border above column c: H[-1][c], E = -inf, and its payload.
-template <class PO>
+// The top border above column c: H[-1][c], E = -inf, and its payload
+// (kBanded: H band_border's, the payload unmasked).
+template <bool kBanded = false, class PO>
 PT_HD ShortUp<PO> short_top(const SegPair& p, int32_t c, const PO& po) {
   ShortUp<PO> u;
-  u.h = border(c + 1, p.qb, p.open, p.ext);
+  u.h = seg_border<kBanded>(p, c + 1, p.qb);
   u.hp = po.border(p.qb ? 0 : c + 1);
   return u;
 }
@@ -1814,8 +1862,11 @@ PT_UNROLL
 // short_vec_ok); rows past the pair are computed as the others, without a
 // branch, and write nothing.  The stats classes keep the lane's best cell
 // cell by cell, the others each row's first maximum.  Leaves the bottom
-// row's cell in L.out.
-template <int32_t kOut, int32_t kR, class PO>
+// row's cell in L.out.  kBanded (the masked form, K1e): as seg_lane_step's,
+// H, E and F become NEG_INF32 outside the band after the cell's flags and
+// payloads and before its stores, its shuffle to the lane below, the
+// extremes and the candidate test, which a cell outside the band fails.
+template <int32_t kOut, bool kBanded = false, int32_t kR, class PO>
 PT_HD void short_lane_step(ShortLane<kR, PO>& L, const SegPair& p, int32_t c,
                            int32_t r, const int32_t (&sk)[kR],
                            ShortUp<PO> u, int8_t* trace0, int64_t rstride,
@@ -1849,6 +1900,12 @@ PT_UNROLL
       cell(w.h_diag, u.h, u.e, w.h_left, sk[k], p.open, p.ext, p.local, w.f,
            h, e);
     }
+    const bool out = kBanded && band_out(i, c, p.bw);
+    if constexpr (kBanded) {
+      h = out ? NEG_INF32 : h;
+      e = out ? NEG_INF32 : e;
+      w.f = out ? NEG_INF32 : w.f;
+    }
     w.h_diag = u.h;
     w.h_left = h;
     u.h = h;
@@ -1857,7 +1914,7 @@ PT_UNROLL
     u.ep = ep;
     hv[k] = (k == 0 || on) ? h : hv[0];
     pv[k] = hp;
-    const bool cand = on && (w.row_all || (w.row_last && last_col));
+    const bool cand = on && !out && (w.row_all || (w.row_last && last_col));
     if constexpr (O::stats) {
       // rows top to bottom, then columns: an equal H in an earlier row is
       // ahead (seg_better for cells that arrive in this order)
@@ -1930,8 +1987,8 @@ PT_HD SegBest short_lane_best(const ShortLane<kR, PO>& L, const PO& po) {
 // the masked forms do (band_lane_step: E and F need no mask).  Block
 // k + G starts on the lane after block k has ended exactly when 2 bw <
 // (G - 1) kR + G + 1 (band_reach): block k ends at step hi_k + k, block
-// k + G starts at step lo_{k+G} + k + G.  Wider bands keep the one-thread
-// band-only form.
+// k + G starts at step lo_{k+G} + k + G.  Wider bands take the masked
+// full sweep (the short form or the block kernel, kBanded).
 //
 // What a block's rows read, so that every in-band cell equals
 // score_pair's:
@@ -1971,10 +2028,11 @@ PT_HD int32_t band_eff(int32_t bw, int32_t Qp, int32_t Rp) {
 // The launcher's rule: G lanes a pair and kR rows a block for B pairs of
 // Qp by Rp padded cells at half-width bw, or {0, 0} where no form reaches
 // the band, or the table form's (A + 1)^2 scores do not fit a block's
-// shared memory (BAND_TABLE_BYTES; the one-thread form then runs).  For each G the fewest rows
-// kR of {4, 5, 6, 8} that reach; then the G whose cost is least (the
-// fewer lanes on a tie).  A pair takes about Rp + Qp / kR steps of kR
-// dependent cells, so its chain is kR Rp + Qp cells whatever G; the card
+// shared memory (BAND_TABLE_BYTES; the masked full sweep then runs).
+// For each G the fewest rows kR of {4, 5, 6, 8} that reach; then the G
+// whose cost is least (the fewer lanes on a tie).  A pair takes about
+// Rp + Qp / kR steps of kR dependent cells, so its chain is kR Rp + Qp
+// cells whatever G; the card
 // runs B G lanes, and an SM keeps about BAND_LANES_SM of them busy, so
 // past SEG_SMS * BAND_LANES_SM lanes the time grows with B G:
 //   cost = (kR Rp + Qp) * max(B G, SEG_SMS * BAND_LANES_SM).
@@ -2363,7 +2421,8 @@ PT_HD PairResult band_finish(const BandPair& bp, int32_t mode,
 // first row and left holding the tile's last row; the state rows and
 // `trace` start at row p.row_lo; `t_in` / `t_out` are the corner words.
 // The plane forms (the chunked form): `pl` is the pair's SegPlanes.
-template <int32_t kOut, int32_t kR>
+// kBanded: the masked one-shot form (one segment from column 0, p.bw).
+template <int32_t kOut, int32_t kR, bool kBanded = false>
 inline PairResult segment_pair_host(const int32_t* subs, const int32_t* q,
                                     const int32_t* mq,
                                     const int32_t* ridx_seg, int32_t rseg,
@@ -2399,12 +2458,12 @@ inline PairResult segment_pair_host(const int32_t* subs, const int32_t* q,
     std::vector<SegUp> ring((int64_t)chain * SEG_RING);
     for (auto& L : lanes) L.best = seg_best_init(p);
     // the row above's H left of the segment (or tile)
-    SegUp carry = p.tile ? tile_corner(t_in) : seg_corner(p);
+    SegUp carry = p.tile ? tile_corner(t_in) : seg_corner<kBanded>(p);
     const int32_t group = chain * per_warp;
     const bool vec = p.qp % kR == 0;
     for (int32_t i0 = p.row_lo; i0 < p.row_hi; i0 += group) {
       for (int32_t x = 0; x < chain * W; ++x)
-        seg_lane_begin(lanes[x], p, i0 + x * kR, q, 0, mq, st_h, st_f,
+        seg_lane_begin<kBanded>(lanes[x], p, i0 + x * kR, q, 0, mq, st_h, st_f,
                        st_pay, pay_plane, old[x]);
       for (int32_t x = 0; x < chain * W; ++x)
         seg_lane_diag(lanes[x], x == 0 ? carry : old[x - 1]);
@@ -2429,7 +2488,7 @@ inline PairResult segment_pair_host(const int32_t* subs, const int32_t* q,
               up = ring[(int64_t)w * SEG_RING + c % SEG_RING];
             } else if (i0 == p.row_lo) {
               up = p.tile ? seg_up_load<kOut>(down, rseg, c)
-                          : seg_top(p, p.off + c);
+                          : seg_top<kBanded>(p, p.off + c);
             } else {
               up = seg_up_load<kOut>(bottom, rseg, c);
             }
@@ -2437,7 +2496,7 @@ inline PairResult segment_pair_host(const int32_t* subs, const int32_t* q,
             const int32_t r = ridx_seg[c];
             int32_t sk[kR];
             seg_lane_scores(L, sc.data(), seg_col(r, A) * cs, sk);
-            seg_lane_step(L, p, c, r, sk, up,
+            seg_lane_step<kOut, kR, kBanded>(L, p, c, r, sk, up,
                           O::trace ? trace + (int64_t)(L.i0 - p.row_lo) * rseg
                                    : nullptr,
                           rseg, st_h, st_f, st_pay, pay_plane, pl,
@@ -2453,7 +2512,7 @@ inline PairResult segment_pair_host(const int32_t* subs, const int32_t* q,
     }
     for (const auto& L : lanes) total = seg_merge(total, L.best);
   }
-  return seg_finish<kOut>(p, mode, total, acc);
+  return seg_finish<kOut, kBanded>(p, mode, total, acc);
 }
 
 // One pair of the short form on the host, any class: the warp's SEG_LANES
@@ -2467,7 +2526,8 @@ inline PairResult segment_pair_host(const int32_t* subs, const int32_t* q,
 //   trace:       trace class: the pair's (qp, rstride) flag plane, 16
 //                columns a store where `wide` (short_wide)
 //   pl:          the plane classes: the pair's SegPlanes
-template <int32_t kOut, int32_t kR, class PO>
+// kBanded: the masked form (p.bw).
+template <int32_t kOut, int32_t kR, bool kBanded = false, class PO>
 inline PairResult short_pair_host(const int32_t* subs, const int32_t* q,
                                   const int32_t* mq, const int32_t* ridx,
                                   const SegPair& p, int32_t mode,
@@ -2489,9 +2549,9 @@ inline PairResult short_pair_host(const int32_t* subs, const int32_t* q,
     std::vector<ShortLane<kR, PO>> lanes(W);
     std::vector<ShortUp<PO>> old(W);
     for (int32_t x = 0; x < W; ++x)
-      short_lane_begin<kOut>(lanes[x], p, x, q, mq, po, old[x]);
+      short_lane_begin<kOut, kBanded>(lanes[x], p, x, q, mq, po, old[x]);
     ShortUp<PO> corner;
-    corner.h = 0;
+    corner.h = seg_border<kBanded>(p, 0, p.qb);
     corner.hp = po.zero();
     for (int32_t x = 0; x < W; ++x)
       short_lane_diag(lanes[x], x == 0 ? corner : old[x - 1]);
@@ -2501,12 +2561,12 @@ inline PairResult short_pair_host(const int32_t* subs, const int32_t* q,
         const int32_t c = t - l;
         if (c < 0 || c >= p.ncols) continue;
         ShortLane<kR, PO>& L = lanes[l];
-        const ShortUp<PO> up = l == 0 ? short_top(p, c, po)
+        const ShortUp<PO> up = l == 0 ? short_top<kBanded>(p, c, po)
                                       : lanes[l - 1].out;
         const int32_t r = ridx[c];
         int32_t sk[kR];
         short_lane_scores(L, sc.data(), seg_col(r, A) * cs, sk);
-        short_lane_step<kOut>(L, p, c, r, sk, up,
+        short_lane_step<kOut, kBanded>(L, p, c, r, sk, up,
                               trace ? trace + L.i0 * rstride : nullptr,
                               rstride, wide, pl, short_vec_ok(kR, p.qp), po);
       }
@@ -2517,7 +2577,7 @@ inline PairResult short_pair_host(const int32_t* subs, const int32_t* q,
     }
   }
   int32_t acc[8];
-  return seg_finish<kOut>(p, mode, total, acc);
+  return seg_finish<kOut, kBanded>(p, mode, total, acc);
 }
 // One pair of the banded warp form on the host: the ring's G lanes
 // stepped in a loop, each reading what its predecessor left at the step

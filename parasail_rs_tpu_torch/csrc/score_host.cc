@@ -1,10 +1,13 @@
 // Host build of the kernels' per-pair code (score_cell.cuh, walk_step.cuh)
-// for the CPU tests: the same score_batch_pair and walk_pair the CUDA
-// kernels run, one pair at a time, with the row scratch at stride 1, and
-// the segment, tile and chunked kernels' lanes (segment_pair_host) and the
-// short form's warp (short_pair_host) stepped in a loop.
+// for the CPU tests: the literal recurrence every card form is held to
+// (score_batch_pair: score_pair, banded or not), one pair at a time, with
+// the row scratch at stride 1, and the segment, tile and chunked kernels'
+// lanes (segment_pair_host) and the short form's warp (short_pair_host),
+// unbanded or masked to a band, stepped in a loop.
 // Build with
 //   g++ -O2 -std=c++17 -shared -fPIC -o libptscore_host.so score_host.cc
+// and -DPT_HOST_BANDED for the twins of the masked forms
+// (pt_short_banded_host, pt_chunked_banded_host), which double the build.
 #include <stdint.h>
 
 #include <vector>
@@ -59,13 +62,11 @@ void sweep(const int32_t* subs, const int32_t* qidx, const int32_t* ridx,
 
 }  // namespace
 
-// The one-thread form's score class, unbanded: the table or profile, the
-// letters, lengths and penalties of pt_scan_banded minus the band, the
-// scratch and the stream; `out` is (5, B): score, end_query, end_ref,
-// sat8, sat16.  On the card that form runs only banded (pt_scan_banded,
-// whose template, score_pair, this runs without the band); every
-// unbanded class is the short form's (pt_short_host below) or the block
-// kernel's.
+// score_pair's score class, unbanded (the literal recurrence, one pair
+// at a time): the table or profile, the letters, lengths and penalties of
+// pt_scan_short's; `out` is (5, B): score, end_query, end_ref, sat8,
+// sat16.  No card kernel runs this form: every class is the short form's
+// (pt_short_host below), the block kernel's or, banded, the ring's.
 extern "C" int pt_score_host(const int32_t* subs, const int32_t* qidx,
                              const int32_t* ridx, const int32_t* qlen,
                              const int32_t* rlen, int32_t* out, int B, int Bq,
@@ -78,8 +79,8 @@ extern "C" int pt_score_host(const int32_t* subs, const int32_t* qidx,
 }
 
 // pt_score_host plus the flags of each in-sequence cell into `trace`, a
-// (B, Qp, Rp) int8 plane the caller zero-fills: the one-thread form's
-// trace class, unbanded, as pt_score_host.
+// (B, Qp, Rp) int8 plane the caller zero-fills: score_pair's trace
+// class, unbanded, as pt_score_host.
 extern "C" int pt_trace_host(const int32_t* subs, const int32_t* qidx,
                              const int32_t* ridx, const int32_t* qlen,
                              const int32_t* rlen, int32_t* out, int8_t* trace,
@@ -91,11 +92,11 @@ extern "C" int pt_trace_host(const int32_t* subs, const int32_t* qidx,
   return 0;
 }
 
-// The stats, table and rowcol classes (out_class 2-6) of the one-thread
-// form, unbanded, as pt_score_host: pt_scan_banded's arguments minus the
-// band, the scratch and the stream, with batch-major planes the caller
-// zero-fills: `out` (8, B), `planes` (4, B, Qp, Rp), `row` (4, B, Rp),
-// `col` (4, B, Qp).  Returns -1 for an unknown class.
+// The stats, table and rowcol classes (out_class 2-6) of score_pair,
+// unbanded, as pt_score_host: pt_scan_short's arguments minus the trace
+// plane and the stream, with batch-major planes the caller zero-fills:
+// `out` (8, B), `planes` (4, B, Qp, Rp), `row` (4, B, Rp), `col` (4, B,
+// Qp).  Returns -1 for an unknown class.
 extern "C" int pt_outputs_host(int out_class, const int32_t* subs,
                                const int32_t* qidx, const int32_t* mq,
                                const int32_t* ridx, const int32_t* qlen,
@@ -136,10 +137,12 @@ extern "C" int pt_outputs_host(int out_class, const int32_t* subs,
 #undef PT_SWEEP
 }
 
-// The banded forms of every class (out_class 0-6): pt_outputs_host's
+// score_pair's banded forms of every class (out_class 0-6; the score form
+// sweeps the band alone, the others every cell, masked): pt_outputs_host's
 // arguments plus a (B, Qp, Rp) int8 flag plane `trace` for the trace
-// class and `bandwidth`, as pt_scan_banded.  `out` is (8, B).  Returns -1
-// for an unknown class.
+// class and `bandwidth`.  The card's masked forms (pt_short_banded_host,
+// pt_chunked_banded_host below) and the ring are held to it.  `out` is
+// (8, B).  Returns -1 for an unknown class.
 extern "C" int pt_banded_host(
     int out_class, const int32_t* subs, const int32_t* qidx,
     const int32_t* mq, const int32_t* ridx, const int32_t* qlen,
@@ -208,8 +211,9 @@ extern "C" int pt_walk_host(const int8_t* trace, const int32_t* qsym,
 namespace {
 
 // segment_pair_host of class kOut with `rows` rows a lane, one of the
-// kernel's forms (the caller checks seg_rows_compiled).
-template <int32_t kOut>
+// kernel's forms (the caller checks seg_rows_compiled); kBanded: its
+// masked one-shot form.
+template <int32_t kOut, bool kBanded = false>
 ptscore::PairResult pair_host(int rows, const int32_t* subs,
                               const int32_t* q, const int32_t* mq,
                               const int32_t* ridx, int rseg,
@@ -221,7 +225,7 @@ ptscore::PairResult pair_host(int rows, const int32_t* subs,
                               const int32_t* t_in, int32_t* t_out,
                               const ptscore::SegPlanes& pl) {
 #define PT_ROWS(r)                                                          \
-  return ptscore::segment_pair_host<kOut, r>(                               \
+  return ptscore::segment_pair_host<kOut, r, kBanded>(                      \
       subs, q, mq, ridx, rseg, p, mode, bottom, st_h, st_f, st_pay,         \
       pay_plane, acc, trace, warps, cluster, down, t_in, t_out, pl)
   if (rows == 2) PT_ROWS(2);
@@ -231,17 +235,17 @@ ptscore::PairResult pair_host(int rows, const int32_t* subs,
   return ptscore::PairResult{};
 }
 
-template <typename... Args>
+template <bool kBanded = false, typename... Args>
 ptscore::PairResult class_host(int out_class, Args... args) {
+  using namespace ptscore;
   switch (out_class) {
-    case ptscore::OUT_SCORE: return pair_host<ptscore::OUT_SCORE>(args...);
-    case ptscore::OUT_TRACE: return pair_host<ptscore::OUT_TRACE>(args...);
-    case ptscore::OUT_STATS: return pair_host<ptscore::OUT_STATS>(args...);
-    case ptscore::OUT_TABLE: return pair_host<ptscore::OUT_TABLE>(args...);
-    case ptscore::OUT_STATS_TABLE:
-      return pair_host<ptscore::OUT_STATS_TABLE>(args...);
-    case ptscore::OUT_ROWCOL: return pair_host<ptscore::OUT_ROWCOL>(args...);
-    default: return pair_host<ptscore::OUT_STATS_ROWCOL>(args...);
+    case OUT_SCORE: return pair_host<OUT_SCORE, kBanded>(args...);
+    case OUT_TRACE: return pair_host<OUT_TRACE, kBanded>(args...);
+    case OUT_STATS: return pair_host<OUT_STATS, kBanded>(args...);
+    case OUT_TABLE: return pair_host<OUT_TABLE, kBanded>(args...);
+    case OUT_STATS_TABLE: return pair_host<OUT_STATS_TABLE, kBanded>(args...);
+    case OUT_ROWCOL: return pair_host<OUT_ROWCOL, kBanded>(args...);
+    default: return pair_host<OUT_STATS_ROWCOL, kBanded>(args...);
   }
 }
 
@@ -352,6 +356,59 @@ extern "C" int pt_rowseg_host(int out_class, const int32_t* subs,
   return 0;
 }
 
+namespace {
+
+// The chunked sweep's pairs on the host (pt_chunked_host's arguments),
+// kBanded: masked to the band of half-width bw.
+template <bool kBanded>
+int chunked_host(int out_class, const int32_t* subs, const int32_t* qidx,
+                 const int32_t* mq, const int32_t* ridx, const int32_t* qlen,
+                 const int32_t* rlen, int32_t* out, int8_t* trace,
+                 int32_t* tab, int32_t* rows, int32_t* cols, int B, int Bq,
+                 int Bm, int Qp, int Rp, int A, int open, int ext, int mode,
+                 int free_bits, int bw, int warps, int lane_rows,
+                 int cluster) {
+  if (out_class < ptscore::OUT_SCORE ||
+      out_class > ptscore::OUT_STATS_ROWCOL ||
+      !form_ok(out_class, lane_rows, warps, cluster))
+    return -1;
+  const int n = Rp > 0 ? Rp : 1;
+  std::vector<int32_t> bottom(8 * n), st_h(Qp), st_f(Qp), st_pay(6 * Qp),
+      acc(8);
+  for (int b = 0; b < B; ++b) {
+    const ptscore::SegPair p = ptscore::with_band(
+        ptscore::seg_pair(qlen[b], rlen[b], Qp, 0, Rp, open, ext, mode,
+                          free_bits, false, A),
+        ptscore::clamp_band(bw, Qp, Rp), Rp);
+    const int64_t bq = Bq == 1 ? 0 : b;
+    ptscore::SegPlanes pl;
+    if (tab) {
+      pl.table = tab + (int64_t)b * Rp * Qp;
+      pl.tab_plane = (int64_t)B * Rp * Qp;
+    }
+    if (rows) {
+      pl.row = rows + (int64_t)b * Rp;
+      pl.row_plane = (int64_t)B * Rp;
+      pl.col = cols + (int64_t)b * Qp;
+      pl.col_plane = (int64_t)B * Qp;
+    }
+    put_result(
+        class_host<kBanded>(
+            out_class, lane_rows, qidx ? subs : subs + bq * Qp * A,
+            qidx ? qidx + bq * Qp : nullptr,
+            mq ? mq + (Bm == 1 ? 0 : (int64_t)b * Qp) : nullptr,
+            ridx + (int64_t)b * Rp, Rp, p, mode, bottom.data(), st_h.data(),
+            st_f.data(), st_pay.data(), (int64_t)Qp, acc.data(),
+            trace ? trace + (int64_t)b * Qp * Rp : nullptr, warps, cluster,
+            (int32_t*)nullptr, (const int32_t*)nullptr, (int32_t*)nullptr,
+            pl),
+        out, B, b);
+  }
+  return 0;
+}
+
+}  // namespace
+
 // The chunked sweep, every class: what score_chunked launches on the card
 // (pt_scan_chunked's four plane forms, pt_scan_segment's score, stats and
 // trace forms as one segment of Rp columns from column 0), with their
@@ -369,42 +426,29 @@ extern "C" int pt_chunked_host(int out_class, const int32_t* subs,
                                int Rp, int A, int open, int ext, int mode,
                                int free_bits, int warps, int lane_rows,
                                int cluster) {
-  if (out_class < ptscore::OUT_SCORE ||
-      out_class > ptscore::OUT_STATS_ROWCOL ||
-      !form_ok(out_class, lane_rows, warps, cluster))
-    return -1;
-  const int n = Rp > 0 ? Rp : 1;
-  std::vector<int32_t> bottom(8 * n), st_h(Qp), st_f(Qp), st_pay(6 * Qp),
-      acc(8);
-  for (int b = 0; b < B; ++b) {
-    const ptscore::SegPair p = ptscore::seg_pair(
-        qlen[b], rlen[b], Qp, 0, Rp, open, ext, mode, free_bits, false, A);
-    const int64_t bq = Bq == 1 ? 0 : b;
-    ptscore::SegPlanes pl;
-    if (tab) {
-      pl.table = tab + (int64_t)b * Rp * Qp;
-      pl.tab_plane = (int64_t)B * Rp * Qp;
-    }
-    if (rows) {
-      pl.row = rows + (int64_t)b * Rp;
-      pl.row_plane = (int64_t)B * Rp;
-      pl.col = cols + (int64_t)b * Qp;
-      pl.col_plane = (int64_t)B * Qp;
-    }
-    put_result(
-        class_host(out_class, lane_rows, qidx ? subs : subs + bq * Qp * A,
-                   qidx ? qidx + bq * Qp : nullptr,
-                   mq ? mq + (Bm == 1 ? 0 : (int64_t)b * Qp) : nullptr,
-                   ridx + (int64_t)b * Rp, Rp, p, mode, bottom.data(),
-                   st_h.data(), st_f.data(), st_pay.data(), (int64_t)Qp,
-                   acc.data(),
-                   trace ? trace + (int64_t)b * Qp * Rp : nullptr, warps,
-                   cluster, (int32_t*)nullptr, (const int32_t*)nullptr,
-                   (int32_t*)nullptr, pl),
-        out, B, b);
-  }
-  return 0;
+  return chunked_host<false>(out_class, subs, qidx, mq, ridx, qlen, rlen, out,
+                             trace, tab, rows, cols, B, Bq, Bm, Qp, Rp, A,
+                             open, ext, mode, free_bits, 0, warps, lane_rows,
+                             cluster);
 }
+
+#if defined(PT_HOST_BANDED)
+// The block kernel's masked one-shot form (pt_scan_chunked_banded on the
+// card), every class: pt_chunked_host's arguments with `bandwidth` before
+// the form's.
+extern "C" int pt_chunked_banded_host(
+    int out_class, const int32_t* subs, const int32_t* qidx,
+    const int32_t* mq, const int32_t* ridx, const int32_t* qlen,
+    const int32_t* rlen, int32_t* out, int8_t* trace, int32_t* tab,
+    int32_t* rows, int32_t* cols, int B, int Bq, int Bm, int Qp, int Rp,
+    int A, int open, int ext, int mode, int free_bits, int bandwidth,
+    int warps, int lane_rows, int cluster) {
+  return chunked_host<true>(out_class, subs, qidx, mq, ridx, qlen, rlen, out,
+                            trace, tab, rows, cols, B, Bq, Bm, Qp, Rp, A,
+                            open, ext, mode, free_bits, bandwidth, warps,
+                            lane_rows, cluster);
+}
+#endif
 
 // The block kernel's launcher's rule (score_cell.cuh, seg_plan), as
 // pt_block_plan on the card: rows a lane, warps a block and blocks a pair
@@ -422,32 +466,34 @@ extern "C" int pt_block_plan_host(int out_class, int B, int Qs, int ncols,
 
 namespace {
 
-// short_pair_host of class kOut at kR rows a lane, each pair's payloads
-// in `layout` (the stats classes) with the ops of its padded shape.
-template <int32_t kOut, int32_t kR>
+// short_pair_host of class kOut at kR rows a lane (kBanded: its masked
+// form), each pair's payloads in `layout` (the stats classes) with the
+// ops of its padded shape.
+template <int32_t kOut, int32_t kR, bool kBanded>
 ptscore::PairResult short_host(int layout, const int32_t* subs,
                                const int32_t* q, const int32_t* mq,
                                const int32_t* ridx, const ptscore::SegPair& p,
                                int mode, int8_t* trace, int64_t rstride,
                                bool wide, int Rp,
                                const ptscore::SegPlanes& pl) {
+  using ptscore::short_pair_host;
   if constexpr (!ptscore::Out<kOut>::stats) {
-    return ptscore::short_pair_host<kOut, kR>(subs, q, mq, ridx, p, mode,
-                                               trace, rstride, wide,
-                                               ptscore::NoPayOps(), pl);
+    return short_pair_host<kOut, kR, kBanded>(subs, q, mq, ridx, p, mode,
+                                              trace, rstride, wide,
+                                              ptscore::NoPayOps(), pl);
   } else if (layout == ptscore::SHORT_PACKED) {
-    return ptscore::short_pair_host<kOut, kR>(subs, q, mq, ridx, p, mode,
-                                               trace, rstride, wide,
-                                               ptscore::pack_ops(p.qp, Rp),
-                                               pl);
+    return short_pair_host<kOut, kR, kBanded>(subs, q, mq, ridx, p, mode,
+                                              trace, rstride, wide,
+                                              ptscore::pack_ops(p.qp, Rp),
+                                              pl);
   } else {
-    return ptscore::short_pair_host<kOut, kR>(subs, q, mq, ridx, p, mode,
-                                               trace, rstride, wide,
-                                               ptscore::pack2_ops(p.qp), pl);
+    return short_pair_host<kOut, kR, kBanded>(subs, q, mq, ridx, p, mode,
+                                              trace, rstride, wide,
+                                              ptscore::pack2_ops(p.qp), pl);
   }
 }
 
-template <int32_t kOut>
+template <int32_t kOut, bool kBanded>
 ptscore::PairResult short_rows_host(int rows, int layout,
                                     const int32_t* subs, const int32_t* q,
                                     const int32_t* mq, const int32_t* ridx,
@@ -455,39 +501,32 @@ ptscore::PairResult short_rows_host(int rows, int layout,
                                     int8_t* trace, int Rp,
                                     const ptscore::SegPlanes& pl) {
   const bool wide = ptscore::short_wide(Rp);
+#define PT_ROWS(r)                                                       \
+  return short_host<kOut, r, kBanded>(layout, subs, q, mq, ridx, p, mode, \
+                                      trace, Rp, wide, Rp, pl)
   switch (rows) {
     case 4:
-      return short_host<kOut, 4>(layout, subs, q, mq, ridx, p, mode, trace,
-                                 Rp, wide, Rp, pl);
+      PT_ROWS(4);
     case 5:
-      return short_host<kOut, 5>(layout, subs, q, mq, ridx, p, mode, trace,
-                                 Rp, wide, Rp, pl);
+      PT_ROWS(5);
     case 6:
-      return short_host<kOut, 6>(layout, subs, q, mq, ridx, p, mode, trace,
-                                 Rp, wide, Rp, pl);
+      PT_ROWS(6);
     default:
-      return short_host<kOut, 8>(layout, subs, q, mq, ridx, p, mode, trace,
-                                 Rp, wide, Rp, pl);
+      PT_ROWS(8);
   }
+#undef PT_ROWS
 }
 
-}  // namespace
-
-// The short form (pt_scan_short's arguments minus the stream, same
-// layouts): every class (out_class 0-6); `out` is (8, B); `trace`
-// (B, Qp, Rp), `tab` (1 or 4, B, Rp, Qp), `row` (1 or 4, B, Rp) and `col`
-// (1 or 4, B, Qp) arrive zero-filled (null where the class has none);
-// `rows` rows a lane (4, 5, 6 or 8) and the stats classes' `layout` (1
-// packed, 2 [m | s] + l), as the kernel would take them.  Returns -1 for
-// another class, rows or layout.
-extern "C" int pt_short_host(int out_class, const int32_t* subs,
-                             const int32_t* qidx, const int32_t* mq,
-                             const int32_t* ridx, const int32_t* qlen,
-                             const int32_t* rlen, int32_t* out, int8_t* trace,
-                             int32_t* tab, int32_t* row, int32_t* col, int B,
-                             int Bq, int Bm, int Qp, int Rp, int A, int open,
-                             int ext, int mode, int free_bits, int rows,
-                             int layout) {
+// The short form's pairs on the host (pt_short_host's arguments), kBanded:
+// masked to the band of half-width bw.
+template <bool kBanded>
+int short_batch_host(int out_class, const int32_t* subs, const int32_t* qidx,
+                     const int32_t* mq, const int32_t* ridx,
+                     const int32_t* qlen, const int32_t* rlen, int32_t* out,
+                     int8_t* trace, int32_t* tab, int32_t* row, int32_t* col,
+                     int B, int Bq, int Bm, int Qp, int Rp, int A, int open,
+                     int ext, int mode, int free_bits, int bw, int rows,
+                     int layout) {
   const bool stats = ptscore::seg_stats_class(out_class);
   if (out_class < ptscore::OUT_SCORE ||
       out_class > ptscore::OUT_STATS_ROWCOL ||
@@ -496,8 +535,10 @@ extern "C" int pt_short_host(int out_class, const int32_t* subs,
        layout != ptscore::SHORT_PACKED2))
     return -1;
   for (int b = 0; b < B; ++b) {
-    const ptscore::SegPair p = ptscore::seg_pair(
-        qlen[b], rlen[b], Qp, 0, Rp, open, ext, mode, free_bits, false, A);
+    const ptscore::SegPair p = ptscore::with_band(
+        ptscore::seg_pair(qlen[b], rlen[b], Qp, 0, Rp, open, ext, mode,
+                          free_bits, false, A),
+        ptscore::clamp_band(bw, Qp, Rp), Rp);
     const int64_t bq = Bq == 1 ? 0 : b;
     const int32_t* s = qidx ? subs : subs + bq * Qp * A;
     const int32_t* q = qidx ? qidx + bq * Qp : nullptr;
@@ -516,7 +557,7 @@ extern "C" int pt_short_host(int out_class, const int32_t* subs,
       pl.col_plane = (int64_t)B * Qp;
     }
 #define PT_SHORT(k) \
-  short_rows_host<k>(rows, layout, s, q, m, r, p, mode, tr, Rp, pl)
+  short_rows_host<k, kBanded>(rows, layout, s, q, m, r, p, mode, tr, Rp, pl)
     ptscore::PairResult res;
     switch (out_class) {
       case ptscore::OUT_SCORE:
@@ -546,6 +587,46 @@ extern "C" int pt_short_host(int out_class, const int32_t* subs,
   }
   return 0;
 }
+
+}  // namespace
+
+// The short form (pt_scan_short's arguments minus the stream, same
+// layouts): every class (out_class 0-6); `out` is (8, B); `trace`
+// (B, Qp, Rp), `tab` (1 or 4, B, Rp, Qp), `row` (1 or 4, B, Rp) and `col`
+// (1 or 4, B, Qp) arrive zero-filled (null where the class has none);
+// `rows` rows a lane (4, 5, 6 or 8) and the stats classes' `layout` (1
+// packed, 2 [m | s] + l), as the kernel would take them.  Returns -1 for
+// another class, rows or layout.
+extern "C" int pt_short_host(int out_class, const int32_t* subs,
+                             const int32_t* qidx, const int32_t* mq,
+                             const int32_t* ridx, const int32_t* qlen,
+                             const int32_t* rlen, int32_t* out, int8_t* trace,
+                             int32_t* tab, int32_t* row, int32_t* col, int B,
+                             int Bq, int Bm, int Qp, int Rp, int A, int open,
+                             int ext, int mode, int free_bits, int rows,
+                             int layout) {
+  return short_batch_host<false>(out_class, subs, qidx, mq, ridx, qlen, rlen,
+                                 out, trace, tab, row, col, B, Bq, Bm, Qp, Rp,
+                                 A, open, ext, mode, free_bits, 0, rows,
+                                 layout);
+}
+
+#if defined(PT_HOST_BANDED)
+// The short form's masked form (pt_scan_short_banded on the card):
+// pt_short_host's arguments with `bandwidth` before the form's.
+extern "C" int pt_short_banded_host(
+    int out_class, const int32_t* subs, const int32_t* qidx,
+    const int32_t* mq, const int32_t* ridx, const int32_t* qlen,
+    const int32_t* rlen, int32_t* out, int8_t* trace, int32_t* tab,
+    int32_t* row, int32_t* col, int B, int Bq, int Bm, int Qp, int Rp, int A,
+    int open, int ext, int mode, int free_bits, int bandwidth, int rows,
+    int layout) {
+  return short_batch_host<true>(out_class, subs, qidx, mq, ridx, qlen, rlen,
+                                out, trace, tab, row, col, B, Bq, Bm, Qp, Rp,
+                                A, open, ext, mode, free_bits, bandwidth,
+                                rows, layout);
+}
+#endif
 
 // The short form's launcher's rule (score_cell.cuh, short_plan), as
 // pt_short_plan on the card: rows a lane (0: the batch is the block

@@ -172,6 +172,7 @@ struct SegArgs {
   int32_t Qs;             // rows of the state: Qp; tile: qc
   int32_t r0;             // tile: its first row
   int32_t cluster;        // blocks a pair
+  int32_t bw;             // kBanded: the band's half-width
 };
 
 // kTile: the tile form (kernel K3, scan_rowseg.cu): rows [r0, r0 + qc) of
@@ -188,9 +189,13 @@ constexpr int kMinBlocks =
         ? 2
         : 1;
 
-template <int32_t kOut, bool kTile, int32_t kR>
+// kBanded: the masked one-shot form of the banded mode (scan_chunked_banded
+// .cu: one segment from column 0, never a tile), score_pair<kOut, true>'s
+// masked sweep cell by cell (seg_lane_step).
+template <int32_t kOut, bool kTile, int32_t kR, bool kBanded>
 __global__ void __launch_bounds__(kMaxThreads, (kMinBlocks<kOut, kTile, kR>))
     segment_kernel(const SegArgs a) {
+  static_assert(!(kTile && kBanded), "the banded form is one-shot");
   using O = ptscore::Out<kOut>;
   // the first warp of the chain stages what it reads above its rows (the
   // top border, the tile's down-state, the group before's last row) a
@@ -227,13 +232,14 @@ __global__ void __launch_bounds__(kMaxThreads, (kMinBlocks<kOut, kTile, kR>))
                                           // is read by warp w
   int32_t* olds = ring + warps * kRows * RG;        // (chain, kOldWords)
   int32_t* bests = olds + chain * kOldWords;        // (chain, kBestWords)
-  const ptscore::SegPair p =
+  const ptscore::SegPair p = ptscore::with_band(
       kTile ? ptscore::tile_pair(a.qlen[b], a.rlen[b], a.Qp, a.r0, a.Qs,
                                  a.off, a.Rseg, a.open, a.ext, a.mode,
                                  a.free_bits, A)
             : ptscore::seg_pair(a.qlen[b], a.rlen[b], a.Qp, a.off, a.Rseg,
                                 a.open, a.ext, a.mode, a.free_bits,
-                                a.resume != 0, A);
+                                a.resume != 0, A),
+      a.bw, a.Rseg);
   const int32_t Rseg = a.Rseg;
   const int64_t bq = a.Bq == 1 ? 0 : b;
   const int32_t* prow = profile ? a.subs + bq * a.Qp * A : nullptr;
@@ -288,7 +294,7 @@ __global__ void __launch_bounds__(kMaxThreads, (kMinBlocks<kOut, kTile, kR>))
     L.best = ptscore::seg_best_init(p);
     // the row above's H left of the segment (or tile)
     SegUp carry = kTile ? ptscore::tile_corner(a.t_in + (int64_t)b * 4)
-                        : ptscore::seg_corner(p);
+                        : ptscore::seg_corner<kBanded>(p);
     const int32_t group = chain * per_warp;
     const bool vec = p.qp % kR == 0;
     const bool pack = Rseg % 4 == 0;
@@ -301,8 +307,9 @@ __global__ void __launch_bounds__(kMaxThreads, (kMinBlocks<kOut, kTile, kR>))
             prof_rows, threadIdx.x, blockDim.x);
       if (w == 0) stage_letters(-W);
       SegUp old;
-      ptscore::seg_lane_begin(L, p, blk0 + (w * W + lane) * kR, q, blk0, mqb,
-                              sh, sf, sp, pay_plane, old);
+      ptscore::seg_lane_begin<kBanded>(L, p, blk0 + (w * W + lane) * kR, q,
+                                       blk0, mqb, sh, sf, sp, pay_plane,
+                                       old);
       // H[i0-1][off-1] of a lane's top row is the row above's H left of
       // the segment as it was before this call: from the lane above, for a
       // warp's first lane from the last lane of the warp above (every
@@ -352,7 +359,7 @@ __global__ void __launch_bounds__(kMaxThreads, (kMinBlocks<kOut, kTile, kR>))
         if (c >= p.ncols) return SegUp();
         if (first)
           return kTile ? ptscore::seg_up_load<kOut>(dn, Rseg, c)
-                       : ptscore::seg_top(p, p.off + c);
+                       : ptscore::seg_top<kBanded>(p, p.off + c);
         return ptscore::seg_up_load<kOut>(bot, Rseg, c);
       };
       auto top = [&](int32_t c) {
@@ -406,9 +413,9 @@ __global__ void __launch_bounds__(kMaxThreads, (kMinBlocks<kOut, kTile, kR>))
                                      s_next);
           }
           if (t >= 0 && L.nr > 0 && c >= 0 && c < p.ncols) {
-            ptscore::seg_lane_step<kOut, kR>(L, p, c, r, s, up, trow, Rseg,
-                                             sh, sf, sp, pay_plane, pl, dn,
-                                             vec, pack);
+            ptscore::seg_lane_step<kOut, kR, kBanded>(
+                L, p, c, r, s, up, trow, Rseg, sh, sf, sp, pay_plane, pl, dn,
+                vec, pack);
             if (lane == W - 1 && to_ring)
               ptscore::seg_up_store<kOut>(wr, RG, c & (RG - 1), L.out);
             if (lane == W - 1 && to_bot)
@@ -459,7 +466,8 @@ __global__ void __launch_bounds__(kMaxThreads, (kMinBlocks<kOut, kTile, kR>))
   }
   if (rank == 0 && threadIdx.x == 0) {
     const ptscore::PairResult r =
-        ptscore::seg_finish<kOut>(p, a.mode, total, a.acc + (int64_t)b * 8);
+        ptscore::seg_finish<kOut, kBanded>(p, a.mode, total,
+                                           a.acc + (int64_t)b * 8);
     const int32_t B = a.B;
     a.out[b] = r.score;
     a.out[B + b] = r.end_query;
@@ -494,10 +502,10 @@ cudaError_t allow_smem(Kernel kernel, std::atomic<bool> (&done)[kMaxDevices]) {
   return e;
 }
 
-template <int32_t kOut, bool kTile, int32_t kR>
+template <int32_t kOut, bool kTile, int32_t kR, bool kBanded>
 int launch_form(const SegArgs& a, const ptscore::SegPlan& plan,
                 cudaStream_t stream) {
-  auto kernel = segment_kernel<kOut, kTile, kR>;
+  auto kernel = segment_kernel<kOut, kTile, kR, kBanded>;
   static std::atomic<bool> allowed[kMaxDevices];
   const cudaError_t smem = allow_smem(kernel, allowed);
   if (smem != cudaSuccess) return (int)smem;
@@ -528,10 +536,11 @@ inline ptscore::SegPlan plan_of(int32_t out_class, const SegArgs& a,
                            a.qidx == nullptr, warps, rows, cluster);
 }
 
-// Launches class kOut's form for the plan; a plan outside the compiled
-// forms (rows not among 2, 4, 8, or 8 for a class other than score and
-// rowcol; warps or a cluster outside 1-8) returns cudaErrorInvalidValue.
-template <int32_t kOut, bool kTile>
+// Launches class kOut's form for the plan (kBanded: its masked form, at
+// a.bw); a plan outside the compiled forms (rows not among 2, 4, 8, or 8
+// for a class other than score and rowcol; warps or a cluster outside
+// 1-8) returns cudaErrorInvalidValue.
+template <int32_t kOut, bool kTile, bool kBanded = false>
 int launch(SegArgs a, int warps, int rows, int cluster, void* stream) {
   if (a.B <= 0) return 0;
   const ptscore::SegPlan plan = plan_of(kOut, a, warps, rows, cluster);
@@ -542,12 +551,12 @@ int launch(SegArgs a, int warps, int rows, int cluster, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (plan.rows) {
     case 2:
-      return launch_form<kOut, kTile, 2>(a, plan, s);
+      return launch_form<kOut, kTile, 2, kBanded>(a, plan, s);
     case 4:
-      return launch_form<kOut, kTile, 4>(a, plan, s);
+      return launch_form<kOut, kTile, 4, kBanded>(a, plan, s);
     case 8:
       if constexpr (ptscore::seg_wide_class(kOut))
-        return launch_form<kOut, kTile, 8>(a, plan, s);
+        return launch_form<kOut, kTile, 8, kBanded>(a, plan, s);
       break;
     default:
       break;

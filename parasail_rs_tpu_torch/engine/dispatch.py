@@ -334,11 +334,11 @@ def plan_route(batch: PairBatch, outputs: str, gap_open: int,
 
     The device picks between the card's routes and the CPU's; the batch's
     padded shape and class pick between the one-shot kernels
-    (:func:`~..ops.scan_kernel.score_align`, kernel K1: unbanded, one
-    warp a pair up to 256 padded query rows and the block kernel's
-    one-shot form past them; banded, the score class a ring of row blocks
-    on a group of lanes up to bw 140 and one thread a pair past it, the
-    other classes one thread a pair), segments
+    (:func:`~..ops.scan_kernel.score_align`, kernel K1: one warp a pair
+    up to 256 padded query rows and the block kernel's one-shot form past
+    them; banded, the score class a ring of row blocks on a group of
+    lanes up to bw 140, and every other banded launch the masked full
+    sweep on the same two forms), segments
     (:func:`execute_segments`, kernel K2) and the chunked sweep
     (:func:`~..ops.scan_kernel.score_chunked`, kernel K1f: K2's block of
     up to eight warps per pair, one launch over all columns, every
@@ -374,14 +374,15 @@ def plan_route(batch: PairBatch, outputs: str, gap_open: int,
     1.25 against 3.72 ms).  Short batches stay on K1 because their calls
     are host-bound (K1's 2.5 ms in 21-23 ms of ``align_batch`` on 8,192
     pairs), so moving them waits for end-to-end numbers (ROADMAP.md, "K2
-    on short pairs"); no unbanded class of K1 runs one thread a pair any
-    more (``score_align`` picks the short form, one warp a pair, or the
-    block kernel itself), so the one-thread times above are what set the
-    thresholds, not what K1 costs now.  All on an NVIDIA H100 80GB HBM3 at
+    on short pairs"); no class of K1, banded or not, runs one thread a
+    pair any more (``score_align`` picks the short form, one warp a pair,
+    the ring, or the block kernel itself), so the one-thread times above
+    are what set the thresholds, not what K1 costs now.  All on an NVIDIA H100 80GB HBM3 at
     700 W, from ``chip_smoke.py`` phases 5, 20 and 27.
     ``one_shot=True`` is for callers that need one launch; ``banded=True``
-    for the banded mode, which only K1 serves (its score form sweeps the
-    band alone, its other forms every cell, masked).
+    for the banded mode, which only K1 serves, on "cuda_kernel" whatever
+    the pairs' length (the ring sweeps the band alone; the short form and
+    the block kernel sweep every cell, masked).
 
     ``gap_open`` / ``gap_extend`` are accepted for the reference's
     signature: every penalty pair is exact on every route.  The kernels'
@@ -437,7 +438,10 @@ def launch(batch: PairBatch, *, gap_open: int, gap_extend: int, mode: str,
     ``one_shot=True``); return its outputs as tensors on the batch's
     device (``score_align``'s dict).  ``on_route(route, reason)`` is
     called with the routing decision; ``banded`` / ``bandwidth`` select
-    the banded mode."""
+    the banded mode, which stays on K1's route ("cuda_kernel") at any
+    length: ``score_align`` picks the ring for the score class within its
+    reach, else the masked full sweep on the short form or, past 256
+    query rows, on the block kernel."""
     route, reason = plan_route(batch, outputs, gap_open, gap_extend,
                                one_shot=True, banded=banded)
     _tally(route, reason, on_route)

@@ -150,12 +150,16 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(path)
             p, i = ctypes.c_void_p, ctypes.c_int
             ll = ctypes.c_longlong
-            lib.pt_scan_banded.restype = i
             lib.pt_scan_band_ring.restype = i
             lib.pt_scan_band_ring.argtypes = [p] * 6 + [i] * 12 + [p]
             lib.pt_band_plan.restype = i
             lib.pt_band_plan.argtypes = [i] * 6 + [p]
-            lib.pt_scan_banded.argtypes = [i] + [p] * 12 + [i] * 11 + [p]
+            lib.pt_scan_short_banded.restype = i
+            lib.pt_scan_short_banded.argtypes = ([i] + [p] * 11 + [i] * 11 +
+                                                 [p])
+            lib.pt_scan_chunked_banded.restype = i
+            lib.pt_scan_chunked_banded.argtypes = ([i] + [p] * 16 +
+                                                   [i] * 14 + [p])
             lib.pt_scan_segment.restype = i
             lib.pt_scan_segment.argtypes = [i] + [p] * 13 + [i] * 15 + [p]
             lib.pt_scan_rowseg.restype = i

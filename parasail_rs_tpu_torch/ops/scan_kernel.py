@@ -48,17 +48,23 @@ reference's kernels disagree there; ROADMAP Queue 3).
 cells beyond bw are -2^30, so an unreachable NW corner scores -2^30 and
 an SG pair whose every end candidate lies outside the band ends at (Qp,
 Rp) with -2^30.  On the card the score class (``Aligner.banded_nw``
-runs it) sweeps only the band: on the banded warp form in
+runs it) sweeps only the band on the banded warp form in
 ``csrc/scan_banded.cu`` (a pair's row blocks on a ring of 8, 16 or 32
 lanes, ``pt_scan_band_ring``; counted in :data:`BANDED_WARP_LAUNCHES`)
 wherever its rule reaches the band (:func:`band_plan`: up to bw 140 on
-long pairs, any band on pairs of up to 140 padded letters), else on the
-one-thread-per-pair band-only form of ``csrc/scan_score.cu``
-(``pt_scan_banded``, counted in :data:`BANDED_THREAD_LAUNCHES`).  The
-other six classes run the one-thread forms that sweep every cell and
-mask (counted by class in :data:`BANDED_CLASS_LAUNCHES`).  Its plain
-version is the wavefront with ``banded=True``, whose flags and payloads
-outside the band the kernels reproduce too.
+long pairs, any band on pairs of up to 140 padded letters).  Every other
+banded launch, the six other classes and the score class past the ring's
+reach, runs the masked full sweep: every cell, its flags and payloads
+from its masked neighbours, then H, E and F set to -2^30 outside the
+band.  It runs on the short form's masked instantiation
+(``csrc/scan_short_banded.cu``, ``pt_scan_short_banded``) where
+:func:`short_plan` takes the batch, else on the block kernel's masked
+one-shot form (``csrc/scan_chunked_banded.cu``,
+``pt_scan_chunked_banded``), each launch counted by class in
+:data:`BANDED_CLASS_LAUNCHES` and by form in
+:data:`BANDED_FORM_LAUNCHES`; its planes are laid out as the unbanded
+ones.  Its plain version is the wavefront with ``banded=True``, whose
+flags and payloads outside the band the kernels reproduce too.
 
 :func:`score_segment` is the port of
 ``parasail_rs_tpu.ops.scan_kernel.scan_score_segment`` (kernel K2): one
@@ -134,14 +140,15 @@ OUTPUTS = ("score", "trace", "stats", "table", "stats_table", "rowcol",
 BIG = 2 ** 30
 
 # Launches in this process of the banded score class on the banded warp
-# form (csrc/scan_banded.cu) and on the one-thread-per-pair band-only form
-# (csrc/scan_score.cu), of the other six banded classes' one-thread forms
-# by class, and of the short form (csrc/scan_short.cu), every unbanded
-# class, by class.  Only score_align's CUDA branch adds to them; set them
-# to 0 to count one phase of work.
+# form (csrc/scan_banded.cu); of the banded mode's masked full sweep, by
+# class (every banded launch the ring does not take) and by the form that
+# ran it ("short": csrc/scan_short_banded.cu, "block":
+# csrc/scan_chunked_banded.cu); and of the short form (csrc/scan_short.cu),
+# every unbanded class, by class.  Only score_align's CUDA branch adds to
+# them; set them to 0 to count one phase of work.
 BANDED_WARP_LAUNCHES = 0
-BANDED_THREAD_LAUNCHES = 0
-BANDED_CLASS_LAUNCHES = dict.fromkeys(OUTPUTS[1:], 0)
+BANDED_CLASS_LAUNCHES = dict.fromkeys(OUTPUTS, 0)
+BANDED_FORM_LAUNCHES = {"short": 0, "block": 0}
 SHORT_LAUNCHES = dict.fromkeys(OUTPUTS, 0)
 # Launches of the segment kernel (csrc/scan_segment.cu); only
 # score_segment's CUDA branch adds to it.
@@ -161,7 +168,7 @@ _LANE_ROWS = 0
 _CLUSTER = 0
 # The banded score class's form: None for the rule (band_plan), (G, kR)
 # for the warp form at G lanes and kR rows (which must reach the band),
-# (0, 0) for the one-thread form.  The cuda tests and chip_smoke.py set
+# (0, 0) for the masked full sweep.  The cuda tests and chip_smoke.py set
 # it to hold and time given forms; nothing else does.
 _BAND_FORM = None
 # Launches of the tile kernel (csrc/scan_rowseg.cu); only score_rowseg's
@@ -254,11 +261,9 @@ def score_align(ridx, qlen, rlen, *, open_, ext, mode, free, width="32",
     the stats classes): all int32 on one device.  Returns int32
     ``score`` / ``end_query`` / ``end_ref`` and bool ``saturated`` (+
     ``promoted`` at width ``sat``), on that device, plus the class's
-    outputs (see the module docstring).  On the card an unbanded batch's
-    trace plane is a contiguous (B, Qp, Rp) tensor, its tables (B, Qp,
-    Rp) views of (B, Rp, Qp) buffers, its rows and columns contiguous;
-    the planes, rows and columns of a banded batch are strided views of
-    the one-thread-per-pair kernel's batch-last buffers.
+    outputs (see the module docstring).  On the card the trace plane is a
+    contiguous (B, Qp, Rp) tensor, the tables (B, Qp, Rp) views of (B,
+    Rp, Qp) buffers, the rows and columns contiguous, banded or not.
     Lengths must not exceed the padded sizes.  ``banded`` /
     ``bandwidth``: the banded mode (module docstring).
     """
@@ -272,69 +277,23 @@ def score_align(ridx, qlen, rlen, *, open_, ext, mode, free, width="32",
                                  bandwidth=bandwidth)
     if ridx.device.type != "cuda":
         raise ValueError(f"no kernel for device {ridx.device}")
-    if not banded:
-        kw = dict(open_=open_, ext=ext, mode=mode, free=free, width=width,
-                  table=table, qidx=qidx, profile=profile, outputs=outputs)
-        if short_plan(outputs, B, Bq, Qp, Rp, A, profile is not None)[0]:
-            return _short_launch(ridx, qlen, rlen, (B, Bq, Qp, Rp, A), **kw)
-        return score_chunked(ridx, qlen, rlen, **kw)
-    if outputs == "score":
+    dims = (B, Bq, Qp, Rp, A)
+    kw = dict(open_=open_, ext=ext, mode=mode, free=free, width=width,
+              table=table, qidx=qidx, profile=profile)
+    if banded and outputs == "score":
         form = _BAND_FORM or band_plan(B, Qp, Rp, A, bandwidth,
                                        profile is not None)
         if form[0]:
-            return _band_ring(ridx, qlen, rlen, (B, Bq, Qp, Rp, A), form,
-                              open_=open_, ext=ext, mode=mode, free=free,
-                              width=width, table=table, qidx=qidx,
-                              profile=profile, bandwidth=bandwidth)
-    global BANDED_THREAD_LAUNCHES
-    from . import _build
-
-    lib = _build.load()
-    dev = ridx.device
-    stats = outputs in STATS_CLASSES
-    i32 = torch.int32
-    scratch = torch.empty((8 if stats else 2, max(Rp, 1), B), dtype=i32,
-                          device=dev)
-    out = torch.empty((8 if stats else 5, B), dtype=i32, device=dev)
-    subs = table if table is not None else profile
-    qptr = qidx.data_ptr() if table is not None else None
-    nplanes = 4 if stats else 1
-    plane = rows = cols = None
-    if outputs == "trace":
-        plane = torch.zeros((Qp, Rp, B), dtype=torch.int8, device=dev)
-    elif outputs in ("table", "stats_table"):
-        plane = torch.zeros((nplanes, Qp, Rp, B), dtype=i32, device=dev)
-    elif outputs in ("rowcol", "stats_rowcol"):
-        rows = torch.zeros((nplanes, Rp, B), dtype=i32, device=dev)
-        cols = torch.zeros((nplanes, Qp, B), dtype=i32, device=dev)
-    bw = max(-1, min(int(bandwidth), Qp + Rp))
-    with torch.cuda.device(dev):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        rc = lib.pt_scan_banded(
-            OUTPUTS.index(outputs), subs.data_ptr(), qptr,
-            _ptr(qidx if stats else None), ridx.data_ptr(), qlen.data_ptr(),
-            rlen.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-            _ptr(plane if outputs == "trace" else None),
-            _ptr(plane if outputs != "trace" else None), _ptr(rows),
-            _ptr(cols), B, Bq, qidx.shape[0] if stats else 0, Qp, Rp, A,
-            int(open_), int(ext), MODES[mode], _free_bits(free), bw, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"scan_{outputs} banded kernel launch failed: CUDA error {rc}")
-    res = _kernel_scalars(out, width)
-    if outputs == "score":
-        BANDED_THREAD_LAUNCHES += 1
-    else:
+            return _band_ring(ridx, qlen, rlen, dims, form,
+                              bandwidth=bandwidth, **kw)
+    if banded:
+        kw["bandwidth"] = max(-1, min(int(bandwidth), Qp + Rp))
+    short = short_plan(outputs, B, Bq, Qp, Rp, A, profile is not None)[0]
+    launch = _short_launch if short else _chunked_launch
+    res = launch(ridx, qlen, rlen, dims, outputs=outputs, **kw)
+    if banded:
         BANDED_CLASS_LAUNCHES[outputs] += 1
-    if outputs == "trace":
-        res["trace_table"] = plane.permute(2, 0, 1)
-    else:
-        for k, name in enumerate(PLANES[:nplanes]):
-            if plane is not None:
-                res[f"{name}_table"] = plane[k].permute(2, 0, 1)
-            if rows is not None:
-                res[f"{name}_row"] = rows[k].t()
-                res[f"{name}_col"] = cols[k].t()
+        BANDED_FORM_LAUNCHES["short" if short else "block"] += 1
     return res
 
 
@@ -373,7 +332,7 @@ def band_plan(B, Qp, Rp, A, bandwidth, profile=False) -> tuple:
     ``band_plan``): G of 8, 16 or 32 and kR of 4, 5, 6 or 8 with 2 bw <
     (G - 1) kR + G + 1, or (0, 0) where no form reaches the band or the
     table form's (A + 1)^2 scores pass 32 KB (:func:`score_align` then
-    launches the one-thread form).  Builds the kernels (it asks the
+    launches the masked full sweep).  Builds the kernels (it asks the
     library's own rule)."""
     from . import _build
 
@@ -407,12 +366,14 @@ def short_plan(outputs, B, Bq, Qp, Rp, A, profile=False) -> tuple:
 
 
 def _short_launch(ridx, qlen, rlen, dims, *, open_, ext, mode, free, width,
-                  table, qidx, profile, outputs) -> dict:
+                  table, qidx, profile, outputs, bandwidth=None) -> dict:
     """Launch the short form (``pt_scan_short``) of class ``outputs`` on a
-    batch :func:`short_plan` gives it; count the launch.  The trace plane
-    is a contiguous (B, Qp, Rp) tensor, the tables (B, Qp, Rp) views of
-    (B, Rp, Qp) buffers (as :func:`score_chunked`'s), the rows and
-    columns contiguous (B, Rp) / (B, Qp)."""
+    batch :func:`short_plan` gives it, or with ``bandwidth`` (clamped to
+    [-1, Qp + Rp]) its masked form (``pt_scan_short_banded``); count an
+    unbanded launch (the caller counts a banded one).  The trace plane is
+    a contiguous (B, Qp, Rp) tensor, the tables (B, Qp, Rp) views of (B,
+    Rp, Qp) buffers (as :func:`score_chunked`'s), the rows and columns
+    contiguous (B, Rp) / (B, Qp)."""
     from . import _build
 
     B, Bq, Qp, Rp, A = dims
@@ -430,20 +391,24 @@ def _short_launch(ridx, qlen, rlen, dims, *, open_, ext, mode, free, width,
         rows = torch.zeros((nplanes, B, Rp), dtype=i32, device=dev)
         cols = torch.zeros((nplanes, B, Qp), dtype=i32, device=dev)
     subs = table if table is not None else profile
+    lib = _build.load()
+    entry, band = ((lib.pt_scan_short, ()) if bandwidth is None else
+                   (lib.pt_scan_short_banded, (int(bandwidth),)))
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        rc = _build.load().pt_scan_short(
+        rc = entry(
             OUTPUTS.index(outputs), subs.data_ptr(),
             qidx.data_ptr() if table is not None else None,
             _ptr(qidx if stats else None), ridx.data_ptr(), qlen.data_ptr(),
             rlen.data_ptr(), out.data_ptr(), _ptr(plane), _ptr(tab),
             _ptr(rows), _ptr(cols), B, Bq, qidx.shape[0] if stats else 0, Qp,
             Rp, A, int(open_), int(ext), MODES[mode], _free_bits(free),
-            stream)
+            *band, stream)
     if rc != 0:
-        raise RuntimeError(f"scan_short ({outputs}) kernel launch failed: "
-                           f"CUDA error {rc}")
-    SHORT_LAUNCHES[outputs] += 1
+        raise RuntimeError(f"{entry.__name__} ({outputs}) kernel launch "
+                           f"failed: CUDA error {rc}")
+    if bandwidth is None:
+        SHORT_LAUNCHES[outputs] += 1
     res = _kernel_scalars(out, width)
     if plane is not None:
         res["trace_table"] = plane
@@ -1135,37 +1100,55 @@ def score_chunked(ridx, qlen, rlen, *, open_, ext, mode, free, width="32",
         return score_align_plain(ridx, qlen, rlen, **kw)
     if ridx.device.type != "cuda":
         raise ValueError(f"no kernel for device {ridx.device}")
+    return _chunked_launch(ridx, qlen, rlen, (B, Bq, Qp, Rp, A), **kw)
+
+
+def _chunked_launch(ridx, qlen, rlen, dims, *, open_, ext, mode, free,
+                    width, table, qidx, profile, outputs,
+                    bandwidth=None) -> dict:
+    """Launch the block kernel once over all Rp columns in class
+    ``outputs`` (:func:`score_chunked`), or with ``bandwidth`` (clamped
+    to [-1, Qp + Rp]) its masked form (``pt_scan_chunked_banded``, every
+    class); count an unbanded launch (the caller counts a banded one)."""
     global CHUNKED_LAUNCHES
     from . import _build
 
+    B, Bq, Qp, Rp, A = dims
     dev = ridx.device
-    kw = dict(kw, ridx=ridx, qlen=qlen, rlen=rlen, state=None,
-              dims=(B, Bq, Qp, Rp, A))
-    if outputs in SEGMENT_OUTPUTS:
-        # the segment form from column 0 (csrc/scan_chunked.cu): one
-        # segment of Rp columns, whose trace buffer is the whole plane
-        plane = (torch.zeros((B, Qp, Rp), dtype=torch.int8, device=dev)
-                 if outputs == "trace" else None)
-        res, _ = _block_launch(_build.load().pt_scan_segment, planes=(plane,),
-                               tail=(0, 0), **kw)
-        CHUNKED_LAUNCHES += 1
-        if plane is not None:
-            res["trace_table"] = plane
-        return res
+    lib = _build.load()
+    kw = dict(open_=open_, ext=ext, mode=mode, free=free, width=width,
+              table=table, qidx=qidx, profile=profile, outputs=outputs,
+              ridx=ridx, qlen=qlen, rlen=rlen, state=None, dims=dims)
     nplanes = 4 if outputs in STATS_CLASSES else 1
-    tab = rows = cols = None
-    if outputs in ("table", "stats_table"):
+    plane = tab = rows = cols = None
+    if outputs == "trace":
+        plane = torch.zeros((B, Qp, Rp), dtype=torch.int8, device=dev)
+    elif outputs in ("table", "stats_table"):
         tab = torch.zeros((nplanes, B, Rp, Qp), dtype=torch.int32, device=dev)
-    else:
+    elif outputs in ("rowcol", "stats_rowcol"):
         rows = torch.zeros((nplanes, B, Rp), dtype=torch.int32, device=dev)
         cols = torch.zeros((nplanes, B, Qp), dtype=torch.int32, device=dev)
-    res, _ = _block_launch(_build.load().pt_scan_chunked,
-                           planes=(tab, rows, cols), tail=(), **kw)
-    CHUNKED_LAUNCHES += 1
+    if bandwidth is not None:
+        # every class in one entry, its planes and the band after `out`
+        res, _ = _block_launch(lib.pt_scan_chunked_banded,
+                               planes=(plane, tab, rows, cols),
+                               tail=(int(bandwidth),), **kw)
+    elif outputs in SEGMENT_OUTPUTS:
+        # the segment form from column 0 (csrc/scan_chunked.cu): one
+        # segment of Rp columns, whose trace buffer is the whole plane
+        res, _ = _block_launch(lib.pt_scan_segment, planes=(plane,),
+                               tail=(0, 0), **kw)
+    else:
+        res, _ = _block_launch(lib.pt_scan_chunked,
+                               planes=(tab, rows, cols), tail=(), **kw)
+    if bandwidth is None:
+        CHUNKED_LAUNCHES += 1
+    if plane is not None:
+        res["trace_table"] = plane
     for k, name in enumerate(PLANES[:nplanes]):
         if tab is not None:
             res[f"{name}_table"] = tab[k].transpose(1, 2)
-        else:
+        if rows is not None:
             res[f"{name}_row"] = rows[k]
             res[f"{name}_col"] = cols[k]
     return res

@@ -4,7 +4,8 @@ The port of ``parasail_rs_tpu.ops.wavefront.wavefront_align`` (XLA in
 the reference, so plain PyTorch here, not a hand kernel).  It is the
 plain version of the CUDA kernels' stats, table and rowcol forms
 (``csrc/scan_short.cu``, ``csrc/scan_chunked.cu``) and of every banded
-form (``csrc/scan_score.cu``): :func:`~.scan_kernel.score_align` runs it
+form (``csrc/scan_banded.cu``, ``csrc/scan_short_banded.cu``,
+``csrc/scan_chunked_banded.cu``): :func:`~.scan_kernel.score_align` runs it
 on CPU tensors for those classes, and ``chip_smoke.py`` holds the kernels
 to it on the card.
 

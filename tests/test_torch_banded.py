@@ -285,14 +285,15 @@ def cuda_device():
 
 
 def banded_score_launches():
-    """(warp form, one-thread form) launches of the banded score class."""
-    return tk.BANDED_WARP_LAUNCHES, tk.BANDED_THREAD_LAUNCHES
+    """(warp form, masked full sweep) launches of the banded score
+    class."""
+    return tk.BANDED_WARP_LAUNCHES, tk.BANDED_CLASS_LAUNCHES["score"]
 
 
 def banded_score_moved(before, ridx, qidx, bw, A=5):
     """The counts after one banded score launch of the table form: the
-    warp form's where its rule takes the batch, else the one-thread
-    form's."""
+    warp form's where its rule takes the batch, else the masked full
+    sweep's."""
     warp = tk.band_plan(ridx.shape[0], qidx.shape[1], ridx.shape[1], A,
                         bw)[0]
     return (before[0] + 1, before[1]) if warp else (before[0],
@@ -320,6 +321,8 @@ def test_banded_kernel_matches_plain_on_card(open_, ext, lo, hi, cuda_device):
             assert torch.equal(got[k], want[k]), (bw, k)
 
 
+# the bands of the masked sweep's CPU tests (test_torch_banded_classes.py)
+MASK_BANDS = (-1, 0, 2, 5, 16)
 # NW, the nine SG free-end sets of the other tests and SW
 SG_FREE = [(True, False, False, False), (False, True, False, False),
            (True, True, False, False), (False, False, True, False),
@@ -333,9 +336,10 @@ CARD_MODES = ([("nw", (False,) * 4)] + [("sg", f) for f in SG_FREE] +
 @pytest.mark.cuda
 @pytest.mark.parametrize("outputs", tk.OUTPUTS)
 def test_banded_every_class_matches_plain_on_card(outputs, cuda_device):
-    # every class in every mode launches its banded kernel form and equals
-    # the plain version; the trace class's plane is walked by the walk
-    # kernel as its plain version walks it
+    # every class in every mode launches its banded kernel form (the
+    # ring, or the masked sweep on the short form: Qp 40) and equals the
+    # plain version; the trace class's plane is walked by the walk kernel
+    # as its plain version walks it
     rng = np.random.default_rng([7, tk.OUTPUTS.index(outputs)])
     case = ragged(rng, 96, 40, 44, 5, 0)
     t = {k: torch.from_numpy(v).to(cuda_device) for k, v in case.items()}
@@ -346,7 +350,8 @@ def test_banded_every_class_matches_plain_on_card(outputs, cuda_device):
                       width="sat", table=t["table"], qidx=t["qidx"],
                       outputs=outputs, banded=True, bandwidth=bw)
             before = (banded_score_launches(),
-                      dict(tk.BANDED_CLASS_LAUNCHES))
+                      dict(tk.BANDED_CLASS_LAUNCHES),
+                      dict(tk.BANDED_FORM_LAUNCHES))
             got = tk.score_align(t["ridx"], t["qlen"], t["rlen"], **kw)
             want = tk.score_align_plain(t["ridx"], t["qlen"], t["rlen"], **kw)
             torch.cuda.synchronize()
@@ -356,6 +361,10 @@ def test_banded_every_class_matches_plain_on_card(outputs, cuda_device):
             else:
                 assert tk.BANDED_CLASS_LAUNCHES[outputs] == \
                     before[1][outputs] + 1
+            masked = tk.BANDED_CLASS_LAUNCHES[outputs] - before[1][outputs]
+            assert tk.BANDED_FORM_LAUNCHES == {
+                "short": before[2]["short"] + masked,
+                "block": before[2]["block"]}
             assert set(got) == set(want)
             for k in got:
                 assert torch.equal(got[k], want[k]), (mode, free, bw, k)
@@ -365,6 +374,45 @@ def test_banded_every_class_matches_plain_on_card(outputs, cuda_device):
                 for a, b in zip(tw.device_walk(*walk),
                                 tw.device_walk_plain(*walk)):
                     assert torch.equal(a, b), (mode, free, bw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("outputs", tk.OUTPUTS)
+def test_masked_forms_match_plain_on_card(outputs, cuda_device):
+    # every class in every mode on the masked full sweep (the score class
+    # forced off the ring): a short batch on the short form's masked
+    # instantiation, and past 256 rows on the block kernel's; each launch
+    # counted by class and by form
+    rng = np.random.default_rng([11, tk.OUTPUTS.index(outputs)])
+    cases = {"short": ragged(rng, 96, 40, 44, 5, 0),
+             "block": ragged(rng, 24, 300, 64, 5, 0)}
+    tk._BAND_FORM = (0, 0)
+    try:
+        for form, case in cases.items():
+            t = {k: torch.from_numpy(v).to(cuda_device)
+                 for k, v in case.items()}
+            args = (t["ridx"], t["qlen"], t["rlen"])
+            for n, (mode, free) in enumerate(CARD_MODES):
+                open_, ext = PENALTIES[n % len(PENALTIES)][:2]
+                for bw in (MASK_BANDS[n % len(MASK_BANDS)], 150):
+                    kw = dict(open_=open_, ext=ext, mode=mode, free=free,
+                              width="sat", table=t["table"],
+                              qidx=t["qidx"], outputs=outputs, banded=True,
+                              bandwidth=bw)
+                    before = (tk.BANDED_CLASS_LAUNCHES[outputs],
+                              dict(tk.BANDED_FORM_LAUNCHES))
+                    got = tk.score_align(*args, **kw)
+                    want = tk.score_align_plain(*args, **kw)
+                    torch.cuda.synchronize()
+                    assert tk.BANDED_CLASS_LAUNCHES[outputs] == before[0] + 1
+                    assert tk.BANDED_FORM_LAUNCHES == {
+                        k: v + (k == form) for k, v in before[1].items()}
+                    assert set(got) == set(want)
+                    for k in got:
+                        assert torch.equal(got[k], want[k]), (
+                            form, mode, free, bw, k)
+    finally:
+        tk._BAND_FORM = None
 
 
 @pytest.mark.cuda

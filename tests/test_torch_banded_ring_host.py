@@ -1,18 +1,18 @@
 """The banded warp form (kernel K1e's score class: a pair's row blocks on a
-ring of 8, 16 or 32 lanes), built with g++, against the one-thread form,
-the plain version, golden and the JAX package.
+ring of 8, 16 or 32 lanes), built with g++, against ``score_pair``'s
+band-only sweep, the plain version, golden and the JAX package.
 
 ``csrc/score_cell.cuh``'s ring (``BandLane``, ``band_lane_iter``,
 ``band_finish``) stepped lane by lane in a loop (``band_pair_host``
 through ``csrc/score_host.cc``'s ``pt_band_host``, each lane reading what
 its ring predecessor left a step before, as the kernel's shuffle does),
 at the form the launcher's rule picks (``pt_band_plan_host``) and at each
-(G, kR) at the edge of its reach, must equal exactly the one-thread
-band-only form (``pt_banded_host``), ``score_align_plain(banded=True)``,
+(G, kR) at the edge of its reach, must equal exactly ``score_pair``'s
+band-only sweep, one pair at a time (``pt_banded_host``), ``score_align_plain(banded=True)``,
 golden's ``banded_nw_fill`` and the JAX wavefront and Pallas kernel in
 interpret mode where those agree (ROADMAP Queue 3): scores, end cells
 and both saturation flags, at bands -1 to past the ring's reach (where
-the rule gives the one-thread form), in NW, SG free-end sets and SW, at
+the rule gives the masked full sweep), in NW, SG free-end sets and SW, at
 open > ext, open == ext and open < ext, in the table and profile forms
 with a query shared by every pair, on sides far apart in length and
 lengths that are no multiple of kR, with repeated maxima for the end
@@ -103,7 +103,8 @@ def run_ring(lib, case, *, open_, ext, mode, free, bw, form=(0, 0)):
 
 
 def run_thread(lib, case, *, open_, ext, mode, free, bw):
-    """The one-thread band-only form (``pt_banded_host``, class 0)."""
+    """score_pair's band-only sweep, one pair at a time
+    (``pt_banded_host``, class 0)."""
     subs, q, Bq, Qp, A = _inputs(case)
     ridx, qlen, rlen = (np.ascontiguousarray(case[k], np.int32)
                         for k in ("ridx", "qlen", "rlen"))
@@ -157,7 +158,7 @@ def test_rule_on_the_main_paths(lib):
     assert plan(lib, 256, 64, 64, 4096) == (32, 4)
     assert plan(lib, 1, 192, 192, 16) == (8, 4)
     assert plan(lib, 8192, 192, 192, -1) == (8, 4)
-    # a table past 32 KB stays on the one-thread form; a profile needs none
+    # a table past 32 KB takes the masked full sweep; a profile needs none
     assert plan(lib, 8192, 192, 192, 16, A=90) == (0, 0)
     assert plan(lib, 8192, 192, 192, 16, A=90, profile=True) == (8, 4)
     # the pick reaches its band with the fewest rows for its lanes
@@ -199,7 +200,7 @@ def test_ring_matches_one_thread_and_plain(lib, mode, free):
 def test_ring_at_the_edge_of_its_reach(lib, form):
     # the widest band each form reaches, on pairs longer than the band, one
     # side far longer, lengths no multiple of kR; one past it the form is
-    # refused (and past G = 32, kR = 8 the rule gives the one-thread form)
+    # refused (and past G = 32, kR = 8 the rule gives the masked sweep)
     G, kR = form
     bw = (reach(G, kR) - 1) // 2
     rng = np.random.default_rng([G, kR])
@@ -361,8 +362,8 @@ def card_case(case, dev):
                          ids=[f"G{g}R{r}" for g, r in FORMS] +
                          ["rule", "one-thread"])
 def test_ring_kernel_matches_plain_on_card(form, cuda_device):
-    # every form at the edge of its reach, the rule's, and the one-thread
-    # form forced; each launch moves its own counter
+    # every form at the edge of its reach, the rule's, and (0, 0), which
+    # forces the masked full sweep; each launch moves its own counter
     rng = np.random.default_rng(len(str(form)))
     G, kR = form if form else (32, 8)
     bw = (reach(G, kR) - 1) // 2 if G else 40
@@ -377,7 +378,8 @@ def test_ring_kernel_matches_plain_on_card(form, cuda_device):
                           width="sat", table=case["table"],
                           qidx=case["qidx"], banded=True, bandwidth=b)
                 args = (case["ridx"], case["qlen"], case["rlen"])
-                before = (tk.BANDED_WARP_LAUNCHES, tk.BANDED_THREAD_LAUNCHES)
+                before = (tk.BANDED_WARP_LAUNCHES,
+                          tk.BANDED_CLASS_LAUNCHES["score"])
                 if form and form[0] and 2 * min(b, L + 5) >= reach(*form):
                     continue
                 got = tk.score_align(*args, **kw)
@@ -386,7 +388,7 @@ def test_ring_kernel_matches_plain_on_card(form, cuda_device):
                 warp = form[0] if form else tk.band_plan(200, L, L + 5, 5,
                                                          b)[0]
                 assert (tk.BANDED_WARP_LAUNCHES - before[0],
-                        tk.BANDED_THREAD_LAUNCHES - before[1]) == \
+                        tk.BANDED_CLASS_LAUNCHES["score"] - before[1]) == \
                     ((1, 0) if warp else (0, 1))
                 for k in got:
                     assert torch.equal(got[k], want[k]), (mode, free, b, k)
@@ -397,7 +399,8 @@ def test_ring_kernel_matches_plain_on_card(form, cuda_device):
 @pytest.mark.cuda
 def test_ring_kernel_profile_and_past_reach_on_card(cuda_device):
     # profile rows, per pair and shared; a band past the ring's reach on
-    # long pairs takes the one-thread form
+    # long pairs takes the masked full sweep, there the block kernel's
+    # (Qp 400)
     rng = np.random.default_rng(9)
     case = ragged(rng, 300, 400, 420, 6, 0)
     t = card_case(case, cuda_device)
@@ -410,12 +413,15 @@ def test_ring_kernel_profile_and_past_reach_on_card(cuda_device):
             kw = dict(open_=5, ext=2, mode="sg", free=(True, False, False,
                                                        True),
                       width="sat", banded=True, bandwidth=bw, **subs)
-            before = (tk.BANDED_WARP_LAUNCHES, tk.BANDED_THREAD_LAUNCHES)
+            before = (tk.BANDED_WARP_LAUNCHES,
+                      tk.BANDED_CLASS_LAUNCHES["score"],
+                      tk.BANDED_FORM_LAUNCHES["block"])
             got = tk.score_align(*args, **kw)
             want = tk.score_align_plain(*args, **kw)
             torch.cuda.synchronize()
             assert (tk.BANDED_WARP_LAUNCHES - before[0],
-                    tk.BANDED_THREAD_LAUNCHES - before[1]) == \
-                (warp, 1 - warp)
+                    tk.BANDED_CLASS_LAUNCHES["score"] - before[1],
+                    tk.BANDED_FORM_LAUNCHES["block"] - before[2]) == \
+                (warp, 1 - warp, 1 - warp)
             for k in got:
                 assert torch.equal(got[k], want[k]), (bw, k)

@@ -192,8 +192,8 @@ def test_chunked_route_rule():
         assert dispatch.plan_route(_shape(8, 3072, 96, "cuda"), cls, 5, 1,
                                    one_shot=True) == ("cuda_chunked",
                                                       ROUTE[1])
-        # short pairs stay on one thread per pair; so does every banded
-        # batch (K1e)
+        # short pairs stay on K1; so does every banded batch (K1e), whose
+        # kernels take any length
         assert dispatch.plan_route(_shape(8, 2048, 256), cls, 5, 1) == plain
         assert dispatch.plan_route(_shape(8, 3072, 96), cls, 5, 1,
                                    banded=True) == plain
@@ -279,7 +279,7 @@ def test_align_cigars_on_the_chunked_route(cfg, lens):
             for a in p_alns] == [(a.get_score(), a.get_end_query(),
                                   a.get_end_ref()) for a in r_alns]
     # align_cigars bins the pairs by shape: the tall bins take the
-    # chunked sweep, the short ones one thread per pair
+    # chunked sweep, the short ones K1
     assert set(p.route_counter) == {ROUTE, ("torch_plain",
                                             "batch on the cpu")}
     # use_trace() + cigars() under the plane bound: the same route

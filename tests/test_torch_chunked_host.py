@@ -56,11 +56,14 @@ def host_lib(tmp_path_factory):
 
 
 def run_host_chunked(lib, case, *, open_, ext, mode, free, outputs, warps,
-                     rows=2, cluster=1, shared=False, profile=None):
+                     rows=2, cluster=1, shared=False, profile=None,
+                     bandwidth=None):
     """``pt_chunked_host`` over the case, ``rows`` rows a lane (the stats
     classes: at most 4), ``warps`` warps a block and ``cluster`` blocks a
     pair; returns ``score_align``'s dict (width sat) as numpy, the tables
-    as (B, Qp, Rp) like the plain version's."""
+    as (B, Qp, Rp) like the plain version's.  With ``bandwidth``, the
+    masked form (``pt_chunked_banded_host``, in a build with the banded
+    twins)."""
     lane = lane_rows(outputs, rows)
     ridx, table = case["ridx"], case["table"]
     qidx = np.ascontiguousarray(case["qidx"][:1] if shared else case["qidx"])
@@ -80,13 +83,15 @@ def run_host_chunked(lib, case, *, open_, ext, mode, free, outputs, warps,
     def ptr(a):
         return None if a is None else a.ctypes.data
 
-    rc = lib.pt_chunked_host(
+    entry, band = ((lib.pt_chunked_host, ()) if bandwidth is None else
+                   (lib.pt_chunked_banded_host, (bandwidth,)))
+    rc = entry(
         OUTPUTS.index(outputs), ptr(subs), None if profile is not None
         else ptr(qidx), ptr(qidx) if stats else None, ptr(ridx),
         ptr(case["qlen"]), ptr(case["rlen"]), ptr(out), ptr(trace), ptr(tab),
         ptr(rows), ptr(cols), B, Bq, Bq if stats else 0, Qp, Rp,
         subs.shape[-1], open_, ext, tk.MODES[mode], tk._free_bits(free),
-        warps, lane, cluster)
+        *band, warps, lane, cluster)
     assert rc == 0
     res = {"score": out[0], "end_query": out[1], "end_ref": out[2],
            "saturated": out[4] != 0, "promoted": out[3] != 0}

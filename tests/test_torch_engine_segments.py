@@ -335,7 +335,7 @@ def test_plan_route_rule():
 
 def test_banded_and_device_planes_stay_on_one_launch(short_segments):
     # 64 x 64 padded cells are long here: the walk's plane comes from one
-    # launch of the chunked sweep, the banded batch from one thread a pair
+    # launch of the chunked sweep, the banded batch from K1's route
     qs, rs = _long_pairs(81, n=3, qlo=60, qhi=64, rlo=60, rhi=64)
     m = port_matrix(DNA)
     p = (port.Aligner.new().matrix(m).gap_open(4).gap_extend(1).bandwidth(8)

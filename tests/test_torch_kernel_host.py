@@ -1,9 +1,10 @@
 """The CUDA kernels' own per-pair code, built for the host, against golden.
 
 ``csrc/score_cell.cuh`` holds the recurrence, end-cell tracker,
-saturation flags, trace flags, stats payloads and plane writes that
-``csrc/scan_score.cu`` runs on the card; ``csrc/walk_step.cuh`` the
-traceback state machine of ``csrc/trace_walk.cu``.  Built with g++ through the small harness
+saturation flags, trace flags, stats payloads and plane writes that every
+card form is held to (``score_pair``: the literal sweep, one pair at a
+time); ``csrc/walk_step.cuh`` the traceback state machine of
+``csrc/trace_walk.cu``.  Built with g++ through the small harness
 ``csrc/score_host.cc``, the same code runs here on numpy-seeded batches
 and must equal the golden oracle, the JAX walk and the port's plain
 PyTorch versions exactly.  Skips where g++ is missing.
@@ -31,14 +32,16 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 MODES = {"nw": 0, "sg": 1, "sw": 2}
 
 
-def build_host_lib(tmp_path_factory):
+def build_host_lib(tmp_path_factory, banded=False):
     """g++ build of ``csrc/score_host.cc``, its C signatures declared;
-    skips where g++ is missing."""
+    ``banded`` adds the twins of the masked forms (``-DPT_HOST_BANDED``).
+    Skips where g++ is missing."""
     cxx = shutil.which(os.environ.get("CXX", "g++"))
     if cxx is None:
         pytest.skip("needs g++ to build the kernel's host harness")
     out = tmp_path_factory.mktemp("ptscore") / "libptscore_host.so"
     subprocess.run([cxx, "-O2", "-std=c++17", "-shared", "-fPIC",
+                    *(["-DPT_HOST_BANDED"] if banded else []),
                     "-I", CSRC, os.path.join(CSRC, "score_host.cc"),
                     "-o", str(out)], check=True, capture_output=True,
                    timeout=300)

@@ -91,11 +91,12 @@ def _sides(case):
 
 
 def run_short(lib, case, outputs, *, open_, ext, mode, free, width="32",
-              rows=None, layout=None):
+              rows=None, layout=None, bandwidth=None):
     """``pt_short_host`` on a numpy case: score_align's dict (numpy), the
     trace plane as the kernel leaves it, the (B, Rp, Qp) tables as
     (B, Qp, Rp) views.  ``rows`` and ``layout`` default to the launcher's
-    rule."""
+    rule.  With ``bandwidth``, the masked form (``pt_short_banded_host``,
+    in a build with the banded twins)."""
     subs, Bq, A, profile = _sides(case)
     qidx, ridx = (np.ascontiguousarray(case[k], np.int32)
                   for k in ("qidx", "ridx"))
@@ -119,13 +120,15 @@ def run_short(lib, case, outputs, *, open_, ext, mode, free, width="32",
     def ptr(a):
         return None if a is None else a.ctypes.data
 
-    rc = lib.pt_short_host(
+    entry, band = ((lib.pt_short_host, ()) if bandwidth is None else
+                   (lib.pt_short_banded_host, (bandwidth,)))
+    rc = entry(
         tk.OUTPUTS.index(outputs), subs.ctypes.data,
         None if profile else qidx.ctypes.data,
         qidx.ctypes.data if stats else None, ridx.ctypes.data,
         qlen.ctypes.data, rlen.ctypes.data, out.ctypes.data, ptr(plane),
         ptr(tab), ptr(row), ptr(col), B, Bq, qidx.shape[0], Qp, Rp, A, open_,
-        ext, tk.MODES[mode], tk._free_bits(free), rows, layout)
+        ext, tk.MODES[mode], tk._free_bits(free), *band, rows, layout)
     assert rc == 0, (outputs, rows, layout)
     res = {k: v.numpy() for k, v in tk._kernel_scalars(
         torch.from_numpy(out[:8 if stats else 5]), width).items()}
