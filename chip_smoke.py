@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the kernels from ``parasail_rs_tpu_torch/csrc`` with nvcc and
-runs thirty-one phases on ``cuda``; any failure raises and the script exits
+runs thirty-two phases on ``cuda``; any failure raises and the script exits
 non-zero without printing a result.  ``score_align`` runs every unbanded
 class on the short form (kernels K1a-K1d, ``csrc/scan_short.cu``, one
 warp a pair) up to 256 padded query rows and on the block kernel's
@@ -285,7 +285,23 @@ kernel" or name a plane class:
    ``align_batch`` of 8,192 of the pairs and one cfg7 run, whose Chrome
    trace (under ``chiprun_out/phase31_trace/``) must hold the
    ``pt.execute.sw.score`` region, with the kernel events and the card's
-   busy share of each window logged.
+   busy share of each window logged;
+32. the fuzzer on the card (``tools/fuzz_torch.py``, counted from zero):
+   ``fuzz_torch.run("cuda", FUZZ_DRAWS, FUZZ_SEED, cover=True)``, its
+   nine API checks once each and then a draw aimed at every kernel form
+   the sources compile (the short form's 80, the ring's 24, the block
+   kernel's 39 in its one-shot, masked, segment and tile entries, the
+   walk) and every plan axis (the short form's substitution, the block
+   kernel's 1-8 warps and 1-8 blocks a cluster, the walk's two copy
+   paths), then random draws: every public call also on the CPU's plain
+   versions and golden, every launch held to its plain version on the
+   same tensors and a sample of pairs to golden, each draw's launches to
+   what the launchers' rules say.  Every compiled form must be reached
+   with no mismatch (a repro goes to ``chiprun_out/phase32_repro.json``).
+   Then ``entry.entry()`` on the card (the short form's score class,
+   equal to plain) and ``entry.dryrun_multichip(1)`` (one NCCL process:
+   ``sharded_align`` / ``align_global`` in four classes and
+   ``seqpar_align_scan`` in three, against golden).
 
 The line before the last is the card's name and power limit, the one
 before it a JSON summary of every kernel (launches on its main path,
@@ -887,6 +903,8 @@ def main() -> int:
     streamed = stream_path(torch, pt, tk, tw, dispatch, golden, stages,
                            blosum, card)
     clock("31")
+    fuzz_path(torch, tk, tw, card)
+    clock("32")
 
     def with_short(cls, row):
         """A class's row, phases 4-13, with phases 28-29's numbers."""
@@ -4094,6 +4112,83 @@ def stream_path(torch, pt, tk, tw, dispatch, golden, stages, blosum,
         f"[{card}]")
     return {"stream_ms": stream_ms, "batch_ms": batch_ms, "stages": snap,
             "launches": launches, "windows": windows, "kernels": kernels}
+
+
+# Phase 32's run: the cover schedule (9 API checks and about 150 aimed
+# draws) and random draws up to this budget
+FUZZ_SEED = 32
+FUZZ_DRAWS = 170
+
+
+def load_fuzzer():
+    """``tools/fuzz_torch.py`` (``tools/`` is no package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "fuzz_torch", os.path.join(HERE, "tools", "fuzz_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def fuzz_path(torch, tk, tw, card, device="cuda") -> dict:
+    """Phase 32: the fuzzer's cover run on the card, then the port's
+    entry points (``entry()`` and ``dryrun_multichip(1)`` over NCCL).
+    Returns the run's summary."""
+    from parasail_rs_tpu_torch import entry as pt_entry
+
+    fuzz = load_fuzzer()
+    reset_launches(tk, tw)
+    try:
+        res = fuzz.run(device, draws=FUZZ_DRAWS, seed=FUZZ_SEED, cover=True,
+                       log=log)
+    except fuzz.Mismatch as e:
+        out = os.path.join(HERE, "chiprun_out", "phase32_repro.json")
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        with open(out, "w") as f:
+            json.dump(e.repro, f, indent=1)
+        log(f"[32 fuzz] MISMATCH (repro in {os.path.relpath(out, HERE)}): "
+            f"{json.dumps(e.repro)[:4000]}")
+        raise
+    ran = dict(fuzz.launches())
+    families = collections.Counter(k.split()[0] for k in res["reached"])
+    compiled = collections.Counter(k.split()[0] for k in res["compiled"])
+    log(f"[32 fuzz] seed {FUZZ_SEED}: {res['draws']} draws ({res['api']} "
+        f"API, {res['ops']} ops), forms reached {len(res['reached'])} of "
+        f"{len(res['compiled'])} compiled ("
+        + ", ".join(f"{k} {families[k]}/{compiled[k]}" for k in compiled)
+        + f"), plan axes {len(fuzz.AXES) - len(res['unreached_axes'])}/"
+        f"{len(fuzz.AXES)}, mismatches {res['mismatches']}, "
+        f"{res['seconds']:.1f} s ({res['draws'] / res['seconds']:.2f} "
+        f"draws/s) [{card}]")
+    log(f"[32 fuzz] draws and seconds by check: "
+        f"{json.dumps(res['checks'])} "
+        f"{json.dumps({k: round(v, 2) for k, v in res['seconds_by'].items()})}"
+        f" [{card}]")
+    log(f"[32 fuzz] launches of the run by kernel family: {json.dumps(ran)}")
+    if res["unreached"] or res["unreached_axes"] or not all(ran.values()):
+        raise AssertionError(f"phase 32 left forms unreached: "
+                             f"{res['unreached']} {res['unreached_axes']}")
+
+    reset_launches(tk, tw)
+    fn, args = pt_entry.entry()
+    out = fn(*args)
+    launched = dict(tk.SHORT_LAUNCHES)
+    profile, qidx, ridx, qlen, rlen = args
+    want = tk.score_align_plain(ridx, qlen, rlen, profile=profile, qidx=qidx,
+                                **fn.keywords)
+    if launched != {**dict.fromkeys(launched, 0), "score": 1} or \
+            tk.CHUNKED_LAUNCHES or max_abs_diff(out, want):
+        raise AssertionError(f"entry(): short form launches {launched}, "
+                             f"block {tk.CHUNKED_LAUNCHES}, "
+                             f"error {max_abs_diff(out, want)}")
+    log("[32 entry] entry(): 32 pairs of 64 x 64 on the short form's score "
+        "class, equal to plain")
+    t0 = time.perf_counter()
+    pt_entry.dryrun_multichip(1, timeout=300)
+    log(f"[32 entry] dryrun_multichip(1) over NCCL: ok in "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return res
 
 
 def random_seqs_of(rng, alphabet: bytes, lens) -> list:

@@ -61,6 +61,14 @@ assert out["score"].tolist() == want, out["score"]
 res = sharded.gather_scores(dist.sharded_align(
     mesh, prof, qidx, ridx, *lens, outputs="score", **kw))
 assert res["score"].tolist() == want and prelude.Aligner is pt.Aligner
+
+# the entry points and the fuzzer
+from parasail_rs_tpu_torch import entry
+fn, args = entry.entry("cpu")
+assert fn(*args)["score"].shape == (32,)
+sys.path.insert(0, "tools")
+import fuzz_torch
+assert fuzz_torch.run("cpu", draws=2, seed=1)["draws"] == 2
 bad = sorted(k for k in sys.modules
              if k in ("jax", "parasail_rs_tpu")
              or k.startswith(("jax.", "jaxlib", "triton", "parasail_rs_tpu.")))
@@ -201,7 +209,8 @@ PORT_FILES = sorted(
     if not rel.startswith("_build" + os.sep))
 
 
-@pytest.mark.parametrize("rel", PORT_FILES + ["../chip_smoke.py"])
+@pytest.mark.parametrize("rel", PORT_FILES + ["../chip_smoke.py",
+                                 "../tools/fuzz_torch.py"])
 def test_copied_module_imports_are_absolute(rel):
     # the name is older than the rule: no file of the port, copied or
     # not, and not chip_smoke.py, imports jax or anything of
