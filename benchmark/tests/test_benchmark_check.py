@@ -1,0 +1,137 @@
+"""The check that decides ``correct``: every cell passes at a small size
+on the CPU's plain versions, and fails with its control (the reference
+in 8-bit saturating arithmetic in the program's place) and with each
+fault a cell can have planted under the timed path.  Not applicable to
+these cells: a step that returns its state unchanged (no call carries
+state) and the exchange between chips (one chip)."""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+from benchmark import harness
+
+from .conftest import SMALL
+
+CELLS = list(SMALL)
+CIGAR_CELLS = ["wfa.10k_e5.cigar", "swissprot.hits.cigar",
+               "wfa.1k_e5.single"]
+SEED = 2**31 + 11
+
+
+def _run(cell, device="cpu", trace=False, **kw):
+    return harness.run(cell, SEED, 0.3, trace, device=device,
+                       overrides=SMALL[cell], **kw)
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_sound_run_is_correct(cell):
+    r = _run(cell)
+    assert r["correct"], r["checks"]
+    assert r["compared"] > 0 and r["failed"] == 0
+    assert list(r)[-1] == "checks"
+    assert set(r["metrics"]) == {m["name"] for m in harness.metrics_of(
+        harness.cell_spec(cell)[0], cell, False)}
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_control_is_not_correct(cell):
+    r = _run(cell, control=True)
+    assert not r["correct"]
+    assert r["checks"]["score_mismatch"]["value"] > 0
+
+
+def _patch_outputs(monkeypatch, alter):
+    from parasail_rs_tpu_torch.engine.aligner import Aligner
+
+    orig = Aligner._alignments_from
+
+    def faulty(self, out, qlens, rlens):
+        out = {k: np.array(v, copy=True) for k, v in out.items()}
+        alter(out, len(rlens))
+        return orig(self, out, qlens, rlens)
+
+    monkeypatch.setattr(Aligner, "_alignments_from", faulty)
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_answer_altered_where_produced(cell, monkeypatch):
+    def alter(out, n):
+        out["score"] += 1
+
+    _patch_outputs(monkeypatch, alter)
+    r = _run(cell)
+    assert not r["correct"] and r["checks"]["score_mismatch"]["value"] > 0
+
+
+@pytest.mark.parametrize("cell", ["swissprot.search", "wfa.10k_e5.cigar",
+                                  "swissprot.hits.cigar"])
+def test_half_of_the_batch_left_out(cell, monkeypatch):
+    def alter(out, n):
+        for k in ("score", "end_query", "end_ref"):
+            out[k][n // 2:] = 0
+
+    _patch_outputs(monkeypatch, alter)
+    r = _run(cell)
+    assert not r["correct"]
+
+
+@pytest.mark.parametrize("cell", CIGAR_CELLS)
+def test_cigar_altered_where_produced(cell, monkeypatch):
+    import parasail_rs_tpu_torch.constants as constants
+    from parasail_rs_tpu_torch.engine.result import Alignment
+
+    orig_batch = constants.cigar_strings_batch
+    orig_one = Alignment.get_cigar
+
+    def flip(c):
+        return c.replace("=", "X", 1) if "=" in c else c + "1I"
+
+    monkeypatch.setattr(constants, "cigar_strings_batch",
+                        lambda *a: [flip(c) for c in orig_batch(*a)])
+    monkeypatch.setattr(Alignment, "get_cigar",
+                        lambda self, q, r: flip(orig_one(self, q, r)))
+    r = _run(cell)
+    assert not r["correct"] and r["checks"]["cigar_mismatch"]["value"] > 0
+
+
+def test_a_call_that_raises_is_an_answer_that_never_comes(monkeypatch):
+    from parasail_rs_tpu_torch.engine.aligner import Aligner
+
+    calls = {"n": 0}
+    orig = Aligner.align_cigars
+
+    def sometimes(self, q, r):
+        calls["n"] += 1
+        if calls["n"] == 2:          # the first call of the window
+            raise RuntimeError("planted failure")
+        return orig(self, q, r)
+
+    monkeypatch.setattr(Aligner, "align_cigars", sometimes)
+    r = _run("wfa.10k_e5.cigar", log=open("/dev/null", "w"))
+    assert r["failed"] > 0 and not r["correct"]
+    assert r["checks"]["failed_alignments"]["value"] == r["failed"]
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_traced_run_reads_its_layers(cell):
+    r = _run(cell, trace=True)
+    assert r["correct"]
+    names = {m["name"] for m in harness.metrics_of(
+        harness.cell_spec(cell)[0], cell, True)}
+    # on the CPU the device's metrics find nothing to read
+    assert set(r["metrics"]) <= names
+    assert not any(k.startswith(("device.", "kernels")) for k in r["metrics"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", CELLS)
+def test_on_the_card_small(cell, cuda_device):
+    r = _run(cell, device=cuda_device)
+    assert r["correct"], r["checks"]
+    t = _run(cell, device=cuda_device, trace=True)
+    assert t["correct"] and t["device"]["busy_s"] > 0
+    assert "breakdown" in t
+    c = _run(cell, device=cuda_device, control=True)
+    assert not c["correct"]
