@@ -840,7 +840,7 @@ def main() -> int:
         for _ in range(5):
             sw.align_batch(qs, rs)
         snap = stages.snapshot()
-    per_call = {k: v["ms"] / v["calls"] for k, v in snap.items()}
+    per_call = {k: v["ms"] / v["calls"] for k, v in snap.items() if "ms" in v}
     log(f"[5 timing] card: {card}")
     log(f"[5 timing] headline (8,192 per-pair profiles, 160 x 160): short "
         f"form (K1a, {tk.short_plan('score', 8192, 8192, 160, 160, 25, True)}"
@@ -1097,14 +1097,14 @@ def trace_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum,
         for _ in range(5):
             cig_al.align_cigars(q4b, r4b)
         snap = stages.snapshot()
-    per_call = {k: v["ms"] / 5 for k, v in snap.items()}
+    per_call = {k: v["ms"] / 5 for k, v in snap.items() if "ms" in v}
     cig_al._CIGAR_CHUNK = 4096
     one_ms = time_host(lambda: cig_al.align_cigars(q4b, r4b))
     with stages.measuring():
         for _ in range(5):
             cig_al.align_cigars(q4b, r4b)
         one_snap = stages.snapshot()
-    one_call = {k: v["ms"] / 5 for k, v in one_snap.items()}
+    one_call = {k: v["ms"] / 5 for k, v in one_snap.items() if "ms" in v}
     del cig_al._CIGAR_CHUNK
     torch.cuda.reset_peak_memory_stats()
     tr_ms = time_host(lambda: tr_al.cigars(tr_al.align_batch(q4b, r4b),
@@ -1351,7 +1351,7 @@ def stats_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum,
         for _ in range(5):
             stats_al.align_batch(qs, rs)
         snap = stages.snapshot()
-    per_call = {k: v["ms"] / v["calls"] for k, v in snap.items()}
+    per_call = {k: v["ms"] / v["calls"] for k, v in snap.items() if "ms" in v}
     sg_ms = time_host(lambda: cases[1][1].align_batch(q4b, r4b))
     sg22_ms = time_host(lambda: cases[2][1].align_batch(q4b, r4b))
     torch.cuda.reset_peak_memory_stats()
@@ -1646,7 +1646,7 @@ def banded_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum,
         for _ in range(3):
             bal.banded_nw_batch(qs, rs)
         snap = stages.snapshot()
-    per_call = {k: v["ms"] / 3 for k, v in snap.items()}
+    per_call = {k: v["ms"] / 3 for k, v in snap.items() if "ms" in v}
     cells = band_cells(batch.qlen, batch.rlen, bw)
     full = int((batch.qlen.astype(np.int64) * batch.rlen).sum())
     log(f"[15 timing] card: {card}")
@@ -1959,7 +1959,7 @@ def long_banded(torch, pt, tk, card, errs) -> dict:
         for _ in range(3):
             al.banded_nw_batch(qs, rs)
         snap = stages.snapshot()
-    per_call = {k: v["ms"] / 3 for k, v in snap.items()}
+    per_call = {k: v["ms"] / 3 for k, v in snap.items() if "ms" in v}
     cells = band_cells(batch.qlen, batch.rlen, bw)
     b = sweep_bound("score", args, kw, cells)
     form = tk.band_plan(128, batch.qp, batch.ridx.shape[1],
@@ -2137,7 +2137,7 @@ def many_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum, card,
         for _ in range(3):
             mx.align_many(mq, mr)
         snap = stages.snapshot()
-    per_call = {k: v["ms"] / 3 for k, v in snap.items()}
+    per_call = {k: v["ms"] / 3 for k, v in snap.items() if "ms" in v}
     b5_ms = time_host(lambda: mx.align_batch(mq, mr), reps=3)
     c27_ms = time_host(lambda: mx.align_many(mq, mr, max_cells=1 << 27),
                        reps=3)
@@ -2463,7 +2463,7 @@ def segment_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
     with stages.measuring():
         al["trace"].align_batch(lq4, lr4)
         snap = stages.snapshot()
-    per_call = {k: v["ms"] for k, v in snap.items()}
+    per_call = {k: v["ms"] for k, v in snap.items() if "ms" in v}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     one_ms = time_cuda(torch, lambda: tk.score_align(*a4, **tkw), reps=1,
@@ -3300,7 +3300,7 @@ def chunked_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
     with stages.measuring():
         al["sw"].align_cigars(mq, mr)
         snap = stages.snapshot()
-    per_call = {k: v["ms"] for k, v in snap.items()}
+    per_call = {k: v["ms"] for k, v in snap.items() if "ms" in v}
     cells = sum(len(q) * len(r) for q, r in zip(mq, mr))
     log(f"[27 timing] card: {card}")
     log(f"[27 timing] trace class on the long mixed batch (128 pairs, "
@@ -3741,10 +3741,9 @@ def short_path(torch, pt, tk, tw, dispatch, stages, rng, blosum, card,
                 call()
             snap = stages.snapshot()
         e2e[name] = ms
+        per_call = {k: v["ms"] / 5 for k, v in snap.items() if "ms" in v}
         log(f"[29 timing] {name} e2e median {ms} ms; stages, ms per call "
-            f"summed over its launches: "
-            f"{json.dumps({k: v['ms'] / 5 for k, v in snap.items()})} "
-            f"[{card}]")
+            f"summed over its launches: {json.dumps(per_call)} [{card}]")
     regs = short_registers(_build.BUILD_LOG, tk.OUTPUTS)
     log(f"[29 timing] registers and spill bytes of the short form (nvcc "
         f"{'ran' if _build.BUILD_LOG else 'cached'}): {regs}")

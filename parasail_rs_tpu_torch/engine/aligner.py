@@ -15,6 +15,7 @@ for long pairs the three-pass windowed pipeline on ``align_many``.
 
 from __future__ import annotations
 
+import functools
 import logging
 from collections import Counter
 
@@ -29,7 +30,7 @@ from ..errors import (
 )
 from ..golden.model import free_flags
 from ..matrices import Matrix
-from ..utils import stages
+from ..utils import profiling, stages
 from ..utils.gcpause import gc_pause
 
 from ..ops.specs import KernelKey
@@ -38,6 +39,20 @@ from .profile import Profile
 from .result import Alignment, PairFields, SSWResult
 
 log = logging.getLogger("parasail_rs_tpu_torch")
+
+
+def _call_region(method):
+    """Open the region ``pt.call.<method>`` around a public call (a
+    ``record_function`` under torch's profiler, an NVTX range on a
+    card)."""
+    name = "pt.call." + method.__name__
+
+    @functools.wraps(method)
+    def call(*args, **kwargs):
+        with profiling.trace_region(name):
+            return method(*args, **kwargs)
+
+    return call
 
 
 def _as_bytes(x) -> bytes:
@@ -295,6 +310,7 @@ class Aligner:
         )
 
     # -- alignment -------------------------------------------------------------
+    @_call_region
     def align(self, query, reference) -> Alignment:
         """Align one pair.  With a profile set, pass ``query=None``."""
         return self.align_batch(
@@ -351,6 +367,7 @@ class Aligner:
     def _run_packed(self, batch, qlens, rlens):
         return self._alignments_from(self._execute(batch), qlens, rlens)
 
+    @_call_region
     def align_batch(self, queries, references) -> list[Alignment]:
         """Batched alignment: one kernel launch covers the whole batch.
 
@@ -366,6 +383,7 @@ class Aligner:
             queries = None
         return self._run_packed(*self._pack(queries, references))
 
+    @_call_region
     def align_many(self, queries, references,
                    max_cells: int | None = None) -> list[Alignment]:
         """Length-binned batched alignment: pairs are grouped by padded
@@ -381,29 +399,32 @@ class Aligner:
         bin at the end, the classes with planes fetch each bin's planes
         as it completes.
         """
-        refs = list(references)
-        if not refs:
-            return []
-        if not self.profile.is_null:
-            queries = None      # parity: the profile takes precedence
-        if queries is None:
-            if self.profile.is_null:
-                raise QueryRequired(
-                    "Query sequence is required for alignment without a "
-                    "profile.")
-            qlens = [self.profile.query_len] * len(refs)
-        else:
-            queries = list(queries)
-            qlens = [len(q) for q in queries]
-        bins = _shape_bins(
-            qlens, [len(r) for r in refs],
-            self.key.outputs in ("trace", "table", "stats_table"), max_cells)
+        with stages.stage("bins"):
+            refs = list(references)
+            if not refs:
+                return []
+            if not self.profile.is_null:
+                queries = None      # parity: the profile takes precedence
+            if queries is None:
+                if self.profile.is_null:
+                    raise QueryRequired(
+                        "Query sequence is required for alignment without a "
+                        "profile.")
+                qlens = [self.profile.query_len] * len(refs)
+            else:
+                queries = list(queries)
+                qlens = [len(q) for q in queries]
+            bins = _shape_bins(
+                qlens, [len(r) for r in refs],
+                self.key.outputs in ("trace", "table", "stats_table"),
+                max_cells)
         pending = []
         for bin_ in bins:
             idx = bin_.indices
-            batch, bql, brl = self._pack(
-                None if queries is None else [queries[i] for i in idx],
-                [refs[i] for i in idx], Qp=bin_.qp, Rp=bin_.rp)
+            with stages.stage("bins"):
+                bqs = None if queries is None else [queries[i] for i in idx]
+                brs = [refs[i] for i in idx]
+            batch, bql, brl = self._pack(bqs, brs, Qp=bin_.qp, Rp=bin_.rp)
             pending.append((idx, bql, brl, dispatch.submit(
                 batch, gap_open=self.gap_open, gap_extend=self.gap_extend,
                 mode=self.key.mode, free=self.key.free,
@@ -413,10 +434,13 @@ class Aligner:
         for idx, bql, brl, res in pending:
             out = (res.fetch()[0] if isinstance(res, dispatch.PendingResult)
                    else res)
-            for i, aln in zip(idx, self._alignments_from(out, bql, brl)):
-                results[i] = aln
+            alns = self._alignments_from(out, bql, brl)
+            with stages.stage("bins"):
+                for i, aln in zip(idx, alns):
+                    results[i] = aln
         return results
 
+    @_call_region
     def cigars(self, alignments, queries, references) -> list[str]:
         """Batched CIGAR extraction over trace results.
 
@@ -436,17 +460,21 @@ class Aligner:
         mode = self.key.mode
         free = self.key.free if mode == "sg" else free_flags(mode)
         qb, _, db, _ = free
-        walked = walker.walk_batch(
-            [a.fields["trace_table"] for a in alignments],
-            queries, references,
-            [a.get_end_query() for a in alignments],
-            [a.get_end_ref() for a in alignments],
-            local=mode == "sw", qb=qb, db=db)
-        if walked is None:
-            return [a.get_cigar(q, r)
-                    for a, q, r in zip(alignments, queries, references)]
-        return [cigar_runs_string(packed) for packed, _bq, _br in walked]
+        with stages.stage("walk.host"):
+            walked = walker.walk_batch(
+                [a.fields["trace_table"] for a in alignments],
+                queries, references,
+                [a.get_end_query() for a in alignments],
+                [a.get_end_ref() for a in alignments],
+                local=mode == "sw", qb=qb, db=db)
+            if walked is not None:
+                return [cigar_runs_string(packed)
+                        for packed, _bq, _br in walked]
+        # the per-pair walks time themselves
+        return [a.get_cigar(q, r)
+                for a, q, r in zip(alignments, queries, references)]
 
+    @_call_region
     def align_cigars(self, queries, references):
         """Batched alignment + CIGAR extraction with the DEVICE walk.
 
@@ -464,11 +492,16 @@ class Aligner:
         length-binned (trace planes are cell-sized); results return in
         input order.
         """
-        refs = [_as_bytes(r) for r in references]
-        if not refs:
-            return [], []
-        queries = (None if not self.profile.is_null
-                   else [_as_bytes(q) for q in queries])
+        with stages.stage("bins"):
+            refs = [_as_bytes(r) for r in references]
+            if not refs:
+                return [], []
+            queries = (None if not self.profile.is_null
+                       else [_as_bytes(q) for q in queries])
+            n = len(refs)
+            qlens_all = ([self.profile.query_len] * n if queries is None
+                         else [len(q) for q in queries])
+            bins = _shape_bins(qlens_all, [len(r) for r in refs], True)
         # result objects are score-class (no trace plane materialises)
         res_key = KernelKey(mode=self.key.mode, free=self.key.free,
                             outputs="score", strategy=self.key.strategy,
@@ -478,20 +511,19 @@ class Aligner:
             key=res_key, matrix=self.matrix, gap_open=self.gap_open,
             gap_extend=self.gap_extend, profile=self.profile,
             bandwidth=None, device=self.device)
-        n = len(refs)
-        qlens_all = ([self.profile.query_len] * n if queries is None
-                     else [len(q) for q in queries])
-        bins = _shape_bins(qlens_all, [len(r) for r in refs], True)
         alns: list = [None] * n
         cigs: list = [None] * n
         for bin_ in bins:
             idx = bin_.indices
-            a, c = self._align_cigars_shape(
-                None if queries is None else [queries[i] for i in idx],
-                [refs[i] for i in idx], res_al, bin_.qp, bin_.rp)
-            for k, i in enumerate(idx):
-                alns[i] = a[k]
-                cigs[i] = c[k]
+            with stages.stage("bins"):
+                bqs = None if queries is None else [queries[i] for i in idx]
+                brs = [refs[i] for i in idx]
+            a, c = self._align_cigars_shape(bqs, brs, res_al, bin_.qp,
+                                            bin_.rp)
+            with stages.stage("bins"):
+                for k, i in enumerate(idx):
+                    alns[i] = a[k]
+                    cigs[i] = c[k]
         return alns, cigs
 
     # pairs per device-walk launch: a bin splits into chunks whose pack,
@@ -574,8 +606,8 @@ class Aligner:
         with stages.stage("walk"):
             ops, bq, br = device_walk(trace, qsym, rsym, eq, er,
                                       self.key.mode, self.key.free)
-            pend = dispatch.PendingResult(
-                {**cols, "beg_query": bq, "beg_ref": br}, ops)
+        pend = dispatch.PendingResult(
+            {**cols, "beg_query": bq, "beg_ref": br}, ops)
         return host, pend
 
     def _device_trace_walk_fetch(self, st):
@@ -597,6 +629,7 @@ class Aligner:
         """
         return self.banded_nw_batch([query], [reference])[0]
 
+    @_call_region
     def banded_nw_batch(self, queries, references) -> list[Alignment]:
         """Batched banded global alignment: one launch of the banded score
         kernel (NW, width 32) over the whole batch."""
@@ -642,6 +675,7 @@ class Aligner:
         sub.route_counter = self.route_counter
         return sub
 
+    @_call_region
     def ssw_batch(self, queries, references,
                   windowed: bool | None = None) -> list[SSWResult]:
         """Batched SSW: one SW trace-kernel launch and one device walk for

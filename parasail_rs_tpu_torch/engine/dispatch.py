@@ -413,10 +413,17 @@ def plan_route(batch: PairBatch, outputs: str, gap_open: int,
     return "torch_plain", "batch on the cpu"
 
 
-def _tally(route: str, reason: str, on_route) -> None:
+def _tally(batch: PairBatch, route: str, reason: str, on_route) -> None:
+    """Record a batch's route, once a batch on every path; count it as a
+    bin, with its real and padded cells, while spans are on."""
     ROUTE_COUNTS[(route, reason)] += 1
     if on_route is not None:
         on_route(route, reason)
+    if stages.enabled:
+        stages.count("bins")
+        stages.count("cells_real", int(np.dot(batch.qlen.astype(np.int64),
+                                              batch.rlen.astype(np.int64))))
+        stages.count("cells_padded", batch.size * batch.qp * batch.rp)
 
 
 def _substitution(batch: PairBatch, outputs: str) -> dict:
@@ -442,12 +449,13 @@ def launch(batch: PairBatch, *, gap_open: int, gap_extend: int, mode: str,
     length: ``score_align`` picks the ring for the score class within its
     reach, else the masked full sweep on the short form or, past 256
     query rows, on the block kernel."""
-    route, reason = plan_route(batch, outputs, gap_open, gap_extend,
-                               one_shot=True, banded=banded)
-    _tally(route, reason, on_route)
-    kw = dict(open_=gap_open, ext=gap_extend, mode=mode, free=free,
-              width=width, outputs=outputs, **_substitution(batch, outputs))
     with stages.stage("dispatch"):
+        route, reason = plan_route(batch, outputs, gap_open, gap_extend,
+                                   one_shot=True, banded=banded)
+        _tally(batch, route, reason, on_route)
+        kw = dict(open_=gap_open, ext=gap_extend, mode=mode, free=free,
+                  width=width, outputs=outputs,
+                  **_substitution(batch, outputs))
         if route in CHUNKED_ROUTES:
             return score_chunked(batch.ridx, batch.qlen_t, batch.rlen_t,
                                  **kw)
@@ -487,38 +495,42 @@ def execute_segments(batch: PairBatch, *, gap_open: int, gap_extend: int,
             "split the batch, or use align_cigars / ssw for the alignment")
     seg = max(1, min(SEGMENT_COLS[outputs], Rp))
     nseg = max(1, -(-Rp // seg))
-    ridx = batch.ridx
-    if nseg * seg != Rp:
-        # padded columns lie beyond every rlen
-        ridx = torch.nn.functional.pad(ridx, (0, nseg * seg - Rp))
-    kw = dict(open_=gap_open, ext=gap_extend, mode=mode, free=free,
-              width=width, outputs=outputs, **_substitution(batch, outputs))
     on_card = batch.device.type == "cuda"
-    plane = np.empty((B, Qp, Rp), np.int8) if trace else None
-    if trace and on_card:
-        main = torch.cuda.current_stream(batch.device)
-        side = torch.cuda.Stream(batch.device)
-        bufs = [torch.empty((B, Qp, seg), dtype=torch.int8,
-                            device=batch.device) for _ in range(min(2, nseg))]
-        pinned = [torch.empty((B, Qp, seg), dtype=torch.int8,
-                              pin_memory=True) for _ in bufs]
-        copied = [None, None]
+    with stages.stage("dispatch"):
+        ridx = batch.ridx
+        if nseg * seg != Rp:
+            # padded columns lie beyond every rlen
+            ridx = torch.nn.functional.pad(ridx, (0, nseg * seg - Rp))
+        kw = dict(open_=gap_open, ext=gap_extend, mode=mode, free=free,
+                  width=width, outputs=outputs,
+                  **_substitution(batch, outputs))
+        plane = np.empty((B, Qp, Rp), np.int8) if trace else None
+        if trace and on_card:
+            main = torch.cuda.current_stream(batch.device)
+            side = torch.cuda.Stream(batch.device)
+            bufs = [torch.empty((B, Qp, seg), dtype=torch.int8,
+                                device=batch.device)
+                    for _ in range(min(2, nseg))]
+            pinned = [torch.empty((B, Qp, seg), dtype=torch.int8,
+                                  pin_memory=True) for _ in bufs]
+            copied = [None, None]
 
     def assemble(si, host, copied=None):
-        with stages.stage("fetch"):
-            if copied is not None:
+        if copied is not None:
+            with stages.stage("fetch.wait"):
                 copied.synchronize()
+        with stages.stage("fetch.copy"):
             lo = si * seg
             hi = min(lo + seg, Rp)
             plane[:, :, lo:hi] = host[:, :, :hi - lo]
 
     state = out = None
     for si in range(nseg):
-        cols = ridx[:, si * seg:(si + 1) * seg]
-        if nseg > 1:
-            cols = cols.contiguous()
         k = si % 2
         with stages.stage("dispatch"):
+            cols = ridx[:, si * seg:(si + 1) * seg]
+            if nseg > 1:
+                cols = cols.contiguous()
             out, state = score_segment(
                 cols, batch.qlen_t, batch.rlen_t, state, col_offset=si * seg,
                 resume=si > 0, trace_out=bufs[k] if trace and on_card
@@ -531,13 +543,14 @@ def execute_segments(batch: PairBatch, *, gap_open: int, gap_extend: int,
             continue
         # buffer k was copied out (segment si - 2) before this launch: the
         # host waited for that copy when it assembled it
-        done = torch.cuda.Event()
-        done.record(main)
-        side.wait_event(done)
-        with torch.cuda.stream(side):
-            pinned[k].copy_(seg_plane, non_blocking=True)
-            copied[k] = torch.cuda.Event()
-            copied[k].record(side)
+        with stages.stage("fetch.start"):
+            done = torch.cuda.Event()
+            done.record(main)
+            side.wait_event(done)
+            with torch.cuda.stream(side):
+                pinned[k].copy_(seg_plane, non_blocking=True)
+                copied[k] = torch.cuda.Event()
+                copied[k].record(side)
         if si >= 1:
             assemble(si - 1, pinned[1 - k].numpy(), copied[1 - k])
     if trace and on_card:
@@ -555,10 +568,13 @@ def _run(batch: PairBatch, *, on_route, banded=False, bandwidth=0,
     :func:`execute_segments`'s dict, in a region named for the profiler
     as the reference names it."""
     with profiling.trace_region(f"pt.execute.{kw['mode']}.{kw['outputs']}"):
-        route, reason = plan_route(batch, kw["outputs"], kw["gap_open"],
-                                   kw["gap_extend"], banded=banded)
-        if route in SEGMENT_ROUTES:
-            _tally(route, reason, on_route)
+        with stages.stage("dispatch"):
+            route, reason = plan_route(batch, kw["outputs"], kw["gap_open"],
+                                       kw["gap_extend"], banded=banded)
+            segments = route in SEGMENT_ROUTES
+            if segments:
+                _tally(batch, route, reason, on_route)
+        if segments:
             return execute_segments(batch, **kw)
         return launch(batch, on_route=on_route, banded=banded,
                       bandwidth=bandwidth, **kw)
@@ -577,42 +593,44 @@ class PendingResult:
 
     def __init__(self, cols: dict[str, torch.Tensor],
                  rows: torch.Tensor | None = None):
-        self.names = sorted(cols)
-        self.L = 0 if rows is None else int(rows.shape[1])
-        parts = [torch.stack([cols[k].to(torch.int32) for k in self.names],
-                             dim=1)] if self.names else []
-        if rows is not None:
-            B, L = rows.shape
-            words = torch.zeros((B, (L + 3) // 4 * 4), dtype=torch.uint8,
-                                device=rows.device)
-            words[:, :L] = rows
-            parts.append(words.view(torch.int32))
-        block = torch.cat(parts, dim=1)
-        self._event = None
-        if block.device.type == "cuda":
-            self._host = torch.empty(block.shape, dtype=torch.int32,
-                                     pin_memory=True)
-            self._host.copy_(block, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record(torch.cuda.current_stream(block.device))
-        else:
-            self._host = block
+        with stages.stage("fetch.start"):
+            self.names = sorted(cols)
+            self.L = 0 if rows is None else int(rows.shape[1])
+            parts = [torch.stack([cols[k].to(torch.int32) for k in self.names],
+                                 dim=1)] if self.names else []
+            if rows is not None:
+                B, L = rows.shape
+                words = torch.zeros((B, (L + 3) // 4 * 4), dtype=torch.uint8,
+                                    device=rows.device)
+                words[:, :L] = rows
+                parts.append(words.view(torch.int32))
+            block = torch.cat(parts, dim=1)
+            self._event = None
+            if block.device.type == "cuda":
+                self._host = torch.empty(block.shape, dtype=torch.int32,
+                                         pin_memory=True)
+                self._host.copy_(block, non_blocking=True)
+                self._event = torch.cuda.Event()
+                self._event.record(torch.cuda.current_stream(block.device))
+            else:
+                self._host = block
 
     def fetch(self) -> tuple[dict[str, np.ndarray], np.ndarray | None]:
         """(host columns by name, host (B, L) uint8 rows or None)."""
         if self._host is None:
             raise RuntimeError("this PendingResult was fetched already")
-        with stages.stage("fetch"):
-            if self._event is not None:
+        if self._event is not None:
+            with stages.stage("fetch.wait"):
                 self._event.synchronize()
+        with stages.stage("fetch.copy"):
             host = self._host.numpy()
-        self._host = None
-        nn = len(self.names)
-        scal = np.ascontiguousarray(host[:, :nn].T)
-        out = {k: (scal[n] != 0 if k in _BOOLS else scal[n])
-               for n, k in enumerate(self.names)}
-        rows = (np.ascontiguousarray(host[:, nn:]).view(np.uint8)[:, :self.L]
-                if self.L else None)
+            self._host = None
+            nn = len(self.names)
+            scal = np.ascontiguousarray(host[:, :nn].T)
+            out = {k: (scal[n] != 0 if k in _BOOLS else scal[n])
+                   for n, k in enumerate(self.names)}
+            rows = (np.ascontiguousarray(host[:, nn:]).view(np.uint8)
+                    [:, :self.L] if self.L else None)
         return out, rows
 
 
@@ -655,7 +673,7 @@ def execute(batch: PairBatch, *, gap_open: int, gap_extend: int, mode: str,
                banded=banded, bandwidth=bandwidth)
     planes = {k: res.pop(k) for k in [k for k in res if _is_plane(k)]}
     out, _ = PendingResult(res).fetch()
-    with stages.stage("fetch"):
+    with stages.stage("fetch.copy"):
         # one device-side transpose to batch-major and one copy each (the
         # segment route's trace plane is on the host already)
         out.update((k, v if isinstance(v, np.ndarray)

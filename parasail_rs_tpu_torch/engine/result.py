@@ -32,6 +32,7 @@ from ..errors import (
     NoTrace,
 )
 from ..golden.model import aligned_strings, walk_trace
+from ..utils import stages
 
 
 class Table:
@@ -310,20 +311,22 @@ class Alignment:
         from ..golden.model import Walk, free_flags
         from ..native import walker
 
-        free = self.free if self.mode != "sw" else free_flags("sw")
-        qb, _, db, _ = free
-        res = walker.walk_one(
-            self.fields["trace_table"], query, reference,
-            self.get_end_query(), self.get_end_ref(),
-            local=self.mode == "sw", qb=qb, db=db,
-        )
-        if res is not None:
-            ops, bq, br = res
-            return Walk(ops=ops, beg_query=bq, beg_ref=br)
-        return walk_trace(
-            self.fields["trace_table"], query, reference,
-            self.get_end_query(), self.get_end_ref(), self.mode, self.free,
-        )
+        with stages.stage("walk.host"):
+            free = self.free if self.mode != "sw" else free_flags("sw")
+            qb, _, db, _ = free
+            res = walker.walk_one(
+                self.fields["trace_table"], query, reference,
+                self.get_end_query(), self.get_end_ref(),
+                local=self.mode == "sw", qb=qb, db=db,
+            )
+            if res is not None:
+                ops, bq, br = res
+                return Walk(ops=ops, beg_query=bq, beg_ref=br)
+            return walk_trace(
+                self.fields["trace_table"], query, reference,
+                self.get_end_query(), self.get_end_ref(), self.mode,
+                self.free,
+            )
 
     def get_cigar(self, query: bytes, reference: bytes) -> str:
         """Decoded CIGAR string (reference: src/alignment/mod.rs:390-419)."""

@@ -128,6 +128,7 @@ from ..constants import (
     WIDTH_MAX,
     WIDTH_MIN,
 )
+from ..utils import stages
 
 from .wavefront import (PLANES, STATS_CLASSES, STATS_KEYS, empty_side,
                         flag_outputs, wavefront_align)
@@ -145,7 +146,9 @@ BIG = 2 ** 30
 # ran it ("short": csrc/scan_short_banded.cu, "block":
 # csrc/scan_chunked_banded.cu); and of the short form (csrc/scan_short.cu),
 # every unbanded class, by class.  Only score_align's CUDA branch adds to
-# them; set them to 0 to count one phase of work.
+# them; set them to 0 to count one phase of work.  Every launch these
+# tallies count also counts as ``launches`` in utils.stages while its
+# spans are on.
 BANDED_WARP_LAUNCHES = 0
 BANDED_CLASS_LAUNCHES = dict.fromkeys(OUTPUTS, 0)
 BANDED_FORM_LAUNCHES = {"short": 0, "block": 0}
@@ -294,6 +297,7 @@ def score_align(ridx, qlen, rlen, *, open_, ext, mode, free, width="32",
     if banded:
         BANDED_CLASS_LAUNCHES[outputs] += 1
         BANDED_FORM_LAUNCHES["short" if short else "block"] += 1
+        stages.count("launches")
     return res
 
 
@@ -322,6 +326,7 @@ def _band_ring(ridx, qlen, rlen, dims, form, *, open_, ext, mode, free,
         raise RuntimeError(f"banded warp form {tuple(form)} launch failed: "
                            f"CUDA error {rc}")
     BANDED_WARP_LAUNCHES += 1
+    stages.count("launches")
     return _kernel_scalars(out, width)
 
 
@@ -409,6 +414,7 @@ def _short_launch(ridx, qlen, rlen, dims, *, open_, ext, mode, free, width,
                            f"failed: CUDA error {rc}")
     if bandwidth is None:
         SHORT_LAUNCHES[outputs] += 1
+        stages.count("launches")
     res = _kernel_scalars(out, width)
     if plane is not None:
         res["trace_table"] = plane
@@ -692,6 +698,7 @@ def score_segment(ridx_seg, qlen, rlen, state=None, *, open_, ext, mode,
         mode=mode, free=free, width=width, outputs=outputs, table=table,
         qidx=qidx, profile=profile)
     SEGMENT_LAUNCHES += 1
+    stages.count("launches")
     if plane is not None:
         res["trace_table_seg"] = plane
     return res, state
@@ -1039,6 +1046,7 @@ def score_rowseg(ridx_seg, qlen, rlen, state, down, *, open_, ext, mode,
         raise RuntimeError(
             f"scan_rowseg ({outputs}) kernel launch failed: CUDA error {rc}")
     ROWSEG_LAUNCHES += 1
+    stages.count("launches")
     return _kernel_scalars(out, width), new, new_down, tile
 
 
@@ -1143,6 +1151,7 @@ def _chunked_launch(ridx, qlen, rlen, dims, *, open_, ext, mode, free,
                                planes=(tab, rows, cols), tail=(), **kw)
     if bandwidth is None:
         CHUNKED_LAUNCHES += 1
+        stages.count("launches")
     if plane is not None:
         res["trace_table"] = plane
     for k, name in enumerate(PLANES[:nplanes]):

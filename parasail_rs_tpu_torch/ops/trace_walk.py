@@ -44,6 +44,7 @@ from ..constants import (
     TRACE_H_BITS,
     TRACE_INS,
 )
+from ..utils import stages
 
 # step opcodes emitted by the device walk (backward order)
 OP_NONE, OP_EQ, OP_X, OP_I, OP_D = 0, 1, 2, 3, 4
@@ -53,7 +54,8 @@ _OP_TO_CIGAR = np.array([0, 7, 8, 1, 2], dtype=np.uint32)
 _ST_H, _ST_E, _ST_F, _ST_DONE = 0, 1, 2, 3
 
 # Launches of the CUDA walk in this process.  Only device_walk's CUDA
-# branch adds to it; set it to 0 to count one phase of work.
+# branch adds to it; set it to 0 to count one phase of work.  Each also
+# counts as ``launches`` in utils.stages while its spans are on.
 LAUNCHES = 0
 
 
@@ -135,6 +137,7 @@ def device_walk(trace, qsym, rsym, end_q, end_r, mode: str,
     if rc != 0:
         raise RuntimeError(f"trace_walk kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
+    stages.count("launches")
     return ops, beg[0], beg[1]
 
 

@@ -2,7 +2,10 @@
 
 :mod:`~parasail_rs_tpu_torch.engine.dispatch` names every batch it runs
 (``pt.execute.<mode>.<outputs>``), so the card's kernels show up under
-that name in a captured trace and, on a card, in Nsight Systems.
+that name in a captured trace and, on a card, in Nsight Systems; each
+public ``Aligner`` call opens ``pt.call.<method>``, and while
+:mod:`~parasail_rs_tpu_torch.utils.stages` is on each host stage opens
+``stage.<name>`` through :class:`trace_region` as well.
 
 Usage:
     with profiling.trace_region("align_batch"):
@@ -23,10 +26,16 @@ import os
 import torch
 
 
+# whether trace regions push NVTX ranges: CUDA's availability, read once,
+# on the first region (not at import, so that a forked child reads it
+# for itself)
+_NVTX: bool | None = None
+
+
 class trace_region:
     """A named region: a ``record_function`` while torch's profiler
     records, and an NVTX range where CUDA is available.  With no capture
-    active and no card it costs one flag test and one device query."""
+    active and no card it costs two flag tests."""
 
     __slots__ = ("name", "_nvtx", "_record")
 
@@ -34,7 +43,10 @@ class trace_region:
         self.name = name
 
     def __enter__(self):
-        self._nvtx = torch.cuda.is_available()
+        global _NVTX
+        if _NVTX is None:
+            _NVTX = torch.cuda.is_available()
+        self._nvtx = _NVTX
         if self._nvtx:
             torch.cuda.nvtx.range_push(self.name)
         self._record = None

@@ -88,7 +88,7 @@ def test_port_runs_without_jax_or_triton():
 PORT = os.path.join(ROOT, "parasail_rs_tpu_torch")
 
 # every module the port copied from the reference, verbatim apart from its
-# import lines (and, in the two native loaders, where the build is cached)
+# import lines and the definitions it owns (OWN)
 COPIED = ["constants.py", "errors.py",
           *(f"matrices/{m}.py" for m in ("__init__", "data", "matrix",
                                          "ncbi")),
@@ -105,6 +105,15 @@ COPIED = ["constants.py", "errors.py",
 # and starts over after a fork (``_reset_after_fork`` and its registration)
 NATIVE_OWN = ("_lib_dir", "_load", "_reset_after_fork")
 
+# the definitions the port owns in a copied module, by module: in the
+# native loaders NATIVE_OWN; in the stage clocks the spans on the trace and
+# the counters (and the module's docstring, "__doc__"); in the results the
+# host walk's span
+OWN = {"native/packer.py": NATIVE_OWN, "native/walker.py": NATIVE_OWN,
+       "utils/stages.py": ("__doc__", "count", "snapshot", "_Off", "_OFF",
+                           "_Span", "stage"),
+       "engine/result.py": ("_walk",)}
+
 
 def _is_native_loader(path: str) -> bool:
     return (os.path.basename(os.path.dirname(path)) == "native"
@@ -116,9 +125,20 @@ def _is_fork_hook(node) -> bool:
             and ast.unparse(node.value).startswith("os.register_at_fork("))
 
 
-def _without_imports(path: str) -> list[str]:
+def _own_name(node) -> str | None:
+    """The name a definition or a module-level assignment binds."""
+    if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+        return node.name
+    if isinstance(node, ast.Assign) and len(node.targets) == 1 and \
+            isinstance(node.targets[0], ast.Name):
+        return node.targets[0].id
+    return None
+
+
+def _without_imports(path: str, own=()) -> list[str]:
     """Source lines of a module with every import statement set aside,
-    and, in the native loaders, the definitions of :data:`NATIVE_OWN`."""
+    and the definitions named in ``own`` (``"__doc__"``: the module's
+    docstring)."""
     with open(path) as f:
         src = f.read()
     tree = ast.parse(src)
@@ -126,16 +146,19 @@ def _without_imports(path: str) -> list[str]:
     drop = set()
     for node in ast.walk(tree):
         if isinstance(node, (ast.Import, ast.ImportFrom)) or (
-                native and isinstance(node, ast.FunctionDef)
-                and node.name in NATIVE_OWN):
-            drop.update(range(node.lineno, node.end_lineno + 1))
+                _own_name(node) in own):
+            first = min([node.lineno] + [d.lineno for d in getattr(
+                node, "decorator_list", [])])
+            drop.update(range(first, node.end_lineno + 1))
+    if "__doc__" in own and ast.get_docstring(tree) is not None:
+        drop.update(range(tree.body[0].lineno, tree.body[0].end_lineno + 1))
     if native:
         for node in tree.body:
             if _is_fork_hook(node):
                 drop.update(range(node.lineno, node.end_lineno + 1))
     lines = [ln for n, ln in enumerate(src.splitlines(), 1) if n not in drop]
     # blank lines around a dropped definition are not a difference
-    return [ln for ln in lines if ln.strip()] if native else lines
+    return [ln for ln in lines if ln.strip()] if own else lines
 
 
 def _load_declarations(path: str) -> list[str]:
@@ -151,8 +174,9 @@ def _load_declarations(path: str) -> list[str]:
 
 @pytest.mark.parametrize("rel", COPIED)
 def test_copied_module_matches_original(rel):
-    got = _without_imports(os.path.join(PORT, rel))
-    want = _without_imports(os.path.join(ROOT, "parasail_rs_tpu", rel))
+    own = OWN.get(rel, ())
+    got = _without_imports(os.path.join(PORT, rel), own)
+    want = _without_imports(os.path.join(ROOT, "parasail_rs_tpu", rel), own)
     assert got == want
     if _is_native_loader(os.path.join(PORT, rel)):
         # the loaders differ in how _load locks, not in what it declares

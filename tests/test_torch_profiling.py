@@ -35,6 +35,8 @@ def _no_nvtx(monkeypatch):
     """A torch without CUDA whose NVTX calls fail the test."""
     calls = []
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    # regions read CUDA's availability once, on the first region after this
+    monkeypatch.setattr(profiling, "_NVTX", None)
     monkeypatch.setattr(torch.cuda.nvtx, "range_push", calls.append)
     monkeypatch.setattr(torch.cuda.nvtx, "range_pop",
                         lambda: calls.append("pop"))
