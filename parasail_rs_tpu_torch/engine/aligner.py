@@ -489,8 +489,10 @@ class Aligner:
         objects (``is_trace()`` is False) and the CIGAR string per pair,
         identical to ``cigars()`` on a trace-enabled aligner.  With a
         profile set, ``queries`` is ignored.  Mixed-length inputs are
-        length-binned (trace planes are cell-sized); results return in
-        input order.
+        length-binned (trace planes are cell-sized): on a card a launch
+        holds up to a quarter of its memory of plane, a byte a cell
+        (:func:`_plane_cells`), on the CPU and at width 64 the
+        reference's 2^28 cells; results return in input order.
         """
         with stages.stage("bins"):
             refs = [_as_bytes(r) for r in references]
@@ -501,7 +503,8 @@ class Aligner:
             n = len(refs)
             qlens_all = ([self.profile.query_len] * n if queries is None
                          else [len(q) for q in queries])
-            bins = _shape_bins(qlens_all, [len(r) for r in refs], True)
+            bins = _shape_bins(qlens_all, [len(r) for r in refs], True,
+                               plane_on=self._plane_home())
         # result objects are score-class (no trace plane materialises)
         res_key = KernelKey(mode=self.key.mode, free=self.key.free,
                             outputs="score", strategy=self.key.strategy,
@@ -525,6 +528,12 @@ class Aligner:
                     alns[i] = a[k]
                     cigs[i] = c[k]
         return alns, cigs
+
+    def _plane_home(self):
+        """The device a trace plane stays on through the device walk: this
+        aligner's, but None at width "64", whose exact host merge
+        (:func:`dispatch.width64_risk`) brings the plane to the host."""
+        return None if self.key.width == "64" else self.device
 
     # pairs per device-walk launch: a bin splits into chunks whose pack,
     # kernels and copy are all enqueued before the first fetch blocks, so
@@ -687,8 +696,11 @@ class Aligner:
         reports ``score1 = 255``; 1 and 2 cap at 65535.  ``windowed``
         selects the three-pass long-pair pipeline (:meth:`_ssw_windowed`);
         None turns it on, as the reference does, when 128-rounded pairs
-        times the padded lengths exceed 4 << 30 cells.  Its CIGARs may
-        differ from the one-pass walk's in tie-broken op order only.
+        times the padded lengths exceed 4 << 30 cells; its windows' trace
+        bins hold, as ``align_cigars``' do, up to a quarter of a card's
+        memory a launch (the reference's 2^28 cells on the CPU).  Its
+        CIGARs may differ from the one-pass walk's in tie-broken op order
+        only.
         """
         from ..utils.shapes import length_bucket
 
@@ -760,7 +772,7 @@ class Aligner:
             rw = [refs[k][brs[k]:ers[k] + 1] for k in live]
             nwal = self._sub("trace", "nw", False)
             bins = _shape_bins([len(q) for q in qw], [len(r) for r in rw],
-                               True)
+                               True, plane_on=nwal._plane_home())
             states = []
             for bin_ in bins:
                 idx = bin_.indices
@@ -778,15 +790,36 @@ class Aligner:
             read_end1=eqs[k], _cigar=cigars[k]) for k in range(n)]
 
 
-def _shape_bins(qlens, rlens, cell_sized: bool, max_cells=None):
+def _plane_cells(device) -> int:
+    """The cell cap of a launch whose trace plane, a byte a cell, stays
+    on ``device``: a quarter of a CUDA device's total memory (a property
+    of the device, so every call plans alike; the rest holds the walk's
+    opcode rows, the allocator's slack and the caller's tensors), never
+    below the reference's 2^28; the reference's 2^28 on the CPU, whose
+    plane is host memory, and where ``device`` is None (the plane
+    crosses to the host).  The reference's cap was chosen for a TPU
+    v5e's 16 GB: on an 80 GB card it held one 10 kbp pair a launch."""
+    if device is None or device.type != "cuda":
+        return 1 << 28
+    return max(1 << 28,
+               torch.cuda.get_device_properties(device).total_memory // 4)
+
+
+def _shape_bins(qlens, rlens, cell_sized: bool, max_cells=None, *,
+                plane_on=None):
     """The reference's length bins (``parasail_rs_tpu.batch``): for the
     classes with cell-sized planes (trace, table), at most 2^28 cells a
     launch in 16 launches; for the rest 2^33 cells in groups of 128
-    pairs, in 8 launches.  ``max_cells`` overrides the cell cap."""
+    pairs, in 8 launches.  ``plane_on`` is the device a cell-sized trace
+    plane stays on, its walk running there and fetching only opcodes
+    (``align_cigars``, ``ssw_batch``); its cap is then
+    :func:`_plane_cells`' (a quarter of a card's memory).  None, the
+    default, is a plane that crosses to the host, under the reference's
+    cap.  ``max_cells`` overrides the cell cap."""
     from ..batch import merge_bins, plan_bins
 
     if max_cells is None:
-        max_cells = (1 << 28) if cell_sized else (1 << 33)
+        max_cells = _plane_cells(plane_on) if cell_sized else (1 << 33)
     return merge_bins(
         plan_bins(qlens, rlens, max_cells=max_cells,
                   lane_quantum=1 if cell_sized else 128),
