@@ -1,13 +1,14 @@
 """The control of a cell's check, on the card at the cell's own size.
 
     python3 benchmark/control.py --workload <cell> --seeds 1 2 3 \
-        [--seconds 3]
+        [--seconds 3] [--control saturate8|gap]
 
 For each seed: a short window of the program at the cell's load, then
-the sample a run compares, answered by the plain reference computed in
-8-bit saturating arithmetic instead of by the program.  Prints one line
-a seed with the numbers compared; each has to exceed its limit somewhere
-for the check to be a check.
+the sample a run compares, answered by the control instead of by the
+program: the plain reference computed in 8-bit saturating arithmetic
+(``saturate8``, the default), or with ``gap_open - gap_extend`` as the
+open (``gap``).  Prints one line a seed with the numbers compared; each
+has to exceed its limit somewhere for the check to be a check.
 """
 
 from __future__ import annotations
@@ -28,12 +29,14 @@ def main() -> int:
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
     ap.add_argument("--seconds", type=float, default=3.0)
+    ap.add_argument("--control", choices=harness.CONTROLS,
+                    default="saturate8")
     args = ap.parse_args()
     for seed in args.seeds:
         r = harness.run(args.workload, seed, args.seconds, False,
-                        device="cuda", control=True)
+                        device="cuda", control=args.control)
         print(json.dumps({"workload": args.workload, "seed": seed,
-                          "control": True, "correct": r["correct"],
+                          "control": args.control, "correct": r["correct"],
                           "compared": r["compared"],
                           "checks": {k: v["value"]
                                      for k, v in r["checks"].items()}}),

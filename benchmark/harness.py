@@ -13,6 +13,9 @@ planted homologs of its query, and its longest pair); once the window
 has closed, the memory peak read and the system freed, a sample of them
 drawn from the seed, the longest kept pair in it, is held to the plain
 reference (``reference/sweep.py``), computed on the same device.
+
+A control (``CONTROLS``) puts the reference, broken one way, in the
+program's place for what is compared; the check has to fail it.
 """
 
 from __future__ import annotations
@@ -38,6 +41,12 @@ LIMITS = {"failed_alignments": 0, "score_mismatch": 0, "end_mismatch": 0,
           "cigar_mismatch": 0}
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "parasail_rs_tpu")
+
+# the controls: ``saturate8`` computes in saturating 8-bit arithmetic
+# (it differs only past +-127); ``gap`` takes ``gap_open - gap_extend``
+# as the open, the sources' ``o`` undoing the configuration's stated
+# ``gap_mapping`` (it differs wherever an optimal alignment holds a gap)
+CONTROLS = ("saturate8", "gap")
 
 
 @dataclass
@@ -195,6 +204,27 @@ def power_limit() -> str | None:
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() else None
 
 
+def control_name(control) -> str | None:
+    """The control a run's ``control`` argument names: False for none,
+    True for ``saturate8``."""
+    if control is False or control is None:
+        return None
+    name = "saturate8" if control is True else control
+    if name not in CONTROLS:
+        raise ValueError(f"control {control!r}: one of {CONTROLS}")
+    return name
+
+
+def control_answers(name: str, pairs, scoring: dict, cigar: bool, device):
+    from .reference import sweep
+
+    if name == "gap":
+        scoring = dict(scoring,
+                       gap_open=scoring["gap_open"] - scoring["gap_extend"])
+    return sweep.align(pairs, scoring, cigar=cigar, device=device,
+                       saturate8=name == "saturate8")
+
+
 def synchronize(device):
     import torch
 
@@ -204,18 +234,19 @@ def synchronize(device):
 
 def run(workload: str, seed: int, seconds: float, trace: bool,
         device: str = "cuda", overrides: dict | None = None,
-        control: bool = False, log=sys.stderr) -> dict:
+        control: bool | str = False, log=sys.stderr) -> dict:
     """One run; returns the result line as a dict (``checks`` last).
 
     ``overrides`` merge into the configuration (``"config"``) and the
-    mix (``"traffic"``): the CPU tests' small sizes.  ``control`` puts
-    the reference in 8-bit saturating arithmetic in the program's place
-    for what is compared."""
+    mix (``"traffic"``): the CPU tests' small sizes.  ``control`` (a
+    name of ``CONTROLS``, True for ``saturate8``) puts that control in
+    the program's place for what is compared."""
     from . import roofline
     from .reference import sweep
     from .tracing import Tracer
 
     t_start = process_start()
+    control = control_name(control)
     seed = int(seed) % (1 << 64)
     bench, _, config, mix = cell_spec(workload)
     overrides = overrides or {}
@@ -243,7 +274,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     reading = Reading()
     keep_rng = np.random.default_rng([seed, 31])
     k_rand = int(mix["keep_random"])
-    mode = config["scoring"]["mode"]
+    scoring = config["scoring"]
     kept: list[Kept] = []
     failed = attempted = 0
     tracer = Tracer(trace)
@@ -269,9 +300,9 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
             reading.latencies_s.append(b - a)
             if result is not None:
                 with tracer.region("bench.keep"):
-                    reading.cells += req.cells()
+                    reading.cells += roofline.cells(req, scoring)
                     reading.alignments += req.n
-                    ops, nbytes = roofline.count(req, mode, entry.CIGAR)
+                    ops, nbytes = roofline.count(req, scoring, entry.CIGAR)
                     reading.least_s += roofline.least_seconds(ops, nbytes)
                     pos = keep_positions(keep_rng, req, k_rand)
                     planted = set(req.planted.tolist())
@@ -302,12 +333,10 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     t_check = time.time()
     checked = sample(np.random.default_rng([seed, 41]), kept, mix["sample"])
     pairs = [(k.query, k.ref) for k in checked]
-    want = sweep.align(pairs, config["scoring"], cigar=entry.CIGAR,
-                       device=device)
+    want = sweep.align(pairs, scoring, cigar=entry.CIGAR, device=device)
     got = [k.answer for k in checked]
     if control:
-        got = sweep.align(pairs, config["scoring"], cigar=entry.CIGAR,
-                          device=device, saturate8=True)
+        got = control_answers(control, pairs, scoring, entry.CIGAR, device)
     print(f"window: {reading.calls} calls, {reading.alignments} alignments "
           f"in {reading.window_s:.3f} s; check: {len(checked)} answers in "
           f"{time.time() - t_check:.3f} s", file=log)

@@ -1,22 +1,24 @@
 """The check that decides ``correct``: every cell passes at a small size
-on the CPU's plain versions, and fails with its control (the reference
-in 8-bit saturating arithmetic in the program's place) and with each
-fault a cell can have planted under the timed path.  Not applicable to
-these cells: a step that returns its state unchanged (no call carries
-state) and the exchange between chips (one chip)."""
+on the CPU's plain versions, and fails with its controls (the reference
+in 8-bit saturating arithmetic, or with the sources' gap open, in the
+program's place) and with each fault a cell can have planted under the
+timed path.  Not applicable to these cells: a step that returns its
+state unchanged (no call carries state) and the exchange between chips
+(one chip).  Semantics no cell states yet (semi-global free ends, a
+band) run through the same check by overrides."""
 
 from __future__ import annotations
 
 import numpy as np
 import pytest
 
-from benchmark import harness
+from benchmark import harness, roofline
 
-from .conftest import SMALL
+from .conftest import CONTROL, SMALL
 
 CELLS = list(SMALL)
 CIGAR_CELLS = ["wfa.10k_e5.cigar", "swissprot.hits.cigar",
-               "wfa.1k_e5.single"]
+               "wfa.1k_e5.single", "wfa.100_e5.cigar"]
 SEED = 2**31 + 11
 
 
@@ -35,11 +37,26 @@ def test_sound_run_is_correct(cell):
         harness.cell_spec(cell)[0], cell, False)}
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", [c for c in CELLS
+                                  if CONTROL[c] == "saturate8"])
 def test_control_is_not_correct(cell):
     r = _run(cell, control=True)
     assert not r["correct"]
     assert r["checks"]["score_mismatch"]["value"] > 0
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_gap_control_is_not_correct(cell):
+    # a window of one call, the fewest answers a loaded CPU leaves
+    r = harness.run(cell, SEED, 0, False, device="cpu",
+                    overrides=SMALL[cell], control="gap")
+    assert not r["correct"]
+    assert r["checks"]["score_mismatch"]["value"] > 0
+
+
+def test_an_unknown_control_is_refused():
+    with pytest.raises(ValueError):
+        _run("wfa.100_e5.cigar", control="int4")
 
 
 def _patch_outputs(monkeypatch, alter):
@@ -66,7 +83,8 @@ def test_answer_altered_where_produced(cell, monkeypatch):
 
 
 @pytest.mark.parametrize("cell", ["swissprot.search", "wfa.10k_e5.cigar",
-                                  "swissprot.hits.cigar"])
+                                  "swissprot.hits.cigar",
+                                  "wfa.100_e5.cigar"])
 def test_half_of_the_batch_left_out(cell, monkeypatch):
     def alter(out, n):
         for k in ("score", "end_query", "end_ref"):
@@ -133,5 +151,62 @@ def test_on_the_card_small(cell, cuda_device):
     t = _run(cell, device=cuda_device, trace=True)
     assert t["correct"] and t["device"]["busy_s"] > 0
     assert "breakdown" in t
-    c = _run(cell, device=cuda_device, control=True)
+    c = _run(cell, device=cuda_device, control=CONTROL[cell])
     assert not c["correct"]
+
+
+# -- semantics no cell states yet, through the whole run ---------------------
+
+
+@pytest.mark.parametrize("free", [[], ["db", "de"], ["qb", "qe"]],
+                         ids=["sg", "sg_dx", "sg_qx"])
+def test_semi_global_runs_through_the_harness(free):
+    # a match reward: under WFA's match 0 plain sg's best is an empty
+    # alignment, which no gap moves
+    over = harness.merged(SMALL["wfa.10k_e5.cigar"], {
+        "config": {"scoring": {"mode": "sg", "free": free, "matrix": {
+            "alphabet": "ACGT", "match": 2, "mismatch": -4}}}})
+    r = harness.run("wfa.10k_e5.cigar", SEED, 0.3, False, device="cpu",
+                    overrides=over)
+    assert r["correct"], r["checks"]
+    assert r["compared"] > 0 and "cigar_mismatch" in r["checks"]
+    c = harness.run("wfa.10k_e5.cigar", SEED, 0.3, False, device="cpu",
+                    overrides=over, control="gap")
+    assert not c["correct"] and c["checks"]["score_mismatch"]["value"] > 0
+
+
+def _in_band_brute_force(req, bw):
+    n = 0
+    for q, r in map(req.pair, range(req.n)):
+        i, j = np.indices((len(q), len(r)))
+        n += int((np.abs(i - j) <= bw).sum())
+    return n
+
+
+@pytest.mark.parametrize("bw", [8, 64])
+def test_banded_entry_runs_through_the_harness(bw, monkeypatch):
+    seen = []
+
+    class Spy(harness.Reading):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            seen.append(self)
+
+    monkeypatch.setattr(harness, "Reading", Spy)
+    over = harness.merged(SMALL["wfa.10k_e5.score"], {
+        "config": {"scoring": {"bandwidth": bw}},
+        "traffic": {"entry": "banded_nw_batch"}})
+    r = harness.run("wfa.10k_e5.score", SEED, 0.3, False, device="cpu",
+                    overrides=over)
+    assert r["correct"], r["checks"]
+    (reading,) = seen
+    _, _, config, mix = harness.cell_spec("wfa.10k_e5.score")
+    config = harness.merged(config, over.get("config"))
+    mix = harness.merged(mix, over["traffic"])
+    traffic = harness.load_module("traffic", mix["generator"]).make(
+        config, mix, SEED)
+    reqs = [traffic.request(c) for c in range(reading.calls)]
+    assert reading.cells == sum(_in_band_brute_force(q, bw) for q in reqs)
+    assert reading.cells < sum(q.cells() for q in reqs)
+    assert reading.cells == sum(roofline.cells(q, config["scoring"])
+                                for q in reqs)

@@ -97,12 +97,12 @@ def test_kind_of():
 def test_roofline_counts():
     search = Request(refs=[b"A" * 10, b"A" * 30], rlens=np.array([10, 30]),
                      qlens=100, query=b"A" * 100)
-    ops, nbytes = roofline.count(search, "sw", False)
+    ops, nbytes = roofline.count(search, {"mode": "sw"}, False)
     assert ops == 6 * 100 * 40
     assert nbytes == 40 + 100 + 12 * 2
     pairs = Request(refs=[b"A" * 10, b"A" * 30], rlens=np.array([10, 30]),
                     qlens=np.array([20, 5]), queries=[b"A" * 20, b"A" * 5])
-    ops, nbytes = roofline.count(pairs, "nw", True)
+    ops, nbytes = roofline.count(pairs, {"mode": "nw"}, True)
     steps = 20 + 30
     assert ops == 5 * (200 + 150) + steps
     assert nbytes == 40 + 25 + 24 + steps

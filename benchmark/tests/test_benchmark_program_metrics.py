@@ -17,14 +17,12 @@ from .conftest import SMALL
 
 SEED = 2**31 + 11
 CELL = "wfa.10k_e5.score"
-# the new cell at a size the CPU's plain versions hold in seconds; on the
-# card at 1,100 bp, so that its bins take the segment route as at 10 kbp
-SMALL_SCORE = {"traffic": {"length": 600, "pool": 8, "per_call": 4,
-                           "sample": {"size": 4}}}
+# the score cell on the card at 1,100 bp, so that its bins take the
+# segment route as at 10 kbp
 CARD_SCORE = {"traffic": {"length": 1100, "pool": 8, "per_call": 4,
                           "sample": {"size": 4}}}
 BATCH_CELLS = ["swissprot.search", "wfa.10k_e5.cigar",
-               "swissprot.hits.cigar", CELL]
+               "swissprot.hits.cigar", CELL, "wfa.100_e5.cigar"]
 PROGRAM_METRICS = ["host.bins_us_per_pair", "bins.real_cell_share",
                    "dispatch.launches_per_call", "host.fetch_us_per_pair"]
 
@@ -33,13 +31,9 @@ def _reader(name):
     return harness.load_module("metrics", name)
 
 
-def _overrides(cell):
-    return SMALL_SCORE if cell == CELL else SMALL[cell]
-
-
 def _run(cell, device="cpu", trace=False, overrides=None, **kw):
     return harness.run(cell, SEED, 0.3, trace, device=device,
-                       overrides=overrides or _overrides(cell), **kw)
+                       overrides=overrides or SMALL[cell], **kw)
 
 
 # -- the readers -----------------------------------------------------------
@@ -101,7 +95,7 @@ def test_new_metrics_are_listed_where_their_stages_open():
     for name in ("gcups", "kernels_roofline", "device.idle_share"):
         m = next(m for m in bench["end_to_end"] + bench["per_layer"]
                  if m["name"] == name)
-        assert m["workloads"][-1] == CELL
+        assert m["workloads"] == BATCH_CELLS
 
 
 # -- the score-only cell on the CPU ------------------------------------------
