@@ -1,39 +1,33 @@
-"""Shared pieces of the benchmark's tests: small sizes of every cell for
-the CPU, and the card fixture of the ``cuda`` tests."""
+"""Shared pieces of the benchmark's tests: every cell's small size and
+control, read from ``small/<cell>.json``, and the card fixture of the
+``cuda`` tests.
+
+A small file holds the overrides merged into the cell's configuration
+(``"config"``) and mix (``"traffic"``) so that the CPU's plain versions
+run the cell in seconds, and the control its check is shown to fail
+(``"control"``: ``saturate8`` where scores still pass 8 bits at that
+size, ``gap`` where they cannot; the gap control fails at every length).
+A cell added to ``BENCHMARK.json`` brings its small file, and every
+parametrised test of the cells takes it up from there.
+"""
 
 from __future__ import annotations
 
+import os
+
 import pytest
 
-# every cell at a size the CPU's plain versions hold in seconds; but for
-# the 100 bp cell, scores still past 8 bits so that the 8-bit control
-# fails (the gap control fails at every length)
-SMALL = {
-    "swissprot.search": {
-        "config": {"database": {"entries": 400},
-                   "queries": {"lengths": [144, 375, 567]},
-                   "homologs": {"share": 0.1},
-                   "sequences": {"length": {"mean": 40}}},
-        "traffic": {"refs_per_call": 32, "sample": {"size": 24}}},
-    "wfa.10k_e5.cigar": {
-        "traffic": {"length": 600, "pool": 8, "per_call": 4,
-                    "sample": {"size": 4}}},
-    "swissprot.hits.cigar": {
-        "config": {"sequences": {"length": {"mean": 60}}},
-        "traffic": {"pool": 64, "per_call": 16, "sample": {"size": 16}}},
-    "wfa.1k_e5.single": {
-        "traffic": {"length": 600, "pool": 8, "sample": {"size": 4}}},
-    "wfa.10k_e5.score": {
-        "traffic": {"length": 600, "pool": 8, "per_call": 4,
-                    "sample": {"size": 4}}},
-    "wfa.100_e5.cigar": {
-        "traffic": {"pool": 64, "per_call": 16, "sample": {"size": 16}}},
-}
+from benchmark import harness
 
-# the control each cell's check is shown to fail: the 8-bit reference
-# where scores pass 8 bits, the gap control where they cannot
-CONTROL = {cell: "saturate8" for cell in SMALL}
-CONTROL["wfa.100_e5.cigar"] = "gap"
+SMALL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "small")
+BENCH = harness.load_json(harness.ROOT, "BENCHMARK.json")
+CELLS = [w["name"] for w in BENCH["workloads"]]
+_FILES = {c: harness.load_json(SMALL_DIR, c + ".json") for c in CELLS
+          if os.path.exists(os.path.join(SMALL_DIR, c + ".json"))}
+SMALL = {c: {k: f[k] for k in ("config", "traffic") if k in f}
+         for c, f in _FILES.items()}
+CONTROL = {c: f["control"] for c, f in _FILES.items()}
 
 
 @pytest.fixture

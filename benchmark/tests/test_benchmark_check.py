@@ -14,12 +14,22 @@ import pytest
 
 from benchmark import harness, roofline
 
-from .conftest import CONTROL, SMALL
+from .conftest import BENCH, CONTROL, SMALL
 
 CELLS = list(SMALL)
-CIGAR_CELLS = ["wfa.10k_e5.cigar", "swissprot.hits.cigar",
-               "wfa.1k_e5.single", "wfa.100_e5.cigar"]
 SEED = 2**31 + 11
+
+
+def _entry(cell):
+    mix = harness.merged(harness.cell_spec(cell)[3],
+                         SMALL[cell].get("traffic"))
+    return harness.load_module("entries", mix["entry"])
+
+
+# the cells whose answers carry a CIGAR, and those that run a batch
+CIGAR_CELLS = [c for c in CELLS if _entry(c).CIGAR]
+GCUPS_CELLS = [c for c in CELLS if any(
+    m["name"] == "gcups" for m in harness.metrics_of(BENCH, c, False))]
 
 
 def _run(cell, device="cpu", trace=False, **kw):
@@ -60,16 +70,33 @@ def test_an_unknown_control_is_refused():
 
 
 def _patch_outputs(monkeypatch, alter):
+    """``alter(out, n)`` on a copy of the columnar outputs of a batch of
+    ``n`` pairs, where the port makes its results of them: every
+    ``Aligner._alignments_from``, and the band's ``dispatch.slice_pair``
+    a pair (``banded_nw_batch``)."""
+    from parasail_rs_tpu_torch.engine import dispatch
     from parasail_rs_tpu_torch.engine.aligner import Aligner
+
+    def altered(out, n):
+        out = {k: np.array(v, copy=True) for k, v in out.items()}
+        alter(out, n)
+        return out
 
     orig = Aligner._alignments_from
 
     def faulty(self, out, qlens, rlens):
-        out = {k: np.array(v, copy=True) for k, v in out.items()}
-        alter(out, len(rlens))
-        return orig(self, out, qlens, rlens)
+        return orig(self, altered(out, len(rlens)), qlens, rlens)
+
+    orig_slice = dispatch.slice_pair
+    seen = {}
+
+    def faulty_slice(out, b, qlen, rlen):
+        if seen.get("of") is not out:        # once a batch, not a pair
+            seen.update(of=out, to=altered(out, len(out["score"])))
+        return orig_slice(seen["to"], b, qlen, rlen)
 
     monkeypatch.setattr(Aligner, "_alignments_from", faulty)
+    monkeypatch.setattr(dispatch, "slice_pair", faulty_slice)
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -82,9 +109,7 @@ def test_answer_altered_where_produced(cell, monkeypatch):
     assert not r["correct"] and r["checks"]["score_mismatch"]["value"] > 0
 
 
-@pytest.mark.parametrize("cell", ["swissprot.search", "wfa.10k_e5.cigar",
-                                  "swissprot.hits.cigar",
-                                  "wfa.100_e5.cigar"])
+@pytest.mark.parametrize("cell", GCUPS_CELLS)
 def test_half_of_the_batch_left_out(cell, monkeypatch):
     def alter(out, n):
         for k in ("score", "end_query", "end_ref"):

@@ -11,6 +11,8 @@ import pytest
 
 from benchmark import harness
 
+from .conftest import SMALL_DIR
+
 ROOT = harness.ROOT
 BENCH = json.load(open(os.path.join(ROOT, "BENCHMARK.json")))
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -136,6 +138,23 @@ def test_workloads(w):
                        ("entries", mix["entry"])):
         assert os.path.exists(os.path.join(harness.HERE, kind, name + ".py"))
     assert config["scoring"]["width"] == "sat"
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_every_cell_has_a_small_file(cell):
+    """A cell comes with its CPU coverage: the small size and the control
+    that every parametrised test of the cells reads."""
+    path = os.path.join(SMALL_DIR, cell + ".json")
+    assert os.path.exists(path), f"no tests/small/{cell}.json"
+    small = json.load(open(path))
+    assert set(small) <= {"config", "traffic", "control"}
+    assert small["control"] in harness.CONTROLS
+
+
+def test_every_small_file_names_a_cell():
+    names = [f[:-len(".json")] for f in os.listdir(SMALL_DIR)]
+    assert set(names) <= set(CELLS)
+    assert all(f.endswith(".json") for f in os.listdir(SMALL_DIR))
 
 
 def test_pairs_of_config_and_traffic_are_unique():

@@ -269,10 +269,17 @@ def _req(cell):
     return traffic.request(1), config["scoring"], mix
 
 
-@pytest.mark.parametrize("cell", [c for c in SMALL
-                                  if c != "wfa.100_e5.cigar"])
+def _plain(cell):
+    """Whether the cell's configuration states neither free ends nor a
+    band."""
+    config = harness.merged(harness.cell_spec(cell)[2],
+                            SMALL[cell].get("config"))
+    return not {"free", "bandwidth"} & set(config["scoring"])
+
+
+@pytest.mark.parametrize("cell", [c for c in SMALL if _plain(c)])
 def test_nw_and_sw_counts_are_pinned(cell):
-    """The five cells' work, counted as before sg and the band."""
+    """Plain nw and sw cells' work, counted as before sg and the band."""
     req, scoring, mix = _req(cell)
     cigar = harness.load_module("entries", mix["entry"]).CIGAR
     qlens = np.broadcast_to(np.asarray(req.qlens, np.int64), req.rlens.shape)

@@ -3,6 +3,8 @@ statistics their configurations declare."""
 
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 import pytest
 
@@ -139,3 +141,76 @@ def test_homolog_pairs_use_the_length_model_and_mutate():
     assert sum(q != r for q, r in zip(t.queries, t.refs)) > mix["pool"] * 0.9
     assert np.array_equal(t.qlens, [len(q) for q in t.queries])
     assert np.array_equal(t.rlens, [len(r) for r in t.refs])
+
+
+# -- the search's ``max_query`` ------------------------------------------------
+
+
+def _digest(t, calls=5) -> str:
+    """The first calls' requests and the warm-up's, byte for byte, and the
+    database's planted homologs."""
+    h = hashlib.sha256()
+    for r in [t.request(c) for c in range(calls)] + t.warmup():
+        for x in (b"\0".join(r.refs), np.asarray(r.rlens, np.int64).tobytes(),
+                  r.query, np.asarray(r.planted, np.int64).tobytes(),
+                  f"{int(r.qlens)} {r.tag}".encode()):
+            h.update(x)
+    h.update(t.homolog_of.tobytes())
+    return h.hexdigest()
+
+
+# the requests as the generator drew them before it knew ``max_query``:
+# the search's configuration at 20,000 entries, and its small size
+BEFORE_MAX_QUERY = {
+    ("full", 1): "35b8c7f418cc4a0bc55bf8ef1fd81d03e3565250479f2e7253b2fa5a4ee719ea",
+    ("full", 7): "cd9a2aee4a8b3131f2573e17a715b919619b2340690d55f46139e11cd9b1c9a2",
+    ("small", 1): "6b04547a1e8bbdcbf1bd416b5e4236cf822d08fa925786375f22de8079b52dcb",
+    ("small", 7): "f933f441bf41972318972cec205c0a86d91605c8692f25bb9e5225aee3dcecbc",
+}
+
+
+def _search(cell, size):
+    if size == "small":
+        return _cfg(cell)
+    _, _, config, mix = harness.cell_spec(cell)
+    return harness.merged(config, {"database": {"entries": 20_000}}), mix
+
+
+@pytest.mark.parametrize("size,seed", sorted(BEFORE_MAX_QUERY))
+def test_search_without_max_query_draws_as_before(size, seed):
+    config, mix = _search("swissprot.search", size)
+    assert "max_query" not in mix
+    t = search.make(config, mix, seed)
+    assert _digest(t) == BEFORE_MAX_QUERY[size, seed]
+
+
+@pytest.mark.parametrize("seed", [1, 7])
+def test_search_with_max_query_takes_the_short_queries(seed):
+    config, mix = _search("swissprot.search.short", "full")
+    cap = mix["max_query"]
+    t = search.make(config, mix, seed)
+    full = search.make(config, {k: v for k, v in mix.items()
+                                if k != "max_query"}, seed)
+    assert t.db == full.db and np.array_equal(t.lens, full.lens)
+    assert np.array_equal(t.homolog_of, full.homolog_of)
+    assert t.queries == full.queries
+    short = {qi for qi, q in enumerate(t.queries) if len(q) <= cap}
+    assert 0 < len(short) < len(t.queries)
+    tags = set()
+    for c in range(len(short) * 3):
+        r = t.request(c)
+        assert len(r.query) == r.qlens <= cap
+        assert r.refs == full.request(c).refs
+        tags.add(r.tag)
+    assert tags == short
+    assert [r.tag for r in t.warmup()] == sorted(short)
+
+
+def test_search_short_is_the_search_but_for_max_query():
+    bench = harness.cell_spec("swissprot.search.short")
+    base = harness.cell_spec("swissprot.search")
+    assert bench[1]["config"] == base[1]["config"]
+    assert {k: v for k, v in bench[3].items() if k != "max_query"} == base[3]
+    lengths = base[2]["queries"]["lengths"]
+    assert [n for n in lengths if n <= bench[3]["max_query"]] == [
+        144, 189, 222, 375, 464, 567]

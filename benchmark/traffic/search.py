@@ -63,13 +63,19 @@ class Search:
         self.homolog_of[planted] = of_query
         self.db, self.lens = db, lens
         self.per_call = int(mix["refs_per_call"])
+        cap = mix.get("max_query")
+        self.eligible = [qi for qi, q in enumerate(self.queries)
+                         if cap is None or len(q) <= int(cap)]
+        if not self.eligible:
+            raise ValueError(f"no query of at most {cap} residues")
         self._order_rng = np.random.default_rng([seed, 12])
         self._order: list[int] = []
 
     def _query_of(self, c: int) -> int:
         while len(self._order) <= c:
             self._order.extend(
-                self._order_rng.permutation(len(self.queries)).tolist())
+                self.eligible[i] for i in
+                self._order_rng.permutation(len(self.eligible)).tolist())
         return self._order[c]
 
     def request(self, c: int) -> Request:
@@ -87,10 +93,12 @@ class Search:
             planted=np.nonzero(self.homolog_of[idx] == qi)[0])
 
     def warmup(self) -> list[Request]:
-        """One call of each query, on the first chunk."""
+        """One call of each query that the calls take, on the first
+        chunk."""
         out = []
-        for qi, q in enumerate(self.queries):
-            k = self.per_call
+        k = self.per_call
+        for qi in self.eligible:
+            q = self.queries[qi]
             out.append(Request(refs=self.db[:k], rlens=self.lens[:k],
                                qlens=len(q), query=q, tag=qi))
         return out
