@@ -35,6 +35,7 @@ from ..utils.gcpause import gc_pause
 
 from ..ops.specs import KernelKey
 from . import dispatch
+from .binning import lengths, plan_bins
 from .profile import Profile
 from .result import Alignment, PairFields, SSWResult
 
@@ -410,12 +411,12 @@ class Aligner:
                     raise QueryRequired(
                         "Query sequence is required for alignment without a "
                         "profile.")
-                qlens = [self.profile.query_len] * len(refs)
+                qlens = self.profile.query_len
             else:
                 queries = list(queries)
-                qlens = [len(q) for q in queries]
+                qlens = lengths(queries)
             bins = _shape_bins(
-                qlens, [len(r) for r in refs],
+                qlens, lengths(refs),
                 self.key.outputs in ("trace", "table", "stats_table"),
                 max_cells)
         pending = []
@@ -501,9 +502,9 @@ class Aligner:
             queries = (None if not self.profile.is_null
                        else [_as_bytes(q) for q in queries])
             n = len(refs)
-            qlens_all = ([self.profile.query_len] * n if queries is None
-                         else [len(q) for q in queries])
-            bins = _shape_bins(qlens_all, [len(r) for r in refs], True,
+            qlens = (self.profile.query_len if queries is None
+                     else lengths(queries))
+            bins = _shape_bins(qlens, lengths(refs), True,
                                plane_on=self._plane_home())
         # result objects are score-class (no trace plane materialises)
         res_key = KernelKey(mode=self.key.mode, free=self.key.free,
@@ -771,8 +772,8 @@ class Aligner:
             qw = [qs[k][bqs[k]:eqs[k] + 1] for k in live]
             rw = [refs[k][brs[k]:ers[k] + 1] for k in live]
             nwal = self._sub("trace", "nw", False)
-            bins = _shape_bins([len(q) for q in qw], [len(r) for r in rw],
-                               True, plane_on=nwal._plane_home())
+            bins = _shape_bins(lengths(qw), lengths(rw), True,
+                               plane_on=nwal._plane_home())
             states = []
             for bin_ in bins:
                 idx = bin_.indices
@@ -807,16 +808,18 @@ def _plane_cells(device) -> int:
 
 def _shape_bins(qlens, rlens, cell_sized: bool, max_cells=None, *,
                 plane_on=None):
-    """The reference's length bins (``parasail_rs_tpu.batch``): for the
-    classes with cell-sized planes (trace, table), at most 2^28 cells a
-    launch in 16 launches; for the rest 2^33 cells in groups of 128
-    pairs, in 8 launches.  ``plane_on`` is the device a cell-sized trace
+    """The reference's length bins (``parasail_rs_tpu.batch``), planned
+    over index arrays (:func:`binning.plan_bins`; ``qlens`` is one int
+    where every query has that length, a profile's): for the classes
+    with cell-sized planes (trace, table), at most 2^28 cells a launch in
+    16 launches; for the rest 2^33 cells in groups of 128 pairs, in 8
+    launches.  ``plane_on`` is the device a cell-sized trace
     plane stays on, its walk running there and fetching only opcodes
     (``align_cigars``, ``ssw_batch``); its cap is then
     :func:`_plane_cells`' (a quarter of a card's memory).  None, the
     default, is a plane that crosses to the host, under the reference's
     cap.  ``max_cells`` overrides the cell cap."""
-    from ..batch import merge_bins, plan_bins
+    from ..batch import merge_bins
 
     if max_cells is None:
         max_cells = _plane_cells(plane_on) if cell_sized else (1 << 33)

@@ -5,7 +5,8 @@ is timed where its work happens and none opens inside another, so their
 sum is the host time under a span:
 
 - ``bins``: ``Aligner.align_many`` / ``align_cigars`` read the lengths,
-  group the pairs by padded shape (``batch.plan_bins`` / ``merge_bins``),
+  group the pairs by padded shape (``engine.binning.plan_bins`` /
+  ``batch.merge_bins``),
   gather each bin's sequences and put the results back in input order;
 - ``pack``: ``dispatch.pack_pairs``, sequences to padded planes and their
   upload;
