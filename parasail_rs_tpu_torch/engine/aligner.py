@@ -5,9 +5,10 @@ builder keeps every configuration method and its mutual-exclusion rules
 (reference src/aligner/mod.rs:213-267); ``align`` / ``align_batch`` run
 one kernel launch per batch on the aligner's device, for every output
 class (score, stats, table, stats_table, rowcol, stats_rowcol, trace);
-``align_many`` length-bins first and launches every bin before the first
-fetch; ``cigars`` walks fetched trace planes on the host and
-``align_cigars`` walks them on the device, fetching only opcodes;
+``align_many`` and ``align_cigars`` length-bin and launch every bin
+before the first fetch (one loop, :meth:`Aligner._binned`); ``cigars``
+walks fetched trace planes on the host and ``align_cigars`` walks them
+on the device, fetching only opcodes;
 ``banded_nw`` / ``banded_nw_batch`` run the banded score kernel;
 ``ssw`` / ``ssw_batch`` run the SW trace kernel and the device walk, or
 for long pairs the three-pass windowed pipeline on ``align_many``.
@@ -22,6 +23,7 @@ from collections import Counter
 import numpy as np
 import torch
 
+from .. import constants
 from ..errors import (
     InteriorNulByte,
     NoBandwidth,
@@ -34,8 +36,8 @@ from ..utils import profiling, stages
 from ..utils.gcpause import gc_pause
 
 from ..ops.specs import KernelKey
-from . import dispatch
-from .binning import lengths, plan_bins
+from . import binning, dispatch
+from .binning import lengths
 from .profile import Profile
 from .result import Alignment, PairFields, SSWResult
 
@@ -277,38 +279,29 @@ class Aligner:
         return AlignerBuilder()
 
     # -- result construction helpers -------------------------------------------
-    def _flags(self, saturated: bool, banded: bool = False) -> dict:
+    def _flags(self, outputs: str, saturated: bool,
+               banded: bool = False) -> dict:
+        """The predicate bits of a result of class ``outputs``; the
+        banded mode is global."""
         key = self.key
+        mode = "nw" if banded else key.mode
         return {
-            "nw": key.mode == "nw",
-            "sg": key.mode == "sg",
-            "sw": key.mode == "sw",
+            "nw": mode == "nw",
+            "sg": mode == "sg",
+            "sw": mode == "sw",
             "striped": not banded and key.strategy == "striped",
             "scan": not banded and key.strategy == "scan",
             "diag": not banded and key.strategy == "diag",
             "banded": banded,
             "blocked": False,
             "saturated": saturated,
-            "stats": key.uses_stats,
-            "table": key.outputs in ("table", "stats_table"),
-            "stats_table": key.outputs == "stats_table",
-            "rowcol": key.outputs in ("rowcol", "stats_rowcol"),
-            "stats_rowcol": key.outputs == "stats_rowcol",
-            "trace": key.outputs == "trace",
+            "stats": outputs in ("stats", "stats_table", "stats_rowcol"),
+            "table": outputs in ("table", "stats_table"),
+            "stats_table": outputs == "stats_table",
+            "rowcol": outputs in ("rowcol", "stats_rowcol"),
+            "stats_rowcol": outputs == "stats_rowcol",
+            "trace": outputs == "trace",
         }
-
-    def _make_alignment(self, out: dict, b: int, qlen: int,
-                        rlen: int) -> Alignment:
-        fields = dispatch.slice_pair(out, b, qlen, rlen)
-        return Alignment(
-            fields=fields,
-            flags=self._flags(bool(fields.get("saturated", False))),
-            query_len=qlen,
-            ref_len=rlen,
-            matrix=self.matrix,
-            free=self.key.free,
-            mode=self.key.mode,
-        )
 
     # -- alignment -------------------------------------------------------------
     @_call_region
@@ -332,41 +325,65 @@ class Aligner:
     def _on_route(self, route: str, reason: str) -> None:
         self.route_counter.update([(route, reason)])
 
-    def _execute(self, batch):
-        return dispatch.execute(
-            batch,
-            gap_open=self.gap_open, gap_extend=self.gap_extend,
+    def _submit(self, batch, walk: bool = False):
+        """This aligner's launch of a packed batch
+        (:func:`dispatch.submit`); ``walk``: the trace class, walked on
+        the device."""
+        return dispatch.submit(
+            batch, gap_open=self.gap_open, gap_extend=self.gap_extend,
             mode=self.key.mode, free=self.key.free,
-            outputs=self.key.outputs, width=self.key.width,
-            on_route=self._on_route,
-        )
+            outputs="trace" if walk else self.key.outputs,
+            width=self.key.width, on_route=self._on_route, walk=walk)
 
     def _alignments_from(self, out, qlens, rlens):
-        """Result objects over the shared columnar output arrays: each
-        Alignment holds a :class:`PairFields` view and one of two shared
-        read-only flag dicts (they differ only in ``saturated``)."""
-        n = len(rlens)
-        big = {k: v for k, v in out.items()
-               if k.endswith(("_table", "_row", "_col"))}
-        cols = {k: np.asarray(v) for k, v in out.items() if k not in big}
-        sat = cols.get("saturated")
-        sat_l = ([False] * n if sat is None else
-                 np.asarray(sat, bool).tolist())
-        f_sat = self._flags(True)
-        f_un = self._flags(False)
-        mk, pf = Alignment, PairFields
-        matrix, free, mode = self.matrix, self.key.free, self.key.mode
-        with stages.stage("build"), gc_pause(n):
-            return [
-                mk(fields=pf(cols, big, b, qlens[b], rlens[b]),
-                   flags=f_sat if sat_l[b] else f_un,
-                   query_len=qlens[b], ref_len=rlens[b],
-                   matrix=matrix, free=free, mode=mode)
-                for b in range(n)
-            ]
+        """This aligner's results over fetched columns; a walk's (its
+        begins, no plane) are score-class, as ``align_cigars`` returns
+        them."""
+        outputs = "score" if "beg_query" in out else self.key.outputs
+        return _alignments(
+            out, qlens, rlens,
+            (self._flags(outputs, True), self._flags(outputs, False)),
+            self.matrix, self.key.free, self.key.mode)
 
-    def _run_packed(self, batch, qlens, rlens):
-        return self._alignments_from(self._execute(batch), qlens, rlens)
+    def _binned(self, queries, refs, bins, build, walk: bool = False):
+        """Pack and submit every bin, then fetch them in order:
+        ``build(columns, rows, qlens, rlens)`` gives a tuple of per-pair
+        lists a bin, each scattered back to input order."""
+        pending = []
+        for bin_ in bins:
+            idx = bin_.indices
+            with stages.stage("bins"):
+                bqs = None if queries is None else [queries[i] for i in idx]
+                brs = [refs[i] for i in idx]
+            batch, bql, brl = self._pack(bqs, brs, Qp=bin_.qp, Rp=bin_.rp)
+            pending.append((idx, bql, brl, self._submit(batch, walk)))
+        outs = []
+        for idx, bql, brl, pend in pending:
+            parts = build(*pend.fetch(), bql, brl)
+            with stages.stage("bins"):
+                outs = outs or [[None] * len(refs) for _ in parts]
+                for out, part in zip(outs, parts):
+                    for i, v in zip(idx, part):
+                        out[i] = v
+        return outs
+
+    # pairs per device-walk launch: a walked bin splits into launches
+    # whose pack, kernels and copy are all enqueued before the first
+    # fetch blocks, so launch k's transfer overlaps launch k+1's work
+    # (the reference's value, chosen on its own device; not yet measured
+    # on the card)
+    _CIGAR_CHUNK = 512
+
+    def _walk_bins(self, qlens, rlens):
+        """The bins of trace planes walked where they are made, split into
+        launches of :attr:`_CIGAR_CHUNK` pairs.  Width 64's exact host
+        merge brings the plane to the host: its bins take the host's
+        cap."""
+        return binning.split_bins(
+            binning._shape_bins(
+                qlens, rlens, True,
+                plane_on=None if self.key.width == "64" else self.device),
+            self._CIGAR_CHUNK)
 
     @_call_region
     def align_batch(self, queries, references) -> list[Alignment]:
@@ -382,7 +399,9 @@ class Aligner:
             # parity: with a profile set the reference dispatches the
             # profile function and ignores any passed query
             queries = None
-        return self._run_packed(*self._pack(queries, references))
+        batch, qlens, rlens = self._pack(queries, references)
+        return self._alignments_from(self._submit(batch).fetch()[0], qlens,
+                                     rlens)
 
     @_call_region
     def align_many(self, queries, references,
@@ -415,31 +434,12 @@ class Aligner:
             else:
                 queries = list(queries)
                 qlens = lengths(queries)
-            bins = _shape_bins(
+            bins = binning._shape_bins(
                 qlens, lengths(refs),
                 self.key.outputs in ("trace", "table", "stats_table"),
                 max_cells)
-        pending = []
-        for bin_ in bins:
-            idx = bin_.indices
-            with stages.stage("bins"):
-                bqs = None if queries is None else [queries[i] for i in idx]
-                brs = [refs[i] for i in idx]
-            batch, bql, brl = self._pack(bqs, brs, Qp=bin_.qp, Rp=bin_.rp)
-            pending.append((idx, bql, brl, dispatch.submit(
-                batch, gap_open=self.gap_open, gap_extend=self.gap_extend,
-                mode=self.key.mode, free=self.key.free,
-                outputs=self.key.outputs, width=self.key.width,
-                on_route=self._on_route)))
-        results: list[Alignment | None] = [None] * len(refs)
-        for idx, bql, brl, res in pending:
-            out = (res.fetch()[0] if isinstance(res, dispatch.PendingResult)
-                   else res)
-            alns = self._alignments_from(out, bql, brl)
-            with stages.stage("bins"):
-                for i, aln in zip(idx, alns):
-                    results[i] = aln
-        return results
+        return self._binned(queries, refs, bins, lambda cols, _rows, ql, rl:
+                            (self._alignments_from(cols, ql, rl),))[0]
 
     @_call_region
     def cigars(self, alignments, queries, references) -> list[str]:
@@ -484,7 +484,7 @@ class Aligner:
         trace kernel's plane stays on the device, the walk kernel
         (ops/trace_walk.py) walks every pair back from its end cell, and
         the host fetches only B * (Qp + Rp) opcode bytes plus the
-        per-pair scalars, in one transfer per chunk.
+        per-pair scalars, in one transfer per launch.
 
         Returns ``(alignments, cigars)``: score-class ``Alignment``
         objects (``is_trace()`` is False) and the CIGAR string per pair,
@@ -492,142 +492,32 @@ class Aligner:
         profile set, ``queries`` is ignored.  Mixed-length inputs are
         length-binned (trace planes are cell-sized): on a card a launch
         holds up to a quarter of its memory of plane, a byte a cell
-        (:func:`_plane_cells`), on the CPU and at width 64 the
-        reference's 2^28 cells; results return in input order.
+        (:func:`binning._plane_cells`), on the CPU and at width 64 the
+        reference's 2^28 cells, in launches of at most
+        :attr:`_CIGAR_CHUNK` pairs; every launch is enqueued before the
+        first fetch, and results return in input order.
         """
+        from ..ops.trace_walk import ops_to_runs_flat
+
         with stages.stage("bins"):
             refs = [_as_bytes(r) for r in references]
             if not refs:
                 return [], []
             queries = (None if not self.profile.is_null
                        else [_as_bytes(q) for q in queries])
-            n = len(refs)
             qlens = (self.profile.query_len if queries is None
                      else lengths(queries))
-            bins = _shape_bins(qlens, lengths(refs), True,
-                               plane_on=self._plane_home())
-        # result objects are score-class (no trace plane materialises)
-        res_key = KernelKey(mode=self.key.mode, free=self.key.free,
-                            outputs="score", strategy=self.key.strategy,
-                            profile=not self.profile.is_null,
-                            width=self.key.width)
-        res_al = self if self.key == res_key else Aligner(
-            key=res_key, matrix=self.matrix, gap_open=self.gap_open,
-            gap_extend=self.gap_extend, profile=self.profile,
-            bandwidth=None, device=self.device)
-        alns: list = [None] * n
-        cigs: list = [None] * n
-        for bin_ in bins:
-            idx = bin_.indices
-            with stages.stage("bins"):
-                bqs = None if queries is None else [queries[i] for i in idx]
-                brs = [refs[i] for i in idx]
-            a, c = self._align_cigars_shape(bqs, brs, res_al, bin_.qp,
-                                            bin_.rp)
-            with stages.stage("bins"):
-                for k, i in enumerate(idx):
-                    alns[i] = a[k]
-                    cigs[i] = c[k]
-        return alns, cigs
+            bins = self._walk_bins(qlens, lengths(refs))
 
-    def _plane_home(self):
-        """The device a trace plane stays on through the device walk: this
-        aligner's, but None at width "64", whose exact host merge
-        (:func:`dispatch.width64_risk`) brings the plane to the host."""
-        return None if self.key.width == "64" else self.device
-
-    # pairs per device-walk launch: a bin splits into chunks whose pack,
-    # kernels and copy are all enqueued before the first fetch blocks, so
-    # chunk k's transfer overlaps chunk k+1's work (the reference's value,
-    # chosen on its own device; not yet measured on the card)
-    _CIGAR_CHUNK = 512
-
-    def _align_cigars_shape(self, queries, refs, res_al, Qp, Rp):
-        """One shape bin of :meth:`align_cigars`."""
-        from ..constants import cigar_strings_batch
-
-        from ..ops.trace_walk import ops_to_runs_flat
-
-        n = len(refs)
-        CH = self._CIGAR_CHUNK
-        qseq = None if self.profile.is_null else self.profile.query
-        states = []
-        for i in range(0, n, CH):
-            sl = slice(i, min(i + CH, n))
-            batch, qlens, rlens = self._pack(
-                None if queries is None else queries[sl], refs[sl],
-                Qp=Qp, Rp=Rp)
-            states.append((qlens, rlens,
-                           self._device_trace_walk_enqueue(batch, qseq)))
-        alns_all, cigs_all = [], []
-        for qlens, rlens, st in states:
-            out, ops_host, _, _ = self._device_trace_walk_fetch(st)
-            alns_all.extend(res_al._alignments_from(out, qlens, rlens))
+        def build(cols, rows, qlens, rlens):
+            alns = self._alignments_from(cols, qlens, rlens)
             # gc_pause: the string build allocates ~30 gc-tracked objects
             # per pair
             with stages.stage("encode"), gc_pause(len(rlens) * 8):
-                cigs_all.extend(cigar_strings_batch(
-                    *ops_to_runs_flat(ops_host)))
-        return alns_all, cigs_all
+                return alns, constants.cigar_strings_batch(
+                    *ops_to_runs_flat(rows))
 
-    def _walk_symbols(self, batch, qseq: bytes | None, Qp: int):
-        """Symbol planes for the walk's '=' against 'X' decision: the raw
-        bytes where the batch carries them (golden compares raw bytes;
-        mapped letters fold case and wildcards), the profile query's
-        bytes for a shared-profile batch, else the letter indices."""
-        if batch.rbytes is not None and batch.qbytes is not None:
-            return batch.qbytes, batch.rbytes
-        if batch.rbytes is not None and qseq is not None:
-            qarr = np.zeros((1, Qp), np.uint8)
-            qarr[0, :len(qseq)] = np.frombuffer(qseq, np.uint8)
-            return dispatch.upload(qarr, batch.device), batch.rbytes
-        return batch.qidx, batch.ridx
-
-    def _device_trace_walk_enqueue(self, batch, qseq: bytes | None = None):
-        """Trace kernel, walk kernel and one pinned non-blocking copy of
-        (scalars, opcode rows), all enqueued without
-        blocking; returns the state :meth:`_device_trace_walk_fetch`
-        takes.  The trace plane never leaves the device.
-
-        Width 64 with pairs over the int32 bound takes the exact host
-        merge first (:func:`dispatch.execute`); its merged plane goes
-        back to the device for the walk, and its int64 scalars stay on
-        the host."""
-        from ..ops.trace_walk import device_walk
-
-        kw = dict(gap_open=self.gap_open, gap_extend=self.gap_extend,
-                  mode=self.key.mode, free=self.key.free, outputs="trace",
-                  on_route=self._on_route)
-        host = None
-        if self.key.width == "64" and dispatch.width64_risk(
-                batch, self.gap_open, self.gap_extend).size:
-            host = dispatch.execute(batch, width="64", **kw)
-            trace = dispatch.upload(host.pop("trace_table"), batch.device)
-            eq = dispatch.upload(host["end_query"].astype(np.int32),
-                                 batch.device)
-            er = dispatch.upload(host["end_ref"].astype(np.int32),
-                                 batch.device)
-            cols = {}
-        else:
-            cols = dispatch.launch(batch, width=self.key.width, **kw)
-            trace = cols.pop("trace_table")
-            eq, er = cols["end_query"], cols["end_ref"]
-        qsym, rsym = self._walk_symbols(batch, qseq, trace.shape[1])
-        with stages.stage("walk"):
-            ops, bq, br = device_walk(trace, qsym, rsym, eq, er,
-                                      self.key.mode, self.key.free)
-        pend = dispatch.PendingResult(
-            {**cols, "beg_query": bq, "beg_ref": br}, ops)
-        return host, pend
-
-    def _device_trace_walk_fetch(self, st):
-        """Blocking phase: wait for the copy and unpack (scalars dict,
-        ops rows (B, Qp + Rp) uint8 backward, begin cells (B,) and
-        (B,))."""
-        host, pend = st
-        out, ops = pend.fetch()
-        bq, br = out.pop("beg_query"), out.pop("beg_ref")
-        return (host if host is not None else out), ops, bq, br
+        return tuple(self._binned(queries, refs, bins, build, walk=True))
 
     # -- banded global NW (src/aligner/mod.rs:457-489) ---------------------------
     def banded_nw(self, query, reference) -> Alignment:
@@ -651,15 +541,10 @@ class Aligner:
             batch, gap_open=self.gap_open, gap_extend=self.gap_extend,
             mode="nw", free=(False,) * 4, outputs="score", width="32",
             on_route=self._on_route, banded=True, bandwidth=self.bandwidth)
-        flags = self._flags(False, banded=True)
-        flags.update({"nw": True, "sg": False, "sw": False})
-        with stages.stage("build"), gc_pause(len(rlens)):
-            return [Alignment(fields=dispatch.slice_pair(out, b, qlens[b],
-                                                         rlens[b]),
-                              flags=dict(flags), query_len=qlens[b],
-                              ref_len=rlens[b], matrix=self.matrix,
-                              free=(False,) * 4, mode="nw")
-                    for b in range(len(rlens))]
+        # the reference's flags: this aligner's class, never saturated
+        flags = self._flags(self.key.outputs, False, banded=True)
+        return _alignments(out, qlens, rlens, (flags, flags), self.matrix,
+                           (False,) * 4, "nw")
 
     # -- SSW emulation (src/aligner/mod.rs:492-529) ------------------------------
     def ssw(self, query, reference) -> SSWResult:
@@ -699,7 +584,8 @@ class Aligner:
         None turns it on, as the reference does, when 128-rounded pairs
         times the padded lengths exceed 4 << 30 cells; its windows' trace
         bins hold, as ``align_cigars``' do, up to a quarter of a card's
-        memory a launch (the reference's 2^28 cells on the CPU).  Its
+        memory (the reference's 2^28 cells on the CPU) and at most
+        :attr:`_CIGAR_CHUNK` pairs a launch.  Its
         CIGARs may differ from the one-pass walk's in tie-broken op order
         only.
         """
@@ -728,9 +614,8 @@ class Aligner:
             return self._ssw_windowed(qs, refs, use_profile, score_size)
         sw = self._sub("trace", "sw", use_profile)
         batch, _, _ = sw._pack(None if use_profile else qs, refs)
-        out, ops, bqs, brs = sw._device_trace_walk_fetch(
-            sw._device_trace_walk_enqueue(
-                batch, self.profile.query if use_profile else None))
+        out, ops = sw._submit(batch, walk=True).fetch()
+        bqs, brs = out["beg_query"], out["beg_ref"]
         runs = ops_to_runs_batch(ops, merge_m=True)
         promoted = out.get("promoted", np.zeros(len(refs), bool))
         return [SSWResult(
@@ -772,61 +657,39 @@ class Aligner:
             qw = [qs[k][bqs[k]:eqs[k] + 1] for k in live]
             rw = [refs[k][brs[k]:ers[k] + 1] for k in live]
             nwal = self._sub("trace", "nw", False)
-            bins = _shape_bins(lengths(qw), lengths(rw), True,
-                               plane_on=nwal._plane_home())
-            states = []
-            for bin_ in bins:
-                idx = bin_.indices
-                batch, _, _ = nwal._pack([qw[i] for i in idx],
-                                         [rw[i] for i in idx],
-                                         Qp=bin_.qp, Rp=bin_.rp)
-                states.append((idx, nwal._device_trace_walk_enqueue(batch)))
-            for idx, st in states:
-                _, ops, _, _ = nwal._device_trace_walk_fetch(st)
-                for i, runs in zip(idx, ops_to_runs_batch(ops, merge_m=True)):
-                    cigars[live[i]] = runs
+            runs = nwal._binned(
+                qw, rw, nwal._walk_bins(lengths(qw), lengths(rw)),
+                lambda _cols, rows, _ql, _rl: (
+                    ops_to_runs_batch(rows, merge_m=True),), walk=True)[0]
+            for k, r in zip(live, runs):
+                cigars[k] = r
         return [SSWResult(
             score1=_ssw_score(scores[k], promoted[k], score_size),
             ref_begin1=brs[k], ref_end1=ers[k], read_begin1=bqs[k],
             read_end1=eqs[k], _cigar=cigars[k]) for k in range(n)]
 
 
-def _plane_cells(device) -> int:
-    """The cell cap of a launch whose trace plane, a byte a cell, stays
-    on ``device``: a quarter of a CUDA device's total memory (a property
-    of the device, so every call plans alike; the rest holds the walk's
-    opcode rows, the allocator's slack and the caller's tensors), never
-    below the reference's 2^28; the reference's 2^28 on the CPU, whose
-    plane is host memory, and where ``device`` is None (the plane
-    crosses to the host).  The reference's cap was chosen for a TPU
-    v5e's 16 GB: on an 80 GB card it held one 10 kbp pair a launch."""
-    if device is None or device.type != "cuda":
-        return 1 << 28
-    return max(1 << 28,
-               torch.cuda.get_device_properties(device).total_memory // 4)
-
-
-def _shape_bins(qlens, rlens, cell_sized: bool, max_cells=None, *,
-                plane_on=None):
-    """The reference's length bins (``parasail_rs_tpu.batch``), planned
-    over index arrays (:func:`binning.plan_bins`; ``qlens`` is one int
-    where every query has that length, a profile's): for the classes
-    with cell-sized planes (trace, table), at most 2^28 cells a launch in
-    16 launches; for the rest 2^33 cells in groups of 128 pairs, in 8
-    launches.  ``plane_on`` is the device a cell-sized trace
-    plane stays on, its walk running there and fetching only opcodes
-    (``align_cigars``, ``ssw_batch``); its cap is then
-    :func:`_plane_cells`' (a quarter of a card's memory).  None, the
-    default, is a plane that crosses to the host, under the reference's
-    cap.  ``max_cells`` overrides the cell cap."""
-    from ..batch import merge_bins
-
-    if max_cells is None:
-        max_cells = _plane_cells(plane_on) if cell_sized else (1 << 33)
-    return merge_bins(
-        plan_bins(qlens, rlens, max_cells=max_cells,
-                  lane_quantum=1 if cell_sized else 128),
-        max_launches=16 if cell_sized else 8, max_cells=max_cells)
+def _alignments(out, qlens, rlens, flags, matrix, free, mode):
+    """Result objects over the shared columnar output arrays: each
+    Alignment holds a :class:`PairFields` view and one of the two shared
+    read-only dicts of ``flags``, (saturated, not saturated)."""
+    n = len(rlens)
+    big = {k: v for k, v in out.items()
+           if k.endswith(("_table", "_row", "_col"))}
+    cols = {k: np.asarray(v) for k, v in out.items() if k not in big}
+    sat = cols.get("saturated")
+    sat_l = ([False] * n if sat is None else
+             np.asarray(sat, bool).tolist())
+    f_sat, f_un = flags
+    mk, pf = Alignment, PairFields
+    with stages.stage("build"), gc_pause(n):
+        return [
+            mk(fields=pf(cols, big, b, qlens[b], rlens[b]),
+               flags=f_sat if sat_l[b] else f_un,
+               query_len=qlens[b], ref_len=rlens[b],
+               matrix=matrix, free=free, mode=mode)
+            for b in range(n)
+        ]
 
 
 def _ssw_score(score: int, promoted: bool, score_size: int | None) -> int:

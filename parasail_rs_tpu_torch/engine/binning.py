@@ -8,6 +8,11 @@ returns the same bins, list for list, from numpy: each length's bucket
 is a ``searchsorted`` over the ladder's rungs, the groups come from one
 stable sort of a combined key, and only the bins themselves are Python
 objects.  A profile's query length is taken once, not once a pair.
+
+:func:`_shape_bins` is every binned call's plan: the reference's merged
+bins under the caller's caps, the cap of a trace plane that stays on a
+card sized by its memory (:func:`_plane_cells`); :func:`split_bins` cuts
+walked bins into launches of a bounded number of pairs.
 """
 
 from __future__ import annotations
@@ -15,8 +20,9 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
-from ..batch import Bin
+from ..batch import Bin, merge_bins
 from ..utils.shapes import length_bucket
 
 
@@ -95,3 +101,46 @@ def plan_bins(qlens, rlens, *, max_cells: int = 1 << 28,
                 off:min(off + per_launch, end)]))
     bins.sort(key=lambda b: (-b.qp * b.rp, -len(b.indices)))
     return bins
+
+
+def _plane_cells(device) -> int:
+    """The cell cap of a launch whose trace plane, a byte a cell, stays
+    on ``device``: a quarter of a CUDA device's total memory (a property
+    of the device, so every call plans alike; the rest holds the walk's
+    opcode rows, the allocator's slack and the caller's tensors), never
+    below the reference's 2^28; the reference's 2^28 on the CPU, whose
+    plane is host memory, and where ``device`` is None (the plane
+    crosses to the host).  The reference's cap was chosen for a TPU
+    v5e's 16 GB: on an 80 GB card it held one 10 kbp pair a launch."""
+    if device is None or device.type != "cuda":
+        return 1 << 28
+    return max(1 << 28,
+               torch.cuda.get_device_properties(device).total_memory // 4)
+
+
+def _shape_bins(qlens, rlens, cell_sized: bool, max_cells=None, *,
+                plane_on=None):
+    """The reference's length bins (``parasail_rs_tpu.batch``), planned
+    over index arrays (:func:`plan_bins`; ``qlens`` is one int where
+    every query has that length, a profile's): for the classes with
+    cell-sized planes (trace, table), at most 2^28 cells a launch in 16
+    launches; for the rest 2^33 cells in groups of 128 pairs, in 8
+    launches.  ``plane_on`` is the device a cell-sized trace plane stays
+    on, its walk running there and fetching only opcodes
+    (``align_cigars``, ``ssw_batch``); its cap is then
+    :func:`_plane_cells`' (a quarter of a card's memory).  None, the
+    default, is a plane that crosses to the host, under the reference's
+    cap.  ``max_cells`` overrides the cell cap."""
+    if max_cells is None:
+        max_cells = _plane_cells(plane_on) if cell_sized else (1 << 33)
+    return merge_bins(
+        plan_bins(qlens, rlens, max_cells=max_cells,
+                  lane_quantum=1 if cell_sized else 128),
+        max_launches=16 if cell_sized else 8, max_cells=max_cells)
+
+
+def split_bins(bins: list[Bin], most: int) -> list[Bin]:
+    """``bins`` in launches of at most ``most`` pairs: each bin's indices
+    cut in order, its pieces where it stood."""
+    return [Bin(qp=b.qp, rp=b.rp, indices=b.indices[i:i + most])
+            for b in bins for i in range(0, len(b.indices), most)]

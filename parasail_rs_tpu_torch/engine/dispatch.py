@@ -9,10 +9,14 @@ batch, and fetch the per-pair scalars in one pinned, non-blocking
 transfer (:class:`PendingResult`) and each plane (trace, table, row,
 column) in one copy of its own.  ``banded=True`` with ``bandwidth`` runs
 the banded mode (kernel K1e) in any class and mode; ``Aligner.banded_nw``
-runs its NW score form.  :func:`submit` is
-``align_many``'s launch: it returns without waiting for the card where
-only per-pair scalars come back, so every bin is packed and launched
-before the first fetch.
+runs its NW score form.  :func:`submit` is every batch's launch: it
+returns a :class:`PendingResult` without waiting for the card where only
+per-pair scalars (or a walk's opcodes) come back, so a caller packs and
+launches every bin before the first fetch; :func:`execute` is
+``submit(...).fetch()[0]``.  ``submit(walk=True)`` runs the trace class
+in one launch and walks its plane on the card
+(:func:`~parasail_rs_tpu_torch.ops.trace_walk.device_walk`): only the
+scalars, the begins and the opcode rows leave it.
 
 Routes: ``"cuda_kernel"`` for a batch on a CUDA device (the hand-written
 one-shot kernel), ``"torch_plain"`` for a batch on the CPU (the plain
@@ -77,11 +81,14 @@ class PairBatch:
     uint8 ``qbytes`` / ``rbytes`` planes and the byte ``mapper``; ``qidx``
     (fill -1) and ``ridx`` (fill 0) encode from them on first use, on the
     device.  ``qlen`` / ``rlen`` are host int32 arrays; ``qlen_t`` /
-    ``rlen_t`` their device copies.
+    ``rlen_t`` their device copies.  ``query`` is a shared profile's
+    query bytes, which the device walk compares (host bytes, not
+    uploaded unless a walk asks).
     """
 
     def __init__(self, profile, qidx, ridx, qlen, rlen, table=None,
-                 qbytes=None, rbytes=None, mapper=None, *, device):
+                 qbytes=None, rbytes=None, mapper=None, query=None, *,
+                 device):
         self.device = torch.device(device)
         self.profile = profile
         self._qidx = qidx
@@ -96,6 +103,7 @@ class PairBatch:
         self.qbytes = qbytes
         self.rbytes = rbytes
         self.mapper = mapper
+        self.query = query
 
     @property
     def qidx(self) -> torch.Tensor:
@@ -218,7 +226,7 @@ def _pack_pairs_inner(matrix, queries, references, profile, Qp, Rp, B,
         table=None if table is None else upload(table, device),
         qbytes=qb_t, rbytes=rb_t,
         mapper=upload(np.asarray(matrix.mapper, np.int32), device),
-        device=device)
+        query=None if profile is None else profile.query, device=device)
     return batch, np.asarray(qlens).tolist(), np.asarray(rlens).tolist()
 
 
@@ -589,10 +597,19 @@ class PendingResult:
     to a word.  On a card the block is copied into pinned host memory
     with ``non_blocking=True`` and a CUDA event marks the copy's end, so
     several can be in flight while the host works; :meth:`fetch` waits
-    for the event and unpacks, once: a second fetch raises."""
+    for the event and unpacks, once: a second fetch raises.  ``host``
+    holds columns that are on the host already (a plane class's, or the
+    int64 merge's); :meth:`fetch` adds them to the block's, and with no
+    block gives them as they are."""
 
-    def __init__(self, cols: dict[str, torch.Tensor],
-                 rows: torch.Tensor | None = None):
+    def __init__(self, cols: dict[str, torch.Tensor] | None = None,
+                 rows: torch.Tensor | None = None,
+                 host: dict[str, np.ndarray] | None = None):
+        self._carried = host or {}
+        self._fetched = False
+        self._host = None
+        if not cols and rows is None:
+            return
         with stages.stage("fetch.start"):
             self.names = sorted(cols)
             self.L = 0 if rows is None else int(rows.shape[1])
@@ -617,8 +634,11 @@ class PendingResult:
 
     def fetch(self) -> tuple[dict[str, np.ndarray], np.ndarray | None]:
         """(host columns by name, host (B, L) uint8 rows or None)."""
-        if self._host is None:
+        if self._fetched:
             raise RuntimeError("this PendingResult was fetched already")
+        self._fetched = True
+        if self._host is None:
+            return self._carried, None
         if self._event is not None:
             with stages.stage("fetch.wait"):
                 self._event.synchronize()
@@ -629,6 +649,7 @@ class PendingResult:
             scal = np.ascontiguousarray(host[:, :nn].T)
             out = {k: (scal[n] != 0 if k in _BOOLS else scal[n])
                    for n, k in enumerate(self.names)}
+            out.update(self._carried)
             rows = (np.ascontiguousarray(host[:, nn:]).view(np.uint8)
                     [:, :self.L] if self.L else None)
         return out, rows
@@ -645,32 +666,69 @@ def execute(batch: PairBatch, *, gap_open: int, gap_extend: int, mode: str,
     """Run the kernel over a batch; return host numpy results: the
     per-pair scalars and the class's planes (``trace_table`` int8,
     ``*_table`` (B, Qp, Rp), ``*_row`` (B, Rp) and ``*_col`` (B, Qp)
-    int32).
+    int32).  :func:`submit`, fetched at once."""
+    return submit(batch, gap_open=gap_open, gap_extend=gap_extend, mode=mode,
+                  free=free, outputs=outputs, width=width, on_route=on_route,
+                  banded=banded, bandwidth=bandwidth).fetch()[0]
 
-    ``width="64"`` runs the int32 kernel, then re-fills exactly in int64
-    (golden) every pair whose worst-case |H| bound does not fit int32,
-    planes included.  ``on_route(route, reason)`` is called with every
-    routing decision.  ``banded`` / ``bandwidth``: the banded mode, which
-    has no int64 re-fill (``Aligner.banded_nw`` runs it at width 32).
+
+SCALAR_CLASSES = ("score", "stats")
+
+
+def submit(batch: PairBatch, *, gap_open: int, gap_extend: int, mode: str,
+           free: tuple[bool, bool, bool, bool], outputs: str, width: str,
+           on_route=None, banded: bool = False, bandwidth: int = 0,
+           walk: bool = False) -> PendingResult:
+    """Launch a batch without waiting where it can; its
+    :class:`PendingResult` fetches the host results (the port of the
+    reference's ``execute(fetch=False)`` + ``fetch_all``).
+
+    The score and stats classes launch and start their scalars' copy.
+    Classes with planes are fetched here, as the reference does, so no
+    two batches' planes are on the card at once.  ``width="64"`` runs
+    the int32 kernel, then re-fills exactly in int64 (golden) every pair
+    whose worst-case |H| bound does not fit int32, planes included, on
+    the host.  A batch of long pairs takes the segment route
+    (:func:`plan_route`): all its segments are enqueued here.
+    ``on_route(route, reason)`` is called with every routing decision;
+    ``banded`` / ``bandwidth``: the banded mode, which has no int64
+    re-fill (``Aligner.banded_nw`` runs it at width 32).
+
+    ``walk=True`` (class ``trace``): one launch
+    (:func:`plan_route` with ``one_shot=True``), the device walk of its
+    plane, and one pinned copy of the scalars, the begins
+    (``beg_query`` / ``beg_ref``) and the (B, Qp + Rp) opcode rows,
+    backward; the plane never leaves the card.  Past the int32 bound the
+    merged plane goes back to the card for the walk and the int64
+    scalars stay on the host.
     """
     if banded and width == "64":
         raise ValueError("the banded mode has no width 64")
-    if width == "64":
-        wide = width64_risk(batch, gap_open, gap_extend)
-        if wide.size:
-            log.warning(
-                "width='64': %d pair(s) exceed the int32 score bound; "
-                "re-filling them exactly in int64 on the host (scalar "
-                "golden model)", wide.size)
-            out = execute(batch, gap_open=gap_open, gap_extend=gap_extend,
-                          mode=mode, free=free, outputs=outputs, width="32",
-                          on_route=on_route)
-            return _golden64_merge(out, batch, wide, gap_open=gap_open,
-                                   gap_extend=gap_extend, mode=mode,
-                                   free=free)
-    res = _run(batch, gap_open=gap_open, gap_extend=gap_extend, mode=mode,
-               free=free, outputs=outputs, width=width, on_route=on_route,
-               banded=banded, bandwidth=bandwidth)
+    kw = dict(gap_open=gap_open, gap_extend=gap_extend, mode=mode, free=free,
+              outputs=outputs, on_route=on_route)
+    wide = (width64_risk(batch, gap_open, gap_extend) if width == "64"
+            else ())
+    if len(wide):
+        log.warning(
+            "width='64': %d pair(s) exceed the int32 score bound; "
+            "re-filling them exactly in int64 on the host (scalar "
+            "golden model)", len(wide))
+        out = _golden64_merge(submit(batch, width="32", **kw).fetch()[0],
+                              batch, wide, gap_open=gap_open,
+                              gap_extend=gap_extend, mode=mode, free=free)
+        if not walk:
+            return PendingResult(host=out)
+        # the walk reads int32 end cells; the int64 ones stay on the host
+        ends = {"trace_table": out.pop("trace_table"),
+                "end_query": out["end_query"].astype(np.int32),
+                "end_ref": out["end_ref"].astype(np.int32)}
+        return _walk(batch, {k: upload(v, batch.device)
+                             for k, v in ends.items()}, mode, free, out)
+    if walk:
+        return _walk(batch, launch(batch, width=width, **kw), mode, free)
+    res = _run(batch, width=width, banded=banded, bandwidth=bandwidth, **kw)
+    if outputs in SCALAR_CLASSES:
+        return PendingResult(res)
     planes = {k: res.pop(k) for k in [k for k in res if _is_plane(k)]}
     out, _ = PendingResult(res).fetch()
     with stages.stage("fetch.copy"):
@@ -679,34 +737,36 @@ def execute(batch: PairBatch, *, gap_open: int, gap_extend: int, mode: str,
         out.update((k, v if isinstance(v, np.ndarray)
                     else v.contiguous().cpu().numpy())
                    for k, v in planes.items())
-    return out
+    return PendingResult(host=out)
 
 
-SCALAR_CLASSES = ("score", "stats")
+def _walk_symbols(batch: PairBatch, Qp: int):
+    """Symbol planes for the walk's '=' against 'X' decision: the raw
+    bytes where the batch carries them (golden compares raw bytes;
+    mapped letters fold case and wildcards), the profile query's bytes
+    for a shared-profile batch, else the letter indices."""
+    if batch.rbytes is not None and batch.qbytes is not None:
+        return batch.qbytes, batch.rbytes
+    if batch.rbytes is not None and batch.query is not None:
+        qarr = np.zeros((1, Qp), np.uint8)
+        qarr[0, :len(batch.query)] = np.frombuffer(batch.query, np.uint8)
+        return upload(qarr, batch.device), batch.rbytes
+    return batch.qidx, batch.ridx
 
 
-def submit(batch: PairBatch, *, gap_open: int, gap_extend: int, mode: str,
-           free: tuple[bool, bool, bool, bool], outputs: str, width: str,
-           on_route=None) -> PendingResult | dict[str, np.ndarray]:
-    """One bin of ``align_many``, without waiting where it can.
+def _walk(batch: PairBatch, cols, mode, free, host=None) -> PendingResult:
+    """Walk ``cols``' trace plane on its device from its end cells and
+    start the copy of the other columns, the begins and the opcode rows
+    (``host``'s columns, fetched already, take precedence)."""
+    from ..ops.trace_walk import device_walk
 
-    The score and stats classes launch and start their scalars' copy and
-    return the :class:`PendingResult` (the port of the reference's
-    ``execute(fetch=False)`` + ``fetch_all``: the caller fetches every bin
-    at the end).  Classes with planes are fetched here, per bin, as the
-    reference does, so no two bins' planes are on the card at once; width
-    64 with pairs over the int32 bound takes :func:`execute`'s host merge.
-    Those return :func:`execute`'s host dict.  A bin of long pairs takes
-    the segment route like any batch (:func:`plan_route`, per bin): all
-    its segments are enqueued here and its scalars stay on the card until
-    the caller's fetch.
-    """
-    kw = dict(gap_open=gap_open, gap_extend=gap_extend, mode=mode, free=free,
-              outputs=outputs, width=width, on_route=on_route)
-    if outputs not in SCALAR_CLASSES or (
-            width == "64" and width64_risk(batch, gap_open, gap_extend).size):
-        return execute(batch, **kw)
-    return PendingResult(_run(batch, **kw))
+    trace = cols.pop("trace_table")
+    qsym, rsym = _walk_symbols(batch, trace.shape[1])
+    with stages.stage("walk"):
+        ops, bq, br = device_walk(trace, qsym, rsym, cols["end_query"],
+                                  cols["end_ref"], mode, free)
+    return PendingResult({**cols, "beg_query": bq, "beg_ref": br}, ops,
+                         host=host)
 
 
 def slice_pair(out: dict, b: int, qlen: int, rlen: int) -> dict:

@@ -23,9 +23,10 @@ Kernels launch only on the threads that call ``submit``,
 The fetch thread never launches a kernel and never allocates on the
 card: it waits on each copy's CUDA event, reads pinned memory and builds
 the results.  The classes with planes (trace, table, rowcol) and width-64
-batches that need the host's int64 merge come back from
-:func:`dispatch.submit` fetched already, on the launching thread, as in
-``Aligner.align_many``.  An error in one bucket's fetch or build reaches
+batches that need the host's int64 merge are fetched by
+:func:`dispatch.submit` already, on the launching thread, as in
+``Aligner.align_many``: their :class:`dispatch.PendingResult` carries
+the host results.  An error in one bucket's fetch or build reaches
 every handle of that bucket through ``result()`` and no other; an error
 of a launch raises on the launching thread and reaches that bucket's
 handles too.
@@ -40,7 +41,6 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..utils.shapes import length_bucket
-from . import dispatch
 
 
 @dataclass(eq=False)
@@ -241,10 +241,7 @@ class StreamingAligner:
             batch, qlens, rlens = a._pack(
                 None if bucket.queries[0] is None else bucket.queries,
                 bucket.references, Qp=bucket.qp, Rp=bucket.rp)
-            res = dispatch.submit(
-                batch, gap_open=a.gap_open, gap_extend=a.gap_extend,
-                mode=a.key.mode, free=a.key.free, outputs=a.key.outputs,
-                width=a.key.width, on_route=a._on_route)
+            res = a._submit(batch)
         except Exception as e:
             bucket.resolve(error=e)
             raise
@@ -258,9 +255,8 @@ class StreamingAligner:
                 return
             res, qlens, rlens, bucket = item
             try:
-                out = (res.fetch()[0]
-                       if isinstance(res, dispatch.PendingResult) else res)
-                values = self._aligner._alignments_from(out, qlens, rlens)
+                values = self._aligner._alignments_from(
+                    res.fetch()[0], qlens, rlens)
             except Exception as e:  # noqa: BLE001 -- to this bucket's result()
                 bucket.resolve(error=e)
             else:

@@ -25,7 +25,6 @@ from parasail_rs_tpu.golden import model as golden  # noqa: E402
 
 import parasail_rs_tpu_torch as port  # noqa: E402
 from parasail_rs_tpu_torch import batch  # noqa: E402
-from parasail_rs_tpu_torch.engine import aligner as aligner_mod  # noqa: E402
 from parasail_rs_tpu_torch.engine import binning  # noqa: E402
 from parasail_rs_tpu_torch.utils.shapes import length_bucket  # noqa: E402
 
@@ -159,8 +158,8 @@ def test_shape_bins_equals_merged_per_pair_plan(caller, case, monkeypatch):
     _stub_card(monkeypatch, 80 << 30)
     cell_sized, plane_on, cap, quantum, launches = CALLERS[caller]
     qlens, rlens = CASES[case]
-    got = aligner_mod._shape_bins(qlens, rlens, cell_sized,
-                                  plane_on=plane_on)
+    got = binning._shape_bins(qlens, rlens, cell_sized,
+                              plane_on=plane_on)
     want = batch.merge_bins(
         batch.plan_bins(_per_pair(qlens, len(rlens)), rlens, max_cells=cap,
                         lane_quantum=quantum),

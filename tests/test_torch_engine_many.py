@@ -166,6 +166,30 @@ def test_align_many_fetches_every_bin_once(monkeypatch):
         pend.fetch()
 
 
+@pytest.mark.parametrize("outputs,width", [
+    ("score", "sat"), ("stats_table", "sat"), ("stats", "64")],
+    ids=["scalar", "plane", "width64_merge"])
+def test_execute_is_submit_fetched(outputs, width, monkeypatch):
+    if width == "64":
+        monkeypatch.setattr(dispatch, "INT32_SAFE", 10)   # every pair
+    qs, rs = _mixed(19, 12)
+    p = port.Aligner.new().matrix(port_matrix(BLOSUM62)).device("cpu").build()
+    batch, _, _ = p._pack(qs, rs)
+    kw = dict(gap_open=11, gap_extend=1, mode="sw", free=(True,) * 4,
+              outputs=outputs, width=width)
+    want = dispatch.execute(batch, **kw)
+    pend = dispatch.submit(batch, **kw)
+    got, rows = pend.fetch()
+    assert rows is None and sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        assert np.array_equal(got[k], want[k]), k
+    if width == "64":
+        assert want["score"].dtype == np.int64
+    with pytest.raises(RuntimeError, match="fetched already"):
+        pend.fetch()
+
+
 def test_align_many_edge_cases():
     p = port.Aligner.new().device("cpu").build()
     assert p.align_many([], []) == []

@@ -188,6 +188,35 @@ def test_align_cigars_mixed_lengths_binned(monkeypatch):
                   qs, rs, False, monkeypatch)
 
 
+def test_align_cigars_submits_every_bin_before_the_first_fetch(monkeypatch):
+    # three lengths, three bins: every walk is enqueued before the host
+    # waits for the first one's opcodes
+    qs = (_seqs(91, b"ACGT", 3, 4, 10) + _seqs(92, b"ACGT", 3, 200, 400) +
+          _seqs(93, b"ACGT", 3, 30, 60))
+    rs = (_seqs(94, b"ACGT", 3, 4, 10) + _seqs(95, b"ACGT", 3, 200, 400) +
+          _seqs(96, b"ACGT", 3, 30, 60))
+    p = (port.Aligner.new().gap_open(5).gap_extend(2).local().device("cpu")
+         .build())
+    want = p.align_cigars(qs, rs)
+    events = []
+    real_submit, real_fetch = dispatch.submit, dispatch.PendingResult.fetch
+
+    def submit(batch, **kw):
+        events.append("submit")
+        return real_submit(batch, **kw)
+
+    def fetch(self):
+        events.append("fetch")
+        return real_fetch(self)
+
+    monkeypatch.setattr(dispatch, "submit", submit)
+    monkeypatch.setattr(dispatch.PendingResult, "fetch", fetch)
+    alns, cigs = p.align_cigars(qs, rs)
+    n = events.count("submit")
+    assert n >= 2 and events == ["submit"] * n + ["fetch"] * n
+    assert cigs == want[1] and _summary(alns) == _summary(want[0])
+
+
 def test_align_cigars_chunked_matches_unchunked(monkeypatch):
     qs = _seqs(81, PROTEIN, 70, 20, 60)
     rs = _seqs(82, PROTEIN, 70, 20, 60)
@@ -209,12 +238,17 @@ def test_align_cigars_more_than_one_chunk_matches_reference(monkeypatch):
     qs = _seqs(83, b"ACGT", 600, 8, 16)
     rs = _seqs(84, b"ACGT", 600, 8, 16)
     calls = []
-    real = port.Aligner._device_trace_walk_enqueue
-    monkeypatch.setattr(port.Aligner, "_device_trace_walk_enqueue",
-                        lambda self, *a: calls.append(1) or real(self, *a))
+    real = dispatch.submit
+
+    def counted(batch, **kw):
+        if kw.get("walk"):
+            calls.append(batch.size)
+        return real(batch, **kw)
+
+    monkeypatch.setattr(dispatch, "submit", counted)
     _check_cigars([("gap_open", (5,)), ("gap_extend", (2,)), ("local", ())],
                   qs, rs, False, monkeypatch)
-    assert len(calls) == 2
+    assert calls == [512, 88]
 
 
 @pytest.mark.parametrize("use_trace", [False, True],

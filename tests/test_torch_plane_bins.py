@@ -3,7 +3,7 @@
 ``align_cigars`` and ``ssw_batch``'s windowed pass walk their trace
 planes on the device and fetch only opcodes, so on a card a launch holds
 up to a quarter of the card's total memory of plane, a byte a cell
-(``engine.aligner._plane_cells``); everything else plans as the
+(``engine.binning._plane_cells``); everything else plans as the
 reference does (``parasail_rs_tpu.batch``: 2^28 cells a launch for the
 cell-sized classes, 2^33 in groups of 128 for the rest).  The CPU tests
 stub the card's total memory and stop each call at its plan; the card
@@ -20,7 +20,7 @@ torch = pytest.importorskip("torch")
 
 import parasail_rs_tpu_torch as port  # noqa: E402
 from parasail_rs_tpu_torch.batch import Bin  # noqa: E402
-from parasail_rs_tpu_torch.engine import aligner as aligner_mod  # noqa: E402
+from parasail_rs_tpu_torch.engine import binning, dispatch  # noqa: E402
 from parasail_rs_tpu_torch.utils.shapes import length_bucket  # noqa: E402
 
 CARD = torch.device("cuda")
@@ -48,26 +48,26 @@ def _covers(bins, n):
 
 def test_80gb_card_plans_64_pairs_of_10kbp_in_one_bin(monkeypatch):
     _stub_card(monkeypatch, 80 * GIB)
-    bins = aligner_mod._shape_bins([L10K] * 64, [L10K] * 64, True,
-                                   plane_on=CARD)
+    bins = binning._shape_bins([L10K] * 64, [L10K] * 64, True,
+                               plane_on=CARD)
     assert len(bins) == 1 and _covers(bins, 64)
     assert (bins[0].qp, bins[0].rp) == (length_bucket(L10K),) * 2
-    assert aligner_mod._plane_cells(CARD) == 20 * GIB
+    assert binning._plane_cells(CARD) == 20 * GIB
 
 
 def test_4gb_card_plans_bins_of_at_most_7_pairs(monkeypatch):
     _stub_card(monkeypatch, 4 * GIB)
-    bins = aligner_mod._shape_bins([L10K] * 64, [L10K] * 64, True,
-                                   plane_on=CARD)
+    bins = binning._shape_bins([L10K] * 64, [L10K] * 64, True,
+                               plane_on=CARD)
     assert _covers(bins, 64)
     assert max(_sizes(bins)) == 7 and len(bins) == 10
 
 
 def test_small_card_keeps_the_reference_floor(monkeypatch):
     _stub_card(monkeypatch, GIB)                # a quarter is 2^28 / 1
-    assert aligner_mod._plane_cells(CARD) == 1 << 28
+    assert binning._plane_cells(CARD) == 1 << 28
     _stub_card(monkeypatch, 256 << 20)
-    assert aligner_mod._plane_cells(CARD) == 1 << 28
+    assert binning._plane_cells(CARD) == 1 << 28
 
 
 @pytest.mark.parametrize("plane_on", [torch.device("cpu"), None],
@@ -76,8 +76,8 @@ def test_cpu_and_host_planes_plan_the_reference_bins(plane_on, monkeypatch):
     from parasail_rs_tpu.batch import merge_bins, plan_bins
 
     _stub_card(monkeypatch, 80 * GIB)           # present, and not asked
-    bins = aligner_mod._shape_bins([L10K] * 64, [L10K] * 64, True,
-                                   plane_on=plane_on)
+    bins = binning._shape_bins([L10K] * 64, [L10K] * 64, True,
+                               plane_on=plane_on)
     assert _sizes(bins) == [1] * 64 and _covers(bins, 64)
     want = merge_bins(plan_bins([L10K] * 64, [L10K] * 64, max_cells=1 << 28),
                       max_launches=16, max_cells=1 << 28)
@@ -96,13 +96,13 @@ def _plan_of(monkeypatch, call):
     """The bins ``call`` plans (the real ``_shape_bins`` on the arguments
     it was given), stopping it before anything is packed."""
     seen = []
-    real = aligner_mod._shape_bins
+    real = binning._shape_bins
 
     def record(*args, **kwargs):
         seen.append(real(*args, **kwargs))
         raise _Planned
 
-    monkeypatch.setattr(aligner_mod, "_shape_bins", record)
+    monkeypatch.setattr(binning, "_shape_bins", record)
     with pytest.raises(_Planned):
         call()
     return seen[0]
@@ -180,14 +180,14 @@ def test_align_cigars_on_a_card_plans_by_its_memory(width, monkeypatch):
 
 def test_ssw_windows_plan_where_their_walk_runs(monkeypatch):
     seen = []
-    real = aligner_mod._shape_bins
+    real = binning._shape_bins
 
     def record(*args, **kwargs):
         if args[2]:
             seen.append(kwargs.get("plane_on"))
         return real(*args, **kwargs)
 
-    monkeypatch.setattr(aligner_mod, "_shape_bins", record)
+    monkeypatch.setattr(binning, "_shape_bins", record)
     al = (port.Aligner.new().gap_open(5).gap_extend(2).device("cpu")
           .build())
     qs = [b"ACGTTGCAACGT", b"TTTTACGTAC"]
@@ -210,8 +210,8 @@ def _one_bin(qlens, rlens, *args, **kwargs):
 
 PLANS = {
     "reference": None,
-    "one_bin": lambda mp: mp.setattr(aligner_mod, "_shape_bins", _one_bin),
-    "one_pair_a_bin": lambda mp: mp.setattr(aligner_mod, "_plane_cells",
+    "one_bin": lambda mp: mp.setattr(binning, "_shape_bins", _one_bin),
+    "one_pair_a_bin": lambda mp: mp.setattr(binning, "_plane_cells",
                                             lambda device: 1),
 }
 
@@ -228,13 +228,13 @@ def test_align_cigars_is_identical_under_every_plan(mode, monkeypatch):
         b = getattr(b, mode)()
     al = b.build()
     seen = []
-    real_run = al._align_cigars_shape
+    real_submit = dispatch.submit
 
-    def run(queries, refs, res_al, Qp, Rp):
-        seen.append(len(refs))
-        return real_run(queries, refs, res_al, Qp, Rp)
+    def submit(batch, **kw):
+        seen.append(batch.size)
+        return real_submit(batch, **kw)
 
-    monkeypatch.setattr(al, "_align_cigars_shape", run)
+    monkeypatch.setattr(dispatch, "submit", submit)
     out = {}
     for name, setup in PLANS.items():
         with monkeypatch.context() as mp:
@@ -296,14 +296,14 @@ def test_card_one_bin_past_2_31_bytes_matches_one_pair_bins(
     assert 16 * Qp * Rp > 1 << 31           # the plane's far pairs
     al = (port.Aligner.new().matrix(port.Matrix.create(b"ACGT", 0, -4))
           .gap_open(8).gap_extend(2).device(cuda_device).build())
-    real = aligner_mod._shape_bins
+    real = binning._shape_bins
     plans = []
 
     def record(*args, **kwargs):
         plans.append(real(*args, **kwargs))
         return plans[-1]
 
-    monkeypatch.setattr(aligner_mod, "_shape_bins", record)
+    monkeypatch.setattr(binning, "_shape_bins", record)
     al.align_cigars(qs[:1], rs[:1])             # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -311,7 +311,7 @@ def test_card_one_bin_past_2_31_bytes_matches_one_pair_bins(
     one_bin_s = time.perf_counter() - t0
     assert _sizes(plans[-1]) == [16]
     with monkeypatch.context() as mp:
-        mp.setattr(aligner_mod, "_plane_cells", lambda device: 1 << 28)
+        mp.setattr(binning, "_plane_cells", lambda device: 1 << 28)
         t0 = time.perf_counter()
         ref_alns, ref_cigs = al.align_cigars(qs, rs)
         ref_s = time.perf_counter() - t0

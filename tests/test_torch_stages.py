@@ -14,7 +14,7 @@ import numpy as np  # noqa: E402
 
 import parasail_rs_tpu_torch as port  # noqa: E402
 from parasail_rs_tpu_torch.engine import dispatch  # noqa: E402
-from parasail_rs_tpu_torch.engine.aligner import _shape_bins  # noqa: E402
+from parasail_rs_tpu_torch.engine.binning import _shape_bins  # noqa: E402
 from parasail_rs_tpu_torch.utils import profiling, stages  # noqa: E402
 
 BLOSUM62 = port.Matrix.from_name("blosum62")

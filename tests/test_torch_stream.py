@@ -309,6 +309,8 @@ def test_build_error_reaches_only_its_bucket(monkeypatch):
 
 def test_launch_error_raises_on_the_launching_thread(monkeypatch):
     _, p = _both([])
+    # align_batch launches through dispatch.submit too: its answer first
+    want = p.align(b"ACGT" * 5, b"ACGT" * 5).get_score()
     real = dispatch.submit
     launched = []
 
@@ -327,7 +329,6 @@ def test_launch_error_raises_on_the_launching_thread(monkeypatch):
     assert bad.done()
     with pytest.raises(RuntimeError, match="launch failed"):
         bad.result(timeout=60)
-    want = p.align(b"ACGT" * 5, b"ACGT" * 5).get_score()
     assert [h.result(timeout=60).get_score() for h in ok] == [want] * 2
     # a bulk submit launches every full bucket, then raises the first error
     with pytest.raises(RuntimeError, match="launch failed"):
