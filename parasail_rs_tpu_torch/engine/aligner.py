@@ -17,8 +17,11 @@ for long pairs the three-pass windowed pipeline on ``align_many``.
 from __future__ import annotations
 
 import functools
+import gc
 import logging
+import threading
 from collections import Counter
+from itertools import repeat
 
 import numpy as np
 import torch
@@ -39,21 +42,42 @@ from ..ops.specs import KernelKey
 from . import binning, dispatch
 from .binning import lengths
 from .profile import Profile
-from .result import Alignment, PairFields, SSWResult
+from .result import Alignment, BatchRecord, SSWResult
 
 log = logging.getLogger("parasail_rs_tpu_torch")
+
+
+# whether this thread is inside a public call already: a call that
+# another public call makes (``align`` -> ``align_batch``) counts nothing
+_in_call = threading.local()
+
+
+def _collections() -> int:
+    """Cyclic collections of every generation since the process began."""
+    return sum(g["collections"] for g in gc.get_stats())
 
 
 def _call_region(method):
     """Open the region ``pt.call.<method>`` around a public call (a
     ``record_function`` under torch's profiler, an NVTX range on a
-    card)."""
+    card).  While spans are on, the outermost call of a thread counts
+    the collector's runs that start inside it (``gc_collections``;
+    the collector is process-wide, so another thread's allocations may
+    start one)."""
     name = "pt.call." + method.__name__
 
     @functools.wraps(method)
     def call(*args, **kwargs):
         with profiling.trace_region(name):
-            return method(*args, **kwargs)
+            if not stages.enabled or getattr(_in_call, "on", False):
+                return method(*args, **kwargs)
+            _in_call.on = True
+            n0 = _collections()
+            try:
+                return method(*args, **kwargs)
+            finally:
+                _in_call.on = False
+                stages.count("gc_collections", _collections() - n0)
 
     return call
 
@@ -342,30 +366,35 @@ class Aligner:
         outputs = "score" if "beg_query" in out else self.key.outputs
         return _alignments(
             out, qlens, rlens,
-            (self._flags(outputs, True), self._flags(outputs, False)),
+            (self._flags(outputs, False), self._flags(outputs, True)),
             self.matrix, self.key.free, self.key.mode)
 
     def _binned(self, queries, refs, bins, build, walk: bool = False):
         """Pack and submit every bin, then fetch them in order:
         ``build(columns, rows, qlens, rlens)`` gives a tuple of per-pair
-        lists a bin, each scattered back to input order."""
-        pending = []
-        for bin_ in bins:
-            idx = bin_.indices
-            with stages.stage("bins"):
-                bqs = None if queries is None else [queries[i] for i in idx]
-                brs = [refs[i] for i in idx]
-            batch, bql, brl = self._pack(bqs, brs, Qp=bin_.qp, Rp=bin_.rp)
-            pending.append((idx, bql, brl, self._submit(batch, walk)))
-        outs = []
-        for idx, bql, brl, pend in pending:
-            parts = build(*pend.fetch(), bql, brl)
-            with stages.stage("bins"):
-                outs = outs or [[None] * len(refs) for _ in parts]
-                for out, part in zip(outs, parts):
-                    for i, v in zip(idx, part):
-                        out[i] = v
-        return outs
+        lists a bin, each scattered back to input order.  The cyclic
+        collector pauses once over the whole call (``gc_pause`` of its
+        pairs; the stages' own pauses nest inside it as no-ops)."""
+        with gc_pause(len(refs)):
+            pending = []
+            for bin_ in bins:
+                idx = bin_.indices
+                with stages.stage("bins"):
+                    bqs = (None if queries is None else
+                           [queries[i] for i in idx])
+                    brs = [refs[i] for i in idx]
+                batch, bql, brl = self._pack(bqs, brs, Qp=bin_.qp,
+                                             Rp=bin_.rp)
+                pending.append((idx, bql, brl, self._submit(batch, walk)))
+            outs = []
+            for idx, bql, brl, pend in pending:
+                parts = build(*pend.fetch(), bql, brl)
+                with stages.stage("bins"):
+                    outs = outs or [[None] * len(refs) for _ in parts]
+                    for out, part in zip(outs, parts):
+                        for i, v in zip(idx, part):
+                            out[i] = v
+            return outs
 
     # pairs per device-walk launch: a walked bin splits into launches
     # whose pack, kernels and copy are all enqueued before the first
@@ -670,26 +699,21 @@ class Aligner:
 
 
 def _alignments(out, qlens, rlens, flags, matrix, free, mode):
-    """Result objects over the shared columnar output arrays: each
-    Alignment holds a :class:`PairFields` view and one of the two shared
-    read-only dicts of ``flags``, (saturated, not saturated)."""
+    """Result objects over the shared columnar output arrays: one
+    :class:`BatchRecord` for the batch, one two-slot :class:`Alignment`
+    a pair over it, made in one pass of ``map``; ``flags`` are the two
+    shared read-only dicts, (unsaturated, saturated)."""
     n = len(rlens)
     big = {k: v for k, v in out.items()
            if k.endswith(("_table", "_row", "_col"))}
     cols = {k: np.asarray(v) for k, v in out.items() if k not in big}
     sat = cols.get("saturated")
-    sat_l = ([False] * n if sat is None else
-             np.asarray(sat, bool).tolist())
-    f_sat, f_un = flags
-    mk, pf = Alignment, PairFields
+    rec = BatchRecord(cols, big, qlens, rlens,
+                      [False] * n if sat is None else
+                      np.asarray(sat, bool).tolist(),
+                      flags, matrix, free, mode)
     with stages.stage("build"), gc_pause(n):
-        return [
-            mk(fields=pf(cols, big, b, qlens[b], rlens[b]),
-               flags=f_sat if sat_l[b] else f_un,
-               query_len=qlens[b], ref_len=rlens[b],
-               matrix=matrix, free=free, mode=mode)
-            for b in range(n)
-        ]
+        return list(map(Alignment, repeat(rec, n), range(n)))
 
 
 def _ssw_score(score: int, promoted: bool, score_size: int | None) -> int:

@@ -134,6 +134,46 @@ class Traceback:
     reference: str
 
 
+class BatchRecord:
+    """What the results of one batch share: its fetched columns
+    (``cols``, an array a key), its cell-sized planes (``big``:
+    ``*_table`` / ``*_row`` / ``*_col``), the pairs' lengths, each
+    pair's saturation bit (``sat``), the two read-only predicate dicts
+    (``flags``: unsaturated, saturated), and the aligner's ``matrix``,
+    ``free`` and ``mode``.  Each :class:`Alignment` holds this record
+    and its row, so a batch of n pairs allocates n small objects and one
+    record."""
+
+    __slots__ = ("cols", "big", "qlens", "rlens", "sat", "flags", "matrix",
+                 "free", "mode")
+
+    def __init__(self, cols, big, qlens, rlens, sat, flags, matrix, free,
+                 mode):
+        self.cols = cols
+        self.big = big
+        self.qlens = qlens
+        self.rlens = rlens
+        self.sat = sat
+        self.flags = flags
+        self.matrix = matrix
+        self.free = free
+        self.mode = mode
+
+    def field(self, b: int, k: str):
+        """Pair ``b``'s value of ``k``: a column's element, or a view of
+        its plane cropped to the pair's lengths (the slices
+        ``dispatch.slice_pair`` takes)."""
+        v = self.cols.get(k)
+        if v is not None:
+            return v[b]
+        v = self.big[k]
+        if k.endswith("_table"):
+            return v[b, :self.qlens[b], :self.rlens[b]]
+        if k.endswith("_row"):
+            return v[b, :self.rlens[b]]
+        return v[b, :self.qlens[b]]
+
+
 class PairFields:
     """Lazy per-pair mapping over a batch's columnar output arrays.
 
@@ -141,30 +181,19 @@ class PairFields:
     (``[]`` / ``get`` / ``in``) but materializes nothing per pair:
     scalar reads index the shared column array, and cell-sized planes
     (``*_table``/``*_row``/``*_col``) slice a view of the batch plane at
-    access time — the same slices ``dispatch.slice_pair`` takes.
-    Building 8k per-pair dicts cost ~14 ms of host time per batch, 3x
-    the device kernel; 8k of these views cost ~2 ms.
+    access time (:meth:`BatchRecord.field`).  Building 8k per-pair
+    dicts cost ~14 ms of host time per batch, 3x the device kernel; 8k
+    of these views cost ~2 ms.
     """
 
-    __slots__ = ("_cols", "_big", "_b", "_qlen", "_rlen")
+    __slots__ = ("_rec", "_b")
 
-    def __init__(self, cols, big, b, qlen, rlen):
-        self._cols = cols
-        self._big = big
+    def __init__(self, rec: BatchRecord, b: int):
+        self._rec = rec
         self._b = b
-        self._qlen = qlen
-        self._rlen = rlen
 
     def __getitem__(self, k):
-        v = self._cols.get(k)
-        if v is not None:
-            return v[self._b]
-        v = self._big[k]
-        if k.endswith("_table"):
-            return v[self._b, :self._qlen, :self._rlen]
-        if k.endswith("_row"):
-            return v[self._b, :self._rlen]
-        return v[self._b, :self._qlen]
+        return self._rec.field(self._b, k)
 
     def get(self, k, default=None):
         try:
@@ -173,10 +202,10 @@ class PairFields:
             return default
 
     def __contains__(self, k):
-        return k in self._cols or k in self._big
+        return k in self._rec.cols or k in self._rec.big
 
     def keys(self):
-        return list(self._cols) + list(self._big)
+        return list(self._rec.cols) + list(self._rec.big)
 
     def __iter__(self):
         return iter(self.keys())
@@ -185,27 +214,64 @@ class PairFields:
         return f"PairFields({{{', '.join(self.keys())}}}, b={self._b})"
 
 
-@dataclass(slots=True)
 class Alignment:
     """Sequence alignment result.
 
     Accessor surface mirrors the reference ``Alignment``
-    (src/alignment/mod.rs:53-504).  ``fields`` holds the per-pair host
+    (src/alignment/mod.rs:53-504).  ``fields`` maps the per-pair host
     arrays the device kernel produced; ``flags`` holds the 15 predicate
-    bits the reference reads off the C result tag.  ``slots=True``
-    because batch paths build one of these per pair: without it every
-    instance also allocates a gc-tracked ``__dict__``, and the cyclic
-    collector's repeated scans over those dominate 64k-pair host time
-    (measured ~5x on `_alignments_from`).
+    bits the reference reads off the C result tag.  An instance is two
+    slots, the batch's shared :class:`BatchRecord` and the pair's row:
+    batch paths build one a pair, and every per-pair field the
+    collector would scan or ``__init__`` would fill costs host time at
+    64k pairs.  ``fields``, ``flags``, ``query_len``, ``ref_len``,
+    ``matrix``, ``free`` and ``mode`` read the record.
     """
 
-    fields: dict
-    flags: dict
-    query_len: int
-    ref_len: int
-    matrix: object = None            # Matrix (kept for parity with reference)
-    free: tuple = (False, False, False, False)
-    mode: str = "nw"
+    __slots__ = ("_rec", "_b")
+
+    def __init__(self, rec: BatchRecord, b: int):
+        self._rec = rec
+        self._b = b
+
+    def _field(self, k: str):
+        return self._rec.field(self._b, k)
+
+    @property
+    def fields(self) -> PairFields:
+        return PairFields(self._rec, self._b)
+
+    @property
+    def flags(self) -> dict:
+        rec = self._rec
+        return rec.flags[rec.sat[self._b]]
+
+    @property
+    def query_len(self) -> int:
+        return self._rec.qlens[self._b]
+
+    @property
+    def ref_len(self) -> int:
+        return self._rec.rlens[self._b]
+
+    @property
+    def matrix(self):
+        """The Matrix (kept for parity with reference)."""
+        return self._rec.matrix
+
+    @property
+    def free(self) -> tuple:
+        return self._rec.free
+
+    @property
+    def mode(self) -> str:
+        return self._rec.mode
+
+    def __repr__(self) -> str:
+        return (f"Alignment(fields={self.fields!r}, flags={self.flags!r}, "
+                f"query_len={self.query_len!r}, ref_len={self.ref_len!r}, "
+                f"matrix={self.matrix!r}, free={self.free!r}, "
+                f"mode={self.mode!r})")
 
     @property
     def matrix_approximate(self) -> bool:
@@ -216,36 +282,36 @@ class Alignment:
 
     # -- score / ends (src/alignment/mod.rs:64-76) ---------------------------
     def get_score(self) -> int:
-        return int(self.fields["score"])
+        return int(self._field("score"))
 
     def get_end_query(self) -> int:
-        return int(self.fields["end_query"])
+        return int(self._field("end_query"))
 
     def get_end_ref(self) -> int:
-        return int(self.fields["end_ref"])
+        return int(self._field("end_ref"))
 
     # -- stats (src/alignment/mod.rs:79-98) ----------------------------------
     def get_matches(self) -> int:
         if not self.is_stats():
             raise NoStats("get_matches()")
-        return int(self.fields["matches"])
+        return int(self._field("matches"))
 
     def get_similar(self) -> int:
         # Guarded unlike the reference (deliberate fix, see module docstring).
         if not self.is_stats():
             raise NoStats("get_similar()")
-        return int(self.fields["similar"])
+        return int(self._field("similar"))
 
     def get_length(self) -> int:
         if not self.is_stats():
             raise NoStats("get_length()")
-        return int(self.fields["length"])
+        return int(self._field("length"))
 
     # -- full tables (src/alignment/mod.rs:123-192) --------------------------
     def _table(self, key: str, guard, err) -> Table:
         if not guard:
             raise err
-        return Table(self.fields[key])
+        return Table(self._field(key))
 
     def get_score_table(self) -> Table:
         return self._table(
@@ -273,7 +339,7 @@ class Alignment:
             self.is_rowcol() or self.is_stats_rowcol())
         if not ok:
             raise NoRowCol(name)
-        return self.fields[key]
+        return self._field(key)
 
     def get_score_row(self) -> np.ndarray:
         return self._rowcol("score_row", False, "get_score_row()")
@@ -303,7 +369,7 @@ class Alignment:
     def get_trace_table(self) -> TracebackTable:
         if not self.is_trace():
             raise NoTrace("get_trace_table()")
-        return TracebackTable(self.fields["trace_table"])
+        return TracebackTable(self._field("trace_table"))
 
     def _walk(self, query: bytes, reference: bytes):
         # Native C++ walker when built (parasail's host-side traceback is
@@ -315,7 +381,7 @@ class Alignment:
             free = self.free if self.mode != "sw" else free_flags("sw")
             qb, _, db, _ = free
             res = walker.walk_one(
-                self.fields["trace_table"], query, reference,
+                self._field("trace_table"), query, reference,
                 self.get_end_query(), self.get_end_ref(),
                 local=self.mode == "sw", qb=qb, db=db,
             )
@@ -323,7 +389,7 @@ class Alignment:
                 ops, bq, br = res
                 return Walk(ops=ops, beg_query=bq, beg_ref=br)
             return walk_trace(
-                self.fields["trace_table"], query, reference,
+                self._field("trace_table"), query, reference,
                 self.get_end_query(), self.get_end_ref(), self.mode,
                 self.free,
             )

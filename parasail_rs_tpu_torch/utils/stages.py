@@ -26,8 +26,10 @@ sum is the host time under a span:
 
 Counters (:func:`count`), counted where the thing happens: ``bins`` (one
 a batch, where its route is tallied), ``launches`` (the port's own CUDA
-kernel launches), ``cells_real`` (a batch's sum of qlen * rlen) and
-``cells_padded`` (its B * Qp * Rp).
+kernel launches), ``cells_real`` (a batch's sum of qlen * rlen),
+``cells_padded`` (its B * Qp * Rp) and ``gc_collections`` (the cyclic
+collector's runs that start inside a thread's outermost public call,
+``engine.aligner._call_region``).
 
 Off by default: then :func:`stage` and :func:`count` cost a call and one
 flag test.  On (:func:`enable`, or :func:`measuring` for a block), a stage

@@ -108,11 +108,13 @@ NATIVE_OWN = ("_lib_dir", "_load", "_reset_after_fork")
 # the definitions the port owns in a copied module, by module: in the
 # native loaders NATIVE_OWN; in the stage clocks the spans on the trace and
 # the counters (and the module's docstring, "__doc__"); in the results the
-# host walk's span
+# host walk's span (``Alignment._walk``) and the batch's results, one
+# two-slot ``Alignment`` a pair over a shared ``BatchRecord``
 OWN = {"native/packer.py": NATIVE_OWN, "native/walker.py": NATIVE_OWN,
        "utils/stages.py": ("__doc__", "count", "snapshot", "_Off", "_OFF",
                            "_Span", "stage"),
-       "engine/result.py": ("_walk",)}
+       "engine/result.py": ("_walk", "Alignment", "PairFields",
+                            "BatchRecord")}
 
 
 def _is_native_loader(path: str) -> bool:
