@@ -273,6 +273,9 @@ class Aligner:
     Construct via ``Aligner.new()`` (returns a builder).
     """
 
+    # whether results are banded_nw_batch's (set on :meth:`_band`)
+    _banded = False
+
     def __init__(self, key: KernelKey, matrix: Matrix, gap_open: int,
                  gap_extend: int, profile: Profile, bandwidth: int | None,
                  device: torch.device):
@@ -362,11 +365,13 @@ class Aligner:
     def _alignments_from(self, out, qlens, rlens):
         """This aligner's results over fetched columns; a walk's (its
         begins, no plane) are score-class, as ``align_cigars`` returns
-        them."""
+        them; a banded sub-aligner's (:meth:`_band`) carry the
+        reference's banded flags, never saturated."""
         outputs = "score" if "beg_query" in out else self.key.outputs
+        flags = self._flags(outputs, False, self._banded)
         return _alignments(
             out, qlens, rlens,
-            (self._flags(outputs, False), self._flags(outputs, True)),
+            (flags, flags if self._banded else self._flags(outputs, True)),
             self.matrix, self.key.free, self.key.mode)
 
     def _binned(self, queries, refs, bins, build, walk: bool = False):
@@ -561,19 +566,35 @@ class Aligner:
     @_call_region
     def banded_nw_batch(self, queries, references) -> list[Alignment]:
         """Batched banded global alignment: one launch of the banded score
-        kernel (NW, width 32) over the whole batch."""
+        kernel (NW, width 32) over the whole batch, built by the banded
+        sub-aligner (:meth:`_band`)."""
         if self.bandwidth is None:
             raise NoBandwidth(
                 "banded_nw() requires .bandwidth() on the builder")
         batch, qlens, rlens = self._pack(queries, references)
+        band = self._band
         out = dispatch.execute(
             batch, gap_open=self.gap_open, gap_extend=self.gap_extend,
             mode="nw", free=(False,) * 4, outputs="score", width="32",
-            on_route=self._on_route, banded=True, bandwidth=self.bandwidth)
-        # the reference's flags: this aligner's class, never saturated
-        flags = self._flags(self.key.outputs, False, banded=True)
-        return _alignments(out, qlens, rlens, (flags, flags), self.matrix,
-                           (False,) * 4, "nw")
+            on_route=band._on_route, banded=True, bandwidth=self.bandwidth)
+        return band._alignments_from(out, qlens, rlens)
+
+    @functools.cached_property
+    def _band(self) -> "Aligner":
+        """``banded_nw_batch``'s sub-aligner: global, no free ends, this
+        aligner's class (the reference's flags name it), marked banded,
+        sharing this one's route counter."""
+        key = self.key
+        sub = Aligner(
+            key=KernelKey(mode="nw", free=(False,) * 4, outputs=key.outputs,
+                          strategy=key.strategy, profile=key.profile,
+                          width="32"),
+            matrix=self.matrix, gap_open=self.gap_open,
+            gap_extend=self.gap_extend, profile=self.profile,
+            bandwidth=self.bandwidth, device=self.device)
+        sub._banded = True
+        sub.route_counter = self.route_counter
+        return sub
 
     # -- SSW emulation (src/aligner/mod.rs:492-529) ------------------------------
     def ssw(self, query, reference) -> SSWResult:

@@ -48,7 +48,8 @@ from ..utils import profiling, stages
 from ..utils.gcpause import gc_pause
 from ..utils.shapes import length_bucket
 
-from ..ops.scan_kernel import (OUTPUTS, SEGMENT_OUTPUTS, score_align,
+from ..ops.scan_kernel import (OUTPUTS, SEGMENT_OUTPUTS, band_cells,
+                               band_form, band_swept, score_align,
                                score_chunked, score_segment)
 from ..ops.wavefront import STATS_CLASSES, STATS_KEYS
 
@@ -166,6 +167,61 @@ def _pack_side(seqs, P):
     return padded, lens, P
 
 
+def _pack_sides(sides, device):
+    """Each side's sequences, ``(seqs, P)`` pairs, into one host buffer,
+    side after side as contiguous (B, P') planes:
+    ``[(device plane, lens, P')]``.  The native fill writes the buffer in
+    place, a large side with streamed stores (``native/fill.py``),
+    pinned for a card, where torch's host allocator hands the same block
+    back call after call: fresh padded arrays and their concatenation
+    each call (50 MB for 1,024 pairs of 10 kbp) made that batch's pack
+    about 3x slower on an H100 machine's host (PERF.md §6).  On a card
+    each side's plane starts its upload as soon as it is filled, while
+    the next side fills.  A side the fill cannot serve packs through
+    :func:`_pack_side` (the packer's fill, or its numpy formulation) and
+    is copied in."""
+    from ..errors import InteriorNulByte
+    from ..native import fill, packer
+
+    lib = packer._load()
+    plans = []
+    for seqs, P in sides:
+        lens = np.empty(len(seqs), np.int32)
+        mx = (lib.pt_pack_lens(seqs, len(seqs), lens.ctypes.data)
+              if lib is not None and type(seqs) is list else -1)
+        plans.append(_pack_side(seqs, P) if mx < 0 else
+                     (None, lens, P or length_bucket(int(mx) if len(seqs)
+                                                     else 1)))
+    sizes = [len(lens) * P for _, lens, P in plans]
+    card = device.type == "cuda"
+    if card:
+        host = torch.empty(sum(sizes), dtype=torch.uint8,
+                           pin_memory=sum(sizes) > 0)
+        flat = host.numpy()
+        dev = torch.empty(sum(sizes), dtype=torch.uint8, device=device)
+    else:
+        flat = np.empty(sum(sizes), np.uint8)
+        host = dev = torch.from_numpy(flat)
+    out, off = [], 0
+    for (seqs, _), (padded, lens, P), n in zip(sides, plans, sizes):
+        plane = flat[off:off + n].reshape(len(lens), P)
+        if padded is None:
+            rc = fill.fill(seqs, P, plane)
+            if rc == -2:
+                raise InteriorNulByte("sequence contains an interior NUL "
+                                      "byte")
+            if rc != 0:             # no library, or a row past P
+                padded = _pack_side(seqs, P)[0]
+        if padded is not None:
+            plane[...] = padded
+        if card and n:
+            dev[off:off + n].copy_(host[off:off + n], non_blocking=True)
+        out.append((off, lens, P))
+        off += n
+    return [(dev[o:o + len(lens) * P].view(len(lens), P), lens, P)
+            for o, lens, P in out]
+
+
 def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     t = torch.from_numpy(np.ascontiguousarray(arr))
     if device.type == "cuda":
@@ -188,8 +244,12 @@ def pack_pairs(matrix, queries, references, profile=None, Qp=None, Rp=None,
 
 def _pack_pairs_inner(matrix, queries, references, profile, Qp, Rp, B,
                       device):
-    rbytes, rlens, Rp = _pack_side(references, Rp)
-    qbytes = None
+    if profile is None and len(queries) != B:
+        raise ValueError("queries and references must have equal length")
+    planes = _pack_sides([(references, Rp)] if profile is not None else
+                         [(queries, Qp), (references, Rp)], device)
+    rb_t, rlens, Rp = planes[-1]
+    qb_t = None
     if profile is not None:
         ql = profile.query_len
         Qp = Qp or length_bucket(ql)
@@ -200,9 +260,7 @@ def _pack_pairs_inner(matrix, queries, references, profile, Qp, Rp, B,
         qidx[0, :ql] = profile.qidx
         qlens = np.full(B, ql, np.int32)
     else:
-        if len(queries) != B:
-            raise ValueError("queries and references must have equal length")
-        qbytes, qlens, Qp = _pack_side(queries, Qp)
+        qb_t, qlens, Qp = planes[0]
         qidx = None
         if matrix.is_square:
             prof = None
@@ -213,12 +271,6 @@ def _pack_pairs_inner(matrix, queries, references, profile, Qp, Rp, B,
             prof = np.ascontiguousarray(rows)[None]
     table = (np.ascontiguousarray(matrix.data, dtype=np.int32)
              if prof is None else None)
-    if qbytes is not None:
-        # one upload for both planes, sliced on the device
-        both = upload(np.concatenate([qbytes, rbytes], axis=1), device)
-        qb_t, rb_t = both[:, :qbytes.shape[1]], both[:, qbytes.shape[1]:]
-    else:
-        qb_t, rb_t = None, upload(rbytes, device)
     batch = PairBatch(
         profile=None if prof is None else upload(prof, device),
         qidx=None if qidx is None else upload(qidx, device),
@@ -434,6 +486,26 @@ def _tally(batch: PairBatch, route: str, reason: str, on_route) -> None:
         stages.count("cells_padded", batch.size * batch.qp * batch.rp)
 
 
+def _tally_band(batch: PairBatch, route: str, outputs: str,
+                bandwidth: int) -> None:
+    """Count a banded launch's in-band cells of its real lengths
+    (``cells_band``) and the cells its schedule sweeps
+    (``cells_band_swept``: the ring's lanes, or every padded cell of the
+    masked full sweep and the plain version), from the host's lengths,
+    while spans are on."""
+    if not stages.enabled:
+        return
+    form = (0, 0)
+    if route == "cuda_kernel" and outputs == "score":
+        form = band_form(batch.size, batch.qp, batch.rp,
+                         int(batch.score_values.shape[-1]), bandwidth,
+                         batch.profile is not None)
+    stages.count("cells_band", band_cells(batch.qlen, batch.rlen, bandwidth))
+    stages.count("cells_band_swept",
+                 band_swept(batch.qlen, batch.rlen, batch.qp, batch.rp,
+                            bandwidth, form))
+
+
 def _substitution(batch: PairBatch, outputs: str) -> dict:
     """The batch's substitution inputs as score_align's keywords."""
     if batch.table is not None:
@@ -461,6 +533,8 @@ def launch(batch: PairBatch, *, gap_open: int, gap_extend: int, mode: str,
         route, reason = plan_route(batch, outputs, gap_open, gap_extend,
                                    one_shot=True, banded=banded)
         _tally(batch, route, reason, on_route)
+        if banded:
+            _tally_band(batch, route, outputs, bandwidth)
         kw = dict(open_=gap_open, ext=gap_extend, mode=mode, free=free,
                   width=width, outputs=outputs,
                   **_substitution(batch, outputs))

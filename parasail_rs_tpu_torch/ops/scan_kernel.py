@@ -114,6 +114,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..constants import (
@@ -284,8 +285,7 @@ def score_align(ridx, qlen, rlen, *, open_, ext, mode, free, width="32",
     kw = dict(open_=open_, ext=ext, mode=mode, free=free, width=width,
               table=table, qidx=qidx, profile=profile)
     if banded and outputs == "score":
-        form = _BAND_FORM or band_plan(B, Qp, Rp, A, bandwidth,
-                                       profile is not None)
+        form = band_form(B, Qp, Rp, A, bandwidth, profile is not None)
         if form[0]:
             return _band_ring(ridx, qlen, rlen, dims, form,
                               bandwidth=bandwidth, **kw)
@@ -347,6 +347,68 @@ def band_plan(B, Qp, Rp, A, bandwidth, profile=False) -> tuple:
                                int(bool(profile)),
                                ctypes.cast(plan, ctypes.c_void_p))
     return tuple(plan)
+
+
+def band_form(B, Qp, Rp, A, bandwidth, profile=False) -> tuple:
+    """The form the banded score class launches on the card:
+    ``_BAND_FORM`` where set, else :func:`band_plan`'s."""
+    return _BAND_FORM or band_plan(B, Qp, Rp, A, bandwidth, profile)
+
+
+def band_cells(qlen, rlen, bandwidth) -> int:
+    """The in-band cells of pairs of ``qlen`` by ``rlen`` (host arrays):
+    cells (i, j) with |i - j| <= ``bandwidth``, summed in closed form.
+    Row i of an m x n matrix holds min(n, i + k + 1) cells with
+    j - i <= k, clipped at 0; the band is those at k = bw less those at
+    k = -bw - 1."""
+    m = np.asarray(qlen, np.int64)
+    n = np.asarray(rlen, np.int64)
+    bw = int(bandwidth)
+    if bw < 0:
+        return 0
+
+    def left_of(x):            # sum of clip(t, 0, n) over t < x
+        a = np.clip(x - 1, 0, n)
+        return a * (a + 1) // 2 + n * np.maximum(x - 1 - n, 0)
+
+    def at_most(k):            # cells with j - i <= k
+        return left_of(k + 1 + m) - left_of(k + 1)
+
+    return int(np.sum(at_most(bw) - at_most(-bw - 1)))
+
+
+def band_swept(qlen, rlen, Qp, Rp, bandwidth, form) -> int:
+    """The cells a banded score launch's schedule sweeps over pairs of
+    ``qlen`` by ``rlen`` (host arrays) padded to ``Qp`` by ``Rp``.
+
+    The masked full sweep (``form`` (0, 0)) computes every padded cell,
+    B Qp Rp.  The ring at ``form`` (G, kR) steps each of a pair's G lanes
+    over kR rows once a step, busy or idle, for as many steps as its
+    warp's longest pair takes (``csrc/score_cell.cuh``, ``band_pair``;
+    a warp holds 32 / G consecutive pairs): with bw the band clamped to
+    the padded pair (``band_eff``) and kl = min(ceil(qlen / kR) - 1,
+    (rlen - 1 + bw) // kR) the pair's last block with columns, a pair
+    takes min(rlen - 1, kl kR + kR - 1 + bw) + kl + 1 steps (0 with an
+    empty side), and the launch sweeps G kR times the sum over its pairs
+    of their warp's steps.  At steady state a lane is busy 2 bw + kR of
+    every G (kR + 1) steps, so the band's 2 bw + 1 cells a row fill at
+    most (2 bw + 1) / (G (kR + 1)) of what the ring sweeps."""
+    qlen = np.asarray(qlen, np.int64)
+    rlen = np.minimum(np.asarray(rlen, np.int64), int(Rp))
+    G, kR = (int(x) for x in form)
+    if not G:
+        return len(rlen) * int(Qp) * int(Rp)
+    bw = min(max(int(bandwidth), -1), max(int(Qp), int(Rp)))    # band_eff
+    live = (qlen > 0) & (rlen > 0) & (bw >= 0)
+    kl = np.minimum(-(-qlen // kR) - 1, (rlen - 1 + bw) // kR)
+    steps = np.where(live, np.minimum(rlen - 1, kl * kR + kR - 1 + bw)
+                     + kl + 1, 0)
+    per_warp = 32 // G
+    B = len(steps)
+    warps = np.zeros(-(-B // per_warp) * per_warp, np.int64)
+    warps[:B] = steps
+    warps = warps.reshape(-1, per_warp).max(axis=1)
+    return G * kR * int(np.sum(np.repeat(warps, per_warp)[:B]))
 
 
 def short_plan(outputs, B, Bq, Qp, Rp, A, profile=False) -> tuple:

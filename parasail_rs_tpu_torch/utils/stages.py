@@ -27,7 +27,11 @@ sum is the host time under a span:
 Counters (:func:`count`), counted where the thing happens: ``bins`` (one
 a batch, where its route is tallied), ``launches`` (the port's own CUDA
 kernel launches), ``cells_real`` (a batch's sum of qlen * rlen),
-``cells_padded`` (its B * Qp * Rp) and ``gc_collections`` (the cyclic
+``cells_padded`` (its B * Qp * Rp), ``cells_band`` (a banded batch's
+cells with |i - j| <= bw, of its real lengths), ``cells_band_swept``
+(the cells its launch's schedule sweeps: the ring's lanes a step times
+its steps, or B * Qp * Rp for the masked full sweep;
+``ops.scan_kernel.band_swept``) and ``gc_collections`` (the cyclic
 collector's runs that start inside a thread's outermost public call,
 ``engine.aligner._call_region``).
 

@@ -342,6 +342,105 @@ def test_ring_matches_jax_on_the_seed3_batch(lib, mode_name, bw):
         np.testing.assert_array_equal(got[3] != 0, want["promoted"])
 
 
+# -- the cells the ring's schedule sweeps -----------------------------------
+
+
+def ring_schedule(qlens, rlens, Qp, Rp, bw, G, kR):
+    """(lane rows the warps step through, the in-band cells of real rows
+    the busy lanes visit) of a launch at form (G, kR), by stepping each
+    pair's lanes as ``band_lane_iter`` does: block k on lane k mod G
+    computes column s - k of its rows at step s over its band's columns,
+    then the lane takes block k + G; a warp of 32 / G pairs steps until
+    its longest pair's last block ends, each lane kR rows a step."""
+    bw = min(max(bw, -1), Qp + Rp, max(Qp, Rp))
+    steps, seen_all = [], 0
+    for ql, rl in zip(qlens, rlens):
+        kb, last, seen, s = list(range(G)), -1, set(), 0
+
+        def span(k):
+            return max(0, k * kR - bw), min(rl - 1, k * kR + kR - 1 + bw)
+
+        def live(k):
+            lo, hi = span(k)
+            return bw >= 0 and rl > 0 and k * kR < ql and lo <= hi
+
+        while any(live(k) for k in kb):
+            for gl in range(G):
+                k = kb[gl]
+                if not live(k):
+                    continue
+                lo, hi = span(k)
+                c = s - k
+                if lo <= c <= hi:
+                    last = s
+                    seen.update((i, c) for i in range(k * kR, min(ql, k * kR
+                                                                  + kR))
+                                if abs(i - c) <= bw)
+                    if c == hi:
+                        kb[gl] += G
+            s += 1
+        steps.append(last + 1)
+        seen_all += len(seen)
+    per = 32 // G
+    warp = [max(steps[w:w + per]) for w in range(0, len(steps), per)]
+    return G * kR * sum(warp[b // per] for b in range(len(steps))), seen_all
+
+
+def _lengths(rng, B, Qp, Rp):
+    """Ragged lengths up to the padded sizes, with an empty side and a
+    pair whose corner lies far off the diagonal."""
+    ql = rng.integers(1, Qp + 1, B)
+    rl = rng.integers(1, Rp + 1, B)
+    ql[0], rl[1 % B] = 0, Rp
+    ql[1 % B] = 1
+    return ql, rl
+
+
+SWEPT_SHAPES = [(5, 64, 64, 3), (9, 48, 80, 10), (3, 96, 64, 30),
+                (40, 32, 32, 2), (17, 64, 128, 0), (6, 40, 24, 200)]
+
+
+@pytest.mark.parametrize("B,Qp,Rp,bw", SWEPT_SHAPES,
+                         ids=[f"{b}x{q}x{r}bw{w}" for b, q, r, w in
+                              SWEPT_SHAPES])
+def test_band_swept_at_the_rules_form(lib, B, Qp, Rp, bw):
+    rng = np.random.default_rng([B, Qp, Rp, bw])
+    ql, rl = _lengths(rng, B, Qp, Rp)
+    form = plan(lib, B, Qp, Rp, bw, A=4)
+    assert form[0]
+    slots, seen = ring_schedule(ql, rl, Qp, Rp, bw, *form)
+    assert tk.band_swept(ql, rl, Qp, Rp, bw, form) == slots
+    # the schedule visits every in-band cell, each once
+    band = sum(int((np.abs(np.subtract.outer(np.arange(q), np.arange(r)))
+                    <= bw).sum()) for q, r in zip(ql, rl))
+    assert tk.band_cells(ql, rl, bw) == seen == band
+    assert slots >= band
+    assert tk.band_swept(ql, rl, Qp, Rp, bw, (0, 0)) == B * Qp * Rp
+
+
+@pytest.mark.parametrize("form", FORMS, ids=[f"G{g}R{r}" for g, r in FORMS])
+def test_band_swept_at_every_form(form):
+    # the widest band each form reaches; several pairs a warp below G 32
+    G, kR = form
+    bw = (reach(G, kR) - 1) // 2
+    rng = np.random.default_rng([G, kR])
+    ql, rl = _lengths(rng, 11, 3 * bw, 3 * bw + 7)
+    slots, seen = ring_schedule(ql, rl, 3 * bw, 3 * bw + 7, bw, G, kR)
+    assert tk.band_swept(ql, rl, 3 * bw, 3 * bw + 7, bw, form) == slots
+    assert tk.band_cells(ql, rl, bw) == seen
+
+
+def test_band_swept_at_the_cells_shape(lib):
+    # 1,024 pairs of 10 kbp at bw 100: G 32, kR 6 (219 > 200); a lane is
+    # busy 206 of every 224 steps, so the band fills under 201 / 224
+    assert plan(lib, 1024, 12288, 12288, 100, A=4) == (32, 6)
+    ql = np.full(1024, 10000)
+    rl = 10000 + np.random.default_rng(5).integers(-74, 75, 1024)
+    swept = tk.band_swept(ql, rl, 12288, 12288, 100, (32, 6))
+    share = tk.band_cells(ql, rl, 100) / swept
+    assert 0.85 < share < 201 / 224
+
+
 # -- on the card ----------------------------------------------------------
 
 
