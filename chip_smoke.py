@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the kernels from ``parasail_rs_tpu_torch/csrc`` with nvcc and
-runs thirty-two phases on ``cuda``; any failure raises and the script exits
+runs thirty-three phases on ``cuda``; any failure raises and the script exits
 non-zero without printing a result.  ``score_align`` runs every unbanded
 class on the short form (kernels K1a-K1d, ``csrc/scan_short.cu``, one
 warp a pair) up to 256 padded query rows and on the block kernel's
@@ -28,8 +28,9 @@ kernel" or name a plane class:
    of 2,000 bp.  Every kernel's launches are counted from zero over this
    phase only; the short form's score class must launch three times and
    the block kernel's one-shot form not at all, every route must be
-   "cuda_kernel" (the 2,000 bp batch: "cuda_segments"), and the scores
-   must equal the plain version's;
+   "cuda_kernel" (the 2,000 bp batch: "cuda_segments", on the packed
+   score form, ``SEGMENT16_LAUNCHES``, and not on the int32 one), and
+   the scores must equal the plain version's;
 5. timings of the score path: the short form's score class (K1a), the
    block kernel's one-shot form and the plain version at the headline
    shape and on phase 3's 8,192 table-form pairs (CUDA-event medians,
@@ -131,7 +132,7 @@ kernel" or name a plane class:
    and a ``use_trace()`` batch equal to ``align_batch``, and 128 DNA
    pairs of 4,096 bp (SW 5/1; cfg6 at a quarter of its length), whose
    first 16 pairs must equal plain; the bins of long pairs take the
-   segment kernel; then cfg5 end to end (binned, with stage clocks and
+   segment kernel (the score class its packed form); then cfg5 end to end (binned, with stage clocks and
    GCUPS; unbinned; with more bins);
 17. SSW, counted from zero: ``ssw_batch`` of 1,024 of the BLOSUM62 pairs
    at 11/1, one pass and ``windowed=True``, and a profile at score_size 0
@@ -150,7 +151,9 @@ kernel" or name a plane class:
    sweep; then 128 DNA pairs of 50-4,096 bp (Qp = Rp = 4,096) through
    ``align_batch`` with the score class, ``use_stats()`` and
    ``use_trace()`` (a 2 GiB plane, streamed out in segments): every
-   route "cuda_segments", the segment kernel launched, every output
+   route "cuda_segments", the score class on the packed form (no pair
+   flagged, so no int32 score launch), stats and trace on the int32
+   form, every output
    equal to the block kernel's one-shot form on the same pairs (one
    launch of the same block: a check of the chain, whose plain version
    phase 20 holds at this shape), and the short pairs equal to golden
@@ -158,7 +161,8 @@ kernel" or name a plane class:
 20. timings of the segment kernel, beside the card's name and power
    limit: cfg6 end to end and as a chain of launches, 128 x 1,024 bp
    through the block kernel's one-shot form and the segment kernel, 128
-   x 4,096 bp through the segment kernel, the stats and
+   x 4,096 bp through the segment kernel and its packed score form (held
+   to the same plain version), the stats and
    trace classes on 128 x 4,096 bp with their plain versions (whose
    outputs the segment kernel's must equal at this shape too), the trace
    class end to end with its stage clocks against its kernels alone
@@ -279,9 +283,12 @@ kernel" or name a plane class:
    without ``flush()`` while the other buckets wait, ``result()`` of a
    partial bucket's handle launching that bucket alone; ``use_stats()``
    (4,096 pairs), ``use_trace()`` (512, CIGARs also against
-   ``align_cigars``) and ``use_table()`` (64) streams, and a bucket of 8
-   DNA pairs of 4,096 bp on "cuda_segments", each equal to
-   ``align_batch``; then ``utils.profiling.capture`` around one
+   ``align_cigars``) and ``use_table()`` (64) streams, a bucket of 8
+   DNA pairs of 4,096 bp on "cuda_segments" (the packed score form), and
+   8 SW pairs of 1.5-3 kbp, three of them identical, whose scores leave
+   the packed form's band (the fetch thread reruns them under the
+   stream's lock; scores and ends equal to the int32 form's), each equal
+   to ``align_batch``; then ``utils.profiling.capture`` around one
    ``align_batch`` of 8,192 of the pairs and one cfg7 run, whose Chrome
    trace (under ``chiprun_out/phase31_trace/``) must hold the
    ``pt.execute.sw.score`` region, with the kernel events and the card's
@@ -302,12 +309,28 @@ kernel" or name a plane class:
    equal to plain) and ``entry.dryrun_multichip(1)`` (one NCCL process:
    ``sharded_align`` / ``align_global`` in four classes and
    ``seqpar_align_scan`` in three, against golden).
+33. the packed score form (``csrc/scan_segment16.cu``, two pairs a lane
+   on 16x2 DPX) against the int32 form of the block kernel: chained
+   segments of seeded batches (odd B, ragged lengths, empty sides) in NW,
+   the nine SG sets and SW, the pair table (ACGT), a protein table and
+   one query's profile, each rows-a-lane and cluster form, with resume:
+   every output and state row equal and no pair flagged; pairs built to
+   leave the 16-bit band (SW of identical 3 kbp sequences, NW borders
+   past -32,768) flagged, recomputed at fetch and equal to the int32
+   form through ``dispatch.execute``, the counters with them; then the
+   packed and the int32 form timed side by side (CUDA events, and the
+   kernels' device time) on 128 pairs of 4,096 bp and of 10 kbp, and the
+   forms' registers and spills.  ``python3 chip_smoke.py --only packed``
+   runs the build and this phase alone.
 
 The line before the last is the card's name and power limit, the one
 before it a JSON summary of every kernel (launches on its main path,
 error, times, and the least time the card could take: ``bound``; the
 score, trace, stats and plane rows are the short form's, with phase
-29's kernel times beside the block form's); the last line is
+29's kernel times beside the block form's; the segment kernel's score
+row is the int32 form, which the main path launches only for the pairs
+the packed form flags, and the packed form has a row of its own, timed
+beside it at phase 20's shape); the last line is
 ``{"ok": true, "device": {...}}``.  Imports no JAX and nothing of the
 JAX package.
 """
@@ -389,11 +412,13 @@ def bound(ops: float, nbytes: float) -> dict:
             "library_ms": None}
 
 
-def sweep_bound(cls: str, args, kw, cells: int | None = None) -> dict:
+def sweep_bound(cls: str, args, kw, cells: int | None = None,
+                lanes: int = 1) -> dict:
     """bound() of one sweep of class ``cls`` over score_align's inputs:
     the pairs' real cells (``cells``: a banded batch's cells inside the
     band), the input tensors, the scalars and the class's planes (every
-    padded cell, whatever the band)."""
+    padded cell, whatever the band); ``lanes``: cells an operation
+    computes (2 for the packed form's 16x2 instructions)."""
     ridx, qlen, rlen = args
     B, Rp = ridx.shape
     subs = [kw.get(k) for k in ("table", "qidx", "profile")]
@@ -411,7 +436,7 @@ def sweep_bound(cls: str, args, kw, cells: int | None = None) -> dict:
         nbytes += n * B * Qp * Rp * 4
     elif cls in ("rowcol", "stats_rowcol"):
         nbytes += n * B * (Qp + Rp) * 4
-    return bound(cells * OPS_PER_CELL[cls], nbytes)
+    return bound(cells * OPS_PER_CELL[cls] / lanes, nbytes)
 
 
 def max_abs_diff(a: dict, b: dict) -> int:
@@ -612,7 +637,7 @@ def time_cuda(torch, fn, reps=7, warmup=2) -> float:
 
 def reset_launches(tk, tw) -> None:
     """Set every kernel's launch count to 0, to count one phase's work."""
-    tk.SEGMENT_LAUNCHES = 0
+    tk.SEGMENT_LAUNCHES = tk.SEGMENT16_LAUNCHES = 0
     tk.ROWSEG_LAUNCHES = tk.CHUNKED_LAUNCHES = tw.LAUNCHES = 0
     tk.SHORT_LAUNCHES = dict.fromkeys(tk.SHORT_LAUNCHES, 0)
     reset_banded_launches(tk)
@@ -683,8 +708,16 @@ def check_against_plain(name, alignments, plain) -> None:
             f"{want[bad].tolist()}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import torch
+
+    only = None
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--only"] and argv[1:2] == ["packed"]:
+        only = "packed"
+    elif argv:
+        log(f"chip_smoke: unknown arguments {argv}; use --only packed")
+        return 2
 
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -725,6 +758,12 @@ def main() -> int:
         if "entry function" in line or "registers" in line or \
                 "spill" in line:
             log(f"[1 build] {line.strip()}")
+    if only == "packed":
+        res = packed_path(torch, pt, tk, dispatch, stages, card,
+                          _build.BUILD_LOG)
+        print(json.dumps({"packed": res}), flush=True)
+        print(card, flush=True)
+        return 0
 
     # -- 2. kernel vs plain --------------------------------------------------
     rng = np.random.default_rng(1)
@@ -788,13 +827,17 @@ def main() -> int:
     routes = dict(dispatch.ROUTE_COUNTS)
     log(f"[4 main path] score launches={launches} (short form "
         f"{tk.SHORT_LAUNCHES}, chunked {tk.CHUNKED_LAUNCHES}, walk "
-        f"{tw.LAUNCHES}, segment {tk.SEGMENT_LAUNCHES}) routes={routes}")
-    if launches < 3 or tk.SEGMENT_LAUNCHES < 1 or tk.CHUNKED_LAUNCHES:
+        f"{tw.LAUNCHES}, segment {tk.SEGMENT_LAUNCHES}, packed segment "
+        f"{tk.SEGMENT16_LAUNCHES}) routes={routes}")
+    # the long pairs' score class: the packed form, none of them flagged
+    if launches < 3 or tk.SEGMENT16_LAUNCHES < 1 or tk.SEGMENT_LAUNCHES or \
+            tk.CHUNKED_LAUNCHES:
         raise AssertionError(
             f"main path launched the short form's score class {launches} "
-            f"times, the segment kernel {tk.SEGMENT_LAUNCHES} times and the "
+            f"times, the packed segment form {tk.SEGMENT16_LAUNCHES} times, "
+            f"the int32 segment form {tk.SEGMENT_LAUNCHES} times and the "
             f"block kernel's one-shot form {tk.CHUNKED_LAUNCHES} times, "
-            f"expected 3, 1 and 0")
+            f"expected 3, 1, 0 and 0")
     if routes != {("cuda_kernel", ""): 3, ("cuda_segments", "long pairs"): 1}:
         raise AssertionError(f"main path left the kernel routes: {routes}")
     check_against_plain("SW BLOSUM62 8192 pairs", res_sw,
@@ -810,8 +853,8 @@ def main() -> int:
             != (g.score, g.end_query, g.end_ref):
         raise AssertionError("NW 150 bp pair differs from golden")
     log("[4 main path] SW 8192 pairs, profile vs 16384 refs, NW 150 bp "
-        "pair: on cuda_kernel; 128 x 2000 bp: on cuda_segments; all equal "
-        "to plain")
+        "pair: on cuda_kernel; 128 x 2000 bp: on cuda_segments, the packed "
+        "form; all equal to plain")
 
     # -- 5. timings -----------------------------------------------------------
     # the short form's score class (K1a) at the headline, the block
@@ -905,6 +948,8 @@ def main() -> int:
     clock("31")
     fuzz_path(torch, tk, tw, card)
     clock("32")
+    packed_path(torch, pt, tk, dispatch, stages, card, _build.BUILD_LOG)
+    clock("33")
 
     def with_short(cls, row):
         """A class's row, phases 4-13, with phases 28-29's numbers."""
@@ -974,6 +1019,13 @@ def main() -> int:
         "replaces": "parasail_rs_tpu/ops/scan_kernel.py:1672",
         **segments[cls],
     } for cls in ("score", "stats", "trace")] + [{
+        "name": "scan_score_segment (score), packed: two pairs a lane on "
+                "16x2 DPX",
+        "route": "cuda",
+        "source": "parasail_rs_tpu_torch/csrc/scan_segment16.cu",
+        "replaces": "parasail_rs_tpu/ops/scan_kernel.py:1672, :1453",
+        **segments["score16"],
+    }] + [{
         "name": f"scan_rowseg_step ({cls})",
         "route": "cuda",
         "source": "parasail_rs_tpu_torch/csrc/scan_rowseg.cu",
@@ -2034,23 +2086,28 @@ def many_path(torch, pt, tk, tw, dispatch, golden, stages, rng, blosum, card,
     reset_launches(tk, tw)
     res5 = mx.align_many(mq, mr)
     # cfg5's bins: the short form up to 256 rows, the block kernel's
-    # one-shot form past them (score_align's two one-shot forms)
-    one_shot5 = tk.SHORT_LAUNCHES["score"] + tk.CHUNKED_LAUNCHES
+    # one-shot form past them (score_align's two one-shot forms; the
+    # block kernel's score class on the packed form)
+    packed5 = tk.SEGMENT16_LAUNCHES
+    one_shot5 = tk.SHORT_LAUNCHES["score"] + tk.CHUNKED_LAUNCHES + packed5
     res_st = st_al.align_many(sq, sr)
     res_tr = tr_al.align_many(tq, tr)
     t0 = time.perf_counter()
     res_long = lg.align_many(lq, lr)
     long_s = time.perf_counter() - t0
+    # the long pairs' segments: the packed form's, and the int32 form's
     launches = {"score": one_shot5, "stats": tk.SHORT_LAUNCHES["stats"],
                 "trace": tk.SHORT_LAUNCHES["trace"],
-                "segment": tk.SEGMENT_LAUNCHES}
+                "segment": tk.SEGMENT_LAUNCHES + tk.SEGMENT16_LAUNCHES -
+                packed5}
     routes = dict(dispatch.ROUTE_COUNTS)
     nbins = len(merge_bins(plan_bins([len(q) for q in mq],
                                      [len(r) for r in mr], max_cells=1 << 33,
                                      lane_quantum=128),
                            max_launches=8, max_cells=1 << 33))
-    log(f"[16 align_many] launches={launches} routes={routes}; cfg5 in "
-        f"{nbins} bins")
+    log(f"[16 align_many] launches={launches} (the packed form "
+        f"{tk.SEGMENT16_LAUNCHES}, {packed5} of them cfg5's) routes={routes}"
+        f"; cfg5 in {nbins} bins")
     # every bin is one launch of a one-shot form or, for long pairs, a
     # chain of the segment kernel's
     if min(launches.values()) < 1 or \
@@ -2272,21 +2329,31 @@ def segment_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
           "trace": sw51().use_trace().build()}
     dispatch.ROUTE_COUNTS.clear()
     reset_launches(tk, tw)
-    res6 = al["score"].align_batch(q6, r6)
-    launches = {"score": tk.SEGMENT_LAUNCHES}
-    res = {}
-    for cls in classes:
-        before = tk.SEGMENT_LAUNCHES
-        res[cls] = al[cls].align_batch(mq, mr)
-        launches[cls] = launches.get(cls, 0) + tk.SEGMENT_LAUNCHES - before
+    # int32 segment launches by class, and the packed form's ("score16")
+    launches = dict.fromkeys(("score16",) + classes, 0)
+
+    def counted(cls, fn):
+        before = (tk.SEGMENT_LAUNCHES, tk.SEGMENT16_LAUNCHES)
+        out = fn()
+        launches[cls] += tk.SEGMENT_LAUNCHES - before[0]
+        launches["score16"] += tk.SEGMENT16_LAUNCHES - before[1]
+        return out
+
+    res6 = counted("score", lambda: al["score"].align_batch(q6, r6))
+    res = {cls: counted(cls, lambda: al[cls].align_batch(mq, mr))
+           for cls in classes}
     routes = dict(dispatch.ROUTE_COUNTS)
     log(f"[19 long pairs] segment launches={launches} (short form "
         f"{tk.SHORT_LAUNCHES}, chunked {tk.CHUNKED_LAUNCHES}) "
         f"routes={routes}")
-    if min(launches.values()) < 1 or \
+    # the score class on the packed form, no pair flagged (no int32 score
+    # launch); stats and trace on the int32 form
+    if launches["score16"] < 1 or launches["score"] or \
+            launches["stats"] < 1 or launches["trace"] < 1 or \
             sum(tk.SHORT_LAUNCHES.values()) or tk.CHUNKED_LAUNCHES:
         raise AssertionError(f"the long-pair path did not run on the "
-                             f"segment kernel alone: {launches}")
+                             f"segment kernel alone, score packed: "
+                             f"{launches}")
     if {r for r, _ in routes} != {"cuda_segments"} or any(
             {r for r, _ in a.route_counter} != {"cuda_segments"}
             for a in al.values()):
@@ -2346,8 +2413,9 @@ def segment_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
                                  f"golden")
     log(f"[19 long pairs] cfg6 (128 x 16,384 bp SW 5/1) on cuda_segments, "
         f"its first 4 pairs equal to plain; 128 pairs of 50-4,096 bp "
-        f"(Qp=Rp={batch.qp}) score, use_stats and use_trace on "
-        f"cuda_segments, equal to the one-shot kernel; {len(short)} short "
+        f"(Qp=Rp={batch.qp}) score (the packed form), use_stats and "
+        f"use_trace on cuda_segments, equal to the one-shot kernel; "
+        f"{len(short)} short "
         f"pairs equal to golden (score, end cell, stats, flags, CIGAR)")
     del res
 
@@ -2398,7 +2466,7 @@ def segment_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
     a1 = (lb.ridx[:, :MID_LEN].contiguous(), lb.qlen_t.clamp(max=MID_LEN),
           lb.rlen_t.clamp(max=MID_LEN))
     kw1 = {**kw4, "qidx": lb.qidx[:, :MID_LEN].contiguous()}
-    times = {}
+    times, plain_out = {}, {}
     for cls in ("score", "stats"):
         k1_1024 = time_cuda(torch, lambda: tk.score_align(
             *a1, **kw1, outputs=cls), reps=3, warmup=1)
@@ -2418,6 +2486,7 @@ def segment_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
             torch, tk.score_segment_plain, a4, seg_cols[cls],
             {**kw4, "outputs": cls})[0]), reps=1, warmup=0)
         times[cls] = (k2_4096, plain_4096)
+        plain_out[cls] = kept["want"]
         errs[cls] = max(errs[cls], max_abs_diff(kept["got"], kept["want"]))
         if errs[cls] != 0:
             raise AssertionError(f"segment kernel != plain on 128 x 4,096 bp "
@@ -2430,6 +2499,28 @@ def segment_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
             f"{plan_note(tk, cls, 128, lb.qp, seg_cols[cls], lb.table.shape[0])}"
             f"); with one warp a block {k2_one} ms; its plain version "
             f"{plain_4096} ms [{card}]")
+    # the packed score form on the same tensors, held to the same plain
+    # version (the main path's form of the score class since phase 19)
+    kw16 = {**kw4, "outputs": "score", "bound": lb.score_bound,
+            "units": dispatch.packed_units(lb, "cuda_segments", "score", 5,
+                                           1)}
+    kept = {}
+    k16_4096 = time_cuda(torch, lambda: kept.update(got=chain_segments(
+        torch, tk.score_segment, a4, seg_cols["score"], kw16)[0]), reps=5)
+    over = int(kept["got"].pop("over16").sum())
+    err16 = max_abs_diff(kept["got"], plain_out["score"])
+    if over or err16:
+        raise AssertionError(f"packed segment form != plain on 128 x 4,096 "
+                             f"bp (score): {over} pairs flagged, max |diff| "
+                             f"{err16}")
+    plan16 = tk.segment16_plan(-(-lb.size // 2), lb.qp, seg_cols["score"],
+                               lb.table.shape[0])
+    log(f"[20 timing] score class, 128 pairs SW 5/1, 4,096 bp: the packed "
+        f"segment form {k16_4096} ms "
+        f"({128 * LONG_LEN ** 2 / k16_4096 / 1e6} GCUPS; R {plan16[0]}, "
+        f"{plan16[1]} warps, C {plan16[2]}, {-(-lb.size // 2)} units), the "
+        f"int32 form {times['score'][0]} ms, its plain version "
+        f"{times['score'][1]} ms; equal to plain, no pair flagged [{card}]")
     st_e2e, st_peak = peak_of(lambda: al["stats"].align_batch(mq, mr))
     log(f"[20 timing] use_stats align_batch of the 128 pairs of 50-4,096 bp "
         f"e2e, one call, {st_e2e} ms, peak device memory {st_peak} MiB "
@@ -2501,6 +2592,14 @@ def segment_path(torch, pt, tk, tw, dispatch, golden, stages, rng, card,
                  # a chain's bound is the one-shot sweep's
                  **sweep_bound(cls, a4, kw4)}
            for cls in classes}
+    out["score16"] = {
+        "launches": launches["score16"], "max_abs_err": err16,
+        "ms": k16_4096, "plain_ms": times["score"][1],
+        "shape": "128 pairs, Qp=Rp=4096, SW 5/1",
+        "form": f"R {plan16[0]}, {plan16[1]} warps, C {plan16[2]}, "
+                f"{-(-lb.size // 2)} units of two pairs",
+        # 16x2 DPX: one operation computes a cell of each of two pairs
+        **sweep_bound("score", a4, kw4, lanes=2)}
     # the sequence-parallel phases run the same pairs
     out["pairs"] = {"cfg6": (q6, r6), "mixed": (mq, mr), "short": short,
                     "aligners": al, "k6_ms": k6}
@@ -3443,10 +3542,10 @@ def block_registers(build_log: str, classes) -> dict:
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
             form, spill = None, 0
-            if "segment_kernelILi" in line:
+            if "ptsegblock14segment_kernelILi" in line:
                 k, tile, rows, band = re.match(
                     r"(\d+)ELb(\d)ELi(\d+)ELb(\d)E",
-                    line.split("segment_kernelILi")[1]).groups()
+                    line.split("ptsegblock14segment_kernelILi")[1]).groups()
                 form = f"{classes[int(k)]} R{rows}" + (
                     " tile" if tile == "1" else "") + (
                     " banded" if band == "1" else "")
@@ -4062,15 +4161,45 @@ def stream_path(torch, pt, tk, tw, dispatch, golden, stages, blosum,
     dna = build(matrix=pt.Matrix.create(DNA, 2, -3), open_=5, ext=1)
     reset_launches(tk, tw)
     got = stream(dna, dq, dr)
-    seg = tk.SEGMENT_LAUNCHES
-    if dna.route_counter != {("cuda_segments", "long pairs"): 1} or not seg:
+    # the score class's segments on the packed form, none flagged
+    seg = tk.SEGMENT16_LAUNCHES
+    if dna.route_counter != {("cuda_segments", "long pairs"): 1} or \
+            not seg or tk.SEGMENT_LAUNCHES:
         raise AssertionError(f"long DNA bucket: routes {dna.route_counter}, "
-                             f"segment launches {seg}")
+                             f"packed segment launches {seg}, int32 "
+                             f"{tk.SEGMENT_LAUNCHES}")
     check_stream("long DNA stream", got, dna.align_batch(dq, dr))
+    # pairs that leave the packed form's band (SW of identical 3 kbp
+    # sequences at 12 a match): the fetch thread reruns them under the
+    # stream's lock; scores and ends are the int32 form's, every field
+    # align_batch's
+    base = random_seqs(rng, DNA, 1, 3000, 3000)[0]
+    bq = [base] * 3 + random_seqs(rng, DNA, 5, 1500, 3000)
+    br = [base] * 3 + random_seqs(rng, DNA, 5, 1500, 3000)
+    big = build(matrix=pt.Matrix.create(DNA, 12, -3), open_=14, ext=1)
+    reran = dispatch.RERUN16["pairs"]
+    got = stream(big, bq, br)
+    reran = dispatch.RERUN16["pairs"] - reran
+    batch, _, _ = big._pack(bq, br)
+    want = dispatch.execute_segments(batch, gap_open=14, gap_extend=1,
+                                     mode="sw", free=(True,) * 4,
+                                     outputs="score", width="sat")
+    want = {k: v.cpu().numpy() for k, v in want.items()}
+    for b, a in enumerate(got):
+        if (a.get_score(), a.get_end_query(), a.get_end_ref()) != (
+                want["score"][b], want["end_query"][b], want["end_ref"][b]):
+            raise AssertionError(f"band-crossing stream: pair {b} differs "
+                                 f"from the int32 form")
+    check_stream("band-crossing stream", got, big.align_batch(bq, br))
+    if reran < 3:
+        raise AssertionError(f"band-crossing stream: {reran} pairs rerun, "
+                             f"3 or more wanted")
     log(f"[31 stream] use_stats() 4096 pairs, use_trace() 512 (CIGARs), "
         f"use_table() 64: equal to align_batch; 8 DNA pairs of {LONG_LEN} "
-        f"bp SW 5/1: one bucket on cuda_segments ({seg} segment launches), "
-        f"equal to align_batch")
+        f"bp SW 5/1: one bucket on cuda_segments ({seg} packed segment "
+        f"launches), equal to align_batch; 8 SW pairs of 1.5-3 kbp, three "
+        f"identical (36,000): {reran} rerun on the fetch thread, equal to "
+        f"the int32 form and to align_batch")
 
     # -- a captured trace -----------------------------------------------------
     log_dir = os.path.join(HERE, "chiprun_out", "phase31_trace")
@@ -4188,6 +4317,219 @@ def fuzz_path(torch, tk, tw, card, device="cuda") -> dict:
     log(f"[32 entry] dryrun_multichip(1) over NCCL: ok in "
         f"{time.perf_counter() - t0:.1f} s [{card}]")
     return res
+
+
+def packed_registers(build_log: str) -> dict:
+    """Registers and spill-store bytes of each ptseg16::segment_kernel form
+    (the packed score form) from
+    ``-Xptxas -v``'s log: {"R<rows> <sw|nw> <pair|rows>": (registers,
+    spill bytes)}."""
+    out, form, spill = {}, None, 0
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            form, spill = None, 0
+            m = re.search(r"ptseg1614segment_kernelILi(\d)ELb(\d)ELb(\d)E",
+                          line)
+            if m:
+                form = (f"R{m.group(1)} {'sw' if m.group(2) == '1' else 'nw'}"
+                        f" {'pair' if m.group(3) == '1' else 'rows'}")
+        elif "spill stores" in line and form is not None:
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif "registers" in line and form is not None:
+            out[form] = (int(line.split("Used")[1].split("registers")[0]),
+                         spill)
+    return out
+
+
+def wfa_pairs(rng, n: int, length: int, err: float = 0.05):
+    """n random ACGT sequences of ``length`` and each a partner with
+    err * length edits (mismatch, insertion, deletion alike)."""
+    alpha = np.frombuffer(DNA, np.uint8)
+    qs, rs = [], []
+    for _ in range(n):
+        q = alpha[rng.integers(0, 4, size=length)]
+        r = list(q)
+        for _ in range(int(err * length)):
+            at = int(rng.integers(0, len(r)))
+            kind = int(rng.integers(0, 3))
+            if kind == 0:
+                r[at] = alpha[(list(alpha).index(r[at]) + 1 +
+                               int(rng.integers(0, 3))) % 4]
+            elif kind == 1:
+                r.insert(at, alpha[int(rng.integers(0, 4))])
+            else:
+                del r[at]
+        qs.append(q.tobytes())
+        rs.append(bytes(r))
+    return qs, rs
+
+
+def packed_path(torch, pt, tk, dispatch, stages, card, build_log) -> dict:
+    """Phase 33, the packed score form against the int32 form; returns
+    its times and registers."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(33)
+    t33 = time.perf_counter()
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    modes = ([("nw", F4)] + [("sg", f) for f in SG_FREE] +
+             [("sw", (True,) * 4)])
+    forms = ((0, 0), (2, 1), (4, 2), (8, 1), (2, 4), (8, 2))
+    n = 0
+    for mode, free in modes:
+        for subs in ("pair", "table", "profile"):
+            B, Qp, Rp = (37, 100, 200) if n % 2 else (20, 300, 260)
+            A = 4 if subs == "pair" else 20
+            seg = (48, 80, 128, 260)[n % 4]
+            rows, cluster = forms[n % len(forms)]
+            warps = (0, 1, 2, 8)[n % 4]
+            open_, ext = ((11, 1), (2, 2), (1, 3), (6, 2))[n % 4]
+            n += 1
+            ql = rng.integers(0, Qp + 1, size=B)
+            rl = rng.integers(0, Rp + 1, size=B)
+            ql[:7] = (0, 5, Qp, 32, 33, 64, 65)
+            rl[:7] = (7, 0, Rp, seg, seg + 1, 64, 129)
+            table = rng.integers(-4, 8, size=(A, A))
+            qidx = rng.integers(0, A, size=(1 if subs == "profile" else B,
+                                            Qp))
+            if subs == "profile":
+                ql[:] = Qp - 3
+                kw = dict(profile=t(table[qidx]))
+            else:
+                kw = dict(table=t(table), qidx=t(qidx))
+            kw.update(open_=open_, ext=ext, mode=mode, free=free,
+                      outputs="score", width="sat")
+            args = (t(rng.integers(0, A, size=(B, Rp))), t(ql), t(rl))
+            units = t(tk.pair_units(ql, rl))
+            tk.SEGMENT_WARPS, tk._LANE_ROWS, tk._CLUSTER = warps, rows, \
+                cluster
+            got, gst = chain_segments(torch, tk.score_segment, args, seg,
+                                      {**kw, "units": units})
+            unforce(tk)
+            want, wst = chain_segments(torch, tk.score_segment, args, seg,
+                                       kw)
+            name = (f"{mode}{tuple(int(x) for x in free)} {subs} "
+                    f"{open_}/{ext} B {B} seg {seg} warps {warps} R {rows} "
+                    f"C {cluster}")
+            over = got.pop("over16")
+            if bool(over.any()):
+                raise AssertionError(f"packed form flagged {int(over.sum())}"
+                                     f" pairs of {name}")
+            err = max_abs_diff(got, want)
+            rows_in = (torch.arange(Qp, device=dev)[None, :] <
+                       args[1][:, None]) & (args[2] > 0)[:, None]
+            for k in ("h", "f"):
+                err = max(err, int(((gst[k] - wst[k]) * rows_in).abs().max()))
+            err = max(err, int((gst["acc"][:, :5] - wst["acc"][:, :5])
+                               .abs().max()))
+            if err:
+                raise AssertionError(f"packed form != int32 form on {name}: "
+                                     f"max |diff| {err}")
+        log(f"[33 packed vs int32] {mode}{tuple(int(x) for x in free)}: "
+            "pair table, table and profile, odd and even B, 1-5 segments, "
+            "equal to the int32 form, no pair flagged")
+    unforce(tk)
+
+    # pairs that leave the band, beside pairs that do not, through the API
+    def band_case(mode, free, qs, rs, open_, ext, matrix):
+        al = pt.Aligner.new().matrix(matrix).gap_open(open_) \
+            .gap_extend(ext)
+        al = {"sw": al.local(), "nw": al.global_()}[mode].build() \
+            if mode in ("sw", "nw") else al.build()
+        batch, _, _ = al._pack(qs, rs)
+        stages.reset()
+        stages.enable(True)
+        try:
+            got = dispatch.execute(batch, gap_open=open_, gap_extend=ext,
+                                   mode=mode, free=free, outputs="score",
+                                   width="sat")
+            snap = stages.snapshot()
+        finally:
+            stages.enable(False)
+        want = dispatch.execute_segments(batch, gap_open=open_,
+                                         gap_extend=ext, mode=mode,
+                                         free=free, outputs="score",
+                                         width="sat")
+        want = {k: v.cpu().numpy() for k, v in want.items()}
+        for k in want:
+            if not np.array_equal(np.asarray(got[k]), want[k]):
+                raise AssertionError(f"band case {mode}: {k} differs from "
+                                     f"the int32 form")
+        return (snap.get("count.score16_pairs", {}).get("n", 0),
+                snap.get("count.score16_reruns", {}).get("n", 0),
+                int(np.asarray(want["promoted"]).sum()))
+
+    dna = pt.Matrix.create("ACGT", 12, -3)
+    base = random_seqs(rng, DNA, 1, 3000, 3000)[0]
+    qs = [base] * 3 + random_seqs(rng, DNA, 5, 1500, 3000)
+    rs = [base] * 3 + random_seqs(rng, DNA, 5, 1500, 3000)
+    got = band_case("sw", (True,) * 4, qs, rs, 14, 1, dna)
+    if got[0] != 8 or got[1] < 3 or got[2] < 3:
+        raise AssertionError(f"SW band case: packed pairs, reruns, sat16 "
+                             f"{got}")
+    log(f"[33 packed band] SW of identical 3 kbp sequences (36,000): "
+        f"{got[1]} of {got[0]} pairs recomputed by the int32 form, every "
+        f"output equal to it")
+    long_q = random_seqs(rng, DNA, 4, 17000, 17000)
+    long_r = random_seqs(rng, DNA, 4, 17000, 17000)
+    nw = pt.Matrix.create("ACGT", 0, -4)
+    got = band_case("nw", F4, long_q + qs[3:], long_r + rs[3:], 8, 2, nw)
+    if got[1] < 4:
+        raise AssertionError(f"NW band case: packed pairs, reruns, sat16 "
+                             f"{got}")
+    log(f"[33 packed band] NW of 17 kbp (borders past -32,768): {got[1]} "
+        f"of {got[0]} pairs recomputed, every output equal to the int32 "
+        f"form")
+
+    # timings: the WFA pairs' score cell shape, both forms
+    times = {}
+    wfa = pt.Aligner.new().matrix(nw).gap_open(8).gap_extend(2).global_() \
+        .build()
+    for length in (4096, 10000):
+        qs, rs = wfa_pairs(rng, 128, length)
+        batch, _, _ = wfa._pack(qs, rs)
+        kw = dict(gap_open=8, gap_extend=2, mode="nw", free=F4,
+                  outputs="score", width="sat")
+        units = dispatch.packed_units(batch, "cuda_segments", "score", 8, 2)
+        cells = float(np.dot(batch.qlen.astype(np.int64),
+                             batch.rlen.astype(np.int64)))
+        r16 = dispatch.execute_segments(batch, units=units, **kw)
+        r32 = dispatch.execute_segments(batch, **kw)
+        if bool(r16.pop("over16").any()) or max_abs_diff(r16, r32):
+            raise AssertionError(f"128 x {length}: packed != int32")
+        ms16 = time_cuda(torch, lambda: dispatch.execute_segments(
+            batch, units=units, **kw))
+        ms32 = time_cuda(torch, lambda: dispatch.execute_segments(batch,
+                                                                  **kw))
+        k16 = device_ms(torch, lambda: dispatch.execute_segments(
+            batch, units=units, **kw), "ptseg16::segment_kernel", n=3)
+        k32 = device_ms(torch, lambda: dispatch.execute_segments(batch,
+                                                                 **kw),
+                        "ptsegblock::segment_kernel<0", n=3)
+        plan16 = tk.segment16_plan(-(-batch.size // 2), batch.qp,
+                                   dispatch.SEGMENT_COLS["score"], 4)
+        plan32 = tk.block_plan("score", batch.size, batch.qp,
+                               dispatch.SEGMENT_COLS["score"], 4)
+        times[length] = dict(packed_ms=ms16, int32_ms=ms32,
+                             packed_kernel_ms=k16, int32_kernel_ms=k32,
+                             packed_gcups=cells / ms16 / 1e6,
+                             int32_gcups=cells / ms32 / 1e6,
+                             packed_plan=plan16, int32_plan=plan32)
+        log(f"[33 packed time] 128 x {length} bp NW 8/2: packed "
+            f"{ms16:.3f} ms a call ({cells / ms16 / 1e6:.1f} GCUPS; a "
+            f"segment's kernel {k16:.3f} ms, plan {plan16}), int32 "
+            f"{ms32:.3f} ms ({cells / ms32 / 1e6:.1f} GCUPS; kernel "
+            f"{k32:.3f} ms, plan {plan32}) [{card}]")
+    regs = packed_registers(build_log)
+    spills = {k: v for k, v in regs.items() if v[1]}
+    log(f"[33 packed registers] {regs}")
+    if len(regs) != 12 or spills:
+        raise AssertionError(f"packed forms: {len(regs)} compiled, spills "
+                             f"{spills}")
+    log(f"[33 packed] {time.perf_counter() - t33:.1f} s")
+    return {"times": times, "registers": regs}
 
 
 def random_seqs_of(rng, alphabet: bytes, lens) -> list:

@@ -8,11 +8,14 @@
 //   g++ -O2 -std=c++17 -shared -fPIC -o libptscore_host.so score_host.cc
 // and -DPT_HOST_BANDED for the twins of the masked forms
 // (pt_short_banded_host, pt_chunked_banded_host), which double the build.
+// The packed score form (segment16.cuh) steps on int16 halves here
+// (pt_segment16_host).
 #include <stdint.h>
 
 #include <vector>
 
 #include "score_cell.cuh"
+#include "segment16.cuh"
 #include "walk_step.cuh"
 
 namespace {
@@ -458,6 +461,76 @@ extern "C" int pt_block_plan_host(int out_class, int B, int Qs, int ncols,
                                   int cluster, int32_t* plan) {
   const ptscore::SegPlan p = ptscore::seg_plan(
       out_class, B, Qs, ncols, A, profile != 0, warps, rows, cluster);
+  plan[0] = p.rows;
+  plan[1] = p.warps;
+  plan[2] = p.cluster;
+  return 0;
+}
+
+namespace {
+
+template <bool kLocal, bool kPair>
+int units16_host(const ptseg16::Seg16Args& a, int warps, int rows,
+                 int cluster) {
+  std::vector<uint32_t> bottom;
+  for (int32_t u = 0; u < a.U; ++u) {
+    if (rows == 2)
+      ptseg16::segment16_unit_host<2, kLocal, kPair>(a, u, warps, cluster,
+                                                     bottom);
+    else if (rows == 4)
+      ptseg16::segment16_unit_host<4, kLocal, kPair>(a, u, warps, cluster,
+                                                     bottom);
+    else
+      ptseg16::segment16_unit_host<8, kLocal, kPair>(a, u, warps, cluster,
+                                                     bottom);
+  }
+  return 0;
+}
+
+}  // namespace
+
+// One segment of the packed score form (pt_scan_segment16's arguments
+// minus the scratch and the stream, same layouts), its units' lanes on
+// int16 halves: `out` (6, B) and the state (st_h, st_f, acc, over) of the
+// units' pairs are written as the kernel writes them; rows, warps and
+// cluster as the kernel would take them for the units.  Returns -1 for a
+// form the kernel has not, a profile of several queries, or penalties and
+// scores without a band.
+extern "C" int pt_segment16_host(const int32_t* subs, const int32_t* qidx,
+                                 const int32_t* ridx, const int32_t* qlen,
+                                 const int32_t* rlen, const int32_t* units,
+                                 int32_t* st_h, int32_t* st_f, int32_t* acc,
+                                 int32_t* over, int32_t* out, int U, int B,
+                                 int Bq, int Qp, int Rseg, int A, int open,
+                                 int ext, int mode, int free_bits, int off,
+                                 int resume, int bound, int warps, int rows,
+                                 int cluster) {
+  const bool profile = qidx == nullptr;
+  if (!(rows == 2 || rows == 4 || rows == 8) || warps < 1 ||
+      warps > ptscore::SEG_MAX_WARPS || cluster < 1 ||
+      cluster > ptscore::SEG_MAX_CLUSTER || (profile && Bq != 1) ||
+      !ptseg16::seg16_usable(open, ext, bound))
+    return -1;
+  const ptseg16::Seg16Args a{subs, qidx, ridx, qlen, rlen, units, nullptr,
+                             st_h, st_f, acc, over, out, U, B, Bq, Qp, Rseg,
+                             A, open, ext, mode, free_bits, off, resume,
+                             bound, cluster};
+  const bool local = mode == ptscore::MODE_SW;
+  if (ptseg16::seg16_pair_table(profile, A))
+    return local ? units16_host<true, true>(a, warps, rows, cluster)
+                 : units16_host<false, true>(a, warps, rows, cluster);
+  return local ? units16_host<true, false>(a, warps, rows, cluster)
+               : units16_host<false, false>(a, warps, rows, cluster);
+}
+
+// The packed form's launch rule (segment16.cuh, seg16_plan), as
+// pt_segment16_plan on the card.
+extern "C" int pt_segment16_plan_host(int U, int Qs, int ncols, int A,
+                                      int profile, int warps, int rows,
+                                      int cluster, int32_t* plan) {
+  const ptscore::SegPlan p = ptseg16::seg16_plan(U, Qs, ncols, A,
+                                                 profile != 0, warps, rows,
+                                                 cluster);
   plan[0] = p.rows;
   plan[1] = p.warps;
   plan[2] = p.cluster;

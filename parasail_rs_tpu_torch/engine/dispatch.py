@@ -30,7 +30,12 @@ the sweep's state from launch to launch (the port of the reference's
 :func:`~parasail_rs_tpu_torch.ops.scan_kernel.score_chunked` (a block of
 warps per pair over all of its columns, every output class) for long
 pairs that need one launch or whose class has no segment form.
-:func:`plan_route` says which.  There is no
+:func:`plan_route` says which.  On the card the block kernel's score
+class (on those two routes, and on the one-shot route past the short
+form) runs packed (two pairs a lane on 16x2 DPX, :func:`packed_units`)
+wherever the penalties and scores leave it a 16-bit band;
+:class:`PendingResult` recomputes, at fetch, every pair the packed form
+flagged, through the int32 form.  There is no
 fallback between routes and no CPU route for a batch that was asked to
 run on a card: a failure raises.  Every decision is tallied in
 :data:`ROUTE_COUNTS` and reported to the caller.
@@ -38,6 +43,7 @@ run on a card: a failure raises.  Every decision is tallied in
 
 from __future__ import annotations
 
+import contextlib
 import logging
 from collections import Counter
 
@@ -49,8 +55,9 @@ from ..utils.gcpause import gc_pause
 from ..utils.shapes import length_bucket
 
 from ..ops.scan_kernel import (OUTPUTS, SEGMENT_OUTPUTS, band_cells,
-                               band_form, band_swept, score_align,
-                               score_chunked, score_segment)
+                               band_form, band_swept, packed_usable,
+                               pair_units, score_align, score_chunked,
+                               score_segment, short_plan)
 from ..ops.wavefront import STATS_CLASSES, STATS_KEYS
 
 log = logging.getLogger("parasail_rs_tpu_torch")
@@ -58,6 +65,10 @@ log = logging.getLogger("parasail_rs_tpu_torch")
 # Tally of routing decisions in this process, keyed (route, reason).
 # Per-aligner tallies live on Aligner.route_counter.
 ROUTE_COUNTS: Counter = Counter()
+# Pairs of this process that the packed form flagged and a fetch computed
+# again through the int32 form (PendingResult), and the batches they came
+# in: whatever the spans, so that a check can account for the launches.
+RERUN16 = Counter()
 
 
 def _np(t) -> np.ndarray:
@@ -84,12 +95,14 @@ class PairBatch:
     device.  ``qlen`` / ``rlen`` are host int32 arrays; ``qlen_t`` /
     ``rlen_t`` their device copies.  ``query`` is a shared profile's
     query bytes, which the device walk compares (host bytes, not
-    uploaded unless a walk asks).
+    uploaded unless a walk asks).  ``score_bound`` is the largest |score|
+    of the table or profile, from the host's matrix (None: read off the
+    card on first use).
     """
 
     def __init__(self, profile, qidx, ridx, qlen, rlen, table=None,
                  qbytes=None, rbytes=None, mapper=None, query=None, *,
-                 device):
+                 device, score_bound=None):
         self.device = torch.device(device)
         self.profile = profile
         self._qidx = qidx
@@ -105,6 +118,14 @@ class PairBatch:
         self.rbytes = rbytes
         self.mapper = mapper
         self.query = query
+        self._score_bound = score_bound
+
+    @property
+    def score_bound(self) -> int:
+        if self._score_bound is None:
+            v = self.score_values
+            self._score_bound = int(v.abs().max()) if v.numel() else 0
+        return self._score_bound
 
     @property
     def qidx(self) -> torch.Tensor:
@@ -278,7 +299,8 @@ def _pack_pairs_inner(matrix, queries, references, profile, Qp, Rp, B,
         table=None if table is None else upload(table, device),
         qbytes=qb_t, rbytes=rb_t,
         mapper=upload(np.asarray(matrix.mapper, np.int32), device),
-        query=None if profile is None else profile.query, device=device)
+        query=None if profile is None else profile.query, device=device,
+        score_bound=max(abs(int(matrix.max)), abs(int(matrix.min))))
     return batch, np.asarray(qlens).tolist(), np.asarray(rlens).tolist()
 
 
@@ -516,10 +538,40 @@ def _substitution(batch: PairBatch, outputs: str) -> dict:
     return subs
 
 
+def packed_units(batch: PairBatch, route: str, outputs: str,
+                 gap_open: int, gap_extend: int):
+    """The packed form's units (``ops.scan_kernel.pair_units``, on the
+    card) for a batch of the block kernel's score class on ``route``,
+    or None where the int32 form runs it: what the route observes, not a
+    setting.  The block kernel takes the score class on the card's
+    segment and chunked routes, and on the one-shot route where the short
+    form does not (``short_plan``: past 256 query rows); the packed form
+    takes it there (never a tile, never the banded mode) where the
+    penalties and the matrix's largest |score| leave a 16-bit band and
+    the scores are a table or one query's profile.  While spans are on it
+    counts the batch's pairs as ``score16_pairs`` or, on the int32 form,
+    ``score32_pairs``."""
+    if outputs != "score" or route not in ("cuda_segments", "cuda_chunked",
+                                           "cuda_kernel"):
+        return None
+    if route == "cuda_kernel":
+        v = batch.score_values
+        Bq = (batch.profile if batch.table is None else batch.qidx).shape[0]
+        if short_plan("score", batch.size, Bq, batch.qp, batch.rp,
+                      int(v.shape[-1]), batch.table is None)[0]:
+            return None
+    usable = ((batch.table is not None or batch.profile.shape[0] == 1)
+              and packed_usable(gap_open, gap_extend, batch.score_bound))
+    stages.count("score16_pairs" if usable else "score32_pairs", batch.size)
+    if not usable:
+        return None
+    return upload(pair_units(batch.qlen, batch.rlen), batch.device)
+
+
 def launch(batch: PairBatch, *, gap_open: int, gap_extend: int, mode: str,
            free: tuple[bool, bool, bool, bool], outputs: str, width: str,
-           on_route=None, banded: bool = False,
-           bandwidth: int = 0) -> dict[str, torch.Tensor]:
+           on_route=None, banded: bool = False, bandwidth: int = 0,
+           units=None) -> dict[str, torch.Tensor]:
     """Run the batch in one launch, of the one-shot kernel (K1) or, for
     long pairs, of the chunked sweep (:func:`plan_route` with
     ``one_shot=True``); return its outputs as tensors on the batch's
@@ -528,7 +580,9 @@ def launch(batch: PairBatch, *, gap_open: int, gap_extend: int, mode: str,
     the banded mode, which stays on K1's route ("cuda_kernel") at any
     length: ``score_align`` picks the ring for the score class within its
     reach, else the masked full sweep on the short form or, past 256
-    query rows, on the block kernel."""
+    query rows, on the block kernel.  ``units`` (:func:`packed_units`
+    for this route): the block kernel's score class on the packed form,
+    its outputs then with ``over16``, which :func:`submit` resolves."""
     with stages.stage("dispatch"):
         route, reason = plan_route(batch, outputs, gap_open, gap_extend,
                                    one_shot=True, banded=banded)
@@ -538,7 +592,11 @@ def launch(batch: PairBatch, *, gap_open: int, gap_extend: int, mode: str,
         kw = dict(open_=gap_open, ext=gap_extend, mode=mode, free=free,
                   width=width, outputs=outputs,
                   **_substitution(batch, outputs))
-        if route in CHUNKED_ROUTES:
+        if units is not None:
+            kw.update(units=units, bound=batch.score_bound)
+        if route in CHUNKED_ROUTES or units is not None:
+            # the block kernel over all columns: score_align's own block
+            # form for the pairs the short form does not take
             return score_chunked(batch.ridx, batch.qlen_t, batch.rlen_t,
                                  **kw)
         return score_align(batch.ridx, batch.qlen_t, batch.rlen_t,
@@ -547,7 +605,7 @@ def launch(batch: PairBatch, *, gap_open: int, gap_extend: int, mode: str,
 
 def execute_segments(batch: PairBatch, *, gap_open: int, gap_extend: int,
                      mode: str, free: tuple[bool, bool, bool, bool],
-                     outputs: str, width: str) -> dict:
+                     outputs: str, width: str, units=None) -> dict:
     """Run the batch left to right in reference segments of
     :data:`SEGMENT_COLS` columns through the segment kernel (the port of
     the reference's ``_execute_pallas_streamed``).
@@ -565,6 +623,9 @@ def execute_segments(batch: PairBatch, *, gap_open: int, gap_extend: int,
     runs into the other buffer (a pageable copy would wait for the
     stream), and the host assembles the plane meanwhile.  A plane beyond
     :data:`TRACE_HOST_BYTES` raises.
+
+    ``units`` (:func:`packed_units`): the score class's segments on the
+    packed form, whose last outputs carry ``over16``.
     """
     if outputs not in SEGMENT_OUTPUTS:
         raise ValueError(f"outputs {outputs!r} has no segment form")
@@ -586,6 +647,8 @@ def execute_segments(batch: PairBatch, *, gap_open: int, gap_extend: int,
         kw = dict(open_=gap_open, ext=gap_extend, mode=mode, free=free,
                   width=width, outputs=outputs,
                   **_substitution(batch, outputs))
+        if units is not None:
+            kw.update(units=units, bound=batch.score_bound)
         plane = np.empty((B, Qp, Rp), np.int8) if trace else None
         if trace and on_card:
             main = torch.cuda.current_stream(batch.device)
@@ -648,7 +711,9 @@ def _run(batch: PairBatch, *, on_route, banded=False, bandwidth=0,
          **kw) -> dict:
     """Plan the route and enqueue the batch on it: :func:`launch`'s or
     :func:`execute_segments`'s dict, in a region named for the profiler
-    as the reference names it."""
+    as the reference names it.  The block kernel's score class runs
+    packed where :func:`packed_units` gives it units (off the segment
+    route the route planned here is :func:`launch`'s own)."""
     with profiling.trace_region(f"pt.execute.{kw['mode']}.{kw['outputs']}"):
         with stages.stage("dispatch"):
             route, reason = plan_route(batch, kw["outputs"], kw["gap_open"],
@@ -656,10 +721,48 @@ def _run(batch: PairBatch, *, on_route, banded=False, bandwidth=0,
             segments = route in SEGMENT_ROUTES
             if segments:
                 _tally(batch, route, reason, on_route)
+            units = None if banded else packed_units(
+                batch, route, kw["outputs"], kw["gap_open"],
+                kw["gap_extend"])
         if segments:
-            return execute_segments(batch, **kw)
+            return execute_segments(batch, units=units, **kw)
         return launch(batch, on_route=on_route, banded=banded,
-                      bandwidth=bandwidth, **kw)
+                      bandwidth=bandwidth, units=units, **kw)
+
+
+def _sub_batch(batch: PairBatch, idx: np.ndarray) -> PairBatch:
+    """Pairs ``idx`` of a batch, on its device, at its padded shape."""
+    sel = upload(idx.astype(np.int64), batch.device)
+
+    def rows(t):
+        return t if t is None or t.shape[0] == 1 else t[sel]
+
+    return PairBatch(rows(batch.profile),
+                     None if batch.table is None else rows(batch.qidx),
+                     batch.ridx[sel], batch.qlen[idx], batch.rlen[idx],
+                     table=batch.table, device=batch.device,
+                     score_bound=batch.score_bound)
+
+
+def _rerun16(batch: PairBatch, *, gap_open, gap_extend, mode, free,
+             width):
+    """What :class:`PendingResult` calls with the pairs the packed form
+    flagged (``over16``): those pairs, whole, launched on the int32 form
+    on the batch's route, in this call; their :class:`PendingResult`."""
+    def rerun(idx: np.ndarray) -> PendingResult:
+        sub = _sub_batch(batch, idx)
+        route, _ = plan_route(sub, "score", gap_open, gap_extend)
+        kw = dict(mode=mode, free=free, outputs="score", width=width)
+        with stages.stage("dispatch"):
+            if route in SEGMENT_ROUTES:
+                res = execute_segments(sub, gap_open=gap_open,
+                                       gap_extend=gap_extend, **kw)
+            else:
+                res = score_chunked(sub.ridx, sub.qlen_t, sub.rlen_t,
+                                    open_=gap_open, ext=gap_extend, **kw,
+                                    **_substitution(sub, "score"))
+        return PendingResult(res)
+    return rerun
 
 
 _BOOLS = ("saturated", "promoted")
@@ -674,14 +777,21 @@ class PendingResult:
     for the event and unpacks, once: a second fetch raises.  ``host``
     holds columns that are on the host already (a plane class's, or the
     int64 merge's); :meth:`fetch` adds them to the block's, and with no
-    block gives them as they are."""
+    block gives them as they are.
+
+    ``rerun`` (:func:`submit`, for the packed form's outputs): called at
+    fetch with the indices of the pairs whose ``over16`` is set, where
+    any is, it launches them on the int32 form, whose columns replace
+    the packed form's; ``over16`` itself is dropped.  Where none is set
+    the fetch adds no launch and no wait."""
 
     def __init__(self, cols: dict[str, torch.Tensor] | None = None,
                  rows: torch.Tensor | None = None,
-                 host: dict[str, np.ndarray] | None = None):
+                 host: dict[str, np.ndarray] | None = None, rerun=None):
         self._carried = host or {}
         self._fetched = False
         self._host = None
+        self._rerun = rerun
         if not cols and rows is None:
             return
         with stages.stage("fetch.start"):
@@ -706,8 +816,12 @@ class PendingResult:
             else:
                 self._host = block
 
-    def fetch(self) -> tuple[dict[str, np.ndarray], np.ndarray | None]:
-        """(host columns by name, host (B, L) uint8 rows or None)."""
+    def fetch(self, lock=None) -> tuple[dict[str, np.ndarray],
+                                        np.ndarray | None]:
+        """(host columns by name, host (B, L) uint8 rows or None).
+        ``lock``: held while the rerun launches, by a thread that fetches
+        what other threads launch under that lock (the stream's fetch
+        thread); the wait for the rerun's copy is outside it."""
         if self._fetched:
             raise RuntimeError("this PendingResult was fetched already")
         self._fetched = True
@@ -726,6 +840,16 @@ class PendingResult:
             out.update(self._carried)
             rows = (np.ascontiguousarray(host[:, nn:]).view(np.uint8)
                     [:, :self.L] if self.L else None)
+        over = out.pop("over16", None)
+        if over is not None and self._rerun is not None:
+            idx = np.nonzero(over)[0]
+            if len(idx):
+                with lock if lock is not None else contextlib.nullcontext():
+                    stages.count("score16_reruns", len(idx))
+                    RERUN16.update(pairs=len(idx), batches=1)
+                    again = self._rerun(idx)
+                for k, v in again.fetch()[0].items():
+                    out[k][idx] = v
         return out, rows
 
 
@@ -757,7 +881,10 @@ def submit(batch: PairBatch, *, gap_open: int, gap_extend: int, mode: str,
     :class:`PendingResult` fetches the host results (the port of the
     reference's ``execute(fetch=False)`` + ``fetch_all``).
 
-    The score and stats classes launch and start their scalars' copy.
+    The score and stats classes launch and start their scalars' copy;
+    the score class of the block kernel may run packed
+    (:func:`packed_units`), and its fetch then recomputes the pairs the
+    packed form flagged through the int32 form.
     Classes with planes are fetched here, as the reference does, so no
     two batches' planes are on the card at once.  ``width="64"`` runs
     the int32 kernel, then re-fills exactly in int64 (golden) every pair
@@ -800,9 +927,12 @@ def submit(batch: PairBatch, *, gap_open: int, gap_extend: int, mode: str,
                              for k, v in ends.items()}, mode, free, out)
     if walk:
         return _walk(batch, launch(batch, width=width, **kw), mode, free)
-    res = _run(batch, width=width, banded=banded, bandwidth=bandwidth, **kw)
+    res = _run(batch, width=width, banded=banded, bandwidth=bandwidth,
+               **kw)
     if outputs in SCALAR_CLASSES:
-        return PendingResult(res)
+        return PendingResult(res, rerun=_rerun16(
+            batch, gap_open=gap_open, gap_extend=gap_extend, mode=mode,
+            free=free, width=width) if "over16" in res else None)
     planes = {k: res.pop(k) for k in [k for k in res if _is_plane(k)]}
     out, _ = PendingResult(res).fetch()
     with stages.stage("fetch.copy"):

@@ -18,11 +18,14 @@ previous one overlap.
 not filled yet) and waits only for that bucket; ``flush()`` launches
 every partial bucket and waits for all (the end-of-stream barrier).
 
-Kernels launch only on the threads that call ``submit``,
-``submit_many``, ``flush`` or ``Handle.result``, under the stream's lock.
-The fetch thread never launches a kernel and never allocates on the
-card: it waits on each copy's CUDA event, reads pinned memory and builds
-the results.  The classes with planes (trace, table, rowcol) and width-64
+Kernels launch under the stream's lock, on the threads that call
+``submit``, ``submit_many``, ``flush`` or ``Handle.result``.  The fetch
+thread waits on each copy's CUDA event, reads pinned memory and builds
+the results; it launches and allocates on the card only where the
+packed score form flagged pairs of a bucket (``dispatch.PendingResult``'s
+rerun through the int32 form), and then under the stream's lock, which
+it releases before it waits for the rerun's copy.  Such a bucket waits
+for the work enqueued before its rerun.  The classes with planes (trace, table, rowcol) and width-64
 batches that need the host's int64 merge are fetched by
 :func:`dispatch.submit` already, on the launching thread, as in
 ``Aligner.align_many``: their :class:`dispatch.PendingResult` carries
@@ -256,7 +259,7 @@ class StreamingAligner:
             res, qlens, rlens, bucket = item
             try:
                 values = self._aligner._alignments_from(
-                    res.fetch()[0], qlens, rlens)
+                    res.fetch(lock=self._lock)[0], qlens, rlens)
             except Exception as e:  # noqa: BLE001 -- to this bucket's result()
                 bucket.resolve(error=e)
             else:

@@ -162,6 +162,10 @@ def load() -> ctypes.CDLL:
                                                    [i] * 14 + [p])
             lib.pt_scan_segment.restype = i
             lib.pt_scan_segment.argtypes = [i] + [p] * 13 + [i] * 15 + [p]
+            lib.pt_scan_segment16.restype = i
+            lib.pt_scan_segment16.argtypes = [p] * 12 + [i] * 16 + [p]
+            lib.pt_segment16_plan.restype = i
+            lib.pt_segment16_plan.argtypes = [i] * 8 + [p]
             lib.pt_scan_rowseg.restype = i
             lib.pt_scan_rowseg.argtypes = [i] + [p] * 16 + [i] * 16 + [p]
             lib.pt_scan_chunked.restype = i

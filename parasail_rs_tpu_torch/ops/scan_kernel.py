@@ -79,7 +79,14 @@ in a cluster when the batch is small, two to eight query rows a lane)
 and counts
 the launch in :data:`SEGMENT_LAUNCHES`; on CPU tensors it runs
 :func:`score_segment_plain`, the wavefront over the segment with a left
-boundary.  No fallback here either.
+boundary.  No fallback here either.  Given ``units``
+(:func:`pair_units`), its score class runs the packed form instead
+(``csrc/scan_segment16.cu``: two pairs a lane on 16x2 DPX, counted in
+:data:`SEGMENT16_LAUNCHES`), which flags in ``over16`` every pair whose
+values left the 16-bit band; those pairs' outputs are not exact, and the
+caller computes them again without ``units`` (``engine.dispatch`` does,
+at fetch).  :func:`score_chunked` takes ``units`` for its score class
+the same way.
 
 :func:`score_rowseg` is the port of
 ``parasail_rs_tpu.ops.scan_kernel.scan_rowseg_step`` (kernel K3): one
@@ -175,6 +182,14 @@ _CLUSTER = 0
 # (0, 0) for the masked full sweep.  The cuda tests and chip_smoke.py set
 # it to hold and time given forms; nothing else does.
 _BAND_FORM = None
+# Launches of the packed score form (csrc/scan_segment16.cu): the block
+# kernel's score class with two pairs a lane, which score_segment's and
+# score_chunked's CUDA branches run when given ``units``; they count here
+# alone, not in SEGMENT_LAUNCHES or CHUNKED_LAUNCHES.
+SEGMENT16_LAUNCHES = 0
+# The packed form's limits (csrc/segment16.cuh, seg16_usable): penalties
+# and scores past them leave no band of 16-bit values that cannot wrap.
+SEG16_MAX_GUARD = 8192
 # Launches of the tile kernel (csrc/scan_rowseg.cu); only score_rowseg's
 # CUDA branch adds to it.  Its block takes SEGMENT_WARPS too.
 ROWSEG_LAUNCHES = 0
@@ -660,7 +675,7 @@ def _flags(diag, E, F, H, hprev, fprev, top_next, open_, ext, local):
 
 
 def _check_segment(ridx_seg, qlen, rlen, state, table, qidx, profile, mode,
-                   width, outputs, col_offset, resume):
+                   width, outputs, col_offset, resume, packed=False):
     """Validate a segment call; return (B, Bq, Qp, Rseg, A)."""
     if outputs not in SEGMENT_OUTPUTS:
         raise ValueError(f"outputs {outputs!r}: the segment form serves "
@@ -681,6 +696,8 @@ def _check_segment(ridx_seg, qlen, rlen, state, table, qidx, profile, mode,
     want = {"h": (B, Qp), "f": (B, Qp), "acc": (B, 8)}
     if outputs == "stats":
         want["stats"] = (6, B, Qp)
+    if packed:
+        want["over"] = (B,)
     for name, shape in want.items():
         t = state.get(name)
         if not isinstance(t, torch.Tensor) or t.dtype != torch.int32 or \
@@ -694,7 +711,8 @@ def _check_segment(ridx_seg, qlen, rlen, state, table, qidx, profile, mode,
 def score_segment(ridx_seg, qlen, rlen, state=None, *, open_, ext, mode,
                   free, width="32", outputs="score", col_offset=0,
                   resume=False, table=None, qidx=None, profile=None,
-                  trace_out=None) -> tuple[dict, dict]:
+                  trace_out=None, units=None,
+                  bound=None) -> tuple[dict, dict]:
     """One reference segment of a score, stats or trace sweep.
 
     ``ridx_seg`` (B, Rseg) holds columns [``col_offset``, ``col_offset``
@@ -723,10 +741,22 @@ def score_segment(ridx_seg, qlen, rlen, state=None, *, open_, ext, mode,
     flags, 0 outside each pair's cells; ``trace_out`` is a buffer of that
     shape to write them to (it is zero-filled here), for a caller that
     copies one segment out while the next one runs.
+
+    ``units`` (the score class only): the (ceil(B / 2), 2) int32 pairs
+    of :func:`pair_units` on the batch's device, which run the packed
+    form; ``bound`` is the largest |score| of ``table`` / ``profile``
+    (None: read from it, which waits for the card).  Its state adds
+    ``over`` (B,) int32 and ``out`` adds ``over16`` (B,) int32, 1 for a
+    pair whose values left the 16-bit band, whose other outputs and state
+    are then not exact (every other pair's are the int32 form's).  On the
+    CPU the plain version runs, exact, and ``over16`` is all 0.
     """
+    packed = units is not None
+    if packed and outputs != "score":
+        raise ValueError("units: the packed form is the score class's")
     B, Bq, Qp, Rseg, A = _check_segment(
         ridx_seg, qlen, rlen, state, table, qidx, profile, mode, width,
-        outputs, col_offset, resume)
+        outputs, col_offset, resume, packed)
     kw = dict(open_=open_, ext=ext, mode=mode, free=free, width=width,
               outputs=outputs, col_offset=col_offset, resume=resume,
               table=table, qidx=qidx, profile=profile)
@@ -736,11 +766,22 @@ def score_segment(ridx_seg, qlen, rlen, state=None, *, open_, ext, mode,
         if trace_out is not None:
             trace_out.copy_(out["trace_table_seg"])
             out["trace_table_seg"] = trace_out
+        if packed:
+            out["over16"] = torch.zeros(B, dtype=torch.int32)
+            state["over"] = torch.zeros(B, dtype=torch.int32)
         return out, state
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
     global SEGMENT_LAUNCHES
     from . import _build
+
+    if packed:
+        return _block16_launch(
+            ridx_seg, qlen, rlen, state if resume else None,
+            (B, Bq, Qp, Rseg, A), units, bound,
+            (int(col_offset), int(bool(resume))), open_=open_, ext=ext,
+            mode=mode, free=free, width=width, table=table, qidx=qidx,
+            profile=profile)
 
     plane = None
     if outputs == "trace":
@@ -805,6 +846,100 @@ def _block_launch(entry, ridx, qlen, rlen, state, dims, planes, tail, *,
         raise RuntimeError(f"{entry.__name__} ({outputs}) kernel launch "
                            f"failed: CUDA error {rc}")
     return _kernel_scalars(out, width), state
+
+
+def pair_units(qlen, rlen) -> np.ndarray:
+    """The packed form's units of a batch from its host lengths: (ceil(B /
+    2), 2) int32 pair indices, neighbours after a sort by (qlen, rlen), so
+    that the two halves of a lane sweep nearly the same shape; -1 beside
+    an odd one out.  One key a pair and an unstable sort (pairs of one
+    shape may come in any order), which takes far less host time than a
+    lexical sort on large bins."""
+    qlen, rlen = np.asarray(qlen), np.asarray(rlen)
+    key = qlen.astype(np.int64) * (int(rlen.max(initial=0)) + 1) + rlen
+    order = np.argsort(key).astype(np.int32)
+    if len(order) % 2:
+        order = np.append(order, np.int32(-1))
+    return order.reshape(-1, 2)
+
+
+def packed_usable(open_, ext, bound) -> bool:
+    """Do penalties ``open_`` / ``ext`` and scores of |value| at most
+    ``bound`` leave the packed form a band (``csrc/segment16.cuh``,
+    ``seg16_usable``)?"""
+    open_, ext, bound = int(open_), int(ext), int(bound)
+    return (min(open_, ext, bound) >= 0 and
+            max(open_, ext, bound) <= SEG16_MAX_GUARD and
+            2 * (open_ + ext + bound) + 2 <= SEG16_MAX_GUARD)
+
+
+def _block16_launch(ridx, qlen, rlen, state, dims, units, bound, tail, *,
+                    open_, ext, mode, free, width, table, qidx,
+                    profile) -> tuple[dict, dict]:
+    """Launch the packed score form (``pt_scan_segment16``) on ``dims`` =
+    (B, Bq, Qp, R, A) for the ``units``; ``tail`` is (col_offset,
+    resume), ``state`` None makes a new one.  Returns (the per-pair
+    outputs with ``over16``, state) and counts the launch."""
+    global SEGMENT16_LAUNCHES
+    from . import _build
+
+    B, Bq, Qp, R, A = dims
+    dev = ridx.device
+    i32 = torch.int32
+    subs = table if table is not None else profile
+    if bound is None:
+        bound = int(subs.abs().max()) if subs.numel() else 0
+    if not packed_usable(open_, ext, bound) or (profile is not None
+                                                and Bq != 1):
+        raise ValueError("the packed form needs penalties and scores with "
+                         "a 16-bit band and a table or one query's profile")
+    if not isinstance(units, torch.Tensor) or units.dtype != i32 or \
+            units.device != dev or units.dim() != 2 or \
+            units.shape[1] != 2 or not units.is_contiguous():
+        raise ValueError(f"units must be a contiguous int32 (U, 2) tensor "
+                         f"on {dev}")
+    if state is None:
+        state = {"h": torch.empty((B, Qp), dtype=i32, device=dev),
+                 "f": torch.empty((B, Qp), dtype=i32, device=dev),
+                 "acc": torch.empty((B, 8), dtype=i32, device=dev),
+                 "over": torch.empty((B,), dtype=i32, device=dev)}
+    U = int(units.shape[0])
+    bottom = torch.empty((U, 2, max(R, 1)), dtype=i32, device=dev)
+    out = torch.empty((6, B), dtype=i32, device=dev)
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        rc = _build.load().pt_scan_segment16(
+            subs.data_ptr(), qidx.data_ptr() if table is not None else None,
+            ridx.data_ptr(), qlen.data_ptr(), rlen.data_ptr(),
+            units.data_ptr(), bottom.data_ptr(), state["h"].data_ptr(),
+            state["f"].data_ptr(), state["acc"].data_ptr(),
+            state["over"].data_ptr(), out.data_ptr(), U, B, Bq, Qp, R, A,
+            int(open_), int(ext), MODES[mode], _free_bits(free), *tail,
+            int(bound), int(SEGMENT_WARPS), int(_LANE_ROWS), int(_CLUSTER),
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"pt_scan_segment16 kernel launch failed: CUDA "
+                           f"error {rc}")
+    SEGMENT16_LAUNCHES += 1
+    stages.count("launches")
+    res = _kernel_scalars(out[:5], width)
+    res["over16"] = out[5]
+    return res, state
+
+
+def segment16_plan(U, Qs, ncols, A, profile=False) -> tuple:
+    """(rows a lane, warps a block, blocks a unit) that the packed form's
+    launcher takes for ``U`` units of ``Qs`` rows by ``ncols`` columns
+    (``csrc/segment16.cuh``, ``seg16_plan``), under the current
+    :data:`SEGMENT_WARPS` and overrides.  Builds the kernels."""
+    from . import _build
+
+    plan = (ctypes.c_int * 3)()
+    _build.load().pt_segment16_plan(
+        int(U), int(Qs), int(ncols), int(A), int(bool(profile)),
+        int(SEGMENT_WARPS), int(_LANE_ROWS), int(_CLUSTER),
+        ctypes.cast(plan, ctypes.c_void_p))
+    return tuple(plan)
 
 
 def block_plan(outputs, B, Qs, ncols, A, profile=False) -> tuple:
@@ -1156,20 +1291,31 @@ def score_rowseg_plain(ridx_seg, qlen, rlen, state, down, *, open_, ext,
 
 def score_chunked(ridx, qlen, rlen, *, open_, ext, mode, free, width="32",
                   table=None, qidx=None, profile=None,
-                  outputs="score") -> dict:
+                  outputs="score", units=None, bound=None) -> dict:
     """:func:`score_align` for long pairs: the same inputs and outputs,
     every class, one launch of the block kernel over all Rp columns (the
     module docstring).  On the card the trace plane is a contiguous
     (B, Qp, Rp) tensor, the tables (B, Qp, Rp) views of (B, Rp, Qp)
-    buffers, the rows and columns contiguous (B, Rp) / (B, Qp)."""
+    buffers, the rows and columns contiguous (B, Rp) / (B, Qp).
+    ``units`` / ``bound``: the score class on the packed form, with
+    ``over16``, as :func:`score_segment`'s."""
+    if units is not None and outputs != "score":
+        raise ValueError("units: the packed form is the score class's")
     B, Bq, Qp, Rp, A = _check(ridx, qlen, rlen, table, qidx, profile, mode,
                               width, outputs)
     kw = dict(open_=open_, ext=ext, mode=mode, free=free, width=width,
               table=table, qidx=qidx, profile=profile, outputs=outputs)
     if ridx.device.type == "cpu":
-        return score_align_plain(ridx, qlen, rlen, **kw)
+        out = score_align_plain(ridx, qlen, rlen, **kw)
+        if units is not None:
+            out["over16"] = torch.zeros(B, dtype=torch.int32)
+        return out
     if ridx.device.type != "cuda":
         raise ValueError(f"no kernel for device {ridx.device}")
+    if units is not None:
+        kw.pop("outputs")
+        return _block16_launch(ridx, qlen, rlen, None, (B, Bq, Qp, Rp, A),
+                               units, bound, (0, 0), **kw)[0]
     return _chunked_launch(ridx, qlen, rlen, (B, Bq, Qp, Rp, A), **kw)
 
 

@@ -33,7 +33,12 @@ cells with |i - j| <= bw, of its real lengths), ``cells_band_swept``
 its steps, or B * Qp * Rp for the masked full sweep;
 ``ops.scan_kernel.band_swept``) and ``gc_collections`` (the cyclic
 collector's runs that start inside a thread's outermost public call,
-``engine.aligner._call_region``).
+``engine.aligner._call_region``); and for the block kernel's score class
+(``engine.dispatch.packed_units``, :class:`~..engine.dispatch.PendingResult`)
+``score16_pairs`` (pairs a batch launched on the packed 16x2 form),
+``score16_reruns`` (of those, pairs its fetch recomputed through the
+int32 form) and ``score32_pairs`` (pairs the route sent to the int32 form
+directly).
 
 Off by default: then :func:`stage` and :func:`count` cost a call and one
 flag test.  On (:func:`enable`, or :func:`measuring` for a block), a stage

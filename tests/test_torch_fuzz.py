@@ -258,9 +258,20 @@ def test_compiled_forms_are_the_launchers_cases():
         got = sorted(out[c] for c in re.findall(pattern, _read(name)))
         assert got == sorted(fuzz_torch.BLOCK_ENTRIES[entry]), entry
     assert _read("trace_walk.cu").count("<<<") == 1
+    # the packed score form: rows a lane, SW or not, the pair table or not
+    packed = _read("segment16.cuh")
+    assert [int(r) for r in re.findall(r"launch16_form<(\d+), kLocal, kPair>",
+                                       packed)] == list(fuzz_torch.PACKED_ROWS)
+    assert re.findall(r"launch16_rows<(true|false), (true|false)>",
+                      packed) == [("true", "true"), ("false", "true"),
+                                  ("true", "false"), ("false", "false")]
+    assert fuzz_torch.PACKED_KINDS == ("sw", "nw") and \
+        fuzz_torch.PACKED_SUBS == ("pair", "rows")
+    assert "ptseg16::launch16(" in _read("scan_segment16.cu")
 
     forms = fuzz_torch.FORMS
-    assert len(forms) == len(set(forms)) == 80 + 24 + 39 + 1
+    assert len(forms) == len(set(forms)) == 80 + 24 + 39 + 12 + 1
+    assert sum(k.startswith("block packed") for k in forms) == 12
     assert sum(k.startswith("short unbanded") for k in forms) == 40
     assert sum(k.startswith("short masked") for k in forms) == 40
 

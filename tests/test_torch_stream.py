@@ -375,6 +375,52 @@ def test_kernels_launch_only_on_calling_threads(monkeypatch):
     assert threads[:first] == [threading.main_thread()] * first
 
 
+def test_flagged_pairs_rerun_on_the_fetch_thread_under_the_lock(
+        monkeypatch):
+    """Buckets that come back from the packed score form with pairs it
+    flagged (SW of identical sequences past 32,767, at 100 a match): the
+    fetch thread recomputes those pairs through the int32 form while it
+    holds the stream's lock, and every result equals ``align_batch``'s.
+    On the CPU the packed form is stood in for: the int32 result, its
+    flagged pairs' scores wrapped as 16-bit halves would wrap them, and
+    ``over16`` beside them."""
+    rng = np.random.default_rng(67)
+    same = rng.choice(list(b"ACGT"), size=400).astype("uint8").tobytes()
+    pairs = [(same, same)] * 3 + _pairs(67, 5, lo=300, hi=400)
+    qs, rs = [q for q, _ in pairs], [r for _, r in pairs]
+    matrix = ref.Matrix.create(b"ACGT", 100, -3)
+    _, p = _both([], matrix=matrix, open_=14, ext=1)
+    want = _summary(p.align_batch(qs, rs))
+    assert sum(w[0] > 32767 for w in want) == 3
+    real_run, real_sub = dispatch._run, dispatch._sub_batch
+    st = StreamingAligner(p, flush_size=2)
+    reruns = []
+
+    def packed_run(batch, **kw):
+        res = real_run(batch, **kw)
+        if kw["outputs"] != "score":
+            return res
+        guard = 2 * (14 + 1 + 100) + 2
+        over = res["score"].abs() > 32767 - guard
+        return {**res, "over16": over.to(torch.int32),
+                "score": torch.where(over, res["score"] - 65536,
+                                     res["score"])}
+
+    def recorded(batch, idx):
+        reruns.append((threading.current_thread().name,
+                       st._lock._is_owned(), len(idx)))
+        return real_sub(batch, idx)
+
+    monkeypatch.setattr(dispatch, "_run", packed_run)
+    monkeypatch.setattr(dispatch, "_sub_batch", recorded)
+    with st:
+        got = _summary(_results(st.submit_many(qs, rs)))
+    assert got == want
+    assert reruns and {(t, held) for t, held, _ in reruns} == {
+        (FETCH_THREAD, True)}
+    assert sum(n for _, _, n in reruns) == 3
+
+
 def test_many_threads_submit_and_resolve(monkeypatch):
     """Sixteen threads (more than the cores that run the tests) submit
     pairs and read results at once, with the interpreter switching

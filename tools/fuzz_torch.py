@@ -23,8 +23,11 @@ draw seeded from ``--seed``:
   (:data:`FORMS`), through ``score_align``, ``score_chunked`` (by
   ``dispatch.launch`` with ``CHUNK_ROWS`` patched), ``score_segment``
   chained (by ``dispatch.execute`` on the segment route, its constants
-  patched) and ``score_rowseg`` (by ``dist.seqpar_align_scan`` on virtual
-  shards), and the walk on every trace plane.  Every scalar, flag cell and
+  patched: the score class on the packed form wherever it has a band,
+  its flagged pairs on the int32 form at fetch; the int32 score form
+  itself by a profile a pair, which the packed form does not take) and
+  ``score_rowseg`` (by ``dist.seqpar_align_scan`` on virtual shards), and
+  the walk on every trace plane.  Every scalar, flag cell and
   plane cell is held to the plain version on the same tensors, a sample of
   pairs to golden.  What a draw reached is read from the launchers' own
   rules for the shapes it launched (``scan_kernel.short_plan`` /
@@ -100,6 +103,9 @@ BLOCK_ENTRIES = {
     "tile": ("score", "trace", "stats"),                             # scan_rowseg.cu
 }
 WALK = "walk"                    # trace_walk.cu: one kernel
+PACKED_ROWS = (2, 4, 8)          # segment16.cuh, launch16_rows
+PACKED_KINDS = ("sw", "nw")      # segment16.cuh, launch16: SW, or NW / SG
+PACKED_SUBS = ("pair", "rows")   # segment16.cuh, launch16: the pair table
 
 
 def short_key(cls, rows, layout, banded) -> str:
@@ -115,6 +121,10 @@ def block_key(entry, cls, rows) -> str:
     return f"block {entry} {cls} R{rows}"
 
 
+def packed_key(rows, kind, subs) -> str:
+    return f"block packed R{rows} {kind} {subs}"
+
+
 def _forms() -> tuple:
     forms = []
     for banded in (False, True):
@@ -127,6 +137,8 @@ def _forms() -> tuple:
     for entry, classes in BLOCK_ENTRIES.items():
         forms += [block_key(entry, cls, r) for cls in classes
                   for r in BLOCK_ROWS if r != 8 or cls in WIDE]
+    forms += [packed_key(r, k, s) for r in PACKED_ROWS for k in PACKED_KINDS
+              for s in PACKED_SUBS]
     return tuple(forms + [WALK])
 
 
@@ -647,6 +659,7 @@ def host_plans() -> ctypes.CDLL:
     lib.pt_short_plan_host.argtypes = [i] * 7 + [p]
     lib.pt_band_plan_host.argtypes = [i] * 6 + [p]
     lib.pt_block_plan_host.argtypes = [i] * 9 + [p]
+    lib.pt_segment16_plan_host.argtypes = [i] * 8 + [p]
     _host_lib = lib
     return lib
 
@@ -685,6 +698,14 @@ class Plans:
                          B, Qs, ncols, A, profile, tk.SEGMENT_WARPS,
                          tk._LANE_ROWS, tk._CLUSTER)
 
+    def packed(self, U, Qs, ncols, A, profile):
+        """The packed form's, for U units, under the current overrides."""
+        if self.lib is None:
+            return tk.segment16_plan(U, Qs, ncols, A, profile)
+        return self._ask(self.lib.pt_segment16_plan_host, 3, U, Qs, ncols, A,
+                         profile, tk.SEGMENT_WARPS, tk._LANE_ROWS,
+                         tk._CLUSTER)
+
 
 @contextlib.contextmanager
 def patched(obj, **values):
@@ -707,7 +728,8 @@ def launches() -> Counter:
         "short masked": tk.BANDED_FORM_LAUNCHES["short"],
         "block masked": tk.BANDED_FORM_LAUNCHES["block"],
         "chunked": tk.CHUNKED_LAUNCHES, "segment": tk.SEGMENT_LAUNCHES,
-        "tile": tk.ROWSEG_LAUNCHES, "walk": tw.LAUNCHES})
+        "packed": tk.SEGMENT16_LAUNCHES, "tile": tk.ROWSEG_LAUNCHES,
+        "walk": tw.LAUNCHES})
 
 
 # -- draws of the ops tier --------------------------------------------------------
@@ -819,8 +841,24 @@ def ops_draw(rng, target=None) -> dict:
         d.update(subs=t[3], band_form=[lanes, rows], banded=True,
                  bw=int(rng.integers(-1, (reach - 1) // 2 + 1)))
         dims(rng.integers(1, 129), rng.integers(1, 129))
+    elif t[0] == "block" and t[1] == "packed":
+        # the packed form: the score class of the segment route, with a
+        # band; its kind by the mode, its scores by the letters
+        block("segment", "score", int(t[2][1:]))
+        if t[3] == "sw":
+            d.update(mode="sw", free=[True] * 4)
+        elif d["mode"] == "sw":
+            d.update(mode="nw", free=[False] * 4)
+        if t[4] == "pair":
+            d.update(subs="table", A=int(rng.choice([4, 5])))
+        else:
+            d.update(A=int(rng.choice([20, 24, 25])), bq_shared=True)
     elif t[0] == "block" and t[1] in BLOCK_ENTRIES:
         block(t[1], t[2], int(t[3][1:]))
+        if t[1] == "segment" and t[2] == "score":
+            # a profile a pair of two pairs or more: the int32 form (the
+            # packed one takes a table or one query's profile)
+            d.update(subs="profile", bq_shared=False, B=max(d["B"], 2))
     elif t[0] == "block":
         any_block()
         if t[1] == "subs":
@@ -883,6 +921,19 @@ def forced(d):
         yield
 
 
+def packed(d) -> bool:
+    """Does the segment route run the draw's score class packed
+    (``dispatch.packed_units``: a table or one query's profile, and a
+    band at its penalties and largest |score|)?  The largest |score| is
+    the most that :func:`ops_inputs` can draw: the one it drew is no
+    larger, and both leave the band at every drawn penalty."""
+    s = d["scale"]
+    bound = max(4 * s, (12 if d["subs"] == "profile" else 7) * s - 1)
+    return (d["outputs"] == "score" and d["op"] == "segment" and
+            (d["subs"] == "table" or d["bq_shared"] or d["B"] == 1) and
+            tk.packed_usable(d["open"], d["ext"], bound))
+
+
 def predict(d, dims, plans):
     """(forms, axes, launches) of a draw, by the launchers' rules."""
     cls, op = d["outputs"], d["op"]
@@ -916,6 +967,14 @@ def predict(d, dims, plans):
     elif op == "chunked":
         block(one_shot, Qp, Rp)
         n["chunked"] += 1
+    elif op == "segment" and packed(d):
+        seg = max(1, min(d["seg"], Rp))
+        R, W, C = plans.packed(-(-B // 2), Qp, seg, A, profile)
+        forms.append(packed_key(R, "sw" if d["mode"] == "sw" else "nw",
+                                "rows" if profile or A > 7 else "pair"))
+        axes.extend([f"block warps {W}", f"block cluster {C}",
+                     f"block subs {d['subs']}"])
+        n["packed"] += -(-Rp // seg)
     elif op == "segment":
         seg = max(1, min(d["seg"], Rp))
         block("segment", Qp, seg)
@@ -1124,13 +1183,22 @@ def run_ops(d, ctx):
 def _run_ops(d, x, ctx):
     with forced(d):
         forms, axes, want = predict(d, _dims(d), ctx.plans)
-        before = launches()
+        before, reran = launches(), Counter(dispatch.RERUN16)
         got, plain = OPS[d["op"]](d, x, ctx)
         hold(f"{d['op']} {d['outputs']} vs plain", got, plain)
         if d["outputs"] == "trace":
             _walk(d, got, x, ctx)
         ran = launches()
         ran.subtract(before)
+        reran = Counter(dispatch.RERUN16) - reran
+        if reran["batches"]:
+            # pairs the packed form flagged, again on the int32 form
+            Qp, Rp, seg = d["Qp"], d["Rp"], max(1, min(d["seg"], d["Rp"]))
+            R, W, C = ctx.plans.block("score", reran["pairs"], Qp, seg,
+                                      d["A"], d["subs"] == "profile")
+            forms.append(block_key("segment", "score", R))
+            axes.extend([f"block warps {W}", f"block cluster {C}"])
+            want["segment"] += -(-Rp // seg)
     ran = +ran
     if ran != (want if ctx.card else Counter()):
         raise Mismatch(f"launches {dict(ran)}, the rules say "
